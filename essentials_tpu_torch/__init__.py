@@ -1,0 +1,24 @@
+"""essentials_tpu_torch — the PyTorch and CUDA port of essentials_tpu.
+
+The JAX package ``essentials_tpu`` stays the reference; this package runs the
+same system with PyTorch around hand-written CUDA kernels for NVIDIA Hopper
+(``sm_90a``). It mirrors the JAX package's layout and names, module for
+module, and imports neither JAX nor the JAX package.
+
+Ported so far: the host inputs (``formats``, ``io``), the padded ``graph``,
+and BFS on the fused edge-axis superstep (``ops.fused_bfs``,
+``algorithms.bfs``) with its three kernels (``kernels``,
+``csrc/bfs_kernels.cu``). Every function takes its device from its
+arguments; nothing picks CUDA by itself.
+"""
+
+__version__ = "0.1.0"
+
+from essentials_tpu_torch import algorithms, formats, graph, io, utils
+from essentials_tpu_torch.errors import EssentialsError, throw_if
+from essentials_tpu_torch.graph import Graph, build_graph, graph_from_arrays
+
+__all__ = [
+    "algorithms", "formats", "graph", "io", "utils", "Graph", "build_graph",
+    "graph_from_arrays", "EssentialsError", "throw_if",
+]

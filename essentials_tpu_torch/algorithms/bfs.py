@@ -1,0 +1,142 @@
+"""Breadth-first search on the fused edge-axis superstep.
+
+Counterpart of ``essentials_tpu/algorithms/bfs.py`` for the variants
+``fused`` and ``fused8`` (reference parity: gunrock ``bfs.hxx:110-178``,
+level-synchronous BFS). The loop computes only the reached set per level;
+depths come from the level counter, and predecessors are derived afterwards
+in one full-graph pass (the smallest-id in-neighbour one level up), which
+makes them deterministic.
+
+The level array is int8 for ``fused8`` when at most 126 levels are asked
+for, and int32 otherwise; ``fused`` always runs the int32 form. Both forms
+give the same distances.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from essentials_tpu_torch import kernels
+from essentials_tpu_torch.errors import EssentialsError, throw_if
+from essentials_tpu_torch.graph.graph import Graph
+from essentials_tpu_torch.ops import fused_bfs as FB
+from essentials_tpu_torch.utils.timer import Timer
+
+UNREACHED = np.iinfo(np.int32).max
+
+VARIANTS = ("fused", "fused8")
+# variants of the JAX package that this package does not run yet, and the
+# ROADMAP.md queue-1 item that brings them
+_UNPORTED = {"adaptive": 8, "hybrid": 8, "phased": 8}
+
+
+class BfsResult(NamedTuple):
+    distances: torch.Tensor      # [V] int32, UNREACHED where not reached
+    predecessors: torch.Tensor   # [V] int32, -1 at source / unreached
+    iterations: int
+    elapsed_ms: float
+
+
+def fused_supported(g: Graph) -> bool:
+    """The edge-axis fused superstep needs the symmetric layout, so that the
+    vertex<->edge moves cancel across levels."""
+    return bool(g.symmetric_layout)
+
+
+def run_fused_levels(g: Graph, source: int, max_it: int, *,
+                     int8: bool = False) -> tuple:
+    """Whole BFS on the edge axis: one ``bfs_level`` launch per level, on
+    the host's loop. Stops after ``max_it`` levels or after the first level
+    that reaches nothing (one ``.item()`` per level). Returns (lev_exp,
+    iterations, unreached). ``int8`` runs the int8 form and needs
+    ``max_it <= 126``."""
+    throw_if(int8 and max_it > FB.UNREACHED_E - 1,
+             f"int8 levels hold at most {FB.UNREACHED_E - 1} levels")
+    unreached = FB.UNREACHED_E if int8 else FB.UNREACHED
+    lev = FB.init_lev_exp(g, source, unreached)
+    it = 0
+    while it < max_it:
+        _, cnt = FB.fused_superstep(g, lev, it, unreached=unreached)
+        it += 1
+        if cnt.item() == 0:
+            break
+    return lev, it, unreached
+
+
+def predecessors_from_distances(g: Graph, dist: torch.Tensor) -> torch.Tensor:
+    """pred[v] = smallest-id in-neighbour one BFS level up (-1 at source /
+    unreached). One full-graph pass (the ``bfs_predecessors`` kernel)."""
+    throw_if(not g.has_csc, "predecessors need the CSC view")
+    return kernels.bfs_predecessors(dist, g.csc_offsets, g.csc_src_indices,
+                                    g.n_edges)
+
+
+def _search(g: Graph, source: int, max_it: int, int8: bool):
+    lev, it, unreached = run_fused_levels(g, source, max_it, int8=int8)
+    return FB.collapse_lev_exp(g, lev, source, unreached), it
+
+
+def run(g: Graph, source: int, *, max_iterations: int | None = None,
+        compute_predecessors: bool = True, warmup: bool = True,
+        variant: str = "auto") -> BfsResult:
+    """BFS from ``source`` on ``g``'s device.
+
+    variant: 'fused' (int32 levels), 'fused8' (int8 levels when
+    ``max_iterations <= 126``), or 'auto', which is 'fused'. ``elapsed_ms``
+    covers the levels and the collapse to distances, on the device's clock
+    (CUDA events) or the host's (CPU)."""
+    if variant in _UNPORTED:
+        raise EssentialsError(
+            f"bfs variant {variant!r} is not ported yet "
+            f"(ROADMAP.md queue 1, item {_UNPORTED[variant]})")
+    if variant == "auto":
+        variant = "fused"
+    throw_if(variant not in VARIANTS, f"unknown bfs variant {variant!r}")
+    throw_if(not fused_supported(g),
+             "bfs on a graph without a symmetric layout needs the generic "
+             "advance, which is not ported yet (ROADMAP.md queue 1, item 8)")
+    throw_if(not 0 <= source < g.n_vertices,
+             f"source {source} out of range [0, {g.n_vertices})")
+    max_it = max_iterations if max_iterations is not None else g.n_vertices + 1
+    int8 = variant == "fused8" and max_it <= FB.UNREACHED_E - 1
+
+    if warmup:
+        _search(g, source, max_it, int8)
+    timer = Timer(g.device).begin()
+    dist, it = _search(g, source, max_it, int8)
+    elapsed = timer.end()
+
+    v = g.n_vertices
+    if compute_predecessors:
+        pred = predecessors_from_distances(g, dist)[:v]
+    else:
+        pred = torch.full((v,), -1, dtype=torch.int32, device=g.device)
+    return BfsResult(dist[:v], pred, it, elapsed)
+
+
+def cpu_reference(csr, source: int) -> np.ndarray:
+    """Host BFS distances (reference parity: examples/algorithms/bfs/
+    bfs_cpu.hxx), level-synchronous over NumPy arrays: BFS distances are
+    unique, so the order in which a level's vertices are visited is moot."""
+    n = csr.n_rows
+    offsets = np.asarray(csr.row_offsets, np.int64)
+    cols = np.asarray(csr.col_indices)
+    dist = np.full(n, UNREACHED, np.int32)
+    dist[source] = 0
+    frontier = np.array([source], np.int64)
+    level = 0
+    while frontier.size:
+        level += 1
+        starts, lens = offsets[frontier], offsets[frontier + 1] - offsets[frontier]
+        total = int(lens.sum())
+        # positions of every out-edge of the frontier, segment by segment
+        pos = (np.repeat(starts - np.cumsum(lens) + lens, lens)
+               + np.arange(total, dtype=np.int64))
+        nbrs = np.unique(cols[pos])
+        frontier = nbrs[dist[nbrs] == UNREACHED].astype(np.int64)
+        dist[frontier] = level
+    return dist

@@ -1,0 +1,219 @@
+"""Port parity: essentials_tpu_torch.ops.fused_bfs and the kernel wrappers
+against essentials_tpu.ops.fused_bfs, level by level, on the CPU.
+
+The port's level writes segment STARTS only (the start-authoritative
+contract of fused_superstep2, essentials_tpu/ops/fused_bfs.py:508-511),
+while the JAX CPU fallback writes whole segments, so levels are compared at
+segment starts. The int8 form's sentinel 127 is mapped to int32 max where it
+is held against the int32 JAX fallback. Every value is an integer: the
+tolerance is exact equality."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import essentials_tpu.ops.fused_bfs as jfb
+from essentials_tpu.algorithms import bfs as jbfs
+from essentials_tpu.formats import Csr as JCsr
+from essentials_tpu.graph import build_graph as jbuild
+from essentials_tpu.io import generate as jgen
+from essentials_tpu.ops import cube_router
+
+from essentials_tpu_torch import kernels
+from essentials_tpu_torch.algorithms import bfs as tbfs
+from essentials_tpu_torch.errors import EssentialsError
+from essentials_tpu_torch.graph import graph_from_arrays
+from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
+from essentials_tpu_torch.ops import fused_bfs as tfb
+
+INT32_MAX = np.iinfo(np.int32).max
+FORMS = {"int32": tfb.UNREACHED, "int8": tfb.UNREACHED_E}
+
+# jitted: the eager CPU path compiles each op of the Pallas-free fallback
+_jax_level = jax.jit(jfb.fused_superstep, static_argnames=("unreached",))
+_jax_collapse = jax.jit(jfb.collapse_lev_exp, static_argnames=("unreached",))
+_jax_pred = jax.jit(jbfs.predecessors_from_distances)
+
+
+def both_graphs(coo):
+    """The JAX graph (with router plans) and the port's graph made from its
+    fields, so that both packages compute on the same arrays."""
+    gj = jbuild(JCsr.from_coo(coo), directed=False, weighted=False,
+                build_router=True)
+    assert jbfs.fused_supported(gj)
+    fields = {f: np.asarray(getattr(gj, f)) for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return gj, graph_from_arrays(fields, meta, "cpu")
+
+
+def starts_of(g):
+    off = g.row_offsets.numpy()
+    return off[:-1][off[1:] > off[:-1]]
+
+
+def as_int32_levels(lev: torch.Tensor, unreached: int) -> np.ndarray:
+    a = lev.numpy().astype(np.int64)
+    a[a == unreached] = INT32_MAX
+    return a
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return {
+        "rmat10": both_graphs(jgen.rmat(10, 8, seed=4, undirected=True,
+                                        weighted=False)),
+        "grid24": both_graphs(jgen.grid_2d(24)),
+    }
+
+
+@pytest.fixture(scope="module")
+def rmat12():
+    g = both_graphs(jgen.rmat(12, 10, seed=6, undirected=True,
+                              weighted=False))
+    assert isinstance(g[0].route_fwd, cube_router.CubePlan)
+    return g
+
+
+def jax_levels(gj, source, max_it=64):
+    """The JAX fallback's lev_exp after each level, and its counts."""
+    lev = jfb.init_lev_exp(gj, source)
+    levs, counts = [], []
+    for it in range(max_it):
+        lev, cnt = _jax_level(gj, lev, it)
+        levs.append(np.asarray(lev))
+        counts.append(int(cnt[0, 0]))
+        if counts[-1] == 0:
+            break
+    return levs, counts
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("name,source", [("rmat10", 0), ("grid24", 0)])
+def test_levels_match_jax_fallback(graphs, name, source, form):
+    gj, g = graphs[name]
+    unreached = FORMS[form]
+    starts = starts_of(g)
+    levs, counts = jax_levels(gj, source)
+    lev = tfb.init_lev_exp(g, source, unreached)
+    assert lev.dtype == (torch.int8 if form == "int8" else torch.int32)
+    assert np.array_equal(as_int32_levels(lev, unreached),
+                          np.asarray(jfb.init_lev_exp(gj, source)))
+    for it, (lev_j, cnt_j) in enumerate(zip(levs, counts)):
+        lev2, cnt = tfb.fused_superstep(g, lev, it, unreached=unreached)
+        assert lev2 is lev                     # in place
+        assert cnt.dtype == torch.int32 and cnt.shape == (1,)
+        assert int(cnt) == cnt_j, it
+        assert np.array_equal(as_int32_levels(lev, unreached)[starts],
+                              lev_j[starts]), it
+    assert len(counts) > 2 and counts[-1] == 0
+
+
+def test_level_matches_pallas_pipeline_int32(rmat12, monkeypatch):
+    monkeypatch.setattr(jfb, "_INTERPRET", True)
+    gj, g = rmat12
+    lev_j, cnt_j = jfb.fused_superstep2(gj, jfb.init_lev_exp(gj, 7), 0)
+    lev, cnt = tfb.fused_superstep(g, tfb.init_lev_exp(g, 7), 0)
+    starts = starts_of(g)
+    assert int(cnt) == int(cnt_j[0, 0]) > 0
+    assert np.array_equal(lev.numpy()[starts], np.asarray(lev_j)[starts])
+
+
+def test_level_matches_pallas_pipeline_int8(rmat12, monkeypatch):
+    monkeypatch.setattr(jfb, "_INTERPRET", True)
+    gj, g = rmat12
+    fp = jfb.pack_flags(gj.csc_seg_flags, gj.route_fwd.length)
+    lev_j, cnt_j = jfb.fused_superstep2(
+        gj, jfb.init_lev_exp(gj, 7, jfb.UNREACHED_E), 0, swar=True, fp=fp)
+    lev, cnt = tfb.fused_superstep(
+        g, tfb.init_lev_exp(g, 7, tfb.UNREACHED_E), 0,
+        unreached=tfb.UNREACHED_E)
+    starts = starts_of(g)
+    assert lev.dtype == torch.int8
+    assert int(cnt) == int(cnt_j[0, 0]) > 0
+    assert np.array_equal(lev.numpy()[starts].astype(np.int32),
+                          np.asarray(lev_j)[starts])
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("name,source", [("rmat10", 0), ("grid24", 0)])
+def test_collapse_and_predecessors_match_jax(graphs, name, source, form):
+    gj, g = graphs[name]
+    unreached = FORMS[form]
+    lev_j = jax_levels(gj, source)[0][-1]
+    dist_j = np.asarray(_jax_collapse(gj, lev_j, source))
+    lev = np.where(lev_j == INT32_MAX, unreached, lev_j)
+    lev = torch.from_numpy(lev.astype(np.int8 if form == "int8"
+                                      else np.int32))
+    dist = tfb.collapse_lev_exp(g, lev, source, unreached)
+    assert dist.dtype == torch.int32
+    assert np.array_equal(dist.numpy(), dist_j)
+    pred = tbfs.predecessors_from_distances(g, dist)
+    assert np.array_equal(pred.numpy(), np.asarray(_jax_pred(gj, dist_j)))
+
+
+def test_collapse_isolated_source():
+    from essentials_tpu.formats.coo import Coo
+    # mirrored edges, vertex 0 isolated: its segment is empty
+    rows = np.array([1, 2, 2, 3], np.int32)
+    coo = Coo(8, 8, rows, np.array([2, 1, 3, 2], np.int32),
+              np.ones(4, np.float32))
+    gj, g = both_graphs(coo)
+    lev = tfb.init_lev_exp(g, 0)
+    assert torch.all(lev == tfb.UNREACHED)
+    dist = tfb.collapse_lev_exp(g, lev, 0)
+    assert np.array_equal(dist.numpy(),
+                          np.asarray(_jax_collapse(gj, np.asarray(lev), 0)))
+    assert dist[0] == 0 and torch.all(dist[1:] == tfb.UNREACHED)
+
+
+# ---------------------------------------------------------------- wrappers --
+
+def small_graph():
+    return both_graphs(jgen.grid_2d(5))[1]
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    g = small_graph()
+    kernels.reset_launches()
+    lev = tfb.init_lev_exp(g, 0)
+    ref = lev.clone()
+    cnt = kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices, 0,
+                            tfb.UNREACHED)
+    cnt_p = kernels.bfs_level_plain(ref, g.row_offsets, g.csc_src_indices,
+                                    0, tfb.UNREACHED)
+    assert torch.equal(lev, ref) and torch.equal(cnt, cnt_p)
+    dist = kernels.collapse_levels(lev, g.row_offsets, 0, tfb.UNREACHED)
+    kernels.bfs_predecessors(dist, g.csc_offsets, g.csc_src_indices,
+                             g.n_edges)
+    assert all(n == 0 for n in kernels.launches.values())
+
+
+@pytest.mark.parametrize("call", ["level", "collapse", "pred"])
+def test_wrappers_raise_on_other_devices(call):
+    g = small_graph().to("meta")
+    lev = torch.empty(g.n_edges_padded, dtype=torch.int32, device="meta")
+    dist = torch.empty(g.n_vertices_padded, dtype=torch.int32, device="meta")
+    with pytest.raises(EssentialsError):
+        if call == "level":
+            kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices, 0,
+                              tfb.UNREACHED)
+        elif call == "collapse":
+            kernels.collapse_levels(lev, g.row_offsets, 0, tfb.UNREACHED)
+        else:
+            kernels.bfs_predecessors(dist, g.csc_offsets, g.csc_src_indices,
+                                     g.n_edges)
+
+
+def test_bfs_level_rejects_bad_arguments():
+    g = small_graph()
+    lev8 = tfb.init_lev_exp(g, 0, tfb.UNREACHED_E)
+    with pytest.raises(EssentialsError):      # it + 1 would hit the sentinel
+        kernels.bfs_level(lev8, g.row_offsets, g.csc_src_indices, 126,
+                          tfb.UNREACHED_E)
+    with pytest.raises(EssentialsError):      # no int64 form
+        kernels.bfs_level(lev8.long(), g.row_offsets, g.csc_src_indices, 0,
+                          tfb.UNREACHED)
+    with pytest.raises(EssentialsError):      # csc_src of the wrong length
+        kernels.bfs_level(lev8, g.row_offsets, g.csc_src_indices[:-1], 0,
+                          tfb.UNREACHED_E)
