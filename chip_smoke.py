@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fused BFS main path once on one CUDA GPU.
+"""Drive the PyTorch port's main paths once on one CUDA GPU: fused BFS, then
+SpMV (fused and windowed) with PageRank and HITS on it.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; the first failure raises and exits
-non-zero:
+Phases, each printing its own lines and its seconds; the first failure
+raises and exits non-zero:
 
 1. device: the card's name and power limit as nvidia-smi reports them;
-2. build: compile csrc/bfs_kernels.cu with nvcc for sm_90a and load it;
+2. build: compile every csrc/*.cu with nvcc for sm_90a (one nvcc per
+   source, in parallel) into one library and load it;
 3. kernels: every level of a BFS, in the int32 and the int8 form, on rmat12
    and rmat18, each kernel against its plain PyTorch version on the same
    tensors, which must agree exactly;
@@ -21,7 +23,30 @@ non-zero:
    counters must show that every kernel ran on this path;
 5. times on CUDA events: BFS MTEPS per variant, and each kernel against its
    plain version at rmat18 shapes; then torch.profiler's device time by
-   kernel over the main path, beside its wall time.
+   kernel over the main path, beside its wall time;
+6. SpMV kernels: on bench.py's SpMV graph (directed, weighted RMAT, scale
+   18, edge factor 16, seed 3) and on its scale-12 sibling, every instance
+   of spmv_rows (messages mul, none; replaces fused_spmv._pallas_spmv_chain),
+   spmv_slabs (mul, add, none by sum, min; replaces
+   windowed_spmv.windowed_pipeline) and spmv_slab_carry (sum, min) against
+   its plain version on the same tensors: exact under min, |k - p| <=
+   1e-5 |p| + 1e-6 under sum; a second launch must give the same bits;
+   and spmv_rows likewise, and within a relative error of 1e-4, at the
+   inputs PageRank and HITS give it on the undirected BFS graph;
+7. SpMV main path, four paths, each with the launch counters set to 0
+   just before it and read just after, which must show exactly the
+   launches the path makes: spmv.run(variant="fused") and spmv.run(
+   variant="windowed") on the scale-18 SpMV graph, held against the
+   float64 cpu_reference and each other to the sum tolerance; pr.run and
+   hits.run (variant "spmv") on the undirected BFS graph, held against
+   their host references to tests/test_spmv_ports.py's tolerances and to
+   tighter ones (HOST_TOLS);
+8. SpMV times on CUDA events: ms and GB/s (bench.py's 12 B/edge model) per
+   variant at scales 18 and 20 (rmat20, seed 3, for times only), each SpMV
+   kernel against its plain version at scale 18, PageRank and HITS ms per
+   iteration; then torch.profiler's device-busy share over ten spmv.run
+   calls of each variant at each scale (after a warm-up step inside the
+   profiler, and with the launches the trace saw against those made).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -42,13 +67,34 @@ MAX_IT = 64            # as bench.py
 CYCLES = 7             # timed cycles; the median is reported
 CHECKED_SOURCES = 4    # sources whose distances are held against cpu_reference
 
+SPMV_SEED = 3          # bench.py's SpMV graph: directed, weighted, seed 3
+SPMV_SCALES = (12, 18)  # kernel checks; 18 is the main path
+SPMV_TIME_SCALE = 20   # times only
+SPMV_REPS = 20         # products per timed cycle
+PROFILED_RUNS = 10     # spmv.run calls per variant under the profiler
+KERNELS_PER_PRODUCT = {"fused": 1, "windowed": 2}   # rows; slabs + carry
+SUM_RTOL, SUM_ATOL = 1e-5, 1e-6   # |k - p| <= SUM_RTOL |p| + SUM_ATOL
+PR_HITS_MAX_REL = 1e-4  # spmv_rows at PageRank's and HITS's inputs
+BYTES_PER_EDGE = 12.0  # bench.py's SpMV model: value + column + x gather
+# (atol, rtol) against the host references: tests/test_spmv_ports.py's,
+# then tighter ones (PageRank's mean rank at rmat18 is 1/V = 3.8e-6, so
+# atol 1e-6 alone would let most ranks be off by a quarter)
+HOST_TOLS = {"pr": ((1e-6, 1e-4), (1e-9, 1e-4)),
+             "hits": ((1e-4, 1e-3), (1e-7, 1e-4))}
+
 SOURCE = "essentials_tpu_torch/csrc/bfs_kernels.cu"
+SPMV_SOURCE = "essentials_tpu_torch/csrc/spmv_kernels.cu"
 REPLACES = {
     "bfs_level<int32>": "essentials_tpu/ops/fused_bfs.py:327",
     "bfs_level<int8>": "essentials_tpu/ops/fused_bfs.py:425",
     "collapse_levels<int32>": "essentials_tpu/ops/cube_router.py:305",
     "collapse_levels<int8>": "essentials_tpu/ops/cube_router.py:305",
     "bfs_predecessors": "essentials_tpu/ops/cube_router.py:586",
+}
+SPMV_REPLACES = {
+    "spmv_rows": "essentials_tpu/ops/fused_spmv.py:179",
+    "spmv_slabs": "essentials_tpu/ops/windowed_spmv.py:454",
+    "spmv_slab_carry": "essentials_tpu/ops/windowed_spmv.py:454",
 }
 
 
@@ -189,39 +235,336 @@ def time_kernels(g, source: int) -> dict:
     return out
 
 
-def profile_searches(g, sources, variant: str, kw: dict) -> dict:
-    """Device time by kernel over one bfs.run from each source,
-    predecessors included, from torch.profiler, beside the wall time of
-    the same run (with the profiler on). Returns {kernel name: (total ms,
-    launches)}; empty when the profiler saw no device time."""
+def profile(label: str, fn, expect: int | None = None) -> dict:
+    """Device time by kernel over ``fn()`` from torch.profiler, beside the
+    wall time of the same call (with the profiler on). ``fn`` runs twice:
+    once in the profiler's warm-up step, so that the device tracing is
+    running when the recorded call begins, and once recorded. ``expect``
+    is the number of our kernels' launches the recorded call makes; a
+    trace that saw fewer is reported, its busy share as a lower bound.
+    Returns {kernel name: (total ms, launches)}; empty when the profiler
+    saw no device time."""
+    from essentials_tpu_torch import kernels as K
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from essentials_tpu_torch.algorithms import bfs
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import (ProfilerActivity, profile as torch_profile,
+                                schedule)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1,
+                                         repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
-        for s in sources:
-            bfs.run(g, int(s), variant=variant, warmup=False, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    # the step span (ProfilerStep*) carries the device time of its whole
+    # window; it is not a kernel
     rows = {e.key: (e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and not e.key.startswith("ProfilerStep")}
     busy = sum(ms for ms, _ in rows.values())
-    print(f"profile: bfs {variant}, {len(sources)} runs: wall "
+    ours = [f"{k.split('<')[0]}_kernel" for k in K.launches]
+    seen = sum(n for name, (_, n) in rows.items()
+               if any(k in name for k in ours))
+    print(f"profile: {label}: wall "
           f"{wall_ms:.3f} ms with the profiler on, device busy "
           f"{busy:.3f} ms" + (f" ({100 * busy / wall_ms:.1f}%, idle "
                               f"{100 - 100 * busy / wall_ms:.1f}%)"
-                              if rows else " (not measured: no device time)"))
+                              if rows else " (not measured: no device time)")
+          + ("" if expect is None else
+             f"; saw all {expect} launches" if seen == expect else
+             f"; saw {seen} of {expect} launches: busy is a lower bound, "
+             f"idle an upper bound"))
     for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
         print(f"profile:   {ms:9.4f} ms  {n:5d} launches  {name[:90]}")
     return rows
+
+
+def profile_searches(g, sources, variant: str, kw: dict) -> dict:
+    """Device time by kernel over one bfs.run from each source,
+    predecessors included."""
+    from essentials_tpu_torch.algorithms import bfs
+
+    def searches():
+        for s in sources:
+            bfs.run(g, int(s), variant=variant, warmup=False, **kw)
+    return profile(f"bfs {variant}, {len(sources)} runs", searches)
+
+
+# ------------------------------------------------------------- phase 6 --
+
+def spmv_graph(scale: int, device: str):
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    csr = Csr.from_coo(generate.rmat(scale, EDGE_FACTOR, seed=SPMV_SEED,
+                                     undirected=False, weighted=True))
+    return csr, build_graph(csr, directed=True, weighted=True, device=device)
+
+
+def sum_errors(k: torch.Tensor, p: torch.Tensor) -> tuple:
+    """(max |k - p|, max |k - p| / |p| where p != 0, whether every element
+    is within SUM_RTOL |p| + SUM_ATOL), in float64."""
+    k, p = k.double(), p.double()
+    d = (k - p).abs()
+    rel = (d / p.abs())[p != 0]
+    return (float(d.max()) if d.numel() else 0.0,
+            float(rel.max()) if rel.numel() else 0.0,
+            bool((d <= SUM_RTOL * p.abs() + SUM_ATOL).all()))
+
+
+def hold(name: str, form: str, reduce: str, k, again, p, errs: dict,
+         where: str, max_rel: float | None = None) -> None:
+    """Kernel output k against the plain version's p (exact under min, to
+    the sum tolerance under sum, and to ``max_rel`` relative error where
+    p != 0 when given) and against a second launch (bitwise)."""
+    check(torch.equal(k, again), f"{name}{form} gives other bits on a "
+                                 f"second launch ({where})")
+    if reduce == "min":
+        check(torch.equal(k, p), f"{name}{form} differs from plain ({where})")
+        print(f"kernels: {where} {name}{form}: exact against plain, "
+              f"repeatable")
+        return
+    if k.dtype == torch.int32:
+        k, p = k.view(torch.float32), p.view(torch.float32)
+    abs_err, rel_err, ok = sum_errors(k, p)
+    errs[name] = max(errs[name], abs_err)
+    errs[name + "/rel"] = max(errs[name + "/rel"], rel_err)
+    check(ok, f"{name}{form} outside |k - p| <= {SUM_RTOL} |p| + {SUM_ATOL} "
+              f"of plain ({where}): max abs {abs_err}, max rel {rel_err}")
+    check(max_rel is None or rel_err <= max_rel,
+          f"{name}{form} max rel err {rel_err} against plain above "
+          f"{max_rel} ({where})")
+    print(f"kernels: {where} {name}{form}: max abs err {abs_err:.6g}, max "
+          f"rel err {rel_err:.6g} against plain (within tolerance), "
+          f"repeatable")
+
+
+def check_spmv_rows(g, cases, where: str, errs: dict,
+                    max_rel: float | None = None) -> None:
+    """spmv_rows against its plain version for each (w, x, form) case."""
+    from essentials_tpu_torch import kernels as K
+    off, col = g.row_offsets, g.col_indices
+    for w, x, form in cases:
+        k = K.spmv_rows(off, col, w, x)
+        again = K.spmv_rows(off, col, w, x)
+        p = K.spmv_rows_plain(off, col, w, x)
+        torch.cuda.synchronize()
+        hold("spmv_rows", form, "sum", k, again, p, errs, where, max_rel)
+
+
+def check_pr_hits_rows(g, where: str, errs: dict) -> None:
+    """spmv_rows at the inputs PageRank and HITS give it on ``g``: <mul>
+    on PageRank's first spread, x = r * iweights with r = 1/V on the real
+    vertices, and <none> on HITS' first half-step, x = the vertex mask.
+    PageRank's sums are about 1e-6, where SUM_ATOL alone would pass any
+    error, so these are also held to PR_HITS_MAX_REL."""
+    from essentials_tpu_torch.algorithms import pr
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    mask = g.vertex_mask()
+    r = torch.where(mask, 1.0 / g.n_vertices, 0.0).float()
+    check_spmv_rows(g, ((edge_weights(g), r * pr.inverse_weights(g), "<mul>"),
+                        (None, mask.float(), "<none>")), where, errs,
+                    PR_HITS_MAX_REL)
+
+
+def check_spmv_kernels(g, where: str, errs: dict) -> None:
+    """Every SpMV kernel instance against its plain version on the same
+    tensors; the carry folds spmv_slabs' kernel output in both."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import spmv
+    off, col, fl, w = g.row_offsets, g.col_indices, g.csr_seg_flags, g.values
+    x = spmv.random_x(g, 1)
+    check_spmv_rows(g, ((w, x, "<mul>"), (None, x, "<none>")), where, errs)
+    for message in K.MESSAGES:
+        wk = None if message == "none" else w
+        for reduce in K.REDUCES:
+            form = f"<{message},{reduce}>"
+            out = K.spmv_slabs(off, col, wk, fl, x, message, reduce)
+            again = K.spmv_slabs(off, col, wk, fl, x, message, reduce)
+            plain = K.spmv_slabs_plain(off, col, wk, fl, x, message, reduce)
+            torch.cuda.synchronize()
+            check(torch.equal(out[2], plain[2]) and torch.equal(out[2],
+                                                                again[2]),
+                  f"spmv_slabs{form} carry_row differs ({where})")
+            hold("spmv_slabs", form, reduce, torch.cat(out[:2]),
+                 torch.cat(again[:2]), torch.cat(plain[:2]), errs, where)
+            y = K.spmv_slab_carry(out[0].clone(), *out[1:], off, reduce)
+            y2 = K.spmv_slab_carry(out[0].clone(), *out[1:], off, reduce)
+            y_p = K.spmv_slab_carry_plain(out[0].clone(), *out[1:], off,
+                                          reduce)
+            torch.cuda.synchronize()
+            hold("spmv_slab_carry", f"<{reduce}> after {form}", reduce, y,
+                 y2, y_p, errs, where)
+
+
+# ------------------------------------------------------------- phase 7 --
+
+def counted(fn):
+    """fn() with every launch count set to 0 just before it and read just
+    after. Returns (fn's result, the counts)."""
+    from essentials_tpu_torch import kernels as K
+    K.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(K.launches)
+
+
+def hold_host(vec: np.ndarray, ref: np.ndarray, what: str, n: int) -> None:
+    """A float32 result against its host reference, to the JAX package's
+    test tolerances and to the tighter ones of HOST_TOLS."""
+    check(vec.shape == (n,) and bool(np.all(np.isfinite(vec))),
+          f"{what}: shape or non-finite values")
+    for atol, rtol in HOST_TOLS[what.split()[0]]:
+        check(np.allclose(vec, ref, atol=atol, rtol=rtol),
+              f"{what} outside atol {atol}, rtol {rtol} of cpu_reference")
+    print(f"main path: {what}: max abs err {np.abs(vec - ref).max():.6g} "
+          f"against cpu_reference (within "
+          + " and ".join(f"atol {a}, rtol {r}"
+                         for a, r in HOST_TOLS[what.split()[0]]) + ")")
+
+
+def spmv_main_path(csr_s, gs, csr_u, gu) -> dict:
+    """spmv.run per variant on the SpMV graph, PageRank and HITS on the
+    undirected graph: each path with the launch counts set to 0 just
+    before it and read just after, which must be exactly the launches the
+    path makes. Returns {path: {kernel: launches}}."""
+    from essentials_tpu_torch.algorithms import hits, pr, spmv
+    x = spmv.random_x(gs, 0)
+    ys, by_path = {}, {}
+    for v in ("fused", "windowed"):
+        r, by_path[f"spmv {v}"] = counted(
+            lambda v=v: spmv.run(gs, x, variant=v, warmup=False))
+        ys[v] = r.y
+    r_pr, by_path["pr"] = counted(
+        lambda: pr.run(gu, variant="spmv", warmup=False))
+    r_hits, by_path["hits"] = counted(
+        lambda: hits.run(gu, variant="spmv", warmup=False))
+    expect = {
+        "spmv fused": {"spmv_rows": 1},
+        "spmv windowed": {"spmv_slabs": 1, "spmv_slab_carry": 1},
+        # one product per iteration, and one for the weight sums
+        "pr": {"spmv_rows": r_pr.iterations + 1},
+        "hits": {"spmv_rows": 2 * r_hits.iterations},
+    }
+    for path, launches in by_path.items():
+        ran = {k: n for k, n in launches.items() if n}
+        print(f"main path: {path} launches {ran}")
+        check(ran == expect[path], f"{path} launched {ran}, expected "
+                                   f"{expect[path]}")
+
+    ref = torch.from_numpy(spmv.cpu_reference(csr_s, x.cpu().numpy()))
+    for v, y in ys.items():
+        y = y.cpu()
+        check(y.shape == (gs.n_vertices,) and bool(y.isfinite().all()),
+              f"spmv {v}: shape or non-finite values")
+        err, _, ok = sum_errors(y, ref)
+        check(ok, f"spmv {v} outside the sum tolerance of cpu_reference "
+                  f"(max abs {err})")
+        print(f"main path: spmv {v} rmat{SCALE} seed {SPMV_SEED}: max abs "
+              f"err {err:.6g} against the float64 cpu_reference (within "
+              f"{SUM_RTOL} |ref| + {SUM_ATOL})")
+    err, _, ok = sum_errors(ys["fused"], ys["windowed"])
+    check(ok, f"spmv fused and windowed disagree (max abs {err})")
+    print(f"main path: spmv fused against windowed: max abs err {err:.6g}")
+
+    ref_pr, it_pr = pr.cpu_run(csr_u)
+    hold_host(r_pr.ranks.cpu().numpy(), ref_pr,
+              f"pr spmv undirected rmat{SCALE}", gu.n_vertices)
+    print(f"main path: pr spmv undirected rmat{SCALE}: {r_pr.iterations} "
+          f"iterations (host float64: {it_pr})")
+    ref_a, ref_h, it_h = hits.cpu_run(csr_u)
+    hold_host(r_hits.auth.cpu().numpy(), ref_a, "hits spmv auth",
+              gu.n_vertices)
+    hold_host(r_hits.hub.cpu().numpy(), ref_h, "hits spmv hub",
+              gu.n_vertices)
+    print(f"main path: hits spmv undirected rmat{SCALE}: "
+          f"{r_hits.iterations} iterations (host float64: {it_h})")
+    return by_path
+
+
+# ------------------------------------------------------------- phase 8 --
+
+def time_spmv(g, card: str, label: str) -> None:
+    """Each SpMV variant's product, SPMV_REPS back to back per cycle."""
+    from essentials_tpu_torch.algorithms import spmv
+    x = spmv.random_x(g, 0)
+    for v, fn in spmv.VARIANTS.items():
+        ms = median_ms(lambda _: [fn(g, x) for _ in range(SPMV_REPS)]) \
+            / SPMV_REPS
+        print(f"time [{card}]: spmv {v} {label}: {ms:.4f} ms per product, "
+              f"{g.n_edges * BYTES_PER_EDGE / ms / 1e6:.2f} GB/s under "
+              f"bench.py's {BYTES_PER_EDGE:.0f} B/edge model (median of "
+              f"{CYCLES} cycles of {SPMV_REPS})")
+
+
+def time_spmv_kernels(g) -> dict:
+    """Every SpMV kernel instance and its plain version at the shapes of
+    the scale-18 SpMV graph, SPMV_REPS calls back to back per cycle."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import spmv
+    off, col, fl, w = g.row_offsets, g.col_indices, g.csr_seg_flags, g.values
+    x = spmv.random_x(g, 1)
+
+    def per_call(fn) -> float:
+        return median_ms(lambda _: [fn() for _ in range(SPMV_REPS)]) \
+            / SPMV_REPS
+
+    out = {}
+    for wk, form in ((w, "<mul>"), (None, "<none>")):
+        out["spmv_rows" + form] = per_call(
+            lambda: K.spmv_rows(off, col, wk, x))
+        out["spmv_rows" + form + "/plain"] = per_call(
+            lambda: K.spmv_rows_plain(off, col, wk, x))
+    for message in K.MESSAGES:
+        wk = None if message == "none" else w
+        for reduce in K.REDUCES:
+            form = f"<{message},{reduce}>"
+            args = (off, col, wk, fl, x, message, reduce)
+            out["spmv_slabs" + form] = per_call(lambda: K.spmv_slabs(*args))
+            out["spmv_slabs" + form + "/plain"] = per_call(
+                lambda: K.spmv_slabs_plain(*args))
+    for reduce in K.REDUCES:
+        y, head, carry_row = K.spmv_slabs(off, col, w, fl, x, "mul", reduce)
+        args = (y, head, carry_row, off, reduce)   # in place: same work
+        out[f"spmv_slab_carry<{reduce}>"] = per_call(
+            lambda: K.spmv_slab_carry(*args))
+        out[f"spmv_slab_carry<{reduce}>/plain"] = per_call(
+            lambda: K.spmv_slab_carry_plain(*args))
+    return out
+
+
+def time_pr_hits(g, card: str) -> None:
+    from essentials_tpu_torch.algorithms import hits, pr
+    for name, fn in (("pr", pr.run), ("hits", hits.run)):
+        r = fn(g, variant="spmv")
+        print(f"time [{card}]: {name} spmv undirected rmat{SCALE}: "
+              f"{r.elapsed_ms / r.iterations:.4f} ms per iteration, "
+              f"{r.iterations} iterations, {r.elapsed_ms:.3f} ms in all "
+              f"(after one warm-up run)")
+
+
+class Phases:
+    """Prints each phase's seconds as it ends."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def done(self, what: str) -> None:
+        t = time.perf_counter()
+        print(f"phase {what}: {t - self.t0:.1f} s")
+        self.t0 = t
 
 
 def main() -> None:
     from essentials_tpu_torch import kernels as K, runtime
     from essentials_tpu_torch.algorithms import bfs
     runtime.require_cuda()          # raises: this script runs only on a GPU
+    phases = Phases()
 
     # 1. device
     smi = subprocess.run(
@@ -235,6 +578,7 @@ def main() -> None:
           f"capability {props.capability}, {props.sm_count} SMs, "
           f"{props.memory_gib:.1f} GiB; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    phases.done("1 device")
 
     # 2. build
     t0 = time.perf_counter()
@@ -244,9 +588,10 @@ def main() -> None:
     for line in log.splitlines():
         if "registers" in line or "built" in line or "spill" in line:
             print(f"  {line.strip()}")
+    phases.done("2 build")
 
     # 3. kernels against their plain versions
-    errs = {k: 0 for k in K.launches}
+    errs = {k: 0 for k in REPLACES}
     graphs = {}
     for scale in (12, SCALE):
         t0 = time.perf_counter()
@@ -258,6 +603,7 @@ def main() -> None:
               f"{time.perf_counter() - t0:.1f} s")
         check(bfs.fused_supported(g), "rmat graph has no symmetric layout")
         check_kernels(g, int(np.argmax(np.diff(csr.row_offsets))), errs)
+    phases.done("3 bfs kernels")
 
     # 4. the main path
     csr, g = graphs[SCALE]
@@ -302,6 +648,7 @@ def main() -> None:
     print(f"main path: distances from {CHECKED_SOURCES} sources equal "
           f"cpu_reference; predecessors of all {RUNS} sources valid and "
           f"smallest-id; fused == fused8")
+    phases.done("4 bfs main path")
 
     # 5. times
     for v, kw in variants.items():
@@ -314,18 +661,91 @@ def main() -> None:
               f"{ms:.4f} ms per search (median of {CYCLES} cycles of "
               f"{RUNS} sources), {g.n_edges / 1e3 / ms:.2f} MTEPS")
     t = time_kernels(g, int(sources[0]))
-    for name in K.launches:
+    for name in REPLACES:
         print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
               f"{t[name + '/plain']:.4f} ms (rmat{SCALE}, source "
               f"{sources[0]})")
     for v, kw in variants.items():
         profile_searches(g, sources, v, kw)
+    phases.done("5 bfs times")
 
+    # 6. SpMV kernels against their plain versions
+    csr_u, g_u = csr, g                 # the undirected BFS graph
+    spmv_graphs = {}
+    errs.update({k: 0.0 for k in SPMV_REPLACES})
+    errs.update({k + "/rel": 0.0 for k in SPMV_REPLACES})
+    for scale in SPMV_SCALES:
+        t0 = time.perf_counter()
+        csr_s, g_s = spmv_graph(scale, "cuda")
+        spmv_graphs[scale] = (csr_s, g_s)
+        print(f"graph: rmat{scale} ef{EDGE_FACTOR} seed {SPMV_SEED} directed "
+              f"weighted: V={g_s.n_vertices} E={g_s.n_edges} "
+              f"Vp={g_s.n_vertices_padded} Ep={g_s.n_edges_padded}, max "
+              f"out-degree {g_s.max_degree}, "
+              f"{int((g_s.out_degrees()[:g_s.n_vertices] == 0).sum())} empty "
+              f"rows, {K.slab_count(g_s.n_edges_padded)} slabs of "
+              f"{K.SLAB_EDGES} edges, built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check_spmv_kernels(g_s, f"rmat{scale}", errs)
+    check_pr_hits_rows(g_u, f"undirected rmat{SCALE} (pr/hits inputs)",
+                       errs)
+    phases.done("6 spmv kernels")
+
+    # 7. the SpMV main path
+    csr_s, g_s = spmv_graphs[SCALE]
+    spmv_launches = spmv_main_path(csr_s, g_s, csr_u, g_u)
+    phases.done("7 spmv/pr/hits main path")
+
+    # 8. SpMV times
+    time_spmv(g_s, card, f"rmat{SCALE} seed {SPMV_SEED}")
+    t.update(time_spmv_kernels(g_s))
+    for name in sorted(k for k in t if k.startswith("spmv")
+                       and not k.endswith("/plain")):
+        print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
+              f"{t[name + '/plain']:.4f} ms (rmat{SCALE} seed {SPMV_SEED}, "
+              f"{SPMV_REPS} calls back to back)")
+    time_pr_hits(g_u, card)
+    from essentials_tpu_torch.algorithms import spmv
+    x = spmv.random_x(g_s, 0)
+    for v in spmv.VARIANTS:
+        profile(f"spmv {v} rmat{SCALE} seed {SPMV_SEED}, {PROFILED_RUNS} "
+                f"spmv.run calls",
+                lambda v=v: [spmv.run(g_s, x, variant=v, warmup=False)
+                             for _ in range(PROFILED_RUNS)],
+                PROFILED_RUNS * KERNELS_PER_PRODUCT[v])
+    del spmv_graphs, g_s
+    t0 = time.perf_counter()
+    csr20, g20 = spmv_graph(SPMV_TIME_SCALE, "cuda")
+    print(f"graph: rmat{SPMV_TIME_SCALE} ef{EDGE_FACTOR} seed {SPMV_SEED} "
+          f"directed weighted: V={g20.n_vertices} E={g20.n_edges}, max "
+          f"out-degree {g20.max_degree}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    time_spmv(g20, card, f"rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}")
+    x20 = spmv.random_x(g20, 0)
+    for v in spmv.VARIANTS:
+        profile(f"spmv {v} rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}, "
+                f"{PROFILED_RUNS} spmv.run calls",
+                lambda v=v: [spmv.run(g20, x20, variant=v, warmup=False)
+                             for _ in range(PROFILED_RUNS)],
+                PROFILED_RUNS * KERNELS_PER_PRODUCT[v])
+    phases.done("8 spmv times")
+
+    timed = {"spmv_rows": "spmv_rows<mul>",
+             "spmv_slabs": "spmv_slabs<mul,sum>",
+             "spmv_slab_carry": "spmv_slab_carry<sum>"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name], "ms": t[name],
-         "plain_ms": t[name + "/plain"]} for name in K.launches]}))
+         "plain_ms": t[name + "/plain"]} for name in REPLACES] + [
+        {"name": name, "route": "cuda", "source": SPMV_SOURCE,
+         "replaces": SPMV_REPLACES[name],
+         "launches": sum(c[name] for c in spmv_launches.values()),
+         "launches_by_path": {p: c[name] for p, c in spmv_launches.items()
+                              if c[name]},
+         "max_abs_err": errs[name], "max_rel_err": errs[name + "/rel"],
+         "ms": t[timed[name]], "plain_ms": t[timed[name] + "/plain"],
+         "timed": timed[name]} for name in SPMV_REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

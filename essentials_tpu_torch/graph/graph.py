@@ -94,6 +94,11 @@ class Graph:
     def device(self) -> torch.device:
         return self.row_offsets.device
 
+    def vertex_mask(self) -> torch.Tensor:
+        """[Vp] bool: True at the real vertices [0, V)."""
+        return torch.arange(self.n_vertices_padded,
+                            device=self.device) < self.n_vertices
+
     def out_degrees(self) -> torch.Tensor:
         """[Vp] out-degree per vertex (pad slots report pad-edge counts)."""
         return self.row_offsets[1:] - self.row_offsets[:-1]

@@ -1,17 +1,31 @@
-"""The fused BFS path's CUDA kernels: build, binding, wrappers, plain versions.
+"""The port's CUDA kernels: build, binding, wrappers, plain versions.
 
-``csrc/bfs_kernels.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, into
-``build/essentials_tpu_torch/`` beside the package. The library's name
-carries a hash of the sources and flags, so an edited source builds anew.
-It is loaded with ``ctypes``.
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per source, all started together) and linked into one shared library with a
+plain C interface, at first use, into ``build/essentials_tpu_torch/`` beside
+the package. The library's name carries a hash of the sources and flags, so
+an edited source builds anew. It is loaded with ``ctypes``.
+
+The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
+
+* ``csrc/bfs_kernels.cu`` (the fused BFS path): ``bfs_level`` (int32 and
+  int8) for ``fused_bfs.fused_superstep2`` :502; ``collapse_levels`` for the
+  ``cube_router._pallas_apply`` route :385 and "first" fill of the collapse;
+  ``bfs_predecessors`` for the ``cube_router.apply_cube_chain`` :586 advance.
+* ``csrc/spmv_kernels.cu`` (SpMV, PageRank and HITS): ``spmv_rows`` (``mul``
+  and ``none`` messages), one warp per CSR row, for the 7-kernel chain
+  ``fused_spmv._pallas_spmv_chain`` :179; ``spmv_slabs`` (messages ``mul``,
+  ``add``, ``none`` by reductions ``sum``, ``min``), one block per slab of
+  ``SLAB_EDGES`` edges, with ``spmv_slab_carry`` folding the rows that
+  cross slabs, for ``windowed_spmv.windowed_pipeline`` :454.
 
 Each kernel has a wrapper and a plain PyTorch version with the same
 arithmetic. The wrapper dispatches on the device of the tensors it is given:
 a CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 and anything the kernel does not take raises. There is no fallback from the
 kernel to the plain version. ``launches`` counts each kernel's launches,
-keyed by kernel and element type; the plain versions count nothing.
+keyed by kernel (and, for the BFS kernels, element type); the plain versions
+count nothing.
 """
 
 from __future__ import annotations
@@ -29,16 +43,23 @@ import torch
 from essentials_tpu_torch.errors import EssentialsError, throw_if
 
 INT32_MAX = 2**31 - 1
+INF_BITS = 0x7F800000          # float32 +inf as int32 bits: the min identity
+SLAB_EDGES = 2048              # edges per spmv_slabs block (kSlab in the .cu)
+MESSAGES = ("mul", "add", "none")
+REDUCES = ("sum", "min")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = (_CSRC / "bfs_kernels.cu",)
+_SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "essentials_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "collapse_levels<int32>": 0, "collapse_levels<int8>": 0,
-            "bfs_predecessors": 0}
+            "bfs_predecessors": 0,
+            "spmv_rows": 0, "spmv_slabs": 0, "spmv_slab_carry": 0}
 
 _lib = None
 
@@ -51,10 +72,11 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------- build --
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _SOURCES:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libetpu_bfs_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libetpu_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -75,15 +97,32 @@ def build() -> tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    objs = [path.with_name(f"{path.stem}.{os.getpid()}.{src.stem}.o")
+            for src in _SOURCES]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    throw_if(r.returncode != 0,
-             f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+    log = []
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        outs = [(src, p.communicate()[0], p.returncode)
+                for src, p in zip(_SOURCES, procs)]
+        for src, out, rc in outs:
+            throw_if(rc != 0, f"nvcc failed on {src.name} ({rc}):\n{out}")
+            log.append(out)
+        r = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        throw_if(r.returncode != 0,
+                 f"nvcc link failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, path)           # atomic: a reader sees all or nothing
-    return path, (f"built {path.name} in {time.perf_counter() - t0:.1f} s\n"
-                  + r.stdout + r.stderr)
+    return path, (f"built {path.name} from {len(_SOURCES)} sources in "
+                  f"{time.perf_counter() - t0:.1f} s\n" + "".join(log))
 
 
 def _library():
@@ -97,11 +136,24 @@ def _library():
             "etpu_collapse_levels_i32": (p, p, i, i, i, p, p),
             "etpu_collapse_levels_i8": (p, p, i, i, i, p, p),
             "etpu_bfs_predecessors": (p, p, p, i, i, p, p),
+            "etpu_spmv_rows_mul": (p, p, p, p, i, p, p),
+            "etpu_spmv_rows_none": (p, p, p, p, i, p, p),
+            "etpu_spmv_slab_carry_sum": (p, p, p, i, p, p),
+            "etpu_spmv_slab_carry_min": (p, p, p, i, p, p),
+            "etpu_spmv_slab_edges": (),
         }
+        for m in MESSAGES:
+            for r in REDUCES:
+                argtypes[f"etpu_spmv_slabs_{m}_{r}"] = (p, p, p, p, p, i, i,
+                                                         p, p, p, p)
         for name, types in argtypes.items():
             fn = getattr(lib, name)
             fn.argtypes = types
             fn.restype = i
+        throw_if(lib.etpu_spmv_slab_edges() != SLAB_EDGES,
+                 f"spmv_slabs: the library's slab is "
+                 f"{lib.etpu_spmv_slab_edges()} edges, SLAB_EDGES is "
+                 f"{SLAB_EDGES}")
         _lib = lib
     return _lib
 
@@ -263,3 +315,186 @@ def bfs_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
             pred.data_ptr())
     launches[name] += 1
     return pred
+
+
+# ------------------------------------------------------------------ spmv --
+
+def _check_spmv(name: str, off, col, w, x, flags=None) -> None:
+    """Types and shapes of the CSR arrays and vectors an SpMV kernel takes:
+    off [Vp+1] int32, col [Ep] int32, w [Ep] float32 or None, x [Vp]
+    float32, flags [Ep] bool or uint8."""
+    throw_if(off.dtype != torch.int32 or off.dim() != 1 or off.numel() < 2,
+             f"{name}: off must be [Vp+1] int32")
+    vp, ep = off.numel() - 1, col.numel()
+    throw_if(col.dtype != torch.int32 or col.shape != (ep,),
+             f"{name}: col must be [Ep] int32")
+    throw_if(x.dtype != torch.float32 or x.shape != (vp,),
+             f"{name}: x must be [Vp] = [{vp}] float32")
+    throw_if(w is not None and (w.dtype != torch.float32
+                                or w.shape != (ep,)),
+             f"{name}: w must be [Ep] = [{ep}] float32")
+    throw_if(flags is not None and (flags.dtype not in (torch.bool,
+                                                        torch.uint8)
+                                    or flags.shape != (ep,)),
+             f"{name}: flags must be [Ep] = [{ep}] bool or uint8")
+
+
+def _message(x, col, w, message: str) -> torch.Tensor:
+    """[Ep] float32: x[col] * w, x[col] + w or x[col]."""
+    xc = x[col.long()]
+    if message == "mul":
+        return xc * w
+    if message == "add":
+        return xc + w
+    return xc
+
+
+def _reduce_into(n: int, index, vals, reduce: str) -> torch.Tensor:
+    """[n] int32 bits: the f32 sum (``sum``) or the int32 minimum (``min``,
+    from INF_BITS) of the float32 ``vals`` grouped by ``index``."""
+    if reduce == "sum":
+        out = torch.zeros(n, dtype=torch.float32, device=vals.device)
+        return out.index_add_(0, index, vals).view(torch.int32)
+    out = torch.full((n,), INF_BITS, dtype=torch.int32, device=vals.device)
+    return out.scatter_reduce_(0, index, vals.view(torch.int32), "amin")
+
+
+def slab_count(ep: int) -> int:
+    """Blocks of ``spmv_slabs`` over ``ep`` edges."""
+    return (ep + SLAB_EDGES - 1) // SLAB_EDGES
+
+
+# ------------------------------------------------------------ spmv_rows --
+
+def spmv_rows_plain(off, col, w, x):
+    """Plain version of ``spmv_rows``."""
+    y = torch.zeros(off.numel() - 1, dtype=torch.float32, device=x.device)
+    return y.index_add_(0, _segment_ids(off, col.numel()),
+                        _message(x, col, w, "none" if w is None else "mul"))
+
+
+def spmv_rows(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
+              x: torch.Tensor) -> torch.Tensor:
+    """y = A x on the CSR rows, one warp per row: [Vp] float32 with
+    y[r] = sum over r's edges p of w[p] * x[col[p]], or of x[col[p]] when
+    ``w`` is None; 0 at empty rows. Deterministic."""
+    name = "spmv_rows"
+    _check_spmv(name, off, col, w, x)
+    if not _route(name, x):
+        return spmv_rows_plain(off, col, w, x)
+    _check(name, x.device, off=off, col=col, x=x,
+           **({} if w is None else {"w": w}))
+    vp = off.numel() - 1
+    y = torch.empty(vp, dtype=torch.float32, device=x.device)
+    _launch("etpu_spmv_rows_none" if w is None else "etpu_spmv_rows_mul",
+            x.device, off.data_ptr(), col.data_ptr(),
+            None if w is None else w.data_ptr(), x.data_ptr(), vp,
+            y.data_ptr())
+    launches[name] += 1
+    return y
+
+
+# ----------------------------------------------------------- spmv_slabs --
+
+def spmv_slabs_plain(off, col, w, flags, x, message: str, reduce: str):
+    """Plain version of ``spmv_slabs``. It finds the rows from ``off`` and
+    does not read ``flags``, which mark the same row starts."""
+    vp, ep = off.numel() - 1, col.numel()
+    vals = _message(x, col, w, message)
+    row = _segment_ids(off, ep)
+    start = off[:-1].long()
+    slab = torch.arange(ep, device=x.device) // SLAB_EDGES
+    own = start[row] >= slab * SLAB_EDGES   # the edge's row began in its slab
+    y = _reduce_into(vp, row[own], vals[own], reduce)
+    head = _reduce_into(slab_count(ep), slab[~own], vals[~own], reduce)
+    end = off[1:].long()
+    cross = (end > start) & ((end - 1) // SLAB_EDGES > start // SLAB_EDGES)
+    carry_row = torch.full_like(head, -1)
+    carry_row[start[cross] // SLAB_EDGES] = cross.nonzero()[:, 0].int()
+    return y, head, carry_row
+
+
+def spmv_slabs(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
+               flags: torch.Tensor, x: torch.Tensor, message: str,
+               reduce: str) -> tuple:
+    """One block per slab of SLAB_EDGES CSR edges: messages (``mul``
+    x[col]*w, ``add`` x[col]+w, ``none`` x[col]; ``w`` None only for
+    ``none``), a segmented ``sum`` (float32) or ``min`` (int32 bits) over
+    ``flags``, and the rows that start in each slab. Returns int32 tensors
+    (y [Vp], head [G], carry_row [G]), G = slab_count(Ep), sums as float32
+    bits:
+
+    * y[r]: r's reduction when it ends in the slab where it starts, the
+      identity (0 or INF_BITS) when it is empty, and its partial up to the
+      end of that slab when it crosses out of it;
+    * head[b]: slab b's edges before its first row start (the whole slab
+      when none starts in it), which belong to a row begun earlier;
+    * carry_row[b]: the row that starts in slab b and crosses out, or -1.
+
+    ``spmv_slab_carry`` completes y."""
+    name = "spmv_slabs"
+    throw_if(message not in MESSAGES or reduce not in REDUCES,
+             f"{name}: message must be one of {MESSAGES} and reduce one of "
+             f"{REDUCES}")
+    throw_if((w is None) != (message == "none"),
+             f"{name}: w is needed exactly for messages 'mul' and 'add'")
+    _check_spmv(name, off, col, w, x, flags)
+    if not _route(name, x):
+        return spmv_slabs_plain(off, col, w, flags, x, message, reduce)
+    _check(name, x.device, off=off, col=col, flags=flags, x=x,
+           **({} if w is None else {"w": w}))
+    vp, ep = off.numel() - 1, col.numel()
+    y = torch.empty(vp, dtype=torch.int32, device=x.device)
+    head = torch.empty(slab_count(ep), dtype=torch.int32, device=x.device)
+    carry_row = torch.empty_like(head)
+    _launch(f"etpu_spmv_slabs_{message}_{reduce}", x.device, off.data_ptr(),
+            col.data_ptr(), None if w is None else w.data_ptr(),
+            flags.data_ptr(), x.data_ptr(), vp, ep, y.data_ptr(),
+            head.data_ptr(), carry_row.data_ptr())
+    launches[name] += 1
+    return y, head, carry_row
+
+
+# ------------------------------------------------------ spmv_slab_carry --
+
+def spmv_slab_carry_plain(y, head, carry_row, off, reduce: str):
+    """Plain version of ``spmv_slab_carry``."""
+    b = torch.nonzero(carry_row >= 0).flatten()
+    r = carry_row[b].long()
+    last = torch.clamp((off[r + 1].long() - 1) // SLAB_EDGES,
+                       max=head.numel() - 1)
+    n = last - b                            # later slabs the row reaches
+    rows = torch.repeat_interleave(r, n)
+    first = torch.repeat_interleave(b + 1 - (torch.cumsum(n, 0) - n), n)
+    slabs = first + torch.arange(rows.numel(), device=y.device)
+    if reduce == "sum":
+        y.view(torch.float32).index_add_(0, rows,
+                                         head[slabs].view(torch.float32))
+    else:
+        y.scatter_reduce_(0, rows, head[slabs], "amin")
+    return y
+
+
+def spmv_slab_carry(y: torch.Tensor, head: torch.Tensor,
+                    carry_row: torch.Tensor, off: torch.Tensor,
+                    reduce: str) -> torch.Tensor:
+    """Complete ``spmv_slabs``' output IN PLACE: for each slab b with
+    carry_row[b] = r >= 0, fold head[b+1], head[b+2], ... into y[r], over
+    every later slab that starts before r's last edge, in slab order (one
+    thread per slab). Returns y."""
+    name = "spmv_slab_carry"
+    throw_if(reduce not in REDUCES, f"{name}: reduce must be one of {REDUCES}")
+    throw_if(off.dtype != torch.int32 or off.dim() != 1
+             or y.dtype != torch.int32 or y.shape != (off.numel() - 1,),
+             f"{name}: y must be [Vp] int32 and off [Vp+1] int32")
+    throw_if(head.dtype != torch.int32 or carry_row.dtype != torch.int32
+             or head.dim() != 1 or carry_row.shape != head.shape,
+             f"{name}: head and carry_row must be [G] int32")
+    if not _route(name, y):
+        return spmv_slab_carry_plain(y, head, carry_row, off, reduce)
+    _check(name, y.device, y=y, head=head, carry_row=carry_row, off=off)
+    _launch(f"etpu_spmv_slab_carry_{reduce}", y.device, off.data_ptr(),
+            head.data_ptr(), carry_row.data_ptr(), head.numel(),
+            y.data_ptr())
+    launches[name] += 1
+    return y

@@ -1,2 +1,3 @@
-"""Operators. Counterpart of ``essentials_tpu/ops``; only ``fused_bfs`` is
-ported so far (see ROADMAP.md, queue 1)."""
+"""Operators. Counterpart of ``essentials_tpu/ops``; ported so far:
+``fused_bfs``, ``fused_spmv`` and ``windowed_spmv`` (see ROADMAP.md,
+queue 1)."""

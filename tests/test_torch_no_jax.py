@@ -1,7 +1,8 @@
 """essentials_tpu_torch without JAX: the port and chip_smoke.py import
-neither jax nor the JAX package, its main path runs where importing jax
-fails, and, on a CUDA card, its kernels agree exactly with their plain
-versions.
+neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank, HITS)
+run where importing jax fails, and, on a CUDA card, its kernels agree with
+their plain versions (the BFS kernels exactly, the SpMV kernels exactly
+under ``min`` and to |k - p| <= 1e-5 |p| + 1e-6 under ``sum``).
 
 This file imports no jax, so its card test runs on a machine without jax:
 
@@ -62,6 +63,16 @@ _MAIN_PATH = textwrap.dedent("""
     for variant, max_it in (("fused", None), ("fused8", 64)):
         r = bfs.run(g, 1, variant=variant, max_iterations=max_it)
         assert np.array_equal(r.distances.numpy(), bfs.cpu_reference(csr, 1))
+    from essentials_tpu_torch.algorithms import hits, pr, spmv
+    x = spmv.random_x(g, 3)
+    for variant in ("fused", "windowed"):
+        y = spmv.run(g, x, variant=variant).y.numpy()
+        assert np.allclose(y, spmv.cpu_reference(csr, x.numpy()),
+                           rtol=1e-5, atol=1e-6)
+    assert np.allclose(pr.run(g).ranks.numpy(), pr.cpu_reference(csr),
+                       rtol=1e-4, atol=1e-6)
+    assert np.allclose(hits.run(g, max_iterations=8).auth.numpy(),
+                       hits.cpu_reference(csr, 8)[0], rtol=1e-3, atol=1e-4)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -117,6 +128,63 @@ def test_kernels_match_plain_versions_on_the_card():
         args = (dist, g.csc_offsets, g.csc_src_indices, g.n_edges)
         assert torch.equal(kernels.bfs_predecessors(*args),
                            kernels.bfs_predecessors_plain(*args))
-    assert all(n > 0 for n in kernels.launches.values()), kernels.launches
+    bfs_kernels = ("bfs_level<int32>", "bfs_level<int8>",
+                   "collapse_levels<int32>", "collapse_levels<int8>",
+                   "bfs_predecessors")
+    assert all(kernels.launches[k] > 0 for k in bfs_kernels), \
+        kernels.launches
     assert np.array_equal(dist[:g.n_vertices].cpu().numpy(),
                           bfs.cpu_reference(csr, 0))
+
+
+@pytest.mark.cuda
+def test_spmv_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import spmv
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+
+    def close(k, p):
+        k, p = k.double(), p.double()
+        return bool(((k - p).abs() <= 1e-5 * p.abs() + 1e-6).all())
+
+    csr = Csr.from_coo(generate.rmat(14, 16, seed=3, undirected=False,
+                                     weighted=True))
+    g = build_graph(csr, directed=True, weighted=True, device="cuda")
+    assert g.max_degree > kernels.SLAB_EDGES     # a row crosses slabs
+    off, col, fl = g.row_offsets, g.col_indices, g.csr_seg_flags
+    x, w = spmv.random_x(g, 1), g.values
+    kernels.reset_launches()
+    for wk in (w, None):
+        y = kernels.spmv_rows(off, col, wk, x)
+        assert torch.equal(y, kernels.spmv_rows(off, col, wk, x))
+        assert close(y, kernels.spmv_rows_plain(off, col, wk, x))
+    for message in kernels.MESSAGES:
+        wk = None if message == "none" else w
+        for reduce in kernels.REDUCES:
+            out = kernels.spmv_slabs(off, col, wk, fl, x, message, reduce)
+            plain = kernels.spmv_slabs_plain(off, col, wk, fl, x, message,
+                                             reduce)
+            again = kernels.spmv_slabs(off, col, wk, fl, x, message, reduce)
+            assert all(torch.equal(a, b) for a, b in zip(out, again))
+            assert torch.equal(out[2], plain[2])
+            y = kernels.spmv_slab_carry(out[0].clone(), *out[1:], off, reduce)
+            y_p = kernels.spmv_slab_carry_plain(out[0].clone(), *out[1:],
+                                                off, reduce)
+            if reduce == "min":
+                assert torch.equal(out[0], plain[0])
+                assert torch.equal(out[1], plain[1])
+                assert torch.equal(y, y_p)
+            else:
+                for a, b in ((out[0], plain[0]), (out[1], plain[1]),
+                             (y, y_p)):
+                    assert close(a.view(torch.float32),
+                                 b.view(torch.float32))
+    assert all(kernels.launches[k] > 0
+               for k in ("spmv_rows", "spmv_slabs", "spmv_slab_carry"))
+    y = spmv.run(g, x, variant="windowed").y.cpu().numpy()
+    assert np.allclose(y, spmv.cpu_reference(csr, x.cpu().numpy()),
+                       rtol=1e-5, atol=1e-6)

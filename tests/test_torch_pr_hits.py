@@ -1,0 +1,146 @@
+"""Port parity: essentials_tpu_torch's PageRank and HITS (variant ``spmv``)
+against essentials_tpu's ``pr.run(variant="spmv")`` and
+``hits.run(variant="spmv")``, on the CPU, on graphs with a symmetric layout.
+
+Iteration counts must be equal. Ranks are held to the tolerances of
+tests/test_spmv_ports.py: PageRank atol 1e-7 / rtol 1e-5 against JAX (its
+spmv-vs-generic bound) and atol 1e-6 / rtol 1e-4 against the host; HITS
+atol 1e-6 / rtol 1e-4 against JAX and atol 1e-4 / rtol 1e-3 against the
+host. Both packages run float32 with sums in different orders; the host
+runs float64.
+
+HITS stops once delta < 1e-7, which is below float32 rounding noise, so
+where it stops is set by the rounding: on undirected rmat12 JAX's delta
+cycles between 2.8e-6 and 3.6e-6 from iteration 11 on and never stops
+before 50, while the port's vectors reach an exact fixed point (delta 0)
+at iteration 15; on chesapeake JAX stops at 24 and the port at 26 (the
+float64 host: 11 and 20). So the HITS tests run a fixed HITS_ITERATIONS,
+below where any of the three stops, and hold all three to that count."""
+
+import numpy as np
+import pytest
+import torch
+
+from essentials_tpu.algorithms import hits as jhits
+from essentials_tpu.algorithms import pr as jpr
+from essentials_tpu.formats import Csr as JCsr
+from essentials_tpu.graph import build_graph as jbuild
+from essentials_tpu.io import generate as jgen
+from essentials_tpu.io import load_graph_file as jload
+
+from essentials_tpu_torch.algorithms import hits as thits
+from essentials_tpu_torch.algorithms import pr as tpr
+from essentials_tpu_torch.errors import EssentialsError
+from essentials_tpu_torch.formats import Csr
+from essentials_tpu_torch.graph import build_graph, graph_from_arrays
+from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
+from essentials_tpu_torch.io import generate
+from essentials_tpu_torch.utils.compare import compare
+
+HITS_ITERATIONS = 10
+
+
+def both_graphs(csr):
+    gj = jbuild(csr, directed=False, weighted=True, build_router=True)
+    assert gj.symmetric_layout
+    fields = {f: np.asarray(getattr(gj, f)) for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return csr, gj, graph_from_arrays(fields, meta, "cpu")
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return {
+        "rmat12": both_graphs(JCsr.from_coo(jgen.rmat(
+            12, 16, seed=3, undirected=True, weighted=True))),
+        "chesapeake": both_graphs(jload("datasets/chesapeake.mtx",
+                                        cache=False)),
+    }
+
+
+@pytest.mark.parametrize("name", ["rmat12", "chesapeake"])
+def test_pr_spmv_matches_jax_and_host(graphs, name):
+    csr, gj, g = graphs[name]
+    r_j = jpr.run(gj, variant="spmv", warmup=False)
+    for variant in ("spmv", "auto"):
+        r = tpr.run(g, variant=variant, warmup=False)
+        assert r.ranks.dtype == torch.float32
+        assert r.ranks.shape == (g.n_vertices,)
+        assert r.iterations == r_j.iterations > 1
+        assert compare(r.ranks, np.asarray(r_j.ranks), atol=1e-7,
+                       rtol=1e-5) == 0
+        assert compare(r.ranks, tpr.cpu_reference(csr), atol=1e-6,
+                       rtol=1e-4) == 0
+    host = jpr.cpu_reference(csr)
+    assert compare(tpr.cpu_reference(csr), host, atol=1e-6, rtol=1e-4) == 0
+
+
+@pytest.mark.parametrize("name", ["rmat12", "chesapeake"])
+def test_pr_inverse_weights_match_jax_init(graphs, name):
+    _, gj, g = graphs[name]
+    iw = tpr.inverse_weights(g, 0.85)
+    iw_j = np.asarray(jpr.init(gj, 0.85).iweights)
+    assert compare(iw, iw_j, atol=0, rtol=1e-5) == 0   # the sums' order
+    assert np.array_equal(iw.numpy() == 0, iw_j == 0)
+
+
+@pytest.mark.parametrize("name", ["rmat12", "chesapeake"])
+def test_hits_spmv_matches_jax_and_host(graphs, name):
+    csr, gj, g = graphs[name]
+    r_j = jhits.run(gj, variant="spmv", warmup=False,
+                    max_iterations=HITS_ITERATIONS)
+    ra, rh, it = thits.cpu_run(csr, HITS_ITERATIONS)
+    assert it == HITS_ITERATIONS
+    for variant in ("spmv", "auto"):
+        r = thits.run(g, variant=variant, warmup=False,
+                      max_iterations=HITS_ITERATIONS)
+        assert r.iterations == r_j.iterations == HITS_ITERATIONS
+        assert r.auth.shape == r.hub.shape == (g.n_vertices,)
+        assert compare(r.auth, np.asarray(r_j.auth), atol=1e-6,
+                       rtol=1e-4) == 0
+        assert compare(r.hub, np.asarray(r_j.hub), atol=1e-6,
+                       rtol=1e-4) == 0
+        assert compare(r.auth, ra, atol=1e-4, rtol=1e-3) == 0
+        assert compare(r.hub, rh, atol=1e-4, rtol=1e-3) == 0
+    ja, jh = jhits.cpu_reference(csr, HITS_ITERATIONS)
+    assert compare(ra, ja, atol=1e-6, rtol=1e-5) == 0
+    assert compare(rh, jh, atol=1e-6, rtol=1e-5) == 0
+    top_a, top_h = thits.rank(r, k=5)
+    assert top_a.shape == top_h.shape == (5,)
+    assert np.all(np.diff(r.auth.numpy()[top_a]) <= 0)
+
+
+def test_hits_stops_at_max_iterations(graphs):
+    _, _, g = graphs["rmat12"]
+    assert thits.run(g, max_iterations=3, warmup=False).iterations == 3
+    assert tpr.run(g, max_iterations=3, warmup=False).iterations == 3
+
+
+# ------------------------------------------------------------- refusals --
+
+def directed_graph():
+    csr = Csr.from_coo(generate.rmat(8, 8, seed=2, undirected=False,
+                                     weighted=True))
+    g = build_graph(csr, directed=True, weighted=True, device="cpu")
+    assert not g.symmetric_layout
+    return g
+
+
+@pytest.mark.parametrize("variant,item", [
+    ("fused", "queue 2, item 5"), ("generic", "queue 1, item 8")])
+def test_unported_pr_variants_raise(graphs, variant, item):
+    with pytest.raises(EssentialsError, match=item):
+        tpr.run(graphs["chesapeake"][2], variant=variant)
+
+
+@pytest.mark.parametrize("variant", ["spmv", "auto"])
+def test_pr_spmv_refuses_a_directed_graph(variant):
+    with pytest.raises(EssentialsError, match="queue 1, item 8"):
+        tpr.run(directed_graph(), variant=variant)
+
+
+@pytest.mark.parametrize("variant", ["generic", "spmv"])
+def test_hits_refusals(graphs, variant):
+    g = graphs["chesapeake"][2] if variant == "generic" else directed_graph()
+    with pytest.raises(EssentialsError, match="queue 1, item 8"):
+        thits.run(g, variant=variant)

@@ -1,0 +1,281 @@
+"""Port parity: essentials_tpu_torch's SpMV (ops.fused_spmv,
+ops.windowed_spmv, algorithms.spmv and the kernel wrappers' plain versions)
+against essentials_tpu's, on the CPU.
+
+Both packages compute the same float32 products and sum them in different
+orders, so sums are held to |y - ref| <= 1e-5 |ref| + 1e-6 (x is uniform in
+[0, 1) and the weights are positive, so no sum cancels); ``min`` reductions
+and ``add`` messages under ``min`` compare int32 bits exactly. The JAX
+graphs are built with router plans and carried into the port with
+graph_from_arrays, so both packages compute on the same arrays."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from essentials_tpu.algorithms import spmv as jspmv
+from essentials_tpu.formats import Csr as JCsr
+from essentials_tpu.graph import build_graph as jbuild
+from essentials_tpu.io import generate as jgen
+from essentials_tpu.io import load_graph_file as jload
+from essentials_tpu.ops import fused_spmv as jfs
+from essentials_tpu.ops import windowed_spmv as jws
+
+from essentials_tpu_torch import kernels
+from essentials_tpu_torch.algorithms import spmv as tspmv
+from essentials_tpu_torch.errors import EssentialsError
+from essentials_tpu_torch.formats import Coo, Csr
+from essentials_tpu_torch.graph import build_graph, graph_from_arrays
+from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
+from essentials_tpu_torch.ops import fused_spmv as tfs
+from essentials_tpu_torch.ops import windowed_spmv as tws
+
+RTOL, ATOL = 1e-5, 1e-6
+_jax_pull = jax.jit(jspmv.spmv_pull)
+_jax_fused = jax.jit(jfs.spmv_fused, static_argnames=("use_pallas", "unit"))
+
+
+def both_graphs(csr, directed=True):
+    gj = jbuild(csr, directed=directed, weighted=True, build_router=True)
+    fields = {f: np.asarray(getattr(gj, f)) for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return csr, gj, graph_from_arrays(fields, meta, "cpu")
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    rmat = {s: JCsr.from_coo(jgen.rmat(s, 16, seed=3, undirected=False,
+                                       weighted=True)) for s in (12, 14)}
+    return {"rmat12": both_graphs(rmat[12]), "rmat14": both_graphs(rmat[14]),
+            "chesapeake": both_graphs(
+                jload("datasets/chesapeake.mtx", cache=False),
+                directed=False)}
+
+
+@pytest.fixture(scope="module")
+def plans(graphs):
+    """The JAX windowed plans; rmat14's has two 131,072-edge slabs."""
+    out = {name: jws.build_windowed_plan(graphs[name][1])
+           for name in ("rmat12", "rmat14")}
+    assert out["rmat12"].G == 1 and out["rmat14"].G == 2
+    return out
+
+
+def vector(g, seed=1):
+    x = np.random.default_rng(seed).random(g.n_vertices_padded) \
+        .astype(np.float32)
+    x[g.n_vertices:] = 0
+    return x
+
+
+def close(y, ref):
+    np.testing.assert_allclose(np.asarray(y, np.float64),
+                               np.asarray(ref, np.float64),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("name", ["rmat12", "rmat14"])
+def test_spmv_fused_matches_jax_chain(graphs, name, unit):
+    _, gj, g = graphs[name]
+    assert jfs.fused_spmv_supported(gj) and tfs.fused_spmv_supported(g)
+    x = vector(g)
+    y = tfs.spmv_fused(g, torch.from_numpy(x), unit=unit)
+    assert y.dtype == torch.float32 and y.shape == (g.n_vertices_padded,)
+    ref = _jax_fused(gj, jnp.asarray(x), use_pallas=False, unit=unit)
+    close(y.numpy()[:g.n_vertices], np.asarray(ref)[:g.n_vertices])
+
+
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("name", ["rmat12", "rmat14"])
+def test_spmv_windowed_matches_jax_ref(graphs, plans, name, unit):
+    _, gj, g = graphs[name]
+    x = vector(g, 2)
+    y = tws.spmv_windowed(g, torch.from_numpy(x), unit=unit)
+    assert y.dtype == torch.float32 and y.shape == (g.n_vertices_padded,)
+    ref = jws.spmv_windowed_ref(gj, plans[name], jnp.asarray(x), unit=unit)
+    close(y.numpy()[:g.n_vertices], np.asarray(ref)[:g.n_vertices])
+
+
+@pytest.mark.parametrize("variant", ["fused", "windowed", "auto"])
+@pytest.mark.parametrize("name", ["rmat12", "rmat14", "chesapeake"])
+def test_spmv_run_matches_pull_and_host(graphs, name, variant):
+    csr, gj, g = graphs[name]
+    x = vector(g, 3)
+    r = tspmv.run(g, torch.from_numpy(x), variant=variant, warmup=False)
+    assert r.y.shape == (g.n_vertices,) and r.elapsed_ms >= 0
+    pull = np.asarray(_jax_pull(gj, jnp.asarray(x)))[:g.n_vertices]
+    host = jspmv.cpu_reference(csr, x[:g.n_vertices])
+    close(r.y.numpy(), pull)
+    close(r.y.numpy(), host)
+    close(tspmv.cpu_reference(csr, x[:g.n_vertices]), host)
+
+
+def test_spmv_run_default_x_is_seeded(graphs):
+    _, _, g = graphs["rmat12"]
+    a = tspmv.run(g, variant="fused", seed=5, warmup=False).y
+    b = tspmv.run(g, variant="windowed", seed=5, warmup=False).y
+    close(a.numpy(), b.numpy())
+    x = tspmv.random_x(g, 5)
+    assert torch.all(x[g.n_vertices:] == 0) and torch.all(x[:g.n_vertices] < 1)
+    assert torch.equal(x, tspmv.random_x(g, 5))
+    assert not torch.equal(x, tspmv.random_x(g, 6))
+
+
+# ---------------------------------------------------- windowed_pipeline --
+
+def jax_pipeline(gj, plan, x, w_csr, message, reduce):
+    """JAX's windowed_pipeline_ref on the vertex axis: x is compacted
+    through plan.xc_perm, the CSR-order weights are carried to CSC order,
+    and the compact output is spread back by y_src_rank / y_mask."""
+    w_l = np.zeros(plan.L, np.float32)
+    w_l[:gj.n_edges_padded] = w_csr[np.asarray(gj.csc_edge_ids)]
+    xc = jnp.asarray(x)[plan.xc_perm]
+    yc = np.asarray(jws.windowed_pipeline_ref(gj, plan, xc, message, reduce,
+                                              w_l=jnp.asarray(w_l)))
+    ident = jws.INF_BITS if reduce == "min" else 0
+    return np.where(np.asarray(plan.y_mask), yc[np.asarray(plan.y_src_rank)],
+                    ident).astype(np.int32)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+@pytest.mark.parametrize("message", ["mul", "add", "none"])
+@pytest.mark.parametrize("name", ["rmat12", "rmat14"])
+def test_windowed_pipeline_matches_jax_ref(graphs, plans, name, message,
+                                           reduce):
+    _, gj, g = graphs[name]
+    x = vector(g, 4)
+    w = np.random.default_rng(5).random(g.n_edges_padded).astype(np.float32)
+    w = w * 63 + 1
+    w[g.n_edges:] = 0
+    y = tws.windowed_pipeline(g, torch.from_numpy(x), message=message,
+                              reduce=reduce, w=torch.from_numpy(w))
+    assert y.dtype == torch.int32 and y.shape == (g.n_vertices_padded,)
+    ref = jax_pipeline(gj, plans[name], x, w, message, reduce)
+    v = g.n_vertices
+    if reduce == "min":
+        assert np.array_equal(y.numpy()[:v], ref[:v])
+    else:
+        close(y.numpy()[:v].view(np.float32), ref[:v].view(np.float32))
+    empty = (g.row_offsets[1:] == g.row_offsets[:-1]).numpy()
+    assert np.all(y.numpy()[empty] == (tws.INF_BITS if reduce == "min"
+                                       else 0))
+
+
+def hub_graph():
+    """A row of 100 edges, a row of 6200 that starts in slab 0 and ends in
+    slab 3, rows of one edge, a row of 2100, and empty rows between them."""
+    n = 40
+    rows = np.concatenate([np.full(100, 1), np.full(6200, 3),
+                           np.arange(5, 30), np.full(2100, 31)])
+    cols = np.concatenate([np.arange(100) % n, np.arange(6200) % n,
+                           np.arange(5, 30) * 7 % n, np.arange(2100) % n])
+    vals = np.random.default_rng(0).random(rows.size).astype(np.float32) + 1
+    csr = Csr.from_coo(Coo(n, n, rows.astype(np.int32),
+                           cols.astype(np.int32), vals))
+    return csr, build_graph(csr, directed=True, weighted=True, device="cpu")
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+@pytest.mark.parametrize("message", ["mul", "add", "none"])
+def test_windowed_pipeline_rows_across_slabs(message, reduce):
+    csr, g = hub_graph()
+    assert g.max_degree > 2 * kernels.SLAB_EDGES
+    x = torch.from_numpy(vector(g, 6))
+    y = tws.windowed_pipeline(g, x, message=message, reduce=reduce)
+    src, col = g.src_indices.long(), g.col_indices.long()
+    msg = {"mul": x[col] * g.values, "add": x[col] + g.values,
+           "none": x[col]}[message]
+    if reduce == "min":
+        ref = torch.full((g.n_vertices_padded,), tws.INF_BITS,
+                         dtype=torch.int32)
+        ref.scatter_reduce_(0, src, msg.view(torch.int32), "amin")
+        assert torch.equal(y, ref)
+    else:
+        ref = torch.zeros(g.n_vertices_padded, dtype=torch.float64)
+        ref.index_add_(0, src, msg.double())
+        close(y.view(torch.float32).numpy(), ref.numpy())
+
+
+def test_slab_outputs_before_the_carry():
+    """spmv_slabs' partial outputs: the hub row that starts in slab 0 holds
+    its partial over slab 0 and is named by carry_row[0]; slabs 1 and 2 lie
+    inside it (their heads are whole slabs); slab 3's head is the hub's
+    tail."""
+    _, g = hub_graph()
+    off, col = g.row_offsets, g.col_indices
+    x = torch.ones(g.n_vertices_padded)
+    y, head, carry_row = kernels.spmv_slabs(off, col, None, g.csr_seg_flags,
+                                            x, "none", "sum")
+    s = kernels.SLAB_EDGES
+    hub_start, hub_end = int(off[3]), int(off[4])
+    assert 0 < hub_start < s and 3 * s < hub_end < 4 * s
+    assert carry_row[0] == 3 and carry_row[1] == carry_row[2] == -1
+    yf, hf = y.view(torch.float32), head.view(torch.float32)
+    assert yf[3] == s - hub_start and hf[0] == 0
+    assert hf[1] == hf[2] == s and hf[3] == hub_end - 3 * s
+    kernels.spmv_slab_carry(y, head, carry_row, off, "sum")
+    assert yf[3] == hub_end - hub_start
+
+
+# ------------------------------------------------------------- wrappers --
+
+def test_wrappers_take_plain_version_on_cpu(graphs):
+    _, _, g = graphs["rmat12"]
+    kernels.reset_launches()
+    x = torch.from_numpy(vector(g))
+    for unit in (False, True):
+        tfs.spmv_fused(g, x, unit=unit)
+        tws.spmv_windowed(g, x, unit=unit)
+    assert all(n == 0 for n in kernels.launches.values())
+
+
+@pytest.mark.parametrize("call", ["rows", "slabs", "carry"])
+def test_spmv_wrappers_raise_on_other_devices(call):
+    _, g = hub_graph()
+    g = g.to("meta")
+    x = torch.empty(g.n_vertices_padded, device="meta")
+    with pytest.raises(EssentialsError):
+        if call == "rows":
+            kernels.spmv_rows(g.row_offsets, g.col_indices, None, x)
+        elif call == "slabs":
+            kernels.spmv_slabs(g.row_offsets, g.col_indices, None,
+                               g.csr_seg_flags, x, "none", "sum")
+        else:
+            n = kernels.slab_count(g.n_edges_padded)
+            head = torch.empty(n, dtype=torch.int32, device="meta")
+            kernels.spmv_slab_carry(x.int(), head, head, g.row_offsets,
+                                    "sum")
+
+
+def test_spmv_wrappers_reject_bad_arguments():
+    _, g = hub_graph()
+    off, col, fl = g.row_offsets, g.col_indices, g.csr_seg_flags
+    x = torch.zeros(g.n_vertices_padded)
+    w = g.values.float()
+    bad = [
+        lambda: kernels.spmv_rows(off, col, w, x.double()),      # f64 x
+        lambda: kernels.spmv_rows(off, col, w[:-1], x),          # short w
+        lambda: kernels.spmv_rows(off.long(), col, w, x),        # int64 off
+        lambda: kernels.spmv_slabs(off, col, w, fl, x, "max", "sum"),
+        lambda: kernels.spmv_slabs(off, col, w, fl, x, "mul", "max"),
+        lambda: kernels.spmv_slabs(off, col, None, fl, x, "mul", "sum"),
+        lambda: kernels.spmv_slabs(off, col, w, fl[:-1], x, "mul", "sum"),
+        lambda: kernels.spmv_slab_carry(x.int()[:-1], x.int(), x.int(),
+                                        off, "sum"),
+        lambda: tws.windowed_pipeline(g, x, message="sub", reduce="sum"),
+        lambda: tfs.spmv_fused(g, torch.zeros(g.n_vertices_padded + 1)),
+    ]
+    for i, call in enumerate(bad):
+        with pytest.raises(EssentialsError):
+            call()
+            pytest.fail(f"case {i} did not raise")
+
+
+@pytest.mark.parametrize("variant", ["pull", "push"])
+def test_unported_spmv_variants_raise(variant):
+    _, g = hub_graph()
+    with pytest.raises(EssentialsError, match="queue 1, item 8"):
+        tspmv.run(g, variant=variant)
