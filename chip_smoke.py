@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA GPU: fused BFS, then
-SpMV (fused and windowed) with PageRank and HITS on it.
+SpMV (fused and windowed) with PageRank and HITS on it, then SSSP (fused
+and windowed) and k-core.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -46,7 +47,37 @@ raises and exits non-zero:
    kernel against its plain version at scale 18, PageRank and HITS ms per
    iteration; then torch.profiler's device-busy share over ten spmv.run
    calls of each variant at each scale (after a warm-up step inside the
-   profiler, and with the launches the trace saw against those made).
+   profiler, and with the launches the trace saw against those made);
+9. SSSP and k-core kernels: on the weighted undirected RMAT graphs of
+   scales 12 and 18 (edge factor 16, seed 1), every sweep of one SSSP
+   search (sssp_sweep; replaces fused_sssp.fused_sssp_superstep), the
+   collapse (collapse_starts), the predecessors (sssp_predecessors) and
+   one k-core run (expand_segments for the initial degrees, every wave's
+   kcore_sweep, then collapse_starts), each kernel against its plain
+   version from the same input, exactly, and against a second launch,
+   bitwise;
+10. SSSP and k-core main path on the suite's graph gen:rmat20x16 (scale
+   20, edge factor 16, seed 1, undirected, weighted). First its kernels at
+   that graph's shapes, each against its plain version and a second launch
+   as in phase 9: the whole of phase 9's search and peeling, every sweep
+   of a windowed search (spmv_slabs<add,min> and spmv_slab_carry<min> from
+   states holding +inf) and every level of a BFS in both forms, from the
+   highest-degree vertex. Then sssp.run(variant=
+   "fused") and sssp.run(variant="windowed") from the 8 highest-degree
+   sources and one kcore.run, each run with the launch counters set to 0
+   just before it and read just after, which must show exactly the
+   launches it makes; fused and windowed bitwise equal with equal sweep
+   counts; 2 sources against a float64 host Dijkstra (rtol 1e-5, the reach
+   set exact); every predecessor checked on the host; the core numbers
+   against the host peeling; and one bfs.run(variant="fused") on the same
+   graph against cpu_reference. Sweep and level counts are printed beside
+   the TPU history (TPU_HISTORY), which is not a gate;
+11. SSSP and k-core times on CUDA events: ms per search and relaxations
+   per second per variant, k-core ms and waves at scale 20, and each
+   wave's kcore_sweep time beside the vertices alive before it, their edges
+   and their largest degree; each new kernel against its plain version at
+   scale 18; torch.profiler's device-busy share over each of the three
+   paths (after a warm-up step).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -82,8 +113,19 @@ BYTES_PER_EDGE = 12.0  # bench.py's SpMV model: value + column + x gather
 HOST_TOLS = {"pr": ((1e-6, 1e-4), (1e-9, 1e-4)),
              "hits": ((1e-4, 1e-3), (1e-7, 1e-4))}
 
+SSSP_SCALES = (12, 18)  # kernel checks: weighted undirected, seed 1
+MAIN_SCALE = 20        # gen:rmat20x16, benchmarks/run_benchmarks.py:36-39
+SSSP_RUNS = 8          # sources: the highest-degree vertices
+DIJKSTRA_SOURCES = 2   # sources held against the float64 host Dijkstra
+SSSP_RTOL = 1e-5
+KCORE_CYCLES = 3       # timed k-core runs; the median is reported
+# sweep and level counts at rmat20 recorded on the TPU (ROADMAP queue 1):
+# printed beside the port's, not a gate
+TPU_HISTORY = {"sssp": 9, "kcore": 814, "bfs": 6}
+
 SOURCE = "essentials_tpu_torch/csrc/bfs_kernels.cu"
 SPMV_SOURCE = "essentials_tpu_torch/csrc/spmv_kernels.cu"
+SSSP_SOURCE = "essentials_tpu_torch/csrc/sssp_kcore_kernels.cu"
 REPLACES = {
     "bfs_level<int32>": "essentials_tpu/ops/fused_bfs.py:327",
     "bfs_level<int8>": "essentials_tpu/ops/fused_bfs.py:425",
@@ -95,6 +137,13 @@ SPMV_REPLACES = {
     "spmv_rows": "essentials_tpu/ops/fused_spmv.py:179",
     "spmv_slabs": "essentials_tpu/ops/windowed_spmv.py:454",
     "spmv_slab_carry": "essentials_tpu/ops/windowed_spmv.py:454",
+}
+SSSP_REPLACES = {
+    "sssp_sweep": "essentials_tpu/ops/fused_sssp.py:132",
+    "sssp_predecessors": "essentials_tpu/ops/cube_router.py:586",
+    "kcore_sweep": "essentials_tpu/ops/fused_kcore.py:144",
+    "collapse_starts": "essentials_tpu/ops/cube_router.py:385",
+    "expand_segments": "essentials_tpu/ops/scan_kernels.py:274",
 }
 
 
@@ -548,6 +597,365 @@ def time_pr_hits(g, card: str) -> None:
               f"(after one warm-up run)")
 
 
+# ------------------------------------------------------------- phase 9 --
+
+def weighted_graph(scale: int, device: str):
+    """The weighted undirected RMAT graph of ``scale`` (edge factor 16,
+    seed 1); at scale 20 the suite's gen:rmat20x16."""
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    t0 = time.perf_counter()
+    csr = Csr.from_coo(generate.rmat(scale, EDGE_FACTOR, seed=SEED,
+                                     undirected=True, weighted=True))
+    g = build_graph(csr, directed=False, weighted=True, device=device)
+    deg = np.diff(csr.row_offsets)
+    print(f"graph: rmat{scale} ef{EDGE_FACTOR} seed {SEED} undirected "
+          f"weighted: V={g.n_vertices} E={g.n_edges} Vp={g.n_vertices_padded} "
+          f"Ep={g.n_edges_padded}, max degree {int(deg.max())}, "
+          f"{int((deg == 0).sum())} isolated, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return csr, g
+
+
+def hold_exact(name: str, ks, agains, plains, errs: dict, where: str) -> None:
+    """Each kernel output (int32) against a second launch's and the plain
+    version's, bitwise."""
+    torch.cuda.synchronize()
+    for k, again, p in zip(ks, agains, plains):
+        check(torch.equal(k, again), f"{name} gives other bits on a second "
+                                     f"launch ({where})")
+        e = max_err(k, p)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"{name} differs from plain ({where})")
+
+
+def check_sssp_kcore_kernels(csr, g, where: str, errs: dict) -> None:
+    """Every sweep of one SSSP search from the highest-degree vertex and
+    every wave of one k-core run (its initial expansion included), each
+    kernel launched twice and its plain version once on the same input; the
+    search goes on from the kernel's output."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    from essentials_tpu_torch.ops import fused_sssp as FS
+    off, src, w = g.row_offsets, g.csc_src_indices, FS.csc_weights(g)
+    source = int(np.argmax(np.diff(csr.row_offsets)))
+    d, sweeps = FS.init_dist_exp(g, source), 0
+    while True:
+        outs = [d.clone() for _ in range(3)]
+        cnt = [K.sssp_sweep(d, o, off, src, w) for o in outs[:2]]
+        cnt_p = K.sssp_sweep_plain(d, outs[2], off, src, w)
+        hold_exact("sssp_sweep", (outs[0], cnt[0]), (outs[1], cnt[1]),
+                   (outs[2], cnt_p), errs, f"{where} sweep {sweeps}")
+        d, sweeps = outs[0], sweeps + 1
+        if cnt[0].item() == 0:
+            break
+    args = (d, off, FS.INF_BITS, source)
+    dist = K.collapse_starts(*args)
+    hold_exact("collapse_starts", (dist,), (K.collapse_starts(*args),),
+               (K.collapse_starts_plain(*args),), errs, f"{where} sssp")
+    args = (dist.view(torch.float32), g.csc_offsets, src, w, g.n_edges)
+    pred = K.sssp_predecessors(*args)
+    hold_exact("sssp_predecessors", (pred,), (K.sssp_predecessors(*args),),
+               (K.sssp_predecessors_plain(*args),), errs, where)
+    args = (torch.where(g.vertex_mask(), g.out_degrees(), -1).int(), off,
+            g.n_edges_padded)
+    deg = FK.init_deg_exp(g)
+    hold_exact("expand_segments", (deg,), (K.expand_segments(*args),),
+               (K.expand_segments_plain(*args),), errs, f"{where} kcore")
+    core = torch.zeros_like(deg)
+    k, waves = FK.first_level(g), 0
+    while k < FK.IMAX:
+        outs = [t.clone() for _ in range(3) for t in (deg, core)]
+        s = [K.kcore_sweep(deg, core, outs[i], outs[i + 1], off, src, k)
+             for i in (0, 2)]
+        s_p = K.kcore_sweep_plain(deg, core, outs[4], outs[5], off, src, k)
+        hold_exact("kcore_sweep", (*outs[:2], s[0]), (*outs[2:4], s[1]),
+                   (*outs[4:], s_p), errs, f"{where} wave {waves}, k {k}")
+        deg, core, waves = outs[0], outs[1], waves + 1
+        k = FK.next_level(k, int(s[0][1]))
+    args = (core, off, 0)
+    hold_exact("collapse_starts", (K.collapse_starts(*args),),
+               (K.collapse_starts(*args),), (K.collapse_starts_plain(*args),),
+               errs, f"{where} kcore")
+    print(f"kernels: {where}: sssp from {source}: {sweeps} sweeps, "
+          f"{int(torch.isfinite(dist.view(torch.float32)).sum())} reached, "
+          f"{int((pred >= 0).sum())} predecessors; kcore: {waves} waves; "
+          f"every kernel exact against plain and repeatable")
+
+
+# ------------------------------------------------------------ phase 10 --
+
+def check_windowed_sssp_kernels(g, source: int, where: str,
+                                errs: dict) -> int:
+    """spmv_slabs<add,min> and spmv_slab_carry<min> at every sweep of one
+    windowed SSSP search from ``source``, on the inputs the search gives
+    them (distances that are +inf but for those reached), each launched
+    twice and its plain version once, exactly; the search goes on from the
+    kernels' output. Returns the sweeps."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    off, col, fl, w = (g.row_offsets, g.col_indices, g.csr_seg_flags,
+                       edge_weights(g))
+    dist = torch.full((g.n_vertices_padded,), K.INF_BITS, dtype=torch.int32,
+                      device=g.device)
+    dist[source] = 0
+    sweeps = 0
+    while True:
+        args = (off, col, w, fl, dist.view(torch.float32), "add", "min")
+        out = K.spmv_slabs(*args)
+        hold_exact("spmv_slabs", out, K.spmv_slabs(*args),
+                   K.spmv_slabs_plain(*args), errs,
+                   f"{where} windowed sweep {sweeps}")
+        cand = K.spmv_slab_carry(out[0].clone(), *out[1:], off, "min")
+        hold_exact("spmv_slab_carry", (cand,),
+                   (K.spmv_slab_carry(out[0].clone(), *out[1:], off, "min"),),
+                   (K.spmv_slab_carry_plain(out[0].clone(), *out[1:], off,
+                                            "min"),),
+                   errs, f"{where} windowed sweep {sweeps}")
+        improved = cand < dist
+        dist = torch.where(improved, cand, dist)
+        sweeps += 1
+        if not bool(improved.any()):
+            return sweeps
+
+
+def host_dijkstra(csr, source: int) -> np.ndarray:
+    """float64 host Dijkstra (scipy.sparse.csgraph)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    n = csr.n_rows
+    a = csr_matrix((np.asarray(csr.values, np.float64), csr.col_indices,
+                    csr.row_offsets), shape=(n, n))
+    return dijkstra(a, directed=True, indices=source)
+
+
+class HostCsc:
+    """The CSC order of ``csr`` (sorted by dst, then src), built on the
+    host, for checking predecessors."""
+
+    def __init__(self, csr):
+        n = csr.n_rows
+        src = np.repeat(np.arange(n), np.diff(csr.row_offsets))
+        order = np.lexsort((src, csr.col_indices))
+        self.s, self.d = src[order], csr.col_indices[order]
+        self.w = np.asarray(csr.values, np.float32)[order]
+
+    def sssp_predecessors(self, dist: np.ndarray) -> np.ndarray:
+        """Smallest-id in-neighbour whose float32 distance plus the edge's
+        weight is the vertex's distance; -1 unless that is finite and above
+        0."""
+        ok = (dist[self.s] + self.w) == dist[self.d]
+        pred = np.full(dist.size, -1, np.int64)
+        v, first = np.unique(self.d[ok], return_index=True)
+        pred[v] = self.s[ok][first]
+        pred[~(np.isfinite(dist) & (dist > 0))] = -1
+        return pred
+
+
+def sssp_kcore_main_path(csr, g) -> tuple:
+    """SSSP (both variants, SSSP_RUNS sources), k-core and one BFS on the
+    rmat20 graph, each run with the launch counts set to 0 just before it
+    and read just after, which must be exactly the launches it makes.
+    Returns ({path: {kernel: launches summed over its runs}}, the sources,
+    {variant: the SSSP results})."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import bfs, kcore, sssp
+    sources = np.argsort(-np.diff(csr.row_offsets))[:SSSP_RUNS].astype(int)
+    by_path, runs = {}, {}
+
+    def run_counted(path: str, fn, expect):
+        r, launches = counted(fn)
+        ran = {k: n for k, n in launches.items() if n}
+        check(ran == expect(r), f"{path} launched {ran}, expected "
+                                f"{expect(r)}")
+        total = by_path.setdefault(path, dict.fromkeys(K.launches, 0))
+        for k, n in launches.items():
+            total[k] += n
+        return r
+
+    expect = {
+        "fused": lambda r: {"sssp_sweep": r.iterations, "collapse_starts": 1,
+                            "sssp_predecessors": 1},
+        "windowed": lambda r: {"spmv_slabs": r.iterations,
+                               "spmv_slab_carry": r.iterations,
+                               "sssp_predecessors": 1},
+    }
+    for v in sssp.VARIANTS:
+        runs[v] = [run_counted(f"sssp {v}", lambda s=s, v=v: sssp.run(
+            g, int(s), variant=v, warmup=False), expect[v]) for s in sources]
+        ran = {k: n for k, n in by_path[f"sssp {v}"].items() if n}
+        print(f"main path: sssp {v} rmat{MAIN_SCALE}: sweeps per source "
+              f"{[r.iterations for r in runs[v]]} (TPU history: "
+              f"{TPU_HISTORY['sssp']}); launches over {SSSP_RUNS} runs {ran}, "
+              f"exact per run")
+    host_csc = HostCsc(csr)
+    for i, s in enumerate(sources):
+        rf, rw = runs["fused"][i], runs["windowed"][i]
+        d = rf.distances.cpu().numpy()
+        p = rf.predecessors.cpu().numpy()
+        check(d.shape == p.shape == (g.n_vertices,), "result shapes")
+        check(np.array_equal(d.view(np.int32),
+                             rw.distances.cpu().numpy().view(np.int32))
+              and np.array_equal(p, rw.predecessors.cpu().numpy())
+              and rf.iterations == rw.iterations,
+              f"sssp fused and windowed disagree from source {s}")
+        check(d[s] == 0 and bool(np.all(d >= 0)),
+              f"sssp distances from source {s}: source not 0 or negative")
+        check(np.array_equal(p, host_csc.sssp_predecessors(d)),
+              f"sssp predecessors from source {s} are not the smallest-id "
+              f"in-neighbours that achieve the distance")
+        if i < DIJKSTRA_SOURCES:
+            ref = host_dijkstra(csr, int(s))
+            reach = np.isfinite(ref)
+            check(np.array_equal(np.isfinite(d), reach),
+                  f"sssp reach set from source {s} differs from Dijkstra")
+            rel = float(np.max(np.abs(d[reach] - ref[reach])
+                               / np.maximum(ref[reach], 1e-300)))
+            check(rel <= SSSP_RTOL, f"sssp from source {s}: max rel err "
+                                    f"{rel} against Dijkstra")
+            print(f"main path: sssp from source {s}: {int(reach.sum())} "
+                  f"reached, max rel err {rel:.3g} against the float64 host "
+                  f"Dijkstra (rtol {SSSP_RTOL}), reach set exact")
+    print(f"main path: sssp fused == windowed bitwise with equal sweeps, "
+          f"predecessors of all {SSSP_RUNS} sources valid and smallest-id")
+
+    rk = run_counted("kcore", lambda: kcore.run(g, warmup=False),
+                     lambda r: {"expand_segments": 1,
+                                "kcore_sweep": r.iterations,
+                                "collapse_starts": 1})
+    core = rk.core.cpu().numpy()
+    check(np.array_equal(core, kcore.cpu_reference(csr)),
+          "kcore core numbers differ from the host peeling")
+    print(f"main path: kcore rmat{MAIN_SCALE}: {rk.iterations} waves (TPU "
+          f"history: {TPU_HISTORY['kcore']}), max core {int(core.max())}, "
+          f"equal to the host peeling; launches exact")
+
+    s = int(sources[0])
+    rb = run_counted(f"bfs rmat{MAIN_SCALE}",
+                     lambda: bfs.run(g, s, variant="fused", warmup=False),
+                     lambda r: {"bfs_level<int32>": r.iterations,
+                                "collapse_levels<int32>": 1,
+                                "bfs_predecessors": 1})
+    check(np.array_equal(rb.distances.cpu().numpy(),
+                         bfs.cpu_reference(csr, s)),
+          f"bfs distances at rmat{MAIN_SCALE} differ from cpu_reference")
+    print(f"main path: bfs fused rmat{MAIN_SCALE} from {s}: "
+          f"{rb.iterations} levels (TPU history: {TPU_HISTORY['bfs']}), "
+          f"distances equal cpu_reference; launches exact")
+    return by_path, sources, runs
+
+
+# ------------------------------------------------------------ phase 11 --
+
+def time_sssp_kcore(g, sources, runs, card: str) -> None:
+    """ms per search per SSSP variant over the sources (what sssp.run's
+    elapsed_ms covers: sweeps and collapse), and ms per k-core run."""
+    from essentials_tpu_torch.algorithms import sssp
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    max_it = g.n_vertices + 1
+    for v, search in sssp.VARIANTS.items():
+        ms = median_ms(lambda _: [search(g, int(s), max_it)
+                                  for s in sources]) / len(sources)
+        sweeps = sum(r.iterations for r in runs[v]) / len(sources)
+        print(f"time [{card}]: sssp {v} rmat{MAIN_SCALE}: {ms:.4f} ms per "
+              f"search (median of {CYCLES} cycles of {len(sources)} "
+              f"sources), {sweeps:.2f} sweeps per search, "
+              f"{ms / sweeps:.4f} ms per sweep, "
+              f"{g.n_edges * sweeps / ms / 1e6:.3f} G relaxations/s")
+    max_it = 4 * g.n_vertices + 8
+    waves = FK.run_fused_kcore(g, max_it)[1]
+    ms = median_ms(lambda _: FK.run_fused_kcore(g, max_it), KCORE_CYCLES)
+    print(f"time [{card}]: kcore fused rmat{MAIN_SCALE}: {ms:.4f} ms per run "
+          f"(median of {KCORE_CYCLES}), {waves} waves, "
+          f"{ms / waves:.4f} ms per wave")
+
+
+def time_kcore_waves(g, card: str) -> None:
+    """Each k-core wave's kcore_sweep on CUDA events, beside how many
+    vertices were alive before it, their edges and their largest degree:
+    a wave costs one warp per vertex plus a scan of every survivor's
+    in-edges, the largest on one warp."""
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    nonempty = g.row_offsets[1:] > g.row_offsets[:-1]
+    starts = g.row_offsets[:-1][nonempty].long()
+    deg0 = g.out_degrees()[nonempty].long()
+    deg = FK.init_deg_exp(g)
+    core = torch.zeros_like(deg)
+    spare = [deg.clone(), core.clone()]
+    k, rows = FK.first_level(g), []
+    while k < FK.IMAX:
+        alive = deg[starts] >= 0
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        s = FK.fused_kcore_sweep(g, deg, core, k, *spare)
+        e1.record()
+        min_alive = int(s[1])
+        rows.append((e0.elapsed_time(e1), int(alive.sum()),
+                     int(deg0[alive].sum()), int(deg0[alive].max())))
+        deg, core, spare = spare[0], spare[1], [deg, core]
+        k = FK.next_level(k, min_alive)
+    ms = np.array([r[0] for r in rows])
+    for i in sorted({0, len(rows) // 10, len(rows) // 2, 9 * len(rows) // 10,
+                     len(rows) - 1}):
+        t, n, e, hub = rows[i]
+        print(f"time [{card}]: kcore_sweep rmat{MAIN_SCALE} wave {i}: "
+              f"{t:.4f} ms; {n} vertices alive, {e} edges, largest degree "
+              f"{hub}")
+    print(f"time [{card}]: kcore_sweep rmat{MAIN_SCALE}: {len(rows)} waves, "
+          f"{ms.sum():.3f} ms in all, median {np.median(ms):.4f} ms, "
+          f"min {ms.min():.4f} ms, max {ms.max():.4f} ms per wave")
+
+
+def time_sssp_kcore_kernels(csr, g) -> dict:
+    """Each new kernel and its plain version, one call at a time through
+    its wrapper: sssp_sweep summed over the sweeps of one search from the
+    highest-degree vertex, each from its saved state; collapse_starts and
+    sssp_predecessors once per search; expand_segments once per k-core
+    run; kcore_sweep on the first wave, where every vertex is alive."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    from essentials_tpu_torch.ops import fused_sssp as FS
+    off, src, w = g.row_offsets, g.csc_src_indices, FS.csc_weights(g)
+    source = int(np.argmax(np.diff(csr.row_offsets)))
+    states, d = [], FS.init_dist_exp(g, source)
+    while True:
+        states.append(d)
+        d = d.clone()
+        if K.sssp_sweep(states[-1], d, off, src, w).item() == 0:
+            break
+    out = torch.empty_like(d)
+    t = {}
+    for name, fn in (("sssp_sweep", K.sssp_sweep),
+                     ("sssp_sweep/plain", K.sssp_sweep_plain)):
+        t[name] = sum(median_ms(lambda _, s=s: fn(s, out, off, src, w))
+                      for s in states)
+    for suffix, fn in (("", K.collapse_starts),
+                       ("/plain", K.collapse_starts_plain)):
+        t["collapse_starts" + suffix] = median_ms(
+            lambda _: fn(d, off, FS.INF_BITS, source))
+    args = (K.collapse_starts(d, off, FS.INF_BITS, source).view(
+        torch.float32), g.csc_offsets, src, w, g.n_edges)
+    for suffix, fn in (("", K.sssp_predecessors),
+                       ("/plain", K.sssp_predecessors_plain)):
+        t["sssp_predecessors" + suffix] = median_ms(lambda _: fn(*args))
+    args = (torch.where(g.vertex_mask(), g.out_degrees(), -1).int(), off,
+            g.n_edges_padded)
+    for suffix, fn in (("", K.expand_segments),
+                       ("/plain", K.expand_segments_plain)):
+        t["expand_segments" + suffix] = median_ms(lambda _: fn(*args))
+    deg = FK.init_deg_exp(g)
+    core = torch.zeros_like(deg)
+    outs = (torch.empty_like(deg), torch.empty_like(deg))
+    k = FK.first_level(g)
+    for suffix, fn in (("", K.kcore_sweep), ("/plain", K.kcore_sweep_plain)):
+        t["kcore_sweep" + suffix] = median_ms(
+            lambda _: fn(deg, core, *outs, off, src, k))
+    t["sweeps"] = len(states)
+    return t
+
+
 class Phases:
     """Prints each phase's seconds as it ends."""
 
@@ -730,22 +1138,76 @@ def main() -> None:
                 PROFILED_RUNS * KERNELS_PER_PRODUCT[v])
     phases.done("8 spmv times")
 
+    del csr20, g20, x20
+
+    # 9. SSSP and k-core kernels against their plain versions
+    errs.update({k: 0 for k in SSSP_REPLACES})
+    weighted = {}
+    for scale in SSSP_SCALES:
+        weighted[scale] = weighted_graph(scale, "cuda")
+        check_sssp_kcore_kernels(*weighted[scale], f"rmat{scale}", errs)
+    phases.done("9 sssp/kcore kernels")
+
+    # 10. the SSSP and k-core main path at rmat20
+    csr_m, g_m = weighted_graph(MAIN_SCALE, "cuda")
+    check(g_m.symmetric_layout, "rmat20 graph has no symmetric layout")
+    where = f"rmat{MAIN_SCALE}"
+    check_sssp_kcore_kernels(csr_m, g_m, where, errs)
+    top = int(np.argmax(np.diff(csr_m.row_offsets)))
+    sweeps = check_windowed_sssp_kernels(g_m, top, where, errs)
+    print(f"kernels: {where}: windowed sssp from {top}: {sweeps} sweeps, "
+          f"spmv_slabs<add,min> and spmv_slab_carry<min> exact against "
+          f"plain and repeatable")
+    check_kernels(g_m, top, errs)
+    phases.done("10a kernels at the main path's shapes")
+    sssp_launches, sssp_sources, sssp_runs = sssp_kcore_main_path(csr_m, g_m)
+    phases.done("10b sssp/kcore main path")
+
+    # 11. SSSP and k-core times
+    time_sssp_kcore(g_m, sssp_sources, sssp_runs, card)
+    time_kcore_waves(g_m, card)
+    csr18, g18 = weighted[SCALE]
+    t.update(time_sssp_kcore_kernels(csr18, g18))
+    for name in SSSP_REPLACES:
+        print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
+              f"{t[name + '/plain']:.4f} ms (weighted rmat{SCALE}; "
+              f"sssp_sweep summed over the {t['sweeps']} sweeps of one "
+              f"search, kcore_sweep the first wave)")
+    from essentials_tpu_torch.algorithms import kcore, sssp
+    for v in sssp.VARIANTS:
+        profile(f"sssp {v} rmat{MAIN_SCALE}, {SSSP_RUNS} sssp.run calls",
+                lambda v=v: [sssp.run(g_m, int(s), variant=v, warmup=False)
+                             for s in sssp_sources],
+                sum(sssp_launches[f"sssp {v}"].values()))
+    profile(f"kcore rmat{MAIN_SCALE}, one kcore.run",
+            lambda: kcore.run(g_m, warmup=False),
+            sum(sssp_launches["kcore"].values()))
+    phases.done("11 sssp/kcore times")
+
+    by_path = {f"bfs rmat{SCALE}": launches, **spmv_launches,
+               **sssp_launches}
     timed = {"spmv_rows": "spmv_rows<mul>",
              "spmv_slabs": "spmv_slabs<mul,sum>",
              "spmv_slab_carry": "spmv_slab_carry<sum>"}
+
+    def entry(name: str, source: str, replaces: str) -> dict:
+        key = timed.get(name, name)
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": sum(c[name] for c in by_path.values()),
+               "launches_by_path": {p: c[name] for p, c in by_path.items()
+                                    if c[name]},
+               "max_abs_err": errs[name], "ms": t[key],
+               "plain_ms": t[key + "/plain"]}
+        if name in SPMV_REPLACES:
+            out.update(max_rel_err=errs[name + "/rel"], timed=key)
+        return out
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": t[name],
-         "plain_ms": t[name + "/plain"]} for name in REPLACES] + [
-        {"name": name, "route": "cuda", "source": SPMV_SOURCE,
-         "replaces": SPMV_REPLACES[name],
-         "launches": sum(c[name] for c in spmv_launches.values()),
-         "launches_by_path": {p: c[name] for p, c in spmv_launches.items()
-                              if c[name]},
-         "max_abs_err": errs[name], "max_rel_err": errs[name + "/rel"],
-         "ms": t[timed[name]], "plain_ms": t[timed[name] + "/plain"],
-         "timed": timed[name]} for name in SPMV_REPLACES]}))
+        entry(n, src, r[n]) for src, r in ((SOURCE, REPLACES),
+                                           (SPMV_SOURCE, SPMV_REPLACES),
+                                           (SSSP_SOURCE, SSSP_REPLACES))
+        for n in r]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -6,10 +6,11 @@ same system with PyTorch around hand-written CUDA kernels for NVIDIA Hopper
 module, and imports neither JAX nor the JAX package.
 
 Ported so far: the host inputs (``formats``, ``io``), the padded ``graph``,
-and BFS on the fused edge-axis superstep (``ops.fused_bfs``,
-``algorithms.bfs``) with its three kernels (``kernels``,
-``csrc/bfs_kernels.cu``). Every function takes its device from its
-arguments; nothing picks CUDA by itself.
+BFS on the fused edge-axis superstep (``csrc/bfs_kernels.cu``), SpMV with
+PageRank and HITS on it (``csrc/spmv_kernels.cu``), and SSSP and k-core
+(``csrc/sssp_kcore_kernels.cu``); ``kernels`` builds and binds the CUDA
+sources. Every function takes its device from its arguments; nothing picks
+CUDA by itself.
 """
 
 __version__ = "0.1.0"

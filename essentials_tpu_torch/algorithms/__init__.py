@@ -1,7 +1,8 @@
 """Graph algorithms. Counterpart of ``essentials_tpu/algorithms``; ported so
 far: ``bfs`` (variants ``fused`` and ``fused8``), ``spmv`` (``fused`` and
-``windowed``), and ``pr`` and ``hits`` (``spmv``)."""
+``windowed``), ``pr`` and ``hits`` (``spmv``), ``sssp`` (``fused`` and
+``windowed``) and ``kcore`` (``fused``)."""
 
-from essentials_tpu_torch.algorithms import bfs, hits, pr, spmv
+from essentials_tpu_torch.algorithms import bfs, hits, kcore, pr, spmv, sssp
 
-__all__ = ["bfs", "hits", "pr", "spmv"]
+__all__ = ["bfs", "hits", "kcore", "pr", "spmv", "sssp"]

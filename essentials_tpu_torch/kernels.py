@@ -18,6 +18,15 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   ``add``, ``none`` by reductions ``sum``, ``min``), one block per slab of
   ``SLAB_EDGES`` edges, with ``spmv_slab_carry`` folding the rows that
   cross slabs, for ``windowed_spmv.windowed_pipeline`` :454.
+* ``csrc/sssp_kcore_kernels.cu`` (SSSP and k-core): ``sssp_sweep`` for
+  ``fused_sssp.fused_sssp_superstep`` :132; ``sssp_predecessors`` for the
+  MIN advance of ``sssp.predecessors_from_distances``; ``kcore_sweep`` for
+  ``fused_kcore.fused_kcore_sweep`` :144; ``collapse_starts`` for the routed
+  collapses ``collapse_dist_exp`` and ``collapse_core_exp``;
+  ``expand_segments`` for the expansion of k-core's ``init_deg_exp``
+  (``segment.expand_vertex_to_edges``, whose cumsum is
+  ``scan_kernels.scan_1d`` :274). The sweeps read one state buffer and
+  write another.
 
 Each kernel has a wrapper and a plain PyTorch version with the same
 arithmetic. The wrapper dispatches on the device of the tensors it is given:
@@ -59,7 +68,9 @@ LINK_FLAGS = (*_ARCH, "-shared")
 launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "collapse_levels<int32>": 0, "collapse_levels<int8>": 0,
             "bfs_predecessors": 0,
-            "spmv_rows": 0, "spmv_slabs": 0, "spmv_slab_carry": 0}
+            "spmv_rows": 0, "spmv_slabs": 0, "spmv_slab_carry": 0,
+            "sssp_sweep": 0, "sssp_predecessors": 0, "kcore_sweep": 0,
+            "collapse_starts": 0, "expand_segments": 0}
 
 _lib = None
 
@@ -141,6 +152,11 @@ def _library():
             "etpu_spmv_slab_carry_sum": (p, p, p, i, p, p),
             "etpu_spmv_slab_carry_min": (p, p, p, i, p, p),
             "etpu_spmv_slab_edges": (),
+            "etpu_sssp_sweep": (p, p, p, p, p, i, p, p),
+            "etpu_sssp_predecessors": (p, p, p, p, i, i, p, p),
+            "etpu_kcore_sweep": (p, p, p, p, p, p, i, i, p, p),
+            "etpu_collapse_starts": (p, p, i, i, i, p, p),
+            "etpu_expand_segments": (p, p, i, i, p, p),
         }
         for m in MESSAGES:
             for r in REDUCES:
@@ -498,3 +514,237 @@ def spmv_slab_carry(y: torch.Tensor, head: torch.Tensor,
             y.data_ptr())
     launches[name] += 1
     return y
+
+
+# ------------------------------------------------------ sssp and k-core --
+
+def _check_state(name: str, ep: int, **tensors) -> None:
+    for arg, t in tensors.items():
+        throw_if(t.dtype != torch.int32 or t.shape != (ep,),
+                 f"{name}: {arg} must be [Ep] = [{ep}] int32")
+
+
+def _check_weights(name: str, ep: int, w) -> None:
+    throw_if(w.dtype != torch.float32 or w.shape != (ep,),
+             f"{name}: w must be [Ep] = [{ep}] float32")
+
+
+def _check_disjoint(name: str, **tensors) -> None:
+    """The kernels read their inputs through __restrict__ pointers while
+    they write their outputs: no two of ``tensors`` may share memory."""
+    spans = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), a)
+             for a, t in tensors.items()]
+    for i, (lo, hi, a) in enumerate(spans):
+        for lo2, hi2, b in spans[i + 1:]:
+            throw_if(lo < hi2 and lo2 < hi,
+                     f"{name}: {a} and {b} must not share memory")
+
+
+def _start_values(state, offsets, empty: int):
+    """(non-empty mask [Vp], start positions [Vp] int64, state at each start
+    with ``empty`` at empty segments [Vp])."""
+    nonempty = offsets[1:] > offsets[:-1]
+    starts = torch.where(nonempty, offsets[:-1], 0).long()
+    return nonempty, starts, torch.where(nonempty, state[starts], empty)
+
+
+# ----------------------------------------------------------- sssp_sweep --
+
+def sssp_sweep_plain(dist_in, dist_out, offsets, csc_src, w):
+    """Plain version of ``sssp_sweep`` (same contract, same writes)."""
+    nonempty, starts, dv = _start_values(dist_in, offsets, INF_BITS)
+    msg = (dv.view(torch.float32)[csc_src.long()] + w).view(torch.int32)
+    s = torch.full_like(dv, INF_BITS).scatter_reduce_(
+        0, _segment_ids(offsets, w.numel()), msg, "amin")
+    dist_out[starts[nonempty]] = torch.minimum(s, dv)[nonempty]
+    return (nonempty & (s < dv)).sum(dtype=torch.int32).reshape(1)
+
+
+def sssp_sweep(dist_in: torch.Tensor, dist_out: torch.Tensor,
+               offsets: torch.Tensor, csc_src: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """One Bellman-Ford sweep on the edge axis of a symmetric-layout graph.
+
+    ``dist_in`` and ``dist_out`` ([Ep] int32, distinct buffers) hold float32
+    distance bits at segment starts. For each vertex v with a non-empty
+    segment, ``dist_out[offsets[v]]`` = the smaller of ``dist_in``'s value
+    there and the bits of min over v's in-edges q of f32(dist_in at the
+    start of csc_src[q]) + w[q]; ``w`` is [Ep] float32 in CSC order. No
+    other position is read or written. Returns the number of vertices whose
+    distance fell, int32 [1], on the state's device."""
+    name = "sssp_sweep"
+    ep = csc_src.numel()
+    _check_state(name, ep, dist_in=dist_in, dist_out=dist_out)
+    _check_weights(name, ep, w)
+    _check_graph(name, ep, offsets, csc_src)
+    kernel = _route(name, dist_in)
+    _check_disjoint(name, dist_in=dist_in, dist_out=dist_out)
+    if not kernel:
+        return sssp_sweep_plain(dist_in, dist_out, offsets, csc_src, w)
+    dev = dist_in.device
+    _check(name, dev, dist_in=dist_in, dist_out=dist_out, offsets=offsets,
+           csc_src=csc_src, w=w)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch("etpu_sssp_sweep", dev, dist_in.data_ptr(), dist_out.data_ptr(),
+            offsets.data_ptr(), csc_src.data_ptr(), w.data_ptr(),
+            offsets.numel() - 1, count.data_ptr())
+    launches[name] += 1
+    return count
+
+
+# ---------------------------------------------------- sssp_predecessors --
+
+def sssp_predecessors_plain(dist, offsets, csc_src, w, n_edges: int):
+    """Plain version of ``sssp_predecessors``."""
+    seg = _segment_ids(offsets, csc_src.numel())[:n_edges]
+    src = csc_src[:n_edges].long()
+    ok = dist[src] + w[:n_edges] == dist[seg]
+    cand = torch.where(ok, src, INT32_MAX)
+    best = torch.full((dist.numel(),), INT32_MAX, dtype=torch.int64,
+                      device=dist.device)
+    best.scatter_reduce_(0, seg, cand, "amin")
+    valid = torch.isfinite(dist) & (dist > 0) & (best < INT32_MAX)
+    return torch.where(valid, best, -1).int()
+
+
+def sssp_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
+                      csc_src: torch.Tensor, w: torch.Tensor,
+                      n_edges: int) -> torch.Tensor:
+    """[Vp] int32: the smallest-id in-neighbour u over the real in-edges q
+    (CSC slots below ``n_edges``) with f32(dist[u] + w[q]) == dist[v]; -1
+    unless dist[v] is finite and above 0 and such an edge exists. ``dist``
+    is [Vp] float32, ``offsets`` the CSC offsets, ``w`` [Ep] float32 in CSC
+    order."""
+    name = "sssp_predecessors"
+    vp, ep = offsets.numel() - 1, csc_src.numel()
+    throw_if(dist.dtype != torch.float32 or dist.shape != (vp,),
+             f"{name}: dist must be [Vp] float32")
+    _check_weights(name, ep, w)
+    _check_graph(name, ep, offsets, csc_src)
+    throw_if(not 0 <= n_edges <= ep, f"{name}: n_edges out of range")
+    if not _route(name, dist):
+        return sssp_predecessors_plain(dist, offsets, csc_src, w, n_edges)
+    _check(name, dist.device, dist=dist, offsets=offsets, csc_src=csc_src,
+           w=w)
+    pred = torch.empty(vp, dtype=torch.int32, device=dist.device)
+    _launch("etpu_sssp_predecessors", dist.device, dist.data_ptr(),
+            offsets.data_ptr(), csc_src.data_ptr(), w.data_ptr(), vp,
+            n_edges, pred.data_ptr())
+    launches[name] += 1
+    return pred
+
+
+# ---------------------------------------------------------- kcore_sweep --
+
+def kcore_sweep_plain(deg_in, core_in, deg_out, core_out, offsets, csc_src,
+                      k: int):
+    """Plain version of ``kcore_sweep`` (same contract, same writes)."""
+    nonempty, starts, d = _start_values(deg_in, offsets, -1)
+    hit = ((d >= 0) & (d < k)).int()
+    cnt = torch.zeros_like(d).index_add_(
+        0, _segment_ids(offsets, csc_src.numel()), hit[csc_src.long()])
+    peeled = nonempty & (d >= 0) & (d < k)
+    survivor = nonempty & (d >= 0) & ~peeled
+    d2 = torch.where(peeled, -1, torch.where(survivor, d - cnt, d))
+    c2 = torch.where(peeled, k - 1, core_in[starts])
+    deg_out[starts[nonempty]] = d2[nonempty]
+    core_out[starts[nonempty]] = c2[nonempty]
+    alive = torch.where(survivor, d2, INT32_MAX).min()
+    return torch.stack([peeled.sum(dtype=torch.int32), alive.int()])
+
+
+def kcore_sweep(deg_in: torch.Tensor, core_in: torch.Tensor,
+                deg_out: torch.Tensor, core_out: torch.Tensor,
+                offsets: torch.Tensor, csc_src: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """One k-core peel wave on the edge axis of a symmetric-layout graph.
+
+    ``deg_*`` and ``core_*`` ([Ep] int32, four distinct buffers) hold each
+    segment's remaining degree (-1 once peeled) and core number at its
+    start. For each vertex v with a non-empty segment and degree d: when
+    0 <= d < k it is peeled (deg_out -1, core_out k - 1); when d >= k its
+    degree falls by its in-neighbours u with 0 <= deg_in(u) < k; otherwise
+    both are copied. No other position is read or written. Returns int32
+    [2] on the state's device: (vertices peeled, smallest surviving new
+    degree or INT32_MAX when none survives)."""
+    name = "kcore_sweep"
+    ep = csc_src.numel()
+    _check_state(name, ep, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
+                 core_out=core_out)
+    _check_graph(name, ep, offsets, csc_src)
+    throw_if(not -INT32_MAX <= k <= INT32_MAX, f"{name}: k out of range")
+    kernel = _route(name, deg_in)
+    _check_disjoint(name, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
+                    core_out=core_out)
+    if not kernel:
+        return kcore_sweep_plain(deg_in, core_in, deg_out, core_out, offsets,
+                                 csc_src, k)
+    dev = deg_in.device
+    _check(name, dev, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
+           core_out=core_out, offsets=offsets, csc_src=csc_src)
+    scalars = torch.empty(2, dtype=torch.int32, device=dev)
+    _launch("etpu_kcore_sweep", dev, deg_in.data_ptr(), core_in.data_ptr(),
+            deg_out.data_ptr(), core_out.data_ptr(), offsets.data_ptr(),
+            csc_src.data_ptr(), offsets.numel() - 1, k, scalars.data_ptr())
+    launches[name] += 1
+    return scalars
+
+
+# ------------------------------------------------------ collapse_starts --
+
+def collapse_starts_plain(exp, offsets, empty: int, source: int = -1):
+    """Plain version of ``collapse_starts``."""
+    out = _start_values(exp, offsets, empty)[2]
+    if source >= 0:
+        out[source] = 0
+    return out
+
+
+def collapse_starts(exp: torch.Tensor, offsets: torch.Tensor, empty: int,
+                    source: int = -1) -> torch.Tensor:
+    """Edge-axis state -> [Vp] int32: the value at each non-empty segment's
+    start, ``empty`` at empty segments, and 0 at ``source`` unless it is
+    -1."""
+    name = "collapse_starts"
+    _check_graph(name, exp.numel(), offsets)
+    _check_state(name, exp.numel(), exp=exp)
+    vp = offsets.numel() - 1
+    throw_if(not -1 <= source < vp, f"{name}: source {source} out of range")
+    if not _route(name, exp):
+        return collapse_starts_plain(exp, offsets, empty, source)
+    _check(name, exp.device, exp=exp, offsets=offsets)
+    out = torch.empty(vp, dtype=torch.int32, device=exp.device)
+    _launch("etpu_collapse_starts", exp.device, exp.data_ptr(),
+            offsets.data_ptr(), vp, empty, source, out.data_ptr())
+    launches[name] += 1
+    return out
+
+
+# ------------------------------------------------------ expand_segments --
+
+def expand_segments_plain(vals, offsets, n: int):
+    """Plain version of ``expand_segments``."""
+    return vals[_segment_ids(offsets, n)]
+
+
+def expand_segments(vals: torch.Tensor, offsets: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Per-vertex values -> [n] int32 on the edge axis: every position of
+    segment v, [offsets[v], offsets[v+1]), holds ``vals[v]`` ([Vp] int32).
+    The segments must cover [0, n): offsets[-1] == n."""
+    name = "expand_segments"
+    _check_graph(name, n, offsets)
+    vp = offsets.numel() - 1
+    throw_if(vals.dtype != torch.int32 or vals.shape != (vp,),
+             f"{name}: vals must be [Vp] = [{vp}] int32")
+    kernel = _route(name, vals)
+    throw_if(not 0 <= n <= INT32_MAX or int(offsets[-1]) != n,
+             f"{name}: the segments must cover [0, n), n = {n}")
+    if not kernel:
+        return expand_segments_plain(vals, offsets, n)
+    _check(name, vals.device, vals=vals, offsets=offsets)
+    out = torch.empty(n, dtype=torch.int32, device=vals.device)
+    _launch("etpu_expand_segments", vals.device, vals.data_ptr(),
+            offsets.data_ptr(), vp, n, out.data_ptr())
+    launches[name] += 1
+    return out

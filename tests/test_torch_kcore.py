@@ -1,0 +1,264 @@
+"""Port parity: essentials_tpu_torch's k-core (ops.fused_kcore,
+algorithms.kcore and the kernel wrappers' plain versions) against
+essentials_tpu's, on the CPU.
+
+Every value is an integer, so the tolerance is exact equality: degrees and
+core numbers at segment starts after each wave (the port writes only
+starts, the JAX CPU fallback whole segments), both scalars of each wave,
+the core numbers and the wave count of a whole run, and the host
+references. The JAX graphs are built with router plans and carried into
+the port with graph_from_arrays, so both packages compute on the same
+arrays."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from essentials_tpu.algorithms import kcore as jkcore
+from essentials_tpu.formats import Coo as JCoo
+from essentials_tpu.formats import Csr as JCsr
+from essentials_tpu.graph import build_graph as jbuild
+from essentials_tpu.io import generate as jgen
+from essentials_tpu.ops import cube_router
+from essentials_tpu.ops import fused_kcore as jfk
+
+from essentials_tpu_torch import kernels
+from essentials_tpu_torch.algorithms import kcore as tkcore
+from essentials_tpu_torch.errors import EssentialsError
+from essentials_tpu_torch.graph import graph_from_arrays
+from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
+from essentials_tpu_torch.ops import fused_kcore as tfk
+
+IMAX = np.iinfo(np.int32).max
+_jax_sweep = jax.jit(jfk.fused_kcore_sweep_ref)
+
+
+def carried(csr, directed=False):
+    """The JAX graph (with router plans) and the port's graph made from its
+    fields."""
+    gj = jbuild(csr, directed=directed, weighted=True, build_router=True)
+    fields = {f: np.asarray(getattr(gj, f)) for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return csr, gj, graph_from_arrays(fields, meta, "cpu")
+
+
+def isolated_coo():
+    """12 vertices; 0, 5 and 9 have no edges; a triangle with a tail and a
+    4-cycle with a chord."""
+    pairs = [(1, 2), (2, 3), (1, 3), (3, 4), (6, 7), (7, 8), (8, 10),
+             (10, 6), (6, 8), (10, 11)]
+    a, b = (np.array(x, np.int32) for x in zip(*pairs))
+    return JCoo(12, 12, np.concatenate([a, b]), np.concatenate([b, a]),
+                np.ones(2 * a.size, np.float32))
+
+
+def clique_tail_coo():
+    """The 4-clique with a pendant path of tests/test_algorithms.py."""
+    edges = [(a, b) for a in range(4) for b in range(4) if a != b]
+    edges += [(3, 4), (4, 3), (4, 5), (5, 4)]
+    src = np.array([e[0] for e in edges], np.int32)
+    dst = np.array([e[1] for e in edges], np.int32)
+    return JCoo(6, 6, src, dst, np.ones(len(edges), np.float32))
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return {
+        "rmat10": carried(JCsr.from_coo(jgen.rmat(10, 16, seed=4,
+                                                  undirected=True,
+                                                  weighted=True))),
+        "rmat11": carried(JCsr.from_coo(jgen.rmat(11, 8, seed=2,
+                                                  undirected=True,
+                                                  weighted=True))),
+        "grid16": carried(JCsr.from_coo(jgen.grid_2d(16, weighted=True))),
+        "isolated": carried(JCsr.from_coo(isolated_coo())),
+        "clique_tail": carried(JCsr.from_coo(clique_tail_coo())),
+    }
+
+
+NAMES = ["clique_tail", "grid16", "isolated", "rmat10", "rmat11"]
+
+
+def starts_of(g):
+    off = g.row_offsets.numpy()
+    return off[:-1][off[1:] > off[:-1]]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_sweeps_match_jax_fallback(graphs, name):
+    _, gj, g = graphs[name]
+    starts = starts_of(g)
+    dj = jfk.init_deg_exp(gj)
+    cj = jax.numpy.zeros_like(dj)
+    d = tfk.init_deg_exp(g)
+    assert np.array_equal(d.numpy(), np.asarray(dj))
+    c = torch.zeros_like(d)
+    d2, c2 = d.clone(), c.clone()
+    k = tfk.first_level(g)
+    sweeps = 0
+    while k < IMAX:
+        dj, cj, cnt_j, ma_j = _jax_sweep(gj, dj, cj, k)
+        scalars = tfk.fused_kcore_sweep(g, d, c, k, d2, c2)
+        d, d2, c, c2 = d2, d, c2, c
+        assert scalars.dtype == torch.int32 and scalars.shape == (2,)
+        peeled, min_alive = scalars.tolist()
+        assert (peeled, min_alive) == (int(cnt_j[0, 0]), int(ma_j[0, 0]))
+        assert peeled > 0, sweeps                # every wave peels
+        assert np.array_equal(d.numpy()[starts], np.asarray(dj)[starts])
+        assert np.array_equal(c.numpy()[starts], np.asarray(cj)[starts])
+        k = tfk.next_level(k, min_alive)
+        sweeps += 1
+    assert sweeps >= 2
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_expand_segments_matches_jax_expand(graphs, name):
+    """The expansion under init_deg_exp against JAX's
+    expand_vertex_to_edges, on values from a seed, bitwise."""
+    from essentials_tpu.ops.segment import expand_vertex_to_edges
+    _, gj, g = graphs[name]
+    vals = np.random.default_rng(5).integers(
+        -2**31, 2**31, g.n_vertices_padded, dtype=np.int64).astype(np.int32)
+    ref = expand_vertex_to_edges(jax.numpy.asarray(vals), gj.row_offsets,
+                                 gj.n_edges_padded)
+    out = kernels.expand_segments(torch.from_numpy(vals), g.row_offsets,
+                                  g.n_edges_padded)
+    assert out.dtype == torch.int32
+    assert np.array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("k_step", [0, 1])
+def test_sweep_matches_pallas_pipeline(graphs, k_step):
+    """One wave against the three Pallas kernels, run in interpret mode off
+    the TPU: the first wave, and one from a state two fallback waves in."""
+    _, gj, g = graphs["rmat10"]
+    assert isinstance(gj.route_fwd, cube_router.CubePlan)
+    dj = jfk.init_deg_exp(gj)
+    cj = jax.numpy.zeros_like(dj)
+    k = tfk.first_level(g)
+    for _ in range(2 * k_step):
+        dj, cj, _, ma = _jax_sweep(gj, dj, cj, k)
+        k = tfk.next_level(k, int(ma[0, 0]))
+    od, oc, cnt_j, ma_j = jfk.fused_kcore_sweep(gj, dj, cj, k)
+    d, c = torch.from_numpy(np.array(dj)), torch.from_numpy(np.array(cj))
+    d2, c2 = d.clone(), c.clone()
+    peeled, min_alive = tfk.fused_kcore_sweep(g, d, c, k, d2, c2).tolist()
+    starts = starts_of(g)
+    assert peeled == int(cnt_j[0, 0]) > 0
+    assert min_alive == int(ma_j[0, 0])
+    assert np.array_equal(d2.numpy()[starts], np.asarray(od)[starts])
+    assert np.array_equal(c2.numpy()[starts], np.asarray(oc)[starts])
+
+
+@pytest.mark.parametrize("variant", ["fused", "auto"])
+@pytest.mark.parametrize("name", NAMES)
+def test_run_matches_jax_and_cpu_reference(graphs, name, variant):
+    csr, gj, g = graphs[name]
+    r = tkcore.run(g, variant=variant, warmup=False)
+    assert r.core.dtype == torch.int32 and r.core.shape == (g.n_vertices,)
+    rj = jkcore.run(gj, variant="fused", warmup=False)
+    assert np.array_equal(r.core.numpy(), np.asarray(rj.core))
+    assert r.iterations == rj.iterations
+    assert np.array_equal(r.core.numpy(), jkcore.cpu_reference(csr))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_vectorised_cpu_reference_matches_jax(graphs, name):
+    csr = graphs[name][0]
+    ref = jkcore.cpu_reference(csr)
+    assert np.array_equal(tkcore.cpu_reference(csr), ref)
+
+
+def test_known_core_numbers(graphs):
+    assert tkcore.run(graphs["clique_tail"][2]).core.tolist() == \
+        [3, 3, 3, 3, 1, 1]
+    assert tkcore.run(graphs["isolated"][2]).core.tolist() == \
+        [0, 2, 2, 2, 1, 0, 2, 2, 2, 0, 2, 1]
+
+
+def test_edgeless_graph_runs_no_wave():
+    """With no edges the JAX package's k0 = IMAX + 1 wraps in int32, so it
+    runs one empty wave (ROADMAP queue 3); the port runs none. Both give
+    core 0 everywhere."""
+    e = np.zeros(0, np.int32)
+    _, gj, g = carried(JCsr.from_coo(JCoo(5, 5, e, e,
+                                          np.zeros(0, np.float32))))
+    assert jkcore.run(gj, variant="fused", warmup=False).iterations == 1
+    r = tkcore.run(g, warmup=False)
+    assert r.iterations == 0 and r.core.tolist() == [0] * 5
+
+
+# -------------------------------------------------------------- refusals --
+
+def test_unported_and_unsupported_runs_raise(graphs):
+    _, _, g = graphs["grid16"]
+    with pytest.raises(EssentialsError, match="queue 1, item 8"):
+        tkcore.run(g, variant="adaptive")
+    with pytest.raises(EssentialsError):
+        tkcore.run(g, variant="onion")
+    coo = jgen.rmat(8, 8, seed=2, undirected=False, weighted=True)
+    gd = carried(JCsr.from_coo(coo), directed=True)[2]
+    assert not gd.symmetric_layout
+    with pytest.raises(EssentialsError, match="queue 1, item 8"):
+        tkcore.run(gd)
+
+
+# -------------------------------------------------------------- wrappers --
+
+def test_wrappers_take_plain_version_on_cpu(graphs):
+    _, _, g = graphs["rmat10"]
+    kernels.reset_launches()
+    d = tfk.init_deg_exp(g)
+    c = torch.zeros_like(d)
+    k = tfk.first_level(g)
+    outs = [t.clone() for t in (d, c, d, c)]
+    s = kernels.kcore_sweep(d, c, outs[0], outs[1], g.row_offsets,
+                            g.csc_src_indices, k)
+    s_p = kernels.kcore_sweep_plain(d, c, outs[2], outs[3], g.row_offsets,
+                                    g.csc_src_indices, k)
+    assert torch.equal(s, s_p) and torch.equal(outs[0], outs[2])
+    assert torch.equal(outs[1], outs[3])
+    tfk.collapse_core_exp(g, outs[1])
+    assert all(n == 0 for n in kernels.launches.values())
+
+
+def test_wrapper_raises_on_other_devices(graphs):
+    g = graphs["clique_tail"][2].to("meta")
+    d = torch.empty(g.n_edges_padded, dtype=torch.int32, device="meta")
+    with pytest.raises(EssentialsError):
+        kernels.kcore_sweep(d, d.clone(), d.clone(), d.clone(),
+                            g.row_offsets, g.csc_src_indices, 1)
+    vals = torch.empty(g.n_vertices_padded, dtype=torch.int32, device="meta")
+    with pytest.raises(EssentialsError):
+        kernels.expand_segments(vals, g.row_offsets, g.n_edges_padded)
+
+
+def test_wrapper_rejects_bad_arguments(graphs):
+    _, _, g = graphs["clique_tail"]
+    off, src = g.row_offsets, g.csc_src_indices
+    d = tfk.init_deg_exp(g)
+    c = torch.zeros_like(d)
+    vals = g.out_degrees().int()
+    ep = g.n_edges_padded
+    bad = [
+        lambda: kernels.expand_segments(vals.long(), off, ep),
+        lambda: kernels.expand_segments(vals[1:], off, ep),
+        lambda: kernels.expand_segments(vals, off.long(), ep),
+        lambda: kernels.expand_segments(vals, off, ep + 1),   # not covered
+        lambda: kernels.expand_segments(vals, off, -1),
+        lambda: kernels.kcore_sweep(d, c, d, c.clone(), off, src, 2),
+        lambda: kernels.kcore_sweep(d, c, c.clone(), c, off, src, 2),
+        lambda: kernels.kcore_sweep(d, c, d.clone()[1:], c.clone(), off,
+                                    src, 2),
+        lambda: kernels.kcore_sweep(d.long(), c, d.clone(), c.clone(), off,
+                                    src, 2),
+        lambda: kernels.kcore_sweep(d, c, d.clone(), c.clone(), off,
+                                    src[:-1], 2),
+        lambda: kernels.kcore_sweep(d, c, d.clone(), c.clone(), off, src,
+                                    2**31),
+    ]
+    for i, call in enumerate(bad):
+        with pytest.raises(EssentialsError):
+            call()
+            pytest.fail(f"case {i} did not raise")

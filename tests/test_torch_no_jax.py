@@ -1,8 +1,9 @@
 """essentials_tpu_torch without JAX: the port and chip_smoke.py import
-neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank, HITS)
-run where importing jax fails, and, on a CUDA card, its kernels agree with
-their plain versions (the BFS kernels exactly, the SpMV kernels exactly
-under ``min`` and to |k - p| <= 1e-5 |p| + 1e-6 under ``sum``).
+neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank, HITS,
+SSSP, k-core) run where importing jax fails, and, on a CUDA card, its
+kernels agree with their plain versions (the BFS, SSSP and k-core kernels
+exactly, the SpMV kernels exactly under ``min`` and to
+|k - p| <= 1e-5 |p| + 1e-6 under ``sum``).
 
 This file imports no jax, so its card test runs on a machine without jax:
 
@@ -73,6 +74,16 @@ _MAIN_PATH = textwrap.dedent("""
                        rtol=1e-4, atol=1e-6)
     assert np.allclose(hits.run(g, max_iterations=8).auth.numpy(),
                        hits.cpu_reference(csr, 8)[0], rtol=1e-3, atol=1e-4)
+    from essentials_tpu_torch.algorithms import kcore, sssp
+    cw = Csr.from_coo(generate.rmat(9, 8, seed=2, weighted=True))
+    gw = build_graph(cw, directed=False, weighted=True, device="cpu")
+    ref = sssp.cpu_reference(cw, 1)
+    for variant in ("fused", "windowed"):
+        d = sssp.run(gw, 1, variant=variant).distances.numpy()
+        assert np.array_equal(np.isfinite(d), np.isfinite(ref))
+        assert np.allclose(d[np.isfinite(ref)], ref[np.isfinite(ref)],
+                           rtol=1e-5, atol=0)
+    assert np.array_equal(kcore.run(gw).core.numpy(), kcore.cpu_reference(cw))
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -188,3 +199,61 @@ def test_spmv_kernels_match_plain_versions_on_the_card():
     y = spmv.run(g, x, variant="windowed").y.cpu().numpy()
     assert np.allclose(y, spmv.cpu_reference(csr, x.cpu().numpy()),
                        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import kcore, sssp
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    from essentials_tpu_torch.ops import fused_sssp as FS
+
+    csr = Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=True))
+    g = build_graph(csr, directed=False, weighted=True, device="cuda")
+    off, src, w = g.row_offsets, g.csc_src_indices, FS.csc_weights(g)
+    source = int(np.argmax(np.diff(csr.row_offsets)))
+    kernels.reset_launches()
+    d = FS.init_dist_exp(g, source)
+    d_k, d_p = d.clone(), d.clone()
+    while True:
+        cnt = kernels.sssp_sweep(d, d_k, off, src, w)
+        cnt_p = kernels.sssp_sweep_plain(d, d_p, off, src, w)
+        assert torch.equal(d_k, d_p) and torch.equal(cnt, cnt_p)
+        d, d_k, d_p = d_k, d, d.clone()
+        if cnt.item() == 0:
+            break
+    dist = kernels.collapse_starts(d, off, FS.INF_BITS, source)
+    assert torch.equal(dist, kernels.collapse_starts_plain(
+        d, off, FS.INF_BITS, source))
+    args = (dist.view(torch.float32), g.csc_offsets, src, w, g.n_edges)
+    assert torch.equal(kernels.sssp_predecessors(*args),
+                       kernels.sssp_predecessors_plain(*args))
+    deg, core = FK.init_deg_exp(g), torch.zeros_like(d)
+    vals = torch.where(g.vertex_mask(), g.out_degrees(), -1).int()
+    assert torch.equal(deg, kernels.expand_segments_plain(
+        vals, off, g.n_edges_padded))
+    k = FK.first_level(g)
+    while k < FK.IMAX:
+        outs = [t.clone() for t in (deg, core, deg, core)]
+        s = kernels.kcore_sweep(deg, core, outs[0], outs[1], off, src, k)
+        s_p = kernels.kcore_sweep_plain(deg, core, outs[2], outs[3], off,
+                                        src, k)
+        assert torch.equal(s, s_p)
+        assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
+        deg, core = outs[:2]
+        k = FK.next_level(k, int(s[1]))
+    assert all(kernels.launches[n] > 0 for n in (
+        "sssp_sweep", "sssp_predecessors", "kcore_sweep", "collapse_starts",
+        "expand_segments"))
+    ref = sssp.cpu_reference(csr, source)
+    got = sssp.run(g, source).distances.cpu().numpy()
+    reach = np.isfinite(ref)
+    assert np.array_equal(np.isfinite(got), reach)
+    assert np.allclose(got[reach], ref[reach], rtol=1e-5, atol=0)
+    assert np.array_equal(kcore.run(g).core.cpu().numpy(),
+                          kcore.cpu_reference(csr))

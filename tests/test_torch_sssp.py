@@ -1,0 +1,322 @@
+"""Port parity: essentials_tpu_torch's SSSP (ops.fused_sssp, ops.windowed_sssp,
+algorithms.sssp and the kernel wrappers' plain versions) against
+essentials_tpu's, on the CPU.
+
+Both packages compute every distance as one float32 addition per edge and
+take exact minima of the results, so distances are compared bitwise and
+sweep counts exactly; predecessors and launch counts are integers. Sweeps
+are compared at segment starts: the port writes only starts, the JAX CPU
+fallback whole segments. Against the float64 host Dijkstra, distances are
+held to rtol 1e-5 (the float32 rounding of a path of a few dozen edges) and
+the reach set exactly. The JAX graphs are built with router plans and
+carried into the port with graph_from_arrays, so both packages compute on
+the same arrays."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from essentials_tpu.algorithms import sssp as jsssp
+from essentials_tpu.formats import Coo as JCoo
+from essentials_tpu.formats import Csr as JCsr
+from essentials_tpu.graph import build_graph as jbuild
+from essentials_tpu.io import generate as jgen
+from essentials_tpu.ops import cube_router
+from essentials_tpu.ops import fused_sssp as jfs
+from essentials_tpu.ops import windowed_spmv as jws
+from essentials_tpu.ops import windowed_sssp as jwss
+
+from essentials_tpu_torch import kernels
+from essentials_tpu_torch.algorithms import sssp as tsssp
+from essentials_tpu_torch.errors import EssentialsError
+from essentials_tpu_torch.formats import Coo, Csr
+from essentials_tpu_torch.graph import build_graph, graph_from_arrays
+from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
+from essentials_tpu_torch.ops import fused_sssp as tfs
+from essentials_tpu_torch.ops import windowed_sssp as twss
+
+RTOL = 1e-5
+_jax_sweep = jax.jit(jfs.fused_sssp_superstep_ref)
+_jax_run = jax.jit(jfs.run_fused_sssp, static_argnums=(2,))
+_jax_pred = jax.jit(jsssp.predecessors_from_distances)
+
+
+def carried(csr, directed=False):
+    """The JAX graph (with router plans) and the port's graph made from its
+    fields."""
+    gj = jbuild(csr, directed=directed, weighted=True, build_router=True)
+    fields = {f: np.asarray(getattr(gj, f)) for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return csr, gj, graph_from_arrays(fields, meta, "cpu")
+
+
+def isolated_coo():
+    """12 vertices; 0, 5 and 9 have no edges; two components."""
+    pairs = [(1, 2, 2.5), (2, 3, 1.0), (1, 3, 4.0), (3, 4, 0.5), (6, 7, 3.0),
+             (7, 8, 1.5), (8, 10, 2.0), (10, 11, 1.0), (6, 11, 9.0)]
+    a, b, w = (np.array(x) for x in zip(*pairs))
+    return JCoo(12, 12, np.concatenate([a, b]).astype(np.int32),
+                np.concatenate([b, a]).astype(np.int32),
+                np.concatenate([w, w]).astype(np.float32))
+
+
+def clique_tail_coo():
+    """The 4-clique with a pendant path of tests/test_algorithms.py."""
+    edges = [(a, b) for a in range(4) for b in range(4) if a != b]
+    edges += [(3, 4), (4, 3), (4, 5), (5, 4)]
+    src = np.array([e[0] for e in edges], np.int32)
+    dst = np.array([e[1] for e in edges], np.int32)
+    return JCoo(6, 6, src, dst, np.ones(len(edges), np.float32))
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return {
+        "rmat10": carried(JCsr.from_coo(jgen.rmat(10, 16, seed=4,
+                                                  undirected=True,
+                                                  weighted=True))),
+        "grid16": carried(JCsr.from_coo(jgen.grid_2d(16, weighted=True))),
+        "isolated": carried(JCsr.from_coo(isolated_coo())),
+        "clique_tail": carried(JCsr.from_coo(clique_tail_coo())),
+    }
+
+
+SOURCES = {"rmat10": (0, 37), "grid16": (3, 200), "isolated": (1, 0),
+           "clique_tail": (5, 0)}
+NAMES = sorted(SOURCES)
+
+
+def starts_of(g):
+    off = g.row_offsets.numpy()
+    return off[:-1][off[1:] > off[:-1]]
+
+
+def bits(t) -> np.ndarray:
+    return np.asarray(t).view(np.int32)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_sweeps_match_jax_fallback(graphs, name):
+    _, gj, g = graphs[name]
+    source = SOURCES[name][0]
+    starts = starts_of(g)
+    dj = jfs.init_dist_exp(gj, source)
+    d = tfs.init_dist_exp(g, source)
+    assert np.array_equal(d.numpy(), np.asarray(dj))
+    spare = d.clone()
+    for it in range(g.n_vertices + 1):
+        dj, cnt_j = _jax_sweep(gj, dj)
+        cnt = tfs.fused_sssp_superstep(g, d, spare)
+        d, spare = spare, d
+        assert cnt.dtype == torch.int32 and cnt.shape == (1,)
+        assert int(cnt) == int(cnt_j[0, 0]), it
+        assert np.array_equal(d.numpy()[starts], np.asarray(dj)[starts]), it
+        if int(cnt) == 0:
+            break
+    assert int(cnt) == 0 and it > 1
+
+
+def test_sweep_matches_pallas_pipeline(graphs):
+    """One sweep against the three Pallas kernels, run in interpret mode
+    off the TPU, from a state two fallback sweeps into the search."""
+    _, gj, g = graphs["rmat10"]
+    assert isinstance(gj.route_fwd, cube_router.CubePlan)
+    dj = jfs.init_dist_exp(gj, 0)
+    for _ in range(2):
+        dj = _jax_sweep(gj, dj)[0]
+    out_j, cnt_j = jfs.fused_sssp_superstep(gj, dj)
+    d = torch.from_numpy(np.array(dj))
+    spare = d.clone()
+    cnt = tfs.fused_sssp_superstep(g, d, spare)
+    starts = starts_of(g)
+    assert int(cnt) == int(cnt_j[0, 0]) > 0
+    assert np.array_equal(spare.numpy()[starts], np.asarray(out_j)[starts])
+
+
+@pytest.mark.parametrize("variant", ["fused", "windowed", "auto"])
+@pytest.mark.parametrize("name", NAMES)
+def test_run_matches_jax_fused(graphs, name, variant):
+    _, gj, g = graphs[name]
+    v = g.n_vertices
+    for source in SOURCES[name]:
+        r = tsssp.run(g, source, variant=variant, warmup=False)
+        assert r.distances.dtype == torch.float32
+        assert r.distances.shape == r.predecessors.shape == (v,)
+        d_j, it_j = _jax_run(gj, source, g.n_vertices + 1)
+        assert np.array_equal(bits(r.distances), bits(d_j)[:v]), source
+        assert r.iterations == int(it_j), source
+
+
+def test_auto_picks_windowed_where_supported(graphs, monkeypatch):
+    calls = []
+    for v, search in tsssp.VARIANTS.items():
+        monkeypatch.setitem(tsssp.VARIANTS, v, lambda *a, v=v, f=search: (
+            calls.append(v), f(*a))[1])
+    tsssp.run(graphs["grid16"][2], 0, warmup=False)
+    tsssp.run(directed_cycle()[1], 0, warmup=False)
+    assert calls == ["windowed", "fused"]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_predecessors_match_jax(graphs, name):
+    _, gj, g = graphs[name]
+    for source in SOURCES[name]:
+        d_j, _ = _jax_run(gj, source, g.n_vertices + 1)
+        pred = tsssp.predecessors_from_distances(
+            g, torch.from_numpy(np.array(d_j)))
+        assert np.array_equal(pred.numpy(), np.asarray(_jax_pred(gj, d_j)))
+        r = tsssp.run(g, source, warmup=False)
+        assert np.array_equal(r.predecessors.numpy(),
+                              pred.numpy()[:g.n_vertices])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_run_matches_cpu_reference(graphs, name):
+    csr, _, g = graphs[name]
+    for source in SOURCES[name]:
+        ref = jsssp.cpu_reference(csr, source)
+        assert np.array_equal(tsssp.cpu_reference(csr, source), ref)
+        d = tsssp.run(g, source, warmup=False).distances.numpy()
+        reach = np.isfinite(ref)
+        assert np.array_equal(np.isfinite(d), reach), source
+        np.testing.assert_allclose(d[reach], ref[reach], rtol=RTOL, atol=0)
+        assert d[source] == 0
+
+
+@pytest.mark.parametrize("seed", [4, 7])
+def test_windowed_matches_jax_windowed_ref(seed):
+    """Against the JAX windowed sweeps (their stage-exact reference) from
+    the highest-degree vertex, on graphs where that reference's output fits
+    its state (vp <= n_rseg + SLAB; ROADMAP queue 3)."""
+    csr, gj, g = carried(JCsr.from_coo(jgen.rmat(12, 8, seed=seed,
+                                                 undirected=True,
+                                                 weighted=True)))
+    source = int(np.argmax(np.diff(csr.row_offsets)))
+    plan = jws.build_windowed_plan(gj)
+    assert plan is not None and plan.vp <= plan.n_rseg + jws.SLAB
+    d_j, it_j = jwss.run_windowed_sssp(gj, plan, source, g.n_vertices + 1,
+                                       use_pallas=False)
+    d, it = twss.run_windowed_sssp(g, source, g.n_vertices + 1)
+    v = g.n_vertices
+    assert it == int(it_j) > 2
+    assert np.array_equal(bits(d)[:v], bits(d_j)[:v])
+    d_f, it_f = tfs.run_fused_sssp(g, source, g.n_vertices + 1)
+    assert it_f == it and np.array_equal(bits(d_f), bits(d))
+
+
+def test_carried_weighted_graph_gives_jax_sssp():
+    """A JAX-built weighted graph carried over (graph_from_arrays) and the
+    port's own build of the same edges give JAX's SSSP, bit for bit."""
+    coo = jgen.rmat(10, 8, seed=9, undirected=True, weighted=True)
+    csr, gj, g = carried(JCsr.from_coo(coo))
+    own = build_graph(Csr.from_coo(Coo(coo.n_rows, coo.n_cols, coo.row_indices,
+                                       coo.col_indices, coo.values)),
+                      directed=False, weighted=True, device="cpu")
+    assert torch.equal(own.csc_values, g.csc_values)
+    rj = jsssp.run(gj, 1, warmup=False, variant="fused")
+    for graph in (g, own):
+        r = tsssp.run(graph, 1, warmup=False)
+        assert np.array_equal(bits(r.distances), bits(rj.distances))
+        assert np.array_equal(r.predecessors.numpy(),
+                              np.asarray(rj.predecessors))
+        assert r.iterations == rj.iterations
+
+
+# -------------------------------------------------------------- refusals --
+
+def directed_cycle():
+    """A directed 5-cycle: in-degree == out-degree, so its layout is
+    symmetric, but its edges are not."""
+    n = 5
+    w = np.arange(1, n + 1, dtype=np.float32)
+    csr = Csr.from_coo(Coo(n, n, np.arange(n, dtype=np.int32),
+                           ((np.arange(n) + 1) % n).astype(np.int32), w))
+    return csr, build_graph(csr, directed=True, weighted=True, device="cpu")
+
+
+def test_unported_and_unsupported_runs_raise(graphs):
+    _, _, g = graphs["grid16"]
+    with pytest.raises(EssentialsError, match="queue 1, item 8"):
+        tsssp.run(g, 0, variant="adaptive")
+    with pytest.raises(EssentialsError):
+        tsssp.run(g, 0, variant="delta")
+    with pytest.raises(EssentialsError):
+        tsssp.run(g, g.n_vertices)
+    coo = jgen.rmat(8, 8, seed=2, undirected=False, weighted=True)
+    gd = carried(JCsr.from_coo(coo), directed=True)[2]
+    assert not gd.symmetric_layout
+    for variant in ("fused", "windowed"):
+        with pytest.raises(EssentialsError, match="queue 1, item 8"):
+            tsssp.run(gd, 0, variant=variant)
+
+
+def test_directed_symmetric_layout_runs_fused_only():
+    csr, g = directed_cycle()
+    assert g.symmetric_layout and g.properties.directed
+    assert tsssp.fused_supported(g) and not tsssp.windowed_supported(g)
+    with pytest.raises(EssentialsError, match="undirected"):
+        tsssp.run(g, 0, variant="windowed")
+    r = tsssp.run(g, 0, warmup=False)
+    assert np.array_equal(r.distances.numpy(), tsssp.cpu_reference(csr, 0))
+    assert r.predecessors.tolist() == [-1, 0, 1, 2, 3]
+
+
+# -------------------------------------------------------------- wrappers --
+
+def test_wrappers_take_plain_version_on_cpu(graphs):
+    _, _, g = graphs["grid16"]
+    kernels.reset_launches()
+    d = tfs.init_dist_exp(g, 0)
+    out = d.clone()
+    ref = d.clone()
+    w = tfs.csc_weights(g)
+    cnt = kernels.sssp_sweep(d, out, g.row_offsets, g.csc_src_indices, w)
+    cnt_p = kernels.sssp_sweep_plain(d, ref, g.row_offsets,
+                                     g.csc_src_indices, w)
+    assert torch.equal(out, ref) and torch.equal(cnt, cnt_p)
+    dist = tfs.collapse_dist_exp(g, out, 0)
+    tsssp.predecessors_from_distances(g, dist)
+    twss.sweep(g, dist.view(torch.int32))
+    assert all(n == 0 for n in kernels.launches.values())
+
+
+@pytest.mark.parametrize("call", ["sweep", "pred", "collapse"])
+def test_wrappers_raise_on_other_devices(graphs, call):
+    g = graphs["clique_tail"][2].to("meta")
+    d = torch.empty(g.n_edges_padded, dtype=torch.int32, device="meta")
+    w = torch.empty(g.n_edges_padded, device="meta")
+    with pytest.raises(EssentialsError):
+        if call == "sweep":
+            kernels.sssp_sweep(d, d.clone(), g.row_offsets,
+                               g.csc_src_indices, w)
+        elif call == "pred":
+            kernels.sssp_predecessors(
+                torch.empty(g.n_vertices_padded, device="meta"),
+                g.csc_offsets, g.csc_src_indices, w, g.n_edges)
+        else:
+            kernels.collapse_starts(d, g.row_offsets, tfs.INF_BITS, 0)
+
+
+def test_wrappers_reject_bad_arguments(graphs):
+    _, _, g = graphs["clique_tail"]
+    off, src = g.row_offsets, g.csc_src_indices
+    d = tfs.init_dist_exp(g, 0)
+    w = tfs.csc_weights(g)
+    dist = torch.zeros(g.n_vertices_padded)
+    bad = [
+        lambda: kernels.sssp_sweep(d, d, off, src, w),          # in place
+        lambda: kernels.sssp_sweep(d, d[1:], off, src, w),      # short out
+        lambda: kernels.sssp_sweep(d, d.clone(), off, src, w.double()),
+        lambda: kernels.sssp_sweep(d.float(), d.clone(), off, src, w),
+        lambda: kernels.sssp_predecessors(dist.double(), off, src, w, 1),
+        lambda: kernels.sssp_predecessors(dist, off, src, w,
+                                          g.n_edges_padded + 1),
+        lambda: kernels.collapse_starts(d, off, tfs.INF_BITS,
+                                        g.n_vertices_padded),
+        lambda: kernels.collapse_starts(d.long(), off, tfs.INF_BITS, 0),
+    ]
+    for i, call in enumerate(bad):
+        with pytest.raises(EssentialsError):
+            call()
+            pytest.fail(f"case {i} did not raise")
