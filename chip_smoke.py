@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA GPU: fused BFS, then
 SpMV (fused and windowed) with PageRank and HITS on it, then SSSP (fused
-and windowed) and k-core.
+and windowed) and k-core, then the operator layer with BFS and SSSP
+adaptive and SpMV pull and push on a directed graph.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -77,7 +78,41 @@ raises and exits non-zero:
    wave's kcore_sweep time beside the vertices alive before it, their edges
    and their largest degree; each new kernel against its plain version at
    scale 18; torch.profiler's device-busy share over each of the three
-   paths (after a warm-up step).
+   paths (after a warm-up step);
+12. operator kernels (scan, gather_payloads, segment_reduce,
+   advance_count; replace scan_kernels.scan_1d/segmented_scan_1d, the
+   cube_router/permute routes, segment.combine_by_offsets and
+   cube_router.apply_cube_chain_n) against their plain versions on the
+   directed weighted RMAT graphs of seed 3 at scales 12, 18 and 20 (the
+   graph of phase 8): scan under every op on int32 and float32, plain and
+   segmented; gather_payloads with 1-4 payloads; segment_reduce under its
+   five ops on both dtypes over the CSC and the CSR offsets;
+   advance_count; integers exact, floats within SCAN_RTOL / SUM_RTOL, and
+   every kernel bitwise equal to a second launch;
+13. the adaptive main path on that rmat20 graph, which has no symmetric
+   layout: bfs.run and sssp.run (variant "adaptive") from its 8 highest
+   out-degree sources, each with the launch counters set to 0 just before
+   it and read just after, which must show exactly the launches its tiers
+   make; BFS distances equal cpu_reference and predecessors the host's
+   smallest-id rule; SSSP within rtol 1e-5 of a float64 Dijkstra for 2
+   sources (reach set exact) and predecessors the host's; spmv.run(variant
+   "pull") and ("push") once each, held against float64; the steps each
+   tier took;
+14. adaptive times on CUDA events: ms per search, MTEPS and relaxations
+   per second, torch.profiler's device idle share over each path, and each
+   operator kernel's time per launch at the path's shapes beside its plain
+   version, its bound and a PyTorch call computing the same function.
+
+Every kernel's bound is the least time an H100 could take for its work:
+the larger of the bytes it must move (each input element it needs read
+once, each output written once) over the memory rate and its float
+operations over 67 TFLOP/s, computed from the shapes of the timed call.
+The memory rate is 3.35 TB/s (HBM) where one launch's bytes exceed the
+50 MiB L2, and the L2 rate where they fit, since the timed calls run back
+to back on the same operands. The L2 rate is measured in phase 1 of the
+same run (l2_rate): the extra bytes of a device-to-device copy of 12 MiB
+over one of 4 MiB, each repeated on the same buffers, over its extra time
+(never below 3.35 TB/s).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -103,7 +138,8 @@ SPMV_SCALES = (12, 18)  # kernel checks; 18 is the main path
 SPMV_TIME_SCALE = 20   # times only
 SPMV_REPS = 20         # products per timed cycle
 PROFILED_RUNS = 10     # spmv.run calls per variant under the profiler
-KERNELS_PER_PRODUCT = {"fused": 1, "windowed": 2}   # rows; slabs + carry
+# rows; slabs + carry; gather + segment reduce
+KERNELS_PER_PRODUCT = {"fused": 1, "windowed": 2, "pull": 2, "push": 2}
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6   # |k - p| <= SUM_RTOL |p| + SUM_ATOL
 PR_HITS_MAX_REL = 1e-4  # spmv_rows at PageRank's and HITS's inputs
 BYTES_PER_EDGE = 12.0  # bench.py's SpMV model: value + column + x gather
@@ -122,6 +158,17 @@ KCORE_CYCLES = 3       # timed k-core runs; the median is reported
 # sweep and level counts at rmat20 recorded on the TPU (ROADMAP queue 1):
 # printed beside the port's, not a gate
 TPU_HISTORY = {"sssp": 9, "kcore": 814, "bfs": 6}
+
+OP_SCALES = (12, 18)   # operator kernel checks, besides the rmat20 graph
+ADAPTIVE_RUNS = 8      # sources: the highest out-degree vertices
+SCAN_RTOL = 1e-4       # float add over a whole array: a float32 running sum
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
+# bytes per second by where a launch's operands live: HBM is the data
+# sheet's; L2 is measured in phase 1 (l2_rate)
+MEMORY_RATE = {"HBM": 3.35e12, "L2": None}
+L2_PROBE_MIB = (4, 12)  # the sizes of the two copies that l2_rate compares
+L2_COPIES = 50
 
 SOURCE = "essentials_tpu_torch/csrc/bfs_kernels.cu"
 SPMV_SOURCE = "essentials_tpu_torch/csrc/spmv_kernels.cu"
@@ -145,6 +192,13 @@ SSSP_REPLACES = {
     "collapse_starts": "essentials_tpu/ops/cube_router.py:385",
     "expand_segments": "essentials_tpu/ops/scan_kernels.py:274",
 }
+OP_SOURCE = "essentials_tpu_torch/csrc/operator_kernels.cu"
+OP_REPLACES = {
+    "scan": "essentials_tpu/ops/scan_kernels.py:274",
+    "gather_payloads": "essentials_tpu/ops/cube_router.py:385",
+    "segment_reduce": "essentials_tpu/ops/segment.py:97",
+    "advance_count": "essentials_tpu/ops/cube_router.py:754",
+}
 
 
 def check(cond: bool, what: str) -> None:
@@ -160,6 +214,60 @@ def rmat_graph(scale: int, device: str):
                                      undirected=True, weighted=False))
     return csr, build_graph(csr, directed=False, weighted=False,
                             device=device)
+
+
+def l2_rate() -> tuple:
+    """The L2's bytes per second: a device-to-device copy of each size in
+    L2_PROBE_MIB, L2_COPIES times back to back on the same two buffers (so
+    that both stay in the L2), replayed from a CUDA graph (so that the
+    host's launch rate does not set the pace; median of CYCLES replays on
+    CUDA events); the larger copy's extra bytes (read and written) over its
+    extra time, which cancels the fixed cost of each launch. Returns (that
+    rate, each copy's own rate)."""
+    ms, own = [], []
+    for mib in L2_PROBE_MIB:
+        a = torch.arange(mib * 2 ** 18, dtype=torch.int32, device="cuda")
+        b = torch.empty_like(a)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):           # warm-up outside the capture
+            b.copy_(a)
+        torch.cuda.current_stream().wait_stream(side)
+        copies = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(copies):
+            for _ in range(L2_COPIES):
+                b.copy_(a)
+        ms.append(median_ms(lambda _: copies.replay()) / L2_COPIES)
+        check(torch.equal(a, b), "the L2 probe's copy differs")
+        own.append(2 * mib * 2 ** 20 / (ms[-1] * 1e-3))
+    extra = 2 * (L2_PROBE_MIB[1] - L2_PROBE_MIB[0]) * 2 ** 20
+    check(ms[1] > ms[0], f"the L2 probe's larger copy took no longer: {ms}")
+    return extra / ((ms[1] - ms[0]) * 1e-3), own
+
+
+def bound(nbytes: float, ops: float = 0.0, launches: int = 1) -> tuple:
+    """(least ms, "bytes" or "operations", "L2" or "HBM"): the larger of
+    ``nbytes`` over the memory rate and ``ops`` over the float32 rate, for
+    ``launches`` launches that share the work evenly. The memory rate is
+    L2's where one launch's bytes fit the L2, else HBM's."""
+    memory = "L2" if nbytes / launches <= L2_BYTES else "HBM"
+    tb = nbytes / MEMORY_RATE[memory] * 1e3
+    to = ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes", memory) if tb >= to else (to, "operations", memory)
+
+
+def library_ms(label: str, fn, reps: int = 1) -> float | None:
+    """Per-call time of one PyTorch call that computes a kernel's function,
+    a yardstick the port never calls; None, with the reason printed, where
+    this PyTorch refuses the call on the card."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print(f"time: library call for {label}: not measured "
+              f"({type(e).__name__}: {str(e)[:160]})")
+        return None
+    return median_ms(lambda _: [fn() for _ in range(reps)]) / reps
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -257,6 +365,7 @@ def time_kernels(g, source: int) -> dict:
     from essentials_tpu_torch.ops import fused_bfs as FB
     out = {}
     off, csrc = g.row_offsets, g.csc_src_indices
+    vp, ep = g.n_vertices_padded, g.n_edges_padded
     for unreached in (FB.UNREACHED, FB.UNREACHED_E):
         form = "int8" if unreached == FB.UNREACHED_E else "int32"
         states, lev, it = [], FB.init_lev_exp(g, source, unreached), 0
@@ -276,11 +385,19 @@ def time_kernels(g, source: int) -> dict:
             lambda _: K.collapse_levels(lev, off, source, unreached))
         out[f"collapse_levels<{form}>/plain"] = median_ms(
             lambda _: K.collapse_levels_plain(lev, off, source, unreached))
+        elt = 1 if form == "int8" else 4
+        # per level: the starts' levels read and written, offsets, csc_src
+        out[f"bfs_level<{form}>/bound"] = bound(len(states) * (
+            2 * elt * vp + 4 * (vp + 1) + 4 * ep + 4), launches=len(states))
+        out[f"collapse_levels<{form}>/bound"] = bound(
+            elt * vp + 4 * (vp + 1) + 4 * vp)
     dist = K.collapse_levels(lev, off, source, unreached)
     args = (dist, g.csc_offsets, csrc, g.n_edges)
     out["bfs_predecessors"] = median_ms(lambda _: K.bfs_predecessors(*args))
     out["bfs_predecessors/plain"] = median_ms(
         lambda _: K.bfs_predecessors_plain(*args))
+    out["bfs_predecessors/bound"] = bound(8 * vp + 4 * (vp + 1)
+                                          + 4 * g.n_edges)
     return out
 
 
@@ -584,6 +701,22 @@ def time_spmv_kernels(g) -> dict:
             lambda: K.spmv_slab_carry(*args))
         out[f"spmv_slab_carry<{reduce}>/plain"] = per_call(
             lambda: K.spmv_slab_carry_plain(*args))
+    vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
+    slabs = K.slab_count(ep)
+    # offsets, columns, weights, x read; y written; 2 flops per edge
+    out["spmv_rows<mul>/bound"] = bound(4 * (vp + 1) + 8 * ep + 8 * vp,
+                                        2 * e)
+    a = torch.sparse_csr_tensor(off, col, w, size=(vp, vp))
+    out["spmv_rows<mul>/library"] = library_ms(
+        "spmv_rows (torch.mv on a sparse CSR tensor)", lambda: torch.mv(a, x),
+        SPMV_REPS)
+    out["spmv_slabs<mul,sum>/bound"] = bound(
+        4 * (vp + 1) + 9 * ep + 8 * vp + 8 * slabs, 2 * e)
+    # head and carry_row read, the carried rows of y read and written
+    out["spmv_slab_carry<sum>/bound"] = bound(16 * slabs)
+    # the windowed product (slabs, then carry) computes what torch.mv does
+    for k in ("spmv_slabs<mul,sum>", "spmv_slab_carry<sum>"):
+        out[k + "/library"] = out["spmv_rows<mul>/library"]
     return out
 
 
@@ -953,6 +1086,333 @@ def time_sssp_kcore_kernels(csr, g) -> dict:
         t["kcore_sweep" + suffix] = median_ms(
             lambda _: fn(deg, core, *outs, off, src, k))
     t["sweeps"] = len(states)
+    vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
+    # per sweep: the starts' distances read and written, offsets, csc_src
+    # and weights; one float addition per edge
+    t["sssp_sweep/bound"] = bound(len(states) * (8 * vp + 4 * (vp + 1)
+                                                 + 8 * ep + 4),
+                                  len(states) * e, len(states))
+    t["collapse_starts/bound"] = bound(4 * (vp + 1) + 8 * vp)
+    t["sssp_predecessors/bound"] = bound(8 * vp + 4 * (vp + 1) + 8 * e, e)
+    t["expand_segments/bound"] = bound(4 * vp + 4 * (vp + 1) + 4 * ep)
+    vals, counts = args[0], (off[1:] - off[:-1]).long()
+    t["expand_segments/library"] = library_ms(
+        "expand_segments (torch.repeat_interleave)",
+        lambda: torch.repeat_interleave(vals, counts, output_size=ep))
+    t["kcore_sweep/bound"] = bound(16 * vp + 4 * (vp + 1) + 4 * ep + 8)
+    return t
+
+# ------------------------------------------------------------ phase 12 --
+
+def hold_close(name: str, form: str, k, again, p, rtol: float, errs: dict,
+               where: str) -> None:
+    """A float kernel output against a second launch (bitwise) and its
+    plain version (|k - p| <= rtol |p| + SUM_ATOL)."""
+    torch.cuda.synchronize()
+    check(torch.equal(k, again), f"{name}{form} gives other bits on a "
+                                 f"second launch ({where})")
+    d = (k.double() - p.double()).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    errs[name] = max(errs[name], err)
+    check(bool((d <= rtol * p.double().abs() + SUM_ATOL).all()),
+          f"{name}{form} outside |k - p| <= {rtol} |p| + {SUM_ATOL} of "
+          f"plain ({where}): max abs {err}")
+
+
+def exact_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def check_operator_kernels(g, where: str, errs: dict) -> None:
+    """Every instance of the four operator kernels against its plain
+    version and a second launch, on inputs made from a seed at ``g``'s
+    shapes."""
+    from essentials_tpu_torch import kernels as K
+    rng = np.random.default_rng(12)
+    vp, ep, dev = g.n_vertices_padded, g.n_edges_padded, g.device
+    xs = (torch.from_numpy(rng.integers(-2**30, 2**30, ep).astype(
+        np.int32)).to(dev), torch.from_numpy(rng.random(ep).astype(
+            np.float32)).to(dev))
+    cases = 0
+    for x in xs:
+        ty = str(x.dtype).split(".")[-1]
+        for op in K.SCAN_OPS:
+            for flags, seg in ((None, "plain"), (g.csc_seg_flags,
+                                                 "segmented")):
+                form = f"<{ty},{op},{seg}>"
+                k, again = K.scan(x, flags, op), K.scan(x, flags, op)
+                p = K.scan_plain(x, flags, op)
+                if op == "add" and x.is_floating_point():
+                    hold_close("scan", form, k, again, p,
+                               SCAN_RTOL if flags is None else SUM_RTOL,
+                               errs, where)
+                else:
+                    hold_exact("scan", (exact_bits(k),),
+                               (exact_bits(again),), (exact_bits(p),), errs,
+                               f"{where} {form}")
+                cases += 1
+        for order, off in (("csc", g.csc_offsets), ("csr", g.row_offsets)):
+            for op in K.REDUCE_OPS:
+                form = f"<{ty},{op},{order}>"
+                k = K.segment_reduce(x, off, op)
+                again = K.segment_reduce(x, off, op)
+                p = K.segment_reduce_plain(x, off, op)
+                if op == "sum" and x.is_floating_point():
+                    hold_close("segment_reduce", form, k, again, p, SUM_RTOL,
+                               errs, where)
+                else:
+                    hold_exact("segment_reduce", (exact_bits(k),),
+                               (exact_bits(again),), (exact_bits(p),), errs,
+                               f"{where} {form}")
+                cases += 1
+    vert = [torch.from_numpy(rng.random(vp).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.integers(-9, 9, vp).astype(np.int32)).to(
+                dev)] * 2
+    edge = [xs[1], xs[0]] * 2
+    for idx, pays in ((g.csc_src_indices, vert), (g.csc_rank, edge)):
+        for m in range(1, 5):
+            k = K.gather_payloads(idx, *pays[:m])
+            again = K.gather_payloads(idx, *pays[:m])
+            p = K.gather_payloads_plain(idx, *pays[:m])
+            hold_exact("gather_payloads", [exact_bits(a) for a in k],
+                       [exact_bits(a) for a in again],
+                       [exact_bits(a) for a in p], errs,
+                       f"{where} {m} payloads")
+            cases += 1
+    for density in (0.01, 0.3):
+        f = torch.from_numpy(rng.random(vp) < density).to(dev) \
+            & g.vertex_mask()
+        args = (f, g.csc_offsets, g.csc_src_indices)
+        hold_exact("advance_count", (K.advance_count(*args),),
+                   (K.advance_count(*args),), (K.advance_count_plain(*args),),
+                   errs, f"{where} density {density}")
+        cases += 1
+    print(f"kernels: {where}: {cases} operator kernel instances, integers, "
+          f"minima, maxima and gathers exact against plain, float sums "
+          f"within tolerance (max abs err scan {errs['scan']:.6g}, "
+          f"segment_reduce {errs['segment_reduce']:.6g}), all repeatable")
+
+
+# ------------------------------------------------------------ phase 13 --
+
+def expect_bfs_adaptive(r) -> dict:
+    """Launches of one adaptive BFS from its tiers: a spray level scans
+    twice (the members' prefix, the edge ids); a dense level counts
+    (advance_count) and compacts (one scan); then the predecessors."""
+    tiny, spray, dense = r.tiers
+    return {"scan": 2 * (tiny + spray) + dense, "advance_count": dense,
+            "bfs_predecessors": 1}
+
+
+def expect_sssp_adaptive(r) -> dict:
+    """Launches of one adaptive SSSP from its tiers: a spray round scans
+    four times (the members' prefix, the edge ids, the distances, the
+    sources); a dense round gathers distances and frontier by source, MIN
+    reduces, gathers the new distances by destination, MIN reduces the
+    predecessors, and compacts (one scan)."""
+    tiny, spray, dense = r.tiers
+    return {"scan": 4 * (tiny + spray) + dense,
+            "gather_payloads": 2 * dense, "segment_reduce": 2 * dense}
+
+
+def adaptive_main_path(csr, g) -> tuple:
+    """BFS and SSSP adaptive from the ADAPTIVE_RUNS highest out-degree
+    sources, then spmv pull and push, each run with the launch counts set
+    to 0 just before it and read just after, which must be exactly the
+    launches it makes. Returns ({path: {kernel: launches summed over its
+    runs}}, the sources, {"bfs": results, "sssp": results})."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import bfs, spmv, sssp
+    sources = np.argsort(-np.diff(csr.row_offsets))[:ADAPTIVE_RUNS].astype(
+        int)
+    by_path, runs = {}, {"bfs": [], "sssp": []}
+
+    def run_counted(path: str, fn, expect: dict | None = None):
+        r, launches = counted(fn)
+        ran = {k: n for k, n in launches.items() if n}
+        want = {k: n for k, n in (expect or expect_of[path](r)).items() if n}
+        check(ran == want, f"{path} launched {ran}, expected {want}")
+        total = by_path.setdefault(path, dict.fromkeys(K.launches, 0))
+        for k, n in launches.items():
+            total[k] += n
+        return r
+
+    expect_of = {"bfs adaptive": expect_bfs_adaptive,
+                 "sssp adaptive": expect_sssp_adaptive}
+    for s in sources:
+        runs["bfs"].append(run_counted("bfs adaptive", lambda s=s: bfs.run(
+            g, int(s), variant="adaptive", warmup=False)))
+        runs["sssp"].append(run_counted("sssp adaptive", lambda s=s: sssp.run(
+            g, int(s), variant="adaptive", warmup=False)))
+    for name in ("bfs", "sssp"):
+        tiers = np.sum([r.tiers for r in runs[name]], axis=0)
+        print(f"main path: {name} adaptive rmat{SPMV_TIME_SCALE} seed "
+              f"{SPMV_SEED}: steps per source "
+              f"{[r.iterations for r in runs[name]]}; tiers per source "
+              f"{[r.tiers for r in runs[name]]}; over {len(sources)} runs "
+              f"tiny spray {tiers[0]}, spray {tiers[1]}, dense {tiers[2]}; "
+              f"launches {({k: n for k, n in by_path[name + ' adaptive'].items() if n})}, "
+              f"exact per run")
+    host_csc = HostCsc(csr)
+    for i, s in enumerate(sources):
+        rb, rs = runs["bfs"][i], runs["sssp"][i]
+        d = rb.distances.cpu().numpy()
+        check(np.array_equal(d, bfs.cpu_reference(csr, int(s))),
+              f"adaptive bfs distances from {s} differ from cpu_reference")
+        check(rb.iterations == int(d[d != bfs.UNREACHED].max()) + 1,
+              f"adaptive bfs from {s}: levels != eccentricity + 1")
+        check(np.array_equal(rb.predecessors.cpu().numpy(),
+                             host_predecessors(csr, d)),
+              f"adaptive bfs predecessors from {s} are not the smallest-id "
+              f"in-neighbours one level up")
+        ds = rs.distances.cpu().numpy()
+        check(ds.shape == (g.n_vertices,) and ds[s] == 0
+              and bool(np.all(ds >= 0)), f"adaptive sssp from {s}: shape, "
+                                         f"source or sign")
+        check(np.array_equal(rs.predecessors.cpu().numpy(),
+                             host_csc.sssp_predecessors(ds)),
+              f"adaptive sssp predecessors from {s} are not the smallest-id "
+              f"in-neighbours that achieve the distance")
+        if i < DIJKSTRA_SOURCES:
+            ref = host_dijkstra(csr, int(s))
+            reach = np.isfinite(ref)
+            check(np.array_equal(np.isfinite(ds), reach),
+                  f"adaptive sssp reach set from {s} differs from Dijkstra")
+            rel = float(np.max(np.abs(ds[reach] - ref[reach])
+                               / np.maximum(ref[reach], 1e-300)))
+            check(rel <= SSSP_RTOL, f"adaptive sssp from {s}: max rel err "
+                                    f"{rel} against Dijkstra")
+            print(f"main path: adaptive sssp from {s}: {int(reach.sum())} "
+                  f"reached, max rel err {rel:.3g} against the float64 host "
+                  f"Dijkstra (rtol {SSSP_RTOL}), reach set exact")
+    print(f"main path: adaptive bfs distances equal cpu_reference from all "
+          f"{len(sources)} sources; bfs and sssp predecessors equal the "
+          f"host's smallest-id rule")
+
+    x = spmv.random_x(g, 0)
+    xh = x.cpu().numpy().astype(np.float64)
+    src = np.repeat(np.arange(csr.n_rows), np.diff(csr.row_offsets))
+    wx = {"pull": (src, np.asarray(csr.values, np.float64)
+                   * xh[csr.col_indices]),
+          "push": (csr.col_indices, np.asarray(csr.values, np.float64)
+                   * xh[src])}
+    for v in ("pull", "push"):
+        r = run_counted(f"spmv {v}", lambda v=v: spmv.run(
+            g, x, variant=v, warmup=False),
+            {"gather_payloads": 1, "segment_reduce": 1})
+        ref = torch.from_numpy(np.bincount(wx[v][0], weights=wx[v][1],
+                                           minlength=csr.n_rows))
+        err, _, ok = sum_errors(r.y.cpu(), ref)
+        check(ok and bool(r.y.isfinite().all()),
+              f"spmv {v} outside the sum tolerance of float64 (max abs "
+              f"{err})")
+        print(f"main path: spmv {v} rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}: "
+              f"max abs err {err:.6g} against float64 "
+              f"({'A' if v == 'pull' else 'A^T'} x; within {SUM_RTOL} |ref| "
+              f"+ {SUM_ATOL}); launches exact")
+    return by_path, sources, runs
+
+
+# ------------------------------------------------------------ phase 14 --
+
+def largest_dense_state(g, source: int, algo):
+    """The state that ``algo`` (bfs or sssp) hands the dense step of its
+    search from ``source`` with the largest frontier."""
+    from essentials_tpu_torch.ops import sparse_advance as SA
+    st, it, best = algo.init(g, source), 0, None
+    while st.live > 0:
+        if SA.tier(st) == 2 and (best is None or st.live > best.live):
+            best = st
+        st, it = algo.step(g, st, it), it + 1
+    check(best is not None, f"{algo.__name__} from {source} took no dense "
+                            f"step")
+    return best
+
+
+def time_adaptive(g, sources, runs, card: str) -> None:
+    """ms per search of each adaptive path over the sources (what a user's
+    bfs.run, without predecessors, and sssp.run take), with the device's
+    idle share from torch.profiler."""
+    from essentials_tpu_torch.algorithms import bfs, sssp
+    fns = {"bfs": lambda s: bfs.run(g, s, variant="adaptive", warmup=False,
+                                    compute_predecessors=False),
+           "sssp": lambda s: sssp.run(g, s, variant="adaptive",
+                                      warmup=False)}
+    for name, fn in fns.items():
+        ms = median_ms(lambda _: [fn(int(s)) for s in sources]) / len(sources)
+        steps = float(np.mean([r.iterations for r in runs[name]]))
+        rate = (f"{g.n_edges / 1e3 / ms:.2f} MTEPS" if name == "bfs" else
+                f"{g.n_edges * steps / ms / 1e6:.3f} G relaxations/s under "
+                f"the E x rounds model of phase 11")
+        print(f"time [{card}]: {name} adaptive rmat{SPMV_TIME_SCALE} seed "
+              f"{SPMV_SEED}: {ms:.4f} ms per search (median of {CYCLES} "
+              f"cycles of {len(sources)} sources), {steps:.2f} steps per "
+              f"search, {ms / steps:.4f} ms per step, {rate}")
+        profile(f"{name} adaptive rmat{SPMV_TIME_SCALE}, {len(sources)} "
+                f"{name}.run calls",
+                lambda fn=fn: [fn(int(s)) for s in sources])
+
+
+def time_operator_kernels(g, source: int) -> dict:
+    """Each operator kernel, its plain version and a PyTorch call computing
+    the same function, per call at the shapes of the adaptive path on ``g``
+    (the frontiers of the dense BFS level and the dense SSSP round of the
+    search from ``source`` that hold the most vertices),
+    SPMV_REPS calls back to back per cycle; with each kernel's bound."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import bfs, sssp
+    vp, ep = g.n_vertices_padded, g.n_edges_padded
+    f = largest_dense_state(g, source, bfs).frontier
+    st = largest_dense_state(g, source, sssp)
+    dist, sf = st.distances, st.frontier
+    csrc = g.csc_src_indices
+
+    def per_call(fn) -> float:
+        return median_ms(lambda _: [fn() for _ in range(SPMV_REPS)]) \
+            / SPMV_REPS
+
+    t = {}
+    fi = f.int()                     # compact_frontier's cumsum input
+    t["scan"] = per_call(lambda: K.scan(fi))
+    t["scan/plain"] = per_call(lambda: K.scan_plain(fi))
+    t["scan/bound"] = bound(8 * vp)
+    t["scan/library"] = library_ms(
+        "scan (torch.cumsum)", lambda: torch.cumsum(fi, 0, dtype=torch.int32),
+        SPMV_REPS)
+    pays = (sf.int(), dist)          # the dense SSSP advance's gather
+    t["gather_payloads"] = per_call(lambda: K.gather_payloads(csrc, *pays))
+    t["gather_payloads/plain"] = per_call(
+        lambda: K.gather_payloads_plain(csrc, *pays))
+    t["gather_payloads/bound"] = bound(4 * ep + 8 * vp + 8 * ep)
+    both = torch.stack([pays[0], dist.view(torch.int32)], 1)
+    t["gather_payloads/library"] = library_ms(
+        "gather_payloads (torch.index_select)",
+        lambda: torch.index_select(both, 0, csrc), SPMV_REPS)
+    cl = csrc.long()
+    msg = torch.where(sf[cl], dist[cl] + g.csc_values, float("inf"))
+    off = g.csc_offsets
+    t["segment_reduce"] = per_call(lambda: K.segment_reduce(msg, off, "min"))
+    t["segment_reduce/plain"] = per_call(
+        lambda: K.segment_reduce_plain(msg, off, "min"))
+    t["segment_reduce/bound"] = bound(4 * ep + 4 * (vp + 1) + 4 * vp)
+    off64 = off.long()
+    t["segment_reduce/library"] = library_ms(
+        "segment_reduce (torch.segment_reduce)",
+        lambda: torch.segment_reduce(msg, "min", offsets=off64, unsafe=True),
+        SPMV_REPS)
+    t["advance_count"] = per_call(lambda: K.advance_count(f, off, csrc))
+    t["advance_count/plain"] = per_call(
+        lambda: K.advance_count_plain(f, off, csrc))
+    t["advance_count/bound"] = bound(4 * ep + 4 * (vp + 1) + vp + 4 * vp)
+    # the counts as a product: the CSC as a CSR matrix of ones times the
+    # frontier
+    ones = torch.sparse_csr_tensor(off, csrc, torch.ones(
+        ep, device=csrc.device), size=(vp, vp))
+    ff = f.float()
+    t["advance_count/library"] = library_ms(
+        "advance_count (torch.mv on the CSC as a sparse CSR matrix of ones)",
+        lambda: torch.mv(ones, ff), SPMV_REPS)
+    t["frontiers"] = (int(f.sum()), int(sf.sum()))
     return t
 
 
@@ -986,6 +1446,17 @@ def main() -> None:
           f"capability {props.capability}, {props.sm_count} SMs, "
           f"{props.memory_gib:.1f} GiB; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    rate, own = l2_rate()
+    MEMORY_RATE["L2"] = max(rate, MEMORY_RATE["HBM"])
+    print(f"device [{card}]: L2 rate {rate / 1e12:.4f} TB/s (the extra "
+          f"bytes of a {L2_PROBE_MIB[1]} MiB device-to-device copy over a "
+          f"{L2_PROBE_MIB[0]} MiB one, over its extra time; each copy "
+          f"{L2_COPIES} times back to back in a CUDA graph, median of "
+          f"{CYCLES}; the copies "
+          f"alone {own[0] / 1e12:.4f} / {own[1] / 1e12:.4f} TB/s); bounds "
+          f"use {MEMORY_RATE['L2'] / 1e12:.4f} TB/s where one launch's bytes "
+          f"fit {L2_BYTES // 2 ** 20} MiB, else HBM's "
+          f"{MEMORY_RATE['HBM'] / 1e12:.2f} TB/s")
     phases.done("1 device")
 
     # 2. build
@@ -1107,8 +1578,7 @@ def main() -> None:
     # 8. SpMV times
     time_spmv(g_s, card, f"rmat{SCALE} seed {SPMV_SEED}")
     t.update(time_spmv_kernels(g_s))
-    for name in sorted(k for k in t if k.startswith("spmv")
-                       and not k.endswith("/plain")):
+    for name in sorted(k for k in t if k.startswith("spmv") and "/" not in k):
         print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
               f"{t[name + '/plain']:.4f} ms (rmat{SCALE} seed {SPMV_SEED}, "
               f"{SPMV_REPS} calls back to back)")
@@ -1138,7 +1608,7 @@ def main() -> None:
                 PROFILED_RUNS * KERNELS_PER_PRODUCT[v])
     phases.done("8 spmv times")
 
-    del csr20, g20, x20
+    del x20                          # the graph serves phases 12-14
 
     # 9. SSSP and k-core kernels against their plain versions
     errs.update({k: 0 for k in SSSP_REPLACES})
@@ -1184,8 +1654,41 @@ def main() -> None:
             sum(sssp_launches["kcore"].values()))
     phases.done("11 sssp/kcore times")
 
+    # 12. operator kernels against their plain versions
+    errs.update({k: 0 for k in OP_REPLACES})
+    for scale in OP_SCALES:
+        _, g_o = spmv_graph(scale, "cuda")
+        check_operator_kernels(g_o, f"rmat{scale} seed {SPMV_SEED}", errs)
+        del g_o
+    where20 = f"rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}"
+    check(not g20.symmetric_layout, f"{where20} has a symmetric layout")
+    check_operator_kernels(g20, where20, errs)
+    phases.done("12 operator kernels")
+
+    # 13. the adaptive main path on the directed rmat20 graph
+    op_launches, op_sources, op_runs = adaptive_main_path(csr20, g20)
+    phases.done("13 adaptive main path")
+
+    # 14. adaptive times
+    time_adaptive(g20, op_sources, op_runs, card)
+    t.update(time_operator_kernels(g20, int(op_sources[0])))
+    for name in OP_REPLACES:
+        per_search = {p: c[name] / ADAPTIVE_RUNS for p, c in
+                      op_launches.items() if c[name] and "adaptive" in p}
+        lib = t.get(name + "/library")
+        print(f"time [{card}]: {name} {t[name]:.4f} ms per launch, plain "
+              f"{t[name + '/plain']:.4f} ms, bound "
+              f"{t[name + '/bound'][0]:.4f} ms ({t[name + '/bound'][1]} "
+              f"at {t[name + '/bound'][2]} rate), "
+              f"library call "
+              f"{'not measured' if lib is None else f'{lib:.4f} ms'}; "
+              f"launches per search {per_search} ({where20}, the largest "
+              f"dense frontiers from {op_sources[0]}: bfs, sssp "
+              f"{t['frontiers']})")
+    phases.done("14 adaptive times")
+
     by_path = {f"bfs rmat{SCALE}": launches, **spmv_launches,
-               **sssp_launches}
+               **sssp_launches, **op_launches}
     timed = {"spmv_rows": "spmv_rows<mul>",
              "spmv_slabs": "spmv_slabs<mul,sum>",
              "spmv_slab_carry": "spmv_slab_carry<sum>"}
@@ -1198,15 +1701,23 @@ def main() -> None:
                "launches_by_path": {p: c[name] for p, c in by_path.items()
                                     if c[name]},
                "max_abs_err": errs[name], "ms": t[key],
-               "plain_ms": t[key + "/plain"]}
+               "plain_ms": t[key + "/plain"],
+               "bound_ms": t[key + "/bound"][0],
+               "bound_by": t[key + "/bound"][1],
+               "bound_memory": t[key + "/bound"][2],
+               "library_ms": t.get(key + "/library")}
         if name in SPMV_REPLACES:
             out.update(max_rel_err=errs[name + "/rel"], timed=key)
+        if name in ("spmv_slabs", "spmv_slab_carry"):
+            out["library_of"] = "the whole product: spmv_slabs, then " \
+                                "spmv_slab_carry"
         return out
 
     print(json.dumps({"kernels": [
         entry(n, src, r[n]) for src, r in ((SOURCE, REPLACES),
                                            (SPMV_SOURCE, SPMV_REPLACES),
-                                           (SSSP_SOURCE, SSSP_REPLACES))
+                                           (SSSP_SOURCE, SSSP_REPLACES),
+                                           (OP_SOURCE, OP_REPLACES))
         for n in r]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -7,19 +7,24 @@ module, and imports neither JAX nor the JAX package.
 
 Ported so far: the host inputs (``formats``, ``io``), the padded ``graph``,
 BFS on the fused edge-axis superstep (``csrc/bfs_kernels.cu``), SpMV with
-PageRank and HITS on it (``csrc/spmv_kernels.cu``), and SSSP and k-core
-(``csrc/sssp_kcore_kernels.cu``); ``kernels`` builds and binds the CUDA
+PageRank and HITS on it (``csrc/spmv_kernels.cu``), SSSP and k-core
+(``csrc/sssp_kcore_kernels.cu``), and the operator layer (``ops`` advance,
+neighbor_reduce, segment, scans, the spray tiers; ``frontier``;
+``framework``) with BFS and SSSP ``adaptive`` and SpMV ``pull``/``push`` on
+it (``csrc/operator_kernels.cu``); ``kernels`` builds and binds the CUDA
 sources. Every function takes its device from its arguments; nothing picks
 CUDA by itself.
 """
 
 __version__ = "0.1.0"
 
-from essentials_tpu_torch import algorithms, formats, graph, io, utils
+from essentials_tpu_torch import (algorithms, formats, framework, frontier,
+                                  graph, io, ops, utils)
 from essentials_tpu_torch.errors import EssentialsError, throw_if
 from essentials_tpu_torch.graph import Graph, build_graph, graph_from_arrays
 
 __all__ = [
-    "algorithms", "formats", "graph", "io", "utils", "Graph", "build_graph",
+    "algorithms", "formats", "framework", "frontier", "graph", "io", "ops",
+    "utils", "Graph", "build_graph",
     "graph_from_arrays", "EssentialsError", "throw_if",
 ]

@@ -2,11 +2,12 @@
 
 Counterpart of ``essentials_tpu/algorithms/spmv.py`` (reference parity:
 gunrock::spmv, ``spmv.hxx:77-131``) for the variants ``fused`` (one warp
-per row, ``ops/fused_spmv.py``) and ``windowed`` (edge-balanced slabs,
-``ops/windowed_spmv.py``). Both compute y[s] = sum over the out-edges
-(s, d) of w * x[d] in float32, each in a fixed order, so a variant gives
-the same bits on every run; the two variants and the JAX package sum in
-different orders and agree to a tolerance.
+per row, ``ops/fused_spmv.py``), ``windowed`` (edge-balanced slabs,
+``ops/windowed_spmv.py``), ``pull`` (``neighbor_reduce``) and ``push``
+(``advance``, which computes A^T @ x). All compute y[s] = sum over the
+out-edges (s, d) of w * x[d] in float32 (push: over the in-edges), each in
+a fixed order, so a variant gives the same bits on every run; the variants
+and the JAX package sum in different orders and agree to a tolerance.
 """
 
 from __future__ import annotations
@@ -16,16 +17,33 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from essentials_tpu_torch.errors import EssentialsError, throw_if
+from essentials_tpu_torch.errors import throw_if
 from essentials_tpu_torch.graph.graph import Graph
 from essentials_tpu_torch.ops import fused_spmv as FS
 from essentials_tpu_torch.ops import windowed_spmv as WS
+from essentials_tpu_torch.ops.advance import advance
+from essentials_tpu_torch.ops.configs import AdvanceIO, Combine
+from essentials_tpu_torch.ops.neighborreduce import neighbor_reduce
 from essentials_tpu_torch.utils.timer import Timer
 
-VARIANTS = {"fused": FS.spmv_fused, "windowed": WS.spmv_windowed}
-# variants of the JAX package that this package does not run yet, and the
-# ROADMAP.md queue-1 item that brings them (they run on the operator layer)
-_UNPORTED = {"pull": 8, "push": 8}
+
+def spmv_pull(g: Graph, x: torch.Tensor) -> torch.Tensor:
+    """y[row] = sum over row's edges of w * x[col]: a source-keyed segment
+    sum (``neighbor_reduce``)."""
+    return neighbor_reduce(g, lambda e: e.weight * e.dst_vals[0],
+                           dst_values=(x,), combine=Combine.SUM)
+
+
+def spmv_push(g: Graph, x: torch.Tensor) -> torch.Tensor:
+    """y[dst] = sum over dst's in-edges of w * x[src] (``advance`` over the
+    whole graph): A^T @ x, equal to pull on a symmetric A."""
+    return advance(g, lambda e: e.weight * e.src_vals[0], None,
+                   src_values=(x,), input_kind=AdvanceIO.GRAPH,
+                   combine=Combine.SUM, with_frontier=False)
+
+
+VARIANTS = {"fused": FS.spmv_fused, "windowed": WS.spmv_windowed,
+            "pull": spmv_pull, "push": spmv_push}
 
 
 class SpmvResult(NamedTuple):
@@ -51,14 +69,10 @@ def random_x(g: Graph, seed: int = 0) -> torch.Tensor:
 
 def run(g: Graph, x: torch.Tensor | None = None, *, variant: str = "auto",
         seed: int = 0, warmup: bool = True) -> SpmvResult:
-    """y = A @ x on ``g``'s device. variant: 'fused', 'windowed', or
-    'auto', which is 'fused' (the JAX package's choice off the TPU).
-    ``x`` defaults to ``random_x(g, seed)``. ``elapsed_ms`` is one product
-    on the device's clock (CUDA events) or the host's (CPU)."""
-    if variant in _UNPORTED:
-        raise EssentialsError(
-            f"spmv variant {variant!r} is not ported yet "
-            f"(ROADMAP.md queue 1, item {_UNPORTED[variant]})")
+    """y = A @ x on ``g``'s device. variant: 'fused', 'windowed', 'pull',
+    'push' (A^T @ x), or 'auto', which is 'fused' (the JAX package's choice
+    off the TPU). ``x`` defaults to ``random_x(g, seed)``. ``elapsed_ms`` is
+    one product on the device's clock (CUDA events) or the host's (CPU)."""
     if variant == "auto":
         variant = "fused"
     throw_if(variant not in VARIANTS, f"unknown spmv variant {variant!r}")

@@ -1,0 +1,506 @@
+// Hand-written CUDA kernels of the operator layer (scan, gather, segment
+// reduce, advance count), for Hopper (sm_90a).
+//
+// Built by essentials_tpu_torch/kernels.py with nvcc into the shared library
+// of every csrc/*.cu, with a plain C interface, loaded with ctypes. Every
+// entry point launches on the stream it is given, allocates nothing (the
+// wrapper passes outputs and scratch), and returns cudaGetLastError() so that
+// a refused launch reaches the Python wrapper.
+//
+// Layout contract (essentials_tpu_torch/graph/graph.py): offsets are [S+1]
+// int32 and sorted, segment s is [off[s], off[s+1]); `csc_src` is the [Ep]
+// int32 source of each CSC slot. No kernel here uses an atomic on data, so
+// every result, float sums included, is the same bit for bit on every run.
+
+#include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kBlock = 256;                 // threads per block
+constexpr int kWarpsPerBlock = kBlock / 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kScanItems = 8;               // consecutive elements per thread
+constexpr int kScanTile = kBlock * kScanItems;   // elements per scan block
+
+// Operation codes shared with kernels.py (SCAN_OPS, REDUCE_OPS).
+enum { kAdd = 0, kMin = 1, kMax = 2, kFirst = 3, kOr = 3, kAnd = 4 };
+
+__device__ __forceinline__ long long global_warp() {
+  return (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> 5;
+}
+
+// The binary operations on int32 (add wraps around, as the TPU's int32 does)
+// and float32 (__fadd_rn, which nvcc does not contract into an FMA).
+template <int OP> struct Op;
+template <> struct Op<kAdd> {
+  __device__ static int apply(int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(a) +
+                            static_cast<unsigned>(b));
+  }
+  __device__ static float apply(float a, float b) { return __fadd_rn(a, b); }
+};
+template <> struct Op<kMin> {
+  __device__ static int apply(int a, int b) { return min(a, b); }
+  __device__ static float apply(float a, float b) { return b < a ? b : a; }
+};
+template <> struct Op<kMax> {
+  __device__ static int apply(int a, int b) { return max(a, b); }
+  __device__ static float apply(float a, float b) { return b > a ? b : a; }
+};
+template <> struct Op<kFirst> {             // keep the older value
+  __device__ static int apply(int a, int) { return a; }
+  __device__ static float apply(float a, float) { return a; }
+};
+
+// ------------------------------------------------------------------ scan --
+//
+// Inclusive scan, optionally segmented by start flags. Replaces the JAX
+// package's scan_kernels.scan_1d (:274) and segmented_scan_1d (:296), whose
+// one Pallas body _scan_kernel (:124) streams [1024, 128] blocks in order
+// and carries the running value across its sequential grid in SMEM.
+//
+// Blocks run in no order here, so the carry becomes three passes:
+//   1. scan_tiles: each block scans its tile of kScanTile elements alone
+//      (a serial scan of 8 consecutive elements per thread, a warp scan of
+//      the threads' totals with shuffles, then the warps' totals in warp
+//      order) and writes the tile's total pair and its first flagged
+//      position;
+//   2. scan_totals: one block scans the tile totals in tile order;
+//   3. scan_fixup: each element before its tile's first flag takes the
+//      running value of the tiles before it.
+// Elements are (value, flag) pairs under the associative operator of
+// scan_kernels.py:15-17, (v1,f1)·(v2,f2) = (f2 ? v2 : op(v1,v2), f1|f2);
+// position 0 always starts a segment. The order of every float addition is
+// fixed by n alone, without atomics or look-back, so a float scan repeats
+// bit for bit. No identity is needed: a pair with nothing before it is
+// left alone.
+//
+// What bounds it: bytes. Pass 1 reads x (and flags) and writes the output
+// once; pass 3 reads and writes the output again; passes 2 and 3 touch one
+// total per 2,048 elements. So 2-3 x the least traffic (one read and one
+// write); tiles are staged through shared memory so that loads and stores
+// are coalesced.
+
+template <typename T>
+struct ScanShared {
+  T v[kScanTile];
+  unsigned char f[kScanTile];
+  T warp_v[kWarpsPerBlock];
+  int warp_f[kWarpsPerBlock];
+  int first;                  // first flagged offset in the tile
+  T total_v;                  // the tile's total pair
+  int total_f;
+};
+
+// Scans positions [base, base + kScanTile) of x that lie below n into out
+// (x and out may be the same array), after the carry pair when has_carry.
+// Positions at or past n count as flagged. On return (after a barrier) the
+// tile's total pair and first flagged offset are in sh.
+template <typename T, int OP>
+__device__ void scan_tile(const T* x, const unsigned char* flags, T* out,
+                          long long base, long long n, bool has_carry,
+                          T carry_v, bool carry_f, ScanShared<T>& sh) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) sh.first = kScanTile;
+  for (int j = 0; j < kScanItems; ++j) {    // coalesced loads
+    const int k = j * kBlock + tid;
+    const long long p = base + k;
+    if (p < n) {
+      sh.v[k] = x[p];
+      sh.f[k] = (p == 0 || (flags != nullptr && flags[p] != 0)) ? 1 : 0;
+    } else {
+      sh.v[k] = T(0);
+      sh.f[k] = 1;
+    }
+  }
+  __syncthreads();
+
+  T v[kScanItems];
+  bool f[kScanItems];
+  int my_first = kScanTile;
+  for (int j = 0; j < kScanItems; ++j) {
+    const int k = tid * kScanItems + j;
+    v[j] = sh.v[k];
+    f[j] = sh.f[k] != 0;
+    if (f[j] && my_first == kScanTile) my_first = k;
+  }
+  for (int j = 1; j < kScanItems; ++j) {    // serial scan of 8 elements
+    if (!f[j]) v[j] = Op<OP>::apply(v[j - 1], v[j]);
+    f[j] = f[j] || f[j - 1];
+  }
+  // inclusive warp scan of the threads' totals
+  T av = v[kScanItems - 1];
+  int af = f[kScanItems - 1] ? 1 : 0;
+  for (int d = 1; d < 32; d <<= 1) {
+    const T pv = __shfl_up_sync(kFullMask, av, d);
+    const int pf = __shfl_up_sync(kFullMask, af, d);
+    if (lane >= d) {
+      if (!af) av = Op<OP>::apply(pv, av);
+      af |= pf;
+    }
+  }
+  const T ev = __shfl_up_sync(kFullMask, av, 1);  // exclusive within warp
+  const int ef = __shfl_up_sync(kFullMask, af, 1);
+  if (lane == 31) {
+    sh.warp_v[warp] = av;
+    sh.warp_f[warp] = af;
+  }
+  atomicMin(&sh.first, my_first);           // shared memory, order-free
+  __syncthreads();
+
+  // the pair of everything before this warp: the carry, then warps in order
+  bool wh = has_carry;
+  T wv = carry_v;
+  int wf = carry_f ? 1 : 0;
+  for (int i = 0; i < warp; ++i) {
+    if (!wh) {
+      wv = sh.warp_v[i];
+      wf = sh.warp_f[i];
+      wh = true;
+    } else {
+      wv = sh.warp_f[i] ? sh.warp_v[i] : Op<OP>::apply(wv, sh.warp_v[i]);
+      wf |= sh.warp_f[i];
+    }
+  }
+  // the pair of everything before this thread
+  bool th = wh;
+  T tv = wv;
+  int tf = wf;
+  if (lane > 0) {
+    if (!wh) {
+      tv = ev;
+      tf = ef;
+      th = true;
+    } else {
+      tv = ef ? ev : Op<OP>::apply(wv, ev);
+      tf = wf | ef;
+    }
+  }
+  if (th) {
+    for (int j = 0; j < kScanItems; ++j) {
+      if (!f[j]) v[j] = Op<OP>::apply(tv, v[j]);
+    }
+  }
+  // every read of sh.v happened before the last barrier
+  for (int j = 0; j < kScanItems; ++j) sh.v[tid * kScanItems + j] = v[j];
+  if (tid == kBlock - 1) {
+    sh.total_v = v[kScanItems - 1];
+    sh.total_f = (f[kScanItems - 1] ? 1 : 0) | tf;
+  }
+  __syncthreads();
+  for (int j = 0; j < kScanItems; ++j) {    // coalesced stores
+    const int k = j * kBlock + tid;
+    const long long p = base + k;
+    if (p < n) out[p] = sh.v[k];
+  }
+  __syncthreads();
+}
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(kBlock)
+scan_tiles_kernel(const T* __restrict__ x,
+                  const unsigned char* __restrict__ flags, T* __restrict__ out,
+                  T* __restrict__ total_v, unsigned char* __restrict__ total_f,
+                  int* __restrict__ first, long long n) {
+  __shared__ ScanShared<T> sh;
+  scan_tile<T, OP>(x, flags, out,
+                   static_cast<long long>(blockIdx.x) * kScanTile, n, false,
+                   T(0), false, sh);
+  if (threadIdx.x == 0) {
+    total_v[blockIdx.x] = sh.total_v;
+    total_f[blockIdx.x] = static_cast<unsigned char>(sh.total_f);
+    first[blockIdx.x] = sh.first;
+  }
+}
+
+// One block: the inclusive scan of the tiles' total pairs, in place, tile
+// of totals after tile of totals with the carry between them.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kBlock)
+scan_totals_kernel(T* total_v, const unsigned char* total_f, long long g) {
+  __shared__ ScanShared<T> sh;
+  bool has = false;
+  T cv = T(0);
+  bool cf = false;
+  for (long long base = 0; base < g; base += kScanTile) {
+    scan_tile<T, OP>(total_v, total_f, total_v, base, g, has, cv, cf, sh);
+    cv = sh.total_v;
+    cf = sh.total_f != 0;
+    has = true;
+    __syncthreads();                        // before sh is written again
+  }
+}
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(kBlock)
+scan_fixup_kernel(T* __restrict__ out, const T* __restrict__ total_v,
+                  const int* __restrict__ first, long long n) {
+  const long long p = static_cast<long long>(blockIdx.x) * kBlock +
+                      threadIdx.x + kScanTile;       // tile 0 needs nothing
+  if (p >= n) return;
+  const long long b = p / kScanTile;
+  if (p - b * kScanTile < first[b]) out[p] = Op<OP>::apply(total_v[b - 1],
+                                                           out[p]);
+}
+
+template <typename T, int OP>
+int scan_launch(const void* x, const void* flags, void* out, void* total_v,
+                void* total_f, void* first, long long n, cudaStream_t s) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const long long g = (n + kScanTile - 1) / kScanTile;
+  scan_tiles_kernel<T, OP><<<static_cast<unsigned>(g), kBlock, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const unsigned char*>(flags),
+      static_cast<T*>(out), static_cast<T*>(total_v),
+      static_cast<unsigned char*>(total_f), static_cast<int*>(first), n);
+  if (g > 1) {
+    scan_totals_kernel<T, OP><<<1, kBlock, 0, s>>>(
+        static_cast<T*>(total_v), static_cast<const unsigned char*>(total_f),
+        g);
+    const long long rest = n - kScanTile;
+    scan_fixup_kernel<T, OP><<<static_cast<unsigned>((rest + kBlock - 1) /
+                                                     kBlock),
+                               kBlock, 0, s>>>(
+        static_cast<T*>(out), static_cast<const T*>(total_v),
+        static_cast<const int*>(first), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int scan_dispatch(const void* x, const void* flags, void* out, void* total_v,
+                  void* total_f, void* first, long long n, int op,
+                  cudaStream_t s) {
+  switch (op) {
+    case kAdd: return scan_launch<T, kAdd>(x, flags, out, total_v, total_f,
+                                           first, n, s);
+    case kMin: return scan_launch<T, kMin>(x, flags, out, total_v, total_f,
+                                           first, n, s);
+    case kMax: return scan_launch<T, kMax>(x, flags, out, total_v, total_f,
+                                           first, n, s);
+    case kFirst: return scan_launch<T, kFirst>(x, flags, out, total_v,
+                                               total_f, first, n, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ------------------------------------------------------- gather_payloads --
+//
+// out_k[p] = in_k[idx[p]] for 1-4 payloads of 32-bit words (floats and
+// bools travel as bits), one thread per output slot. Replaces the TPU's
+// static-permutation movers: cube_router._pallas_apply (:385) through
+// apply_cube_plan (:464) and permute.apply_plan(_multi) (:447, :462),
+// cube_router.apply_cube_chain (:586) and permute._pallas_rowgather (:364).
+// The TPU cannot gather at speed and routes through Benes networks; here
+// advance loads each source's payloads straight into CSC order through
+// csc_src and each destination's through csc_dst, neighbor_reduce through
+// col_indices.
+// What bounds it: bytes. idx and the outputs stream; the payload loads are
+// scattered, 32-byte sectors for 4-byte words, so a random index wastes up
+// to 8x the payload's bytes unless the payload sits in the 50 MB L2 (a [Vp]
+// vertex array at RMAT scale 20 is 4 MB and does).
+
+__global__ void __launch_bounds__(kBlock)
+gather_payloads_kernel(const int* __restrict__ idx, long long n,
+                       const int* __restrict__ in0,
+                       const int* __restrict__ in1,
+                       const int* __restrict__ in2,
+                       const int* __restrict__ in3, int* __restrict__ out0,
+                       int* __restrict__ out1, int* __restrict__ out2,
+                       int* __restrict__ out3, int np) {
+  const long long p = static_cast<long long>(blockIdx.x) * kBlock +
+                      threadIdx.x;
+  if (p >= n) return;
+  const int j = idx[p];
+  out0[p] = in0[j];
+  if (np > 1) out1[p] = in1[j];
+  if (np > 2) out2[p] = in2[j];
+  if (np > 3) out3[p] = in3[j];
+}
+
+// -------------------------------------------------------- segment_reduce --
+//
+// out[s] = the reduction of vals[off[s] .. off[s+1]) with the identity at an
+// empty segment, one warp per segment. Replaces segment.combine_by_offsets
+// (:97) and combine_by_offsets_routed (:287), whose TPU kernels are
+// segmented_scan_1d (:296) and the routed end-of-segment pick (the cube
+// route of the prefix back through the offsets). Here the segment is
+// reduced where it lies.
+// SUM, MIN, MAX on int32 (the sum wraps around) and float32. Each lane
+// folds its strided elements in order and the warp folds the lanes by a
+// fixed shuffle tree, so a float sum (__fadd_rn) repeats bit for bit; its
+// order differs from the JAX package's scan, so float sums agree with it to
+// a tolerance. MIN and MAX are exact. OR and AND read each value as a truth
+// value (nonzero) and write 0 or 1 bytes.
+// What bounds it: bytes, one coalesced read of vals and one read of the
+// offsets. A hub's segment runs on one warp.
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(kBlock)
+segment_reduce_kernel(const T* __restrict__ vals, const int* __restrict__ off,
+                      int nseg, T ident, T* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = global_warp();
+  if (warp >= nseg) return;                 // warp-uniform
+  const int s = static_cast<int>(warp);
+  const int b = off[s];
+  const int e = off[s + 1];
+  T acc = ident;
+  for (int q = b + lane; q < e; q += 32) acc = Op<OP>::apply(acc, vals[q]);
+  for (int d = 16; d > 0; d >>= 1) {
+    acc = Op<OP>::apply(acc, __shfl_down_sync(kFullMask, acc, d));
+  }
+  if (lane == 0) out[s] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+segment_any_all_kernel(const T* __restrict__ vals,
+                       const int* __restrict__ off, int nseg, int all,
+                       unsigned char* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = global_warp();
+  if (warp >= nseg) return;
+  const int s = static_cast<int>(warp);
+  const int b = off[s];
+  const int e = off[s + 1];
+  bool hit = false;             // OR: some value is set; AND: some is not
+  for (int q = b + lane; q < e && !hit; q += 32) {
+    hit = all ? (vals[q] == T(0)) : (vals[q] != T(0));
+  }
+  hit = __any_sync(kFullMask, hit);
+  if (lane == 0) out[s] = (all ? !hit : hit) ? 1 : 0;
+}
+
+template <typename T>
+int segment_reduce_launch(const void* vals, const void* off, int nseg, int op,
+                          T ident, void* out, cudaStream_t s) {
+  if (nseg <= 0) return static_cast<int>(cudaGetLastError());
+  const unsigned blocks = (static_cast<unsigned>(nseg) + kWarpsPerBlock - 1) /
+                          kWarpsPerBlock;
+  const T* v = static_cast<const T*>(vals);
+  const int* o = static_cast<const int*>(off);
+  switch (op) {
+    case kAdd:
+      segment_reduce_kernel<T, kAdd><<<blocks, kBlock, 0, s>>>(
+          v, o, nseg, ident, static_cast<T*>(out));
+      break;
+    case kMin:
+      segment_reduce_kernel<T, kMin><<<blocks, kBlock, 0, s>>>(
+          v, o, nseg, ident, static_cast<T*>(out));
+      break;
+    case kMax:
+      segment_reduce_kernel<T, kMax><<<blocks, kBlock, 0, s>>>(
+          v, o, nseg, ident, static_cast<T*>(out));
+      break;
+    case kOr:
+    case kAnd:
+      segment_any_all_kernel<T><<<blocks, kBlock, 0, s>>>(
+          v, o, nseg, op == kAnd ? 1 : 0, static_cast<unsigned char*>(out));
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --------------------------------------------------------- advance_count --
+//
+// out[v] = the number of in-edges q of v (CSC slots off[v] .. off[v+1])
+// whose source is in the frontier, frontier[csc_src[q]] != 0; one warp per
+// destination. Replaces advance.advance_count (:175): on the TPU the
+// 7-kernel chain cube_router.apply_cube_chain_n (:754) (expand over the CSR
+// offsets route, the CSR->CSC route, the prefix back through the inverse
+// CSC offsets route) and the "first" segmented_scan after it. BFS's dense
+// tier takes out > 0.
+// What bounds it: bytes and gather latency: csc_src streams, each slot
+// loads one frontier byte at a scattered address (the [Vp] byte frontier
+// stays in L2).
+
+__global__ void __launch_bounds__(kBlock)
+advance_count_kernel(const unsigned char* __restrict__ frontier,
+                     const int* __restrict__ off,
+                     const int* __restrict__ csc_src, int vp,
+                     int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = global_warp();
+  if (warp >= vp) return;
+  const int v = static_cast<int>(warp);
+  const int b = off[v];
+  const int e = off[v + 1];
+  int cnt = 0;
+#pragma unroll 4
+  for (int q = b + lane; q < e; q += 32) cnt += frontier[csc_src[q]] ? 1 : 0;
+  cnt = __reduce_add_sync(kFullMask, cnt);
+  if (lane == 0) out[v] = cnt;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scratch (from the wrapper): total_v [G] of the element type, total_f [G]
+// uint8, first [G] int32, G = ceil(n / 2048). `flags` may be null.
+int etpu_scan_i32(const void* x, const void* flags, void* out, void* total_v,
+                  void* total_f, void* first, long long n, int op,
+                  void* stream) {
+  return scan_dispatch<int>(x, flags, out, total_v, total_f, first, n, op,
+                            static_cast<cudaStream_t>(stream));
+}
+
+int etpu_scan_f32(const void* x, const void* flags, void* out, void* total_v,
+                  void* total_f, void* first, long long n, int op,
+                  void* stream) {
+  return scan_dispatch<float>(x, flags, out, total_v, total_f, first, n, op,
+                              static_cast<cudaStream_t>(stream));
+}
+
+int etpu_scan_tile() { return kScanTile; }
+
+// Payloads beyond the np-th may be null.
+int etpu_gather_payloads(const void* idx, long long n, const void* in0,
+                         const void* in1, const void* in2, const void* in3,
+                         void* out0, void* out1, void* out2, void* out3,
+                         int np, void* stream) {
+  if (np < 1 || np > 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    gather_payloads_kernel<<<static_cast<unsigned>((n + kBlock - 1) / kBlock),
+                             kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(idx), n, static_cast<const int*>(in0),
+        static_cast<const int*>(in1), static_cast<const int*>(in2),
+        static_cast<const int*>(in3), static_cast<int*>(out0),
+        static_cast<int*>(out1), static_cast<int*>(out2),
+        static_cast<int*>(out3), np);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// op: 0 sum, 1 min, 2 max (out of the value type), 3 or, 4 and (uint8 out).
+int etpu_segment_reduce_i32(const void* vals, const void* off, int nseg,
+                            int op, int ident, void* out, void* stream) {
+  return segment_reduce_launch<int>(vals, off, nseg, op, ident, out,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+int etpu_segment_reduce_f32(const void* vals, const void* off, int nseg,
+                            int op, float ident, void* out, void* stream) {
+  return segment_reduce_launch<float>(vals, off, nseg, op, ident, out,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+int etpu_advance_count(const void* frontier, const void* off,
+                       const void* csc_src, int vp, void* out, void* stream) {
+  if (vp > 0) {
+    advance_count_kernel<<<(vp + kWarpsPerBlock - 1) / kWarpsPerBlock, kBlock,
+                           0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned char*>(frontier),
+        static_cast<const int*>(off), static_cast<const int*>(csc_src), vp,
+        static_cast<int*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

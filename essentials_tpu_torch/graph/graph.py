@@ -99,6 +99,11 @@ class Graph:
         return torch.arange(self.n_vertices_padded,
                             device=self.device) < self.n_vertices
 
+    def edge_mask(self) -> torch.Tensor:
+        """[Ep] bool: True at the real edges [0, E) (CSR order)."""
+        return torch.arange(self.n_edges_padded,
+                            device=self.device) < self.n_edges
+
     def out_degrees(self) -> torch.Tensor:
         """[Vp] out-degree per vertex (pad slots report pad-edge counts)."""
         return self.row_offsets[1:] - self.row_offsets[:-1]

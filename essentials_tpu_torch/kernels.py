@@ -27,6 +27,14 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   (``segment.expand_vertex_to_edges``, whose cumsum is
   ``scan_kernels.scan_1d`` :274). The sweeps read one state buffer and
   write another.
+* ``csrc/operator_kernels.cu`` (the operator layer: advance,
+  neighbor_reduce, the spray tiers): ``scan`` for ``scan_kernels.scan_1d``
+  :274 and ``segmented_scan_1d`` :296; ``gather_payloads`` for the
+  permutation routes (``cube_router._pallas_apply`` :385,
+  ``apply_cube_chain`` :586, ``permute._pallas_rowgather`` :364);
+  ``segment_reduce`` for ``segment.combine_by_offsets`` :97 and its routed
+  form :287; ``advance_count`` for ``advance.advance_count`` :175
+  (``cube_router.apply_cube_chain_n`` :754).
 
 Each kernel has a wrapper and a plain PyTorch version with the same
 arithmetic. The wrapper dispatches on the device of the tensors it is given:
@@ -56,6 +64,9 @@ INF_BITS = 0x7F800000          # float32 +inf as int32 bits: the min identity
 SLAB_EDGES = 2048              # edges per spmv_slabs block (kSlab in the .cu)
 MESSAGES = ("mul", "add", "none")
 REDUCES = ("sum", "min")
+SCAN_OPS = ("add", "min", "max", "first")          # codes 0-3 in the .cu
+REDUCE_OPS = ("sum", "min", "max", "or", "and")    # codes 0-4 in the .cu
+SCAN_TILE = 2048               # elements per scan block (kScanTile)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -70,7 +81,9 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "bfs_predecessors": 0,
             "spmv_rows": 0, "spmv_slabs": 0, "spmv_slab_carry": 0,
             "sssp_sweep": 0, "sssp_predecessors": 0, "kcore_sweep": 0,
-            "collapse_starts": 0, "expand_segments": 0}
+            "collapse_starts": 0, "expand_segments": 0,
+            "scan": 0, "gather_payloads": 0, "segment_reduce": 0,
+            "advance_count": 0}
 
 _lib = None
 
@@ -140,7 +153,7 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         argtypes = {
             "etpu_bfs_level_i32": (p, p, p, i, i, i, p, p),
             "etpu_bfs_level_i8": (p, p, p, i, i, i, p, p),
@@ -157,6 +170,13 @@ def _library():
             "etpu_kcore_sweep": (p, p, p, p, p, p, i, i, p, p),
             "etpu_collapse_starts": (p, p, i, i, i, p, p),
             "etpu_expand_segments": (p, p, i, i, p, p),
+            "etpu_scan_i32": (p, p, p, p, p, p, ll, i, p),
+            "etpu_scan_f32": (p, p, p, p, p, p, ll, i, p),
+            "etpu_scan_tile": (),
+            "etpu_gather_payloads": (p, ll, p, p, p, p, p, p, p, p, i, p),
+            "etpu_segment_reduce_i32": (p, p, i, i, i, p, p),
+            "etpu_segment_reduce_f32": (p, p, i, i, ctypes.c_float, p, p),
+            "etpu_advance_count": (p, p, p, i, p, p),
         }
         for m in MESSAGES:
             for r in REDUCES:
@@ -170,6 +190,9 @@ def _library():
                  f"spmv_slabs: the library's slab is "
                  f"{lib.etpu_spmv_slab_edges()} edges, SLAB_EDGES is "
                  f"{SLAB_EDGES}")
+        throw_if(lib.etpu_scan_tile() != SCAN_TILE,
+                 f"scan: the library's tile is {lib.etpu_scan_tile()} "
+                 f"elements, SCAN_TILE is {SCAN_TILE}")
         _lib = lib
     return _lib
 
@@ -746,5 +769,220 @@ def expand_segments(vals: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty(n, dtype=torch.int32, device=vals.device)
     _launch("etpu_expand_segments", vals.device, vals.data_ptr(),
             offsets.data_ptr(), vp, n, out.data_ptr())
+    launches[name] += 1
+    return out
+
+
+# ------------------------------------------------------------------ scan --
+
+def _wrap_i32(x64: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap-around."""
+    return (torch.remainder(x64 + 2**31, 2**32) - 2**31).int()
+
+
+def _ordered(x: torch.Tensor) -> torch.Tensor:
+    """[n] int64 keys that order as x does (int32, or float32 by its bits:
+    negative floats have all but the sign bit flipped)."""
+    if x.dtype == torch.float32:
+        b = x.view(torch.int32)
+        x = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    return x.long()
+
+
+def _unordered(k: torch.Tensor, dtype) -> torch.Tensor:
+    k = k.int()
+    if dtype == torch.float32:
+        return torch.where(k < 0, k ^ 0x7FFFFFFF, k).view(torch.float32)
+    return k
+
+
+def scan_plain(x, flags=None, op: str = "add"):
+    """Plain version of ``scan``. A float ``add`` is summed in float64 and
+    rounded once, so it differs from the kernel's float32 order within a
+    tolerance; every other case is exact."""
+    n = x.numel()
+    if n == 0:
+        return x.clone()
+    dev = x.device
+    start = (torch.zeros(n, dtype=torch.bool, device=dev) if flags is None
+             else flags.bool().clone())
+    start[0] = True
+    pos = torch.arange(n, device=dev)
+    first = torch.cummax(torch.where(start, pos, 0), 0).values
+    if op == "first":
+        return x[first]
+    if op == "add":
+        wide = x.double() if x.dtype == torch.float32 else x.long()
+        c = torch.cumsum(wide, 0)
+        c = c - (c[first] - wide[first])
+        return c.float() if x.dtype == torch.float32 else _wrap_i32(c)
+    seg = torch.cumsum(start.long(), 0) - 1
+    k = _ordered(x)
+    # later segments carry larger keys, so a running max stays in its segment
+    u = k + 2**31 if op == "max" else 2**31 - 1 - k
+    m = torch.cummax(seg * 2**32 + u, 0).values - seg * 2**32
+    return _unordered(m - 2**31 if op == "max" else 2**31 - 1 - m, x.dtype)
+
+
+def scan(x: torch.Tensor, flags: torch.Tensor | None = None,
+         op: str = "add") -> torch.Tensor:
+    """Inclusive scan of a 1-D int32 (add wraps around) or float32 tensor
+    under ``op`` (add, min, max, first), segmented where ``flags`` ([n] bool
+    or uint8) marks segment starts; position 0 always starts one. A float
+    add is deterministic: its order depends on n alone."""
+    name = "scan"
+    throw_if(op not in SCAN_OPS, f"{name}: op must be one of {SCAN_OPS}")
+    throw_if(x.dtype not in (torch.int32, torch.float32) or x.dim() != 1,
+             f"{name}: x must be 1-D int32 or float32")
+    throw_if(flags is not None and (flags.dtype not in (torch.bool,
+                                                        torch.uint8)
+                                    or flags.shape != x.shape),
+             f"{name}: flags must be [n] bool or uint8")
+    if not _route(name, x):
+        return scan_plain(x, flags, op)
+    dev = x.device
+    _check(name, dev, x=x, **({} if flags is None else {"flags": flags}))
+    n = x.numel()
+    out = torch.empty_like(x)
+    g = max(1, -(-n // SCAN_TILE))
+    total_v = torch.empty(g, dtype=x.dtype, device=dev)
+    total_f = torch.empty(g, dtype=torch.uint8, device=dev)
+    first = torch.empty(g, dtype=torch.int32, device=dev)
+    _launch("etpu_scan_f32" if x.dtype == torch.float32 else "etpu_scan_i32",
+            dev, x.data_ptr(), None if flags is None else flags.data_ptr(),
+            out.data_ptr(), total_v.data_ptr(), total_f.data_ptr(),
+            first.data_ptr(), n, SCAN_OPS.index(op))
+    launches[name] += 1
+    return out
+
+
+# ------------------------------------------------------- gather_payloads --
+
+def gather_payloads_plain(idx, *payloads):
+    """Plain version of ``gather_payloads``."""
+    i = idx.long()
+    return tuple(p[i] for p in payloads)
+
+
+def gather_payloads(idx: torch.Tensor, *payloads: torch.Tensor) -> tuple:
+    """out_k[p] = payloads[k][idx[p]] for 1-4 payloads of 32-bit elements
+    (int32 or float32, moved as bits), through one [n] int32 index array
+    whose entries must lie in every payload's range. Returns a tuple of [n]
+    tensors of the payloads' dtypes."""
+    name = "gather_payloads"
+    throw_if(not 1 <= len(payloads) <= 4, f"{name}: 1-4 payloads")
+    throw_if(idx.dtype != torch.int32 or idx.dim() != 1,
+             f"{name}: idx must be 1-D int32")
+    for p in payloads:
+        throw_if(p.dtype not in (torch.int32, torch.float32) or p.dim() != 1,
+                 f"{name}: payloads must be 1-D int32 or float32")
+    if not _route(name, idx):
+        return gather_payloads_plain(idx, *payloads)
+    dev = idx.device
+    _check(name, dev, idx=idx, **{f"payload{k}": p
+                                  for k, p in enumerate(payloads)})
+    n = idx.numel()
+    outs = tuple(torch.empty(n, dtype=p.dtype, device=dev) for p in payloads)
+    ins = [p.data_ptr() for p in payloads] + [None] * (4 - len(payloads))
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    _launch("etpu_gather_payloads", dev, idx.data_ptr(), n, *ins, *ptrs,
+            len(payloads))
+    launches[name] += 1
+    return outs
+
+
+# -------------------------------------------------------- segment_reduce --
+
+def reduce_identity(op: str, dtype):
+    """The identity of ``op`` on ``dtype``: what an empty segment gets."""
+    if op in ("sum", "or"):
+        return 0
+    if op == "and":
+        return 1
+    if dtype == torch.float32:
+        return float("inf") if op == "min" else float("-inf")
+    return INT32_MAX if op == "min" else -INT32_MAX - 1
+
+
+def segment_reduce_plain(vals, offsets, op: str):
+    """Plain version of ``segment_reduce`` (float sums in another order)."""
+    s = offsets.numel() - 1
+    lo = int(offsets[0])
+    hi = int(offsets[-1])
+    seg = _segment_ids(offsets - lo, hi - lo)
+    v = vals[lo:hi]
+    if op in ("or", "and"):
+        hit = torch.zeros(s, dtype=torch.int64, device=vals.device)
+        hit.index_add_(0, seg, (v != 0).long())
+        if op == "or":
+            return hit > 0
+        return hit == (offsets[1:] - offsets[:-1]).long()
+    if op == "sum" and vals.dtype == torch.int32:
+        out = torch.zeros(s, dtype=torch.int64, device=vals.device)
+        return _wrap_i32(out.index_add_(0, seg, v.long()))
+    if op == "sum":
+        out = torch.zeros(s, dtype=vals.dtype, device=vals.device)
+        return out.index_add_(0, seg, v)
+    out = torch.full((s,), reduce_identity(op, vals.dtype), dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_reduce_(0, seg, v, "amin" if op == "min" else "amax")
+
+
+def segment_reduce(vals: torch.Tensor, offsets: torch.Tensor,
+                   op: str) -> torch.Tensor:
+    """Per-segment ``op`` (sum, min, max, or, and) of ``vals`` ([n] int32,
+    whose sum wraps around, or float32) over the sorted [S+1] int32
+    ``offsets``, one warp per segment, with the identity at empty segments.
+    sum/min/max give ``vals``' dtype, or/and bool (each value read as a
+    truth value). A float sum is deterministic: a fixed order per segment."""
+    name = "segment_reduce"
+    throw_if(op not in REDUCE_OPS, f"{name}: op must be one of {REDUCE_OPS}")
+    throw_if(vals.dtype not in (torch.int32, torch.float32)
+             or vals.dim() != 1, f"{name}: vals must be 1-D int32 or float32")
+    throw_if(offsets.dtype != torch.int32 or offsets.dim() != 1
+             or offsets.numel() < 1, f"{name}: offsets must be [S+1] int32")
+    if not _route(name, vals):
+        return segment_reduce_plain(vals, offsets, op)
+    dev = vals.device
+    _check(name, dev, vals=vals, offsets=offsets)
+    s = offsets.numel() - 1
+    out = torch.empty(s, dtype=torch.bool if op in ("or", "and")
+                      else vals.dtype, device=dev)
+    ident = reduce_identity(op, vals.dtype)
+    _launch("etpu_segment_reduce_f32" if vals.dtype == torch.float32
+            else "etpu_segment_reduce_i32", dev, vals.data_ptr(),
+            offsets.data_ptr(), s, REDUCE_OPS.index(op), ident,
+            out.data_ptr())
+    launches[name] += 1
+    return out
+
+
+# --------------------------------------------------------- advance_count --
+
+def advance_count_plain(frontier, offsets, csc_src):
+    """Plain version of ``advance_count``."""
+    cnt = torch.zeros(offsets.numel() - 1, dtype=torch.int32,
+                      device=frontier.device)
+    return cnt.index_add_(0, _segment_ids(offsets, csc_src.numel()),
+                          frontier[csc_src.long()].int())
+
+
+def advance_count(frontier: torch.Tensor, offsets: torch.Tensor,
+                  csc_src: torch.Tensor) -> torch.Tensor:
+    """[Vp] int32: for each destination v, the in-edges q in
+    [offsets[v], offsets[v+1]) whose source csc_src[q] is set in the [Vp]
+    bool ``frontier``. ``offsets`` are the CSC offsets, covering [0, Ep)."""
+    name = "advance_count"
+    vp = offsets.numel() - 1
+    throw_if(frontier.dtype != torch.bool or frontier.shape != (vp,),
+             f"{name}: frontier must be [Vp] bool")
+    _check_graph(name, csc_src.numel(), offsets, csc_src)
+    if not _route(name, frontier):
+        return advance_count_plain(frontier, offsets, csc_src)
+    dev = frontier.device
+    _check(name, dev, frontier=frontier, offsets=offsets, csc_src=csc_src)
+    out = torch.empty(vp, dtype=torch.int32, device=dev)
+    _launch("etpu_advance_count", dev, frontier.data_ptr(),
+            offsets.data_ptr(), csc_src.data_ptr(), vp, out.data_ptr())
     launches[name] += 1
     return out

@@ -130,18 +130,35 @@ def test_auto_is_fused():
     assert torch.equal(a.predecessors, f.predecessors)
 
 
-@pytest.mark.parametrize("variant", ["adaptive", "hybrid", "phased", "nope"])
+@pytest.mark.parametrize("variant", ["hybrid", "phased", "nope"])
 def test_unported_variants_raise(variant):
     _, g, _ = graphs("chesapeake")
     with pytest.raises(EssentialsError, match="ROADMAP|unknown"):
         tbfs.run(g, 0, variant=variant)
 
 
+@pytest.mark.parametrize("name", ["chesapeake", "grid24"])
+def test_adaptive_runs_like_fused(name):
+    """adaptive (no longer unported) gives fused's distances, predecessors
+    and levels on a graph with a symmetric layout."""
+    _, g, _ = graphs(name)
+    a = tbfs.run(g, 3, variant="adaptive", warmup=False)
+    f = tbfs.run(g, 3, variant="fused", warmup=False)
+    assert torch.equal(a.distances, f.distances)
+    assert torch.equal(a.predecessors, f.predecessors)
+    assert a.iterations == f.iterations and a.tiers == (0, 0, a.iterations)
+
+
 def test_non_symmetric_graph_raises():
-    g = build_graph(sample_csr(), directed=True, weighted=True, device="cpu")
+    """fused still needs a symmetric layout; adaptive and auto run."""
+    csr = sample_csr()
+    g = build_graph(csr, directed=True, weighted=True, device="cpu")
     assert not tbfs.fused_supported(g)
-    with pytest.raises(EssentialsError, match="ROADMAP"):
+    with pytest.raises(EssentialsError, match="symmetric layout"):
         tbfs.run(g, 2, variant="fused")
+    for variant in ("adaptive", "auto"):
+        r = tbfs.run(g, 2, variant=variant)
+        assert np.array_equal(r.distances.numpy(), tbfs.cpu_reference(csr, 2))
 
 
 def test_compute_predecessors_off():

@@ -1,9 +1,11 @@
 """essentials_tpu_torch without JAX: the port and chip_smoke.py import
 neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank, HITS,
-SSSP, k-core) run where importing jax fails, and, on a CUDA card, its
-kernels agree with their plain versions (the BFS, SSSP and k-core kernels
-exactly, the SpMV kernels exactly under ``min`` and to
-|k - p| <= 1e-5 |p| + 1e-6 under ``sum``).
+SSSP, k-core, and BFS and SSSP ``adaptive`` on a directed graph) run where
+importing jax fails, and, on a CUDA card, its kernels agree with their plain
+versions (the BFS, SSSP, k-core and operator kernels exactly, but float
+sums: the SpMV kernels, ``scan`` and ``segment_reduce`` under ``sum``, to
+|k - p| <= 1e-5 |p| + 1e-6, and a float ``scan`` ``add`` also against a
+float64 running sum).
 
 This file imports no jax, so its card test runs on a machine without jax:
 
@@ -35,10 +37,19 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
+OPERATOR_LAYER = ("frontier/__init__.py", "frontier/boolmap.py",
+                  "framework/__init__.py", "framework/enactor.py",
+                  "ops/configs.py", "ops/scan_kernels.py", "ops/segment.py",
+                  "ops/advance.py", "ops/neighborreduce.py",
+                  "ops/sparse_advance.py")
+
+
 def test_sources_import_no_jax():
     files = sorted((ROOT / "essentials_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    assert {ROOT / "essentials_tpu_torch" / m
+            for m in OPERATOR_LAYER} <= set(files)
     for f in files:
         assert not _imported_roots(f) & set(_FORBIDDEN), f
 
@@ -84,6 +95,19 @@ _MAIN_PATH = textwrap.dedent("""
         assert np.allclose(d[np.isfinite(ref)], ref[np.isfinite(ref)],
                            rtol=1e-5, atol=0)
     assert np.array_equal(kcore.run(gw).core.numpy(), kcore.cpu_reference(cw))
+    from essentials_tpu_torch import framework, frontier, ops
+    cd = Csr.from_coo(generate.rmat(9, 8, seed=2, undirected=False,
+                                    weighted=True))
+    gd = build_graph(cd, directed=True, weighted=True, device="cpu")
+    assert not gd.symmetric_layout
+    rb = bfs.run(gd, 1, variant="adaptive")
+    assert np.array_equal(rb.distances.numpy(), bfs.cpu_reference(cd, 1))
+    ref = sssp.cpu_reference(cd, 1)
+    d = sssp.run(gd, 1).distances.numpy()
+    assert np.array_equal(np.isfinite(d), np.isfinite(ref))
+    x = spmv.random_x(gd, 3)
+    for variant in ("pull", "push"):
+        assert spmv.run(gd, x, variant=variant).y.isfinite().all()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -257,3 +281,68 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
     assert np.allclose(got[reach], ref[reach], rtol=1e-5, atol=0)
     assert np.array_equal(kcore.run(g).core.cpu().numpy(),
                           kcore.cpu_reference(csr))
+
+
+@pytest.mark.cuda
+def test_operator_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import bfs, sssp
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+
+    def close(k, p):
+        k, p = k.double(), p.double()
+        return bool(((k - p).abs() <= 1e-5 * p.abs() + 1e-6).all())
+
+    csr = Csr.from_coo(generate.rmat(12, 16, seed=3, undirected=False,
+                                     weighted=True))
+    g = build_graph(csr, directed=True, weighted=True, device="cuda")
+    rng = np.random.default_rng(0)
+    n = g.n_edges_padded
+    flags = torch.from_numpy(rng.random(n) < 0.01).cuda()
+    kernels.reset_launches()
+    for x in (torch.from_numpy(rng.integers(-2**30, 2**30, n).astype(
+            np.int32)).cuda(), torch.from_numpy(rng.random(n).astype(
+                np.float32)).cuda()):
+        for op in kernels.SCAN_OPS:
+            for fl in (None, flags):
+                k = kernels.scan(x, fl, op)
+                assert torch.equal(k, kernels.scan(x, fl, op))
+                p = kernels.scan_plain(x, fl, op)
+                ok = close(k, p) if (op == "add" and x.is_floating_point()) \
+                    else torch.equal(k, p)
+                assert ok, (x.dtype, op, fl is None)
+        for off in (g.csc_offsets, g.row_offsets):
+            for op in kernels.REDUCE_OPS:
+                k = kernels.segment_reduce(x, off, op)
+                assert torch.equal(k, kernels.segment_reduce(x, off, op))
+                p = kernels.segment_reduce_plain(x, off, op)
+                ok = close(k, p) if (op == "sum" and x.is_floating_point()) \
+                    else torch.equal(k, p)
+                assert ok, (x.dtype, op)
+    vp = g.n_vertices_padded
+    pays = [torch.from_numpy(rng.random(vp).astype(np.float32)).cuda(),
+            torch.arange(vp, dtype=torch.int32, device="cuda")] * 2
+    for m in range(1, 5):
+        k = kernels.gather_payloads(g.csc_src_indices, *pays[:m])
+        p = kernels.gather_payloads_plain(g.csc_src_indices, *pays[:m])
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+    f = torch.from_numpy(rng.random(vp) < 0.3).cuda() & g.vertex_mask()
+    assert torch.equal(
+        kernels.advance_count(f, g.csc_offsets, g.csc_src_indices),
+        kernels.advance_count_plain(f, g.csc_offsets, g.csc_src_indices))
+    assert all(kernels.launches[k] > 0 for k in (
+        "scan", "gather_payloads", "segment_reduce", "advance_count"))
+    s = int(np.argmax(np.diff(csr.row_offsets)))
+    r = bfs.run(g, s, variant="adaptive", warmup=False)
+    assert np.array_equal(r.distances.cpu().numpy(),
+                          bfs.cpu_reference(csr, s))
+    d = sssp.run(g, s, variant="adaptive", warmup=False).distances
+    ref = sssp.cpu_reference(csr, s)
+    reach = np.isfinite(ref)
+    d = d.cpu().numpy()
+    assert np.array_equal(np.isfinite(d), reach)
+    assert np.allclose(d[reach], ref[reach], rtol=1e-5, atol=0)

@@ -1,0 +1,468 @@
+"""Port parity: essentials_tpu_torch's operator layer (ops.scan_kernels,
+ops.segment, ops.advance, ops.neighborreduce, ops.sparse_advance, frontier,
+and SSSP's dense relaxation on them) against essentials_tpu's, on the CPU,
+where every kernel wrapper runs its plain version.
+
+The JAX graphs are built without router plans (the CPU path: JAX's advance
+sorts by the rank permutation and combines with jnp.cumsum and
+associative_scan) and carried into the port with graph_from_arrays, so both
+packages compute on the same arrays. Integer results, minima, maxima, ORs,
+ANDs and gathers must be equal; float sums are summed in another order and
+are held to the SpMV tolerance of benchmarks/PARITY.md, |y - ref| <=
+1e-5 |ref| + 1e-6, except a float cumsum over 4,000 elements, whose
+float32 running sum in JAX drifts by up to 1e-5 of its size (rtol 1e-4)."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from essentials_tpu.formats import Coo as JCoo
+from essentials_tpu.formats import Csr as JCsr
+from essentials_tpu.frontier import boolmap as jbm
+from essentials_tpu.graph import build_graph as jbuild
+from essentials_tpu.io import generate as jgen
+from essentials_tpu.ops import Combine as JCombine
+from essentials_tpu.ops import AdvanceIO as JIO
+from essentials_tpu.ops import neighborreduce as jnr
+from essentials_tpu.ops import scan_kernels as jsk
+from essentials_tpu.ops import segment as jseg
+from essentials_tpu.ops import sparse_advance as jsa
+
+from essentials_tpu_torch import frontier as tbm
+from essentials_tpu_torch import kernels
+from essentials_tpu_torch.algorithms import sssp as tsssp
+from essentials_tpu_torch.errors import EssentialsError
+from essentials_tpu_torch.graph import graph_from_arrays
+from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
+from essentials_tpu_torch.ops import AdvanceIO, Combine
+from essentials_tpu_torch.ops import neighborreduce as tnr
+from essentials_tpu_torch.ops import scan_kernels as tsk
+from essentials_tpu_torch.ops import segment as tseg
+from essentials_tpu_torch.ops import sparse_advance as tsa
+
+# the packages export functions named like these modules
+jadv = importlib.import_module("essentials_tpu.ops.advance")
+tadv = importlib.import_module("essentials_tpu_torch.ops.advance")
+
+RTOL, ATOL = 1e-5, 1e-6
+IMAX = np.iinfo(np.int32).max
+
+
+def carried(csr, directed):
+    """The JAX graph (no router plans) and the port's graph made from its
+    fields."""
+    gj = jbuild(csr, directed=directed, weighted=True, build_router=False)
+    fields = {f: None if getattr(gj, f) is None else np.asarray(getattr(gj, f))
+              for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return csr, gj, graph_from_arrays(fields, meta, "cpu")
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    hub = JCoo(40, 40, np.r_[np.zeros(30, np.int32), np.arange(1, 9)],
+               np.r_[np.arange(1, 31), np.arange(2, 10)].astype(np.int32),
+               np.linspace(0.5, 3.0, 38).astype(np.float32))
+    return {
+        "directed": carried(JCsr.from_coo(jgen.rmat(
+            10, 8, seed=3, undirected=False, weighted=True)), True),
+        "undirected": carried(JCsr.from_coo(jgen.rmat(
+            9, 8, seed=5, undirected=True, weighted=True)), False),
+        "hub": carried(JCsr.from_coo(hub), True),
+    }
+
+
+NAMES = ("directed", "undirected", "hub")
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    np.testing.assert_array_less(np.abs(got - want),
+                                 RTOL * np.abs(want) + ATOL + 1e-30)
+
+
+def equal(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+def rng_frontier(g, seed, p=0.2):
+    rng = np.random.default_rng(seed)
+    f = rng.random(g.n_vertices_padded) < p
+    f[g.n_vertices:] = False
+    return f
+
+
+# ----------------------------------------------------------------- scans --
+
+def scan_input(dtype, n=4000, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:       # large values, so the sums wrap around
+        return rng.integers(-2**30, 2**30, n).astype(np.int32)
+    return rng.random(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_cumsum_matches_jax(dtype):
+    x = scan_input(dtype)
+    got = tsk.cumsum(t(x)).numpy()
+    want = np.asarray(jsk.cumsum(jnp.asarray(x)))
+    if dtype == np.int32:
+        equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        np.testing.assert_allclose(got, np.cumsum(x, dtype=np.float64),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max", "first"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_segmented_scan_matches_jax(op, dtype):
+    x = scan_input(dtype, seed=1)
+    flags = np.random.default_rng(2).random(x.size) < 0.02
+    got = tsk.segmented_scan(t(x), t(flags), op).numpy()
+    want = np.asarray(jsk.segmented_scan(jnp.asarray(x), jnp.asarray(flags),
+                                         op))
+    if op == "add" and dtype == np.float32:
+        close(got, want)
+    else:
+        equal(got, want)
+
+
+def test_scans_match_pallas_in_interpret_mode():
+    """JAX's Pallas scan_1d and segmented_scan_1d, which run in interpret
+    mode off the TPU."""
+    x = scan_input(np.int32, n=3000, seed=3)
+    equal(tsk.cumsum(t(x)).numpy(), np.asarray(jsk.scan_1d(jnp.asarray(x),
+                                                           "add")))
+    flags = np.random.default_rng(4).random(x.size) < 0.05
+    got = tsk.segmented_scan(t(x), t(flags), "max").numpy()
+    equal(got, np.asarray(jsk.segmented_scan_1d(jnp.asarray(x),
+                                                jnp.asarray(flags), "max")))
+
+
+def test_scan_carriers_and_short_inputs():
+    b = np.array([True, False, True, True])
+    equal(tsk.cumsum(t(b)).numpy(), np.array([1, 1, 2, 3], np.int32))
+    equal(tsk.cumsum(torch.tensor([7], dtype=torch.int32)).numpy(),
+          np.array([7], np.int32))
+    assert tsk.cumsum(torch.zeros(0, dtype=torch.int32)).numel() == 0
+    with pytest.raises(EssentialsError):
+        tsk.cumsum(torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(EssentialsError):
+        kernels.scan(torch.zeros(3, dtype=torch.int32), None, "mul")
+
+
+# --------------------------------------------------------------- segment --
+
+def combine_input(combine, dtype, n, seed):
+    rng = np.random.default_rng(seed)
+    if combine in ("or", "and"):
+        return rng.random(n) < (0.3 if combine == "or" else 0.9)
+    if dtype == np.int32:
+        return rng.integers(-2**30, 2**30, n).astype(np.int32)
+    return (rng.random(n) * 4 - 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("order", ["csc", "csr"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("combine", ["sum", "min", "max", "or", "and"])
+def test_combine_by_offsets_matches_jax(graphs, combine, dtype, order):
+    _, gj, g = graphs["directed"]
+    off_t = g.csc_offsets if order == "csc" else g.row_offsets
+    off_j = gj.csc_offsets if order == "csc" else gj.row_offsets
+    flags = gj.csc_seg_flags if order == "csc" else gj.csr_seg_flags
+    x = combine_input(combine, dtype, g.n_edges_padded, 5)
+    got = tseg.combine_by_offsets(t(x), off_t, Combine(combine)).numpy()
+    want = np.asarray(jseg.combine_by_offsets(jnp.asarray(x), off_j,
+                                              JCombine(combine), flags))
+    if combine == "sum" and dtype == np.float32:
+        close(got, want)
+    else:
+        equal(got, want)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_expand_and_permutation_match_jax(graphs, name):
+    _, gj, g = graphs[name]
+    rng = np.random.default_rng(6)
+    for vals in (rng.random(g.n_vertices_padded).astype(np.float32),
+                 rng.integers(-9, 9, g.n_vertices_padded).astype(np.int32),
+                 rng.random(g.n_vertices_padded) < 0.5):
+        got = tseg.expand_vertex_to_edges(t(vals), g.row_offsets,
+                                          g.n_edges_padded)
+        want = jseg.expand_vertex_to_edges(jnp.asarray(vals), gj.row_offsets,
+                                           gj.n_edges_padded)
+        equal(got.numpy(), np.asarray(want))
+        # JAX moves the expansion into CSC order by the rank permutation;
+        # the port gathers the vertex values through csc_src_indices
+        moved = jseg.apply_permutation(gj.csc_rank, want)
+        equal(tseg.gather(g.csc_src_indices, t(vals))[0].numpy(),
+              np.asarray(moved))
+
+
+def test_combine_identity_matches_jax():
+    for c in Combine:
+        for tdt, jdt in ((torch.int32, jnp.int32),
+                         (torch.float32, jnp.float32)):
+            assert tseg.combine_identity(c, tdt) == \
+                jseg.combine_identity(JCombine(c.value), jdt)
+
+
+# --------------------------------------------------------------- advance --
+
+def _msg_min(e):
+    return e.src_vals[0] + e.weight
+
+
+def _msg_pred(e):
+    ok = (e.src_vals[0] + e.weight) == e.dst_vals[0]
+    return jnp.where(ok, e.src, IMAX) if isinstance(ok, jax.Array) else \
+        torch.where(ok, e.src, IMAX)
+
+
+@jax.jit
+def _jax_advances(gj, f, dist):
+    cand, out_f = jadv.advance(gj, _msg_min, f, src_values=(dist,),
+                               combine=JCombine.MIN)
+    nd = jnp.minimum(cand, dist)
+    pred = jadv.advance(gj, _msg_pred, f, src_values=(dist,),
+                        dst_values=(nd,), combine=JCombine.MIN,
+                        with_frontier=False)
+    cnt = jadv.advance_count(gj, f)
+    multi = jadv.advance_multi(
+        gj, [(lambda e: (e.weight, e.weight > 1.0), JCombine.SUM),
+             (lambda e: e.src, JCombine.MAX)], f, with_frontier=True)
+    graph_sum = jadv.advance(gj, lambda e: e.weight * e.src_vals[0], None,
+                             src_values=(dist,), input_kind=JIO.GRAPH,
+                             combine=JCombine.SUM, with_frontier=False)
+    return cand, out_f, pred, cnt, multi, graph_sum
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_advance_matches_jax(graphs, name):
+    _, gj, g = graphs[name]
+    f = rng_frontier(g, 8)
+    dist = np.random.default_rng(9).random(g.n_vertices_padded).astype(
+        np.float32) * 5
+    cand_j, of_j, pred_j, cnt_j, multi_j, gs_j = _jax_advances(
+        gj, jnp.asarray(f), jnp.asarray(dist))
+    ft, dt = t(f), t(dist)
+    cand, of = tadv.advance(g, _msg_min, ft, src_values=(dt,),
+                            combine=Combine.MIN)
+    equal(cand.numpy(), np.asarray(cand_j))
+    equal(of.numpy(), np.asarray(of_j))
+    pred = tadv.advance(g, _msg_pred, ft, src_values=(dt,),
+                        dst_values=(torch.minimum(cand, dt),),
+                        combine=Combine.MIN, with_frontier=False)
+    equal(pred.numpy(), np.asarray(pred_j))
+    cnt = tadv.advance_count(g, ft)
+    equal(cnt.numpy(), np.asarray(cnt_j))
+    (s, mx), of2 = tadv.advance_multi(
+        g, [(lambda e: (e.weight, e.weight > 1.0), Combine.SUM),
+            (lambda e: e.src, Combine.MAX)], ft, with_frontier=True)
+    close(s.numpy(), np.asarray(multi_j[0][0]))
+    equal(mx.numpy(), np.asarray(multi_j[0][1]))
+    equal(of2.numpy(), np.asarray(multi_j[1]))
+    gs = tadv.advance(g, lambda e: e.weight * e.src_vals[0], None,
+                      src_values=(dt,), input_kind=AdvanceIO.GRAPH,
+                      combine=Combine.SUM, with_frontier=False)
+    close(gs.numpy(), np.asarray(gs_j))
+    # SSSP's dense round: the two MIN advances on one gather
+    cand, pred = tsssp.dense_relax(g, dt, ft)
+    equal(cand.numpy(), np.asarray(cand_j))
+    equal(pred.numpy(), np.asarray(pred_j))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_advance_count_is_the_generic_count(graphs, name):
+    """advance_count (its own kernel) equals the generic advance's SUM of
+    1 over the active in-edges, the JAX package's CPU path."""
+    _, _, g = graphs[name]
+    f = t(rng_frontier(g, 10, 0.4))
+    generic = tadv.advance_multi(g, [(lambda e: 1, Combine.SUM)], f)[0]
+    assert generic.dtype == torch.int32
+    equal(tadv.advance_count(g, f).numpy(), generic.numpy())
+
+
+NR_MESSAGES = {"sum": lambda e: e.weight * e.dst_vals[0],
+               "min": lambda e: e.src_vals[0] - e.dst_vals[0],
+               "max": lambda e: e.dst}
+
+
+@pytest.mark.parametrize("combine", sorted(NR_MESSAGES))
+@pytest.mark.parametrize("name", NAMES)
+def test_neighbor_reduce_matches_jax(graphs, name, combine):
+    _, gj, g = graphs[name]
+    x = np.random.default_rng(14).random(g.n_vertices_padded).astype(
+        np.float32)
+    fn = NR_MESSAGES[combine]
+    want = jax.jit(lambda gj, x: jnr.neighbor_reduce(
+        gj, fn, src_values=(x,), dst_values=(x,),
+        combine=JCombine(combine)))(gj, jnp.asarray(x))
+    got = tnr.neighbor_reduce(g, fn, src_values=(t(x),), dst_values=(t(x),),
+                              combine=Combine(combine))
+    (close if combine == "sum" else equal)(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------- spray tiers --
+
+def index_list(g, seed, members, k):
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.choice(g.n_vertices, members, replace=False))
+    out = np.full(k, g.pad_vertex, np.int32)
+    out[:members] = ids
+    return out
+
+
+@pytest.mark.parametrize("k", [4, 64, 4096])
+@pytest.mark.parametrize("name", NAMES)
+def test_compact_frontier_matches_jax(graphs, name, k):
+    _, _, g = graphs[name]
+    f = rng_frontier(g, 15, 0.3)
+    got = tsa.compact_frontier(t(f), k, g.pad_vertex)
+    want = jsa.compact_frontier(jnp.asarray(f), k, g.pad_vertex)
+    equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("budget,k", [(jsa.TINY_BUDGET, jsa.TINY_K),
+                                      (jsa.SPRAY_BUDGET, 64)])
+@pytest.mark.parametrize("name", NAMES)
+def test_spray_reach_and_relax_match_jax(graphs, name, budget, k):
+    _, gj, g = graphs[name]
+    members = min(20, g.n_vertices)
+    idx = index_list(g, 16, members, k)
+    dist = np.full(g.n_vertices_padded, np.inf, np.float32)
+    dist[idx[:members]] = np.random.default_rng(17).random(members)
+    unvisited = np.random.default_rng(18).random(g.n_vertices_padded) < 0.7
+    offs_j, deg_j = jsa.frontier_out_degree(gj, jnp.asarray(idx))
+    offs, deg = tsa.frontier_out_degree(g, t(idx))
+    equal(offs.numpy(), np.asarray(offs_j))
+    equal(deg.numpy(), np.asarray(deg_j))
+    assert int(deg.sum()) <= budget
+    want = jax.jit(jsa.spray_reach, static_argnums=(5, 6))(
+        gj, jnp.asarray(idx), offs_j, deg_j, jnp.asarray(unvisited), budget,
+        k)
+    got = tsa.spray_reach(g, t(idx), offs, deg, t(unvisited), budget, k)
+    for a, b in zip(got, want):
+        equal(a.numpy(), np.asarray(b))
+    want = jax.jit(jsa.spray_relax_min, static_argnums=(5, 6))(
+        gj, jnp.asarray(idx), offs_j, deg_j, jnp.asarray(dist), budget, k)
+    got = tsa.spray_relax_min(g, t(idx), offs, deg, t(dist), budget, k)
+    for a, b in zip(got, want):
+        equal(a.numpy(), np.asarray(b))
+    e, nb, valid, pfx = tsa.spray_candidates(g, t(idx), offs, deg, budget)
+    ej, nbj, srcj, validj = jsa.spray_candidates(gj, jnp.asarray(idx), offs_j,
+                                                 deg_j, budget)
+    assert srcj is None
+    for a, b in ((e, ej), (nb, nbj), (valid, validj)):
+        equal(a.numpy(), np.asarray(b))
+    equal(pfx.numpy(), np.cumsum(deg.numpy(), dtype=np.int32) - deg.numpy())
+    assert tsa.frontier_degree_sum(g, t(dist < np.inf)) == \
+        int(jsa.frontier_degree_sum(gj, jnp.asarray(dist < np.inf)))
+
+
+def test_spray_gates_follow_min_edges(graphs, monkeypatch):
+    _, gj, g = graphs["directed"]
+    for c in ("SPRAY_BUDGET", "SPRAY_K", "TINY_BUDGET", "TINY_K",
+              "_MIN_EDGES"):
+        assert getattr(jsa, c) == getattr(tsa, c), c
+    assert tsa.spray_enabled(g) == jsa.spray_enabled(gj) is False
+    monkeypatch.setattr(tsa, "_MIN_EDGES", 0)
+    assert tsa.spray_enabled(g)
+    assert tsa.spray_k(g) == jsa.spray_k(gj) == tsa.SPRAY_K
+
+
+# -------------------------------------------------------------- frontier --
+
+def test_frontier_matches_jax(graphs):
+    _, gj, g = graphs["directed"]
+    equal(tbm.frontier_from_indices(g, [3, 7]).numpy(),
+          np.asarray(jbm.frontier_from_indices(gj, jnp.asarray([3, 7]))))
+    for kind in ("vertex", "edge"):
+        equal(tbm.full_frontier(g, kind).numpy(),
+              np.asarray(jbm.full_frontier(gj, kind)))
+        equal(tbm.empty_frontier(g, kind).numpy(),
+              np.asarray(jbm.empty_frontier(gj, kind)))
+    f = rng_frontier(g, 21)
+    assert int(tbm.frontier_size(t(f))) == int(jbm.frontier_size(
+        jnp.asarray(f)))
+    assert bool(tbm.frontier_is_empty(t(f))) is False
+    equal(tbm.frontier_to_indices(t(f), 50).numpy(),
+          np.asarray(jbm.frontier_to_indices(jnp.asarray(f), 50)))
+    equal(g.edge_mask().numpy(), np.asarray(gj.edge_mask()))
+
+
+# -------------------------------------------------------------- wrappers --
+
+def test_wrappers_take_plain_version_on_cpu(graphs):
+    _, _, g = graphs["directed"]
+    kernels.reset_launches()
+    x = torch.arange(g.n_vertices_padded, dtype=torch.int32)
+    equal(kernels.scan(x).numpy(), kernels.scan_plain(x).numpy())
+    a, b = kernels.gather_payloads(g.csc_src_indices, x, x.float())
+    equal(a.numpy(), x[g.csc_src_indices.long()].numpy())
+    assert b.dtype == torch.float32
+    v = torch.ones(g.n_edges_padded)
+    equal(kernels.segment_reduce(v, g.csc_offsets, "sum").numpy(),
+          g.in_degrees().float().numpy())
+    f = t(rng_frontier(g, 22))
+    equal(kernels.advance_count(f, g.csc_offsets, g.csc_src_indices).numpy(),
+          kernels.advance_count_plain(f, g.csc_offsets,
+                                      g.csc_src_indices).numpy())
+    assert all(n == 0 for n in kernels.launches.values())
+
+
+@pytest.mark.parametrize("call", ["scan", "gather", "reduce", "count"])
+def test_wrappers_raise_on_other_devices(graphs, call):
+    g = graphs["hub"][2].to("meta")
+    with pytest.raises(EssentialsError):
+        if call == "scan":
+            kernels.scan(torch.empty(10, dtype=torch.int32, device="meta"))
+        elif call == "gather":
+            kernels.gather_payloads(g.csc_src_indices, g.csc_src_indices)
+        elif call == "reduce":
+            kernels.segment_reduce(torch.empty(g.n_edges_padded,
+                                               device="meta"),
+                                   g.csc_offsets, "min")
+        else:
+            kernels.advance_count(torch.empty(g.n_vertices_padded,
+                                              dtype=torch.bool,
+                                              device="meta"),
+                                  g.csc_offsets, g.csc_src_indices)
+
+
+def test_wrappers_reject_bad_arguments(graphs):
+    _, _, g = graphs["hub"]
+    i32 = torch.zeros(8, dtype=torch.int32)
+    bad = [
+        lambda: kernels.scan(i32.long()),
+        lambda: kernels.scan(i32, torch.zeros(7, dtype=torch.bool)),
+        lambda: kernels.scan(i32, None, "prod"),
+        lambda: kernels.gather_payloads(i32),
+        lambda: kernels.gather_payloads(i32, *([i32] * 5)),
+        lambda: kernels.gather_payloads(i32.long(), i32),
+        lambda: kernels.gather_payloads(i32, i32.double()),
+        lambda: kernels.segment_reduce(i32.double(), g.csc_offsets, "sum"),
+        lambda: kernels.segment_reduce(i32, g.csc_offsets.long(), "sum"),
+        lambda: kernels.segment_reduce(i32, g.csc_offsets, "xor"),
+        lambda: kernels.advance_count(i32.bool(), g.csc_offsets,
+                                      g.csc_src_indices),
+        lambda: kernels.advance_count(
+            torch.zeros(g.n_vertices_padded, dtype=torch.int32),
+            g.csc_offsets, g.csc_src_indices),
+    ]
+    for i, call in enumerate(bad):
+        with pytest.raises(EssentialsError):
+            call()
+            pytest.fail(f"case {i} did not raise")

@@ -276,6 +276,16 @@ def test_spmv_wrappers_reject_bad_arguments():
 
 @pytest.mark.parametrize("variant", ["pull", "push"])
 def test_unported_spmv_variants_raise(variant):
-    _, g = hub_graph()
-    with pytest.raises(EssentialsError, match="queue 1, item 8"):
-        tspmv.run(g, variant=variant)
+    """pull and push, once unported, now run on the operator layer (rows of
+    6,200 edges included); an unknown variant still raises."""
+    csr, g = hub_graph()
+    x = tspmv.random_x(g, 2)
+    y = tspmv.run(g, x, variant=variant).y.numpy().astype(np.float64)
+    a = np.zeros((g.n_vertices, g.n_vertices))
+    np.add.at(a, (np.repeat(np.arange(csr.n_rows), np.diff(csr.row_offsets)),
+                  csr.col_indices), csr.values)
+    xv = x.numpy()[:g.n_vertices].astype(np.float64)
+    ref = a @ xv if variant == "pull" else a.T @ xv
+    assert (np.abs(y - ref) <= 1e-5 * np.abs(ref) + 1e-6).all()
+    with pytest.raises(EssentialsError, match="unknown"):
+        tspmv.run(g, variant=variant + "x")

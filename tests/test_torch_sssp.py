@@ -236,9 +236,14 @@ def directed_cycle():
 
 
 def test_unported_and_unsupported_runs_raise(graphs):
-    _, _, g = graphs["grid16"]
-    with pytest.raises(EssentialsError, match="queue 1, item 8"):
-        tsssp.run(g, 0, variant="adaptive")
+    """adaptive, once unported, runs (and equals fused); unknown variants,
+    bad sources and the sweep engines on a graph without a symmetric layout
+    raise."""
+    csr, _, g = graphs["grid16"]
+    a = tsssp.run(g, 0, variant="adaptive", warmup=False)
+    f = tsssp.run(g, 0, variant="fused", warmup=False)
+    assert np.array_equal(bits(a.distances), bits(f.distances))
+    assert torch.equal(a.predecessors, f.predecessors)
     with pytest.raises(EssentialsError):
         tsssp.run(g, 0, variant="delta")
     with pytest.raises(EssentialsError):
@@ -247,8 +252,13 @@ def test_unported_and_unsupported_runs_raise(graphs):
     gd = carried(JCsr.from_coo(coo), directed=True)[2]
     assert not gd.symmetric_layout
     for variant in ("fused", "windowed"):
-        with pytest.raises(EssentialsError, match="queue 1, item 8"):
+        with pytest.raises(EssentialsError, match="symmetric layout"):
             tsssp.run(gd, 0, variant=variant)
+    dj = JCsr.from_coo(coo)
+    for variant in ("adaptive", "auto"):
+        d = tsssp.run(gd, 0, variant=variant).distances.numpy()
+        ref = tsssp.cpu_reference(dj, 0)
+        assert np.array_equal(np.isfinite(d), np.isfinite(ref))
 
 
 def test_directed_symmetric_layout_runs_fused_only():
