@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU: fused BFS, then
 SpMV (fused and windowed) with PageRank and HITS on it, then SSSP (fused
 and windowed) and k-core, then the operator layer with BFS and SSSP
-adaptive and SpMV pull and push on a directed graph.
+adaptive and SpMV pull and push on a directed graph, then triangle
+counting, the intersection operator and PageRank fused.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -101,7 +102,36 @@ raises and exits non-zero:
 14. adaptive times on CUDA events: ms per search, MTEPS and relaxations
    per second, torch.profiler's device idle share over each path, and each
    operator kernel's time per launch at the path's shapes beside its plain
-   version, its bound and a PyTorch call computing the same function.
+   version, its bound and a PyTorch call computing the same function;
+15. the triangle-counting and fill kernels against their plain versions,
+   integers exact and a second launch bitwise equal: bitmap_intersect_counts
+   (replaces bitmap_intersect.bitmap_intersect_counts), witness on and off,
+   over every oriented edge of undirected rmat12 and of the suite's
+   gen:rmat17x16; segment_broadcast_total (int32 and float32 S),
+   suffix_fill_update and fused_route_or (replace fused_bfs.py's) at every
+   level of one search on the BFS graphs rmat12 and rmat18, with the 5-pass
+   level they make (route OR, segmented sum scan, fill and update) equal to
+   bfs_level<int32> at segment starts, level by level;
+16. their main paths, each with the launch counters set to 0 just before it
+   and read just after, which must show exactly the launches it makes:
+   tc.run (auto, which must choose bitmap) on gen:rmat17x16 against
+   cpu_reference_total and a row-blocked scipy count of each vertex's
+   triangles, and tc.run(variant="shift") there; shift on gen:rmat20x16
+   (phase 10's graph), whose total must be 424,267,437
+   (benchmarks/PARITY.md:58); dense, bitmap and sorted on rmat13 (V =
+   8192) against each other and cpu_reference; intersection_counts with
+   witnesses and jaccard on 4,096 seeded pairs (endpoints of random edges)
+   on gen:rmat17x16 (all rows) and gen:rmat20x16 (chunked), against host
+   sets; one BFS on five_pass_superstep from rmat18's top source against
+   bfs.run; pr.run(variant="fused") on the undirected rmat18 graph against
+   the host (HOST_TOLS) and variant "spmv";
+17. their times on CUDA events: TC ms per run and triangles per second for
+   bitmap at rmat17, shift at rmat20 and dense at rmat13; PageRank fused and
+   spmv ms per iteration; torch.profiler's device idle share over TC bitmap
+   and shift runs at rmat17 and a PageRank fused run; each new kernel per
+   launch beside its plain version,
+   its bound and a PyTorch call computing the same function where one
+   exists.
 
 Every kernel's bound is the least time an H100 could take for its work:
 the larger of the bytes it must move (each input element it needs read
@@ -112,7 +142,11 @@ The memory rate is 3.35 TB/s (HBM) where one launch's bytes exceed the
 to back on the same operands. The L2 rate is measured in phase 1 of the
 same run (l2_rate): the extra bytes of a device-to-device copy of 12 MiB
 over one of 4 MiB, each repeated on the same buffers, over its extra time
-(never below 3.35 TB/s).
+(never below 3.35 TB/s). bitmap_intersect_counts' bound reads each bitmap
+row that its pairs name once and counts an AND and a popcount per word at
+the float32 rate; its JSON entry also gives bound_streaming_ms, the bytes
+with B[v] read once per pair (the TPU kernel's streaming model), which the
+L2 can beat when pairs share rows.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -192,6 +226,21 @@ SSSP_REPLACES = {
     "collapse_starts": "essentials_tpu/ops/cube_router.py:385",
     "expand_segments": "essentials_tpu/ops/scan_kernels.py:274",
 }
+TC_SOURCE = "essentials_tpu_torch/csrc/tc_kernels.cu"
+TC_REPLACES = {
+    "bitmap_intersect_counts": "essentials_tpu/ops/bitmap_intersect.py:118",
+}
+FILL_REPLACES = {            # in SOURCE, beside the BFS kernels
+    "segment_broadcast_total": "essentials_tpu/ops/fused_bfs.py:262",
+    "suffix_fill_update": "essentials_tpu/ops/fused_bfs.py:137",
+    "fused_route_or": "essentials_tpu/ops/fused_bfs.py:603",
+}
+TC_SCALE = 17          # gen:rmat17x16: the bitmap path's graph
+TC_DENSE_SCALE = 13    # V = 8192, the dense path's largest
+TC_RMAT20_TOTAL = 424_267_437   # benchmarks/PARITY.md:58, scipy masked A^2
+PAIRS = 4096           # intersection queries per graph
+PAIR_SEED = 5
+TC_CYCLES = 3          # timed runs of the larger TC paths; median reported
 OP_SOURCE = "essentials_tpu_torch/csrc/operator_kernels.cu"
 OP_REPLACES = {
     "scan": "essentials_tpu/ops/scan_kernels.py:274",
@@ -1416,6 +1465,394 @@ def time_operator_kernels(g, source: int) -> dict:
     return t
 
 
+# ------------------------------------------------------------ phase 15 --
+
+def tc_graph(scale: int, weighted: bool = True):
+    """The undirected RMAT graph of ``scale`` (edge factor 16, seed 1); at
+    scale 17 the suite's gen:rmat17x16 (benchmarks/run_benchmarks.py:34-38,
+    weighted; TC reads no weights)."""
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.io import generate
+    t0 = time.perf_counter()
+    csr = Csr.from_coo(generate.rmat(scale, EDGE_FACTOR, seed=SEED,
+                                     undirected=True, weighted=weighted))
+    print(f"graph: rmat{scale} ef{EDGE_FACTOR} seed {SEED} undirected: "
+          f"V={csr.n_rows} E={csr.nnz}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return csr
+
+
+def bitmap_inputs(csr) -> tuple:
+    """(eu, ev, bitmap) on the card: TC's oriented edges and packed rows."""
+    from essentials_tpu_torch.algorithms import tc
+    from essentials_tpu_torch.ops import bitmap_intersect as BI
+    _, es, ec = tc._oriented_csr(csr)
+    bitmap = torch.from_numpy(BI.pack_bitmap_rows(csr.n_rows, es, ec)).cuda()
+    return (torch.from_numpy(es.astype(np.int32)).cuda(),
+            torch.from_numpy(ec.astype(np.int32)).cuda(), bitmap)
+
+
+def check_bitmap_kernel(csr, where: str, errs: dict) -> tuple:
+    """bitmap_intersect_counts over every oriented edge, witness on and
+    off, against its plain version and a second launch. Returns its
+    inputs."""
+    from essentials_tpu_torch import kernels as K
+    args = bitmap_inputs(csr)
+    for witness in (True, False):
+        outs = [f(*args, witness) for f in (K.bitmap_intersect_counts,
+                                            K.bitmap_intersect_counts,
+                                            K.bitmap_intersect_counts_plain)]
+        check(witness == (outs[0][1] is not None), "witness output")
+        hold_exact("bitmap_intersect_counts",
+                   *[[t for t in o if t is not None] for o in outs], errs,
+                   f"{where} witness {witness}")
+    cnt = outs[0][0]
+    print(f"kernels: {where}: bitmap_intersect_counts over "
+          f"{cnt.numel()} oriented edges ({args[2].shape[1] * 4} B rows, "
+          f"{args[2].numel() * 4 / 1e9:.3f} GB bitmap), "
+          f"{int(cnt.sum(dtype=torch.int64))} triangles, witness on and "
+          f"off: exact against plain, repeatable")
+    return args
+
+
+def check_fill_kernels(g, source: int, where: str, errs: dict) -> dict:
+    """The three fill/route kernels at every level of one search from
+    ``source`` on whole-segment levels, each against its plain version and
+    a second launch, and the 5-pass level they make against bfs_level at
+    segment starts. Returns the inputs of the level with the most new
+    vertices (for timing)."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_bfs as FB
+    flags, eid, off = g.csc_seg_flags, g.csc_edge_ids, g.row_offsets
+    starts = off[:-1][off[1:] > off[:-1]].long()
+    lev = FB.init_lev_exp(g, source)
+    full = lev.clone()               # init_lev_exp fills whole segments
+    w = torch.linspace(0.5, 2.0, g.n_edges_padded, device=g.device)
+    best, it = None, 0
+    while True:
+        args = (full, eid, flags, it)
+        z = K.fused_route_or(*args)
+        hold_exact("fused_route_or", (z,), (K.fused_route_or(*args),),
+                   (K.fused_route_or_plain(*args),), errs,
+                   f"{where} level {it}")
+        s = K.scan(z, flags, "add")
+        sf = K.scan(z.float() * w, flags, "add")   # a float32 S
+        for x in (s, sf):
+            k = K.segment_broadcast_total(x, flags)
+            hold_exact("segment_broadcast_total", (exact_bits(k),),
+                       (exact_bits(K.segment_broadcast_total(x, flags)),),
+                       (exact_bits(K.segment_broadcast_total_plain(x,
+                                                                   flags)),),
+                       errs, f"{where} level {it} {x.dtype}")
+        args = (s, flags, full, it + 1)
+        new = K.suffix_fill_update(*args)
+        hold_exact("suffix_fill_update", new, K.suffix_fill_update(*args),
+                   K.suffix_fill_update_plain(*args), errs,
+                   f"{where} level {it}")
+        cnt = K.bfs_level(lev, off, g.csc_src_indices, it, FB.UNREACHED)
+        check(torch.equal(new[0][starts], lev[starts])
+              and int(new[1]) == int(cnt > 0),
+              f"{where} level {it}: the 5-pass level differs from bfs_level")
+        n_new = int(cnt)
+        if best is None or n_new > best[0]:
+            best = (n_new, {"route": (full, eid, flags, it),
+                            "fill": args, "broadcast": (sf, flags)})
+        full, it = new[0], it + 1
+        if n_new == 0:
+            break
+    print(f"kernels: {where} from {source}: {it} levels; fused_route_or, "
+          f"segment_broadcast_total (int32, float32) and suffix_fill_update "
+          f"exact against plain and repeatable at every level; the 5-pass "
+          f"level equals bfs_level<int32> at segment starts")
+    return best[1]
+
+
+# ------------------------------------------------------------ phase 16 --
+
+def host_vertex_triangles(csr) -> tuple:
+    """(total, each vertex's triangles int64) on the host: a vectorised,
+    row-blocked scipy form of tc.cpu_reference over the oriented adjacency
+    A: lowest role = rowsum((A A) * A), highest = its colsum, middle =
+    rowsum((A^T A) * A)."""
+    import scipy.sparse as sp
+    from essentials_tpu_torch.algorithms import tc
+    n = csr.n_rows
+    _, es, ec = tc._oriented_csr(csr)
+    a = sp.csr_matrix((np.ones(len(es), np.int64), (es, ec)), shape=(n, n))
+    at = a.T.tocsr()
+    lo, hi, mid = (np.zeros(n, np.int64) for _ in range(3))
+    step = 1 << 14
+    for r in range(0, n, step):
+        blk = a[r:r + step]
+        m = (blk @ a).multiply(blk)
+        lo[r:r + step] = np.asarray(m.sum(1)).ravel()
+        hi += np.asarray(m.sum(0)).ravel()
+        mid[r:r + step] = np.asarray(
+            (at[r:r + step] @ a).multiply(blk).sum(1)).ravel()
+    return int(lo.sum()), lo + hi + mid
+
+
+def seeded_pairs(csr) -> tuple:
+    """PAIRS query pairs: the endpoints of edges drawn from a seed, so that
+    hubs appear as they do in a graph's edges."""
+    rng = np.random.default_rng(PAIR_SEED)
+    src = np.repeat(np.arange(csr.n_rows), np.diff(csr.row_offsets))
+    e1, e2 = rng.integers(0, csr.nnz, (2, PAIRS))
+    return src[e1].astype(np.int32), csr.col_indices[e2].astype(np.int32)
+
+
+def host_intersections(csr, u, v) -> tuple:
+    """(counts, witness histogram, jaccard) from host sets."""
+    off, cols = csr.row_offsets, csr.col_indices
+    nb = {q: set(cols[off[q]:off[q + 1]].tolist())
+          for q in np.unique(np.concatenate([u, v])).tolist()}
+    counts = np.zeros(len(u), np.int64)
+    wit = np.zeros(csr.n_rows, np.int64)
+    jac = np.zeros(len(u))
+    for i, (a, b) in enumerate(zip(u.tolist(), v.tolist())):
+        common = nb[a] & nb[b]
+        counts[i] = len(common)
+        wit[list(common)] += 1
+        jac[i] = len(common) / max(len(nb[a] | nb[b]), 1)
+    return counts, wit, jac
+
+
+def tc_main_path(csr17, csr20, csr13, g_u, csr_u) -> dict:
+    """Phase 16's paths, each with the launch counts set to 0 just before
+    it and read just after, which must be exactly the launches it makes.
+    Returns ({path: {kernel: launches}}, the TC results by path)."""
+    from essentials_tpu_torch.algorithms import bfs, pr, tc
+    from essentials_tpu_torch.ops import fused_bfs as FB
+    from essentials_tpu_torch.ops import intersect
+    by_path, results = {}, {}
+
+    def run_counted(path: str, fn, expect):
+        r, launches = counted(fn)
+        ran = {k: n for k, n in launches.items() if n}
+        want = {k: n for k, n in expect(r).items() if n}
+        check(ran == want, f"{path} launched {ran}, expected {want}")
+        by_path[path] = launches
+        return r
+
+    # TC auto on gen:rmat17x16: the bitmap path
+    check(tc.auto_variant(csr17.n_rows, "cuda") == "bitmap",
+          "tc auto does not choose bitmap at rmat17")
+    r = run_counted(f"tc auto rmat{TC_SCALE}",
+                    lambda: tc.run(csr17, warmup=False),
+                    lambda r: {"bitmap_intersect_counts": 1})
+    t0 = time.perf_counter()
+    total17 = tc.cpu_reference_total(csr17)
+    t_total = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_total, host_vt = host_vertex_triangles(csr17)
+    t_vt = time.perf_counter() - t0
+    vt = r.vertex_triangles.cpu().numpy()
+    check(r.total == total17 == host_total,
+          f"tc bitmap rmat{TC_SCALE} total {r.total}, host {total17} / "
+          f"{host_total}")
+    check(vt.shape == (csr17.n_rows,) and np.array_equal(vt, host_vt),
+          f"tc bitmap rmat{TC_SCALE} vertex_triangles differ from the host")
+    print(f"main path: tc auto (bitmap) rmat{TC_SCALE}: {r.total} "
+          f"triangles, equal to cpu_reference_total ({t_total:.1f} s on the "
+          f"host) and per vertex to the row-blocked scipy count "
+          f"({t_vt:.1f} s); launches exact")
+    results["bitmap"] = r
+    for csr, scale in ((csr17, TC_SCALE), (csr20, MAIN_SCALE)):
+        # one sort and one scan per chunk of passes
+        chunks = len(tc.shift_chunks(np.diff(tc._oriented_csr(csr)[0])))
+        r = run_counted(f"tc shift rmat{scale}",
+                        lambda csr=csr: tc.run(csr, variant="shift",
+                                               warmup=False),
+                        lambda r, chunks=chunks: {"scan": chunks})
+        want = total17 if csr is csr17 else TC_RMAT20_TOTAL
+        check(r.total == want, f"tc shift rmat{scale} total {r.total}, "
+                               f"expected {want}")
+        print(f"main path: tc shift gen:rmat{scale}x16: {r.total} "
+              f"triangles in {chunks} chunk(s), equal to "
+              + ("cpu_reference_total" if csr is csr17 else
+                 "benchmarks/PARITY.md:58's count") + "; launches exact")
+    results["shift"] = r
+
+    # dense, bitmap and sorted on rmat13 (V = 8192)
+    ref_total, ref_vt = tc.cpu_reference(csr13)
+    noff, es, _ = tc._oriented_csr(csr13)
+    chunks = len(tc.wedge_bounds(np.diff(noff)[es])) - 1
+    expect = {"dense": {}, "bitmap": {"bitmap_intersect_counts": 1},
+              "sorted": {"scan": chunks}}
+    for v, launches in expect.items():
+        r = run_counted(f"tc {v} rmat{TC_DENSE_SCALE}",
+                        lambda v=v: tc.run(csr13, variant=v, warmup=False),
+                        lambda r, launches=launches: launches)
+        check(r.total == ref_total and np.array_equal(
+            r.vertex_triangles.cpu().numpy(), ref_vt),
+            f"tc {v} rmat{TC_DENSE_SCALE} differs from cpu_reference")
+        results[v] = r
+    print(f"main path: tc dense, bitmap and sorted rmat{TC_DENSE_SCALE} "
+          f"(V={csr13.n_rows}): {ref_total} triangles, each equal to "
+          f"cpu_reference in total and per vertex; launches exact")
+
+    # the intersection operator, all rows (rmat17) and chunked (rmat20)
+    for csr in (csr17, csr20):
+        u, v = seeded_pairs(csr)
+        ref, wref, jref = host_intersections(csr, u, v)
+        chunked = csr.n_rows > intersect._DENSE_V_MAX
+        nq = np.unique(np.concatenate([u, v])).size
+        n_launch = (-(-csr.n_rows // intersect.chunk_bits(nq)) if chunked
+                    else 1)
+        where = f"rmat{csr.n_rows.bit_length() - 1}"
+        got, wit = run_counted(
+            f"intersect {where}",
+            lambda: intersect.intersection_counts(csr, u, v, witnesses=True),
+            lambda r: {"bitmap_intersect_counts": n_launch})
+        jac = run_counted(f"jaccard {where}",
+                          lambda: intersect.jaccard(csr, u, v),
+                          lambda r: {"bitmap_intersect_counts": n_launch})
+        check(np.array_equal(got.cpu().numpy(), ref)
+              and np.array_equal(wit.cpu().numpy(), wref),
+              f"intersection_counts {where} differ from host sets")
+        check(np.allclose(jac.cpu().numpy(), jref, rtol=1e-12, atol=0),
+              f"jaccard {where} outside rtol 1e-12 of host sets")
+        engine = "chunked" if chunked else "all rows"
+        print(f"main path: intersect {where} ({engine}, {n_launch} "
+              f"launch(es)): {PAIRS} pairs, {int(ref.sum())} "
+              f"common neighbours, {int((ref > 0).sum())} pairs with one; "
+              f"counts and witnesses equal host sets, jaccard within rtol "
+              f"1e-12; launches exact")
+
+    # one BFS on the 5-pass level, against bfs.run
+    s = int(np.argmax(np.diff(csr_u.row_offsets)))
+
+    def five_pass_bfs():
+        lev, it = FB.init_lev_exp(g_u, s), 0
+        while True:
+            lev, any_ = FB.five_pass_superstep(g_u, lev, it)
+            it += 1
+            if not int(any_):
+                return FB.collapse_lev_exp(g_u, lev, s), it
+    (dist, levels) = run_counted(
+        f"bfs 5-pass rmat{SCALE}", five_pass_bfs,
+        lambda r: {"fused_route_or": r[1], "scan": r[1],
+                   "suffix_fill_update": r[1], "collapse_levels<int32>": 1})
+    ref = bfs.run(g_u, s, variant="fused", warmup=False,
+                  compute_predecessors=False)
+    check(torch.equal(dist[:g_u.n_vertices], ref.distances)
+          and levels == ref.iterations,
+          f"the 5-pass BFS from {s} differs from bfs.run")
+    print(f"main path: bfs on five_pass_superstep rmat{SCALE} from {s}: "
+          f"{levels} levels, distances equal bfs.run fused; launches exact")
+
+    # PageRank fused on the undirected BFS graph
+    r_f = run_counted(
+        "pr fused", lambda: pr.run(g_u, variant="fused", warmup=False),
+        lambda r: {"spmv_rows": 1, "expand_segments": 1,
+                   "gather_payloads": r.iterations, "scan": r.iterations,
+                   "segment_broadcast_total": r.iterations,
+                   "collapse_starts": 1})
+    r_s = pr.run(g_u, variant="spmv", warmup=False)
+    ref_pr, it_pr = pr.cpu_run(csr_u)
+    hold_host(r_f.ranks.cpu().numpy(), ref_pr,
+              f"pr fused undirected rmat{SCALE}", g_u.n_vertices)
+    err, rel, ok = sum_errors(r_f.ranks, r_s.ranks)
+    check(ok and rel <= PR_HITS_MAX_REL,
+          f"pr fused and spmv disagree (max abs {err}, max rel {rel})")
+    print(f"main path: pr fused undirected rmat{SCALE}: {r_f.iterations} "
+          f"iterations (spmv {r_s.iterations}, host float64 {it_pr}); max "
+          f"abs err {err:.6g}, max rel {rel:.3g} against spmv; launches "
+          f"exact")
+    return by_path, results
+
+
+# ------------------------------------------------------------ phase 17 --
+
+def time_tc(csr17, csr20, csr13, g_u, card: str) -> None:
+    """TC ms per run (what tc.run's elapsed_ms covers: the device work
+    after the packing and copy, one warm-up run first) and triangles per
+    second; PageRank ms per iteration per variant; the profiler's idle
+    share over one TC bitmap run (host packing included), one TC shift run
+    at rmat17 (host planning included) and one PageRank fused run."""
+    from essentials_tpu_torch.algorithms import pr, tc
+    for v, csr, label, runs in (("bitmap", csr17, f"rmat{TC_SCALE}",
+                                 TC_CYCLES),
+                                ("shift", csr20, f"rmat{MAIN_SCALE}", 1),
+                                ("dense", csr13, f"rmat{TC_DENSE_SCALE}",
+                                 CYCLES)):
+        rs = [tc.run(csr, variant=v) for _ in range(runs)]
+        ms = float(np.median([r.elapsed_ms for r in rs]))
+        print(f"time [{card}]: tc {v} {label}: {ms:.4f} ms per run "
+              f"(median of {runs}, each after a warm-up run), "
+              f"{rs[0].total / ms * 1e3:.4g} triangles/s")
+    for v in pr.VARIANTS:
+        r = pr.run(g_u, variant=v)
+        print(f"time [{card}]: pr {v} undirected rmat{SCALE}: "
+              f"{r.elapsed_ms / r.iterations:.4f} ms per iteration, "
+              f"{r.iterations} iterations, {r.elapsed_ms:.3f} ms in all "
+              f"(after one warm-up run)")
+    profile(f"tc bitmap rmat{TC_SCALE}, one tc.run (packing included)",
+            lambda: tc.run(csr17, variant="bitmap", warmup=False), 1)
+    profile(f"tc shift rmat{TC_SCALE}, one tc.run (planning included)",
+            lambda: tc.run(csr17, variant="shift", warmup=False))
+    profile(f"pr fused undirected rmat{SCALE}, one pr.run",
+            lambda: pr.run(g_u, variant="fused", warmup=False))
+
+
+def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
+    """Each new kernel and its plain version per call through its wrapper:
+    bitmap_intersect_counts (witness on, as TC runs it) over gen:rmat17x16's
+    oriented edges; the fills and the route at rmat18 at the inputs of the
+    level with the most new vertices (the broadcast on float32 S)."""
+    from essentials_tpu_torch import kernels as K
+    t = {}
+    eu, ev, bitmap = bitmap_args
+    t["bitmap_intersect_counts"] = median_ms(
+        lambda _: K.bitmap_intersect_counts(eu, ev, bitmap))
+    t["bitmap_intersect_counts/plain"] = median_ms(
+        lambda _: K.bitmap_intersect_counts_plain(eu, ev, bitmap), TC_CYCLES)
+    # without the witness: what its atomics (one per common element) cost
+    t["bitmap_intersect_counts/no_witness"] = median_ms(
+        lambda _: K.bitmap_intersect_counts(eu, ev, bitmap, False))
+    ne, row = eu.numel(), bitmap.shape[1] * 4
+    rows = torch.unique(torch.cat([eu, ev])).numel()
+    # each row the pairs name read once, eu/ev read and cnt written, the
+    # witness array written; an AND and a popcount per word of each pair
+    t["bitmap_intersect_counts/bound"] = bound(
+        rows * row + 12 * ne + 32 * row, 2 * ne * row / 4)
+    # the same, but B[v] read per pair: the TPU kernel's streaming model
+    t["bitmap_intersect_counts/bound_streaming"] = bound(
+        ne * row + torch.unique(eu).numel() * row + 12 * ne + 32 * row,
+        2 * ne * row / 4)
+    t["bitmap_intersect_counts/library"] = None
+    for name, fn, plain in (
+            ("fused_route_or", K.fused_route_or, K.fused_route_or_plain),
+            ("suffix_fill_update", K.suffix_fill_update,
+             K.suffix_fill_update_plain),
+            ("segment_broadcast_total", K.segment_broadcast_total,
+             K.segment_broadcast_total_plain)):
+        args = fill_args[{"fused_route_or": "route",
+                          "suffix_fill_update": "fill"}.get(name,
+                                                            "broadcast")]
+        t[name] = median_ms(lambda _: fn(*args))
+        t[name + "/plain"] = median_ms(lambda _: plain(*args))
+    n = fill_args["route"][0].numel()
+    # lev (gathered, each read once), ids and flags read, z written
+    t["fused_route_or/bound"] = bound(13 * n)
+    t["fused_route_or/library"] = None
+    # S, flags and lev read, the new lev written
+    t["suffix_fill_update/bound"] = bound(13 * n)
+    t["suffix_fill_update/library"] = None
+    t["segment_broadcast_total/bound"] = bound(9 * n)
+    s, flags = fill_args["broadcast"]
+    ends = torch.cat([flags[1:], torch.ones(1, dtype=torch.bool,
+                                            device=flags.device)])
+    at_ends = s[ends]
+    lens = torch.diff(torch.nonzero(ends)[:, 0], prepend=torch.tensor(
+        [-1], device=flags.device))
+    t["segment_broadcast_total/library"] = library_ms(
+        "segment_broadcast_total (torch.repeat_interleave of the segment-end "
+        "values)", lambda: torch.repeat_interleave(at_ends, lens,
+                                                   output_size=n))
+    return t
+
+
 class Phases:
     """Prints each phase's seconds as it ends."""
 
@@ -1687,8 +2124,46 @@ def main() -> None:
               f"{t['frontiers']})")
     phases.done("14 adaptive times")
 
+    # 15. the TC and fill kernels against their plain versions
+    del g20, x
+    errs.update({k: 0 for k in (*TC_REPLACES, *FILL_REPLACES)})
+    csr12 = graphs[12][0]
+    check_bitmap_kernel(csr12, "rmat12", errs)
+    csr17 = tc_graph(TC_SCALE)
+    bitmap_args = check_bitmap_kernel(csr17, f"gen:rmat{TC_SCALE}x16", errs)
+    for scale in (12, SCALE):
+        csr_b, g_b = graphs[scale]
+        fill_args = check_fill_kernels(
+            g_b, int(np.argmax(np.diff(csr_b.row_offsets))),
+            f"rmat{scale}", errs)
+    phases.done("15 tc/fill kernels")
+
+    # 16. the TC, intersection and PageRank fused main path
+    csr13 = tc_graph(TC_DENSE_SCALE, weighted=False)
+    tc_launches, _ = tc_main_path(csr17, csr_m, csr13, g_u, csr_u)
+    phases.done("16 tc/intersect/pr fused main path")
+
+    # 17. their times
+    time_tc(csr17, csr_m, csr13, g_u, card)
+    t.update(time_tc_fill_kernels(bitmap_args, fill_args))
+    for name in (*TC_REPLACES, *FILL_REPLACES):
+        lib = t[name + "/library"]
+        print(f"time [{card}]: {name} {t[name]:.4f} ms per launch, plain "
+              f"{t[name + '/plain']:.4f} ms, bound "
+              f"{t[name + '/bound'][0]:.4f} ms ({t[name + '/bound'][1]} at "
+              f"{t[name + '/bound'][2]} rate), library call "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}")
+    print(f"time [{card}]: bitmap_intersect_counts without the witness "
+          f"{t['bitmap_intersect_counts/no_witness']:.4f} ms per launch "
+          f"(gen:rmat{TC_SCALE}x16)")
+    b = t["bitmap_intersect_counts/bound_streaming"]
+    print(f"time [{card}]: bitmap_intersect_counts bound with B[v] read per "
+          f"pair (the streaming model): {b[0]:.4f} ms ({b[1]} at {b[2]} "
+          f"rate)")
+    phases.done("17 tc/fill times")
+
     by_path = {f"bfs rmat{SCALE}": launches, **spmv_launches,
-               **sssp_launches, **op_launches}
+               **sssp_launches, **op_launches, **tc_launches}
     timed = {"spmv_rows": "spmv_rows<mul>",
              "spmv_slabs": "spmv_slabs<mul,sum>",
              "spmv_slab_carry": "spmv_slab_carry<sum>"}
@@ -1708,6 +2183,9 @@ def main() -> None:
                "library_ms": t.get(key + "/library")}
         if name in SPMV_REPLACES:
             out.update(max_rel_err=errs[name + "/rel"], timed=key)
+        if name == "bitmap_intersect_counts":
+            out["bound_streaming_ms"] = t[key + "/bound_streaming"][0]
+            out["ms_no_witness"] = t[key + "/no_witness"]
         if name in ("spmv_slabs", "spmv_slab_carry"):
             out["library_of"] = "the whole product: spmv_slabs, then " \
                                 "spmv_slab_carry"
@@ -1717,7 +2195,9 @@ def main() -> None:
         entry(n, src, r[n]) for src, r in ((SOURCE, REPLACES),
                                            (SPMV_SOURCE, SPMV_REPLACES),
                                            (SSSP_SOURCE, SSSP_REPLACES),
-                                           (OP_SOURCE, OP_REPLACES))
+                                           (OP_SOURCE, OP_REPLACES),
+                                           (TC_SOURCE, TC_REPLACES),
+                                           (SOURCE, FILL_REPLACES))
         for n in r]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,14 +1,23 @@
 """PageRank on the SpMV engine (power iteration with dangling-mass
 redistribution).
 
-Counterpart of ``essentials_tpu/algorithms/pr.py`` for the variant ``spmv``
-(``_run_spmv_compiled``, reference parity: gunrock::pr, ``pr.hxx:77-216``).
-Each iteration spreads ``rank * alpha / out-weight-sum`` with one product
-of the ``fused`` SpMV engine (``spmv_rows``), which computes the src-keyed
-sum; that equals PageRank's dst-keyed spread only when A == A^T, so the
-variant runs on graphs with a symmetric layout and refuses the others. (The
-JAX package's ``variant="spmv"`` skips that check and gives wrong ranks on
-a directed graph.) The loop runs on the host with one ``.item()`` per
+Counterpart of ``essentials_tpu/algorithms/pr.py`` for the variants
+``spmv`` (``_run_spmv_compiled``) and ``fused`` (``_run_fused_compiled``);
+reference parity: gunrock::pr, ``pr.hxx:77-216``.
+
+* ``spmv`` spreads ``rank * alpha / out-weight-sum`` with one product of
+  the ``fused`` SpMV engine (``spmv_rows``) per iteration, which computes
+  the src-keyed sum; that equals PageRank's dst-keyed spread only when A ==
+  A^T.
+* ``fused`` keeps the ranks on the edge axis (``r_exp[p] = rank[segment
+  (p)]``): per iteration the contributions move CSR->CSC through
+  ``csc_edge_ids`` (``gather_payloads``), are weighted, summed per
+  destination by a segmented ``scan`` and broadcast back over each segment
+  (``segment_broadcast_total``). Isolated vertices share one scalar rank.
+
+Both run on graphs with a symmetric layout and refuse the others. (The JAX
+package's ``variant="spmv"`` skips that check and gives wrong ranks on a
+directed graph.) The loop runs on the host with one ``.item()`` per
 iteration, on the L1 change ``err``.
 """
 
@@ -19,16 +28,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from essentials_tpu_torch import kernels
 from essentials_tpu_torch.errors import EssentialsError, throw_if
 from essentials_tpu_torch.graph.graph import Graph
+from essentials_tpu_torch.ops.fused_bfs import segment_broadcast_total
 from essentials_tpu_torch.ops.fused_spmv import spmv_fused
+from essentials_tpu_torch.ops.scan_kernels import segmented_scan
+from essentials_tpu_torch.ops.segment import expand_vertex_to_edges, gather
 from essentials_tpu_torch.utils.timer import Timer
 
-VARIANTS = ("spmv",)
 # variants of the JAX package that this package does not run yet, and the
 # ROADMAP.md item that brings them
-_UNPORTED = {"fused": "queue 2, item 5 (segment_broadcast_total)",
-             "generic": "queue 1, item 8 (the operator layer)"}
+_UNPORTED = {"generic": "queue 1, item 8 (the operator layer)"}
 
 
 class PrResult(NamedTuple):
@@ -72,13 +83,52 @@ def run_spmv(g: Graph, iweights: torch.Tensor, alpha: float, tol: float,
     return r, it
 
 
+def run_fused(g: Graph, iweights: torch.Tensor, alpha: float, tol: float,
+              max_iterations: int) -> tuple:
+    """The edge-axis power iteration of ``_run_fused_compiled``
+    (``pr.py:72-125``), in float32 as there, with the same stop rule as
+    ``run_spmv``. Returns (ranks [Vp] float32, iterations)."""
+    ep, n = g.n_edges_padded, g.n_vertices
+    iw_exp = expand_vertex_to_edges(iweights, g.row_offsets, ep)
+    valid = torch.arange(ep, device=g.device) < g.n_edges
+    rep = g.csc_seg_flags & valid                   # segment representatives
+    nonempty = g.row_offsets[1:] > g.row_offsets[:-1]
+    n_iso = (~nonempty & g.vertex_mask()).sum().float()
+    dang = rep & (iw_exp == 0.0)
+    alpha32 = torch.tensor(alpha, dtype=torch.float32, device=g.device)
+    tol32 = float(np.float32(tol))
+    r_exp = torch.full((ep,), 1.0 / n, dtype=torch.float32, device=g.device)
+    r_iso = torch.tensor(1.0 / n, dtype=torch.float32, device=g.device)
+    it, err = 0, float("inf")
+    while it < max_iterations and err > tol32:
+        dangling = torch.where(dang, r_exp, 0.0).sum() + n_iso * r_iso
+        base = (1.0 - alpha32) / n + alpha32 * dangling / n
+        z, = gather(g.csc_edge_ids, r_exp * iw_exp)
+        m = torch.where(valid, z * g.csc_values, 0.0)
+        pulled = segment_broadcast_total(
+            segmented_scan(m, g.csc_seg_flags, "add"), g.csc_seg_flags)
+        r_new = torch.where(valid, base + pulled, r_exp)
+        err = (torch.where(rep, (r_new - r_exp).abs(), 0.0).sum()
+               + n_iso * (base - r_iso).abs()).item()
+        r_exp, r_iso = r_new, base
+        it += 1
+    # collapse to the vertex axis: each segment's start holds its rank
+    starts = kernels.collapse_starts(r_exp.view(torch.int32), g.row_offsets,
+                                     0).view(torch.float32)
+    ranks = torch.where(nonempty, starts, r_iso)
+    return torch.where(g.vertex_mask(), ranks, 0.0), it
+
+
+VARIANTS = {"spmv": run_spmv, "fused": run_fused}
+
+
 def run(g: Graph, *, alpha: float = 0.85, tol: float = 1e-6,
         max_iterations: int = 500, warmup: bool = True,
         variant: str = "auto") -> PrResult:
-    """PageRank on ``g``'s device. variant: 'spmv', or 'auto', which is
-    'spmv' (the JAX package's choice on a symmetric layout). Both need a
-    symmetric layout. ``elapsed_ms`` covers the iterations, not the weight
-    sums, on the device's clock (CUDA events) or the host's (CPU)."""
+    """PageRank on ``g``'s device. variant: 'spmv', 'fused', or 'auto',
+    which is 'spmv' (the JAX package's choice on a symmetric layout). All
+    need a symmetric layout. ``elapsed_ms`` covers the iterations, not the
+    weight sums, on the device's clock (CUDA events) or the host's (CPU)."""
     if variant in _UNPORTED:
         raise EssentialsError(f"pr variant {variant!r} is not ported yet "
                               f"(ROADMAP.md {_UNPORTED[variant]})")
@@ -88,13 +138,14 @@ def run(g: Graph, *, alpha: float = 0.85, tol: float = 1e-6,
     throw_if(not g.symmetric_layout,
              "pr on a graph without a symmetric layout needs the push "
              "formulation (variant 'generic'), which is not ported yet "
-             "(ROADMAP.md queue 1, item 8): the spmv variant would give "
-             "wrong ranks")
+             "(ROADMAP.md queue 1, item 8): the spmv and fused variants "
+             "would give wrong ranks")
     iweights = inverse_weights(g, alpha)
+    iterate = VARIANTS[variant]
     if warmup:
-        run_spmv(g, iweights, alpha, tol, max_iterations)
+        iterate(g, iweights, alpha, tol, max_iterations)
     timer = Timer(g.device).begin()
-    ranks, it = run_spmv(g, iweights, alpha, tol, max_iterations)
+    ranks, it = iterate(g, iweights, alpha, tol, max_iterations)
     elapsed = timer.end()
     return PrResult(ranks[:g.n_vertices], it, elapsed)
 

@@ -27,6 +27,15 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   (``segment.expand_vertex_to_edges``, whose cumsum is
   ``scan_kernels.scan_1d`` :274). The sweeps read one state buffer and
   write another.
+* ``csrc/bfs_kernels.cu`` also holds the segment fills and the route OR of
+  ``fused_bfs.py``: ``segment_broadcast_total`` for
+  ``fused_bfs.segment_broadcast_total`` :262 (PageRank ``fused``),
+  ``suffix_fill_update`` for ``fused_bfs.suffix_fill_update`` :137 and
+  ``fused_route_or`` for ``fused_bfs.fused_route_or`` :603, each three
+  launches over tiles of ``FILL_TILE`` positions.
+* ``csrc/tc_kernels.cu`` (triangle counting and the intersection operator):
+  ``bitmap_intersect_counts`` for ``bitmap_intersect.bitmap_intersect_counts``
+  :118.
 * ``csrc/operator_kernels.cu`` (the operator layer: advance,
   neighbor_reduce, the spray tiers): ``scan`` for ``scan_kernels.scan_1d``
   :274 and ``segmented_scan_1d`` :296; ``gather_payloads`` for the
@@ -67,6 +76,7 @@ REDUCES = ("sum", "min")
 SCAN_OPS = ("add", "min", "max", "first")          # codes 0-3 in the .cu
 REDUCE_OPS = ("sum", "min", "max", "or", "and")    # codes 0-4 in the .cu
 SCAN_TILE = 2048               # elements per scan block (kScanTile)
+FILL_TILE = 2048               # positions per fill / route block (kFillTile)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -83,7 +93,9 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "sssp_sweep": 0, "sssp_predecessors": 0, "kcore_sweep": 0,
             "collapse_starts": 0, "expand_segments": 0,
             "scan": 0, "gather_payloads": 0, "segment_reduce": 0,
-            "advance_count": 0}
+            "advance_count": 0, "bitmap_intersect_counts": 0,
+            "segment_broadcast_total": 0, "suffix_fill_update": 0,
+            "fused_route_or": 0}
 
 _lib = None
 
@@ -177,6 +189,10 @@ def _library():
             "etpu_segment_reduce_i32": (p, p, i, i, i, p, p),
             "etpu_segment_reduce_f32": (p, p, i, i, ctypes.c_float, p, p),
             "etpu_advance_count": (p, p, p, i, p, p),
+            "etpu_fill_tile": (),
+            "etpu_segment_fill": (p, p, i, p, i, p, p, p, p),
+            "etpu_route_or": (p, p, p, i, i, p, p, p),
+            "etpu_bitmap_intersect": (p, p, p, i, i, p, p, p),
         }
         for m in MESSAGES:
             for r in REDUCES:
@@ -193,6 +209,10 @@ def _library():
         throw_if(lib.etpu_scan_tile() != SCAN_TILE,
                  f"scan: the library's tile is {lib.etpu_scan_tile()} "
                  f"elements, SCAN_TILE is {SCAN_TILE}")
+        throw_if(lib.etpu_fill_tile() != FILL_TILE,
+                 f"segment fills: the library's tile is "
+                 f"{lib.etpu_fill_tile()} positions, FILL_TILE is "
+                 f"{FILL_TILE}")
         _lib = lib
     return _lib
 
@@ -986,3 +1006,183 @@ def advance_count(frontier: torch.Tensor, offsets: torch.Tensor,
             offsets.data_ptr(), csc_src.data_ptr(), vp, out.data_ptr())
     launches[name] += 1
     return out
+
+
+# ---------------------------------------------- segment fills, route OR --
+
+def _check_flags(name: str, flags, n: int) -> None:
+    throw_if(flags.dtype not in (torch.bool, torch.uint8)
+             or flags.shape != (n,),
+             f"{name}: start_flags must be [{n}] bool or uint8")
+
+
+def _segment_ends(flags: torch.Tensor, n: int) -> torch.Tensor:
+    """[n] int64: the END of each position's segment, the first p' >= p
+    with p' = n - 1 or flags[p' + 1] set."""
+    end = torch.ones(n, dtype=torch.bool, device=flags.device)
+    end[:-1] = flags[1:].bool()
+    pos = torch.where(end, torch.arange(n, device=flags.device), n)
+    return torch.flip(torch.cummin(torch.flip(pos, (0,)), 0).values, (0,))
+
+
+def _fill(name: str, S, flags, lev=None, it: int = 0):
+    """Launch etpu_segment_fill: the broadcast (lev None) or the update."""
+    dev, n = S.device, S.numel()
+    _check(name, dev, S=S, start_flags=flags,
+           **({} if lev is None else {"lev": lev}))
+    out = torch.empty_like(S)
+    any_ = None if lev is None else torch.zeros(1, dtype=torch.int32,
+                                                device=dev)
+    scratch = torch.empty(2 * max(1, -(-n // FILL_TILE)), dtype=torch.int32,
+                          device=dev)
+    _launch("etpu_segment_fill", dev, S.data_ptr(), flags.data_ptr(), n,
+            None if lev is None else lev.data_ptr(), it, out.data_ptr(),
+            None if lev is None else any_.data_ptr(), scratch.data_ptr())
+    launches[name] += 1
+    return out, any_
+
+
+def segment_broadcast_total_plain(S, start_flags):
+    """Plain version of ``segment_broadcast_total``."""
+    if S.numel() == 0:
+        return S.clone()
+    return S[_segment_ends(start_flags, S.numel())]
+
+
+def segment_broadcast_total(S: torch.Tensor,
+                            start_flags: torch.Tensor) -> torch.Tensor:
+    """[n] of S's dtype: every position takes S at its segment's END (the
+    slot before the next start flag; the last position always ends one).
+    S is [n] int32 or float32, moved as bits; ``start_flags`` [n] bool or
+    uint8 mark segment starts (flags[0] is not read)."""
+    name = "segment_broadcast_total"
+    throw_if(S.dtype not in (torch.int32, torch.float32) or S.dim() != 1,
+             f"{name}: S must be 1-D int32 or float32")
+    _check_flags(name, start_flags, S.numel())
+    if not _route(name, S):
+        return segment_broadcast_total_plain(S, start_flags)
+    return _fill(name, S, start_flags)[0]
+
+
+def suffix_fill_update_plain(S, start_flags, lev, it: int):
+    """Plain version of ``suffix_fill_update``."""
+    fill = segment_broadcast_total_plain(S, start_flags)
+    newly = (fill > 0) & (lev == INT32_MAX)
+    return (torch.where(newly, it, lev).int(),
+            newly.any().int().reshape(1))
+
+
+def suffix_fill_update(S: torch.Tensor, start_flags: torch.Tensor,
+                       lev: torch.Tensor, it: int) -> tuple:
+    """The segment-end fill of the int32 ``S``, then a BFS level update:
+    every position whose fill is above 0 and whose ``lev`` is INT32_MAX
+    (unreached) takes ``it``. Returns (the new lev [n] int32, whether any
+    position changed as int32 [1]); ``lev`` is not written."""
+    name = "suffix_fill_update"
+    throw_if(S.dtype != torch.int32 or S.dim() != 1,
+             f"{name}: S must be 1-D int32")
+    throw_if(lev.dtype != torch.int32 or lev.shape != S.shape,
+             f"{name}: lev must be [n] int32 like S")
+    _check_flags(name, start_flags, S.numel())
+    throw_if(not -INT32_MAX - 1 <= it <= INT32_MAX, f"{name}: it out of range")
+    if not _route(name, S):
+        return suffix_fill_update_plain(S, start_flags, lev, it)
+    return _fill(name, S, start_flags, lev, it)
+
+
+def fused_route_or_plain(lev, edge_ids, start_flags, it: int):
+    """Plain version of ``fused_route_or``."""
+    n = lev.numel()
+    pos = torch.arange(n, device=lev.device)
+    start = start_flags.bool().clone()
+    if n:
+        start[0] = True
+    hit = lev[edge_ids.long()] == it
+    last_hit = torch.cummax(torch.where(hit, pos, -1), 0).values
+    last_start = torch.cummax(torch.where(start, pos, 0), 0).values
+    return (last_hit >= last_start).int()
+
+
+def fused_route_or(lev: torch.Tensor, edge_ids: torch.Tensor,
+                   start_flags: torch.Tensor, it: int) -> torch.Tensor:
+    """[n] int32: y[q] = (lev[edge_ids[q]] == it), routed through the
+    gather, then an inclusive segmented OR over ``start_flags`` (position 0
+    always starts a segment). ``lev`` and ``edge_ids`` are [n] int32, the
+    ids in [0, n)."""
+    name = "fused_route_or"
+    throw_if(lev.dtype != torch.int32 or lev.dim() != 1,
+             f"{name}: lev must be 1-D int32")
+    n = lev.numel()
+    throw_if(edge_ids.dtype != torch.int32 or edge_ids.shape != (n,),
+             f"{name}: edge_ids must be [{n}] int32")
+    _check_flags(name, start_flags, n)
+    throw_if(not -INT32_MAX - 1 <= it <= INT32_MAX, f"{name}: it out of range")
+    if not _route(name, lev):
+        return fused_route_or_plain(lev, edge_ids, start_flags, it)
+    dev = lev.device
+    _check(name, dev, lev=lev, edge_ids=edge_ids, start_flags=start_flags)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(4 * max(1, -(-n // FILL_TILE)), dtype=torch.int32,
+                          device=dev)
+    _launch("etpu_route_or", dev, lev.data_ptr(), edge_ids.data_ptr(),
+            start_flags.data_ptr(), n, it, out.data_ptr(), scratch.data_ptr())
+    launches[name] += 1
+    return out
+
+
+# ----------------------------------------------- bitmap_intersect_counts --
+
+PLAIN_WORDS = 1 << 25   # bitmap words the plain version gathers at a time
+
+
+def bitmap_intersect_counts_plain(eu, ev, bitmap, witness: bool = True):
+    """Plain version of ``bitmap_intersect_counts``, over chunks of pairs
+    (so that the card holds it at rmat17 shapes)."""
+    dev, ne, words = eu.device, eu.numel(), bitmap.shape[1]
+    cnt = torch.zeros(ne, dtype=torch.int32, device=dev)
+    wit = (torch.zeros(words * 32, dtype=torch.int32, device=dev)
+           if witness else None)
+    bits = torch.arange(32, dtype=torch.int32, device=dev)
+    step = max(1, PLAIN_WORDS // words)
+    for lo in range(0, ne, step):
+        w = bitmap[eu[lo:lo + step].long()] & bitmap[ev[lo:lo + step].long()]
+        e, k = w.nonzero(as_tuple=True)
+        on = (w[e, k].unsqueeze(1) >> bits) & 1          # [nonzero, 32]
+        cnt.index_add_(0, e + lo, on.sum(1, dtype=torch.int32))
+        if witness:
+            wit.index_add_(0, (k.unsqueeze(1) * 32 + bits).flatten(),
+                           on.flatten())
+    return cnt, wit
+
+
+def bitmap_intersect_counts(eu: torch.Tensor, ev: torch.Tensor,
+                            bitmap: torch.Tensor,
+                            witness: bool = True) -> tuple:
+    """Per pair e: cnt[e] = popcount(bitmap[eu[e]] & bitmap[ev[e]]), and
+    with ``witness`` the per-vertex histogram wit[c] = the pairs whose AND
+    holds bit c (bit c & 31 of word c >> 5). ``eu``, ``ev`` are [E] int32
+    row ids in range; ``bitmap`` is [rows, words] int32, words a multiple
+    of 4. Returns (cnt [E] int32, wit [words * 32] int32 or None)."""
+    name = "bitmap_intersect_counts"
+    throw_if(eu.dtype != torch.int32 or eu.dim() != 1
+             or ev.dtype != torch.int32 or ev.shape != eu.shape,
+             f"{name}: eu and ev must be [E] int32")
+    throw_if(bitmap.dtype != torch.int32 or bitmap.dim() != 2
+             or bitmap.shape[1] % 4 or bitmap.shape[1] == 0,
+             f"{name}: bitmap must be [rows, words] int32, words a positive "
+             f"multiple of 4")
+    if not _route(name, eu):
+        return bitmap_intersect_counts_plain(eu, ev, bitmap, witness)
+    dev = eu.device
+    _check(name, dev, eu=eu, ev=ev, bitmap=bitmap)
+    throw_if(bitmap.data_ptr() % 16 != 0,
+             f"{name}: bitmap must be 16-byte aligned")
+    words = bitmap.shape[1]
+    cnt = torch.empty(eu.numel(), dtype=torch.int32, device=dev)
+    wit = (torch.zeros(words * 32, dtype=torch.int32, device=dev)
+           if witness else None)
+    _launch("etpu_bitmap_intersect", dev, eu.data_ptr(), ev.data_ptr(),
+            bitmap.data_ptr(), words, eu.numel(), cnt.data_ptr(),
+            None if wit is None else wit.data_ptr())
+    launches[name] += 1
+    return cnt, wit

@@ -1,15 +1,16 @@
 """Operators. Counterpart of ``essentials_tpu/ops``: the operator layer
 (``advance``, ``neighbor_reduce``, the ``segment`` engine,
-``scan_kernels``, the ``sparse_advance`` spray tiers) and the fused engines
+``scan_kernels``, the ``sparse_advance`` spray tiers), the fused engines
 ``fused_bfs``, ``fused_spmv``, ``windowed_spmv``, ``fused_sssp``,
-``windowed_sssp`` and ``fused_kcore``. Not ported yet: ``filter``,
+``windowed_sssp`` and ``fused_kcore``, and the intersection operator
+``intersect`` on ``bitmap_intersect``. Not ported yet: ``filter``,
 ``parallel_for``, ``uniquify``, ``advance_edges``, ``apply_permutation``
 and ``segment_combine`` (they come with their first caller), ``batch``,
-``bucketed``, ``intersect``, ``bitmap_intersect``, ``swar`` (see
-ROADMAP.md, queue 1)."""
+``bucketed``, ``swar`` (see ROADMAP.md, queue 1)."""
 
-from essentials_tpu_torch.ops import (fused_bfs, fused_kcore, fused_sssp,
-                                      fused_spmv, scan_kernels, segment,
+from essentials_tpu_torch.ops import (bitmap_intersect, fused_bfs,
+                                      fused_kcore, fused_sssp, fused_spmv,
+                                      intersect, scan_kernels, segment,
                                       sparse_advance, windowed_spmv,
                                       windowed_sssp)
 from essentials_tpu_torch.ops.advance import (Edges, advance, advance_count,
@@ -22,6 +23,7 @@ from essentials_tpu_torch.ops.segment import (combine_by_offsets,
 __all__ = [
     "Combine", "AdvanceIO", "advance", "advance_multi", "advance_count",
     "Edges", "neighbor_reduce", "combine_by_offsets",
-    "expand_vertex_to_edges", "fused_bfs", "fused_kcore", "fused_sssp", "fused_spmv", "scan_kernels",
-    "segment", "sparse_advance", "windowed_spmv", "windowed_sssp",
+    "expand_vertex_to_edges", "bitmap_intersect", "fused_bfs", "fused_kcore",
+    "fused_sssp", "fused_spmv", "intersect", "scan_kernels", "segment",
+    "sparse_advance", "windowed_spmv", "windowed_sssp",
 ]

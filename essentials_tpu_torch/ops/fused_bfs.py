@@ -1,15 +1,25 @@
 """Fused edge-axis BFS on symmetric-layout graphs.
 
 Counterpart of ``essentials_tpu/ops/fused_bfs.py`` (``init_lev_exp``,
-``fused_superstep``, ``collapse_lev_exp``). On a symmetric layout
-(``csc_offsets == row_offsets``) an array indexed by "segment of position"
-means the same on the CSR and the CSC axis, so BFS state lives on the edge
-axis as ``lev_exp[p] = level[segment(p)]``. The state is start-authoritative:
-only each segment's start position ``row_offsets[v]`` is read or written.
+``fused_superstep``, ``collapse_lev_exp``, and the segment fills and route
+OR ``segment_broadcast_total``, ``suffix_fill_update``, ``fused_route_or``).
+On a symmetric layout (``csc_offsets == row_offsets``) an array indexed by
+"segment of position" means the same on the CSR and the CSC axis, so BFS
+state lives on the edge axis as ``lev_exp[p] = level[segment(p)]``. The
+state is start-authoritative: only each segment's start position
+``row_offsets[v]`` is read or written.
 
 Two forms of the level array: int32 with sentinel ``UNREACHED`` (int32 max),
 and int8 with sentinel ``UNREACHED_E`` = 127, for searches of at most 126
 levels. The int8 form moves a quarter of the bytes per level.
+
+The JAX package's 5-pass level (``fused_bfs.py:11-14``) is also here,
+``five_pass_superstep``, on a level array that holds each vertex's level at
+every position of its segment (``init_lev_exp``'s int32 form is one):
+``fused_route_or`` (frontier test, CSR->CSC move, segmented OR), the
+segmented sum ``scan``, then ``suffix_fill_update``. ``bfs.run`` runs the
+one ``bfs_level`` kernel instead; PageRank ``fused`` uses
+``segment_broadcast_total``.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import torch
 
 from essentials_tpu_torch import kernels
 from essentials_tpu_torch.graph.graph import Graph
+from essentials_tpu_torch.ops.scan_kernels import segmented_scan
 
 UNREACHED = kernels.INT32_MAX
 UNREACHED_E = 127           # int8-form sentinel (levels <= 126)
@@ -54,3 +65,38 @@ def collapse_lev_exp(g: Graph, lev_exp: torch.Tensor, source: int,
     kernel), translating the edge-axis sentinel to UNREACHED. Empty segments
     are UNREACHED except the source itself."""
     return kernels.collapse_levels(lev_exp, g.row_offsets, source, unreached)
+
+
+def segment_broadcast_total(S: torch.Tensor,
+                            start_flags: torch.Tensor) -> torch.Tensor:
+    """Broadcast each segment's END value (e.g. its inclusive-scan total)
+    to every position of the segment (the ``segment_broadcast_total``
+    kernel). [Ep] int32 or float32 in, the same out."""
+    return kernels.segment_broadcast_total(S, start_flags)
+
+
+def suffix_fill_update(S: torch.Tensor, start_flags: torch.Tensor,
+                       lev: torch.Tensor, it: int) -> tuple:
+    """(new lev_exp, any newly-reached int32 [1]): each position whose
+    segment's END value of the int32 ``S`` is above 0 and whose level is
+    UNREACHED takes ``it`` (the ``suffix_fill_update`` kernel). All arrays
+    [Ep]; the level array must hold whole segments."""
+    return kernels.suffix_fill_update(S, start_flags, lev, it)
+
+
+def fused_route_or(g: Graph, lev_exp: torch.Tensor, it: int) -> torch.Tensor:
+    """(lev_exp == it) -> CSR->CSC move -> segmented OR over the CSC
+    segments (the ``fused_route_or`` kernel): [Ep] int32, 1 at slot q when
+    some in-edge of q's destination at or before q comes from level ``it``.
+    The move is a gather through ``g.csc_edge_ids``."""
+    return kernels.fused_route_or(lev_exp, g.csc_edge_ids, g.csc_seg_flags,
+                                  it)
+
+
+def five_pass_superstep(g: Graph, lev_exp: torch.Tensor, it: int) -> tuple:
+    """One BFS level on whole-segment int32 levels (``fused_bfs.py:11-14``):
+    every vertex with an in-neighbour at level ``it`` that is UNREACHED gets
+    ``it + 1`` at every position of its segment. Returns (the new lev_exp,
+    any newly-reached int32 [1])."""
+    s = segmented_scan(fused_route_or(g, lev_exp, it), g.csc_seg_flags, "add")
+    return suffix_fill_update(s, g.csc_seg_flags, lev_exp, it + 1)

@@ -5,8 +5,11 @@ The port's level writes segment STARTS only (the start-authoritative
 contract of fused_superstep2, essentials_tpu/ops/fused_bfs.py:508-511),
 while the JAX CPU fallback writes whole segments, so levels are compared at
 segment starts. The int8 form's sentinel 127 is mapped to int32 max where it
-is held against the int32 JAX fallback. Every value is an integer: the
-tolerance is exact equality."""
+is held against the int32 JAX fallback. The segment fills and the route OR
+(``segment_broadcast_total``, ``suffix_fill_update``, ``fused_route_or``)
+are held against the JAX package's Pallas kernels in interpret mode, and the
+5-pass level they make against ``bfs_level``. Every value is an integer or
+a copied float32: the tolerance is exact equality."""
 
 import jax
 import numpy as np
@@ -189,20 +192,28 @@ def test_wrappers_take_plain_version_on_cpu():
     assert all(n == 0 for n in kernels.launches.values())
 
 
-@pytest.mark.parametrize("call", ["level", "collapse", "pred"])
+@pytest.mark.parametrize("call", ["level", "collapse", "pred", "broadcast",
+                                  "fill_update", "route_or"])
 def test_wrappers_raise_on_other_devices(call):
     g = small_graph().to("meta")
     lev = torch.empty(g.n_edges_padded, dtype=torch.int32, device="meta")
     dist = torch.empty(g.n_vertices_padded, dtype=torch.int32, device="meta")
+    flags = g.csc_seg_flags
     with pytest.raises(EssentialsError):
         if call == "level":
             kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices, 0,
                               tfb.UNREACHED)
         elif call == "collapse":
             kernels.collapse_levels(lev, g.row_offsets, 0, tfb.UNREACHED)
-        else:
+        elif call == "pred":
             kernels.bfs_predecessors(dist, g.csc_offsets, g.csc_src_indices,
                                      g.n_edges)
+        elif call == "broadcast":
+            tfb.segment_broadcast_total(lev, flags)
+        elif call == "fill_update":
+            tfb.suffix_fill_update(lev, flags, lev, 1)
+        else:
+            tfb.fused_route_or(g, lev, 0)
 
 
 def test_bfs_level_rejects_bad_arguments():
@@ -217,3 +228,85 @@ def test_bfs_level_rejects_bad_arguments():
     with pytest.raises(EssentialsError):      # csc_src of the wrong length
         kernels.bfs_level(lev8, g.row_offsets, g.csc_src_indices[:-1], 0,
                           tfb.UNREACHED_E)
+
+
+# ------------------------------------------- segment fills and route OR --
+
+def seeded_flags(n: int, seed: int, last_starts: bool) -> np.ndarray:
+    """Start flags with flags[0] unset; the last position starts a segment
+    of its own or (last_starts False) carries no end flag after it."""
+    rng = np.random.default_rng(seed)
+    f = rng.random(n) < 0.05
+    f[0] = False
+    f[-1] = last_starts
+    return f
+
+
+@pytest.mark.parametrize("last_starts", [False, True])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("n", [1000, 1 << 14])
+def test_segment_broadcast_total_matches_jax(n, dtype, last_starts):
+    rng = np.random.default_rng(n)
+    s = (rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+         if dtype == "int32" else rng.standard_normal(n).astype(np.float32))
+    f = seeded_flags(n, n + 1, last_starts)
+    ref = np.asarray(jfb.segment_broadcast_total(s, f))
+    kernels.reset_launches()
+    out = tfb.segment_broadcast_total(torch.from_numpy(s), torch.from_numpy(f))
+    assert kernels.launches["segment_broadcast_total"] == 0   # plain on CPU
+    assert out.dtype == torch.from_numpy(s).dtype
+    assert out.numpy().tobytes() == ref.tobytes()
+    # every position holds its segment's last value
+    ends = np.flatnonzero(np.append(f[1:], True))
+    assert np.array_equal(out.numpy()[ends], s[ends])
+
+
+@pytest.mark.parametrize("last_starts", [False, True])
+def test_suffix_fill_update_matches_jax(last_starts):
+    n = 5000
+    rng = np.random.default_rng(3)
+    s = rng.integers(0, 3, n).astype(np.int32) * (rng.random(n) < 0.3)
+    lev = np.where(rng.random(n) < 0.6, INT32_MAX,
+                   rng.integers(0, 4, n)).astype(np.int32)
+    f = seeded_flags(n, 4, last_starts)
+    lev_j, any_j = jfb.suffix_fill_update(s, f, lev, 5)
+    lev_t, any_t = tfb.suffix_fill_update(
+        torch.from_numpy(s), torch.from_numpy(f), torch.from_numpy(lev), 5)
+    assert lev_t.dtype == torch.int32 and any_t.shape == (1,)
+    assert np.array_equal(lev_t.numpy(), np.asarray(lev_j))
+    assert int(any_t) == int(np.asarray(any_j)[0, 0]) == 1
+    # nothing unreached left to reach: the flag stays 0
+    _, any_t = tfb.suffix_fill_update(torch.from_numpy(s), torch.from_numpy(f),
+                                      lev_t, 6)
+    assert int(any_t) == 0
+
+
+@pytest.mark.parametrize("it", [0, 2])
+def test_fused_route_or_matches_jax(rmat12, it):
+    gj, g = rmat12
+    rng = np.random.default_rng(it)
+    lev = rng.integers(0, 4, g.n_edges_padded).astype(np.int32)
+    ref = np.asarray(jax.jit(jfb.fused_route_or)(gj, lev, it))
+    out = tfb.fused_route_or(g, torch.from_numpy(lev), it)
+    assert out.dtype == torch.int32 and ref.shape == out.shape
+    assert np.array_equal(out.numpy(), ref)
+    assert 0 < int(out.sum()) < g.n_edges_padded
+
+
+@pytest.mark.parametrize("name,source", [("rmat10", 0), ("grid24", 0)])
+def test_five_pass_level_matches_bfs_level(graphs, name, source):
+    gj, g = graphs[name]
+    starts = starts_of(g)
+    lev = tfb.init_lev_exp(g, source)
+    full = lev.clone()             # init_lev_exp fills whole segments
+    levs = jax_levels(gj, source)[0]
+    for it in range(64):
+        cnt = kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices, it,
+                                tfb.UNREACHED)
+        full, any_ = tfb.five_pass_superstep(g, full, it)
+        assert np.array_equal(full.numpy(), levs[it])
+        assert np.array_equal(full.numpy()[starts], lev.numpy()[starts]), it
+        assert int(any_) == int(cnt > 0), it
+        if int(cnt) == 0:
+            break
+    assert it > 2

@@ -1,11 +1,12 @@
 """essentials_tpu_torch without JAX: the port and chip_smoke.py import
-neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank, HITS,
-SSSP, k-core, and BFS and SSSP ``adaptive`` on a directed graph) run where
+neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank
+``spmv`` and ``fused``, HITS, SSSP, k-core, BFS and SSSP ``adaptive`` on a
+directed graph, triangle counting and the intersection operator) run where
 importing jax fails, and, on a CUDA card, its kernels agree with their plain
-versions (the BFS, SSSP, k-core and operator kernels exactly, but float
-sums: the SpMV kernels, ``scan`` and ``segment_reduce`` under ``sum``, to
-|k - p| <= 1e-5 |p| + 1e-6, and a float ``scan`` ``add`` also against a
-float64 running sum).
+versions (the BFS, SSSP, k-core, operator, fill, route and bitmap kernels
+exactly, but float sums: the SpMV kernels, ``scan`` and ``segment_reduce``
+under ``sum``, to |k - p| <= 1e-5 |p| + 1e-6, and a float ``scan`` ``add``
+also against a float64 running sum).
 
 This file imports no jax, so its card test runs on a machine without jax:
 
@@ -42,6 +43,9 @@ OPERATOR_LAYER = ("frontier/__init__.py", "frontier/boolmap.py",
                   "ops/configs.py", "ops/scan_kernels.py", "ops/segment.py",
                   "ops/advance.py", "ops/neighborreduce.py",
                   "ops/sparse_advance.py")
+TC_AND_FILLS = ("algorithms/tc.py", "algorithms/pr.py", "ops/intersect.py",
+                "ops/bitmap_intersect.py", "ops/fused_bfs.py",
+                "csrc/tc_kernels.cu")
 
 
 def test_sources_import_no_jax():
@@ -49,7 +53,8 @@ def test_sources_import_no_jax():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     assert {ROOT / "essentials_tpu_torch" / m
-            for m in OPERATOR_LAYER} <= set(files)
+            for m in OPERATOR_LAYER + TC_AND_FILLS[:-1]} <= set(files)
+    assert (ROOT / "essentials_tpu_torch" / TC_AND_FILLS[-1]).exists()
     for f in files:
         assert not _imported_roots(f) & set(_FORBIDDEN), f
 
@@ -108,6 +113,18 @@ _MAIN_PATH = textwrap.dedent("""
     x = spmv.random_x(gd, 3)
     for variant in ("pull", "push"):
         assert spmv.run(gd, x, variant=variant).y.isfinite().all()
+    assert np.allclose(pr.run(g, variant="fused").ranks.numpy(),
+                       pr.cpu_reference(csr), rtol=1e-4, atol=1e-6)
+    from essentials_tpu_torch.algorithms import tc
+    from essentials_tpu_torch.ops import intersect
+    total, vt = tc.cpu_reference(csr)
+    for variant in tc.VARIANTS:
+        assert tc.run(csr, device="cpu", variant=variant).total == total
+    assert np.array_equal(tc.run(csr, device="cpu").vertex_triangles.numpy(),
+                          vt)
+    u, v = np.arange(0, 50), np.arange(50, 100)
+    assert intersect.intersection_counts(csr, u, v, device="cpu").shape \
+        == (50,)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -346,3 +363,75 @@ def test_operator_kernels_match_plain_versions_on_the_card():
     d = d.cpu().numpy()
     assert np.array_equal(np.isfinite(d), reach)
     assert np.allclose(d[reach], ref[reach], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
+    """bitmap_intersect_counts, segment_broadcast_total, suffix_fill_update
+    and fused_route_or against their plain versions at rmat12, exactly and
+    bitwise on a second launch, then the main paths that run them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import pr, tc
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    from essentials_tpu_torch.ops import bitmap_intersect as bi
+    from essentials_tpu_torch.ops import fused_bfs as FB
+
+    csr = Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=False))
+    g = build_graph(csr, directed=False, weighted=False, device="cuda")
+    kernels.reset_launches()
+    _, es, ec = tc._oriented_csr(csr)
+    bitmap = torch.from_numpy(bi.pack_bitmap_rows(csr.n_rows, es,
+                                                  ec)).cuda()
+    eu = torch.from_numpy(es.astype(np.int32)).cuda()
+    ev = torch.from_numpy(ec.astype(np.int32)).cuda()
+    for witness in (True, False):
+        k = kernels.bitmap_intersect_counts(eu, ev, bitmap, witness)
+        again = kernels.bitmap_intersect_counts(eu, ev, bitmap, witness)
+        p = kernels.bitmap_intersect_counts_plain(eu, ev, bitmap, witness)
+        for a, b, c in zip(k, again, p):
+            assert (a is None and c is None) or (torch.equal(a, b)
+                                                 and torch.equal(a, c))
+    flags = g.csc_seg_flags
+    s_i = kernels.scan(torch.ones(g.n_edges_padded, dtype=torch.int32,
+                                  device="cuda"), flags, "add")
+    for s in (s_i, s_i.float() / 3):
+        k = FB.segment_broadcast_total(s, flags)
+        assert torch.equal(k, FB.segment_broadcast_total(s, flags))
+        assert torch.equal(k, kernels.segment_broadcast_total_plain(s, flags))
+    src = int(np.argmax(np.diff(csr.row_offsets)))
+    lev = FB.init_lev_exp(g, src)
+    off = g.row_offsets
+    full = torch.repeat_interleave(
+        lev[off[:-1].clamp(max=g.n_edges_padded - 1).long()],
+        (off[1:] - off[:-1]).long())
+    for it in range(64):
+        cnt = kernels.bfs_level(lev, off, g.csc_src_indices, it, FB.UNREACHED)
+        z = FB.fused_route_or(g, full, it)
+        assert torch.equal(z, FB.fused_route_or(g, full, it))
+        assert torch.equal(z, kernels.fused_route_or_plain(
+            full, g.csc_edge_ids, flags, it))
+        s = kernels.scan(z, flags, "add")
+        new, any_ = FB.suffix_fill_update(s, flags, full, it + 1)
+        new_p, any_p = kernels.suffix_fill_update_plain(s, flags, full, it + 1)
+        assert torch.equal(new, new_p) and torch.equal(any_, any_p)
+        full = new
+        assert torch.equal(full[off[:-1][off[1:] > off[:-1]].long()],
+                           lev[off[:-1][off[1:] > off[:-1]].long()])
+        assert int(any_) == int(cnt > 0)
+        if int(cnt) == 0:
+            break
+    assert all(kernels.launches[n] > 0 for n in (
+        "bitmap_intersect_counts", "segment_broadcast_total",
+        "suffix_fill_update", "fused_route_or"))
+    total, vt = tc.cpu_reference(csr)
+    for variant in tc.VARIANTS:
+        r = tc.run(csr, variant=variant, warmup=False)
+        assert r.total == total
+        if variant != "shift":
+            assert np.array_equal(r.vertex_triangles.cpu().numpy(), vt)
+    ranks = pr.run(g, variant="fused", warmup=False).ranks.cpu().numpy()
+    assert np.allclose(ranks, pr.cpu_reference(csr), rtol=1e-4, atol=1e-6)

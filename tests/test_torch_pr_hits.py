@@ -1,6 +1,7 @@
-"""Port parity: essentials_tpu_torch's PageRank and HITS (variant ``spmv``)
-against essentials_tpu's ``pr.run(variant="spmv")`` and
-``hits.run(variant="spmv")``, on the CPU, on graphs with a symmetric layout.
+"""Port parity: essentials_tpu_torch's PageRank (variants ``spmv`` and
+``fused``) and HITS (``spmv``) against essentials_tpu's ``pr.run`` and
+``hits.run`` of the same variants, on the CPU, on graphs with a symmetric
+layout.
 
 Iteration counts must be equal. Ranks are held to the tolerances of
 tests/test_spmv_ports.py: PageRank atol 1e-7 / rtol 1e-5 against JAX (its
@@ -38,6 +39,12 @@ from essentials_tpu_torch.io import generate
 from essentials_tpu_torch.utils.compare import compare
 
 HITS_ITERATIONS = 10
+# PageRank fused: the two packages sum each destination's contributions by
+# scans in different orders, so the ranks are compared after a pinned count
+# of iterations, to benchmarks/PARITY.md's fused PageRank tolerance (rtol
+# 2e-3, float32 edge sums) and to the tighter one the spmv test uses
+# (atol 1e-7, rtol 1e-5); the two differ by 5e-7 relative on rmat12.
+PR_FUSED_ITERATIONS = 12
 
 
 def both_graphs(csr):
@@ -73,6 +80,33 @@ def test_pr_spmv_matches_jax_and_host(graphs, name):
                        rtol=1e-4) == 0
     host = jpr.cpu_reference(csr)
     assert compare(tpr.cpu_reference(csr), host, atol=1e-6, rtol=1e-4) == 0
+
+
+@pytest.mark.parametrize("name", ["rmat12", "chesapeake"])
+def test_pr_fused_matches_jax_spmv_and_host(graphs, name):
+    csr, gj, g = graphs[name]
+    n_it = PR_FUSED_ITERATIONS
+    r_j = jpr.run(gj, variant="fused", warmup=False, max_iterations=n_it)
+    r = tpr.run(g, variant="fused", warmup=False, max_iterations=n_it)
+    assert r.ranks.dtype == torch.float32
+    assert r.ranks.shape == (g.n_vertices,)
+    assert r.iterations == r_j.iterations == n_it
+    for atol, rtol in ((0, 2e-3), (1e-7, 1e-5)):
+        assert compare(r.ranks, np.asarray(r_j.ranks), atol=atol,
+                       rtol=rtol) == 0
+    r_s = tpr.run(g, variant="spmv", warmup=False, max_iterations=n_it)
+    assert compare(r.ranks, r_s.ranks.numpy(), atol=1e-7, rtol=1e-5) == 0
+    host = tpr.cpu_reference(csr, max_iterations=n_it)
+    assert compare(r.ranks, host, atol=1e-6, rtol=1e-4) == 0
+
+
+def test_pr_fused_converges_with_spmv(graphs):
+    _, _, g = graphs["chesapeake"]
+    r = tpr.run(g, variant="fused", warmup=False)
+    r_s = tpr.run(g, variant="spmv", warmup=False)
+    assert 1 < r.iterations < 500
+    assert abs(r.iterations - r_s.iterations) <= 1
+    assert compare(r.ranks, r_s.ranks.numpy(), atol=1e-7, rtol=1e-5) == 0
 
 
 @pytest.mark.parametrize("name", ["rmat12", "chesapeake"])
@@ -126,14 +160,13 @@ def directed_graph():
     return g
 
 
-@pytest.mark.parametrize("variant,item", [
-    ("fused", "queue 2, item 5"), ("generic", "queue 1, item 8")])
+@pytest.mark.parametrize("variant,item", [("generic", "queue 1, item 8")])
 def test_unported_pr_variants_raise(graphs, variant, item):
     with pytest.raises(EssentialsError, match=item):
         tpr.run(graphs["chesapeake"][2], variant=variant)
 
 
-@pytest.mark.parametrize("variant", ["spmv", "auto"])
+@pytest.mark.parametrize("variant", ["spmv", "auto", "fused"])
 def test_pr_spmv_refuses_a_directed_graph(variant):
     with pytest.raises(EssentialsError, match="queue 1, item 8"):
         tpr.run(directed_graph(), variant=variant)
