@@ -3,12 +3,20 @@
 SpMV (fused and windowed) with PageRank and HITS on it, then SSSP (fused
 and windowed) and k-core, then the operator layer with BFS and SSSP
 adaptive and SpMV pull and push on a directed graph, then triangle
-counting, the intersection operator and PageRank fused.
+counting, the intersection operator and PageRank fused, then graph
+coloring (jp and spec) with PageRank and HITS generic on a directed graph.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # every phase
+    python3 chip_smoke.py --only color,tc   # phases 1-2 and these groups
+
+The groups are bfs (phases 3-5), spmv (6-8), sssp (9-11), operators
+(12-14), tc (15-17) and color (18-20); phases 1-2 always run, and the
+groups run in this order. Each graph is built by the first group that
+needs it and kept for the others. With --only, the JSON line lists the
+chosen groups' kernels and their launches on the chosen groups' paths.
 
 Phases, each printing its own lines and its seconds; the first failure
 raises and exits non-zero:
@@ -131,7 +139,29 @@ raises and exits non-zero:
    and shift runs at rmat17 and a PageRank fused run; each new kernel per
    launch beside its plain version,
    its bound and a PyTorch call computing the same function where one
-   exists.
+   exists;
+18. segment_minmax (replaces scan_kernels.segmented_minmax_1d) against its
+   plain version exactly and a second launch bitwise, over JP's per-edge
+   priorities for 1, 3 and 8 payloads under three active masks (all true,
+   a seeded 30%, the uncolored mask after one JP round) on rmat12 and
+   rmat18 (the BFS graphs) and gen:rmat20x16 (phase 10's graph); and
+   bitmap_intersect_counts at 12,288-word rows (48 KiB, where the shared
+   row meets the launch's shared-memory limit), witness on and off;
+19. their main path, each run with the launch counters set to 0 just
+   before it and read just after, which must show exactly the launches
+   its rounds' tiers make: color.run jp, spec and auto (which must be
+   spec, the spray being on) on gen:rmat20x16, each a proper coloring
+   (validate 0); jp and spec on rmat12 (auto jp, the spray off) bitwise
+   equal in colors and rounds to a run on a CPU copy of the graph; pr.run
+   and hits.run auto (generic) on the directed rmat20 of phase 8, held
+   against the host references (HOST_TOLS);
+20. times on CUDA events: color jp and spec ms per run at gen:rmat20x16
+   with rounds and distinct colors, torch.profiler's idle share over one
+   run of each, beside the TPU's history (TPU_COLOR_HISTORY, not a gate);
+   PageRank and HITS generic ms per iteration; segment_minmax per launch
+   at m = 8 beside its plain version, its bound, two torch.segment_reduce
+   calls (max and min) computing the same function and the 16
+   segment_reduce launches it replaces, and on the largest segment alone.
 
 Every kernel's bound is the least time an H100 could take for its work:
 the larger of the bytes it must move (each input element it needs read
@@ -248,6 +278,16 @@ OP_REPLACES = {
     "segment_reduce": "essentials_tpu/ops/segment.py:97",
     "advance_count": "essentials_tpu/ops/cube_router.py:754",
 }
+COLOR_REPLACES = {   # in OP_SOURCE, beside segment_reduce
+    "segment_minmax": "essentials_tpu/ops/scan_kernels.py:224",
+}
+COLOR_SEED = 6         # the seeded active mask and the wide bitmap
+COLOR_PAYLOADS = (1, 3, 8)   # segment_minmax payload counts checked
+BITMAP_WIDE_WORDS = 12288    # 48 KiB rows: the shared-memory limit's edge
+# color at rmat20 recorded on the TPU (essentials_tpu/algorithms/color.py
+# :191, :295): printed beside the port's, not a gate
+TPU_COLOR_HISTORY = {"jp": "8.3 s per run, about 100 rounds",
+                     "spec": "206 ms per run"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -1781,7 +1821,7 @@ def time_tc(csr17, csr20, csr13, g_u, card: str) -> None:
         print(f"time [{card}]: tc {v} {label}: {ms:.4f} ms per run "
               f"(median of {runs}, each after a warm-up run), "
               f"{rs[0].total / ms * 1e3:.4g} triangles/s")
-    for v in pr.VARIANTS:
+    for v in pr.SYMMETRIC_VARIANTS:
         r = pr.run(g_u, variant=v)
         print(f"time [{card}]: pr {v} undirected rmat{SCALE}: "
               f"{r.elapsed_ms / r.iterations:.4f} ms per iteration, "
@@ -1853,6 +1893,246 @@ def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
     return t
 
 
+# ------------------------------------------------------------ phase 18 --
+
+def check_minmax_kernel(g, where: str, errs: dict) -> None:
+    """segment_minmax over JP's per-edge priorities (m of its WAVES rows)
+    under three active masks: all true, a seeded 30%, and the uncolored
+    mask after one JP round; against its plain version exactly and a
+    second launch bitwise."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import color
+    from essentials_tpu_torch.ops.advance import _expand_and_route
+    state = color.init(g)
+    after = color.step(g, state, 0)
+    uncolored, _ = _expand_and_route(g, after.frontier, "vertices", ())
+    ep, dev = g.n_edges_padded, g.device
+    gen = torch.Generator(device=dev).manual_seed(COLOR_SEED)
+    masks = {"all true": torch.ones(ep, dtype=torch.bool, device=dev),
+             "30%": torch.rand(ep, generator=gen, device=dev) < 0.3,
+             "uncolored after one JP round": uncolored}
+    for label, active in masks.items():
+        for m in COLOR_PAYLOADS:
+            args = (list(state.pri_csc[:m]), active, g.csc_offsets)
+            hold_exact("segment_minmax", K.segment_minmax(*args),
+                       K.segment_minmax(*args),
+                       K.segment_minmax_plain(*args), errs,
+                       f"{where} m={m} {label}")
+    print(f"kernels: {where}: segment_minmax at m = {COLOR_PAYLOADS} over "
+          f"JP's priorities, masks {list(masks)} ("
+          f"{int(uncolored.sum())} of {ep} edges uncolored after one round, "
+          f"{after.live} vertices): exact against plain, repeatable")
+
+
+def check_wide_bitmap(errs: dict) -> None:
+    """bitmap_intersect_counts on rows of BITMAP_WIDE_WORDS words, where
+    the shared row and the kernel's static shared memory would pass the 48
+    KiB a launch holds without opting in: witness on and off, against its
+    plain version and a second launch."""
+    from essentials_tpu_torch import kernels as K
+    rng = np.random.default_rng(COLOR_SEED)
+    rows, words = 65, BITMAP_WIDE_WORDS
+    bits = rng.random((rows, words * 32)) < 0.01
+    bitmap = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+    bitmap[-1] = 0
+    eu = np.sort(rng.integers(0, rows, 512)).astype(np.int32)
+    ev = rng.integers(0, rows, 512).astype(np.int32)
+    args = [torch.from_numpy(a).cuda() for a in (eu, ev, bitmap)]
+    for witness in (True, False):
+        outs = [f(*args, witness) for f in (K.bitmap_intersect_counts,
+                                            K.bitmap_intersect_counts,
+                                            K.bitmap_intersect_counts_plain)]
+        hold_exact("bitmap_intersect_counts",
+                   *[[t for t in o if t is not None] for o in outs], errs,
+                   f"{words}-word rows witness {witness}")
+    print(f"kernels: bitmap_intersect_counts at {words}-word "
+          f"({words * 4} B) rows, 512 pairs, "
+          f"{int(outs[0][0].sum())} common bits, witness on and off: exact "
+          f"against plain, repeatable")
+
+
+# ------------------------------------------------------------ phase 19 --
+
+def expect_color(g, variant: str, r) -> dict:
+    """Launches of one color.run from its tiers (spray, dense). JP: two
+    gathers of the priorities at init; a dense round gathers the uncolored
+    mask and takes segment_minmax once; a spray round scans three times
+    (the members' prefix, the edge ids, the sources) and gathers the
+    priorities through the sources (two launches). Spec: a dense round
+    gathers colors and ranks by source and by destination and MAX-reduces;
+    a spray round scans three times. With the spray on, every dense round
+    compacts the next index list (one scan), and so does every spec
+    round."""
+    from essentials_tpu_torch.ops import sparse_advance as SA
+    spray, dense = r.tiers
+    on = SA.spray_enabled(g)
+    if variant == "jp":
+        return {"gather_payloads": 2 + dense + 2 * spray,
+                "segment_minmax": dense, "scan": on * dense + 3 * spray}
+    return {"gather_payloads": 2 * dense, "segment_reduce": dense,
+            "scan": on * (dense + spray) + 3 * spray}
+
+
+def color_main_path(csr_m, g_m, csr12, g12, csr_d, g_d) -> tuple:
+    """color.run jp, spec and auto on gen:rmat20x16; both variants on rmat12
+    against a run on a CPU copy of the graph; PageRank and HITS auto
+    (generic) on the directed rmat20. Each run with the launch counts set
+    to 0 just before it and read just after, which must be exactly the
+    launches it makes. Returns ({path: {kernel: launches}}, the rmat20
+    color results by variant)."""
+    from essentials_tpu_torch.algorithms import color, hits, pr
+    by_path, results = {}, {}
+
+    def run_counted(path: str, fn, expect):
+        r, launches = counted(fn)
+        ran = {k: n for k, n in launches.items() if n}
+        want = {k: n for k, n in expect(r).items() if n}
+        check(ran == want, f"{path} launched {ran}, expected {want}")
+        by_path[path] = launches
+        return r
+
+    where = f"gen:rmat{MAIN_SCALE}x16"
+    check(color.auto_variant(g_m) == "spec",
+          f"color auto does not choose spec on {where}")
+    for v in ("jp", "spec", "auto"):
+        want = color.auto_variant(g_m) if v == "auto" else v
+        r = run_counted(f"color {v} rmat{MAIN_SCALE}",
+                        lambda v=v: color.run(g_m, variant=v, warmup=False),
+                        lambda r, want=want: expect_color(g_m, want, r))
+        c = r.colors.cpu().numpy()
+        check(c.shape == (g_m.n_vertices,) and color.validate(csr_m, c) == 0,
+              f"color {v} on {where} is not a proper coloring")
+        results[v] = r
+        print(f"main path: color {v} {where}: {r.iterations} rounds (spray "
+              f"{r.tiers[0]}, dense {r.tiers[1]}), {int(c.max()) + 1} colors "
+              f"used, {np.unique(c).size} distinct; validate 0; launches "
+              f"exact")
+    check(torch.equal(results["auto"].colors, results["spec"].colors)
+          and results["auto"].iterations == results["spec"].iterations,
+          "color auto differs from spec")
+
+    g_cpu = g12.to("cpu")
+    check(color.auto_variant(g12) == "jp", "color auto is not jp at rmat12")
+    for v in color.VARIANTS:
+        r = run_counted(f"color {v} rmat12",
+                        lambda v=v: color.run(g12, variant=v, warmup=False),
+                        lambda r, v=v: expect_color(g12, v, r))
+        r_cpu = color.run(g_cpu, variant=v, warmup=False)
+        check(r.iterations == r_cpu.iterations
+              and torch.equal(r.colors.cpu(), r_cpu.colors),
+              f"color {v} rmat12 on the card differs from the CPU copy")
+        check(color.validate(csr12, r_cpu.colors.numpy()) == 0,
+              f"color {v} rmat12 is not a proper coloring")
+        print(f"main path: color {v} rmat12: {r.iterations} rounds, colors "
+              f"bitwise equal to the run on a CPU copy of the graph (plain "
+              f"versions); launches exact")
+
+    where_d = f"directed rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}"
+    check(not g_d.symmetric_layout, f"{where_d} has a symmetric layout")
+    r_pr = run_counted("pr generic", lambda: pr.run(g_d, warmup=False),
+                       lambda r: {"gather_payloads": r.iterations,
+                                  "segment_reduce": r.iterations + 1})
+    ref_pr, it_pr = pr.cpu_run(csr_d)
+    hold_host(r_pr.ranks.cpu().numpy(), ref_pr, f"pr auto (generic) "
+              f"{where_d}", g_d.n_vertices)
+    print(f"main path: pr auto (generic) {where_d}: {r_pr.iterations} "
+          f"iterations (host float64: {it_pr}); launches exact")
+    r_h = run_counted("hits generic", lambda: hits.run(g_d, warmup=False),
+                      lambda r: {"gather_payloads": 2 * r.iterations,
+                                 "segment_reduce": 2 * r.iterations})
+    ref_a, ref_h, it_h = hits.cpu_run(csr_d)
+    hold_host(r_h.auth.cpu().numpy(), ref_a, "hits generic auth",
+              g_d.n_vertices)
+    hold_host(r_h.hub.cpu().numpy(), ref_h, "hits generic hub",
+              g_d.n_vertices)
+    print(f"main path: hits auto (generic) {where_d}: {r_h.iterations} "
+          f"iterations (host float64: {it_h}); launches exact")
+    return by_path, results
+
+
+# ------------------------------------------------------------ phase 20 --
+
+def time_color(g_m, results, g_d, card: str) -> None:
+    """Color ms per run (what color.run's elapsed_ms covers, after its
+    warm-up run) with rounds and distinct colors, and the device's idle
+    share over one run of each variant; PageRank and HITS generic ms per
+    iteration; the TPU's history beside them."""
+    from essentials_tpu_torch.algorithms import color, hits, pr
+    for v in color.VARIANTS:
+        r = color.run(g_m, variant=v)
+        check(torch.equal(r.colors, results[v].colors),
+              f"color {v} differs between runs")
+        print(f"time [{card}]: color {v} gen:rmat{MAIN_SCALE}x16: "
+              f"{r.elapsed_ms:.3f} ms per run, {r.iterations} rounds, "
+              f"{r.elapsed_ms / r.iterations:.4f} ms per round, "
+              f"{torch.unique(r.colors).numel()} distinct colors (after one "
+              f"warm-up run); TPU history (not a gate): "
+              f"{TPU_COLOR_HISTORY[v]}")
+        profile(f"color {v} gen:rmat{MAIN_SCALE}x16, one color.run",
+                lambda v=v: color.run(g_m, variant=v, warmup=False))
+    for name, fn in (("pr", pr.run), ("hits", hits.run)):
+        r = fn(g_d, variant="generic")
+        print(f"time [{card}]: {name} generic directed rmat{SPMV_TIME_SCALE} "
+              f"seed {SPMV_SEED}: {r.elapsed_ms / r.iterations:.4f} ms per "
+              f"iteration, {r.iterations} iterations, {r.elapsed_ms:.3f} ms "
+              f"in all (after one warm-up run)")
+
+
+def time_minmax_kernel(g_m) -> dict:
+    """segment_minmax per launch with m = WAVES at gen:rmat20x16 under the
+    first JP round's mask (every real edge active), beside its plain
+    version, its bound, the library calls computing the same function and
+    the 16 segment_reduce launches (a MAX and a MIN per wave over masked
+    values) that it replaces."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import color
+    from essentials_tpu_torch.ops.advance import _expand_and_route
+    state = color.init(g_m)
+    active, _ = _expand_and_route(g_m, state.frontier, "vertices", ())
+    pays, off = list(state.pri_csc), g_m.csc_offsets
+    m, s, ep = len(pays), off.numel() - 1, g_m.n_edges_padded
+
+    def per_call(fn) -> float:
+        return median_ms(lambda _: [fn() for _ in range(SPMV_REPS)]) \
+            / SPMV_REPS
+
+    t = {"segment_minmax": per_call(lambda: K.segment_minmax(pays, active,
+                                                             off)),
+         "segment_minmax/plain": median_ms(
+             lambda _: K.segment_minmax_plain(pays, active, off), TC_CYCLES)}
+    n_active = int(active.sum())
+    # flags read; the payloads at active positions read; offsets read; max
+    # and min written
+    t["segment_minmax/bound"] = bound(ep + 4 * m * n_active + 4 * (s + 1)
+                                      + 8 * m * s)
+    # priorities are below 2^24, exact in float32; torch.segment_reduce
+    # takes floating types: one amax and one amin call over [Ep, m]
+    x = state.pri_csc.t().float()
+    hi = torch.where(active[:, None], x, float("-inf")).contiguous()
+    lo = torch.where(active[:, None], x, float("inf")).contiguous()
+    off64 = off.long()
+    t["segment_minmax/library"] = library_ms(
+        "segment_minmax (torch.segment_reduce max, then min, on the masked "
+        "[Ep, 8] float32 values: two calls)",
+        lambda: (torch.segment_reduce(hi, "max", offsets=off64, unsafe=True),
+                 torch.segment_reduce(lo, "min", offsets=off64,
+                                      unsafe=True)), SPMV_REPS)
+    imax = K.INT32_MAX
+    masked = [(torch.where(active, p, -imax - 1), torch.where(active, p, imax))
+              for p in pays]
+    t["segment_minmax/segment_reduce_x16"] = median_ms(
+        lambda _: [(K.segment_reduce(a, off, "max"),
+                    K.segment_reduce(b, off, "min")) for a, b in masked])
+    t["segment_minmax/active"] = n_active
+    # the largest segment alone, on its one warp: the launch's tail
+    hub = int(torch.argmax(off[1:] - off[:-1]))
+    hub_off = off[hub:hub + 2].clone()
+    t["segment_minmax/hub"] = (hub, int(hub_off[1] - hub_off[0]), per_call(
+        lambda: K.segment_minmax(pays, active, hub_off)), per_call(
+        lambda: K.segment_reduce(masked[0][0], hub_off, "max")))
+    return t
+
+
 class Phases:
     """Prints each phase's seconds as it ends."""
 
@@ -1865,64 +2145,81 @@ class Phases:
         self.t0 = t
 
 
-def main() -> None:
-    from essentials_tpu_torch import kernels as K, runtime
+class Run:
+    """What the groups share: the card, each kernel's largest error against
+    its plain version, the times, the launches by path, and the graphs,
+    each built on first use and kept for the groups after it."""
+
+    def __init__(self, card: str):
+        self.card = card
+        self.phases = Phases()
+        self.errs = {k: 0 for _, _, r in KERNEL_TABLE for k in r}
+        self.errs.update({k: 0.0 for k in SPMV_REPLACES})
+        self.errs.update({k + "/rel": 0.0 for k in SPMV_REPLACES})
+        self.t = {}
+        self.by_path = {}
+        self._graphs = {}
+
+    def _get(self, key, make):
+        if key not in self._graphs:
+            self._graphs[key] = make()
+        return self._graphs[key]
+
+    def bfs_graph(self, scale: int) -> tuple:
+        """The undirected unweighted RMAT graph of bench.py's BFS (edge
+        factor 16, seed 1): (csr, graph)."""
+        def make():
+            t0 = time.perf_counter()
+            csr, g = rmat_graph(scale, "cuda")
+            print(f"graph: rmat{scale} ef{EDGE_FACTOR}: V={g.n_vertices} "
+                  f"E={g.n_edges} Vp={g.n_vertices_padded} "
+                  f"Ep={g.n_edges_padded}, built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            check(g.symmetric_layout, "rmat graph has no symmetric layout")
+            return csr, g
+        return self._get(("bfs", scale), make)
+
+    def spmv_graph(self, scale: int) -> tuple:
+        """bench.py's SpMV graph of ``scale`` (directed, weighted, seed 3):
+        (csr, graph)."""
+        def make():
+            from essentials_tpu_torch import kernels as K
+            t0 = time.perf_counter()
+            csr, g = spmv_graph(scale, "cuda")
+            print(f"graph: rmat{scale} ef{EDGE_FACTOR} seed {SPMV_SEED} "
+                  f"directed weighted: V={g.n_vertices} E={g.n_edges} "
+                  f"Vp={g.n_vertices_padded} Ep={g.n_edges_padded}, max "
+                  f"out-degree {g.max_degree}, "
+                  f"{int((g.out_degrees()[:g.n_vertices] == 0).sum())} empty "
+                  f"rows, {K.slab_count(g.n_edges_padded)} slabs of "
+                  f"{K.SLAB_EDGES} edges, built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            return csr, g
+        return self._get(("spmv", scale), make)
+
+    def weighted_graph(self, scale: int) -> tuple:
+        return self._get(("weighted", scale),
+                         lambda: weighted_graph(scale, "cuda"))
+
+    def tc_graph(self, scale: int, weighted: bool = True):
+        return self._get(("tc", scale, weighted),
+                         lambda: tc_graph(scale, weighted))
+
+
+def group_bfs(run: Run) -> None:
+    """Phases 3-5: the fused BFS."""
+    from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.algorithms import bfs
-    runtime.require_cuda()          # raises: this script runs only on a GPU
-    phases = Phases()
-
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    props = runtime.device_properties("cuda:0")
-    print(card)
-    print(f"device: torch sees {kind!r}, {runtime.num_devices()} card(s), "
-          f"capability {props.capability}, {props.sm_count} SMs, "
-          f"{props.memory_gib:.1f} GiB; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
-    rate, own = l2_rate()
-    MEMORY_RATE["L2"] = max(rate, MEMORY_RATE["HBM"])
-    print(f"device [{card}]: L2 rate {rate / 1e12:.4f} TB/s (the extra "
-          f"bytes of a {L2_PROBE_MIB[1]} MiB device-to-device copy over a "
-          f"{L2_PROBE_MIB[0]} MiB one, over its extra time; each copy "
-          f"{L2_COPIES} times back to back in a CUDA graph, median of "
-          f"{CYCLES}; the copies "
-          f"alone {own[0] / 1e12:.4f} / {own[1] / 1e12:.4f} TB/s); bounds "
-          f"use {MEMORY_RATE['L2'] / 1e12:.4f} TB/s where one launch's bytes "
-          f"fit {L2_BYTES // 2 ** 20} MiB, else HBM's "
-          f"{MEMORY_RATE['HBM'] / 1e12:.2f} TB/s")
-    phases.done("1 device")
-
-    # 2. build
-    t0 = time.perf_counter()
-    path, log = K.build()
-    K._library()
-    print(f"build: {path.name} ready in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "built" in line or "spill" in line:
-            print(f"  {line.strip()}")
-    phases.done("2 build")
+    card, errs = run.card, run.errs
 
     # 3. kernels against their plain versions
-    errs = {k: 0 for k in REPLACES}
-    graphs = {}
     for scale in (12, SCALE):
-        t0 = time.perf_counter()
-        csr, g = rmat_graph(scale, "cuda")
-        graphs[scale] = (csr, g)
-        print(f"graph: rmat{scale} ef{EDGE_FACTOR}: V={g.n_vertices} "
-              f"E={g.n_edges} Vp={g.n_vertices_padded} "
-              f"Ep={g.n_edges_padded}, built in "
-              f"{time.perf_counter() - t0:.1f} s")
-        check(bfs.fused_supported(g), "rmat graph has no symmetric layout")
+        csr, g = run.bfs_graph(scale)
         check_kernels(g, int(np.argmax(np.diff(csr.row_offsets))), errs)
-    phases.done("3 bfs kernels")
+    run.phases.done("3 bfs kernels")
 
     # 4. the main path
-    csr, g = graphs[SCALE]
+    csr, g = run.bfs_graph(SCALE)
     sources = np.argsort(-np.diff(csr.row_offsets))[:RUNS].astype(int)
     variants = {"fused": {}, "fused8": {"max_iterations": MAX_IT}}
     K.reset_launches()
@@ -1930,6 +2227,7 @@ def main() -> None:
                    for s in sources] for v, kw in variants.items()}
     torch.cuda.synchronize()
     launches = dict(K.launches)
+    run.by_path[f"bfs rmat{SCALE}"] = launches
     iters = {v: [r.iterations for r in rs] for v, rs in results.items()}
     print(f"main path: launches {launches}")
     for v in variants:
@@ -1964,7 +2262,7 @@ def main() -> None:
     print(f"main path: distances from {CHECKED_SOURCES} sources equal "
           f"cpu_reference; predecessors of all {RUNS} sources valid and "
           f"smallest-id; fused == fused8")
-    phases.done("4 bfs main path")
+    run.phases.done("4 bfs main path")
 
     # 5. times
     for v, kw in variants.items():
@@ -1977,50 +2275,43 @@ def main() -> None:
               f"{ms:.4f} ms per search (median of {CYCLES} cycles of "
               f"{RUNS} sources), {g.n_edges / 1e3 / ms:.2f} MTEPS")
     t = time_kernels(g, int(sources[0]))
+    run.t.update(t)
     for name in REPLACES:
         print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
               f"{t[name + '/plain']:.4f} ms (rmat{SCALE}, source "
               f"{sources[0]})")
     for v, kw in variants.items():
         profile_searches(g, sources, v, kw)
-    phases.done("5 bfs times")
+    run.phases.done("5 bfs times")
+
+
+def group_spmv(run: Run) -> None:
+    """Phases 6-8: SpMV, with PageRank and HITS spmv on it."""
+    from essentials_tpu_torch.algorithms import spmv
+    card, errs = run.card, run.errs
 
     # 6. SpMV kernels against their plain versions
-    csr_u, g_u = csr, g                 # the undirected BFS graph
-    spmv_graphs = {}
-    errs.update({k: 0.0 for k in SPMV_REPLACES})
-    errs.update({k + "/rel": 0.0 for k in SPMV_REPLACES})
+    csr_u, g_u = run.bfs_graph(SCALE)       # the undirected BFS graph
     for scale in SPMV_SCALES:
-        t0 = time.perf_counter()
-        csr_s, g_s = spmv_graph(scale, "cuda")
-        spmv_graphs[scale] = (csr_s, g_s)
-        print(f"graph: rmat{scale} ef{EDGE_FACTOR} seed {SPMV_SEED} directed "
-              f"weighted: V={g_s.n_vertices} E={g_s.n_edges} "
-              f"Vp={g_s.n_vertices_padded} Ep={g_s.n_edges_padded}, max "
-              f"out-degree {g_s.max_degree}, "
-              f"{int((g_s.out_degrees()[:g_s.n_vertices] == 0).sum())} empty "
-              f"rows, {K.slab_count(g_s.n_edges_padded)} slabs of "
-              f"{K.SLAB_EDGES} edges, built in "
-              f"{time.perf_counter() - t0:.1f} s")
-        check_spmv_kernels(g_s, f"rmat{scale}", errs)
+        check_spmv_kernels(run.spmv_graph(scale)[1], f"rmat{scale}", errs)
     check_pr_hits_rows(g_u, f"undirected rmat{SCALE} (pr/hits inputs)",
                        errs)
-    phases.done("6 spmv kernels")
+    run.phases.done("6 spmv kernels")
 
     # 7. the SpMV main path
-    csr_s, g_s = spmv_graphs[SCALE]
-    spmv_launches = spmv_main_path(csr_s, g_s, csr_u, g_u)
-    phases.done("7 spmv/pr/hits main path")
+    csr_s, g_s = run.spmv_graph(SCALE)
+    run.by_path.update(spmv_main_path(csr_s, g_s, csr_u, g_u))
+    run.phases.done("7 spmv/pr/hits main path")
 
     # 8. SpMV times
     time_spmv(g_s, card, f"rmat{SCALE} seed {SPMV_SEED}")
-    t.update(time_spmv_kernels(g_s))
-    for name in sorted(k for k in t if k.startswith("spmv") and "/" not in k):
+    t = time_spmv_kernels(g_s)
+    run.t.update(t)
+    for name in sorted(k for k in t if "/" not in k):
         print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
               f"{t[name + '/plain']:.4f} ms (rmat{SCALE} seed {SPMV_SEED}, "
               f"{SPMV_REPS} calls back to back)")
     time_pr_hits(g_u, card)
-    from essentials_tpu_torch.algorithms import spmv
     x = spmv.random_x(g_s, 0)
     for v in spmv.VARIANTS:
         profile(f"spmv {v} rmat{SCALE} seed {SPMV_SEED}, {PROFILED_RUNS} "
@@ -2028,13 +2319,7 @@ def main() -> None:
                 lambda v=v: [spmv.run(g_s, x, variant=v, warmup=False)
                              for _ in range(PROFILED_RUNS)],
                 PROFILED_RUNS * KERNELS_PER_PRODUCT[v])
-    del spmv_graphs, g_s
-    t0 = time.perf_counter()
-    csr20, g20 = spmv_graph(SPMV_TIME_SCALE, "cuda")
-    print(f"graph: rmat{SPMV_TIME_SCALE} ef{EDGE_FACTOR} seed {SPMV_SEED} "
-          f"directed weighted: V={g20.n_vertices} E={g20.n_edges}, max "
-          f"out-degree {g20.max_degree}, built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    g20 = run.spmv_graph(SPMV_TIME_SCALE)[1]
     time_spmv(g20, card, f"rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}")
     x20 = spmv.random_x(g20, 0)
     for v in spmv.VARIANTS:
@@ -2043,20 +2328,22 @@ def main() -> None:
                 lambda v=v: [spmv.run(g20, x20, variant=v, warmup=False)
                              for _ in range(PROFILED_RUNS)],
                 PROFILED_RUNS * KERNELS_PER_PRODUCT[v])
-    phases.done("8 spmv times")
+    run.phases.done("8 spmv times")
 
-    del x20                          # the graph serves phases 12-14
+
+def group_sssp(run: Run) -> None:
+    """Phases 9-11: SSSP (fused, windowed) and k-core."""
+    from essentials_tpu_torch.algorithms import kcore, sssp
+    card, errs = run.card, run.errs
 
     # 9. SSSP and k-core kernels against their plain versions
-    errs.update({k: 0 for k in SSSP_REPLACES})
-    weighted = {}
     for scale in SSSP_SCALES:
-        weighted[scale] = weighted_graph(scale, "cuda")
-        check_sssp_kcore_kernels(*weighted[scale], f"rmat{scale}", errs)
-    phases.done("9 sssp/kcore kernels")
+        check_sssp_kcore_kernels(*run.weighted_graph(scale), f"rmat{scale}",
+                                 errs)
+    run.phases.done("9 sssp/kcore kernels")
 
     # 10. the SSSP and k-core main path at rmat20
-    csr_m, g_m = weighted_graph(MAIN_SCALE, "cuda")
+    csr_m, g_m = run.weighted_graph(MAIN_SCALE)
     check(g_m.symmetric_layout, "rmat20 graph has no symmetric layout")
     where = f"rmat{MAIN_SCALE}"
     check_sssp_kcore_kernels(csr_m, g_m, where, errs)
@@ -2066,21 +2353,22 @@ def main() -> None:
           f"spmv_slabs<add,min> and spmv_slab_carry<min> exact against "
           f"plain and repeatable")
     check_kernels(g_m, top, errs)
-    phases.done("10a kernels at the main path's shapes")
+    run.phases.done("10a kernels at the main path's shapes")
     sssp_launches, sssp_sources, sssp_runs = sssp_kcore_main_path(csr_m, g_m)
-    phases.done("10b sssp/kcore main path")
+    run.by_path.update(sssp_launches)
+    run.phases.done("10b sssp/kcore main path")
 
     # 11. SSSP and k-core times
     time_sssp_kcore(g_m, sssp_sources, sssp_runs, card)
     time_kcore_waves(g_m, card)
-    csr18, g18 = weighted[SCALE]
-    t.update(time_sssp_kcore_kernels(csr18, g18))
+    csr18, g18 = run.weighted_graph(SCALE)
+    t = time_sssp_kcore_kernels(csr18, g18)
+    run.t.update(t)
     for name in SSSP_REPLACES:
         print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
               f"{t[name + '/plain']:.4f} ms (weighted rmat{SCALE}; "
               f"sssp_sweep summed over the {t['sweeps']} sweeps of one "
               f"search, kcore_sweep the first wave)")
-    from essentials_tpu_torch.algorithms import kcore, sssp
     for v in sssp.VARIANTS:
         profile(f"sssp {v} rmat{MAIN_SCALE}, {SSSP_RUNS} sssp.run calls",
                 lambda v=v: [sssp.run(g_m, int(s), variant=v, warmup=False)
@@ -2089,26 +2377,33 @@ def main() -> None:
     profile(f"kcore rmat{MAIN_SCALE}, one kcore.run",
             lambda: kcore.run(g_m, warmup=False),
             sum(sssp_launches["kcore"].values()))
-    phases.done("11 sssp/kcore times")
+    run.phases.done("11 sssp/kcore times")
+
+
+def group_operators(run: Run) -> None:
+    """Phases 12-14: the operator layer, with BFS and SSSP adaptive and
+    SpMV pull and push on a directed graph."""
+    card, errs = run.card, run.errs
 
     # 12. operator kernels against their plain versions
-    errs.update({k: 0 for k in OP_REPLACES})
     for scale in OP_SCALES:
-        _, g_o = spmv_graph(scale, "cuda")
-        check_operator_kernels(g_o, f"rmat{scale} seed {SPMV_SEED}", errs)
-        del g_o
+        check_operator_kernels(run.spmv_graph(scale)[1],
+                               f"rmat{scale} seed {SPMV_SEED}", errs)
+    csr20, g20 = run.spmv_graph(SPMV_TIME_SCALE)
     where20 = f"rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}"
     check(not g20.symmetric_layout, f"{where20} has a symmetric layout")
     check_operator_kernels(g20, where20, errs)
-    phases.done("12 operator kernels")
+    run.phases.done("12 operator kernels")
 
     # 13. the adaptive main path on the directed rmat20 graph
     op_launches, op_sources, op_runs = adaptive_main_path(csr20, g20)
-    phases.done("13 adaptive main path")
+    run.by_path.update(op_launches)
+    run.phases.done("13 adaptive main path")
 
     # 14. adaptive times
     time_adaptive(g20, op_sources, op_runs, card)
-    t.update(time_operator_kernels(g20, int(op_sources[0])))
+    t = time_operator_kernels(g20, int(op_sources[0]))
+    run.t.update(t)
     for name in OP_REPLACES:
         per_search = {p: c[name] / ADAPTIVE_RUNS for p, c in
                       op_launches.items() if c[name] and "adaptive" in p}
@@ -2122,30 +2417,37 @@ def main() -> None:
               f"launches per search {per_search} ({where20}, the largest "
               f"dense frontiers from {op_sources[0]}: bfs, sssp "
               f"{t['frontiers']})")
-    phases.done("14 adaptive times")
+    run.phases.done("14 adaptive times")
+
+
+def group_tc(run: Run) -> None:
+    """Phases 15-17: triangle counting, the intersection operator, the
+    fill kernels and PageRank fused."""
+    card, errs = run.card, run.errs
 
     # 15. the TC and fill kernels against their plain versions
-    del g20, x
-    errs.update({k: 0 for k in (*TC_REPLACES, *FILL_REPLACES)})
-    csr12 = graphs[12][0]
-    check_bitmap_kernel(csr12, "rmat12", errs)
-    csr17 = tc_graph(TC_SCALE)
+    check_bitmap_kernel(run.bfs_graph(12)[0], "rmat12", errs)
+    csr17 = run.tc_graph(TC_SCALE)
     bitmap_args = check_bitmap_kernel(csr17, f"gen:rmat{TC_SCALE}x16", errs)
     for scale in (12, SCALE):
-        csr_b, g_b = graphs[scale]
+        csr_b, g_b = run.bfs_graph(scale)
         fill_args = check_fill_kernels(
             g_b, int(np.argmax(np.diff(csr_b.row_offsets))),
             f"rmat{scale}", errs)
-    phases.done("15 tc/fill kernels")
+    run.phases.done("15 tc/fill kernels")
 
     # 16. the TC, intersection and PageRank fused main path
-    csr13 = tc_graph(TC_DENSE_SCALE, weighted=False)
+    csr13 = run.tc_graph(TC_DENSE_SCALE, weighted=False)
+    csr_m = run.weighted_graph(MAIN_SCALE)[0]
+    csr_u, g_u = run.bfs_graph(SCALE)
     tc_launches, _ = tc_main_path(csr17, csr_m, csr13, g_u, csr_u)
-    phases.done("16 tc/intersect/pr fused main path")
+    run.by_path.update(tc_launches)
+    run.phases.done("16 tc/intersect/pr fused main path")
 
     # 17. their times
     time_tc(csr17, csr_m, csr13, g_u, card)
-    t.update(time_tc_fill_kernels(bitmap_args, fill_args))
+    t = time_tc_fill_kernels(bitmap_args, fill_args)
+    run.t.update(t)
     for name in (*TC_REPLACES, *FILL_REPLACES):
         lib = t[name + "/library"]
         print(f"time [{card}]: {name} {t[name]:.4f} ms per launch, plain "
@@ -2160,45 +2462,155 @@ def main() -> None:
     print(f"time [{card}]: bitmap_intersect_counts bound with B[v] read per "
           f"pair (the streaming model): {b[0]:.4f} ms ({b[1]} at {b[2]} "
           f"rate)")
-    phases.done("17 tc/fill times")
+    run.phases.done("17 tc/fill times")
 
-    by_path = {f"bfs rmat{SCALE}": launches, **spmv_launches,
-               **sssp_launches, **op_launches, **tc_launches}
+
+def group_color(run: Run) -> None:
+    """Phases 18-20: graph coloring (jp, spec, auto), and PageRank and
+    HITS generic on a directed graph."""
+    card, errs = run.card, run.errs
+
+    # 18. segment_minmax and the wide bitmap against their plain versions
+    for scale in (12, SCALE):
+        check_minmax_kernel(run.bfs_graph(scale)[1], f"rmat{scale}", errs)
+    csr_m, g_m = run.weighted_graph(MAIN_SCALE)
+    check_minmax_kernel(g_m, f"gen:rmat{MAIN_SCALE}x16", errs)
+    check_wide_bitmap(errs)
+    run.phases.done("18 color kernels")
+
+    # 19. the color, PageRank and HITS generic main path
+    csr_d, g_d = run.spmv_graph(SPMV_TIME_SCALE)
+    csr12, g12 = run.bfs_graph(12)
+    color_launches, results = color_main_path(csr_m, g_m, csr12, g12,
+                                              csr_d, g_d)
+    run.by_path.update(color_launches)
+    run.phases.done("19 color/pr/hits generic main path")
+
+    # 20. their times
+    time_color(g_m, results, g_d, card)
+    t = time_minmax_kernel(g_m)
+    run.t.update(t)
+    per_run = {p: c["segment_minmax"] for p, c in color_launches.items()
+               if c["segment_minmax"]}
+    b, lib = t["segment_minmax/bound"], t["segment_minmax/library"]
+    print(f"time [{card}]: segment_minmax {t['segment_minmax']:.4f} ms per "
+          f"launch (m = 8, gen:rmat{MAIN_SCALE}x16, "
+          f"{t['segment_minmax/active']} active edges), plain "
+          f"{t['segment_minmax/plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]} "
+          f"at {b[2]} rate), library calls "
+          f"{'not measured' if lib is None else f'{lib:.4f} ms'}, the 16 "
+          f"segment_reduce launches it replaces "
+          f"{t['segment_minmax/segment_reduce_x16']:.4f} ms; launches per "
+          f"run {per_run}")
+    hub, n, ms, ms_reduce = t["segment_minmax/hub"]
+    print(f"time [{card}]: segment_minmax on the largest segment alone "
+          f"(vertex {hub}, {n} in-edges, one warp): {ms:.4f} ms per launch "
+          f"(segment_reduce max on it {ms_reduce:.4f} ms)")
+    run.phases.done("20 color times")
+
+
+GROUPS = {"bfs": group_bfs, "spmv": group_spmv, "sssp": group_sssp,
+          "operators": group_operators, "tc": group_tc,
+          "color": group_color}
+# each group's kernels, in the order of the JSON line
+KERNEL_TABLE = (("bfs", SOURCE, REPLACES),
+                ("spmv", SPMV_SOURCE, SPMV_REPLACES),
+                ("sssp", SSSP_SOURCE, SSSP_REPLACES),
+                ("operators", OP_SOURCE, OP_REPLACES),
+                ("tc", TC_SOURCE, TC_REPLACES), ("tc", SOURCE, FILL_REPLACES),
+                ("color", OP_SOURCE, COLOR_REPLACES))
+
+
+def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
     timed = {"spmv_rows": "spmv_rows<mul>",
              "spmv_slabs": "spmv_slabs<mul,sum>",
              "spmv_slab_carry": "spmv_slab_carry<sum>"}
+    t, key = run.t, timed.get(name, name)
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces,
+           "launches": sum(c[name] for c in run.by_path.values()),
+           "launches_by_path": {p: c[name] for p, c in run.by_path.items()
+                                if c[name]},
+           "max_abs_err": run.errs[name], "ms": t[key],
+           "plain_ms": t[key + "/plain"],
+           "bound_ms": t[key + "/bound"][0],
+           "bound_by": t[key + "/bound"][1],
+           "bound_memory": t[key + "/bound"][2],
+           "library_ms": t.get(key + "/library")}
+    if name in SPMV_REPLACES:
+        out.update(max_rel_err=run.errs[name + "/rel"], timed=key)
+    if name == "bitmap_intersect_counts":
+        out["bound_streaming_ms"] = t[key + "/bound_streaming"][0]
+        out["ms_no_witness"] = t[key + "/no_witness"]
+    if name in ("spmv_slabs", "spmv_slab_carry"):
+        out["library_of"] = "the whole product: spmv_slabs, then " \
+                            "spmv_slab_carry"
+    if name == "segment_minmax":
+        out["library_of"] = "two torch.segment_reduce calls (max, min) on " \
+                            "float32 copies of the masked payloads"
+        out["ms_segment_reduce_x16"] = t[key + "/segment_reduce_x16"]
+    return out
 
-    def entry(name: str, source: str, replaces: str) -> dict:
-        key = timed.get(name, name)
-        out = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces,
-               "launches": sum(c[name] for c in by_path.values()),
-               "launches_by_path": {p: c[name] for p, c in by_path.items()
-                                    if c[name]},
-               "max_abs_err": errs[name], "ms": t[key],
-               "plain_ms": t[key + "/plain"],
-               "bound_ms": t[key + "/bound"][0],
-               "bound_by": t[key + "/bound"][1],
-               "bound_memory": t[key + "/bound"][2],
-               "library_ms": t.get(key + "/library")}
-        if name in SPMV_REPLACES:
-            out.update(max_rel_err=errs[name + "/rel"], timed=key)
-        if name == "bitmap_intersect_counts":
-            out["bound_streaming_ms"] = t[key + "/bound_streaming"][0]
-            out["ms_no_witness"] = t[key + "/no_witness"]
-        if name in ("spmv_slabs", "spmv_slab_carry"):
-            out["library_of"] = "the whole product: spmv_slabs, then " \
-                                "spmv_slab_carry"
-        return out
+
+def main(argv=None) -> None:
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Drive the port's main paths on one CUDA GPU.")
+    parser.add_argument(
+        "--only", metavar="GROUP[,GROUP]", default=",".join(GROUPS),
+        help=f"run only these groups of phases (of {', '.join(GROUPS)}; "
+             f"phases 1-2 always run); default: all")
+    args = parser.parse_args(argv)
+    chosen = [x for x in args.only.split(",") if x]
+    unknown = sorted(set(chosen) - set(GROUPS))
+    if unknown or not chosen:
+        parser.error(f"--only takes groups of {list(GROUPS)}, not {unknown}")
+    from essentials_tpu_torch import kernels as K, runtime
+    runtime.require_cuda()          # raises: this script runs only on a GPU
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    run = Run(card)
+    kind = torch.cuda.get_device_name(0)
+    props = runtime.device_properties("cuda:0")
+    print(card)
+    print(f"device: torch sees {kind!r}, {runtime.num_devices()} card(s), "
+          f"capability {props.capability}, {props.sm_count} SMs, "
+          f"{props.memory_gib:.1f} GiB; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}; groups {chosen}")
+    rate, own = l2_rate()
+    MEMORY_RATE["L2"] = max(rate, MEMORY_RATE["HBM"])
+    print(f"device [{card}]: L2 rate {rate / 1e12:.4f} TB/s (the extra "
+          f"bytes of a {L2_PROBE_MIB[1]} MiB device-to-device copy over a "
+          f"{L2_PROBE_MIB[0]} MiB one, over its extra time; each copy "
+          f"{L2_COPIES} times back to back in a CUDA graph, median of "
+          f"{CYCLES}; the copies "
+          f"alone {own[0] / 1e12:.4f} / {own[1] / 1e12:.4f} TB/s); bounds "
+          f"use {MEMORY_RATE['L2'] / 1e12:.4f} TB/s where one launch's bytes "
+          f"fit {L2_BYTES // 2 ** 20} MiB, else HBM's "
+          f"{MEMORY_RATE['HBM'] / 1e12:.2f} TB/s")
+    run.phases.done("1 device")
+
+    # 2. build
+    t0 = time.perf_counter()
+    path, log = K.build()
+    K._library()
+    print(f"build: {path.name} ready in {time.perf_counter() - t0:.2f} s")
+    for line in log.splitlines():
+        if "registers" in line or "built" in line or "spill" in line:
+            print(f"  {line.strip()}")
+    run.phases.done("2 build")
+
+    for name, group in GROUPS.items():
+        if name in chosen:
+            group(run)
 
     print(json.dumps({"kernels": [
-        entry(n, src, r[n]) for src, r in ((SOURCE, REPLACES),
-                                           (SPMV_SOURCE, SPMV_REPLACES),
-                                           (SSSP_SOURCE, SSSP_REPLACES),
-                                           (OP_SOURCE, OP_REPLACES),
-                                           (TC_SOURCE, TC_REPLACES),
-                                           (SOURCE, FILL_REPLACES))
-        for n in r]}))
+        kernel_entry(run, n, src, r[n])
+        for group, src, r in KERNEL_TABLE if group in chosen for n in r]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

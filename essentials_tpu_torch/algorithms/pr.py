@@ -1,9 +1,9 @@
-"""PageRank on the SpMV engine (power iteration with dangling-mass
-redistribution).
+"""PageRank (power iteration with dangling-mass redistribution).
 
 Counterpart of ``essentials_tpu/algorithms/pr.py`` for the variants
-``spmv`` (``_run_spmv_compiled``) and ``fused`` (``_run_fused_compiled``);
-reference parity: gunrock::pr, ``pr.hxx:77-216``.
+``spmv`` (``_run_spmv_compiled``), ``fused`` (``_run_fused_compiled``) and
+``generic`` (``step``, ``converged``); reference parity: gunrock::pr,
+``pr.hxx:77-216``.
 
 * ``spmv`` spreads ``rank * alpha / out-weight-sum`` with one product of
   the ``fused`` SpMV engine (``spmv_rows``) per iteration, which computes
@@ -14,11 +14,16 @@ reference parity: gunrock::pr, ``pr.hxx:77-216``.
   ``csc_edge_ids`` (``gather_payloads``), are weighted, summed per
   destination by a segmented ``scan`` and broadcast back over each segment
   (``segment_broadcast_total``). Isolated vertices share one scalar rank.
+* ``generic`` is the push formulation on the operator layer, for any graph
+  with a CSC view: the out-weight sums are one ``neighbor_reduce`` and each
+  iteration one ``advance`` (``gather_payloads`` of the contributions into
+  CSC order, ``segment_reduce`` SUM per destination), through ``enact``.
 
-Both run on graphs with a symmetric layout and refuse the others. (The JAX
-package's ``variant="spmv"`` skips that check and gives wrong ranks on a
-directed graph.) The loop runs on the host with one ``.item()`` per
-iteration, on the L1 change ``err``.
+``spmv`` and ``fused`` need a symmetric layout and refuse the others (the
+JAX package's ``variant="spmv"`` skips that check and gives wrong ranks on
+a directed graph); ``auto`` is ``spmv`` on a symmetric layout and
+``generic`` elsewhere, as the JAX package's. The loops run on the host with
+one ``.item()`` per iteration, on the L1 change ``err``.
 """
 
 from __future__ import annotations
@@ -29,17 +34,17 @@ import numpy as np
 import torch
 
 from essentials_tpu_torch import kernels
-from essentials_tpu_torch.errors import EssentialsError, throw_if
+from essentials_tpu_torch.errors import throw_if
+from essentials_tpu_torch.framework.enactor import enact
 from essentials_tpu_torch.graph.graph import Graph
+from essentials_tpu_torch.ops.advance import advance
+from essentials_tpu_torch.ops.configs import AdvanceIO, Combine
 from essentials_tpu_torch.ops.fused_bfs import segment_broadcast_total
 from essentials_tpu_torch.ops.fused_spmv import spmv_fused
+from essentials_tpu_torch.ops.neighborreduce import neighbor_reduce
 from essentials_tpu_torch.ops.scan_kernels import segmented_scan
 from essentials_tpu_torch.ops.segment import expand_vertex_to_edges, gather
 from essentials_tpu_torch.utils.timer import Timer
-
-# variants of the JAX package that this package does not run yet, and the
-# ROADMAP.md item that brings them
-_UNPORTED = {"generic": "queue 1, item 8 (the operator layer)"}
 
 
 class PrResult(NamedTuple):
@@ -119,29 +124,74 @@ def run_fused(g: Graph, iweights: torch.Tensor, alpha: float, tol: float,
     return torch.where(g.vertex_mask(), ranks, 0.0), it
 
 
-VARIANTS = {"spmv": run_spmv, "fused": run_fused}
+SYMMETRIC_VARIANTS = {"spmv": run_spmv, "fused": run_fused}
+VARIANTS = (*SYMMETRIC_VARIANTS, "generic")
+
+
+# --------------------------------------------------------------- generic --
+
+class PrState(NamedTuple):
+    ranks: torch.Tensor          # float32[Vp]
+    err: float                   # L1 change of the last step (host)
+    iweights: torch.Tensor       # float32[Vp]: alpha / out-weight sum
+    alpha: torch.Tensor          # float32 scalar
+    tol: float                   # float32 value
+
+
+def init(g: Graph, alpha: float = 0.85, tol: float = 1e-6) -> PrState:
+    """``pr.py:39-46``: the out-weight sums by ``neighbor_reduce``, uniform
+    ranks on the real vertices."""
+    wsum = neighbor_reduce(g, lambda e: e.weight, combine=Combine.SUM)
+    alpha32 = torch.tensor(alpha, dtype=torch.float32, device=g.device)
+    iweights = torch.where(wsum > 0, alpha32 / wsum, 0.0)
+    ranks = torch.where(g.vertex_mask(), 1.0 / g.n_vertices, 0.0).float()
+    return PrState(ranks, float("inf"), iweights, alpha32,
+                   float(np.float32(tol)))
+
+
+def step(g: Graph, state: PrState, it: int) -> PrState:
+    """``pr.py:49-60``: the dangling mass spread evenly, then each
+    destination's sum over its in-edges of contribution * weight."""
+    ranks, _, iweights, alpha, tol = state
+    mask, n = g.vertex_mask(), g.n_vertices
+    dangling = torch.where((iweights == 0.0) & mask, ranks, 0.0).sum()
+    base = (1.0 - alpha) / n + alpha * dangling / n
+    spread = advance(g, lambda e: e.src_vals[0] * e.weight, None,
+                     src_values=(ranks * iweights,),
+                     input_kind=AdvanceIO.GRAPH, combine=Combine.SUM,
+                     with_frontier=False)
+    new_ranks = torch.where(mask, base + spread, 0.0)
+    err = (new_ranks - ranks).abs().sum().item()
+    return PrState(new_ranks, err, iweights, alpha, tol)
+
+
+def converged(g: Graph, state: PrState, it: int) -> bool:
+    return state.err < state.tol
 
 
 def run(g: Graph, *, alpha: float = 0.85, tol: float = 1e-6,
         max_iterations: int = 500, warmup: bool = True,
         variant: str = "auto") -> PrResult:
-    """PageRank on ``g``'s device. variant: 'spmv', 'fused', or 'auto',
-    which is 'spmv' (the JAX package's choice on a symmetric layout). All
-    need a symmetric layout. ``elapsed_ms`` covers the iterations, not the
-    weight sums, on the device's clock (CUDA events) or the host's (CPU)."""
-    if variant in _UNPORTED:
-        raise EssentialsError(f"pr variant {variant!r} is not ported yet "
-                              f"(ROADMAP.md {_UNPORTED[variant]})")
+    """PageRank on ``g``'s device. variant: 'spmv', 'fused', 'generic', or
+    'auto', which is 'spmv' on a symmetric layout and 'generic' elsewhere
+    (the JAX package's choice); 'spmv' and 'fused' need a symmetric layout.
+    ``elapsed_ms`` covers the iterations, not the weight sums, on the
+    device's clock (CUDA events) or the host's (CPU)."""
     if variant == "auto":
-        variant = "spmv"
+        variant = "spmv" if g.symmetric_layout else "generic"
     throw_if(variant not in VARIANTS, f"unknown pr variant {variant!r}")
+    if variant == "generic":
+        throw_if(not g.has_csc, "pr generic needs the CSC view")
+        res = enact(step, converged, g, init(g, alpha, tol),
+                    max_iterations=max_iterations, warmup=warmup)
+        return PrResult(res.state.ranks[:g.n_vertices], res.iterations,
+                        res.elapsed_ms)
     throw_if(not g.symmetric_layout,
-             "pr on a graph without a symmetric layout needs the push "
-             "formulation (variant 'generic'), which is not ported yet "
-             "(ROADMAP.md queue 1, item 8): the spmv and fused variants "
-             "would give wrong ranks")
+             f"pr variant {variant!r} needs a graph with a symmetric layout "
+             f"(on another graph it would give wrong ranks); use 'generic' "
+             f"or 'auto'")
     iweights = inverse_weights(g, alpha)
-    iterate = VARIANTS[variant]
+    iterate = SYMMETRIC_VARIANTS[variant]
     if warmup:
         iterate(g, iweights, alpha, tol, max_iterations)
     timer = Timer(g.device).begin()

@@ -1,5 +1,5 @@
 // Hand-written CUDA kernels of the operator layer (scan, gather, segment
-// reduce, advance count), for Hopper (sm_90a).
+// reduce, segment min/max, advance count), for Hopper (sm_90a).
 //
 // Built by essentials_tpu_torch/kernels.py with nvcc into the shared library
 // of every csrc/*.cu, with a plain C interface, loaded with ctypes. Every
@@ -407,6 +407,79 @@ int segment_reduce_launch(const void* vals, const void* off, int nseg, int op,
   return static_cast<int>(cudaGetLastError());
 }
 
+// -------------------------------------------------------- segment_minmax --
+//
+// For each segment s and each of np <= 8 int32 payloads k: max[k][s] and
+// min[k][s] over the ACTIVE positions q of [off[s], off[s+1]) (active[q] !=
+// 0), with INT_MIN / INT_MAX where the segment is empty or has no active
+// position; one warp per segment. Replaces the JAX package's
+// scan_kernels.segmented_minmax_1d (:224), two inclusive segmented scans
+// (MAX, MIN) over active elements with a carry across its sequential grid,
+// whose caller segment.combine_minmax_multi (:351) then routes each
+// segment's last value back to the vertex axis. Here each segment is reduced
+// where it lies, as segment_reduce does for combine_by_offsets.
+// Each lane strides over the segment, reads active[q] once and, only where it
+// is set, the np payloads, folding them into 2 np registers; the warp folds
+// the lanes with __reduce_max_sync / __reduce_min_sync, which are exact and
+// independent of order, so the result repeats bit for bit.
+// What bounds it: bytes, the active flags (one byte per position) and, at
+// active positions, 4 np bytes of payloads, all coalesced, plus the offsets
+// and the 8 np bytes per segment written. A hub's segment runs on one warp.
+
+struct Payloads {
+  const int* p[8];
+};
+
+template <int NP>
+__global__ void __launch_bounds__(kBlock)
+segment_minmax_kernel(Payloads in, const unsigned char* __restrict__ active,
+                      const int* __restrict__ off, int nseg,
+                      int* __restrict__ mx, int* __restrict__ mn) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = global_warp();
+  if (warp >= nseg) return;                 // warp-uniform
+  const int s = static_cast<int>(warp);
+  const int b = off[s];
+  const int e = off[s + 1];
+  int hi[NP], lo[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    hi[k] = INT_MIN;
+    lo[k] = INT_MAX;
+  }
+  for (int q = b + lane; q < e; q += 32) {
+    if (active[q] == 0) continue;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int v = __ldg(in.p[k] + q);
+      hi[k] = max(hi[k], v);
+      lo[k] = min(lo[k], v);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    hi[k] = __reduce_max_sync(kFullMask, hi[k]);
+    lo[k] = __reduce_min_sync(kFullMask, lo[k]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      mx[static_cast<long long>(k) * nseg + s] = hi[k];
+      mn[static_cast<long long>(k) * nseg + s] = lo[k];
+    }
+  }
+}
+
+template <int NP>
+void segment_minmax_launch(const Payloads& in, const unsigned char* active,
+                           const int* off, int nseg, int* mx, int* mn,
+                           cudaStream_t s) {
+  const unsigned blocks = (static_cast<unsigned>(nseg) + kWarpsPerBlock - 1) /
+                          kWarpsPerBlock;
+  segment_minmax_kernel<NP><<<blocks, kBlock, 0, s>>>(in, active, off, nseg,
+                                                      mx, mn);
+}
+
 // --------------------------------------------------------- advance_count --
 //
 // out[v] = the number of in-edges q of v (CSC slots off[v] .. off[v+1])
@@ -489,6 +562,42 @@ int etpu_segment_reduce_f32(const void* vals, const void* off, int nseg,
                             int op, float ident, void* out, void* stream) {
   return segment_reduce_launch<float>(vals, off, nseg, op, ident, out,
                                       static_cast<cudaStream_t>(stream));
+}
+
+// p0..p7: the np payloads, [n] int32 each (those beyond the np-th may be
+// null); active [n] uint8; mx, mn [np, nseg] int32.
+int etpu_segment_minmax(const void* p0, const void* p1, const void* p2,
+                        const void* p3, const void* p4, const void* p5,
+                        const void* p6, const void* p7, int np,
+                        const void* active, const void* off, int nseg,
+                        void* mx, void* mn, void* stream) {
+  if (np < 1 || np > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (nseg > 0) {
+    const Payloads in = {{static_cast<const int*>(p0),
+                          static_cast<const int*>(p1),
+                          static_cast<const int*>(p2),
+                          static_cast<const int*>(p3),
+                          static_cast<const int*>(p4),
+                          static_cast<const int*>(p5),
+                          static_cast<const int*>(p6),
+                          static_cast<const int*>(p7)}};
+    const unsigned char* a = static_cast<const unsigned char*>(active);
+    const int* o = static_cast<const int*>(off);
+    int* hi = static_cast<int*>(mx);
+    int* lo = static_cast<int*>(mn);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (np) {
+      case 1: segment_minmax_launch<1>(in, a, o, nseg, hi, lo, s); break;
+      case 2: segment_minmax_launch<2>(in, a, o, nseg, hi, lo, s); break;
+      case 3: segment_minmax_launch<3>(in, a, o, nseg, hi, lo, s); break;
+      case 4: segment_minmax_launch<4>(in, a, o, nseg, hi, lo, s); break;
+      case 5: segment_minmax_launch<5>(in, a, o, nseg, hi, lo, s); break;
+      case 6: segment_minmax_launch<6>(in, a, o, nseg, hi, lo, s); break;
+      case 7: segment_minmax_launch<7>(in, a, o, nseg, hi, lo, s); break;
+      default: segment_minmax_launch<8>(in, a, o, nseg, hi, lo, s); break;
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 int etpu_advance_count(const void* frontier, const void* off,

@@ -20,7 +20,12 @@ constexpr int kBlock = 256;                 // threads per block
 constexpr int kWarpsPerBlock = kBlock / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kPairsPerBlock = 16;          // consecutive pairs per block
-constexpr int kSharedRowBytes = 48 * 1024;  // u rows up to this stay in smem
+// The shared-memory path takes u rows of at most kSharedRowBytes: a launch
+// may hold 48 KiB of shared memory without opting in, and the kernel's own
+// static warp_sum takes kStaticSharedBytes of it, so the dynamic row gets the
+// rest (a row of exactly 48 KiB, 12,288 words, is read from device memory).
+constexpr int kStaticSharedBytes = 2 * kWarpsPerBlock * sizeof(int);
+constexpr int kSharedRowBytes = 48 * 1024 - kStaticSharedBytes;
 
 // Per pair e = (u, v): cnt[e] = popcount(B[u] & B[v]); with a witness array,
 // wit[c] += 1 for every set bit c of B[u] & B[v].
@@ -54,6 +59,8 @@ bitmap_intersect_counts_kernel(const int* __restrict__ eu,
                                int* __restrict__ wit) {
   extern __shared__ uint4 urow[];
   __shared__ int warp_sum[2][kWarpsPerBlock];
+  static_assert(sizeof(warp_sum) == kStaticSharedBytes,
+                "kSharedRowBytes must leave room for warp_sum");
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;

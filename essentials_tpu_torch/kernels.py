@@ -42,7 +42,9 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   permutation routes (``cube_router._pallas_apply`` :385,
   ``apply_cube_chain`` :586, ``permute._pallas_rowgather`` :364);
   ``segment_reduce`` for ``segment.combine_by_offsets`` :97 and its routed
-  form :287; ``advance_count`` for ``advance.advance_count`` :175
+  form :287; ``segment_minmax`` for ``scan_kernels.segmented_minmax_1d``
+  :224 with the routed pick of ``segment.combine_minmax_multi`` :351;
+  ``advance_count`` for ``advance.advance_count`` :175
   (``cube_router.apply_cube_chain_n`` :754).
 
 Each kernel has a wrapper and a plain PyTorch version with the same
@@ -93,7 +95,8 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "sssp_sweep": 0, "sssp_predecessors": 0, "kcore_sweep": 0,
             "collapse_starts": 0, "expand_segments": 0,
             "scan": 0, "gather_payloads": 0, "segment_reduce": 0,
-            "advance_count": 0, "bitmap_intersect_counts": 0,
+            "segment_minmax": 0, "advance_count": 0,
+            "bitmap_intersect_counts": 0,
             "segment_broadcast_total": 0, "suffix_fill_update": 0,
             "fused_route_or": 0}
 
@@ -188,6 +191,8 @@ def _library():
             "etpu_gather_payloads": (p, ll, p, p, p, p, p, p, p, p, i, p),
             "etpu_segment_reduce_i32": (p, p, i, i, i, p, p),
             "etpu_segment_reduce_f32": (p, p, i, i, ctypes.c_float, p, p),
+            "etpu_segment_minmax": (p, p, p, p, p, p, p, p, i, p, p, i, p,
+                                    p, p),
             "etpu_advance_count": (p, p, p, i, p, p),
             "etpu_fill_tile": (),
             "etpu_segment_fill": (p, p, i, p, i, p, p, p, p),
@@ -975,6 +980,64 @@ def segment_reduce(vals: torch.Tensor, offsets: torch.Tensor,
             out.data_ptr())
     launches[name] += 1
     return out
+
+
+# -------------------------------------------------------- segment_minmax --
+
+MINMAX_PAYLOADS = 8            # payloads per segment_minmax launch
+
+
+def segment_minmax_plain(payloads, active, offsets):
+    """Plain version of ``segment_minmax``."""
+    s = offsets.numel() - 1
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    seg = _segment_ids(offsets - lo, hi - lo)
+    act = active[lo:hi]
+    x = torch.stack([p[lo:hi] for p in payloads])
+    idx = seg.expand(len(payloads), -1)
+    mx = torch.full((len(payloads), s), -INT32_MAX - 1, dtype=torch.int32,
+                    device=active.device)
+    mn = torch.full_like(mx, INT32_MAX)
+    mx.scatter_reduce_(1, idx, torch.where(act, x, -INT32_MAX - 1), "amax")
+    mn.scatter_reduce_(1, idx, torch.where(act, x, INT32_MAX), "amin")
+    return mx, mn
+
+
+def segment_minmax(payloads, active: torch.Tensor,
+                   offsets: torch.Tensor) -> tuple:
+    """Per segment s of the sorted [S+1] int32 ``offsets`` and per [n]
+    int32 payload k: the MAX and the MIN of payloads[k] over the positions
+    of s where the [n] bool ``active`` is set, INT32_MIN and INT32_MAX where
+    there is none. One warp per segment, one launch per MINMAX_PAYLOADS
+    payloads. Returns (max [m, S], min [m, S]) int32, m = len(payloads)."""
+    name = "segment_minmax"
+    payloads = tuple(payloads)
+    throw_if(not payloads, f"{name}: needs at least one payload")
+    throw_if(active.dtype != torch.bool or active.dim() != 1,
+             f"{name}: active must be [n] bool")
+    n = active.numel()
+    for p in payloads:
+        throw_if(p.dtype != torch.int32 or p.shape != (n,),
+                 f"{name}: payloads must be [n] = [{n}] int32")
+    throw_if(offsets.dtype != torch.int32 or offsets.dim() != 1
+             or offsets.numel() < 1, f"{name}: offsets must be [S+1] int32")
+    if not _route(name, active):
+        return segment_minmax_plain(payloads, active, offsets)
+    dev = active.device
+    _check(name, dev, active=active, offsets=offsets,
+           **{f"payload{k}": p for k, p in enumerate(payloads)})
+    s, m = offsets.numel() - 1, len(payloads)
+    mx = torch.empty((m, s), dtype=torch.int32, device=dev)
+    mn = torch.empty_like(mx)
+    for lo in range(0, m, MINMAX_PAYLOADS):
+        chunk = payloads[lo:lo + MINMAX_PAYLOADS]
+        ptrs = ([p.data_ptr() for p in chunk]
+                + [None] * (MINMAX_PAYLOADS - len(chunk)))
+        _launch("etpu_segment_minmax", dev, *ptrs, len(chunk),
+                active.data_ptr(), offsets.data_ptr(), s, mx[lo].data_ptr(),
+                mn[lo].data_ptr())
+        launches[name] += 1
+    return mx, mn
 
 
 # --------------------------------------------------------- advance_count --

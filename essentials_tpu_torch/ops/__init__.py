@@ -18,11 +18,12 @@ from essentials_tpu_torch.ops.advance import (Edges, advance, advance_count,
 from essentials_tpu_torch.ops.configs import AdvanceIO, Combine
 from essentials_tpu_torch.ops.neighborreduce import neighbor_reduce
 from essentials_tpu_torch.ops.segment import (combine_by_offsets,
+                                              combine_minmax_multi,
                                               expand_vertex_to_edges)
 
 __all__ = [
     "Combine", "AdvanceIO", "advance", "advance_multi", "advance_count",
-    "Edges", "neighbor_reduce", "combine_by_offsets",
+    "Edges", "neighbor_reduce", "combine_by_offsets", "combine_minmax_multi",
     "expand_vertex_to_edges", "bitmap_intersect", "fused_bfs", "fused_kcore",
     "fused_sssp", "fused_spmv", "intersect", "scan_kernels", "segment",
     "sparse_advance", "windowed_spmv", "windowed_sssp",

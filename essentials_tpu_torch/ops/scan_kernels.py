@@ -1,9 +1,10 @@
 """Inclusive scans: cumsum and segmented scans on the ``scan`` kernel.
 
-Counterpart of ``essentials_tpu/ops/scan_kernels.py:328-353``. The JAX
-package runs its Pallas ``scan_1d`` / ``segmented_scan_1d`` on the TPU and
-``jnp.cumsum`` / ``lax.associative_scan`` elsewhere; here both functions run
-the ``scan`` kernel (``csrc/operator_kernels.cu``) on a CUDA tensor and its
+Counterpart of ``essentials_tpu/ops/scan_kernels.py:255-263, 328-353``.
+The JAX package runs its Pallas ``scan_1d`` / ``segmented_scan_1d`` /
+``segmented_minmax_1d`` on the TPU and ``jnp.cumsum`` /
+``lax.associative_scan`` elsewhere; here every function runs the ``scan``
+kernel (``csrc/operator_kernels.cu``) on a CUDA tensor and its
 plain version on a CPU tensor. int32 sums wrap around (exact, as the
 telescoping expansions need) and float32 scans are deterministic.
 
@@ -44,3 +45,16 @@ def segmented_scan(x: torch.Tensor, flags: torch.Tensor,
     if flags.dtype not in (torch.bool, torch.uint8):
         flags = flags != 0
     return kernels.scan(_carrier(x), flags.contiguous(), op)
+
+
+def segmented_minmax(x: torch.Tensor, flags: torch.Tensor,
+                     active: torch.Tensor) -> tuple:
+    """(inclusive segmented MAX, inclusive segmented MIN) of the int32 ``x``
+    over its ``active`` elements: inactive ones count as INT32_MIN in the
+    MAX and INT32_MAX in the MIN. Two masked segmented scans, as the JAX
+    package runs it off the TPU; a per-segment reduction is
+    ``segment.combine_minmax_multi``."""
+    x = _carrier(x)
+    imax = kernels.INT32_MAX
+    return (segmented_scan(torch.where(active, x, -imax - 1), flags, "max"),
+            segmented_scan(torch.where(active, x, imax), flags, "min"))

@@ -11,10 +11,12 @@ data lies:
 * ``gather`` moves payloads through an index array, which replaces the JAX
   package's permutation sorts (the ``gather_payloads`` kernel);
 * ``combine_by_offsets`` reduces each segment with one warp (the
-  ``segment_reduce`` kernel).
+  ``segment_reduce`` kernel);
+* ``combine_minmax_multi`` takes each segment's MAX and MIN over its active
+  edges of up to eight payloads at once (the ``segment_minmax`` kernel).
 
-``apply_permutation`` and the keyed ``segment_combine`` wait for their
-first callers (color, MST).
+``apply_permutation`` waits for its first caller, and the keyed
+``segment_combine`` for MST.
 
 The routed forms (``OffsetsRoute``, ``*_routed``, ``expand_multi_then_route``)
 stage these moves through Benes networks on the TPU; the port's graph has no
@@ -105,3 +107,16 @@ def combine_by_offsets(edge_vals: torch.Tensor, offsets: torch.Tensor,
     if combine in (Combine.OR, Combine.AND):
         return out
     return from_words(out, dt)
+
+
+def combine_minmax_multi(edge_vals_list, active: torch.Tensor,
+                         offsets: torch.Tensor) -> list:
+    """Per-segment (MAX, MIN) over the ACTIVE edges of several int32 edge
+    arrays: [(max [S], min [S]), ...] with -2^31 / 2^31-1 at empty or
+    all-inactive segments, as ``essentials_tpu/ops/segment.py:351``. One
+    ``segment_minmax`` launch per eight arrays; the JAX package's ``route``
+    and ``seg_flags`` are not taken (the kernel needs only the offsets)."""
+    mx, mn = kernels.segment_minmax(
+        [v.contiguous() for v in edge_vals_list], active.contiguous(),
+        offsets)
+    return list(zip(mx, mn))

@@ -1,8 +1,9 @@
 """Sparse-frontier advance: work proportional to the frontier's edges.
 
 Counterpart of the spray tiers of ``essentials_tpu/ops/sparse_advance.py``
-(:75, :160-271; reference parity: the vector frontier and thread-mapped
-advance, framework/frontier/vector_frontier.hxx, advance/thread_mapped.hxx).
+(:75, :160-271, its ``with_src`` as ``spray_sources``; reference parity:
+the vector frontier and thread-mapped advance,
+framework/frontier/vector_frontier.hxx, advance/thread_mapped.hxx).
 The constants are the JAX package's, so that every step takes the same tier
 in both packages: ``spray_enabled`` gates on ``_MIN_EDGES`` and the
 algorithms choose per step (``tier``) between the tiny spray (sum of
@@ -109,6 +110,15 @@ def spray_candidates(g: Graph, idx: torch.Tensor, offs: torch.Tensor,
     e = torch.where(valid, j + _expand_const(offs - pfx, pfx, budget), 0)
     nb = g.col_indices[e.long()]
     return e, nb, valid, pfx
+
+
+def spray_sources(idx: torch.Tensor, pfx: torch.Tensor,
+                  budget: int) -> torch.Tensor:
+    """[budget] int32: the source (frontier member) of each slot of
+    ``spray_candidates``, from its ``pfx``; the JAX package's ``with_src``
+    (:212). Pad members give ``pad_vertex``; slots past the last valid one
+    hold some member's id."""
+    return _expand_const(idx, pfx, budget)
 
 
 def spray_dedup(nb: torch.Tensor, keep: torch.Tensor, k: int, fill: int):

@@ -1,12 +1,13 @@
 """essentials_tpu_torch without JAX: the port and chip_smoke.py import
 neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank
 ``spmv`` and ``fused``, HITS, SSSP, k-core, BFS and SSSP ``adaptive`` on a
-directed graph, triangle counting and the intersection operator) run where
-importing jax fails, and, on a CUDA card, its kernels agree with their plain
-versions (the BFS, SSSP, k-core, operator, fill, route and bitmap kernels
-exactly, but float sums: the SpMV kernels, ``scan`` and ``segment_reduce``
-under ``sum``, to |k - p| <= 1e-5 |p| + 1e-6, and a float ``scan`` ``add``
-also against a float64 running sum).
+directed graph, triangle counting and the intersection operator, coloring
+``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph) run
+where importing jax fails, and, on a CUDA card, its kernels agree with their
+plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
+route and bitmap kernels exactly, but float sums: the SpMV kernels,
+``scan`` and ``segment_reduce`` under ``sum``, to |k - p| <= 1e-5 |p| +
+1e-6, and a float ``scan`` ``add`` also against a float64 running sum).
 
 This file imports no jax, so its card test runs on a machine without jax:
 
@@ -46,6 +47,7 @@ OPERATOR_LAYER = ("frontier/__init__.py", "frontier/boolmap.py",
 TC_AND_FILLS = ("algorithms/tc.py", "algorithms/pr.py", "ops/intersect.py",
                 "ops/bitmap_intersect.py", "ops/fused_bfs.py",
                 "csrc/tc_kernels.cu")
+COLOR = ("algorithms/color.py", "algorithms/hits.py", "kernels.py")
 
 
 def test_sources_import_no_jax():
@@ -53,7 +55,7 @@ def test_sources_import_no_jax():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     assert {ROOT / "essentials_tpu_torch" / m
-            for m in OPERATOR_LAYER + TC_AND_FILLS[:-1]} <= set(files)
+            for m in OPERATOR_LAYER + TC_AND_FILLS[:-1] + COLOR} <= set(files)
     assert (ROOT / "essentials_tpu_torch" / TC_AND_FILLS[-1]).exists()
     for f in files:
         assert not _imported_roots(f) & set(_FORBIDDEN), f
@@ -125,6 +127,14 @@ _MAIN_PATH = textwrap.dedent("""
     u, v = np.arange(0, 50), np.arange(50, 100)
     assert intersect.intersection_counts(csr, u, v, device="cpu").shape \
         == (50,)
+    from essentials_tpu_torch.algorithms import color
+    for variant in color.VARIANTS:
+        rc = color.run(g, variant=variant, warmup=False)
+        assert color.validate(csr, rc.colors.numpy()) == 0
+    assert np.allclose(pr.run(gd).ranks.numpy(), pr.cpu_reference(cd),
+                       rtol=1e-4, atol=1e-6)
+    assert np.allclose(hits.run(gd, max_iterations=8).auth.numpy(),
+                       hits.cpu_reference(cd, 8)[0], rtol=1e-3, atol=1e-4)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -435,3 +445,72 @@ def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
             assert np.array_equal(r.vertex_triangles.cpu().numpy(), vt)
     ranks = pr.run(g, variant="fused", warmup=False).ranks.cpu().numpy()
     assert np.allclose(ranks, pr.cpu_reference(csr), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_color_kernel_matches_plain_version_on_the_card():
+    """segment_minmax against its plain version exactly and against a
+    second launch bitwise, for 1, 3, 8 and 11 payloads under full, seeded
+    and JP-uncolored masks at rmat12; then both color variants on the card
+    equal to a run on a CPU copy of the graph, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import color
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    from essentials_tpu_torch.ops.advance import _expand_and_route
+
+    csr = Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=False))
+    g = build_graph(csr, directed=False, weighted=False, device="cuda")
+    rng = np.random.default_rng(0)
+    ep = g.n_edges_padded
+    pays = [torch.from_numpy(rng.integers(-2**31, 2**31, ep).astype(
+        np.int32)).cuda() for _ in range(11)]
+    state = color.step(g, color.init(g), 0)
+    uncolored, _ = _expand_and_route(g, state.frontier, "vertices", ())
+    masks = (g.edge_mask(), torch.from_numpy(rng.random(ep) < 0.3).cuda(),
+             uncolored)
+    kernels.reset_launches()
+    for active in masks:
+        for m in (1, 3, 8, 11):
+            args = (pays[:m], active, g.csc_offsets)
+            k, again = kernels.segment_minmax(*args), \
+                kernels.segment_minmax(*args)
+            p = kernels.segment_minmax_plain(*args)
+            for a, b, c in zip(k, again, p):
+                assert torch.equal(a, b) and torch.equal(a, c)
+    assert kernels.launches["segment_minmax"] == 2 * 3 * (1 + 1 + 1 + 2)
+    g_cpu = g.to("cpu")
+    for variant in color.VARIANTS:
+        r = color.run(g, variant=variant, warmup=False)
+        r_cpu = color.run(g_cpu, variant=variant, warmup=False)
+        assert r.iterations == r_cpu.iterations
+        assert torch.equal(r.colors.cpu(), r_cpu.colors)
+        assert color.validate(csr, r.colors.cpu().numpy()) == 0
+
+
+@pytest.mark.cuda
+def test_bitmap_kernel_at_12288_word_rows_on_the_card():
+    """A bitmap of 12,288-word (48 KiB) rows, where the kernel's shared
+    row and its static shared memory would pass the 48 KiB a launch may
+    hold: one launch with and one without the witness, each equal to the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    rng = np.random.default_rng(1)
+    rows, words = 65, 12288
+    bits = rng.random((rows, words * 32)) < 0.01
+    bitmap = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+    bitmap[-1] = 0
+    eu = np.sort(rng.integers(0, rows, 500)).astype(np.int32)
+    ev = rng.integers(0, rows, 500).astype(np.int32)
+    args = [torch.from_numpy(a).cuda() for a in (eu, ev, bitmap)]
+    for witness in (True, False):
+        k = kernels.bitmap_intersect_counts(*args, witness)
+        p = kernels.bitmap_intersect_counts_plain(*args, witness)
+        assert torch.equal(k[0], p[0])
+        assert (k[1] is None and p[1] is None) or torch.equal(k[1], p[1])
+        assert int(k[0].sum()) > 0

@@ -1,14 +1,17 @@
-"""Port parity: essentials_tpu_torch's PageRank (variants ``spmv`` and
-``fused``) and HITS (``spmv``) against essentials_tpu's ``pr.run`` and
-``hits.run`` of the same variants, on the CPU, on graphs with a symmetric
-layout.
+"""Port parity: essentials_tpu_torch's PageRank (variants ``spmv``,
+``fused`` and ``generic``) and HITS (``spmv`` and ``generic``) against
+essentials_tpu's ``pr.run`` and ``hits.run`` of the same variants, on the
+CPU: ``spmv`` and ``fused`` on graphs with a symmetric layout, ``generic``
+on directed graphs without one (and ``auto``, which runs it there).
 
 Iteration counts must be equal. Ranks are held to the tolerances of
 tests/test_spmv_ports.py: PageRank atol 1e-7 / rtol 1e-5 against JAX (its
 spmv-vs-generic bound) and atol 1e-6 / rtol 1e-4 against the host; HITS
 atol 1e-6 / rtol 1e-4 against JAX and atol 1e-4 / rtol 1e-3 against the
 host. Both packages run float32 with sums in different orders; the host
-runs float64.
+runs float64. The ``generic`` tests pin ``max_iterations`` (PageRank
+GENERIC_ITERATIONS, HITS HITS_ITERATIONS) and hold the ranks to the same
+tolerances.
 
 HITS stops once delta < 1e-7, which is below float32 rounding noise, so
 where it stops is set by the rounding: on undirected rmat12 JAX's delta
@@ -45,6 +48,7 @@ HITS_ITERATIONS = 10
 # 2e-3, float32 edge sums) and to the tighter one the spmv test uses
 # (atol 1e-7, rtol 1e-5); the two differ by 5e-7 relative on rmat12.
 PR_FUSED_ITERATIONS = 12
+GENERIC_ITERATIONS = 8
 
 
 def both_graphs(csr):
@@ -150,6 +154,87 @@ def test_hits_stops_at_max_iterations(graphs):
     assert tpr.run(g, max_iterations=3, warmup=False).iterations == 3
 
 
+# --------------------------------------------------------------- generic --
+
+def directed_pair(scale, ef, seed):
+    csr = JCsr.from_coo(jgen.rmat(scale, ef, seed=seed, undirected=False,
+                                  weighted=True))
+    gj = jbuild(csr, directed=True, weighted=True, build_router=False)
+    assert not gj.symmetric_layout
+    fields = {f: None if getattr(gj, f) is None else np.asarray(getattr(gj, f))
+              for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return csr, gj, graph_from_arrays(fields, meta, "cpu")
+
+
+@pytest.fixture(scope="module")
+def directed():
+    return {"rmat11": directed_pair(11, 8, 2),
+            "rmat12": directed_pair(12, 16, 3)}
+
+
+@pytest.mark.parametrize("name", ["rmat11", "rmat12"])
+def test_pr_generic_matches_jax_and_host(directed, name):
+    csr, gj, g = directed[name]
+    n_it = GENERIC_ITERATIONS
+    r_j = jpr.run(gj, variant="generic", warmup=False, max_iterations=n_it)
+    host = tpr.cpu_reference(csr, max_iterations=n_it)
+    for variant in ("generic", "auto"):
+        r = tpr.run(g, variant=variant, warmup=False, max_iterations=n_it)
+        assert r.ranks.dtype == torch.float32
+        assert r.ranks.shape == (g.n_vertices,)
+        assert r.iterations == r_j.iterations == n_it
+        assert compare(r.ranks, np.asarray(r_j.ranks), atol=1e-7,
+                       rtol=1e-5) == 0
+        assert compare(r.ranks, host, atol=1e-6, rtol=1e-4) == 0
+    iw = tpr.init(g).iweights
+    assert compare(iw, np.asarray(jpr.init(gj).iweights), atol=0,
+                   rtol=1e-5) == 0
+
+
+@pytest.mark.parametrize("name", ["rmat11", "rmat12"])
+def test_hits_generic_matches_jax_and_host(directed, name):
+    csr, gj, g = directed[name]
+    n_it = HITS_ITERATIONS
+    r_j = jhits.run(gj, variant="generic", warmup=False, max_iterations=n_it)
+    ra, rh, it = thits.cpu_run(csr, n_it)
+    assert it == n_it
+    for variant in ("generic", "auto"):
+        r = thits.run(g, variant=variant, warmup=False, max_iterations=n_it)
+        assert r.iterations == r_j.iterations == n_it
+        assert r.auth.shape == r.hub.shape == (g.n_vertices,)
+        for got, jax_v, host_v in ((r.auth, r_j.auth, ra),
+                                   (r.hub, r_j.hub, rh)):
+            assert compare(got, np.asarray(jax_v), atol=1e-6,
+                           rtol=1e-4) == 0
+            assert compare(got, host_v, atol=1e-4, rtol=1e-3) == 0
+
+
+def test_auto_returns_on_a_directed_graph_in_both_packages(directed):
+    """Unpinned runs to convergence: both packages' auto answer (generic)
+    and agree with the host."""
+    csr, gj, g = directed["rmat11"]
+    r, r_j = tpr.run(g, warmup=False), jpr.run(gj, warmup=False)
+    assert 1 < r.iterations < 500 and abs(r.iterations - r_j.iterations) <= 1
+    assert compare(r.ranks, tpr.cpu_reference(csr), atol=1e-6, rtol=1e-4) == 0
+    h, h_j = thits.run(g, warmup=False), jhits.run(gj, warmup=False)
+    assert 1 < h.iterations <= 50 and 1 < h_j.iterations <= 50
+    assert np.isfinite(h.auth.numpy()).all()
+
+
+def test_generic_matches_spmv_on_a_symmetric_layout(graphs):
+    _, _, g = graphs["rmat12"]
+    n_it = GENERIC_ITERATIONS
+    r = tpr.run(g, variant="generic", warmup=False, max_iterations=n_it)
+    r_s = tpr.run(g, variant="spmv", warmup=False, max_iterations=n_it)
+    assert compare(r.ranks, r_s.ranks.numpy(), atol=1e-7, rtol=1e-5) == 0
+    h = thits.run(g, variant="generic", warmup=False,
+                  max_iterations=HITS_ITERATIONS)
+    h_s = thits.run(g, variant="spmv", warmup=False,
+                    max_iterations=HITS_ITERATIONS)
+    assert compare(h.auth, h_s.auth.numpy(), atol=1e-6, rtol=1e-4) == 0
+
+
 # ------------------------------------------------------------- refusals --
 
 def directed_graph():
@@ -162,18 +247,37 @@ def directed_graph():
 
 @pytest.mark.parametrize("variant,item", [("generic", "queue 1, item 8")])
 def test_unported_pr_variants_raise(graphs, variant, item):
-    with pytest.raises(EssentialsError, match=item):
-        tpr.run(graphs["chesapeake"][2], variant=variant)
+    """Every PageRank variant of the JAX package is ported: 'generic' (the
+    ROADMAP item named here) runs where it raised, and only an unknown
+    variant raises."""
+    r = tpr.run(graphs["chesapeake"][2], variant=variant, warmup=False)
+    assert r.iterations > 1
+    with pytest.raises(EssentialsError, match="unknown pr variant"):
+        tpr.run(graphs["chesapeake"][2], variant="pull")
 
 
 @pytest.mark.parametrize("variant", ["spmv", "auto", "fused"])
 def test_pr_spmv_refuses_a_directed_graph(variant):
-    with pytest.raises(EssentialsError, match="queue 1, item 8"):
-        tpr.run(directed_graph(), variant=variant)
+    """spmv and fused refuse a graph without a symmetric layout; auto runs
+    generic there."""
+    g = directed_graph()
+    if variant == "auto":
+        r = tpr.run(g, variant=variant, warmup=False)
+        assert torch.equal(r.ranks, tpr.run(g, variant="generic",
+                                            warmup=False).ranks)
+        return
+    with pytest.raises(EssentialsError, match="symmetric layout"):
+        tpr.run(g, variant=variant)
 
 
 @pytest.mark.parametrize("variant", ["generic", "spmv"])
 def test_hits_refusals(graphs, variant):
-    g = graphs["chesapeake"][2] if variant == "generic" else directed_graph()
-    with pytest.raises(EssentialsError, match="queue 1, item 8"):
-        thits.run(g, variant=variant)
+    """spmv refuses a graph without a symmetric layout; generic, which
+    raised before it was ported, runs on any graph."""
+    if variant == "generic":
+        r = thits.run(graphs["chesapeake"][2], variant=variant,
+                      max_iterations=HITS_ITERATIONS, warmup=False)
+        assert r.iterations == HITS_ITERATIONS
+        return
+    with pytest.raises(EssentialsError, match="symmetric layout"):
+        thits.run(directed_graph(), variant=variant)
