@@ -37,13 +37,13 @@ raises and exits non-zero:
    kernel over the main path, beside its wall time;
 6. SpMV kernels: on bench.py's SpMV graph (directed, weighted RMAT, scale
    18, edge factor 16, seed 3) and on its scale-12 sibling, every instance
-   of spmv_rows (messages mul, none; replaces fused_spmv._pallas_spmv_chain),
-   spmv_slabs (mul, add, none by sum, min; replaces
-   windowed_spmv.windowed_pipeline) and spmv_slab_carry (sum, min) against
-   its plain version on the same tensors: exact under min, |k - p| <=
-   1e-5 |p| + 1e-6 under sum; a second launch must give the same bits;
-   and spmv_rows likewise, and within a relative error of 1e-4, at the
-   inputs PageRank and HITS give it on the undirected BFS graph;
+   of spmv_rows (messages mul, none; replaces fused_spmv._pallas_spmv_chain)
+   and spmv_slabs (mul, add, none by sum, min, one launch per product;
+   replaces windowed_spmv.windowed_pipeline) against its plain version on
+   the same tensors: exact under min, |k - p| <= 1e-5 |p| + 1e-6 under
+   sum; a second launch must give the same bits; and spmv_rows likewise,
+   and within a relative error of 1e-4, at the inputs PageRank and HITS
+   give it on the undirected BFS graph;
 7. SpMV main path, four paths, each with the launch counters set to 0
    just before it and read just after, which must show exactly the
    launches the path makes: spmv.run(variant="fused") and spmv.run(
@@ -53,11 +53,15 @@ raises and exits non-zero:
    their host references to tests/test_spmv_ports.py's tolerances and to
    tighter ones (HOST_TOLS);
 8. SpMV times on CUDA events: ms and GB/s (bench.py's 12 B/edge model) per
-   variant at scales 18 and 20 (rmat20, seed 3, for times only), each SpMV
-   kernel against its plain version at scale 18, PageRank and HITS ms per
-   iteration; then torch.profiler's device-busy share over ten spmv.run
-   calls of each variant at each scale (after a warm-up step inside the
-   profiler, and with the launches the trace saw against those made);
+   variant at scales 18 and 20 (rmat20, seed 3), each SpMV kernel against
+   its plain version at scale 18, PageRank and HITS ms per iteration; then
+   torch.profiler's device-busy share over ten spmv.run calls of each
+   variant at each scale (after a warm-up step inside the profiler, and
+   with the launches the trace saw against those made); spmv_slabs in all
+   six forms against its plain version at scale 20, and its device time
+   per launch from torch.profiler at scales 18 and 20 beside torch.mv's,
+   each also with every column 0 (the time without the scattered x
+   gathers);
 9. SSSP and k-core kernels: on the weighted undirected RMAT graphs of
    scales 12 and 18 (edge factor 16, seed 1), every sweep of one SSSP
    search (sssp_sweep; replaces fused_sssp.fused_sssp_superstep), the
@@ -70,8 +74,9 @@ raises and exits non-zero:
    20, edge factor 16, seed 1, undirected, weighted). First its kernels at
    that graph's shapes, each against its plain version and a second launch
    as in phase 9: the whole of phase 9's search and peeling, every sweep
-   of a windowed search (spmv_slabs<add,min> and spmv_slab_carry<min> from
-   states holding +inf) and every level of a BFS in both forms, from the
+   of a windowed search (spmv_slabs<add,min> from states holding +inf),
+   each sweep's wall and device time beside its bound, and every level of
+   a BFS in both forms, from the
    highest-degree vertex. Then sssp.run(variant=
    "fused") and sssp.run(variant="windowed") from the 8 highest-degree
    sources and one kcore.run, each run with the launch counters set to 0
@@ -96,8 +101,10 @@ raises and exits non-zero:
    graph of phase 8): scan under every op on int32 and float32, plain and
    segmented; gather_payloads with 1-4 payloads; segment_reduce under its
    five ops on both dtypes over the CSC and the CSR offsets;
-   advance_count; integers exact, floats within SCAN_RTOL / SUM_RTOL, and
-   every kernel bitwise equal to a second launch;
+   advance_count in both tiers (shared, and global under a cap of
+   COUNT_GLOBAL_CAP bytes) under empty, full and seeded frontiers; integers
+   exact, floats within SCAN_RTOL / SUM_RTOL, and every kernel bitwise
+   equal to a second launch;
 13. the adaptive main path on that rmat20 graph, which has no symmetric
    layout: bfs.run and sssp.run (variant "adaptive") from its 8 highest
    out-degree sources, each with the launch counters set to 0 just before
@@ -110,7 +117,9 @@ raises and exits non-zero:
 14. adaptive times on CUDA events: ms per search, MTEPS and relaxations
    per second, torch.profiler's device idle share over each path, and each
    operator kernel's time per launch at the path's shapes beside its plain
-   version, its bound and a PyTorch call computing the same function;
+   version, its bound and a PyTorch call computing the same function, and
+   advance_count's and torch.mv's device time per call from torch.profiler
+   (both tiers of advance_count);
 15. the triangle-counting and fill kernels against their plain versions,
    integers exact and a second launch bitwise equal: bitmap_intersect_counts
    (replaces bitmap_intersect.bitmap_intersect_counts), witness on and off,
@@ -139,7 +148,8 @@ raises and exits non-zero:
    and shift runs at rmat17 and a PageRank fused run; each new kernel per
    launch beside its plain version,
    its bound and a PyTorch call computing the same function where one
-   exists;
+   exists; scan with flags (segmented float add) at PageRank fused's
+   shape;
 18. segment_minmax (replaces scan_kernels.segmented_minmax_1d) against its
    plain version exactly and a second launch bitwise, over JP's per-edge
    priorities for 1, 3 and 8 payloads under three active masks (all true,
@@ -202,8 +212,8 @@ SPMV_SCALES = (12, 18)  # kernel checks; 18 is the main path
 SPMV_TIME_SCALE = 20   # times only
 SPMV_REPS = 20         # products per timed cycle
 PROFILED_RUNS = 10     # spmv.run calls per variant under the profiler
-# rows; slabs + carry; gather + segment reduce
-KERNELS_PER_PRODUCT = {"fused": 1, "windowed": 2, "pull": 2, "push": 2}
+# rows; slabs; gather + segment reduce
+KERNELS_PER_PRODUCT = {"fused": 1, "windowed": 1, "pull": 2, "push": 2}
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6   # |k - p| <= SUM_RTOL |p| + SUM_ATOL
 PR_HITS_MAX_REL = 1e-4  # spmv_rows at PageRank's and HITS's inputs
 BYTES_PER_EDGE = 12.0  # bench.py's SpMV model: value + column + x gather
@@ -226,6 +236,7 @@ TPU_HISTORY = {"sssp": 9, "kcore": 814, "bfs": 6}
 OP_SCALES = (12, 18)   # operator kernel checks, besides the rmat20 graph
 ADAPTIVE_RUNS = 8      # sources: the highest out-degree vertices
 SCAN_RTOL = 1e-4       # float add over a whole array: a float32 running sum
+COUNT_GLOBAL_CAP = 0   # advance_count's shared-tier cap that forces "global"
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
 # bytes per second by where a launch's operands live: HBM is the data
@@ -247,7 +258,6 @@ REPLACES = {
 SPMV_REPLACES = {
     "spmv_rows": "essentials_tpu/ops/fused_spmv.py:179",
     "spmv_slabs": "essentials_tpu/ops/windowed_spmv.py:454",
-    "spmv_slab_carry": "essentials_tpu/ops/windowed_spmv.py:454",
 }
 SSSP_REPLACES = {
     "sssp_sweep": "essentials_tpu/ops/fused_sssp.py:132",
@@ -539,6 +549,42 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
     return rows
 
 
+def device_ms(fn, reps: int = 20) -> tuple:
+    """Device time per call of ``fn()`` from torch.profiler: ``reps`` calls
+    in a warm-up step, then ``reps`` calls recorded, and every device
+    activity of the recorded window over ``reps``. Returns (that ms, {name:
+    ms per call}); (None, {}) where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile as torch_profile,
+                                schedule)
+    for _ in range(2):          # a trace that came back empty is retaken
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = {e.key: e.self_device_time_total / 1e3 / reps
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total
+                and not e.key.startswith("ProfilerStep")}
+        if rows:
+            return sum(rows.values()), rows
+    return None, {}
+
+
+def print_device(card: str, label: str, ms, rows: dict) -> None:
+    split = ", ".join(f"{name[:48]} {t:.4f}" for name, t in
+                      sorted(rows.items(), key=lambda r: -r[1]))
+    print(f"time [{card}]: {label}: "
+          + ("not measured (no device time in the trace)" if ms is None
+             else f"{ms:.4f} ms of device time per call ({split})"))
+
+
 def profile_searches(g, sources, variant: str, kw: dict) -> dict:
     """Device time by kernel over one bfs.run from each source,
     predecessors included."""
@@ -629,7 +675,7 @@ def check_pr_hits_rows(g, where: str, errs: dict) -> None:
 
 def check_spmv_kernels(g, where: str, errs: dict) -> None:
     """Every SpMV kernel instance against its plain version on the same
-    tensors; the carry folds spmv_slabs' kernel output in both."""
+    tensors, and against a second launch."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.algorithms import spmv
     off, col, fl, w = g.row_offsets, g.col_indices, g.csr_seg_flags, g.values
@@ -638,23 +684,12 @@ def check_spmv_kernels(g, where: str, errs: dict) -> None:
     for message in K.MESSAGES:
         wk = None if message == "none" else w
         for reduce in K.REDUCES:
-            form = f"<{message},{reduce}>"
-            out = K.spmv_slabs(off, col, wk, fl, x, message, reduce)
-            again = K.spmv_slabs(off, col, wk, fl, x, message, reduce)
-            plain = K.spmv_slabs_plain(off, col, wk, fl, x, message, reduce)
+            args = (off, col, wk, fl, x, message, reduce)
+            y, again = K.spmv_slabs(*args), K.spmv_slabs(*args)
+            plain = K.spmv_slabs_plain(*args)
             torch.cuda.synchronize()
-            check(torch.equal(out[2], plain[2]) and torch.equal(out[2],
-                                                                again[2]),
-                  f"spmv_slabs{form} carry_row differs ({where})")
-            hold("spmv_slabs", form, reduce, torch.cat(out[:2]),
-                 torch.cat(again[:2]), torch.cat(plain[:2]), errs, where)
-            y = K.spmv_slab_carry(out[0].clone(), *out[1:], off, reduce)
-            y2 = K.spmv_slab_carry(out[0].clone(), *out[1:], off, reduce)
-            y_p = K.spmv_slab_carry_plain(out[0].clone(), *out[1:], off,
-                                          reduce)
-            torch.cuda.synchronize()
-            hold("spmv_slab_carry", f"<{reduce}> after {form}", reduce, y,
-                 y2, y_p, errs, where)
+            hold("spmv_slabs", f"<{message},{reduce}>", reduce, y, again,
+                 plain, errs, where)
 
 
 # ------------------------------------------------------------- phase 7 --
@@ -701,7 +736,7 @@ def spmv_main_path(csr_s, gs, csr_u, gu) -> dict:
         lambda: hits.run(gu, variant="spmv", warmup=False))
     expect = {
         "spmv fused": {"spmv_rows": 1},
-        "spmv windowed": {"spmv_slabs": 1, "spmv_slab_carry": 1},
+        "spmv windowed": {"spmv_slabs": 1},
         # one product per iteration, and one for the weight sums
         "pr": {"spmv_rows": r_pr.iterations + 1},
         "hits": {"spmv_rows": 2 * r_hits.iterations},
@@ -783,15 +818,7 @@ def time_spmv_kernels(g) -> dict:
             out["spmv_slabs" + form] = per_call(lambda: K.spmv_slabs(*args))
             out["spmv_slabs" + form + "/plain"] = per_call(
                 lambda: K.spmv_slabs_plain(*args))
-    for reduce in K.REDUCES:
-        y, head, carry_row = K.spmv_slabs(off, col, w, fl, x, "mul", reduce)
-        args = (y, head, carry_row, off, reduce)   # in place: same work
-        out[f"spmv_slab_carry<{reduce}>"] = per_call(
-            lambda: K.spmv_slab_carry(*args))
-        out[f"spmv_slab_carry<{reduce}>/plain"] = per_call(
-            lambda: K.spmv_slab_carry_plain(*args))
     vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
-    slabs = K.slab_count(ep)
     # offsets, columns, weights, x read; y written; 2 flops per edge
     out["spmv_rows<mul>/bound"] = bound(4 * (vp + 1) + 8 * ep + 8 * vp,
                                         2 * e)
@@ -799,14 +826,65 @@ def time_spmv_kernels(g) -> dict:
     out["spmv_rows<mul>/library"] = library_ms(
         "spmv_rows (torch.mv on a sparse CSR tensor)", lambda: torch.mv(a, x),
         SPMV_REPS)
-    out["spmv_slabs<mul,sum>/bound"] = bound(
-        4 * (vp + 1) + 9 * ep + 8 * vp + 8 * slabs, 2 * e)
-    # head and carry_row read, the carried rows of y read and written
-    out["spmv_slab_carry<sum>/bound"] = bound(16 * slabs)
-    # the windowed product (slabs, then carry) computes what torch.mv does
-    for k in ("spmv_slabs<mul,sum>", "spmv_slab_carry<sum>"):
-        out[k + "/library"] = out["spmv_rows<mul>/library"]
+    for k, v in slabs_against_mv(g, x).items():
+        out["spmv_slabs<mul,sum>" + k] = v
     return out
+
+
+def slabs_against_mv(g, x) -> dict:
+    """spmv_slabs<mul,sum> on ``g`` beside torch.mv on the same sparse CSR
+    matrix, which computes the same product: each one's wall time per call
+    (SPMV_REPS calls back to back) and device time per call (torch.profiler,
+    the zeroing of the kernel's hand-off words included), and the kernel's
+    bound; and the device time of both with every column 0, where each x
+    gather hits one address: the time without the cost of the scattered
+    gathers. Keys: "" (the wall ms), /device, /device_rows, /library,
+    /library_device, /bound, /one_column_device,
+    /library_one_column_device."""
+    from essentials_tpu_torch import kernels as K
+    off, col, fl, w = g.row_offsets, g.col_indices, g.csr_seg_flags, g.values
+    vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
+    args = (off, col, w, fl, x, "mul", "sum")
+    out = {"": median_ms(lambda _: [K.spmv_slabs(*args)
+                                    for _ in range(SPMV_REPS)]) / SPMV_REPS}
+    out["/device"], out["/device_rows"] = device_ms(
+        lambda: K.spmv_slabs(*args), SPMV_REPS)
+    a = torch.sparse_csr_tensor(off, col, w, size=(vp, vp))
+    out["/library"] = library_ms("spmv_slabs (torch.mv on a sparse CSR "
+                                 "tensor)", lambda: torch.mv(a, x), SPMV_REPS)
+    out["/library_device"] = (None if out["/library"] is None else
+                              device_ms(lambda: torch.mv(a, x), SPMV_REPS)[0])
+    # offsets, columns, weights, flags, x read; y written; 2 flops per edge
+    out["/bound"] = bound(4 * (vp + 1) + 9 * ep + 8 * vp, 2 * e)
+    zero = torch.zeros_like(col)
+    out["/one_column_device"] = device_ms(
+        lambda: K.spmv_slabs(off, zero, w, fl, x, "mul", "sum"),
+        SPMV_REPS)[0]
+    a0 = torch.sparse_csr_tensor(off, zero, w, size=(vp, vp))
+    out["/library_one_column_device"] = (
+        None if out["/library"] is None else
+        device_ms(lambda: torch.mv(a0, x), SPMV_REPS)[0])
+    return out
+
+
+def print_slabs(card: str, where: str, t: dict, key: str) -> None:
+    b, lib, lib_dev = t[key + "/bound"], t[key + "/library"], \
+        t[key + "/library_device"]
+    print(f"time [{card}]: {key} {where}: {t[key]:.4f} ms per call (wall, "
+          f"{SPMV_REPS} back to back); bound {b[0]:.4f} ms ({b[1]} at "
+          f"{b[2]} rate); torch.mv "
+          + ("not measured" if lib is None else
+             f"{lib:.4f} ms per call, device "
+             + ("not measured" if lib_dev is None else f"{lib_dev:.4f} ms")))
+    print_device(card, f"{key} {where}", t[key + "/device"],
+                 t[key + "/device_rows"])
+    one, lib_one = (t[key + "/one_column_device"],
+                    t[key + "/library_one_column_device"])
+    print(f"time [{card}]: {key} {where} with every column 0 (each x gather "
+          f"from one address): "
+          + ("not measured" if one is None else f"{one:.4f} ms")
+          + " of device time per call; torch.mv "
+          + ("not measured" if lib_one is None else f"{lib_one:.4f} ms"))
 
 
 def time_pr_hits(g, card: str) -> None:
@@ -909,12 +987,12 @@ def check_sssp_kcore_kernels(csr, g, where: str, errs: dict) -> None:
 # ------------------------------------------------------------ phase 10 --
 
 def check_windowed_sssp_kernels(g, source: int, where: str,
-                                errs: dict) -> int:
-    """spmv_slabs<add,min> and spmv_slab_carry<min> at every sweep of one
-    windowed SSSP search from ``source``, on the inputs the search gives
-    them (distances that are +inf but for those reached), each launched
-    twice and its plain version once, exactly; the search goes on from the
-    kernels' output. Returns the sweeps."""
+                                errs: dict) -> list:
+    """spmv_slabs<add,min> at every sweep of one windowed SSSP search from
+    ``source``, on the inputs the search gives it (distances that are +inf
+    but for those reached), launched twice and its plain version once,
+    exactly; the search goes on from the kernel's output. Returns each
+    sweep's input distances."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops.fused_spmv import edge_weights
     off, col, fl, w = (g.row_offsets, g.col_indices, g.csr_seg_flags,
@@ -922,24 +1000,50 @@ def check_windowed_sssp_kernels(g, source: int, where: str,
     dist = torch.full((g.n_vertices_padded,), K.INF_BITS, dtype=torch.int32,
                       device=g.device)
     dist[source] = 0
-    sweeps = 0
+    states = []
     while True:
+        states.append(dist)
         args = (off, col, w, fl, dist.view(torch.float32), "add", "min")
-        out = K.spmv_slabs(*args)
-        hold_exact("spmv_slabs", out, K.spmv_slabs(*args),
-                   K.spmv_slabs_plain(*args), errs,
-                   f"{where} windowed sweep {sweeps}")
-        cand = K.spmv_slab_carry(out[0].clone(), *out[1:], off, "min")
-        hold_exact("spmv_slab_carry", (cand,),
-                   (K.spmv_slab_carry(out[0].clone(), *out[1:], off, "min"),),
-                   (K.spmv_slab_carry_plain(out[0].clone(), *out[1:], off,
-                                            "min"),),
-                   errs, f"{where} windowed sweep {sweeps}")
+        cand = K.spmv_slabs(*args)
+        hold_exact("spmv_slabs", (cand,), (K.spmv_slabs(*args),),
+                   (K.spmv_slabs_plain(*args),), errs,
+                   f"{where} windowed sweep {len(states) - 1}")
         improved = cand < dist
         dist = torch.where(improved, cand, dist)
-        sweeps += 1
         if not bool(improved.any()):
-            return sweeps
+            return states
+
+
+def time_windowed_sweeps(g, states, card: str) -> dict:
+    """spmv_slabs<add,min> per sweep of the windowed search whose input
+    distances are ``states``: the wall time per call summed over the sweeps
+    (each SPMV_REPS calls back to back), the device time of one pass over
+    the sweeps (torch.profiler), each over the sweeps, beside one sweep's
+    bound."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    off, col, fl, w = (g.row_offsets, g.col_indices, g.csr_seg_flags,
+                       edge_weights(g))
+    calls = [(off, col, w, fl, d.view(torch.float32), "add", "min")
+             for d in states]
+    n = len(calls)
+    wall = sum(median_ms(lambda _, a=a: [K.spmv_slabs(*a)
+                                         for _ in range(SPMV_REPS)])
+               for a in calls) / SPMV_REPS / n
+    dev, rows = device_ms(lambda: [K.spmv_slabs(*a) for a in calls], 1)
+    vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
+    # offsets, columns, weights, flags, distances read; candidates
+    # written; one float addition per edge
+    b = bound(4 * (vp + 1) + 9 * ep + 8 * vp, e)
+    print(f"time [{card}]: spmv_slabs<add,min> gen:rmat{MAIN_SCALE}x16: "
+          f"{wall:.4f} ms per sweep (wall, mean over the {n} sweeps of one "
+          f"search, {SPMV_REPS} calls back to back each); bound {b[0]:.4f} "
+          f"ms ({b[1]} at {b[2]} rate)")
+    print_device(card, f"spmv_slabs<add,min> gen:rmat{MAIN_SCALE}x16, the "
+                       f"{n} sweeps of one search", dev, rows)
+    return {"spmv_slabs<add,min>/sweep": wall,
+            "spmv_slabs<add,min>/sweep_device": None if dev is None
+            else dev / n, "spmv_slabs<add,min>/sweep_bound": b}
 
 
 def host_dijkstra(csr, source: int) -> np.ndarray:
@@ -1000,7 +1104,6 @@ def sssp_kcore_main_path(csr, g) -> tuple:
         "fused": lambda r: {"sssp_sweep": r.iterations, "collapse_starts": 1,
                             "sssp_predecessors": 1},
         "windowed": lambda r: {"spmv_slabs": r.iterations,
-                               "spmv_slab_carry": r.iterations,
                                "sssp_predecessors": 1},
     }
     for v in sssp.VARIANTS:
@@ -1268,14 +1371,23 @@ def check_operator_kernels(g, where: str, errs: dict) -> None:
                        [exact_bits(a) for a in p], errs,
                        f"{where} {m} payloads")
             cases += 1
+    fronts = {"empty": torch.zeros(vp, dtype=torch.bool, device=dev),
+              "full": torch.ones(vp, dtype=torch.bool, device=dev)}
     for density in (0.01, 0.3):
-        f = torch.from_numpy(rng.random(vp) < density).to(dev) \
-            & g.vertex_mask()
+        fronts[f"density {density}"] = torch.from_numpy(
+            rng.random(vp) < density).to(dev) & g.vertex_mask()
+    for label, f in fronts.items():
         args = (f, g.csc_offsets, g.csc_src_indices)
-        hold_exact("advance_count", (K.advance_count(*args),),
-                   (K.advance_count(*args),), (K.advance_count_plain(*args),),
-                   errs, f"{where} density {density}")
-        cases += 1
+        want = K.advance_count_plain(*args)
+        for cap in (None, COUNT_GLOBAL_CAP):
+            tier = K.advance_count_tier(vp, dev, cap)
+            check(tier == ("global" if cap is not None else "shared"),
+                  f"advance_count at Vp = {vp} under cap {cap} runs the "
+                  f"{tier} tier")
+            hold_exact("advance_count", (K.advance_count(*args, cap),),
+                       (K.advance_count(*args, cap),), (want,), errs,
+                       f"{where} {label} {tier} tier")
+            cases += 1
     print(f"kernels: {where}: {cases} operator kernel instances, integers, "
           f"minima, maxima and gathers exact against plain, float sums "
           f"within tolerance (max abs err scan {errs['scan']:.6g}, "
@@ -1490,9 +1602,16 @@ def time_operator_kernels(g, source: int) -> dict:
         lambda: torch.segment_reduce(msg, "min", offsets=off64, unsafe=True),
         SPMV_REPS)
     t["advance_count"] = per_call(lambda: K.advance_count(f, off, csrc))
+    t["advance_count/tier"] = K.advance_count_tier(vp, f.device)
     t["advance_count/plain"] = per_call(
         lambda: K.advance_count_plain(f, off, csrc))
     t["advance_count/bound"] = bound(4 * ep + 4 * (vp + 1) + vp + 4 * vp)
+    t["advance_count/device"], t["advance_count/device_rows"] = device_ms(
+        lambda: K.advance_count(f, off, csrc), SPMV_REPS)
+    glob = (f, off, csrc, COUNT_GLOBAL_CAP)
+    t["advance_count/global"] = per_call(lambda: K.advance_count(*glob))
+    t["advance_count/global_device"], t["advance_count/global_rows"] = \
+        device_ms(lambda: K.advance_count(*glob), SPMV_REPS)
     # the counts as a product: the CSC as a CSR matrix of ones times the
     # frontier
     ones = torch.sparse_csr_tensor(off, csrc, torch.ones(
@@ -1501,6 +1620,9 @@ def time_operator_kernels(g, source: int) -> dict:
     t["advance_count/library"] = library_ms(
         "advance_count (torch.mv on the CSC as a sparse CSR matrix of ones)",
         lambda: torch.mv(ones, ff), SPMV_REPS)
+    t["advance_count/library_device"] = (
+        None if t["advance_count/library"] is None
+        else device_ms(lambda: torch.mv(ones, ff), SPMV_REPS)[0])
     t["frontiers"] = (int(f.sum()), int(sf.sum()))
     return t
 
@@ -1833,6 +1955,29 @@ def time_tc(csr17, csr20, csr13, g_u, card: str) -> None:
             lambda: tc.run(csr17, variant="shift", warmup=False))
     profile(f"pr fused undirected rmat{SCALE}, one pr.run",
             lambda: pr.run(g_u, variant="fused", warmup=False))
+
+
+def time_segmented_scan(g, card: str, launches: int) -> dict:
+    """scan with flags, as PageRank fused runs it (a float32 add segmented
+    by the CSC segment starts) at ``g``'s shape: per call, SPMV_REPS back to
+    back, beside its plain version and its bound (x and the flags read,
+    the scan written)."""
+    from essentials_tpu_torch import kernels as K
+    ep = g.n_edges_padded
+    x = torch.rand(ep, generator=torch.Generator(device=g.device)
+                   .manual_seed(SEED), device=g.device)
+    fl = g.csc_seg_flags
+    t = {"scan<seg>": median_ms(lambda _: [K.scan(x, fl, "add") for _ in
+                                           range(SPMV_REPS)]) / SPMV_REPS,
+         "scan<seg>/plain": median_ms(lambda _: K.scan_plain(x, fl, "add")),
+         "scan<seg>/bound": bound(9 * ep)}
+    b = t["scan<seg>/bound"]
+    print(f"time [{card}]: scan with flags (float32 add, PageRank fused's "
+          f"shape, undirected rmat{SCALE}, Ep = {ep}): {t['scan<seg>']:.4f} "
+          f"ms per call, plain {t['scan<seg>/plain']:.4f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]} at {b[2]} rate); {launches} launches in "
+          f"one PageRank fused run")
+    return t
 
 
 def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
@@ -2319,8 +2464,16 @@ def group_spmv(run: Run) -> None:
                 lambda v=v: [spmv.run(g_s, x, variant=v, warmup=False)
                              for _ in range(PROFILED_RUNS)],
                 PROFILED_RUNS * KERNELS_PER_PRODUCT[v])
+    print_slabs(card, f"rmat{SCALE} seed {SPMV_SEED}", t,
+                "spmv_slabs<mul,sum>")
     g20 = run.spmv_graph(SPMV_TIME_SCALE)[1]
-    time_spmv(g20, card, f"rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}")
+    where20 = f"rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}"
+    check_spmv_kernels(g20, where20, errs)
+    t20 = {"spmv_slabs<mul,sum>" + k: v
+           for k, v in slabs_against_mv(g20, spmv.random_x(g20, 1)).items()}
+    print_slabs(card, where20, t20, "spmv_slabs<mul,sum>")
+    run.t.update({k.replace(">", ">@rmat20", 1): v for k, v in t20.items()})
+    time_spmv(g20, card, where20)
     x20 = spmv.random_x(g20, 0)
     for v in spmv.VARIANTS:
         profile(f"spmv {v} rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}, "
@@ -2348,10 +2501,9 @@ def group_sssp(run: Run) -> None:
     where = f"rmat{MAIN_SCALE}"
     check_sssp_kcore_kernels(csr_m, g_m, where, errs)
     top = int(np.argmax(np.diff(csr_m.row_offsets)))
-    sweeps = check_windowed_sssp_kernels(g_m, top, where, errs)
-    print(f"kernels: {where}: windowed sssp from {top}: {sweeps} sweeps, "
-          f"spmv_slabs<add,min> and spmv_slab_carry<min> exact against "
-          f"plain and repeatable")
+    states = check_windowed_sssp_kernels(g_m, top, where, errs)
+    print(f"kernels: {where}: windowed sssp from {top}: {len(states)} "
+          f"sweeps, spmv_slabs<add,min> exact against plain and repeatable")
     check_kernels(g_m, top, errs)
     run.phases.done("10a kernels at the main path's shapes")
     sssp_launches, sssp_sources, sssp_runs = sssp_kcore_main_path(csr_m, g_m)
@@ -2360,6 +2512,7 @@ def group_sssp(run: Run) -> None:
 
     # 11. SSSP and k-core times
     time_sssp_kcore(g_m, sssp_sources, sssp_runs, card)
+    run.t.update(time_windowed_sweeps(g_m, states, card))
     time_kcore_waves(g_m, card)
     csr18, g18 = run.weighted_graph(SCALE)
     t = time_sssp_kcore_kernels(csr18, g18)
@@ -2417,6 +2570,17 @@ def group_operators(run: Run) -> None:
               f"launches per search {per_search} ({where20}, the largest "
               f"dense frontiers from {op_sources[0]}: bfs, sssp "
               f"{t['frontiers']})")
+    lib_dev = t["advance_count/library_device"]
+    print_device(card, f"advance_count {where20}, {t['advance_count/tier']} "
+                       f"tier (torch.mv: "
+                       + ("not measured" if lib_dev is None
+                          else f"{lib_dev:.4f} ms of device time") + ")",
+                 t["advance_count/device"], t["advance_count/device_rows"])
+    print(f"time [{card}]: advance_count {where20}, global tier: "
+          f"{t['advance_count/global']:.4f} ms per launch (wall)")
+    print_device(card, f"advance_count {where20}, global tier",
+                 t["advance_count/global_device"],
+                 t["advance_count/global_rows"])
     run.phases.done("14 adaptive times")
 
 
@@ -2448,6 +2612,8 @@ def group_tc(run: Run) -> None:
     time_tc(csr17, csr_m, csr13, g_u, card)
     t = time_tc_fill_kernels(bitmap_args, fill_args)
     run.t.update(t)
+    run.t.update(time_segmented_scan(g_u, card,
+                                     tc_launches["pr fused"]["scan"]))
     for name in (*TC_REPLACES, *FILL_REPLACES):
         lib = t[name + "/library"]
         print(f"time [{card}]: {name} {t[name]:.4f} ms per launch, plain "
@@ -2523,8 +2689,7 @@ KERNEL_TABLE = (("bfs", SOURCE, REPLACES),
 
 def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
     timed = {"spmv_rows": "spmv_rows<mul>",
-             "spmv_slabs": "spmv_slabs<mul,sum>",
-             "spmv_slab_carry": "spmv_slab_carry<sum>"}
+             "spmv_slabs": "spmv_slabs<mul,sum>"}
     t, key = run.t, timed.get(name, name)
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces,
@@ -2542,9 +2707,32 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
     if name == "bitmap_intersect_counts":
         out["bound_streaming_ms"] = t[key + "/bound_streaming"][0]
         out["ms_no_witness"] = t[key + "/no_witness"]
-    if name in ("spmv_slabs", "spmv_slab_carry"):
-        out["library_of"] = "the whole product: spmv_slabs, then " \
-                            "spmv_slab_carry"
+    if name in ("spmv_slabs", "advance_count"):
+        # device times per call (torch.profiler) beside the wall times
+        out["device_ms"] = t.get(key + "/device")
+        out["library_device_ms"] = t.get(key + "/library_device")
+    if name == "spmv_slabs":
+        out["library_of"] = "torch.mv: the product spmv_slabs<mul,sum> " \
+                            "computes"
+        k20 = key.replace(">", ">@rmat20", 1)
+        if k20 in t:
+            out["rmat20"] = {"ms": t[k20], "device_ms": t[k20 + "/device"],
+                             "one_column_device_ms":
+                                 t[k20 + "/one_column_device"],
+                             "bound_ms": t[k20 + "/bound"][0],
+                             "bound_memory": t[k20 + "/bound"][2],
+                             "library_ms": t[k20 + "/library"],
+                             "library_device_ms": t[k20 + "/library_device"]}
+        if "spmv_slabs<add,min>/sweep" in t:
+            b = t["spmv_slabs<add,min>/sweep_bound"]
+            out["add_min_sweep_rmat20x16"] = {
+                "ms": t["spmv_slabs<add,min>/sweep"],
+                "device_ms": t["spmv_slabs<add,min>/sweep_device"],
+                "bound_ms": b[0], "bound_memory": b[2]}
+    if name == "advance_count":
+        out["tier"] = t.get(key + "/tier")
+        out["global_tier"] = {"ms": t.get(key + "/global"),
+                              "device_ms": t.get(key + "/global_device")}
     if name == "segment_minmax":
         out["library_of"] = "two torch.segment_reduce calls (max, min) on " \
                             "float32 copies of the masked payloads"

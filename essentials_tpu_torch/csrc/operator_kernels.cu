@@ -9,12 +9,16 @@
 //
 // Layout contract (essentials_tpu_torch/graph/graph.py): offsets are [S+1]
 // int32 and sorted, segment s is [off[s], off[s+1]); `csc_src` is the [Ep]
-// int32 source of each CSC slot. No kernel here uses an atomic on data, so
-// every result, float sums included, is the same bit for bit on every run.
+// int32 source of each CSC slot. The only atomics on data are
+// advance_count's int32 additions, which are exact in any order, so every
+// result, float sums included, is the same bit for bit on every run.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+
+#include "warp_search.cuh"
 
 namespace {
 
@@ -483,32 +487,261 @@ void segment_minmax_launch(const Payloads& in, const unsigned char* active,
 // --------------------------------------------------------- advance_count --
 //
 // out[v] = the number of in-edges q of v (CSC slots off[v] .. off[v+1])
-// whose source is in the frontier, frontier[csc_src[q]] != 0; one warp per
-// destination. Replaces advance.advance_count (:175): on the TPU the
-// 7-kernel chain cube_router.apply_cube_chain_n (:754) (expand over the CSR
-// offsets route, the CSR->CSC route, the prefix back through the inverse
-// CSC offsets route) and the "first" segmented_scan after it. BFS's dense
-// tier takes out > 0.
-// What bounds it: bytes and gather latency: csc_src streams, each slot
-// loads one frontier byte at a scattered address (the [Vp] byte frontier
-// stays in L2).
+// whose source is in the frontier, frontier[csc_src[q]] != 0. Replaces
+// advance.advance_count (:175): on the TPU the 7-kernel chain
+// cube_router.apply_cube_chain_n (:754) (expand over the CSR offsets route,
+// the CSR->CSC route, the prefix back through the inverse CSC offsets route)
+// and the "first" segmented_scan after it. BFS's dense tier takes out > 0.
+//
+// One C call, three steps on the stream: out is zeroed (cudaMemsetAsync);
+// advance_count_pack_kernel packs the [Vp] byte frontier into Vp/8 bytes of
+// bits (128 KiB at Vp = 2^20) and, with one warp per chunk boundary, finds
+// the first row of every chunk; advance_count_kernel counts. The counting
+// grid is one 1,024-thread block per SM, each walking chunks of
+// kCountChunk CSC slots (16 per thread, loaded with 128-bit evict-first
+// loads; the next chunk's slots and row bounds are in flight while this one
+// is counted), so the work is balanced by edges whatever the degrees. Each
+// slot's test is a bit of the packed frontier: in the "shared" tier the
+// block first copies the whole bitmap into shared memory with asynchronous
+// copies, so a test is a shared-memory load and not a scattered 32-byte L2
+// sector; in the "global" tier (a bitmap larger than the block's shared
+// memory, or a caller's cap) the bits are read from the packed global copy,
+// which the L1 caches. The hits of a chunk become a bit array and a prefix
+// of its popcounts in shared memory; each row overlapping the chunk counts
+// its hits in O(1) and stores them, or adds them with an int32 atomicAdd
+// (exact and order-free) where the row crosses a chunk boundary.
+// What bounds it: bytes, csc_src streamed once (4 B per slot), the
+// offsets read once, the frontier read once and the counts written once.
 
+constexpr int kCountBlock = 1024;
+constexpr int kCountItems = 16;
+constexpr int kCountChunk = kCountBlock * kCountItems;   // slots per chunk
+constexpr int kChunkWords = kCountChunk / 32;
+
+// Blocks [0, pack_blocks) pack the frontier, one 32-bit word per thread;
+// the blocks after them find bounds[c] = the first row r with off[r] >=
+// c * kCountChunk for each chunk c < nchunks, one warp each, and bounds[
+// nchunks] = vp.
 __global__ void __launch_bounds__(kBlock)
-advance_count_kernel(const unsigned char* __restrict__ frontier,
+advance_count_pack_kernel(const unsigned char* __restrict__ frontier,
+                          int vp, unsigned* __restrict__ bits,
+                          int pack_blocks, const int* __restrict__ off,
+                          int nchunks, int* __restrict__ bounds) {
+  if (static_cast<int>(blockIdx.x) >= pack_blocks) {
+    const int c = (static_cast<int>(blockIdx.x) - pack_blocks) *
+                  kWarpsPerBlock + (threadIdx.x >> 5);
+    if (c > nchunks) return;                  // warp-uniform
+    const int r = c == nchunks ? vp
+                               : etpu::warp_lower_bound(off, vp,
+                                                        c * kCountChunk);
+    if ((threadIdx.x & 31) == 0) bounds[c] = r;
+    return;
+  }
+  const long long w = static_cast<long long>(blockIdx.x) * kBlock +
+                      threadIdx.x;
+  const long long v0 = w * 32;
+  if (v0 >= vp) return;
+  unsigned word = 0;
+  if (v0 + 32 <= vp &&
+      (reinterpret_cast<uintptr_t>(frontier) & 15) == 0) {
+    const uint4* p = reinterpret_cast<const uint4*>(frontier + v0);
+    const uint4 a = __ldcs(p);
+    const uint4 b = __ldcs(p + 1);
+    const unsigned part[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      // one bit per nonzero byte: the four bytes' low bits gathered into
+      // bits 28-31 by one multiply
+      const unsigned ones = __vcmpne4(part[k], 0u) & 0x01010101u;
+      word |= ((ones * 0x10204080u) >> 28) << (4 * k);
+    }
+  } else {
+    for (int i = 0; i < 32 && v0 + i < vp; ++i) {
+      if (frontier[v0 + i]) word |= 1u << i;
+    }
+  }
+  bits[w] = word;
+}
+
+// The kCountItems CSC sources of one thread's slots [p, p + 16), 0 past hi.
+__device__ __forceinline__ void load_sources(const int* __restrict__ src,
+                                             long long p, long long hi,
+                                             int (&s)[kCountItems]) {
+  if (p + kCountItems <= hi && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src + p);
+#pragma unroll
+    for (int q = 0; q < kCountItems / 4; ++q) {
+      const int4 t = __ldcs(s4 + q);
+      s[4 * q] = t.x;
+      s[4 * q + 1] = t.y;
+      s[4 * q + 2] = t.z;
+      s[4 * q + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kCountItems; ++j) {
+      s[j] = p + j < hi ? __ldcs(src + p + j) : 0;
+    }
+  }
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kCountBlock, 1)
+advance_count_kernel(const unsigned* __restrict__ bits, int words4,
                      const int* __restrict__ off,
-                     const int* __restrict__ csc_src, int vp,
-                     int* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = global_warp();
-  if (warp >= vp) return;
-  const int v = static_cast<int>(warp);
-  const int b = off[v];
-  const int e = off[v + 1];
-  int cnt = 0;
-#pragma unroll 4
-  for (int q = b + lane; q < e; q += 32) cnt += frontier[csc_src[q]] ? 1 : 0;
-  cnt = __reduce_add_sync(kFullMask, cnt);
-  if (lane == 0) out[v] = cnt;
+                     const int* __restrict__ src,
+                     const int* __restrict__ bounds, int vp, int ep,
+                     int nchunks, int* __restrict__ out) {
+  extern __shared__ uint4 s_bits4[];          // kShared: the packed frontier
+  __shared__ unsigned short s_hit[kCountBlock];   // 16 hit bits per thread
+  __shared__ int s_pre[kChunkWords + 1];      // hits before each word; total
+  __shared__ int s_warp[kCountBlock / 32];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  if constexpr (kShared) {
+    const uint4* g4 = reinterpret_cast<const uint4*>(bits);
+    for (int i = tid; i < words4; i += kCountBlock) {
+      __pipeline_memcpy_async(s_bits4 + i, g4 + i, sizeof(uint4));
+    }
+    __pipeline_commit();
+  }
+  const unsigned* fb =
+      kShared ? reinterpret_cast<const unsigned*>(s_bits4) : bits;
+  int s[kCountItems];
+  int c = blockIdx.x;
+  load_sources(src, static_cast<long long>(c) * kCountChunk +
+               tid * kCountItems, ep, s);
+  int rlo = bounds[c];
+  int rhi = bounds[c + 1];
+  if constexpr (kShared) __pipeline_wait_prior(0);
+  __syncthreads();                            // the bitmap is in place
+
+  for (; c < nchunks; c += gridDim.x) {
+    const int lo = c * kCountChunk;
+    const int hi = static_cast<int>(min(static_cast<long long>(lo) +
+                                        kCountChunk,
+                                        static_cast<long long>(ep)));
+    // this thread's hits, then the next chunk's sources in flight
+    unsigned h = 0;
+#pragma unroll
+    for (int j = 0; j < kCountItems; ++j) {
+      const unsigned v = static_cast<unsigned>(s[j]);
+      if (lo + tid * kCountItems + j < hi) {
+        h |= ((fb[v >> 5] >> (v & 31)) & 1u) << j;
+      }
+    }
+    const int next = c + gridDim.x;
+    int next_rlo = 0;
+    int next_rhi = 0;
+    if (next < nchunks) {
+      load_sources(src, static_cast<long long>(next) * kCountChunk +
+                   tid * kCountItems, ep, s);
+      next_rlo = bounds[next];
+      next_rhi = bounds[next + 1];
+    }
+    s_hit[tid] = static_cast<unsigned short>(h);
+    __syncthreads();
+
+    // the chunk's hit words and the exclusive prefix of their popcounts
+    int pc = 0;
+    if (tid < kChunkWords) {
+      pc = __popc(s_hit[2 * tid] | (static_cast<unsigned>(s_hit[2 * tid + 1])
+                                    << 16));
+    }
+    int incl = pc;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (lane == 31) s_warp[wid] = incl;
+    __syncthreads();
+    if (tid < kChunkWords) {
+      int before = 0;
+      for (int k = 0; k < wid; ++k) before += s_warp[k];
+      s_pre[tid] = before + incl - pc;
+      if (tid == kChunkWords - 1) s_pre[kChunkWords] = before + incl;
+    }
+    __syncthreads();
+
+    // hits in the chunk's slots [lo, lo + i)
+    auto hits_before = [&](int i) {
+      const int k = i >> 5;
+      const int r = i & 31;
+      int n = s_pre[k];
+      if (r) {
+        const unsigned word = s_hit[2 * k] |
+                              (static_cast<unsigned>(s_hit[2 * k + 1]) << 16);
+        n += __popc(word & ((1u << r) - 1u));
+      }
+      return n;
+    };
+    for (int r = rlo + tid; r < rhi; r += kCountBlock) {
+      const int b = off[r];
+      const int e = off[r + 1];
+      const int n = hits_before(min(e, hi) - lo) - hits_before(b - lo);
+      if (n == 0) continue;                   // out was zeroed
+      if (e <= hi) out[r] = n; else atomicAdd(out + r, n);
+    }
+    if (tid == 0) {                           // a row begun before lo
+      const int first = min(off[rlo], hi);    // off[vp] == ep >= hi
+      if (first > lo) {
+        const int n = hits_before(first - lo);
+        if (n) atomicAdd(out + rlo - 1, n);
+      }
+    }
+    rlo = next_rlo;
+    rhi = next_rhi;
+    __syncthreads();                          // before s_hit is written again
+  }
+}
+
+// bits: the packed frontier, 16 * words4 bytes, then nchunks + 1 ints of
+// chunk bounds.
+int count_launch(const void* frontier, const void* off, const void* src,
+                 int vp, int ep, void* bits, int shared, void* out,
+                 cudaStream_t s) {
+  if (vp <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int) * vp, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nw = (vp + 31) / 32;
+  const int words4 = (nw + 3) / 4;
+  const int nchunks = ep > 0 ? (ep + kCountChunk - 1) / kCountChunk : 0;
+  const int pack_blocks = (nw + kBlock - 1) / kBlock;
+  int* bounds = static_cast<int*>(bits) + 4 * words4;
+  advance_count_pack_kernel<<<pack_blocks + nchunks / kWarpsPerBlock + 1,
+                              kBlock, 0, s>>>(
+      static_cast<const unsigned char*>(frontier), vp,
+      static_cast<unsigned*>(bits), pack_blocks,
+      static_cast<const int*>(off), nchunks, bounds);
+  if (ep <= 0) return static_cast<int>(cudaGetLastError());
+  int dev = 0;
+  int sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int grid = min(nchunks, sms);
+  const auto* b = static_cast<const unsigned*>(bits);
+  const int* o = static_cast<const int*>(off);
+  const int* q = static_cast<const int*>(src);
+  int* cnt = static_cast<int*>(out);
+  if (shared) {
+    const int bytes = static_cast<int>(sizeof(uint4)) * words4;
+    err = cudaFuncSetAttribute(advance_count_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    advance_count_kernel<true><<<grid, kCountBlock, bytes, s>>>(
+        b, words4, o, q, bounds, vp, ep, nchunks, cnt);
+  } else {
+    advance_count_kernel<false><<<grid, kCountBlock, 0, s>>>(
+        b, words4, o, q, bounds, vp, ep, nchunks, cnt);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -600,16 +833,35 @@ int etpu_segment_minmax(const void* p0, const void* p1, const void* p2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bits: 16 * ceil(ceil(vp / 32) / 4) bytes of scratch, 16-byte aligned,
+// then 4 * (ceil(ep / kCountChunk) + 1) bytes;
+// shared: 1 for the shared-memory tier (its bytes must not pass
+// etpu_advance_count_shared_bytes()), 0 for the global tier.
 int etpu_advance_count(const void* frontier, const void* off,
-                       const void* csc_src, int vp, void* out, void* stream) {
-  if (vp > 0) {
-    advance_count_kernel<<<(vp + kWarpsPerBlock - 1) / kWarpsPerBlock, kBlock,
-                           0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned char*>(frontier),
-        static_cast<const int*>(off), static_cast<const int*>(csc_src), vp,
-        static_cast<int*>(out));
+                       const void* csc_src, int vp, int ep, void* bits,
+                       int shared, void* out, void* stream) {
+  return count_launch(frontier, off, csc_src, vp, ep, bits, shared, out,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// Slots per advance_count chunk (ADVANCE_CHUNK in kernels.py).
+int etpu_advance_count_chunk() { return kCountChunk; }
+
+// The most bitmap bytes the shared-memory tier can hold on the current
+// device: the opt-in shared memory of a block less the kernel's static
+// shared memory; -1 on a CUDA error.
+int etpu_advance_count_shared_bytes() {
+  int dev = 0;
+  int optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, advance_count_kernel<true>) !=
+          cudaSuccess) {
+    return -1;
   }
-  return static_cast<int>(cudaGetLastError());
+  return optin - static_cast<int>(attr.sharedSizeBytes);
 }
 
 }  // extern "C"

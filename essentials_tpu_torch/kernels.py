@@ -16,8 +16,10 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   and ``none`` messages), one warp per CSR row, for the 7-kernel chain
   ``fused_spmv._pallas_spmv_chain`` :179; ``spmv_slabs`` (messages ``mul``,
   ``add``, ``none`` by reductions ``sum``, ``min``), one block per slab of
-  ``SLAB_EDGES`` edges, with ``spmv_slab_carry`` folding the rows that
-  cross slabs, for ``windowed_spmv.windowed_pipeline`` :454.
+  ``SLAB_EDGES`` edges in one launch, a row that crosses slabs completed by
+  a hand-off from slab to slab in slab order, for
+  ``windowed_spmv.windowed_pipeline`` :454. It is bound by the bytes it
+  streams and the scattered x gathers.
 * ``csrc/sssp_kcore_kernels.cu`` (SSSP and k-core): ``sssp_sweep`` for
   ``fused_sssp.fused_sssp_superstep`` :132; ``sssp_predecessors`` for the
   MIN advance of ``sssp.predecessors_from_distances``; ``kcore_sweep`` for
@@ -45,7 +47,9 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   form :287; ``segment_minmax`` for ``scan_kernels.segmented_minmax_1d``
   :224 with the routed pick of ``segment.combine_minmax_multi`` :351;
   ``advance_count`` for ``advance.advance_count`` :175
-  (``cube_router.apply_cube_chain_n`` :754).
+  (``cube_router.apply_cube_chain_n`` :754): chunks of ``ADVANCE_CHUNK``
+  CSC slots per block, the frontier packed to bits and, in its "shared"
+  tier, held in shared memory; bound by the bytes of ``csc_src``.
 
 Each kernel has a wrapper and a plain PyTorch version with the same
 arithmetic. The wrapper dispatches on the device of the tensors it is given:
@@ -72,7 +76,9 @@ from essentials_tpu_torch.errors import EssentialsError, throw_if
 
 INT32_MAX = 2**31 - 1
 INF_BITS = 0x7F800000          # float32 +inf as int32 bits: the min identity
-SLAB_EDGES = 2048              # edges per spmv_slabs block (kSlab in the .cu)
+SLAB_EDGES = 4096              # edges per spmv_slabs block (kSlab in the .cu)
+SLAB_ITEMS = 16                # consecutive edges per spmv_slabs thread (kItems)
+ADVANCE_CHUNK = 16384          # CSC slots per advance_count chunk (kCountChunk)
 MESSAGES = ("mul", "add", "none")
 REDUCES = ("sum", "min")
 SCAN_OPS = ("add", "min", "max", "first")          # codes 0-3 in the .cu
@@ -82,6 +88,7 @@ FILL_TILE = 2048               # positions per fill / route block (kFillTile)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
+_HEADERS = tuple(sorted(_CSRC.glob("*.cuh")))
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "essentials_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -91,7 +98,7 @@ LINK_FLAGS = (*_ARCH, "-shared")
 launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "collapse_levels<int32>": 0, "collapse_levels<int8>": 0,
             "bfs_predecessors": 0,
-            "spmv_rows": 0, "spmv_slabs": 0, "spmv_slab_carry": 0,
+            "spmv_rows": 0, "spmv_slabs": 0,
             "sssp_sweep": 0, "sssp_predecessors": 0, "kcore_sweep": 0,
             "collapse_starts": 0, "expand_segments": 0,
             "scan": 0, "gather_payloads": 0, "segment_reduce": 0,
@@ -112,7 +119,7 @@ def reset_launches() -> None:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libetpu_kernels_{h.hexdigest()[:16]}.so"
@@ -177,8 +184,6 @@ def _library():
             "etpu_bfs_predecessors": (p, p, p, i, i, p, p),
             "etpu_spmv_rows_mul": (p, p, p, p, i, p, p),
             "etpu_spmv_rows_none": (p, p, p, p, i, p, p),
-            "etpu_spmv_slab_carry_sum": (p, p, p, i, p, p),
-            "etpu_spmv_slab_carry_min": (p, p, p, i, p, p),
             "etpu_spmv_slab_edges": (),
             "etpu_sssp_sweep": (p, p, p, p, p, i, p, p),
             "etpu_sssp_predecessors": (p, p, p, p, i, i, p, p),
@@ -193,7 +198,9 @@ def _library():
             "etpu_segment_reduce_f32": (p, p, i, i, ctypes.c_float, p, p),
             "etpu_segment_minmax": (p, p, p, p, p, p, p, p, i, p, p, i, p,
                                     p, p),
-            "etpu_advance_count": (p, p, p, i, p, p),
+            "etpu_advance_count": (p, p, p, i, i, p, i, p, p),
+            "etpu_advance_count_chunk": (),
+            "etpu_advance_count_shared_bytes": (),
             "etpu_fill_tile": (),
             "etpu_segment_fill": (p, p, i, p, i, p, p, p, p),
             "etpu_route_or": (p, p, p, i, i, p, p, p),
@@ -202,7 +209,7 @@ def _library():
         for m in MESSAGES:
             for r in REDUCES:
                 argtypes[f"etpu_spmv_slabs_{m}_{r}"] = (p, p, p, p, p, i, i,
-                                                         p, p, p, p)
+                                                         p, p, p)
         for name, types in argtypes.items():
             fn = getattr(lib, name)
             fn.argtypes = types
@@ -211,6 +218,10 @@ def _library():
                  f"spmv_slabs: the library's slab is "
                  f"{lib.etpu_spmv_slab_edges()} edges, SLAB_EDGES is "
                  f"{SLAB_EDGES}")
+        throw_if(lib.etpu_advance_count_chunk() != ADVANCE_CHUNK,
+                 f"advance_count: the library's chunk is "
+                 f"{lib.etpu_advance_count_chunk()} slots, ADVANCE_CHUNK is "
+                 f"{ADVANCE_CHUNK}")
         throw_if(lib.etpu_scan_tile() != SCAN_TILE,
                  f"scan: the library's tile is {lib.etpu_scan_tile()} "
                  f"elements, SCAN_TILE is {SCAN_TILE}")
@@ -235,9 +246,11 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def _check(name: str, device: torch.device, **tensors) -> None:
     for arg, t in tensors.items():
-        throw_if(t.device != device,
-                 f"{name}: {arg} is on {t.device}, expected {device}")
-        throw_if(not t.is_contiguous(), f"{name}: {arg} must be contiguous")
+        if t.device != device:
+            raise EssentialsError(f"{name}: {arg} is on {t.device}, "
+                                  f"expected {device}")
+        if not t.is_contiguous():
+            raise EssentialsError(f"{name}: {arg} must be contiguous")
 
 
 def _route(name: str, t: torch.Tensor) -> bool:
@@ -387,20 +400,19 @@ def _check_spmv(name: str, off, col, w, x, flags=None) -> None:
     """Types and shapes of the CSR arrays and vectors an SpMV kernel takes:
     off [Vp+1] int32, col [Ep] int32, w [Ep] float32 or None, x [Vp]
     float32, flags [Ep] bool or uint8."""
-    throw_if(off.dtype != torch.int32 or off.dim() != 1 or off.numel() < 2,
-             f"{name}: off must be [Vp+1] int32")
+    if off.dtype != torch.int32 or off.dim() != 1 or off.numel() < 2:
+        raise EssentialsError(f"{name}: off must be [Vp+1] int32")
     vp, ep = off.numel() - 1, col.numel()
-    throw_if(col.dtype != torch.int32 or col.shape != (ep,),
-             f"{name}: col must be [Ep] int32")
-    throw_if(x.dtype != torch.float32 or x.shape != (vp,),
-             f"{name}: x must be [Vp] = [{vp}] float32")
-    throw_if(w is not None and (w.dtype != torch.float32
-                                or w.shape != (ep,)),
-             f"{name}: w must be [Ep] = [{ep}] float32")
-    throw_if(flags is not None and (flags.dtype not in (torch.bool,
-                                                        torch.uint8)
-                                    or flags.shape != (ep,)),
-             f"{name}: flags must be [Ep] = [{ep}] bool or uint8")
+    if col.dtype != torch.int32 or col.dim() != 1:
+        raise EssentialsError(f"{name}: col must be [Ep] int32")
+    if x.dtype != torch.float32 or x.shape != (vp,):
+        raise EssentialsError(f"{name}: x must be [Vp] = [{vp}] float32")
+    if w is not None and (w.dtype != torch.float32 or w.shape != (ep,)):
+        raise EssentialsError(f"{name}: w must be [Ep] = [{ep}] float32")
+    if flags is not None and (flags.dtype not in (torch.bool, torch.uint8)
+                              or flags.shape != (ep,)):
+        raise EssentialsError(f"{name}: flags must be [Ep] = [{ep}] bool "
+                              f"or uint8")
 
 
 def _message(x, col, w, message: str) -> torch.Tensor:
@@ -460,106 +472,88 @@ def spmv_rows(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
 
 # ----------------------------------------------------------- spmv_slabs --
 
+def _partials(vals, key, reduce: str):
+    """Reduce the float32 ``vals`` over runs of equal ``key`` (sorted):
+    (one float32 partial per run, as int32 bits; the first index of each
+    run)."""
+    n = key.numel()
+    new = torch.ones(n, dtype=torch.bool, device=vals.device)
+    new[1:] = key[1:] != key[:-1]
+    run = torch.cumsum(new.long(), 0) - 1
+    return _reduce_into(int(run[-1]) + 1 if n else 0, run, vals, reduce), new
+
+
 def spmv_slabs_plain(off, col, w, flags, x, message: str, reduce: str):
-    """Plain version of ``spmv_slabs``. It finds the rows from ``off`` and
-    does not read ``flags``, which mark the same row starts."""
+    """Plain version of ``spmv_slabs``, with the kernel's grouping: each run
+    of a row's edges within one SLAB_ITEMS group (a thread's edges) in edge
+    order, then the groups within each slab (the kernel joins them by a
+    scan, in another order), then the slab partials folded in slab order.
+    It finds the rows from ``off`` and does not read ``flags``, which mark
+    the same row starts."""
     vp, ep = off.numel() - 1, col.numel()
     vals = _message(x, col, w, message)
     row = _segment_ids(off, ep)
-    start = off[:-1].long()
-    slab = torch.arange(ep, device=x.device) // SLAB_EDGES
-    own = start[row] >= slab * SLAB_EDGES   # the edge's row began in its slab
-    y = _reduce_into(vp, row[own], vals[own], reduce)
-    head = _reduce_into(slab_count(ep), slab[~own], vals[~own], reduce)
-    end = off[1:].long()
-    cross = (end > start) & ((end - 1) // SLAB_EDGES > start // SLAB_EDGES)
-    carry_row = torch.full_like(head, -1)
-    carry_row[start[cross] // SLAB_EDGES] = cross.nonzero()[:, 0].int()
-    return y, head, carry_row
+    pos = torch.arange(ep, device=x.device)
+    part, new = _partials(vals, row * ep + pos // SLAB_ITEMS, reduce)
+    row, pos = row[new], pos[new]
+    part, new = _partials(part.view(torch.float32), row * ep + pos //
+                          SLAB_EDGES, reduce)
+    row = row[new]
+    first = torch.ones_like(row, dtype=torch.bool)
+    first[1:] = row[1:] != row[:-1]
+    ident = 0 if reduce == "sum" else INF_BITS
+    y = torch.full((vp,), ident, dtype=torch.int32, device=x.device)
+    y[row[first]] = part[first]
+    # the k-th slab partial of every row, k = 1, 2, ..., folded in turn
+    at = torch.arange(row.numel(), device=x.device)
+    k = at - torch.cummax(torch.where(first, at, 0), 0).values
+    for j in range(1, int(k.max()) + 1 if k.numel() else 1):
+        r, v = row[k == j], part[k == j]
+        if reduce == "sum":
+            y[r] = (y[r].view(torch.float32)
+                    + v.view(torch.float32)).view(torch.int32)
+        else:
+            y[r] = torch.minimum(y[r], v)
+    return y
 
 
 def spmv_slabs(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
                flags: torch.Tensor, x: torch.Tensor, message: str,
-               reduce: str) -> tuple:
-    """One block per slab of SLAB_EDGES CSR edges: messages (``mul``
-    x[col]*w, ``add`` x[col]+w, ``none`` x[col]; ``w`` None only for
-    ``none``), a segmented ``sum`` (float32) or ``min`` (int32 bits) over
-    ``flags``, and the rows that start in each slab. Returns int32 tensors
-    (y [Vp], head [G], carry_row [G]), G = slab_count(Ep), sums as float32
-    bits:
-
-    * y[r]: r's reduction when it ends in the slab where it starts, the
-      identity (0 or INF_BITS) when it is empty, and its partial up to the
-      end of that slab when it crosses out of it;
-    * head[b]: slab b's edges before its first row start (the whole slab
-      when none starts in it), which belong to a row begun earlier;
-    * carry_row[b]: the row that starts in slab b and crosses out, or -1.
-
-    ``spmv_slab_carry`` completes y."""
+               reduce: str) -> torch.Tensor:
+    """y = reduce over each CSR row of its messages, in one launch of one
+    block per slab of SLAB_EDGES edges: messages ``mul`` x[col]*w, ``add``
+    x[col]+w, ``none`` x[col] (``w`` None only for ``none``), reduced by a
+    segmented ``sum`` (float32) or ``min`` (int32 bits) over ``flags``
+    (the [Ep] row-start flags, bool or uint8). Returns [Vp] int32: sums as
+    float32 bits, the identity (0 or INF_BITS) at an empty row. A row that
+    crosses slabs is folded in slab order, so two launches give the same
+    bits. ``col``, ``w`` and ``flags`` must be 16-byte aligned."""
     name = "spmv_slabs"
-    throw_if(message not in MESSAGES or reduce not in REDUCES,
-             f"{name}: message must be one of {MESSAGES} and reduce one of "
-             f"{REDUCES}")
-    throw_if((w is None) != (message == "none"),
-             f"{name}: w is needed exactly for messages 'mul' and 'add'")
+    if message not in MESSAGES or reduce not in REDUCES:
+        raise EssentialsError(f"{name}: message must be one of {MESSAGES} "
+                              f"and reduce one of {REDUCES}")
+    if (w is None) != (message == "none"):
+        raise EssentialsError(f"{name}: w is needed exactly for messages "
+                              f"'mul' and 'add'")
     _check_spmv(name, off, col, w, x, flags)
     if not _route(name, x):
         return spmv_slabs_plain(off, col, w, flags, x, message, reduce)
-    _check(name, x.device, off=off, col=col, flags=flags, x=x,
+    dev = x.device
+    _check(name, dev, off=off, col=col, flags=flags, x=x,
            **({} if w is None else {"w": w}))
+    wp = 0 if w is None else w.data_ptr()
+    if (col.data_ptr() | wp | flags.data_ptr()) & 15:
+        raise EssentialsError(f"{name}: col, w and flags must be 16-byte "
+                              f"aligned")
     vp, ep = off.numel() - 1, col.numel()
-    y = torch.empty(vp, dtype=torch.int32, device=x.device)
-    head = torch.empty(slab_count(ep), dtype=torch.int32, device=x.device)
-    carry_row = torch.empty_like(head)
-    _launch(f"etpu_spmv_slabs_{message}_{reduce}", x.device, off.data_ptr(),
-            col.data_ptr(), None if w is None else w.data_ptr(),
-            flags.data_ptr(), x.data_ptr(), vp, ep, y.data_ptr(),
-            head.data_ptr(), carry_row.data_ptr())
-    launches[name] += 1
-    return y, head, carry_row
-
-
-# ------------------------------------------------------ spmv_slab_carry --
-
-def spmv_slab_carry_plain(y, head, carry_row, off, reduce: str):
-    """Plain version of ``spmv_slab_carry``."""
-    b = torch.nonzero(carry_row >= 0).flatten()
-    r = carry_row[b].long()
-    last = torch.clamp((off[r + 1].long() - 1) // SLAB_EDGES,
-                       max=head.numel() - 1)
-    n = last - b                            # later slabs the row reaches
-    rows = torch.repeat_interleave(r, n)
-    first = torch.repeat_interleave(b + 1 - (torch.cumsum(n, 0) - n), n)
-    slabs = first + torch.arange(rows.numel(), device=y.device)
-    if reduce == "sum":
-        y.view(torch.float32).index_add_(0, rows,
-                                         head[slabs].view(torch.float32))
-    else:
-        y.scatter_reduce_(0, rows, head[slabs], "amin")
-    return y
-
-
-def spmv_slab_carry(y: torch.Tensor, head: torch.Tensor,
-                    carry_row: torch.Tensor, off: torch.Tensor,
-                    reduce: str) -> torch.Tensor:
-    """Complete ``spmv_slabs``' output IN PLACE: for each slab b with
-    carry_row[b] = r >= 0, fold head[b+1], head[b+2], ... into y[r], over
-    every later slab that starts before r's last edge, in slab order (one
-    thread per slab). Returns y."""
-    name = "spmv_slab_carry"
-    throw_if(reduce not in REDUCES, f"{name}: reduce must be one of {REDUCES}")
-    throw_if(off.dtype != torch.int32 or off.dim() != 1
-             or y.dtype != torch.int32 or y.shape != (off.numel() - 1,),
-             f"{name}: y must be [Vp] int32 and off [Vp+1] int32")
-    throw_if(head.dtype != torch.int32 or carry_row.dtype != torch.int32
-             or head.dim() != 1 or carry_row.shape != head.shape,
-             f"{name}: head and carry_row must be [G] int32")
-    if not _route(name, y):
-        return spmv_slab_carry_plain(y, head, carry_row, off, reduce)
-    _check(name, y.device, y=y, head=head, carry_row=carry_row, off=off)
-    _launch(f"etpu_spmv_slab_carry_{reduce}", y.device, off.data_ptr(),
-            head.data_ptr(), carry_row.data_ptr(), head.numel(),
-            y.data_ptr())
+    y = torch.empty(vp, dtype=torch.int32, device=dev)
+    if ep == 0:
+        return y.fill_(0 if reduce == "sum" else INF_BITS)
+    scratch = torch.empty(2 * slab_count(ep) + 1, dtype=torch.int32,
+                          device=dev)
+    _launch(f"etpu_spmv_slabs_{message}_{reduce}", dev, off.data_ptr(),
+            col.data_ptr(), wp or None, flags.data_ptr(), x.data_ptr(), vp,
+            ep, y.data_ptr(), scratch.data_ptr())
     launches[name] += 1
     return y
 
@@ -1050,23 +1044,66 @@ def advance_count_plain(frontier, offsets, csc_src):
                           frontier[csc_src.long()].int())
 
 
+def advance_count_bitmap_bytes(vp: int) -> int:
+    """Bytes of the packed frontier that ``advance_count`` builds for a
+    [vp] frontier: one bit per vertex, in whole 16-byte words."""
+    return 16 * (-(-vp // 128))
+
+
+_shared_bytes = {}
+
+
+def advance_count_tier(vp: int, device, max_shared_bytes: int | None = None
+                       ) -> str:
+    """The tier ``advance_count`` runs for a [vp] frontier on the CUDA
+    ``device``: "shared" where the packed frontier fits the block's shared
+    memory (the opt-in limit less the kernel's static shared memory, about
+    225 KiB on an H100, so up to about 1.8M vertices) and, when given,
+    ``max_shared_bytes``; else "global"."""
+    device = torch.device(device)
+    if device not in _shared_bytes:
+        with torch.cuda.device(device):
+            _shared_bytes[device] = _library().etpu_advance_count_shared_bytes()
+        throw_if(_shared_bytes[device] < 0, "advance_count: could not read "
+                                            "the device's shared memory")
+    cap = _shared_bytes[device]
+    if max_shared_bytes is not None:
+        cap = min(cap, max_shared_bytes)
+    return "shared" if advance_count_bitmap_bytes(vp) <= cap else "global"
+
+
 def advance_count(frontier: torch.Tensor, offsets: torch.Tensor,
-                  csc_src: torch.Tensor) -> torch.Tensor:
+                  csc_src: torch.Tensor,
+                  max_shared_bytes: int | None = None) -> torch.Tensor:
     """[Vp] int32: for each destination v, the in-edges q in
     [offsets[v], offsets[v+1]) whose source csc_src[q] is set in the [Vp]
-    bool ``frontier``. ``offsets`` are the CSC offsets, covering [0, Ep)."""
+    bool ``frontier``. ``offsets`` are the CSC offsets, covering [0, Ep).
+
+    On the card one call zeroes the counts, packs the frontier into bits
+    and counts over chunks of ADVANCE_CHUNK slots. Two size tiers, chosen
+    by ``advance_count_tier``: "shared" holds the packed frontier in each
+    block's shared memory, "global" (a frontier too large for it, or
+    larger than ``max_shared_bytes``) reads the packed bits from device
+    memory. The result is the same in both."""
     name = "advance_count"
     vp = offsets.numel() - 1
-    throw_if(frontier.dtype != torch.bool or frontier.shape != (vp,),
-             f"{name}: frontier must be [Vp] bool")
+    if frontier.dtype != torch.bool or frontier.shape != (vp,):
+        raise EssentialsError(f"{name}: frontier must be [Vp] bool")
     _check_graph(name, csc_src.numel(), offsets, csc_src)
     if not _route(name, frontier):
         return advance_count_plain(frontier, offsets, csc_src)
     dev = frontier.device
     _check(name, dev, frontier=frontier, offsets=offsets, csc_src=csc_src)
-    out = torch.empty(vp, dtype=torch.int32, device=dev)
+    shared = advance_count_tier(vp, dev, max_shared_bytes) == "shared"
+    # the packed bits (16-byte aligned at the start), each chunk's first
+    # row, then the counts
+    skip = (advance_count_bitmap_bytes(vp) // 4
+            + -(-csc_src.numel() // ADVANCE_CHUNK) + 1)
+    buf = torch.empty(skip + vp, dtype=torch.int32, device=dev)
+    out = buf[skip:]
     _launch("etpu_advance_count", dev, frontier.data_ptr(),
-            offsets.data_ptr(), csc_src.data_ptr(), vp, out.data_ptr())
+            offsets.data_ptr(), csc_src.data_ptr(), vp, csc_src.numel(),
+            buf.data_ptr(), int(shared), out.data_ptr())
     launches[name] += 1
     return out
 

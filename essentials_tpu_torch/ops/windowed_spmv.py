@@ -4,11 +4,11 @@ Counterpart of ``essentials_tpu/ops/windowed_spmv.py``. The JAX pipeline
 cuts the edge axis into 131,072-edge slabs and, per slab, windows a
 compacted x table, places it with a static Beneš permutation, routes CSC ->
 CSR and reduces; a ``WindowedSpmvPlan`` carries those permutations and the
-vertex-axis compaction routes. All of that is TPU staging. Here the
-``spmv_slabs`` kernel gives each block a fixed range of SLAB_EDGES CSR
+vertex-axis compaction routes. All of that is TPU staging. Here one launch of
+the ``spmv_slabs`` kernel gives each block a fixed range of SLAB_EDGES CSR
 edges, loads ``x[col[p]]`` directly, scans over the segment flags and
-stores y by vertex; ``spmv_slab_carry`` then folds the rows that cross slab
-boundaries. So the port takes no plan, and x and y are on the vertex axis,
+stores y by vertex; a row that crosses slab boundaries is folded in slab
+order by a hand-off from slab to slab. So the port takes no plan, and x and y are on the vertex axis,
 where the JAX functions take and return compact rank-space vectors.
 """
 
@@ -42,10 +42,9 @@ def windowed_pipeline(g: Graph, x: torch.Tensor, *, message: str,
         w = None
     elif w is None:
         w = edge_weights(g)
-    y, head, carry_row = kernels.spmv_slabs(
-        g.row_offsets, g.col_indices, w, g.csr_seg_flags,
-        vertex_vector(g, x), message, reduce)
-    return kernels.spmv_slab_carry(y, head, carry_row, g.row_offsets, reduce)
+    return kernels.spmv_slabs(g.row_offsets, g.col_indices, w,
+                              g.csr_seg_flags, vertex_vector(g, x), message,
+                              reduce)
 
 
 def spmv_windowed(g: Graph, x: torch.Tensor, *, unit: bool = False

@@ -1,8 +1,8 @@
 """Windowed SSSP: Bellman-Ford sweeps on the windowed SpMV engine.
 
 Counterpart of ``essentials_tpu/ops/windowed_sssp.py``. Each sweep is one
-``windowed_pipeline(message="add", reduce="min")`` (the ``spmv_slabs`` and
-``spmv_slab_carry`` kernels): cand[u] = min over u's out-edges (u, v) of
+``windowed_pipeline(message="add", reduce="min")`` (the ``spmv_slabs``
+kernel): cand[u] = min over u's out-edges (u, v) of
 dist[v] + w(u, v), which on an undirected graph with symmetric weights is
 the relaxation by in-neighbours. The JAX package holds the state in compact
 rank space and collapses it through ``plan.y_route``; on a symmetric layout

@@ -5,7 +5,8 @@ directed graph, triangle counting and the intersection operator, coloring
 ``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph) run
 where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
-route and bitmap kernels exactly, but float sums: the SpMV kernels,
+route and bitmap kernels exactly, advance_count in both its tiers and
+spmv_slabs on a row of six slabs, but float sums: the SpMV kernels,
 ``scan`` and ``segment_reduce`` under ``sum``, to |k - p| <= 1e-5 |p| +
 1e-6, and a float ``scan`` ``add`` also against a float64 running sum).
 
@@ -205,7 +206,7 @@ def test_spmv_kernels_match_plain_versions_on_the_card():
         pytest.skip("needs a CUDA device")
     from essentials_tpu_torch import kernels
     from essentials_tpu_torch.algorithms import spmv
-    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.formats import Coo, Csr
     from essentials_tpu_torch.graph import build_graph
     from essentials_tpu_torch.io import generate
 
@@ -213,10 +214,17 @@ def test_spmv_kernels_match_plain_versions_on_the_card():
         k, p = k.double(), p.double()
         return bool(((k - p).abs() <= 1e-5 * p.abs() + 1e-6).all())
 
-    csr = Csr.from_coo(generate.rmat(14, 16, seed=3, undirected=False,
-                                     weighted=True))
+    # rmat15 and a hub row of 5 slabs and more, which spans six
+    coo = generate.rmat(15, 16, seed=3, undirected=False, weighted=True)
+    n_hub = 5 * kernels.SLAB_EDGES + 77
+    hub_cols = (np.arange(n_hub) * 13 % coo.n_cols).astype(np.int32)
+    csr = Csr.from_coo(Coo(
+        coo.n_rows, coo.n_cols,
+        np.r_[coo.row_indices, np.full(n_hub, 7, np.int32)],
+        np.r_[coo.col_indices, hub_cols],
+        np.r_[coo.values, np.linspace(0.5, 1.5, n_hub, dtype=np.float32)]))
     g = build_graph(csr, directed=True, weighted=True, device="cuda")
-    assert g.max_degree > kernels.SLAB_EDGES     # a row crosses slabs
+    assert g.max_degree > 5 * kernels.SLAB_EDGES
     off, col, fl = g.row_offsets, g.col_indices, g.csr_seg_flags
     x, w = spmv.random_x(g, 1), g.values
     kernels.reset_launches()
@@ -227,26 +235,18 @@ def test_spmv_kernels_match_plain_versions_on_the_card():
     for message in kernels.MESSAGES:
         wk = None if message == "none" else w
         for reduce in kernels.REDUCES:
-            out = kernels.spmv_slabs(off, col, wk, fl, x, message, reduce)
-            plain = kernels.spmv_slabs_plain(off, col, wk, fl, x, message,
-                                             reduce)
+            y = kernels.spmv_slabs(off, col, wk, fl, x, message, reduce)
+            y_p = kernels.spmv_slabs_plain(off, col, wk, fl, x, message,
+                                           reduce)
             again = kernels.spmv_slabs(off, col, wk, fl, x, message, reduce)
-            assert all(torch.equal(a, b) for a, b in zip(out, again))
-            assert torch.equal(out[2], plain[2])
-            y = kernels.spmv_slab_carry(out[0].clone(), *out[1:], off, reduce)
-            y_p = kernels.spmv_slab_carry_plain(out[0].clone(), *out[1:],
-                                                off, reduce)
+            assert torch.equal(y, again), (message, reduce)
             if reduce == "min":
-                assert torch.equal(out[0], plain[0])
-                assert torch.equal(out[1], plain[1])
-                assert torch.equal(y, y_p)
+                assert torch.equal(y, y_p), message
             else:
-                for a, b in ((out[0], plain[0]), (out[1], plain[1]),
-                             (y, y_p)):
-                    assert close(a.view(torch.float32),
-                                 b.view(torch.float32))
-    assert all(kernels.launches[k] > 0
-               for k in ("spmv_rows", "spmv_slabs", "spmv_slab_carry"))
+                assert close(y.view(torch.float32),
+                             y_p.view(torch.float32)), message
+    assert kernels.launches["spmv_rows"] == 4
+    assert kernels.launches["spmv_slabs"] == 12
     y = spmv.run(g, x, variant="windowed").y.cpu().numpy()
     assert np.allclose(y, spmv.cpu_reference(csr, x.cpu().numpy()),
                        rtol=1e-5, atol=1e-6)
@@ -358,9 +358,13 @@ def test_operator_kernels_match_plain_versions_on_the_card():
         p = kernels.gather_payloads_plain(g.csc_src_indices, *pays[:m])
         assert all(torch.equal(a, b) for a, b in zip(k, p))
     f = torch.from_numpy(rng.random(vp) < 0.3).cuda() & g.vertex_mask()
-    assert torch.equal(
-        kernels.advance_count(f, g.csc_offsets, g.csc_src_indices),
-        kernels.advance_count_plain(f, g.csc_offsets, g.csc_src_indices))
+    args = (g.csc_offsets, g.csc_src_indices)
+    assert kernels.advance_count_tier(vp, "cuda") == "shared"
+    assert kernels.advance_count_tier(vp, "cuda", 0) == "global"
+    for front in (f, torch.zeros_like(f), torch.ones_like(f)):
+        want = kernels.advance_count_plain(front, *args)
+        for cap in (None, 0):             # the shared and the global tier
+            assert torch.equal(kernels.advance_count(front, *args, cap), want)
     assert all(kernels.launches[k] > 0 for k in (
         "scan", "gather_payloads", "segment_reduce", "advance_count"))
     s = int(np.argmax(np.diff(csr.row_offsets)))

@@ -295,6 +295,44 @@ def test_advance_count_is_the_generic_count(graphs, name):
     equal(tadv.advance_count(g, f).numpy(), generic.numpy())
 
 
+@pytest.fixture(scope="module")
+def chunk_graph():
+    """In-segments across advance_count's chunk boundaries (c =
+    ADVANCE_CHUNK): vertex 0 has 2c + 399 in-edges (slots 0 to 2c + 398,
+    across two boundaries), vertex 1 has c / 2, and a chain v -> v + 1
+    gives every other vertex one."""
+    c = kernels.ADVANCE_CHUNK
+    n = 2 * c + 400
+    v = np.arange(1, n, dtype=np.int32)
+    half = np.arange(2, c // 2 + 2, dtype=np.int32)
+    src = np.r_[v, half, v[:-1]]
+    dst = np.r_[np.zeros(n - 1, np.int32), np.ones(c // 2, np.int32), v[1:]]
+    w = np.linspace(0.5, 2.0, src.size).astype(np.float32)
+    return carried(JCsr.from_coo(JCoo(n, n, src, dst, w)), True)
+
+
+@pytest.mark.parametrize("kind", ["empty", "full", "seeded"])
+def test_advance_count_across_chunks(chunk_graph, kind):
+    """advance_count where in-segments cross ADVANCE_CHUNK boundaries, under
+    an empty frontier, a full one and a seeded one, equal to the JAX
+    count."""
+    _, gj, g = chunk_graph
+    off = g.csc_offsets
+    assert int(off[1]) > 2 * kernels.ADVANCE_CHUNK        # vertex 0
+    vp = g.n_vertices_padded
+    f = {"empty": np.zeros(vp, bool), "full": np.ones(vp, bool),
+         "seeded": rng_frontier(g, 23, 0.3)}[kind]
+    want = np.asarray(jax.jit(jadv.advance_count)(gj, jnp.asarray(f)))
+    got = tadv.advance_count(g, t(f))
+    equal(got.numpy(), want)
+    equal(kernels.advance_count_plain(t(f), off, g.csc_src_indices).numpy(),
+          want)
+    if kind == "empty":
+        assert not want.any()
+    elif kind == "full":
+        equal(want, g.in_degrees().numpy())
+
+
 NR_MESSAGES = {"sum": lambda e: e.weight * e.dst_vals[0],
                "min": lambda e: e.src_vals[0] - e.dst_vals[0],
                "max": lambda e: e.dst}

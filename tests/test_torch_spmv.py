@@ -164,60 +164,119 @@ def test_windowed_pipeline_matches_jax_ref(graphs, plans, name, message,
                                        else 0))
 
 
-def hub_graph():
-    """A row of 100 edges, a row of 6200 that starts in slab 0 and ends in
-    slab 3, rows of one edge, a row of 2100, and empty rows between them."""
-    n = 40
-    rows = np.concatenate([np.full(100, 1), np.full(6200, 3),
-                           np.arange(5, 30), np.full(2100, 31)])
-    cols = np.concatenate([np.arange(100) % n, np.arange(6200) % n,
-                           np.arange(5, 30) * 7 % n, np.arange(2100) % n])
+def rows_graph(n, lengths):
+    """A directed weighted graph on ``n`` vertices whose row r has
+    lengths[r] edges (rows past the list are empty)."""
+    rows = np.repeat(np.arange(len(lengths)), lengths)
+    cols = (np.arange(rows.size) * 7 + rows) % n
     vals = np.random.default_rng(0).random(rows.size).astype(np.float32) + 1
     csr = Csr.from_coo(Coo(n, n, rows.astype(np.int32),
                            cols.astype(np.int32), vals))
     return csr, build_graph(csr, directed=True, weighted=True, device="cpu")
 
 
-@pytest.mark.parametrize("reduce", ["sum", "min"])
-@pytest.mark.parametrize("message", ["mul", "add", "none"])
-def test_windowed_pipeline_rows_across_slabs(message, reduce):
-    csr, g = hub_graph()
-    assert g.max_degree > 2 * kernels.SLAB_EDGES
-    x = torch.from_numpy(vector(g, 6))
-    y = tws.windowed_pipeline(g, x, message=message, reduce=reduce)
+def hub_graph():
+    """With s = SLAB_EDGES: a row of 100 edges, a hub row of 3s + 104 that
+    starts in slab 0 and ends in slab 3, rows of one edge, a row of s + 52,
+    and empty rows between them."""
+    s = kernels.SLAB_EDGES
+    return rows_graph(40, [0, 100, 0, 3 * s + 104, 0] + [1] * 25
+                      + [0, s + 52])
+
+
+def boundary_graph():
+    """Rows that meet the slab boundaries (s = SLAB_EDGES): a row of s edges
+    that ends on one, empty rows at it, a row of 2s that starts on one, holds
+    slab 1 whole and ends on the next, a row of one edge, a row of 2s - 1
+    that crosses into slab 4, rows of one edge and an empty row."""
+    s = kernels.SLAB_EDGES
+    return rows_graph(24, [s, 0, 0, 2 * s, 1, 2 * s - 1, 0, 1, 1, 0, 1])
+
+
+def reference_bits(g, x, message, reduce):
+    """The pipeline's [Vp] result from float64 sums or int32-bit minima over
+    the CSR rows, with the identity at empty rows."""
     src, col = g.src_indices.long(), g.col_indices.long()
     msg = {"mul": x[col] * g.values, "add": x[col] + g.values,
            "none": x[col]}[message]
     if reduce == "min":
         ref = torch.full((g.n_vertices_padded,), tws.INF_BITS,
                          dtype=torch.int32)
-        ref.scatter_reduce_(0, src, msg.view(torch.int32), "amin")
+        return ref.scatter_reduce_(0, src, msg.view(torch.int32), "amin")
+    ref = torch.zeros(g.n_vertices_padded, dtype=torch.float64)
+    return ref.index_add_(0, src, msg.double())
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+@pytest.mark.parametrize("message", ["mul", "add", "none"])
+def test_windowed_pipeline_rows_across_slabs(message, reduce):
+    csr, g = hub_graph()
+    s = kernels.SLAB_EDGES
+    hub_start, hub_end = int(g.row_offsets[3]), int(g.row_offsets[4])
+    assert 0 < hub_start < s and 3 * s < hub_end < 4 * s   # slabs 0-3
+    assert g.max_degree > 2 * s
+    x = torch.from_numpy(vector(g, 6))
+    y = tws.windowed_pipeline(g, x, message=message, reduce=reduce)
+    ref = reference_bits(g, x, message, reduce)
+    if reduce == "min":
         assert torch.equal(y, ref)
     else:
-        ref = torch.zeros(g.n_vertices_padded, dtype=torch.float64)
-        ref.index_add_(0, src, msg.double())
         close(y.view(torch.float32).numpy(), ref.numpy())
 
 
-def test_slab_outputs_before_the_carry():
-    """spmv_slabs' partial outputs: the hub row that starts in slab 0 holds
-    its partial over slab 0 and is named by carry_row[0]; slabs 1 and 2 lie
-    inside it (their heads are whole slabs); slab 3's head is the hub's
-    tail."""
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+def test_windowed_pipeline_at_slab_boundaries(reduce):
+    """Rows that end on a slab boundary, start on one, hold a slab whole,
+    and empty rows at a boundary: every row's result, in each message."""
+    _, g = boundary_graph()
+    off, s = g.row_offsets, kernels.SLAB_EDGES
+    assert int(off[1]) == s and int(off[4]) == 3 * s     # on the boundaries
+    assert int(off[6]) > 4 * s > int(off[5])              # crosses into 4
+    x = torch.from_numpy(vector(g, 7))
+    for message in kernels.MESSAGES:
+        y = tws.windowed_pipeline(g, x, message=message, reduce=reduce)
+        ref = reference_bits(g, x, message, reduce)
+        if reduce == "min":
+            assert torch.equal(y, ref), message
+        else:
+            close(y.view(torch.float32).numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+def test_spmv_slabs_plain_folds_partials_in_slab_order(reduce):
+    """The plain version's arithmetic is the kernel's: a row's edges within
+    each SLAB_ITEMS group (a thread's) in edge order, the groups within
+    each slab, then the slab partials in slab order, each a float32 sum.
+    Held bitwise against that computed on the host."""
     _, g = hub_graph()
-    off, col = g.row_offsets, g.col_indices
-    x = torch.ones(g.n_vertices_padded)
-    y, head, carry_row = kernels.spmv_slabs(off, col, None, g.csr_seg_flags,
-                                            x, "none", "sum")
-    s = kernels.SLAB_EDGES
-    hub_start, hub_end = int(off[3]), int(off[4])
-    assert 0 < hub_start < s and 3 * s < hub_end < 4 * s
-    assert carry_row[0] == 3 and carry_row[1] == carry_row[2] == -1
-    yf, hf = y.view(torch.float32), head.view(torch.float32)
-    assert yf[3] == s - hub_start and hf[0] == 0
-    assert hf[1] == hf[2] == s and hf[3] == hub_end - 3 * s
-    kernels.spmv_slab_carry(y, head, carry_row, off, "sum")
-    assert yf[3] == hub_end - hub_start
+    off = g.row_offsets.numpy()
+    x = torch.from_numpy(vector(g, 8))
+    msg = (x[g.col_indices.long()] * g.values).numpy()
+    add = (lambda a, b: np.float32(a + b)) if reduce == "sum" else min
+
+    def fold(parts):
+        acc = None
+        for p in parts:
+            acc = p if acc is None else add(acc, p)
+        return acc
+
+    def over(lo, hi, step, inner):
+        """inner(a, b) over the pieces [a, b) of [lo, hi) cut at
+        multiples of step."""
+        return fold(inner(a, min(hi, (a // step + 1) * step))
+                    for a in [lo] + list(range((lo // step + 1) * step,
+                                               hi, step)))
+
+    want = np.full(g.n_vertices_padded,
+                   0 if reduce == "sum" else np.inf, np.float32)
+    for r in range(g.n_vertices_padded):
+        if off[r + 1] > off[r]:
+            want[r] = over(off[r], off[r + 1], kernels.SLAB_EDGES,
+                           lambda a, b: over(a, b, kernels.SLAB_ITEMS,
+                                             lambda c, d: fold(msg[c:d])))
+    y = kernels.spmv_slabs_plain(g.row_offsets, g.col_indices, g.values,
+                                 g.csr_seg_flags, x, "mul", reduce)
+    assert np.array_equal(y.numpy(), want.view(np.int32))
 
 
 # ------------------------------------------------------------- wrappers --
@@ -232,7 +291,7 @@ def test_wrappers_take_plain_version_on_cpu(graphs):
     assert all(n == 0 for n in kernels.launches.values())
 
 
-@pytest.mark.parametrize("call", ["rows", "slabs", "carry"])
+@pytest.mark.parametrize("call", ["rows", "slabs"])
 def test_spmv_wrappers_raise_on_other_devices(call):
     _, g = hub_graph()
     g = g.to("meta")
@@ -240,14 +299,9 @@ def test_spmv_wrappers_raise_on_other_devices(call):
     with pytest.raises(EssentialsError):
         if call == "rows":
             kernels.spmv_rows(g.row_offsets, g.col_indices, None, x)
-        elif call == "slabs":
+        else:
             kernels.spmv_slabs(g.row_offsets, g.col_indices, None,
                                g.csr_seg_flags, x, "none", "sum")
-        else:
-            n = kernels.slab_count(g.n_edges_padded)
-            head = torch.empty(n, dtype=torch.int32, device="meta")
-            kernels.spmv_slab_carry(x.int(), head, head, g.row_offsets,
-                                    "sum")
 
 
 def test_spmv_wrappers_reject_bad_arguments():
@@ -263,8 +317,6 @@ def test_spmv_wrappers_reject_bad_arguments():
         lambda: kernels.spmv_slabs(off, col, w, fl, x, "mul", "max"),
         lambda: kernels.spmv_slabs(off, col, None, fl, x, "mul", "sum"),
         lambda: kernels.spmv_slabs(off, col, w, fl[:-1], x, "mul", "sum"),
-        lambda: kernels.spmv_slab_carry(x.int()[:-1], x.int(), x.int(),
-                                        off, "sum"),
         lambda: tws.windowed_pipeline(g, x, message="sub", reduce="sum"),
         lambda: tfs.spmv_fused(g, torch.zeros(g.n_vertices_padded + 1)),
     ]
