@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""Time a parent checkout's kernels against this tree's on one CUDA card.
+
+The parent's library is built from its own csrc/ and loaded beside this
+tree's. For each measurement the package's wrappers of KERNELS are taken
+from one side, then the other, in turns (parent, this tree, this tree,
+parent), and chip_smoke's own timings run through them, on the same inputs;
+both sides' results must agree first. The shapes are those of the port's
+main paths:
+
+* spmv_rows (chip_smoke.rows_against_mv, beside torch.mv on the sparse CSR
+  matrix): <mul> at directed rmat18 and rmat20 seed 3 (the fused SpMV),
+  <mul> and <none> at undirected rmat18 (PageRank's and HITS's products);
+* PageRank and HITS (variant "spmv") ms per iteration at undirected rmat18
+  (chip_smoke.pr_hits_ms), in PR_HITS_ROUNDS rounds of turns: host paced,
+  so each side gets a spread;
+* gather_payloads (chip_smoke.gather_against_index_select, beside
+  index_select) at the dense adaptive SSSP step's gather (2 payloads of
+  [Vp] through csc_src, directed rmat20 seed 3; this tree packed and
+  unpacked, index_select on the payloads stacked per vertex) and at
+  PageRank fused's (1 payload of [Ep] through csc_edge_ids, undirected
+  rmat18);
+* spmv_slabs <mul,sum> and advance_count at rmat20 seed 3 (they share
+  csrc/warp_search.cuh with spmv_rows).
+
+Then gather_payloads packed against unpacked over n slots of random indices
+into payloads of L words (this tree only, each path forced by
+chip_smoke.gather_path): the evidence for kernels.PACK_MIN_SLOTS and the
+rule n >= L. Wall: ms per call, SPMV_REPS calls back to back on CUDA events,
+median of CYCLES; device: torch.profiler's device time per call.
+
+    mkdir -p build/parent
+    git archive HEAD essentials_tpu_torch chip_smoke.py | tar -x -C build/parent
+    python3 chip_ab.py --parent build/parent [--out ab.json]
+
+(HEAD: the commit an uncommitted change sits on.) Prints one line per side
+of each measurement, and writes them all as JSON to the file --out names.
+Needs one card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib.util
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as CS
+
+KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count")
+PR_HITS_ROUNDS = 4             # rounds of turns: 8 runs on each side
+PACK_PAYLOADS = (2, 4)
+PACK_LENGTH = 1 << 20          # L: a [Vp] payload at RMAT scale 20
+PACK_RATIOS = (1 / 16, 1 / 8, 1 / 4, 1 / 2, 1, 2, 4, 16)   # n / L
+PACK_SMALL = ((1 << 12, 1 << 14), (1 << 12, 1 << 16), (1 << 16, 1 << 16),
+              (1 << 16, 1 << 18))                            # (L, n)
+
+
+def build(mod, name: str) -> None:
+    """Builds ``mod``'s library and prints the ptxas lines of the kernels
+    timed here."""
+    t0 = time.perf_counter()
+    log = mod.build()[1].splitlines()
+    mod._library()
+    print(f"build: {name} in {time.perf_counter() - t0:.1f} s")
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and any(
+                k in line for k in ("spmv_rows", "gather_payloads")):
+            print(f"  {line.strip()}")
+            for nxt in log[i + 1:i + 4]:
+                if "Used" in nxt or "spill" in nxt:
+                    print(f"    {nxt.strip()}")
+
+
+def load_parent(root: Path):
+    """The kernels module of the checkout at ``root``, built from that
+    checkout's csrc/."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", root / "essentials_tpu_torch" / "kernels.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    build(mod, f"parent from {root}")
+    return mod
+
+
+@contextlib.contextmanager
+def bound_to(mod):
+    """The package's wrappers of KERNELS taken from ``mod`` while the block
+    runs; chip_smoke and the algorithms call them through the module."""
+    from essentials_tpu_torch import kernels as K
+    saved = {k: getattr(K, k) for k in KERNELS}
+    for k in KERNELS:
+        setattr(K, k, getattr(mod, k))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(K, k, fn)
+
+
+def on(mod, fn):
+    with bound_to(mod):
+        return fn()
+
+
+def per_call(fn) -> float:
+    return CS.median_ms(lambda _: [fn() for _ in range(CS.SPMV_REPS)]) \
+        / CS.SPMV_REPS
+
+
+def kernel_ms(fn) -> dict:
+    return {"wall": per_call(fn),
+            "device": CS.device_ms(fn, CS.SPMV_REPS)[0]}
+
+
+def fmt(values) -> str:
+    return ", ".join("not measured" if v is None else f"{v:.4f}"
+                     for v in values)
+
+
+def turns(card: str, label: str, sides: dict, out: dict,
+          rounds: int = 1) -> None:
+    """Each side's measure() ({metric: ms}) in turns, the sides in order
+    and then in reverse, ``rounds`` times; prints every metric's readings
+    by side."""
+    names = list(sides)
+    got = {s: [] for s in names}
+    for s in (names + names[::-1]) * rounds:
+        got[s].append(sides[s]())
+    for s in names:
+        print(f"ab [{card}]: {label}: {s}: " + "; ".join(
+            f"{m} {fmt([r[m] for r in got[s]])}" for m in got[s][0])
+            + " ms")
+    out[label] = got
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def spmv_shapes(card: str, run, K0, out: dict) -> None:
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import pr, spmv
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+
+    def rows_ms(g, w, x) -> dict:
+        t = CS.rows_against_mv(g, w, x)
+        return {"wall": t[""], "device": t["/device"],
+                "torch.mv wall": t["/library"],
+                "torch.mv device": t["/library_device"]}
+
+    cases = []
+    for scale in (CS.SCALE, CS.SPMV_TIME_SCALE):
+        g = run.spmv_graph(scale)[1]
+        cases.append((f"spmv_rows<mul> rmat{scale} seed {CS.SPMV_SEED}", g,
+                      g.values, spmv.random_x(g, 1)))
+    gu = run.bfs_graph(CS.SCALE)[1]
+    mask = gu.vertex_mask()
+    r = torch.where(mask, 1.0 / gu.n_vertices, 0.0).float()
+    cases.append((f"spmv_rows<mul> undirected rmat{CS.SCALE} (PageRank)", gu,
+                  edge_weights(gu), r * pr.inverse_weights(gu)))
+    cases.append((f"spmv_rows<none> undirected rmat{CS.SCALE} (HITS)", gu,
+                  None, mask.float()))
+    for label, g, w, x in cases:
+        args = (g.row_offsets, g.col_indices, w, x)
+        a, b = K0.spmv_rows(*args).double(), K.spmv_rows(*args).double()
+        CS.check(bool(((a - b).abs() <= CS.SUM_RTOL * a.abs()
+                       + CS.SUM_ATOL).all()),
+                 f"{label}: parent and this tree disagree")
+        turns(card, label,
+              {"parent": lambda: on(K0, lambda: rows_ms(g, w, x)),
+               "this": lambda: rows_ms(g, w, x)}, out)
+    turns(card, f"pr and hits spmv undirected rmat{CS.SCALE}, ms per "
+                f"iteration",
+          {"parent": lambda: on(K0, lambda: CS.pr_hits_ms(gu)),
+           "this": lambda: CS.pr_hits_ms(gu)}, out, PR_HITS_ROUNDS)
+
+
+def gather_shapes(card: str, run, K0, out: dict) -> None:
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import sssp
+
+    def gather_ms(idx, pays, stacked, auto: str) -> dict:
+        t = CS.gather_against_index_select(idx, pays, stacked, auto)
+        return {"wall": per_call(lambda: K.gather_payloads(idx, *pays)),
+                "device": t["gather_payloads/device"],
+                "index_select device": t["gather_payloads/library_device"]}
+
+    def unpacked(idx, pays, stacked) -> dict:
+        with CS.gather_path(False):
+            return gather_ms(idx, pays, stacked, "unpacked")
+
+    csr, g = run.spmv_graph(CS.SPMV_TIME_SCALE)
+    source = int(np.argmax(np.diff(csr.row_offsets)))
+    st = CS.largest_dense_state(g, source, sssp)
+    csrc = g.csc_src_indices
+    pays = (st.frontier.int(), st.distances)
+    both = torch.stack([pays[0], st.distances.view(torch.int32)], 1)
+    CS.check(same_bits(K0.gather_payloads(csrc, *pays),
+                       K.gather_payloads(csrc, *pays)),
+             "dense SSSP gather: parent and this tree disagree")
+    turns(card, f"gather_payloads 2 x [Vp] through csc_src (dense SSSP, "
+                f"rmat{CS.SPMV_TIME_SCALE} seed {CS.SPMV_SEED})",
+          {"parent": lambda: on(K0, lambda: gather_ms(csrc, pays, both,
+                                                      "packed")),
+           "this": lambda: gather_ms(csrc, pays, both, "packed"),
+           "this, unpacked": lambda: unpacked(csrc, pays, both)}, out)
+    gu = run.bfs_graph(CS.SCALE)[1]
+    ids = gu.csc_edge_ids
+    z = torch.from_numpy(np.random.default_rng(3).random(
+        gu.n_edges_padded).astype(np.float32)).cuda()
+    CS.check(same_bits(K0.gather_payloads(ids, z), K.gather_payloads(ids, z)),
+             "PageRank fused gather: parent and this tree disagree")
+    turns(card, f"gather_payloads 1 x [Ep] through csc_edge_ids (PageRank "
+                f"fused, undirected rmat{CS.SCALE})",
+          {"parent": lambda: on(K0, lambda: gather_ms(ids, (z,), z,
+                                                      "unpacked")),
+           "this": lambda: gather_ms(ids, (z,), z, "unpacked")}, out)
+
+
+def neighbours(card: str, run, K0, out: dict) -> None:
+    """spmv_slabs and advance_count, which share warp_search.cuh."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import bfs, spmv
+    csr, g = run.spmv_graph(CS.SPMV_TIME_SCALE)
+    x = spmv.random_x(g, 1)
+    args = (g.row_offsets, g.col_indices, g.values, g.csr_seg_flags, x,
+            "mul", "sum")
+    source = int(np.argmax(np.diff(csr.row_offsets)))
+    f = CS.largest_dense_state(g, source, bfs).frontier
+    cargs = (f, g.csc_offsets, g.csc_src_indices)
+    for name, a in (("spmv_slabs", args), ("advance_count", cargs)):
+        CS.check(torch.equal(getattr(K0, name)(*a), getattr(K, name)(*a)),
+                 f"{name}: parent and this tree disagree")
+
+        def measure(name=name, a=a) -> dict:
+            return kernel_ms(lambda: getattr(K, name)(*a))
+        turns(card, f"{name} rmat{CS.SPMV_TIME_SCALE} seed {CS.SPMV_SEED}",
+              {"parent": lambda m=measure: on(K0, m), "this": measure}, out)
+
+
+def pack_sweep(card: str, out: dict) -> None:
+    """Device ms of gather_payloads packed and unpacked over n slots of
+    uniform random indices below L, for 2 and 4 payloads of L words."""
+    from essentials_tpu_torch import kernels as K
+    gen = torch.Generator().manual_seed(4)
+    shapes = [(PACK_LENGTH, int(PACK_LENGTH * q)) for q in PACK_RATIOS]
+    rows = []
+    for length, n in shapes + list(PACK_SMALL):
+        idx = torch.randint(0, length, (n,), generator=gen,
+                            dtype=torch.int32).cuda()
+        pays = [torch.randint(-2**30, 2**30, (length,), generator=gen,
+                              dtype=torch.int32).cuda() for _ in range(4)]
+        for m in PACK_PAYLOADS:
+            ms, res = {}, {}
+            for pack in (False, True, True, False):
+                with CS.gather_path(pack):
+                    before = K.pack_launches["gather_payloads"]
+                    res[pack] = K.gather_payloads(idx, *pays[:m])
+                    CS.check(K.pack_launches["gather_payloads"] - before
+                             == pack, f"gather_payloads packed: {pack}")
+                    ms.setdefault(pack, []).append(CS.device_ms(
+                        lambda: K.gather_payloads(idx, *pays[:m]),
+                        CS.SPMV_REPS)[0])
+            CS.check(same_bits(res[True], res[False]),
+                     f"packed and unpacked gathers differ (L={length}, n={n})")
+            rows.append({"L": length, "n": n, "payloads": m,
+                         "unpacked_device_ms": ms[False],
+                         "packed_device_ms": ms[True],
+                         "rule_packs": K.gather_packs(n, [length] * m)})
+            print(f"ab [{card}]: gather_payloads {m} payloads, L={length}, "
+                  f"n={n} (n/L {n / length:g}): unpacked {fmt(ms[False])} "
+                  f"ms, packed {fmt(ms[True])} ms of device time per call; "
+                  f"the rule packs: {rows[-1]['rule_packs']}")
+    out["pack_sweep"] = rows
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", type=Path, required=True,
+                        help="root of the parent checkout")
+    parser.add_argument("--out", type=Path,
+                        help="write the measurements as JSON here")
+    args = parser.parse_args(argv)
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch import runtime
+    runtime.require_cuda()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    rate, _ = CS.l2_rate()               # the rate chip_smoke.bound uses
+    CS.MEMORY_RATE["L2"] = max(rate, CS.MEMORY_RATE["HBM"])
+    t0 = time.perf_counter()
+    K0 = load_parent(args.parent.resolve())
+    build(K, "this tree")
+    run = CS.Run(card)
+    out = {"card": card}
+    spmv_shapes(card, run, K0, out)
+    gather_shapes(card, run, K0, out)
+    neighbours(card, run, K0, out)
+    pack_sweep(card, out)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(out, indent=1))
+    print(f"ab: done in {time.perf_counter() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main()

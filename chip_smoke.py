@@ -43,7 +43,10 @@ raises and exits non-zero:
    the same tensors: exact under min, |k - p| <= 1e-5 |p| + 1e-6 under
    sum; a second launch must give the same bits; and spmv_rows likewise,
    and within a relative error of 1e-4, at the inputs PageRank and HITS
-   give it on the undirected BFS graph;
+   give it on the undirected BFS graph, and on a scale-15 graph with hub
+   rows of 82K and 6K edges and a run of 6,144 empty rows (ROWS_HUBS,
+   ROWS_EMPTY_RUN); every spmv_rows result also within the sum tolerance
+   of the float64 host product;
 7. SpMV main path, four paths, each with the launch counters set to 0
    just before it and read just after, which must show exactly the
    launches the path makes: spmv.run(variant="fused") and spmv.run(
@@ -54,14 +57,17 @@ raises and exits non-zero:
    tighter ones (HOST_TOLS);
 8. SpMV times on CUDA events: ms and GB/s (bench.py's 12 B/edge model) per
    variant at scales 18 and 20 (rmat20, seed 3), each SpMV kernel against
-   its plain version at scale 18, PageRank and HITS ms per iteration; then
+   its plain version at scale 18, PageRank and HITS ms per iteration
+   (median and spread of CYCLES runs); then
    torch.profiler's device-busy share over ten spmv.run calls of each
    variant at each scale (after a warm-up step inside the profiler, and
    with the launches the trace saw against those made); spmv_slabs in all
-   six forms against its plain version at scale 20, and its device time
-   per launch from torch.profiler at scales 18 and 20 beside torch.mv's,
-   each also with every column 0 (the time without the scattered x
-   gathers);
+   six forms against its plain version at scale 20 (spmv_rows too, and
+   against the host), and the device time per launch of spmv_rows<mul>
+   and spmv_slabs<mul,sum> from torch.profiler at scales 18 and 20 beside
+   torch.mv's (spmv_rows also at PageRank's product on the undirected BFS
+   graph), spmv_slabs also with every column 0 (the time without the
+   scattered x gathers);
 9. SSSP and k-core kernels: on the weighted undirected RMAT graphs of
    scales 12 and 18 (edge factor 16, seed 1), every sweep of one SSSP
    search (sssp_sweep; replaces fused_sssp.fused_sssp_superstep), the
@@ -99,7 +105,9 @@ raises and exits non-zero:
    cube_router.apply_cube_chain_n) against their plain versions on the
    directed weighted RMAT graphs of seed 3 at scales 12, 18 and 20 (the
    graph of phase 8): scan under every op on int32 and float32, plain and
-   segmented; gather_payloads with 1-4 payloads; segment_reduce under its
+   segmented; gather_payloads with 1-4 payloads of unequal lengths,
+   packed and unpacked, through the whole index, a ragged count and a view
+   at an odd offset; segment_reduce under its
    five ops on both dtypes over the CSC and the CSR offsets;
    advance_count in both tiers (shared, and global under a cap of
    COUNT_GLOBAL_CAP bytes) under empty, full and seeded frontiers; integers
@@ -119,7 +127,8 @@ raises and exits non-zero:
    operator kernel's time per launch at the path's shapes beside its plain
    version, its bound and a PyTorch call computing the same function, and
    advance_count's and torch.mv's device time per call from torch.profiler
-   (both tiers of advance_count);
+   (both tiers of advance_count), gather_payloads' packed and unpacked
+   beside torch.index_select's of the payloads side by side;
 15. the triangle-counting and fill kernels against their plain versions,
    integers exact and a second launch bitwise equal: bitmap_intersect_counts
    (replaces bitmap_intersect.bitmap_intersect_counts), witness on and off,
@@ -148,7 +157,8 @@ raises and exits non-zero:
    and shift runs at rmat17 and a PageRank fused run; each new kernel per
    launch beside its plain version,
    its bound and a PyTorch call computing the same function where one
-   exists; scan with flags (segmented float add) at PageRank fused's
+   exists; scan with flags (segmented float add) and gather_payloads (wall
+   and device time, beside torch.index_select's) at PageRank fused's
    shape;
 18. segment_minmax (replaces scan_kernels.segmented_minmax_1d) against its
    plain version exactly and a second launch bitwise, over JP's per-edge
@@ -194,6 +204,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import time
@@ -211,6 +222,11 @@ SPMV_SEED = 3          # bench.py's SpMV graph: directed, weighted, seed 3
 SPMV_SCALES = (12, 18)  # kernel checks; 18 is the main path
 SPMV_TIME_SCALE = 20   # times only
 SPMV_REPS = 20         # products per timed cycle
+# spmv_rows' stress graph: rmat15 seed 3 with a run of empty rows and hub
+# rows of (row, spmv_rows tiles) appended
+ROWS_STRESS_SCALE = 15
+ROWS_EMPTY_FROM, ROWS_EMPTY_RUN = 10_000, 6_144   # 3 tiles of row ends
+ROWS_HUBS = ((7, 40.04), (20_000, 2.998))
 PROFILED_RUNS = 10     # spmv.run calls per variant under the profiler
 # rows; slabs; gather + segment reduce
 KERNELS_PER_PRODUCT = {"fused": 1, "windowed": 1, "pull": 2, "push": 2}
@@ -237,6 +253,7 @@ OP_SCALES = (12, 18)   # operator kernel checks, besides the rmat20 graph
 ADAPTIVE_RUNS = 8      # sources: the highest out-degree vertices
 SCAN_RTOL = 1e-4       # float add over a whole array: a float32 running sum
 COUNT_GLOBAL_CAP = 0   # advance_count's shared-tier cap that forces "global"
+GATHER_EXTRA = (0, 5, 9, 130)   # gather_payloads' payloads: Vp + these words
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
 # bytes per second by where a launch's operands live: HBM is the data
@@ -505,10 +522,12 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
     wall time of the same call (with the profiler on). ``fn`` runs twice:
     once in the profiler's warm-up step, so that the device tracing is
     running when the recorded call begins, and once recorded. ``expect``
-    is the number of our kernels' launches the recorded call makes; a
-    trace that saw fewer is reported, its busy share as a lower bound.
-    Returns {kernel name: (total ms, launches)}; empty when the profiler
-    saw no device time."""
+    is the number of our kernels' launches the recorded call makes
+    (K.launches' counts); the pack passes of gather_payloads that the call
+    makes (K.pack_launches) are added to it, since each is a device kernel
+    of its own. A trace that saw fewer is reported, its busy share as a
+    lower bound. Returns {kernel name: (total ms, launches)}; empty when
+    the profiler saw no device time."""
     from essentials_tpu_torch import kernels as K
     from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile as torch_profile,
@@ -520,11 +539,13 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
         fn()
         torch.cuda.synchronize()
         prof.step()
+        packs = sum(K.pack_launches.values())
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
+        packs = sum(K.pack_launches.values()) - packs
     # the step span (ProfilerStep*) carries the device time of its whole
     # window; it is not a kernel
     rows = {e.key: (e.self_device_time_total / 1e3, e.count)
@@ -532,9 +553,12 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total
             and not e.key.startswith("ProfilerStep")}
     busy = sum(ms for ms, _ in rows.values())
-    ours = [f"{k.split('<')[0]}_kernel" for k in K.launches]
+    ours = [f"{k.split('<')[0]}_kernel" for k in K.launches] + [
+        f"{k}_pack_kernel" for k in K.pack_launches]
     seen = sum(n for name, (_, n) in rows.items()
                if any(k in name for k in ours))
+    if expect is not None:
+        expect += packs
     print(f"profile: {label}: wall "
           f"{wall_ms:.3f} ms with the profiler on, device busy "
           f"{busy:.3f} ms" + (f" ({100 * busy / wall_ms:.1f}%, idle "
@@ -553,11 +577,13 @@ def device_ms(fn, reps: int = 20) -> tuple:
     """Device time per call of ``fn()`` from torch.profiler: ``reps`` calls
     in a warm-up step, then ``reps`` calls recorded, and every device
     activity of the recorded window over ``reps``. Returns (that ms, {name:
-    ms per call}); (None, {}) where the profiler saw no device time."""
+    ms per call}); (None, {}) where the profiler saw no device time. A
+    window that came back empty, or that lost activities (a count that is
+    not a whole number of calls), is retaken."""
     from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile as torch_profile,
                                 schedule)
-    for _ in range(2):          # a trace that came back empty is retaken
+    for _ in range(3):
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA],
                            schedule=schedule(wait=0, warmup=1, active=1,
@@ -567,12 +593,13 @@ def device_ms(fn, reps: int = 20) -> tuple:
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        rows = {e.key: e.self_device_time_total / 1e3 / reps
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total
-                and not e.key.startswith("ProfilerStep")}
-        if rows:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total
+                  and not e.key.startswith("ProfilerStep")]
+        if events and all(e.count % reps == 0 for e in events):
+            rows = {e.key: e.self_device_time_total / 1e3 / reps
+                    for e in events}
             return sum(rows.values()), rows
     return None, {}
 
@@ -645,9 +672,24 @@ def hold(name: str, form: str, reduce: str, k, again, p, errs: dict,
           f"repeatable")
 
 
+def host_product(g, w, x) -> torch.Tensor:
+    """[Vp] float64 y = A x on the host from ``g``'s CSR arrays (w None:
+    every weight 1)."""
+    off, col = g.row_offsets.cpu(), g.col_indices.cpu().long()
+    row = torch.repeat_interleave(torch.arange(off.numel() - 1),
+                                  (off[1:] - off[:-1]).long())
+    msg = x.cpu().double()[col]
+    if w is not None:
+        msg = msg * w.cpu().double()
+    return torch.zeros(off.numel() - 1, dtype=torch.float64).index_add_(
+        0, row, msg)
+
+
 def check_spmv_rows(g, cases, where: str, errs: dict,
                     max_rel: float | None = None) -> None:
-    """spmv_rows against its plain version for each (w, x, form) case."""
+    """spmv_rows against its plain version and a second launch for each
+    (w, x, form) case, and within the sum tolerance of the float64 host
+    product."""
     from essentials_tpu_torch import kernels as K
     off, col = g.row_offsets, g.col_indices
     for w, x, form in cases:
@@ -656,6 +698,37 @@ def check_spmv_rows(g, cases, where: str, errs: dict,
         p = K.spmv_rows_plain(off, col, w, x)
         torch.cuda.synchronize()
         hold("spmv_rows", form, "sum", k, again, p, errs, where, max_rel)
+        err, rel, ok = sum_errors(k.cpu(), host_product(g, w, x))
+        check(ok, f"spmv_rows{form} outside {SUM_RTOL} |ref| + {SUM_ATOL} "
+                  f"of the float64 host product ({where}): max abs {err}")
+        print(f"kernels: {where} spmv_rows{form}: max abs err {err:.6g}, "
+              f"max rel err {rel:.6g} against the float64 host product")
+
+
+def rows_stress_graph(device: str) -> tuple:
+    """bench.py's SpMV graph at scale ROWS_STRESS_SCALE with the rows from
+    ROWS_EMPTY_FROM on, ROWS_EMPTY_RUN of them, emptied, and a hub row of
+    each length in ROWS_HUBS (in spmv_rows tiles) appended: a row that
+    spans many tiles (more than the 32 that one look-back step reads) and
+    a run of tiles that hold row ends only. Returns (csr, graph)."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.formats import Coo, Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    coo = generate.rmat(ROWS_STRESS_SCALE, EDGE_FACTOR, seed=SPMV_SEED,
+                        undirected=False, weighted=True)
+    keep = ((coo.row_indices < ROWS_EMPTY_FROM)
+            | (coo.row_indices >= ROWS_EMPTY_FROM + ROWS_EMPTY_RUN))
+    rows, cols, vals = ([coo.row_indices[keep]], [coo.col_indices[keep]],
+                        [coo.values[keep]])
+    for r, tiles in ROWS_HUBS:
+        n = int(tiles * K.ROW_TILE)
+        rows.append(np.full(n, r, np.int32))
+        cols.append((np.arange(n) * 13 % coo.n_cols).astype(np.int32))
+        vals.append(np.linspace(0.5, 1.5, n, dtype=np.float32))
+    csr = Csr.from_coo(Coo(coo.n_rows, coo.n_cols, np.concatenate(rows),
+                           np.concatenate(cols), np.concatenate(vals)))
+    return csr, build_graph(csr, directed=True, weighted=True, device=device)
 
 
 def check_pr_hits_rows(g, where: str, errs: dict) -> None:
@@ -818,16 +891,40 @@ def time_spmv_kernels(g) -> dict:
             out["spmv_slabs" + form] = per_call(lambda: K.spmv_slabs(*args))
             out["spmv_slabs" + form + "/plain"] = per_call(
                 lambda: K.spmv_slabs_plain(*args))
-    vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
-    # offsets, columns, weights, x read; y written; 2 flops per edge
-    out["spmv_rows<mul>/bound"] = bound(4 * (vp + 1) + 8 * ep + 8 * vp,
-                                        2 * e)
-    a = torch.sparse_csr_tensor(off, col, w, size=(vp, vp))
-    out["spmv_rows<mul>/library"] = library_ms(
-        "spmv_rows (torch.mv on a sparse CSR tensor)", lambda: torch.mv(a, x),
-        SPMV_REPS)
+    for k, v in rows_against_mv(g, w, x).items():
+        if k:                        # its wall time is measured above
+            out["spmv_rows<mul>" + k] = v
     for k, v in slabs_against_mv(g, x).items():
         out["spmv_slabs<mul,sum>" + k] = v
+    return out
+
+
+def rows_against_mv(g, w, x) -> dict:
+    """spmv_rows on ``g`` (<none> where ``w`` is None) beside torch.mv on
+    the same sparse CSR matrix (every weight 1 under <none>), which
+    computes the same product: each one's wall time per call (SPMV_REPS
+    calls back to back) and device time per call (torch.profiler, the
+    zeroing of the kernel's status words included), and the kernel's
+    bound. Keys: "" (the wall ms), /device, /device_rows, /library,
+    /library_device, /bound."""
+    from essentials_tpu_torch import kernels as K
+    off, col = g.row_offsets, g.col_indices
+    vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
+    out = {"": median_ms(lambda _: [K.spmv_rows(off, col, w, x)
+                                    for _ in range(SPMV_REPS)]) / SPMV_REPS}
+    out["/device"], out["/device_rows"] = device_ms(
+        lambda: K.spmv_rows(off, col, w, x), SPMV_REPS)
+    a = torch.sparse_csr_tensor(off, col, torch.ones(ep, device=x.device)
+                                if w is None else w, size=(vp, vp))
+    out["/library"] = library_ms("spmv_rows (torch.mv on a sparse CSR "
+                                 "tensor)", lambda: torch.mv(a, x), SPMV_REPS)
+    out["/library_device"] = (None if out["/library"] is None else
+                              device_ms(lambda: torch.mv(a, x), SPMV_REPS)[0])
+    # offsets, columns, weights, x read; y written; a product and a sum
+    # per edge (a sum without weights)
+    weighted = w is not None
+    out["/bound"] = bound(4 * (vp + 1) + (8 if weighted else 4) * ep
+                          + 8 * vp, (2 if weighted else 1) * e)
     return out
 
 
@@ -867,7 +964,9 @@ def slabs_against_mv(g, x) -> dict:
     return out
 
 
-def print_slabs(card: str, where: str, t: dict, key: str) -> None:
+def print_against_mv(card: str, where: str, t: dict, key: str) -> None:
+    """A kernel's wall and device time per call beside torch.mv's, from
+    the keys of rows_against_mv or slabs_against_mv under ``key``."""
     b, lib, lib_dev = t[key + "/bound"], t[key + "/library"], \
         t[key + "/library_device"]
     print(f"time [{card}]: {key} {where}: {t[key]:.4f} ms per call (wall, "
@@ -878,6 +977,8 @@ def print_slabs(card: str, where: str, t: dict, key: str) -> None:
              + ("not measured" if lib_dev is None else f"{lib_dev:.4f} ms")))
     print_device(card, f"{key} {where}", t[key + "/device"],
                  t[key + "/device_rows"])
+    if key + "/one_column_device" not in t:
+        return
     one, lib_one = (t[key + "/one_column_device"],
                     t[key + "/library_one_column_device"])
     print(f"time [{card}]: {key} {where} with every column 0 (each x gather "
@@ -887,14 +988,27 @@ def print_slabs(card: str, where: str, t: dict, key: str) -> None:
           + ("not measured" if lib_one is None else f"{lib_one:.4f} ms"))
 
 
-def time_pr_hits(g, card: str) -> None:
+def pr_hits_ms(g) -> dict:
+    """PageRank's and HITS' ms per iteration on ``g`` (variant "spmv"), one
+    run each, each after its warm-up run: {"pr": ms, "hits": ms}."""
     from essentials_tpu_torch.algorithms import hits, pr
+    out = {}
     for name, fn in (("pr", pr.run), ("hits", hits.run)):
         r = fn(g, variant="spmv")
+        out[name] = r.elapsed_ms / r.iterations
+    return out
+
+
+def time_pr_hits(g, card: str) -> None:
+    """PageRank's and HITS' ms per iteration over CYCLES runs each: host
+    paced, so they spread from run to run."""
+    runs = [pr_hits_ms(g) for _ in range(CYCLES)]
+    for name in ("pr", "hits"):
+        ms = sorted(r[name] for r in runs)
         print(f"time [{card}]: {name} spmv undirected rmat{SCALE}: "
-              f"{r.elapsed_ms / r.iterations:.4f} ms per iteration, "
-              f"{r.iterations} iterations, {r.elapsed_ms:.3f} ms in all "
-              f"(after one warm-up run)")
+              f"{ms[len(ms) // 2]:.4f} ms per iteration (median of "
+              f"{CYCLES} runs, each after its warm-up run; spread "
+              f"{ms[0]:.4f}-{ms[-1]:.4f})")
 
 
 # ------------------------------------------------------------- phase 9 --
@@ -1357,20 +1471,30 @@ def check_operator_kernels(g, where: str, errs: dict) -> None:
                                (exact_bits(again),), (exact_bits(p),), errs,
                                f"{where} {form}")
                 cases += 1
-    vert = [torch.from_numpy(rng.random(vp).astype(np.float32)).to(dev),
-            torch.from_numpy(rng.integers(-9, 9, vp).astype(np.int32)).to(
-                dev)] * 2
+    # vertex payloads of unequal lengths, every index below the shortest
+    vert = [torch.from_numpy(rng.random(vp + extra).astype(np.float32)).to(
+        dev) if extra % 2 else torch.from_numpy(rng.integers(
+            -9, 9, vp + extra).astype(np.int32)).to(dev)
+        for extra in GATHER_EXTRA]
     edge = [xs[1], xs[0]] * 2
     for idx, pays in ((g.csc_src_indices, vert), (g.csc_rank, edge)):
+        # the whole index, a ragged count (n % 4 = 1) and a view at an odd
+        # offset (4 bytes past a 16-byte boundary): the scalar paths
+        views = {"whole": idx, "ragged": idx[:-3], "offset": idx[1:]}
         for m in range(1, 5):
-            k = K.gather_payloads(idx, *pays[:m])
-            again = K.gather_payloads(idx, *pays[:m])
-            p = K.gather_payloads_plain(idx, *pays[:m])
-            hold_exact("gather_payloads", [exact_bits(a) for a in k],
-                       [exact_bits(a) for a in again],
-                       [exact_bits(a) for a in p], errs,
-                       f"{where} {m} payloads")
-            cases += 1
+            for pack in (False, True) if m > 1 else (False,):
+                for cut, ix in views.items():
+                    with gather_path(pack):
+                        k = K.gather_payloads(ix, *pays[:m])
+                        again = K.gather_payloads(ix, *pays[:m])
+                    p = K.gather_payloads_plain(ix, *pays[:m])
+                    hold_exact("gather_payloads", [exact_bits(a) for a in k],
+                               [exact_bits(a) for a in again],
+                               [exact_bits(a) for a in p], errs,
+                               f"{where} {m} payloads, "
+                               f"{'packed' if pack else 'unpacked'}, {cut} "
+                               f"index")
+                    cases += 1
     fronts = {"empty": torch.zeros(vp, dtype=torch.bool, device=dev),
               "full": torch.ones(vp, dtype=torch.bool, device=dev)}
     for density in (0.01, 0.3):
@@ -1589,6 +1713,12 @@ def time_operator_kernels(g, source: int) -> dict:
     t["gather_payloads/library"] = library_ms(
         "gather_payloads (torch.index_select)",
         lambda: torch.index_select(both, 0, csrc), SPMV_REPS)
+    t.update(gather_against_index_select(csrc, pays, both, "packed"))
+    with gather_path(False):
+        t["gather_payloads/unpacked"] = per_call(
+            lambda: K.gather_payloads(csrc, *pays))
+        t["gather_payloads/unpacked_device"] = device_ms(
+            lambda: K.gather_payloads(csrc, *pays), SPMV_REPS)[0]
     cl = csrc.long()
     msg = torch.where(sf[cl], dist[cl] + g.csc_values, float("inf"))
     off = g.csc_offsets
@@ -1625,6 +1755,47 @@ def time_operator_kernels(g, source: int) -> dict:
         else device_ms(lambda: torch.mv(ones, ff), SPMV_REPS)[0])
     t["frontiers"] = (int(f.sum()), int(sf.sum()))
     return t
+
+
+@contextlib.contextmanager
+def gather_path(packed: bool):
+    """gather_payloads made to take one path, packed (2-4 payloads) or
+    unpacked, whatever its rule (kernels.gather_packs) would choose at the
+    shape, while the block runs."""
+    from essentials_tpu_torch import kernels as K
+    rule = K.gather_packs
+    K.gather_packs = lambda n, lengths: packed and len(lengths) > 1
+    try:
+        yield
+    finally:
+        K.gather_packs = rule
+
+
+def gather_against_index_select(idx, pays, stacked, auto: str) -> dict:
+    """gather_payloads' device time per call through ``idx`` (the wrapper's
+    own choice, which must be to pack where ``auto`` is "packed") beside
+    torch.index_select's of ``stacked`` (the payloads side by side, one
+    row per index, built outside the timed call). Keys under
+    gather_payloads: /device, /device_rows, /library_device, /packs."""
+    from essentials_tpu_torch import kernels as K
+    packs = K.gather_packs(idx.numel(), [p.numel() for p in pays])
+    check(packs == (auto == "packed"), f"gather_payloads at n = "
+                                       f"{idx.numel()} packs: {packs}")
+    t = {"gather_payloads/packs": packs}
+    t["gather_payloads/device"], t["gather_payloads/device_rows"] = \
+        device_ms(lambda: K.gather_payloads(idx, *pays), SPMV_REPS)
+    t["gather_payloads/library_device"] = device_ms(
+        lambda: torch.index_select(stacked, 0, idx), SPMV_REPS)[0]
+    return t
+
+
+def print_gather(card: str, where: str, t: dict, key: str) -> None:
+    lib_dev = t[key + "/library_device"]
+    path = "packed" if t[key + "/packs"] else "unpacked"
+    print_device(card, f"{key} {where} ({path}; torch.index_select: "
+                       + ("not measured" if lib_dev is None
+                          else f"{lib_dev:.4f} ms of device time") + ")",
+                 t[key + "/device"], t[key + "/device_rows"])
 
 
 # ------------------------------------------------------------ phase 15 --
@@ -1978,6 +2149,38 @@ def time_segmented_scan(g, card: str, launches: int) -> dict:
           f"{b[0]:.4f} ms ({b[1]} at {b[2]} rate); {launches} launches in "
           f"one PageRank fused run")
     return t
+
+
+def time_pr_gather(g, card: str, launches: int) -> dict:
+    """gather_payloads as PageRank fused runs it (one [Ep] float32 payload
+    through csc_edge_ids, unpacked) at ``g``'s shape: wall per call,
+    SPMV_REPS back to back, and device time per call, beside
+    torch.index_select of the same payload and the bound (the index, the
+    payload and the output each moved once). Keys under
+    gather_payloads@pr."""
+    from essentials_tpu_torch import kernels as K
+    ep = g.n_edges_padded
+    z = torch.rand(ep, generator=torch.Generator(device=g.device)
+                   .manual_seed(SEED), device=g.device)
+    ids = g.csc_edge_ids
+    t = gather_against_index_select(ids, (z,), z, "unpacked")
+    t["gather_payloads"] = median_ms(lambda _: [
+        K.gather_payloads(ids, z) for _ in range(SPMV_REPS)]) / SPMV_REPS
+    t["gather_payloads/library"] = library_ms(
+        "gather_payloads (torch.index_select)",
+        lambda: torch.index_select(z, 0, ids), SPMV_REPS)
+    t["gather_payloads/bound"] = bound(12 * ep)
+    b, lib = t["gather_payloads/bound"], t["gather_payloads/library"]
+    print(f"time [{card}]: gather_payloads as PageRank fused runs it (1 x "
+          f"[Ep] through csc_edge_ids, undirected rmat{SCALE}, Ep = {ep}): "
+          f"{t['gather_payloads']:.4f} ms per call, bound {b[0]:.4f} ms "
+          f"({b[1]} at {b[2]} rate), torch.index_select "
+          + ("not measured" if lib is None else f"{lib:.4f} ms")
+          + f"; {launches} launches in one PageRank fused run")
+    print_gather(card, f"undirected rmat{SCALE} (PageRank fused)", t,
+                 "gather_payloads")
+    return {k.replace("gather_payloads", "gather_payloads@pr", 1): v
+            for k, v in t.items()}
 
 
 def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
@@ -2432,7 +2635,9 @@ def group_bfs(run: Run) -> None:
 
 def group_spmv(run: Run) -> None:
     """Phases 6-8: SpMV, with PageRank and HITS spmv on it."""
-    from essentials_tpu_torch.algorithms import spmv
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import pr, spmv
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
     card, errs = run.card, run.errs
 
     # 6. SpMV kernels against their plain versions
@@ -2441,6 +2646,13 @@ def group_spmv(run: Run) -> None:
         check_spmv_kernels(run.spmv_graph(scale)[1], f"rmat{scale}", errs)
     check_pr_hits_rows(g_u, f"undirected rmat{SCALE} (pr/hits inputs)",
                        errs)
+    g_st = rows_stress_graph("cuda")[1]
+    x_st = spmv.random_x(g_st, 1)
+    check_spmv_rows(g_st, ((g_st.values, x_st, "<mul>"), (None, x_st,
+                                                          "<none>")),
+                    f"rmat{ROWS_STRESS_SCALE} with hub rows of "
+                    f"{[int(t * K.ROW_TILE) for _, t in ROWS_HUBS]} edges "
+                    f"and {ROWS_EMPTY_RUN} empty rows in a run", errs)
     run.phases.done("6 spmv kernels")
 
     # 7. the SpMV main path
@@ -2457,6 +2669,13 @@ def group_spmv(run: Run) -> None:
               f"{t[name + '/plain']:.4f} ms (rmat{SCALE} seed {SPMV_SEED}, "
               f"{SPMV_REPS} calls back to back)")
     time_pr_hits(g_u, card)
+    mask = g_u.vertex_mask()
+    r = torch.where(mask, 1.0 / g_u.n_vertices, 0.0).float()
+    t_pr = {"spmv_rows<mul>" + k: v for k, v in rows_against_mv(
+        g_u, edge_weights(g_u), r * pr.inverse_weights(g_u)).items()}
+    print_against_mv(card, f"undirected rmat{SCALE} (PageRank's product)",
+                     t_pr, "spmv_rows<mul>")
+    run.t.update({k.replace(">", ">@pr", 1): v for k, v in t_pr.items()})
     x = spmv.random_x(g_s, 0)
     for v in spmv.VARIANTS:
         profile(f"spmv {v} rmat{SCALE} seed {SPMV_SEED}, {PROFILED_RUNS} "
@@ -2464,14 +2683,18 @@ def group_spmv(run: Run) -> None:
                 lambda v=v: [spmv.run(g_s, x, variant=v, warmup=False)
                              for _ in range(PROFILED_RUNS)],
                 PROFILED_RUNS * KERNELS_PER_PRODUCT[v])
-    print_slabs(card, f"rmat{SCALE} seed {SPMV_SEED}", t,
-                "spmv_slabs<mul,sum>")
+    for key in ("spmv_rows<mul>", "spmv_slabs<mul,sum>"):
+        print_against_mv(card, f"rmat{SCALE} seed {SPMV_SEED}", t, key)
     g20 = run.spmv_graph(SPMV_TIME_SCALE)[1]
     where20 = f"rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}"
     check_spmv_kernels(g20, where20, errs)
+    x20 = spmv.random_x(g20, 1)
     t20 = {"spmv_slabs<mul,sum>" + k: v
-           for k, v in slabs_against_mv(g20, spmv.random_x(g20, 1)).items()}
-    print_slabs(card, where20, t20, "spmv_slabs<mul,sum>")
+           for k, v in slabs_against_mv(g20, x20).items()}
+    t20.update({"spmv_rows<mul>" + k: v
+                for k, v in rows_against_mv(g20, g20.values, x20).items()})
+    for key in ("spmv_rows<mul>", "spmv_slabs<mul,sum>"):
+        print_against_mv(card, where20, t20, key)
     run.t.update({k.replace(">", ">@rmat20", 1): v for k, v in t20.items()})
     time_spmv(g20, card, where20)
     x20 = spmv.random_x(g20, 0)
@@ -2576,6 +2799,13 @@ def group_operators(run: Run) -> None:
                        + ("not measured" if lib_dev is None
                           else f"{lib_dev:.4f} ms of device time") + ")",
                  t["advance_count/device"], t["advance_count/device_rows"])
+    print_gather(card, f"{where20}, the dense SSSP gather (2 x [Vp] through "
+                       f"csc_src)", t, "gather_payloads")
+    print(f"time [{card}]: gather_payloads {where20}, unpacked: "
+          f"{t['gather_payloads/unpacked']:.4f} ms per launch (wall), "
+          + ("device not measured" if t["gather_payloads/unpacked_device"]
+             is None else f"{t['gather_payloads/unpacked_device']:.4f} ms of "
+                          f"device time"))
     print(f"time [{card}]: advance_count {where20}, global tier: "
           f"{t['advance_count/global']:.4f} ms per launch (wall)")
     print_device(card, f"advance_count {where20}, global tier",
@@ -2614,6 +2844,8 @@ def group_tc(run: Run) -> None:
     run.t.update(t)
     run.t.update(time_segmented_scan(g_u, card,
                                      tc_launches["pr fused"]["scan"]))
+    run.t.update(time_pr_gather(
+        g_u, card, tc_launches["pr fused"]["gather_payloads"]))
     for name in (*TC_REPLACES, *FILL_REPLACES):
         lib = t[name + "/library"]
         print(f"time [{card}]: {name} {t[name]:.4f} ms per launch, plain "
@@ -2707,10 +2939,36 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
     if name == "bitmap_intersect_counts":
         out["bound_streaming_ms"] = t[key + "/bound_streaming"][0]
         out["ms_no_witness"] = t[key + "/no_witness"]
-    if name in ("spmv_slabs", "advance_count"):
+    if name in ("spmv_rows", "spmv_slabs", "gather_payloads",
+                "advance_count"):
         # device times per call (torch.profiler) beside the wall times
         out["device_ms"] = t.get(key + "/device")
         out["library_device_ms"] = t.get(key + "/library_device")
+    if name == "spmv_rows":
+        out["library_of"] = "torch.mv: the product spmv_rows<mul> computes"
+        for shape, tag in (("rmat20", "@rmat20"),
+                           ("pagerank_undirected_rmat18", "@pr")):
+            k = key.replace(">", ">" + tag, 1)
+            if k in t:
+                out[shape] = {"ms": t[k], "device_ms": t[k + "/device"],
+                              "bound_ms": t[k + "/bound"][0],
+                              "bound_memory": t[k + "/bound"][2],
+                              "library_ms": t[k + "/library"],
+                              "library_device_ms": t[k + "/library_device"]}
+    if name == "gather_payloads":
+        out["library_of"] = "torch.index_select of the payloads side by " \
+                            "side, one row per index"
+        out["packed"] = t.get(key + "/packs")
+        out["unpacked"] = {"ms": t.get(key + "/unpacked"),
+                           "device_ms": t.get(key + "/unpacked_device")}
+        k = "gather_payloads@pr"
+        if k in t:
+            out["pagerank_fused_undirected_rmat18"] = {
+                "ms": t[k], "device_ms": t[k + "/device"],
+                "bound_ms": t[k + "/bound"][0],
+                "bound_memory": t[k + "/bound"][2],
+                "library_ms": t[k + "/library"],
+                "library_device_ms": t[k + "/library_device"]}
     if name == "spmv_slabs":
         out["library_of"] = "torch.mv: the product spmv_slabs<mul,sum> " \
                             "computes"

@@ -294,35 +294,155 @@ int scan_dispatch(const void* x, const void* flags, void* out, void* total_v,
 // ------------------------------------------------------- gather_payloads --
 //
 // out_k[p] = in_k[idx[p]] for 1-4 payloads of 32-bit words (floats and
-// bools travel as bits), one thread per output slot. Replaces the TPU's
-// static-permutation movers: cube_router._pallas_apply (:385) through
-// apply_cube_plan (:464) and permute.apply_plan(_multi) (:447, :462),
-// cube_router.apply_cube_chain (:586) and permute._pallas_rowgather (:364).
-// The TPU cannot gather at speed and routes through Benes networks; here
-// advance loads each source's payloads straight into CSC order through
-// csc_src and each destination's through csc_dst, neighbor_reduce through
-// col_indices.
-// What bounds it: bytes. idx and the outputs stream; the payload loads are
-// scattered, 32-byte sectors for 4-byte words, so a random index wastes up
-// to 8x the payload's bytes unless the payload sits in the 50 MB L2 (a [Vp]
-// vertex array at RMAT scale 20 is 4 MB and does).
+// bools travel as bits). Replaces the TPU's static-permutation movers:
+// cube_router._pallas_apply (:385) through apply_cube_plan (:464) and
+// permute.apply_plan(_multi) (:447, :462), cube_router.apply_cube_chain
+// (:586) and permute._pallas_rowgather (:364). The TPU cannot gather at
+// speed and routes through Benes networks; here advance loads each source's
+// payloads straight into CSC order through csc_src and each destination's
+// through csc_dst, neighbor_reduce through col_indices.
+//
+// What bounds it: idx and the outputs stream (4 + 4 NP bytes per slot);
+// each gathered record costs one 32-byte L2 sector (an HBM sector where the
+// payload does not fit the 50 MB L2), whatever its width up to 32 bytes. So
+// NP separate 4-byte gathers cost NP sectors per slot, and a random index
+// makes them the larger part.
+// The design: templated on NP (no runtime branch on it); each thread takes
+// kGatherItems = 4 consecutive slots, loads their indices with one 128-bit
+// evict-first load, issues all 4 NP gathers before it stores, and stores
+// each output with one 128-bit evict-first store, so the streams leave the
+// payloads in the L2. A slot range that ends inside a thread's four (n % 4)
+// and an idx that is not 16-byte aligned (a view at an odd offset) take the
+// scalar path of the same kernel. Where NP >= 2 and the payloads are short
+// against n (the [Vp] payloads and [Ep] indices of advance, SSSP and
+// color), the wrapper asks for packing: gather_payloads_pack_kernel first
+// interleaves the payloads, up to the shortest one's length, into records
+// of 8 bytes (NP = 2) or 16 bytes (NP = 3, 4), and the gather then loads
+// one record, one sector, per slot instead of NP.
 
+constexpr int kGatherItems = 4;             // output slots per thread
+
+// A packed record of NP words: 8 or 16 bytes, so one record lies in one
+// 32-byte sector. NP = 1 is never packed.
+template <int NP> struct Record { using T = int4; };
+template <> struct Record<1> { using T = int; };
+template <> struct Record<2> { using T = int2; };
+
+struct Gather {
+  const int* in[4];
+  int* out[4];
+};
+
+template <int NP>
+__device__ __forceinline__ void unpack(const typename Record<NP>::T& r,
+                                       int* v) {
+  if constexpr (NP == 2) {
+    v[0] = r.x;
+    v[1] = r.y;
+  } else if constexpr (NP >= 3) {
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    if constexpr (NP == 4) v[3] = r.w;
+  }
+}
+
+// rec[v] = (in_0[v], ..., in_{NP-1}[v]) for v < len (a 16-byte record's
+// unused fourth word is 0).
+template <int NP>
 __global__ void __launch_bounds__(kBlock)
-gather_payloads_kernel(const int* __restrict__ idx, long long n,
-                       const int* __restrict__ in0,
-                       const int* __restrict__ in1,
-                       const int* __restrict__ in2,
-                       const int* __restrict__ in3, int* __restrict__ out0,
-                       int* __restrict__ out1, int* __restrict__ out2,
-                       int* __restrict__ out3, int np) {
-  const long long p = static_cast<long long>(blockIdx.x) * kBlock +
-                      threadIdx.x;
-  if (p >= n) return;
-  const int j = idx[p];
-  out0[p] = in0[j];
-  if (np > 1) out1[p] = in1[j];
-  if (np > 2) out2[p] = in2[j];
-  if (np > 3) out3[p] = in3[j];
+gather_payloads_pack_kernel(Gather g, int len,
+                            typename Record<NP>::T* __restrict__ rec) {
+  const int v = blockIdx.x * kBlock + threadIdx.x;
+  if (v >= len) return;
+  if constexpr (NP == 2) {
+    rec[v] = make_int2(g.in[0][v], g.in[1][v]);
+  } else if constexpr (NP >= 3) {
+    rec[v] = make_int4(g.in[0][v], g.in[1][v], g.in[2][v],
+                       NP == 4 ? g.in[3][v] : 0);
+  }
+}
+
+template <int NP, bool kPacked>
+__global__ void __launch_bounds__(kBlock)
+gather_payloads_kernel(const int* __restrict__ idx, long long n, Gather g,
+                       const typename Record<NP>::T* __restrict__ rec,
+                       int idx_aligned) {
+  const long long base =
+      (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) *
+      kGatherItems;
+  if (base >= n) return;
+  if (base + kGatherItems > n) {            // the ragged end: scalar
+    for (long long p = base; p < n; ++p) {
+      const int j = idx[p];
+      int v[NP];
+      if constexpr (kPacked) {
+        unpack<NP>(rec[j], v);
+      } else {
+#pragma unroll
+        for (int k = 0; k < NP; ++k) v[k] = g.in[k][j];
+      }
+#pragma unroll
+      for (int k = 0; k < NP; ++k) g.out[k][p] = v[k];
+    }
+    return;
+  }
+  int j[kGatherItems];
+  if (idx_aligned) {
+    const int4 t = __ldcs(reinterpret_cast<const int4*>(idx + base));
+    j[0] = t.x;
+    j[1] = t.y;
+    j[2] = t.z;
+    j[3] = t.w;
+  } else {                                  // a view at an odd offset
+#pragma unroll
+    for (int u = 0; u < kGatherItems; ++u) j[u] = __ldcs(idx + base + u);
+  }
+  int v[kGatherItems][NP];
+  if constexpr (kPacked) {
+    typename Record<NP>::T r[kGatherItems];
+#pragma unroll
+    for (int u = 0; u < kGatherItems; ++u) r[u] = __ldg(rec + j[u]);
+#pragma unroll
+    for (int u = 0; u < kGatherItems; ++u) unpack<NP>(r[u], v[u]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < kGatherItems; ++u) {
+#pragma unroll
+      for (int k = 0; k < NP; ++k) v[u][k] = __ldg(g.in[k] + j[u]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {            // out_k is 16-byte aligned
+    __stcs(reinterpret_cast<int4*>(g.out[k] + base),
+           make_int4(v[0][k], v[1][k], v[2][k], v[3][k]));
+  }
+}
+
+template <int NP>
+int gather_launch(const int* idx, long long n, const Gather& g, void* rec,
+                  int len, cudaStream_t s) {
+  using R = typename Record<NP>::T;
+  const long long threads = (n + kGatherItems - 1) / kGatherItems;
+  const unsigned grid = static_cast<unsigned>((threads + kBlock - 1) / kBlock);
+  const int aligned = (reinterpret_cast<uintptr_t>(idx) & 15) == 0;
+  if constexpr (NP >= 2) {
+    if (rec != nullptr) {
+      if (len > 0) {
+        gather_payloads_pack_kernel<NP><<<(len + kBlock - 1) / kBlock,
+                                          kBlock, 0, s>>>(
+            g, len, static_cast<R*>(rec));
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      gather_payloads_kernel<NP, true><<<grid, kBlock, 0, s>>>(
+          idx, n, g, static_cast<const R*>(rec), aligned);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  gather_payloads_kernel<NP, false><<<grid, kBlock, 0, s>>>(idx, n, g,
+                                                            nullptr, aligned);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -------------------------------------------------------- segment_reduce --
@@ -766,22 +886,30 @@ int etpu_scan_f32(const void* x, const void* flags, void* out, void* total_v,
 
 int etpu_scan_tile() { return kScanTile; }
 
-// Payloads beyond the np-th may be null.
+// Payloads beyond the np-th may be null; the outputs must be 16-byte
+// aligned. rec: null, or scratch of len packed records (8 bytes each for
+// np = 2, 16 for np = 3-4, aligned to its size) to pack the payloads' first
+// len words into and gather from; every index must then be below len.
 int etpu_gather_payloads(const void* idx, long long n, const void* in0,
                          const void* in1, const void* in2, const void* in3,
                          void* out0, void* out1, void* out2, void* out3,
-                         int np, void* stream) {
+                         int np, void* rec, int len, void* stream) {
   if (np < 1 || np > 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) {
-    gather_payloads_kernel<<<static_cast<unsigned>((n + kBlock - 1) / kBlock),
-                             kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(idx), n, static_cast<const int*>(in0),
-        static_cast<const int*>(in1), static_cast<const int*>(in2),
-        static_cast<const int*>(in3), static_cast<int*>(out0),
-        static_cast<int*>(out1), static_cast<int*>(out2),
-        static_cast<int*>(out3), np);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const Gather g = {{static_cast<const int*>(in0),
+                     static_cast<const int*>(in1),
+                     static_cast<const int*>(in2),
+                     static_cast<const int*>(in3)},
+                    {static_cast<int*>(out0), static_cast<int*>(out1),
+                     static_cast<int*>(out2), static_cast<int*>(out3)}};
+  const int* ix = static_cast<const int*>(idx);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (np) {
+    case 1: return gather_launch<1>(ix, n, g, nullptr, 0, s);
+    case 2: return gather_launch<2>(ix, n, g, rec, len, s);
+    case 3: return gather_launch<3>(ix, n, g, rec, len, s);
+    default: return gather_launch<4>(ix, n, g, rec, len, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // op: 0 sum, 1 min, 2 max (out of the value type), 3 or, 4 and (uint8 out).

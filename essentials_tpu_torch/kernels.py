@@ -13,10 +13,13 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   ``cube_router._pallas_apply`` route :385 and "first" fill of the collapse;
   ``bfs_predecessors`` for the ``cube_router.apply_cube_chain`` :586 advance.
 * ``csrc/spmv_kernels.cu`` (SpMV, PageRank and HITS): ``spmv_rows`` (``mul``
-  and ``none`` messages), one warp per CSR row, for the 7-kernel chain
-  ``fused_spmv._pallas_spmv_chain`` :179; ``spmv_slabs`` (messages ``mul``,
-  ``add``, ``none`` by reductions ``sum``, ``min``), one block per slab of
-  ``SLAB_EDGES`` edges in one launch, a row that crosses slabs completed by
+  and ``none`` messages), one block per tile of ``ROW_TILE`` places of the
+  merged sequence of row ends and edges (a merge-path partition), a row
+  that crosses tiles completed from the partials the tiles before it
+  publish, for the 7-kernel chain ``fused_spmv._pallas_spmv_chain`` :179;
+  ``spmv_slabs`` (messages ``mul``, ``add``, ``none`` by reductions
+  ``sum``, ``min``), one block per slab of ``SLAB_EDGES`` edges in one
+  launch, a row that crosses slabs completed by
   a hand-off from slab to slab in slab order, for
   ``windowed_spmv.windowed_pipeline`` :454. It is bound by the bytes it
   streams and the scattered x gathers.
@@ -42,7 +45,9 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   neighbor_reduce, the spray tiers): ``scan`` for ``scan_kernels.scan_1d``
   :274 and ``segmented_scan_1d`` :296; ``gather_payloads`` for the
   permutation routes (``cube_router._pallas_apply`` :385,
-  ``apply_cube_chain`` :586, ``permute._pallas_rowgather`` :364);
+  ``apply_cube_chain`` :586, ``permute._pallas_rowgather`` :364), four
+  slots per thread, 2-4 payloads packed into 8- or 16-byte records by a
+  first pass where the slots outnumber the records (``gather_packs``);
   ``segment_reduce`` for ``segment.combine_by_offsets`` :97 and its routed
   form :287; ``segment_minmax`` for ``scan_kernels.segmented_minmax_1d``
   :224 with the routed pick of ``segment.combine_minmax_multi`` :351;
@@ -78,6 +83,8 @@ INT32_MAX = 2**31 - 1
 INF_BITS = 0x7F800000          # float32 +inf as int32 bits: the min identity
 SLAB_EDGES = 4096              # edges per spmv_slabs block (kSlab in the .cu)
 SLAB_ITEMS = 16                # consecutive edges per spmv_slabs thread (kItems)
+ROW_ITEMS = 8                  # merge places per spmv_rows thread (kRowItems)
+ROW_TILE = 2048                # merge places per spmv_rows block (kRowTile)
 ADVANCE_CHUNK = 16384          # CSC slots per advance_count chunk (kCountChunk)
 MESSAGES = ("mul", "add", "none")
 REDUCES = ("sum", "min")
@@ -85,6 +92,13 @@ SCAN_OPS = ("add", "min", "max", "first")          # codes 0-3 in the .cu
 REDUCE_OPS = ("sum", "min", "max", "or", "and")    # codes 0-4 in the .cu
 SCAN_TILE = 2048               # elements per scan block (kScanTile)
 FILL_TILE = 2048               # positions per fill / route block (kFillTile)
+# gather_payloads packs 2-4 payloads from PACK_MIN_SLOTS slots and from
+# one slot per record of the shortest payload. Measured by chip_ab.py's
+# sweep (uniform random indices, NVIDIA H100 80GB HBM3, 700 W): at
+# L = 2^20 words packing breaks even at n = L/2 and is 16% (2 payloads)
+# and 27% (4) faster at n = L, 43% and 65% at n = 16 L; below 2^18 slots
+# the pack's own launch costs more than it saves.
+PACK_MIN_SLOTS = 1 << 18
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -107,12 +121,17 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "segment_broadcast_total": 0, "suffix_fill_update": 0,
             "fused_route_or": 0}
 
+# launches of a kernel's second pass, beside its count in ``launches``:
+# gather_payloads' pack pass (gather_payloads_pack_kernel)
+pack_launches = {"gather_payloads": 0}
+
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, pack_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------- build --
@@ -182,8 +201,9 @@ def _library():
             "etpu_collapse_levels_i32": (p, p, i, i, i, p, p),
             "etpu_collapse_levels_i8": (p, p, i, i, i, p, p),
             "etpu_bfs_predecessors": (p, p, p, i, i, p, p),
-            "etpu_spmv_rows_mul": (p, p, p, p, i, p, p),
-            "etpu_spmv_rows_none": (p, p, p, p, i, p, p),
+            "etpu_spmv_rows_mul": (p, p, p, p, i, i, p, p, p),
+            "etpu_spmv_rows_none": (p, p, p, p, i, i, p, p, p),
+            "etpu_spmv_row_tile": (),
             "etpu_spmv_slab_edges": (),
             "etpu_sssp_sweep": (p, p, p, p, p, i, p, p),
             "etpu_sssp_predecessors": (p, p, p, p, i, i, p, p),
@@ -193,7 +213,8 @@ def _library():
             "etpu_scan_i32": (p, p, p, p, p, p, ll, i, p),
             "etpu_scan_f32": (p, p, p, p, p, p, ll, i, p),
             "etpu_scan_tile": (),
-            "etpu_gather_payloads": (p, ll, p, p, p, p, p, p, p, p, i, p),
+            "etpu_gather_payloads": (p, ll, p, p, p, p, p, p, p, p, i, p, i,
+                                     p),
             "etpu_segment_reduce_i32": (p, p, i, i, i, p, p),
             "etpu_segment_reduce_f32": (p, p, i, i, ctypes.c_float, p, p),
             "etpu_segment_minmax": (p, p, p, p, p, p, p, p, i, p, p, i, p,
@@ -218,6 +239,10 @@ def _library():
                  f"spmv_slabs: the library's slab is "
                  f"{lib.etpu_spmv_slab_edges()} edges, SLAB_EDGES is "
                  f"{SLAB_EDGES}")
+        throw_if(lib.etpu_spmv_row_tile() != ROW_TILE,
+                 f"spmv_rows: the library's tile is "
+                 f"{lib.etpu_spmv_row_tile()} places, ROW_TILE is "
+                 f"{ROW_TILE}")
         throw_if(lib.etpu_advance_count_chunk() != ADVANCE_CHUNK,
                  f"advance_count: the library's chunk is "
                  f"{lib.etpu_advance_count_chunk()} slots, ADVANCE_CHUNK is "
@@ -440,38 +465,6 @@ def slab_count(ep: int) -> int:
     return (ep + SLAB_EDGES - 1) // SLAB_EDGES
 
 
-# ------------------------------------------------------------ spmv_rows --
-
-def spmv_rows_plain(off, col, w, x):
-    """Plain version of ``spmv_rows``."""
-    y = torch.zeros(off.numel() - 1, dtype=torch.float32, device=x.device)
-    return y.index_add_(0, _segment_ids(off, col.numel()),
-                        _message(x, col, w, "none" if w is None else "mul"))
-
-
-def spmv_rows(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
-              x: torch.Tensor) -> torch.Tensor:
-    """y = A x on the CSR rows, one warp per row: [Vp] float32 with
-    y[r] = sum over r's edges p of w[p] * x[col[p]], or of x[col[p]] when
-    ``w`` is None; 0 at empty rows. Deterministic."""
-    name = "spmv_rows"
-    _check_spmv(name, off, col, w, x)
-    if not _route(name, x):
-        return spmv_rows_plain(off, col, w, x)
-    _check(name, x.device, off=off, col=col, x=x,
-           **({} if w is None else {"w": w}))
-    vp = off.numel() - 1
-    y = torch.empty(vp, dtype=torch.float32, device=x.device)
-    _launch("etpu_spmv_rows_none" if w is None else "etpu_spmv_rows_mul",
-            x.device, off.data_ptr(), col.data_ptr(),
-            None if w is None else w.data_ptr(), x.data_ptr(), vp,
-            y.data_ptr())
-    launches[name] += 1
-    return y
-
-
-# ----------------------------------------------------------- spmv_slabs --
-
 def _partials(vals, key, reduce: str):
     """Reduce the float32 ``vals`` over runs of equal ``key`` (sorted):
     (one float32 partial per run, as int32 bits; the first index of each
@@ -483,29 +476,26 @@ def _partials(vals, key, reduce: str):
     return _reduce_into(int(run[-1]) + 1 if n else 0, run, vals, reduce), new
 
 
-def spmv_slabs_plain(off, col, w, flags, x, message: str, reduce: str):
-    """Plain version of ``spmv_slabs``, with the kernel's grouping: each run
-    of a row's edges within one SLAB_ITEMS group (a thread's edges) in edge
-    order, then the groups within each slab (the kernel joins them by a
-    scan, in another order), then the slab partials folded in slab order.
-    It finds the rows from ``off`` and does not read ``flags``, which mark
-    the same row starts."""
-    vp, ep = off.numel() - 1, col.numel()
-    vals = _message(x, col, w, message)
-    row = _segment_ids(off, ep)
-    pos = torch.arange(ep, device=x.device)
-    part, new = _partials(vals, row * ep + pos // SLAB_ITEMS, reduce)
-    row, pos = row[new], pos[new]
-    part, new = _partials(part.view(torch.float32), row * ep + pos //
-                          SLAB_EDGES, reduce)
+def _grouped_reduce(vals, row, place, vp: int, items: int, tile: int,
+                    reduce: str):
+    """[vp] int32 bits: each row's ``vals`` reduced as the edge-balanced
+    kernels group them. ``place`` (non-decreasing, like ``row``) is each
+    value's place in the kernel's order; a row's values within one run of
+    ``items`` places are reduced in order, then those runs within each
+    ``tile`` of places, then the tile partials folded in tile order."""
+    span = int(place[-1]) + 1 if place.numel() else 1
+    part, new = _partials(vals, row * span + place // items, reduce)
+    row, place = row[new], place[new]
+    part, new = _partials(part.view(torch.float32), row * span + place //
+                          tile, reduce)
     row = row[new]
     first = torch.ones_like(row, dtype=torch.bool)
     first[1:] = row[1:] != row[:-1]
     ident = 0 if reduce == "sum" else INF_BITS
-    y = torch.full((vp,), ident, dtype=torch.int32, device=x.device)
+    y = torch.full((vp,), ident, dtype=torch.int32, device=vals.device)
     y[row[first]] = part[first]
-    # the k-th slab partial of every row, k = 1, 2, ..., folded in turn
-    at = torch.arange(row.numel(), device=x.device)
+    # the k-th tile partial of every row, k = 1, 2, ..., folded in turn
+    at = torch.arange(row.numel(), device=vals.device)
     k = at - torch.cummax(torch.where(first, at, 0), 0).values
     for j in range(1, int(k.max()) + 1 if k.numel() else 1):
         r, v = row[k == j], part[k == j]
@@ -515,6 +505,71 @@ def spmv_slabs_plain(off, col, w, flags, x, message: str, reduce: str):
         else:
             y[r] = torch.minimum(y[r], v)
     return y
+
+
+# ------------------------------------------------------------ spmv_rows --
+
+def spmv_rows_plain(off, col, w, x):
+    """Plain version of ``spmv_rows``, with the kernel's grouping: edge p of
+    row r sits at place p + r of the sequence that merges the row ends with
+    the edges; a row's edges within one ROW_ITEMS run of places (a
+    thread's) are summed in edge order, then those runs within each
+    ROW_TILE tile (the kernel joins them by a scan, in another order), then
+    the tile partials in tile order (the kernel by a fixed tree)."""
+    ep = col.numel()
+    row = _segment_ids(off, ep)
+    place = torch.arange(ep, device=x.device) + row
+    return _grouped_reduce(_message(x, col, w, "none" if w is None else "mul"),
+                           row, place, off.numel() - 1, ROW_ITEMS, ROW_TILE,
+                           "sum").view(torch.float32)
+
+
+def spmv_rows(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
+              x: torch.Tensor) -> torch.Tensor:
+    """y = A x on the CSR rows in one launch, balanced by rows and edges
+    (a merge-path partition of the row ends and edges into tiles of
+    ROW_TILE places): [Vp] float32 with y[r] = sum over r's edges p of
+    w[p] * x[col[p]], or of x[col[p]] when ``w`` is None; 0 at empty rows.
+    A row that crosses tiles is completed from the partials of the tiles
+    before it in a fixed order, so two launches give the same bits.
+    ``col`` and ``w`` must be 16-byte aligned."""
+    name = "spmv_rows"
+    _check_spmv(name, off, col, w, x)
+    if not _route(name, x):
+        return spmv_rows_plain(off, col, w, x)
+    dev = x.device
+    _check(name, dev, off=off, col=col, x=x,
+           **({} if w is None else {"w": w}))
+    wp = 0 if w is None else w.data_ptr()
+    if (col.data_ptr() | wp) & 15:
+        raise EssentialsError(f"{name}: col and w must be 16-byte aligned")
+    vp, ep = off.numel() - 1, col.numel()
+    throw_if(vp + ep + ROW_TILE > INT32_MAX,
+             f"{name}: Vp + Ep must stay below 2^31 - {ROW_TILE}")
+    y = torch.empty(vp, dtype=torch.float32, device=dev)
+    tiles = -(-(vp + ep) // ROW_TILE)      # a status word each, the ticket
+    scratch = torch.empty(2 * tiles + 1, dtype=torch.int32, device=dev)
+    _launch("etpu_spmv_rows_none" if w is None else "etpu_spmv_rows_mul",
+            dev, off.data_ptr(), col.data_ptr(), wp or None, x.data_ptr(),
+            vp, ep, y.data_ptr(), scratch.data_ptr())
+    launches[name] += 1
+    return y
+
+
+# ----------------------------------------------------------- spmv_slabs --
+
+def spmv_slabs_plain(off, col, w, flags, x, message: str, reduce: str):
+    """Plain version of ``spmv_slabs``, with the kernel's grouping: each run
+    of a row's edges within one SLAB_ITEMS group (a thread's) in edge
+    order, then the groups within each slab (the kernel joins them by a
+    scan, in another order), then the slab partials folded in slab order.
+    It finds the rows from ``off`` and does not read ``flags``, which mark
+    the same row starts."""
+    ep = col.numel()
+    return _grouped_reduce(_message(x, col, w, message),
+                           _segment_ids(off, ep),
+                           torch.arange(ep, device=x.device),
+                           off.numel() - 1, SLAB_ITEMS, SLAB_EDGES, reduce)
 
 
 def spmv_slabs(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
@@ -877,6 +932,15 @@ def scan(x: torch.Tensor, flags: torch.Tensor | None = None,
 
 # ------------------------------------------------------- gather_payloads --
 
+def gather_packs(n: int, lengths) -> bool:
+    """Whether ``gather_payloads`` packs payloads of these ``lengths`` before
+    it gathers ``n`` slots: for 2-4 payloads when n >= PACK_MIN_SLOTS and
+    n >= the shortest length, where the sectors it saves (NP - 1 per slot)
+    outweigh the pack pass (a launch that streams the payloads once)."""
+    return (len(lengths) >= 2 and n >= PACK_MIN_SLOTS
+            and n >= min(lengths))
+
+
 def gather_payloads_plain(idx, *payloads):
     """Plain version of ``gather_payloads``."""
     i = idx.long()
@@ -887,7 +951,9 @@ def gather_payloads(idx: torch.Tensor, *payloads: torch.Tensor) -> tuple:
     """out_k[p] = payloads[k][idx[p]] for 1-4 payloads of 32-bit elements
     (int32 or float32, moved as bits), through one [n] int32 index array
     whose entries must lie in every payload's range. Returns a tuple of [n]
-    tensors of the payloads' dtypes."""
+    tensors of the payloads' dtypes. Where ``gather_packs`` says so, the
+    payloads are first interleaved into records and one record is gathered
+    per slot."""
     name = "gather_payloads"
     throw_if(not 1 <= len(payloads) <= 4, f"{name}: 1-4 payloads")
     throw_if(idx.dtype != torch.int32 or idx.dim() != 1,
@@ -901,11 +967,20 @@ def gather_payloads(idx: torch.Tensor, *payloads: torch.Tensor) -> tuple:
     _check(name, dev, idx=idx, **{f"payload{k}": p
                                   for k, p in enumerate(payloads)})
     n = idx.numel()
+    lengths = [p.numel() for p in payloads]
+    pack = gather_packs(n, lengths)
     outs = tuple(torch.empty(n, dtype=p.dtype, device=dev) for p in payloads)
     ins = [p.data_ptr() for p in payloads] + [None] * (4 - len(payloads))
     ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    rec, length = None, 0
+    if pack:
+        length = min(lengths)
+        rec = torch.empty(length * (2 if len(payloads) == 2 else 4),
+                          dtype=torch.int32, device=dev)
+        # the C call packs only where there is a slot and a record
+        pack_launches[name] += bool(n and length)
     _launch("etpu_gather_payloads", dev, idx.data_ptr(), n, *ins, *ptrs,
-            len(payloads))
+            len(payloads), None if rec is None else rec.data_ptr(), length)
     launches[name] += 1
     return outs
 

@@ -5,8 +5,10 @@ directed graph, triangle counting and the intersection operator, coloring
 ``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph) run
 where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
-route and bitmap kernels exactly, advance_count in both its tiers and
-spmv_slabs on a row of six slabs, but float sums: the SpMV kernels,
+route and bitmap kernels exactly, advance_count in both its tiers,
+spmv_slabs on a row of six slabs, spmv_rows on a row of 40 merge-path
+tiles and a run of empty rows, gather_payloads packed and unpacked through
+ragged and unaligned indices, but float sums: the SpMV kernels,
 ``scan`` and ``segment_reduce`` under ``sum``, to |k - p| <= 1e-5 |p| +
 1e-6, and a float ``scan`` ``add`` also against a float64 running sum).
 
@@ -53,7 +55,7 @@ COLOR = ("algorithms/color.py", "algorithms/hits.py", "kernels.py")
 
 def test_sources_import_no_jax():
     files = sorted((ROOT / "essentials_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 15
     assert {ROOT / "essentials_tpu_torch" / m
             for m in OPERATOR_LAYER + TC_AND_FILLS[:-1] + COLOR} <= set(files)
@@ -251,6 +253,39 @@ def test_spmv_kernels_match_plain_versions_on_the_card():
     assert np.allclose(y, spmv.cpu_reference(csr, x.cpu().numpy()),
                        rtol=1e-5, atol=1e-6)
 
+    # spmv_rows on a hub row of 40 merge-path tiles and more (its
+    # completion reads the partials of more than 32 tiles) and a run of
+    # three tiles of empty rows; against plain, a second launch and the
+    # float64 host product
+    t = kernels.ROW_TILE
+    keep = (coo.row_indices < 9000) | (coo.row_indices >= 9000 + 3 * t)
+    n_hub = 40 * t + 99
+    csr2 = Csr.from_coo(Coo(
+        coo.n_rows, coo.n_cols,
+        np.r_[coo.row_indices[keep], np.full(n_hub, 300, np.int32)],
+        np.r_[coo.col_indices[keep],
+              (np.arange(n_hub) * 29 % coo.n_cols).astype(np.int32)],
+        np.r_[coo.values[keep], np.linspace(0.25, 2.0, n_hub,
+                                            dtype=np.float32)]))
+    g2 = build_graph(csr2, directed=True, weighted=True, device="cuda")
+    assert g2.max_degree > 40 * t
+    assert int((g2.out_degrees()[9000:9000 + 3 * t] == 0).sum()) == 3 * t
+    x2 = spmv.random_x(g2, 2)
+    kernels.reset_launches()
+    for wk in (g2.values, None):
+        y = kernels.spmv_rows(g2.row_offsets, g2.col_indices, wk, x2)
+        assert torch.equal(y, kernels.spmv_rows(g2.row_offsets,
+                                                g2.col_indices, wk, x2))
+        assert close(y, kernels.spmv_rows_plain(g2.row_offsets,
+                                                g2.col_indices, wk, x2))
+        w64 = 1.0 if wk is None else csr2.values.astype(np.float64)
+        ref = np.bincount(
+            np.repeat(np.arange(csr2.n_rows), np.diff(csr2.row_offsets)),
+            weights=w64 * x2.cpu().numpy().astype(np.float64)[
+                csr2.col_indices], minlength=csr2.n_rows)
+        assert close(y[:g2.n_vertices].cpu(), torch.from_numpy(ref))
+    assert kernels.launches["spmv_rows"] == 4
+
 
 @pytest.mark.cuda
 def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
@@ -311,7 +346,7 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
 
 
 @pytest.mark.cuda
-def test_operator_kernels_match_plain_versions_on_the_card():
+def test_operator_kernels_match_plain_versions_on_the_card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from essentials_tpu_torch import kernels
@@ -351,12 +386,29 @@ def test_operator_kernels_match_plain_versions_on_the_card():
                     else torch.equal(k, p)
                 assert ok, (x.dtype, op)
     vp = g.n_vertices_padded
+    # payloads of unequal lengths; the whole index, a ragged count and a
+    # view at an odd offset; packed and unpacked, bit for bit
     pays = [torch.from_numpy(rng.random(vp).astype(np.float32)).cuda(),
-            torch.arange(vp, dtype=torch.int32, device="cuda")] * 2
-    for m in range(1, 5):
-        k = kernels.gather_payloads(g.csc_src_indices, *pays[:m])
-        p = kernels.gather_payloads_plain(g.csc_src_indices, *pays[:m])
-        assert all(torch.equal(a, b) for a, b in zip(k, p))
+            torch.arange(vp + 3, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(rng.random(vp + 70).astype(np.float32)).cuda(),
+            -torch.arange(vp + 1, dtype=torch.int32, device="cuda")]
+    src = g.csc_src_indices
+    calls = packs = 0
+    for idx in (src, src[:-3], src[1:], src[3:-2]):
+        for m in range(1, 5):
+            for pack in (False, True) if m > 1 else (False,):
+                # each path whatever the rule would choose at this shape
+                monkeypatch.setattr(kernels, "gather_packs",
+                                    lambda n, lengths, pack=pack: pack)
+                k = kernels.gather_payloads(idx, *pays[:m])
+                p = kernels.gather_payloads_plain(idx, *pays[:m])
+                assert all(a.dtype == b.dtype and torch.equal(
+                    a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(k, p)), (idx.numel(), m, pack)
+                calls, packs = calls + 1, packs + pack
+    assert kernels.launches["gather_payloads"] == calls
+    assert kernels.pack_launches["gather_payloads"] == packs
+    monkeypatch.undo()
     f = torch.from_numpy(rng.random(vp) < 0.3).cuda() & g.vertex_mask()
     args = (g.csc_offsets, g.csc_src_indices)
     assert kernels.advance_count_tier(vp, "cuda") == "shared"

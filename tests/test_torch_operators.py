@@ -441,6 +441,55 @@ def test_frontier_matches_jax(graphs):
     equal(g.edge_mask().numpy(), np.asarray(gj.edge_mask()))
 
 
+# ------------------------------------------------------- gather_payloads --
+
+@pytest.mark.parametrize("view", ["whole", "ragged", "offset"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_gather_payloads_plain_on_unequal_payloads_and_views(m, view):
+    """1-4 payloads of unequal lengths and both dtypes through the whole
+    index (n % 4 == 0), a ragged count (n % 4 == 1) and a view at an odd
+    offset (4 bytes past a 16-byte boundary): each output equals the
+    payload's elements, bit for bit, in its dtype."""
+    rng = np.random.default_rng(30 + m)
+    lengths = (500, 503, 517, 1000)[:m]
+    pays = [t(rng.random(n).astype(np.float32)) if k % 2 else
+            t(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+              .astype(np.int32)) for k, n in enumerate(lengths)]
+    full = t(rng.integers(0, min(lengths), 4003).astype(np.int32))
+    idx = {"whole": full[:4000], "ragged": full[:3997],
+           "offset": full[1:]}[view]
+    assert (idx.numel() % 4 == 0) == (view == "whole")
+    assert (idx.data_ptr() % 16 == 0) == (view != "offset")
+    outs = kernels.gather_payloads(idx, *pays)
+    assert len(outs) == m
+    for o, p in zip(outs, pays):
+        assert o.dtype == p.dtype and o.shape == idx.shape
+        equal(o.view(torch.int32).numpy(),
+              p.view(torch.int32).numpy()[idx.numpy()])
+
+
+def test_gather_packs_where_records_pay(monkeypatch):
+    """Packing is chosen for 2-4 payloads from PACK_MIN_SLOTS slots and one
+    slot per record of the shortest payload, never for one; on the CPU a
+    shape the rule packs still takes the plain version, with no pack pass
+    counted."""
+    n = kernels.PACK_MIN_SLOTS
+    assert kernels.gather_packs(n, [n, n + 7])
+    assert kernels.gather_packs(n, [n + 9, n, 3 * n, 5])
+    assert not kernels.gather_packs(n, [n])
+    assert not kernels.gather_packs(n - 1, [8, 8])
+    assert not kernels.gather_packs(n, [n + 1, n + 2])
+    monkeypatch.setattr(kernels, "PACK_MIN_SLOTS", 0)
+    i32 = torch.arange(8, dtype=torch.int32)
+    assert kernels.gather_packs(i32.numel(), [8, 8])
+    kernels.reset_launches()
+    a, b = kernels.gather_payloads(i32.flip(0), i32, i32.float())
+    assert a.dtype == torch.int32 and b.dtype == torch.float32
+    equal(a.numpy(), np.arange(8, dtype=np.int32)[::-1])
+    equal(b.numpy(), np.arange(8, dtype=np.float32)[::-1])
+    assert kernels.pack_launches["gather_payloads"] == 0
+
+
 # -------------------------------------------------------------- wrappers --
 
 def test_wrappers_take_plain_version_on_cpu(graphs):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from essentials_tpu.algorithms import spmv as jspmv
+from essentials_tpu.formats import Coo as JCoo
 from essentials_tpu.formats import Csr as JCsr
 from essentials_tpu.graph import build_graph as jbuild
 from essentials_tpu.io import generate as jgen
@@ -242,6 +243,22 @@ def test_windowed_pipeline_at_slab_boundaries(reduce):
             close(y.view(torch.float32).numpy(), ref.numpy())
 
 
+def host_fold(add, parts):
+    """The parts folded in order by ``add``."""
+    acc = None
+    for p in parts:
+        acc = p if acc is None else add(acc, p)
+    return acc
+
+
+def host_over(add, lo, hi, step, inner):
+    """inner(a, b) over the pieces [a, b) of [lo, hi) cut at multiples of
+    step, folded in order."""
+    return host_fold(add, (inner(a, min(hi, (a // step + 1) * step))
+                           for a in [lo] + list(range((lo // step + 1) * step,
+                                                      hi, step))))
+
+
 @pytest.mark.parametrize("reduce", ["sum", "min"])
 def test_spmv_slabs_plain_folds_partials_in_slab_order(reduce):
     """The plain version's arithmetic is the kernel's: a row's edges within
@@ -253,30 +270,86 @@ def test_spmv_slabs_plain_folds_partials_in_slab_order(reduce):
     x = torch.from_numpy(vector(g, 8))
     msg = (x[g.col_indices.long()] * g.values).numpy()
     add = (lambda a, b: np.float32(a + b)) if reduce == "sum" else min
-
-    def fold(parts):
-        acc = None
-        for p in parts:
-            acc = p if acc is None else add(acc, p)
-        return acc
-
-    def over(lo, hi, step, inner):
-        """inner(a, b) over the pieces [a, b) of [lo, hi) cut at
-        multiples of step."""
-        return fold(inner(a, min(hi, (a // step + 1) * step))
-                    for a in [lo] + list(range((lo // step + 1) * step,
-                                               hi, step)))
-
     want = np.full(g.n_vertices_padded,
                    0 if reduce == "sum" else np.inf, np.float32)
     for r in range(g.n_vertices_padded):
         if off[r + 1] > off[r]:
-            want[r] = over(off[r], off[r + 1], kernels.SLAB_EDGES,
-                           lambda a, b: over(a, b, kernels.SLAB_ITEMS,
-                                             lambda c, d: fold(msg[c:d])))
+            want[r] = host_over(
+                add, off[r], off[r + 1], kernels.SLAB_EDGES,
+                lambda a, b: host_over(add, a, b, kernels.SLAB_ITEMS,
+                                       lambda c, d: host_fold(add,
+                                                              msg[c:d])))
     y = kernels.spmv_slabs_plain(g.row_offsets, g.col_indices, g.values,
                                  g.csr_seg_flags, x, "mul", reduce)
     assert np.array_equal(y.numpy(), want.view(np.int32))
+
+
+@pytest.mark.parametrize("unit", [False, True])
+def test_spmv_rows_plain_folds_in_merge_path_order(unit):
+    """spmv_rows' plain version groups as the kernel does: edge p of row r
+    sits at place p + r of the merged row ends and edges; a row's edges
+    within one ROW_ITEMS run of places (a thread's) in edge order, the runs
+    within each ROW_TILE tile, then the tile partials in tile order, each
+    a float32 sum. Held bitwise against that computed on the host, on rows
+    of up to six tiles and empty rows between them."""
+    _, g = hub_graph()
+    off = g.row_offsets.numpy()
+    x = torch.from_numpy(vector(g, 10))
+    msg = x[g.col_indices.long()]
+    msg = (msg if unit else msg * g.values).numpy()
+    assert g.max_degree > 5 * kernels.ROW_TILE
+    add = lambda a, b: np.float32(a + b)              # noqa: E731
+    want = np.zeros(g.n_vertices_padded, np.float32)
+    for r in range(g.n_vertices_padded):
+        if off[r + 1] > off[r]:
+            want[r] = host_over(
+                add, off[r] + r, off[r + 1] + r, kernels.ROW_TILE,
+                lambda a, b: host_over(
+                    add, a, b, kernels.ROW_ITEMS,
+                    lambda c, d, r=r: host_fold(add, msg[c - r:d - r])))
+    y = kernels.spmv_rows_plain(g.row_offsets, g.col_indices,
+                                None if unit else g.values, x)
+    assert np.array_equal(y.numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.fixture(scope="module")
+def hub_rows():
+    """rmat12 seed 3 with the rows 1000-1599 emptied and a hub row of
+    3 * ROW_TILE + 41 edges appended at row 5, in both packages."""
+    coo = jgen.rmat(12, 16, seed=3, undirected=False, weighted=True)
+    keep = (coo.row_indices < 1000) | (coo.row_indices >= 1600)
+    n = 3 * kernels.ROW_TILE + 41
+    return both_graphs(JCsr.from_coo(JCoo(
+        coo.n_rows, coo.n_cols,
+        np.r_[coo.row_indices[keep], np.full(n, 5, np.int32)],
+        np.r_[coo.col_indices[keep],
+              (np.arange(n) * 11 % coo.n_cols).astype(np.int32)],
+        np.r_[coo.values[keep], np.linspace(0.5, 2.0, n,
+                                            dtype=np.float32)])))
+
+
+@pytest.mark.parametrize("unit", [False, True])
+def test_spmv_rows_plain_on_a_hub_matches_jax_chain_and_float64(hub_rows,
+                                                                 unit):
+    """The fused product (spmv_rows' plain version on the CPU) on a hub row
+    of several thousand edges and a run of 600 empty rows, against JAX's
+    chain and a float64 host product, each within 1e-5 |ref| + 1e-6."""
+    csr, gj, g = hub_rows
+    off = g.row_offsets.numpy()
+    assert g.max_degree > 3 * kernels.ROW_TILE
+    assert np.all(off[1001:1601] == off[1000:1600])
+    x = vector(g, 9)
+    y = tfs.spmv_fused(g, torch.from_numpy(x), unit=unit).numpy()
+    v = g.n_vertices
+    ref = _jax_fused(gj, jnp.asarray(x), use_pallas=False, unit=unit)
+    close(y[:v], np.asarray(ref)[:v])
+    w = np.ones(csr.nnz) if unit else np.asarray(csr.values, np.float64)
+    host = np.bincount(np.repeat(np.arange(csr.n_rows),
+                                 np.diff(csr.row_offsets)),
+                       weights=w * x.astype(np.float64)[csr.col_indices],
+                       minlength=csr.n_rows)
+    close(y[:v], host)
+    assert np.all(y[1000:1600] == 0)
 
 
 # ------------------------------------------------------------- wrappers --
