@@ -5,8 +5,31 @@ The parent's library is built from its own csrc/ and loaded beside this
 tree's. For each measurement the package's wrappers of KERNELS are taken
 from one side, then the other, in turns (parent, this tree, this tree,
 parent), and chip_smoke's own timings run through them, on the same inputs;
-both sides' results must agree first. The shapes are those of the port's
-main paths:
+both sides' results must agree first. Where one PyTorch call computes the
+same function it takes its turn as a third side. The groups (--only; all
+by default) and their shapes, those of the port's main paths:
+
+scan: ``scan`` (wall and device time per call, beside the PyTorch call):
+* int32 add without flags at n = Vp of directed rmat20 seed 3 (the
+  adaptive path's compact_frontier cumsum, on its largest dense BFS
+  frontier), beside torch.cumsum;
+* float32 add with the CSC segment flags at PageRank fused's shape
+  (undirected rmat18);
+* int32 max without flags over TC shift's largest chunk at gen:rmat20x16,
+  beside torch.cummax.
+
+fill: ``segment_broadcast_total`` (float32 S) at PageRank fused's shape and
+at the fill shape of chip_smoke's kernel table (the rmat18 BFS level with
+the most new vertices), beside torch.repeat_interleave of the segment-end
+values; ``suffix_fill_update`` at that level.
+
+e2e (end to end, in E2E_ROUNDS rounds of turns: 8 runs a side): PageRank
+fused ms per iteration at undirected rmat18; BFS and SSSP adaptive from the
+8 highest out-degree sources of directed rmat20 seed 3, the device time of
+all 8 searches (torch.profiler) and the wall ms per search; TC shift ms per
+run at gen:rmat20x16 (424,267,437 triangles), in one round.
+
+spmv, gather, neighbours, pack (the measurements of the previous slice):
 
 * spmv_rows (chip_smoke.rows_against_mv, beside torch.mv on the sparse CSR
   matrix): <mul> at directed rmat18 and rmat20 seed 3 (the fused SpMV),
@@ -31,7 +54,8 @@ median of CYCLES; device: torch.profiler's device time per call.
 
     mkdir -p build/parent
     git archive HEAD essentials_tpu_torch chip_smoke.py | tar -x -C build/parent
-    python3 chip_ab.py --parent build/parent [--out ab.json]
+    python3 chip_ab.py --parent build/parent [--only scan,fill,e2e] \
+        [--out ab.json]
 
 (HEAD: the commit an uncommitted change sits on.) Prints one line per side
 of each measurement, and writes them all as JSON to the file --out names.
@@ -53,8 +77,10 @@ import torch
 
 import chip_smoke as CS
 
-KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count")
+KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
+           "scan", "segment_broadcast_total", "suffix_fill_update")
 PR_HITS_ROUNDS = 4             # rounds of turns: 8 runs on each side
+E2E_ROUNDS = 4                 # rounds of turns: 8 runs on each side
 PACK_PAYLOADS = (2, 4)
 PACK_LENGTH = 1 << 20          # L: a [Vp] payload at RMAT scale 20
 PACK_RATIOS = (1 / 16, 1 / 8, 1 / 4, 1 / 2, 1, 2, 4, 16)   # n / L
@@ -71,7 +97,8 @@ def build(mod, name: str) -> None:
     print(f"build: {name} in {time.perf_counter() - t0:.1f} s")
     for i, line in enumerate(log):
         if "Compiling entry" in line and any(
-                k in line for k in ("spmv_rows", "gather_payloads")):
+                k in line for k in ("scan_kernel", "segment_broadcast_total",
+                                    "suffix_fill_update")):
             print(f"  {line.strip()}")
             for nxt in log[i + 1:i + 4]:
                 if "Used" in nxt or "spill" in nxt:
@@ -114,9 +141,9 @@ def per_call(fn) -> float:
         / CS.SPMV_REPS
 
 
-def kernel_ms(fn) -> dict:
-    return {"wall": per_call(fn),
-            "device": CS.device_ms(fn, CS.SPMV_REPS)[0]}
+def kernel_ms(fn, reps: int = CS.SPMV_REPS) -> dict:
+    return {"wall": CS.median_ms(lambda _: [fn() for _ in range(reps)])
+            / reps, "device": CS.device_ms(fn, reps)[0]}
 
 
 def fmt(values) -> str:
@@ -246,6 +273,123 @@ def neighbours(card: str, run, K0, out: dict) -> None:
               {"parent": lambda m=measure: on(K0, m), "this": measure}, out)
 
 
+def with_library(K0, measure, lib, name: str, reps: int) -> dict:
+    """The sides of a turn: the parent's wrappers (those of ``K0``), this
+    tree's, and (where ``lib`` is given) one PyTorch call computing the
+    same function, each timed over ``reps`` calls."""
+    sides = {"parent": lambda: on(K0, measure), "this": measure}
+    if lib is not None:
+        sides[name] = lambda: kernel_ms(lib, reps)
+    return sides
+
+
+def scan_shapes(card: str, run, K0, out: dict) -> None:
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import bfs
+    csr20, g20 = run.spmv_graph(CS.SPMV_TIME_SCALE)
+    source = int(np.argmax(np.diff(csr20.row_offsets)))
+    fi = CS.largest_dense_state(g20, source, bfs).frontier.int()
+    gu = run.bfs_graph(CS.SCALE)[1]
+    x = torch.rand(gu.n_edges_padded, generator=torch.Generator(
+        device="cuda").manual_seed(CS.SEED), device="cuda")
+    fl = gu.csc_seg_flags
+    enc = CS.tc_shift_largest_chunk(run.tc_graph(CS.MAIN_SCALE), "cuda")
+    cases = (   # torch.cummax takes about 0.75 s at the chunk: 2 calls
+        (f"scan int32 add, n = Vp = {fi.numel()} (compact_frontier, "
+         f"rmat{CS.SPMV_TIME_SCALE} seed {CS.SPMV_SEED})", (fi, None, "add"),
+         lambda: torch.cumsum(fi, 0, dtype=torch.int32), "torch.cumsum",
+         CS.SPMV_REPS),
+        (f"scan float32 add with flags, Ep = {x.numel()} (PageRank fused, "
+         f"undirected rmat{CS.SCALE})", (x, fl, "add"), None, "",
+         CS.SPMV_REPS),
+        (f"scan int32 max, n = {enc.numel()} (TC shift's largest chunk, "
+         f"gen:rmat{CS.MAIN_SCALE}x16)", (enc, None, "max"),
+         lambda: torch.cummax(enc, 0), "torch.cummax", 2))
+    for label, args, lib, lib_name, reps in cases:
+        a, b = K0.scan(*args), K.scan(*args)
+        CS.check(same_bits((a,), (b,)) if args[2] != "add" or
+                 not args[0].is_floating_point() else bool(
+                     ((a.double() - b.double()).abs() <= CS.SUM_RTOL
+                      * a.double().abs() + CS.SUM_ATOL).all()),
+                 f"{label}: parent and this tree disagree")
+        turns(card, label, with_library(
+            K0, lambda args=args, reps=reps: kernel_ms(
+                lambda: K.scan(*args), reps), lib, lib_name, reps), out)
+
+
+def fill_shapes(card: str, run, K0, out: dict) -> None:
+    from essentials_tpu_torch import kernels as K
+    csr_u, gu = run.bfs_graph(CS.SCALE)
+    fl = gu.csc_seg_flags
+    m = torch.rand(gu.n_edges_padded, generator=torch.Generator(
+        device="cuda").manual_seed(CS.SEED), device="cuda")
+    S = K.scan(m, fl, "add")
+    errs = dict.fromkeys(CS.FILL_REPLACES, 0)
+    level = CS.check_fill_kernels(gu, int(np.argmax(np.diff(
+        csr_u.row_offsets))), f"rmat{CS.SCALE}", errs)
+
+    cases = (
+        (f"segment_broadcast_total float32, PageRank fused (undirected "
+         f"rmat{CS.SCALE})", "segment_broadcast_total", (S, fl)),
+        (f"segment_broadcast_total float32, the table's fill shape "
+         f"(rmat{CS.SCALE}'s largest level)", "segment_broadcast_total",
+         level["broadcast"]),
+        (f"suffix_fill_update, rmat{CS.SCALE}'s largest level",
+         "suffix_fill_update", level["fill"]))
+    for label, name, args in cases:
+        a, b = getattr(K0, name)(*args), getattr(K, name)(*args)
+        a, b = (a, b) if name != "suffix_fill_update" else (a[0], b[0])
+        CS.check(same_bits((a,), (b,)), f"{label}: parent and this tree "
+                                        f"disagree")
+        lib = CS.repeat_interleave_of(*args) \
+            if name != "suffix_fill_update" else None
+        turns(card, label, with_library(
+            K0, lambda name=name, args=args: kernel_ms(
+                lambda: getattr(K, name)(*args)), lib,
+            "torch.repeat_interleave", CS.SPMV_REPS), out)
+
+
+def end_to_end(card: str, run, K0, out: dict) -> None:
+    from essentials_tpu_torch.algorithms import bfs, pr, sssp, tc
+    gu = run.bfs_graph(CS.SCALE)[1]
+
+    def pr_fused() -> dict:
+        r = pr.run(gu, variant="fused")
+        return {"ms per iteration": r.elapsed_ms / r.iterations}
+    turns(card, f"pr fused undirected rmat{CS.SCALE}", {
+        "parent": lambda: on(K0, pr_fused), "this": pr_fused}, out,
+        E2E_ROUNDS)
+    csr20, g20 = run.spmv_graph(CS.SPMV_TIME_SCALE)
+    sources = np.argsort(-np.diff(csr20.row_offsets))[
+        :CS.ADAPTIVE_RUNS].astype(int)
+    for name, fn in (
+            ("bfs", lambda s: bfs.run(g20, s, variant="adaptive",
+                                      warmup=False,
+                                      compute_predecessors=False)),
+            ("sssp", lambda s: sssp.run(g20, s, variant="adaptive",
+                                        warmup=False))):
+        def searches(fn=fn) -> dict:
+            def all_sources():
+                for s in sources:
+                    fn(int(s))
+            wall = CS.median_ms(lambda _: all_sources(), 3) / len(sources)
+            return {f"device ms over {len(sources)} searches":
+                    CS.device_ms(all_sources, 1)[0],
+                    "wall ms per search": wall}
+        turns(card, f"{name} adaptive rmat{CS.SPMV_TIME_SCALE} seed "
+                    f"{CS.SPMV_SEED}", {
+                        "parent": lambda m=searches: on(K0, m),
+                        "this": searches}, out, E2E_ROUNDS)
+    csr_m = run.tc_graph(CS.MAIN_SCALE)
+
+    def shift() -> dict:
+        r = tc.run(csr_m, variant="shift")
+        CS.check(r.total == CS.TC_RMAT20_TOTAL, f"tc shift: {r.total}")
+        return {"ms per run": r.elapsed_ms}
+    turns(card, f"tc shift gen:rmat{CS.MAIN_SCALE}x16", {
+        "parent": lambda: on(K0, shift), "this": shift}, out)
+
+
 def pack_sweep(card: str, out: dict) -> None:
     """Device ms of gather_payloads packed and unpacked over n slots of
     uniform random indices below L, for 2 and 4 payloads of L words."""
@@ -282,13 +426,27 @@ def pack_sweep(card: str, out: dict) -> None:
     out["pack_sweep"] = rows
 
 
+GROUPS = {"scan": scan_shapes, "fill": fill_shapes, "e2e": end_to_end,
+          "spmv": spmv_shapes, "gather": gather_shapes,
+          "neighbours": neighbours,
+          "pack": lambda card, run, K0, out: pack_sweep(card, out)}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, required=True,
                         help="root of the parent checkout")
     parser.add_argument("--out", type=Path,
                         help="write the measurements as JSON here")
+    parser.add_argument("--only", metavar="GROUP[,GROUP]",
+                        default=",".join(GROUPS),
+                        help=f"run only these groups (of {', '.join(GROUPS)})"
+                             f"; default: all")
     args = parser.parse_args(argv)
+    chosen = [x for x in args.only.split(",") if x]
+    unknown = sorted(set(chosen) - set(GROUPS))
+    if unknown or not chosen:
+        parser.error(f"--only takes groups of {list(GROUPS)}, not {unknown}")
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch import runtime
     runtime.require_cuda()
@@ -304,10 +462,9 @@ def main(argv=None) -> None:
     build(K, "this tree")
     run = CS.Run(card)
     out = {"card": card}
-    spmv_shapes(card, run, K0, out)
-    gather_shapes(card, run, K0, out)
-    neighbours(card, run, K0, out)
-    pack_sweep(card, out)
+    for name, group in GROUPS.items():
+        if name in chosen:
+            group(card, run, K0, out)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))

@@ -112,7 +112,14 @@ raises and exits non-zero:
    advance_count in both tiers (shared, and global under a cap of
    COUNT_GLOBAL_CAP bytes) under empty, full and seeded frontiers; integers
    exact, floats within SCAN_RTOL / SUM_RTOL, and every kernel bitwise
-   equal to a second launch;
+   equal to a second launch; then scan alone at n = 1, a tile - 1, a
+   tile, a tile + 1 and SCAN_MANY tiles with flags absent, sparse, at every
+   position and only at position 0, every op on both types (floats adds
+   the same bits over three calls, everything else bitwise equal to
+   plain), an unsegmented float add at SCAN_BIG = 2^26 elements, and one
+   device launch (scan_kernel) per call under every op, seen by
+   torch.profiler (a form whose every profiler window lost device
+   activities is reported as not measured; none measured fails);
 13. the adaptive main path on that rmat20 graph, which has no symmetric
    layout: bfs.run and sssp.run (variant "adaptive") from its 8 highest
    out-degree sources, each with the launch counters set to 0 just before
@@ -127,7 +134,8 @@ raises and exits non-zero:
    operator kernel's time per launch at the path's shapes beside its plain
    version, its bound and a PyTorch call computing the same function, and
    advance_count's and torch.mv's device time per call from torch.profiler
-   (both tiers of advance_count), gather_payloads' packed and unpacked
+   (both tiers of advance_count), scan's and torch.cumsum's at
+   compact_frontier's cumsum, gather_payloads' packed and unpacked
    beside torch.index_select's of the payloads side by side;
 15. the triangle-counting and fill kernels against their plain versions,
    integers exact and a second launch bitwise equal: bitmap_intersect_counts
@@ -137,7 +145,12 @@ raises and exits non-zero:
    suffix_fill_update and fused_route_or (replace fused_bfs.py's) at every
    level of one search on the BFS graphs rmat12 and rmat18, with the 5-pass
    level they make (route OR, segmented sum scan, fill and update) equal to
-   bfs_level<int32> at segment starts, level by level;
+   bfs_level<int32> at segment starts, level by level; then the fills
+   alone at n = 1, a tile - 1, a tile, a tile + 1 and FILL_LONG + 3 tiles
+   with flags sparse, at every position, only at position 0 and with one
+   segment across FILL_LONG = 42 tiles, and one device launch per call of
+   each under those four flag sets (torch.profiler; as in phase 12, a kernel
+   with no form measured fails);
 16. their main paths, each with the launch counters set to 0 just before it
    and read just after, which must show exactly the launches it makes:
    tc.run (auto, which must choose bitmap) on gen:rmat17x16 against
@@ -154,12 +167,16 @@ raises and exits non-zero:
 17. their times on CUDA events: TC ms per run and triangles per second for
    bitmap at rmat17, shift at rmat20 and dense at rmat13; PageRank fused and
    spmv ms per iteration; torch.profiler's device idle share over TC bitmap
-   and shift runs at rmat17 and a PageRank fused run; each new kernel per
+   and shift runs at rmat17 and a PageRank fused run (taken again until
+   it sees all of its launches, at most three times); each new kernel per
    launch beside its plain version,
    its bound and a PyTorch call computing the same function where one
-   exists; scan with flags (segmented float add) and gather_payloads (wall
-   and device time, beside torch.index_select's) at PageRank fused's
-   shape;
+   exists, wall and device time; scan with flags (segmented float add),
+   segment_broadcast_total (beside torch.repeat_interleave) and
+   gather_payloads (beside torch.index_select) at PageRank fused's shape;
+   scan without flags as a float add at 2^26 elements (beside
+   torch.cumsum) and as the int32 running max of TC shift's largest chunk
+   at gen:rmat20x16 (beside torch.cummax);
 18. segment_minmax (replaces scan_kernels.segmented_minmax_1d) against its
    plain version exactly and a second launch bitwise, over JP's per-edge
    priorities for 1, 3 and 8 payloads under three active masks (all true,
@@ -252,6 +269,10 @@ TPU_HISTORY = {"sssp": 9, "kcore": 814, "bfs": 6}
 OP_SCALES = (12, 18)   # operator kernel checks, besides the rmat20 graph
 ADAPTIVE_RUNS = 8      # sources: the highest out-degree vertices
 SCAN_RTOL = 1e-4       # float add over a whole array: a float32 running sum
+SCAN_MANY = 300        # tiles of the scan sweep's largest size (> a group)
+SCAN_BIG = 1 << 26     # an unsegmented float add: the longest look-back
+FILL_LONG = 42         # fill tiles one segment spans in the fill sweep
+PROFILED_CALLS = 4     # calls a launch check records
 COUNT_GLOBAL_CAP = 0   # advance_count's shared-tier cap that forces "global"
 GATHER_EXTRA = (0, 5, 9, 130)   # gather_payloads' payloads: Vp + these words
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -553,10 +574,7 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total
             and not e.key.startswith("ProfilerStep")}
     busy = sum(ms for ms, _ in rows.values())
-    ours = [f"{k.split('<')[0]}_kernel" for k in K.launches] + [
-        f"{k}_pack_kernel" for k in K.pack_launches]
-    seen = sum(n for name, (_, n) in rows.items()
-               if any(k in name for k in ours))
+    seen = launches_seen(rows)
     if expect is not None:
         expect += packs
     print(f"profile: {label}: wall "
@@ -571,6 +589,16 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
     for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
         print(f"profile:   {ms:9.4f} ms  {n:5d} launches  {name[:90]}")
     return rows
+
+
+def launches_seen(rows: dict) -> int:
+    """Launches of our device kernels among profile()'s rows: each is named
+    <launch key>_kernel (<key>_pack_kernel for a pack pass)."""
+    from essentials_tpu_torch import kernels as K
+    ours = [f"{k.split('<')[0]}_kernel" for k in K.launches] + [
+        f"{k}_pack_kernel" for k in K.pack_launches]
+    return sum(n for name, (_, n) in rows.items()
+               if any(k in name for k in ours))
 
 
 def device_ms(fn, reps: int = 20) -> tuple:
@@ -610,6 +638,43 @@ def print_device(card: str, label: str, ms, rows: dict) -> None:
     print(f"time [{card}]: {label}: "
           + ("not measured (no device time in the trace)" if ms is None
              else f"{ms:.4f} ms of device time per call ({split})"))
+
+
+def against_library(fn, nbytes: float, plain=None, lib=None,
+                    label: str = "", reps: int = SPMV_REPS) -> dict:
+    """fn()'s wall time per call (``reps`` calls back to back on CUDA
+    events) and device time per call (torch.profiler, memsets included),
+    with the bound of ``nbytes``; beside, where given, its plain version's
+    wall time and the wall and device time of ``lib``, one PyTorch call
+    computing the same function (``label`` names it). Keys: "" (the wall
+    ms), /device, /device_rows, /bound, /plain, /library,
+    /library_device."""
+    t = {"": median_ms(lambda _: [fn() for _ in range(reps)]) / reps}
+    t["/device"], t["/device_rows"] = device_ms(fn, reps)
+    t["/bound"] = bound(nbytes)
+    t["/plain"] = None if plain is None else median_ms(lambda _: plain())
+    t["/library"] = None if lib is None else library_ms(label, lib, reps)
+    t["/library_device"] = (None if t["/library"] is None
+                            else device_ms(lib, reps)[0])
+    return t
+
+
+def prefixed(name: str, t: dict) -> dict:
+    """against_library's keys under ``name``."""
+    return {name + k: v for k, v in t.items()}
+
+
+def print_against(card: str, label: str, t: dict, lib: str = "") -> None:
+    """One line of against_library's numbers."""
+    def ms(v) -> str:
+        return "not measured" if v is None else f"{v:.4f} ms"
+    b = t["/bound"]
+    print(f"time [{card}]: {label}: {ms(t[''])} per call (wall), "
+          f"{ms(t['/device'])} of device time, bound {b[0]:.4f} ms ({b[1]} "
+          f"at {b[2]} rate)"
+          + ("" if t["/plain"] is None else f", plain {ms(t['/plain'])}")
+          + ("" if not lib else f"; {lib} {ms(t['/library'])} wall, "
+                                f"{ms(t['/library_device'])} device"))
 
 
 def profile_searches(g, sources, variant: str, kw: dict) -> dict:
@@ -1518,6 +1583,119 @@ def check_operator_kernels(g, where: str, errs: dict) -> None:
           f"segment_reduce {errs['segment_reduce']:.6g}), all repeatable")
 
 
+def kernels_seen(fn, calls: int = PROFILED_CALLS) -> dict | None:
+    """{device kernel name: launches per call} over ``calls`` calls of fn()
+    recorded by torch.profiler, memsets and copies left out: in a window
+    after a warm-up step, or (where that window lost activities: a count
+    that is not a whole number of calls) in a profiler of its own after a
+    warm-up call; three tries each. None where every window lost some."""
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile as torch_profile,
+                                schedule)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for scheduled in (True, False) * 3:
+        fn()
+        torch.cuda.synchronize()
+        with torch_profile(activities=activities, schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1) if scheduled
+                else None) as prof:
+            for _ in range(2 if scheduled else 1):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                if scheduled:
+                    prof.step()
+        rows = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total
+                and not e.key.startswith(("ProfilerStep", "Memset",
+                                          "Memcpy"))}
+        if rows and all(n % calls == 0 for n in rows.values()):
+            return {k: n // calls for k, n in rows.items()}
+    return None
+
+
+def check_one_launch(name: str, fn, where: str) -> bool:
+    """One call of the wrapper ``name`` (fn()) is one device kernel launch,
+    and that kernel is <name>_kernel, as torch.profiler sees it. False
+    (printed) where the profiler lost device activities in every window;
+    the caller fails where that leaves a kernel with no form measured."""
+    seen = kernels_seen(fn)
+    if seen is None:
+        print(f"kernels: {name} {where}: launches per call not measured "
+              f"(every profiler window lost device activities)")
+        return False
+    check(list(seen.values()) == [1] and f"{name}_kernel" in next(iter(seen)),
+          f"{name} {where}: the profiler saw {seen} per call, not one "
+          f"{name}_kernel")
+    return True
+
+
+def check_scan_shapes(errs: dict) -> None:
+    """scan at n = 1, a tile - 1, a tile, a tile + 1 and SCAN_MANY tiles,
+    with flags absent, sparse (1%), at every position and only at position
+    0, under every op on int32 and float32: float add within tolerance of
+    plain (SCAN_RTOL where a segment spans tiles, else SUM_RTOL) and
+    bitwise equal over three calls, every other case bitwise equal to plain
+    on each call; then an unsegmented float add at SCAN_BIG elements; then
+    one device launch per call under every op, with and without flags."""
+    from essentials_tpu_torch import kernels as K
+    rng = np.random.default_rng(13)
+    tile = K.SCAN_TILE
+    cases = 0
+    for n in (1, tile - 1, tile, tile + 1, SCAN_MANY * tile + 5):
+        only0 = torch.zeros(n, dtype=torch.bool, device="cuda")
+        only0[0] = True
+        flag_sets = {"none": None,
+                     "sparse": torch.from_numpy(rng.random(n) < 0.01).cuda(),
+                     "every": torch.ones(n, dtype=torch.uint8, device="cuda"),
+                     "only 0": only0}
+        xs = (torch.from_numpy(rng.integers(-2**30, 2**30, n).astype(
+            np.int32)).cuda(), torch.from_numpy(rng.random(n).astype(
+                np.float32)).cuda())
+        for x in xs:
+            ty = str(x.dtype).split(".")[-1]
+            for label, fl in flag_sets.items():
+                for op in K.SCAN_OPS:
+                    form = f"<{ty},{op},{label}>"
+                    where = f"n = {n}"
+                    k = K.scan(x, fl, op)
+                    agains = [K.scan(x, fl, op) for _ in range(2)]
+                    p = K.scan_plain(x, fl, op)
+                    if op == "add" and x.is_floating_point():
+                        rtol = SUM_RTOL if label in ("sparse", "every") \
+                            else SCAN_RTOL
+                        for a in agains:
+                            hold_close("scan", form, k, a, p, rtol, errs,
+                                       where)
+                    else:
+                        hold_exact("scan", (exact_bits(k),) * 2,
+                                   [exact_bits(a) for a in agains],
+                                   (exact_bits(p),) * 2, errs,
+                                   f"{where} {form}")
+                    cases += 1
+    big = torch.rand(SCAN_BIG, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    k = K.scan(big)
+    hold_close("scan", "<float32,add,none>", k, K.scan(big), K.scan_plain(big),
+               SCAN_RTOL, errs, f"n = {SCAN_BIG}")
+    del big, k
+    forms = [(x, op, label) for x in xs for op in K.SCAN_OPS
+             for label in ("none", "sparse")]
+    seen = sum(check_one_launch(
+        "scan", lambda x=x, op=op, fl=flag_sets[label]: K.scan(x, fl, op),
+        f"<{x.dtype},{op},{label}>") for x, op, label in forms)
+    check(seen > 0, f"scan: launches per call measured in none of the "
+                    f"{len(forms)} forms profiled")
+    print(f"kernels: scan at n = 1 to {SCAN_MANY} tiles of {tile}: {cases} "
+          f"cases (4 flag sets, every op, int32 and float32) bitwise equal "
+          f"to plain on three calls, float adds within tolerance and the "
+          f"same bits on three calls (max abs err {errs['scan']:.6g}); an "
+          f"unsegmented float add at n = {SCAN_BIG} too; one device launch "
+          f"(scan_kernel) per call in {seen} of {len(forms)} forms profiled "
+          f"(the others not measured)")
+
+
 # ------------------------------------------------------------ phase 13 --
 
 def expect_bfs_adaptive(r) -> dict:
@@ -1696,14 +1874,11 @@ def time_operator_kernels(g, source: int) -> dict:
         return median_ms(lambda _: [fn() for _ in range(SPMV_REPS)]) \
             / SPMV_REPS
 
-    t = {}
     fi = f.int()                     # compact_frontier's cumsum input
-    t["scan"] = per_call(lambda: K.scan(fi))
-    t["scan/plain"] = per_call(lambda: K.scan_plain(fi))
-    t["scan/bound"] = bound(8 * vp)
-    t["scan/library"] = library_ms(
-        "scan (torch.cumsum)", lambda: torch.cumsum(fi, 0, dtype=torch.int32),
-        SPMV_REPS)
+    t = prefixed("scan", against_library(
+        lambda: K.scan(fi), 8 * vp, lambda: K.scan_plain(fi),
+        lambda: torch.cumsum(fi, 0, dtype=torch.int32),
+        "scan (torch.cumsum)"))
     pays = (sf.int(), dist)          # the dense SSSP advance's gather
     t["gather_payloads"] = per_call(lambda: K.gather_payloads(csrc, *pays))
     t["gather_payloads/plain"] = per_call(
@@ -1722,37 +1897,30 @@ def time_operator_kernels(g, source: int) -> dict:
     cl = csrc.long()
     msg = torch.where(sf[cl], dist[cl] + g.csc_values, float("inf"))
     off = g.csc_offsets
-    t["segment_reduce"] = per_call(lambda: K.segment_reduce(msg, off, "min"))
-    t["segment_reduce/plain"] = per_call(
-        lambda: K.segment_reduce_plain(msg, off, "min"))
-    t["segment_reduce/bound"] = bound(4 * ep + 4 * (vp + 1) + 4 * vp)
     off64 = off.long()
-    t["segment_reduce/library"] = library_ms(
-        "segment_reduce (torch.segment_reduce)",
+    t.update(prefixed("segment_reduce", against_library(
+        lambda: K.segment_reduce(msg, off, "min"),
+        4 * ep + 4 * (vp + 1) + 4 * vp,
+        lambda: K.segment_reduce_plain(msg, off, "min"),
         lambda: torch.segment_reduce(msg, "min", offsets=off64, unsafe=True),
-        SPMV_REPS)
-    t["advance_count"] = per_call(lambda: K.advance_count(f, off, csrc))
-    t["advance_count/tier"] = K.advance_count_tier(vp, f.device)
-    t["advance_count/plain"] = per_call(
-        lambda: K.advance_count_plain(f, off, csrc))
-    t["advance_count/bound"] = bound(4 * ep + 4 * (vp + 1) + vp + 4 * vp)
-    t["advance_count/device"], t["advance_count/device_rows"] = device_ms(
-        lambda: K.advance_count(f, off, csrc), SPMV_REPS)
-    glob = (f, off, csrc, COUNT_GLOBAL_CAP)
-    t["advance_count/global"] = per_call(lambda: K.advance_count(*glob))
-    t["advance_count/global_device"], t["advance_count/global_rows"] = \
-        device_ms(lambda: K.advance_count(*glob), SPMV_REPS)
+        "segment_reduce (torch.segment_reduce)")))
     # the counts as a product: the CSC as a CSR matrix of ones times the
     # frontier
     ones = torch.sparse_csr_tensor(off, csrc, torch.ones(
         ep, device=csrc.device), size=(vp, vp))
     ff = f.float()
-    t["advance_count/library"] = library_ms(
-        "advance_count (torch.mv on the CSC as a sparse CSR matrix of ones)",
-        lambda: torch.mv(ones, ff), SPMV_REPS)
-    t["advance_count/library_device"] = (
-        None if t["advance_count/library"] is None
-        else device_ms(lambda: torch.mv(ones, ff), SPMV_REPS)[0])
+    t.update(prefixed("advance_count", against_library(
+        lambda: K.advance_count(f, off, csrc),
+        4 * ep + 4 * (vp + 1) + vp + 4 * vp,
+        lambda: K.advance_count_plain(f, off, csrc),
+        lambda: torch.mv(ones, ff),
+        "advance_count (torch.mv on the CSC as a sparse CSR matrix of "
+        "ones)")))
+    t["advance_count/tier"] = K.advance_count_tier(vp, f.device)
+    glob = (f, off, csrc, COUNT_GLOBAL_CAP)
+    t["advance_count/global"] = per_call(lambda: K.advance_count(*glob))
+    t["advance_count/global_device"], t["advance_count/global_rows"] = \
+        device_ms(lambda: K.advance_count(*glob), SPMV_REPS)
     t["frontiers"] = (int(f.sum()), int(sf.sum()))
     return t
 
@@ -1898,6 +2066,62 @@ def check_fill_kernels(g, source: int, where: str, errs: dict) -> dict:
           f"exact against plain and repeatable at every level; the 5-pass "
           f"level equals bfs_level<int32> at segment starts")
     return best[1]
+
+
+def check_fill_shapes(errs: dict) -> None:
+    """segment_broadcast_total (int32 and float32 S) and suffix_fill_update
+    at n = 1, a tile - 1, a tile, a tile + 1 and FILL_LONG + 3 tiles, with
+    flags sparse (1%), at every position, only at position 0, and with one
+    segment across FILL_LONG tiles, each against its plain version and a
+    second launch, bitwise; then one device launch per call of each under
+    the largest n's four flag sets."""
+    from essentials_tpu_torch import kernels as K
+    rng = np.random.default_rng(15)
+    tile = K.FILL_TILE
+    cases = 0
+    for n in (1, tile - 1, tile, tile + 1, (FILL_LONG + 3) * tile + 77):
+        pos = torch.arange(n, device="cuda")
+        flag_sets = {
+            "sparse": torch.from_numpy(rng.random(n) < 0.01).cuda(),
+            "every": torch.ones(n, dtype=torch.uint8, device="cuda"),
+            "only 0": pos == 0,
+            f"{FILL_LONG} tiles": (pos == 0) | (pos == min(100, n - 1))
+            | (pos == min(100 + FILL_LONG * tile, n - 1))}
+        si = torch.from_numpy(rng.integers(-3, 3, n).astype(np.int32)).cuda()
+        sf = torch.from_numpy(rng.random(n).astype(np.float32)).cuda()
+        lev = torch.where(torch.from_numpy(rng.random(n) < 0.5).cuda(),
+                          K.INT32_MAX, si)
+        for label, fl in flag_sets.items():
+            where = f"n = {n}, flags {label}"
+            for x in (si, sf):
+                k = K.segment_broadcast_total(x, fl)
+                hold_exact("segment_broadcast_total", (exact_bits(k),),
+                           (exact_bits(K.segment_broadcast_total(x, fl)),),
+                           (exact_bits(K.segment_broadcast_total_plain(x,
+                                                                       fl)),),
+                           errs, f"{where} {x.dtype}")
+            args = (si, fl, lev, 7)
+            hold_exact("suffix_fill_update", K.suffix_fill_update(*args),
+                       K.suffix_fill_update(*args),
+                       K.suffix_fill_update_plain(*args), errs, where)
+            cases += 1
+    seen = {}
+    for name, call in (
+            ("segment_broadcast_total",
+             lambda fl: K.segment_broadcast_total(sf, fl)),
+            ("suffix_fill_update",
+             lambda fl: K.suffix_fill_update(si, fl, lev, 7))):
+        seen[name] = sum(check_one_launch(
+            name, lambda fl=fl: call(fl), f"n = {n}, flags {label}")
+            for label, fl in flag_sets.items())
+        check(seen[name] > 0, f"{name}: launches per call measured in none "
+                              f"of the {len(flag_sets)} forms profiled")
+    print(f"kernels: fills at n = 1 to {FILL_LONG + 3} tiles of {tile}: "
+          f"{cases} flag sets, segment_broadcast_total (int32, float32) and "
+          f"suffix_fill_update exact against plain and repeatable, a "
+          f"segment across {FILL_LONG} tiles included; one device launch "
+          f"per call in {seen} of {len(flag_sets)} forms profiled each (the "
+          f"others not measured)")
 
 
 # ------------------------------------------------------------ phase 16 --
@@ -2097,12 +2321,14 @@ def tc_main_path(csr17, csr20, csr13, g_u, csr_u) -> dict:
 
 # ------------------------------------------------------------ phase 17 --
 
-def time_tc(csr17, csr20, csr13, g_u, card: str) -> None:
+def time_tc(csr17, csr20, csr13, g_u, card: str, pr_launches: int) -> None:
     """TC ms per run (what tc.run's elapsed_ms covers: the device work
     after the packing and copy, one warm-up run first) and triangles per
     second; PageRank ms per iteration per variant; the profiler's idle
     share over one TC bitmap run (host packing included), one TC shift run
-    at rmat17 (host planning included) and one PageRank fused run."""
+    at rmat17 (host planning included) and one PageRank fused run, taken
+    again (up to three times) until it shows all its ``pr_launches``
+    launches of our kernels."""
     from essentials_tpu_torch.algorithms import pr, tc
     for v, csr, label, runs in (("bitmap", csr17, f"rmat{TC_SCALE}",
                                  TC_CYCLES),
@@ -2124,31 +2350,66 @@ def time_tc(csr17, csr20, csr13, g_u, card: str) -> None:
             lambda: tc.run(csr17, variant="bitmap", warmup=False), 1)
     profile(f"tc shift rmat{TC_SCALE}, one tc.run (planning included)",
             lambda: tc.run(csr17, variant="shift", warmup=False))
-    profile(f"pr fused undirected rmat{SCALE}, one pr.run",
-            lambda: pr.run(g_u, variant="fused", warmup=False))
+    for _ in range(3):             # a window that lost activities is retaken
+        rows = profile(f"pr fused undirected rmat{SCALE}, one pr.run",
+                       lambda: pr.run(g_u, variant="fused", warmup=False),
+                       pr_launches)
+        if launches_seen(rows) == pr_launches:
+            break
 
 
-def time_segmented_scan(g, card: str, launches: int) -> dict:
-    """scan with flags, as PageRank fused runs it (a float32 add segmented
-    by the CSC segment starts) at ``g``'s shape: per call, SPMV_REPS back to
-    back, beside its plain version and its bound (x and the flags read,
-    the scan written)."""
+def tc_shift_largest_chunk(csr, device) -> torch.Tensor:
+    """The int32 records whose running max TC shift takes over its largest
+    chunk of ``csr`` (the most records of one scan)."""
+    from essentials_tpu_torch.algorithms import tc
+    wec_pad, pos_end, edge_keys, chunks = tc._shift_prep(csr, device)
+    parts = max(chunks, key=lambda c: sum(b for _, b in c))
+    return tc._shift_runs(wec_pad, pos_end, edge_keys, parts)[0]
+
+
+def time_scan_shapes(g, csr_m, card: str, launches: int) -> dict:
+    """scan beside its plain version, its bound (each input read once, the
+    scan written) and a PyTorch call computing the same function, wall and
+    device time per call: with flags as PageRank fused runs it (a float32
+    add segmented by the CSC segment starts of ``g``; no PyTorch call) under
+    scan<seg>; an unsegmented float32 add at SCAN_BIG elements, beside
+    torch.cumsum, under scan<f32>@big; and the int32 running max of TC
+    shift's largest chunk on ``csr_m`` (gen:rmat20x16), beside
+    torch.cummax, under scan<max>@tc."""
     from essentials_tpu_torch import kernels as K
     ep = g.n_edges_padded
-    x = torch.rand(ep, generator=torch.Generator(device=g.device)
-                   .manual_seed(SEED), device=g.device)
+    gen = torch.Generator(device=g.device).manual_seed(SEED)
+    x = torch.rand(ep, generator=gen, device=g.device)
     fl = g.csc_seg_flags
-    t = {"scan<seg>": median_ms(lambda _: [K.scan(x, fl, "add") for _ in
-                                           range(SPMV_REPS)]) / SPMV_REPS,
-         "scan<seg>/plain": median_ms(lambda _: K.scan_plain(x, fl, "add")),
-         "scan<seg>/bound": bound(9 * ep)}
-    b = t["scan<seg>/bound"]
-    print(f"time [{card}]: scan with flags (float32 add, PageRank fused's "
-          f"shape, undirected rmat{SCALE}, Ep = {ep}): {t['scan<seg>']:.4f} "
-          f"ms per call, plain {t['scan<seg>/plain']:.4f} ms, bound "
-          f"{b[0]:.4f} ms ({b[1]} at {b[2]} rate); {launches} launches in "
-          f"one PageRank fused run")
-    return t
+    out = {}
+    t = against_library(lambda: K.scan(x, fl, "add"), 9 * ep,
+                        lambda: K.scan_plain(x, fl, "add"))
+    print_against(card, f"scan with flags (float32 add, PageRank fused's "
+                        f"shape, undirected rmat{SCALE}, Ep = {ep}; "
+                        f"{launches} launches in one PageRank fused run)", t)
+    out.update(prefixed("scan<seg>", t))
+    big = torch.rand(SCAN_BIG, generator=gen, device=g.device)
+    t = against_library(lambda: K.scan(big), 8 * SCAN_BIG,
+                        lambda: K.scan_plain(big),
+                        lambda: torch.cumsum(big, 0), "scan (torch.cumsum)")
+    print_against(card, f"scan without flags (float32 add, n = {SCAN_BIG}: "
+                        f"the longest look-back: each tile folds its group's "
+                        f"tiles and the groups before it)", t,
+                  "torch.cumsum")
+    out.update(prefixed("scan<f32>@big", t))
+    del big
+    enc = tc_shift_largest_chunk(csr_m, g.device)
+    n = enc.numel()
+    t = against_library(lambda: K.scan(enc, None, "max"), 8 * n,
+                        lambda: K.scan_plain(enc, None, "max"),
+                        lambda: torch.cummax(enc, 0),
+                        "scan (torch.cummax)", reps=2)
+    print_against(card, f"scan without flags (int32 max, TC shift's largest "
+                        f"chunk of gen:rmat{MAIN_SCALE}x16, n = {n})", t,
+                  "torch.cummax (values and indices)")
+    out.update(prefixed("scan<max>@tc", t))
+    out["scan<max>@tc/n"] = n
+    return out
 
 
 def time_pr_gather(g, card: str, launches: int) -> dict:
@@ -2186,8 +2447,10 @@ def time_pr_gather(g, card: str, launches: int) -> dict:
 def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
     """Each new kernel and its plain version per call through its wrapper:
     bitmap_intersect_counts (witness on, as TC runs it) over gen:rmat17x16's
-    oriented edges; the fills and the route at rmat18 at the inputs of the
-    level with the most new vertices (the broadcast on float32 S)."""
+    oriented edges, one call at a time; the fills and the route at rmat18
+    at the inputs of the level with the most new vertices (the broadcast on
+    float32 S) through against_library, the broadcast beside
+    torch.repeat_interleave."""
     from essentials_tpu_torch import kernels as K
     t = {}
     eu, ev, bitmap = bitmap_args
@@ -2209,36 +2472,74 @@ def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
         ne * row + torch.unique(eu).numel() * row + 12 * ne + 32 * row,
         2 * ne * row / 4)
     t["bitmap_intersect_counts/library"] = None
-    for name, fn, plain in (
-            ("fused_route_or", K.fused_route_or, K.fused_route_or_plain),
-            ("suffix_fill_update", K.suffix_fill_update,
-             K.suffix_fill_update_plain),
-            ("segment_broadcast_total", K.segment_broadcast_total,
-             K.segment_broadcast_total_plain)):
-        args = fill_args[{"fused_route_or": "route",
-                          "suffix_fill_update": "fill"}.get(name,
-                                                            "broadcast")]
-        t[name] = median_ms(lambda _: fn(*args))
-        t[name + "/plain"] = median_ms(lambda _: plain(*args))
-    n = fill_args["route"][0].numel()
+    route, fill, (s, flags) = (fill_args[k] for k in ("route", "fill",
+                                                       "broadcast"))
+    n = route[0].numel()
     # lev (gathered, each read once), ids and flags read, z written
-    t["fused_route_or/bound"] = bound(13 * n)
-    t["fused_route_or/library"] = None
-    # S, flags and lev read, the new lev written
-    t["suffix_fill_update/bound"] = bound(13 * n)
-    t["suffix_fill_update/library"] = None
-    t["segment_broadcast_total/bound"] = bound(9 * n)
-    s, flags = fill_args["broadcast"]
-    ends = torch.cat([flags[1:], torch.ones(1, dtype=torch.bool,
-                                            device=flags.device)])
-    at_ends = s[ends]
+    t.update(prefixed("fused_route_or", against_library(
+        lambda: K.fused_route_or(*route), 13 * n,
+        lambda: K.fused_route_or_plain(*route))))
+    t.update(prefixed("suffix_fill_update", against_library(
+        lambda: K.suffix_fill_update(*fill), fill_bytes(fill[1], True),
+        lambda: K.suffix_fill_update_plain(*fill))))
+    t.update(prefixed("segment_broadcast_total", against_library(
+        lambda: K.segment_broadcast_total(s, flags), fill_bytes(flags),
+        lambda: K.segment_broadcast_total_plain(s, flags),
+        repeat_interleave_of(s, flags),
+        "segment_broadcast_total (torch.repeat_interleave of the "
+        "segment-end values)")))
+    return t
+
+
+def segment_ends(flags: torch.Tensor) -> torch.Tensor:
+    """[n] bool: the last position of each segment that the start
+    ``flags`` mark (position 0 always starts one)."""
+    return torch.cat([flags[1:].bool(), torch.ones(1, dtype=torch.bool,
+                                                   device=flags.device)])
+
+
+def fill_bytes(flags: torch.Tensor, update: bool = False) -> int:
+    """The bytes a segment fill over ``flags`` must move: the flags read
+    once, S read only at the segment ends (each 32-byte sector of S that
+    holds an end once), the output written once; the update
+    (suffix_fill_update) also reads lev."""
+    n = flags.numel()
+    sectors = torch.unique(torch.nonzero(segment_ends(flags))[:, 0] // 8)
+    return n + 32 * sectors.numel() + 4 * n + (4 * n if update else 0)
+
+
+def repeat_interleave_of(s: torch.Tensor, flags: torch.Tensor):
+    """A call of torch.repeat_interleave of S's segment-end values by the
+    segments' lengths: one PyTorch call computing segment_broadcast_total
+    (a yardstick the port never calls)."""
+    ends = segment_ends(flags)
+    vals, n = s[ends], s.numel()
     lens = torch.diff(torch.nonzero(ends)[:, 0], prepend=torch.tensor(
         [-1], device=flags.device))
-    t["segment_broadcast_total/library"] = library_ms(
-        "segment_broadcast_total (torch.repeat_interleave of the segment-end "
-        "values)", lambda: torch.repeat_interleave(at_ends, lens,
-                                                   output_size=n))
-    return t
+    return lambda: torch.repeat_interleave(vals, lens, output_size=n)
+
+
+def time_pr_broadcast(g, card: str, launches: int) -> dict:
+    """segment_broadcast_total as PageRank fused runs it (float32 S, the
+    segmented sum of a random [Ep] over the CSC segment starts of ``g``)
+    beside its plain version, its bound and torch.repeat_interleave of the
+    segment-end values, wall and device time per call. Keys under
+    segment_broadcast_total@pr."""
+    from essentials_tpu_torch import kernels as K
+    ep, fl = g.n_edges_padded, g.csc_seg_flags
+    m = torch.rand(ep, generator=torch.Generator(device=g.device)
+                   .manual_seed(SEED), device=g.device)
+    S = K.scan(m, fl, "add")
+    t = against_library(
+        lambda: K.segment_broadcast_total(S, fl), fill_bytes(fl),
+        lambda: K.segment_broadcast_total_plain(S, fl),
+        repeat_interleave_of(S, fl),
+        "segment_broadcast_total (torch.repeat_interleave)")
+    print_against(card, f"segment_broadcast_total as PageRank fused runs it "
+                        f"(float32 S, undirected rmat{SCALE}, Ep = {ep}; "
+                        f"{launches} launches in one PageRank fused run)", t,
+                  "torch.repeat_interleave")
+    return {"segment_broadcast_total@pr" + k: v for k, v in t.items()}
 
 
 # ------------------------------------------------------------ phase 18 --
@@ -2769,6 +3070,7 @@ def group_operators(run: Run) -> None:
     where20 = f"rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}"
     check(not g20.symmetric_layout, f"{where20} has a symmetric layout")
     check_operator_kernels(g20, where20, errs)
+    check_scan_shapes(errs)
     run.phases.done("12 operator kernels")
 
     # 13. the adaptive main path on the directed rmat20 graph
@@ -2793,6 +3095,12 @@ def group_operators(run: Run) -> None:
               f"launches per search {per_search} ({where20}, the largest "
               f"dense frontiers from {op_sources[0]}: bfs, sssp "
               f"{t['frontiers']})")
+    print_device(card, f"scan {where20}, compact_frontier's cumsum "
+                       f"(torch.cumsum: "
+                       + ("not measured" if t["scan/library_device"] is None
+                          else f"{t['scan/library_device']:.4f} ms of device "
+                               f"time") + ")",
+                 t["scan/device"], t["scan/device_rows"])
     lib_dev = t["advance_count/library_device"]
     print_device(card, f"advance_count {where20}, {t['advance_count/tier']} "
                        f"tier (torch.mv: "
@@ -2828,6 +3136,7 @@ def group_tc(run: Run) -> None:
         fill_args = check_fill_kernels(
             g_b, int(np.argmax(np.diff(csr_b.row_offsets))),
             f"rmat{scale}", errs)
+    check_fill_shapes(errs)
     run.phases.done("15 tc/fill kernels")
 
     # 16. the TC, intersection and PageRank fused main path
@@ -2839,20 +3148,27 @@ def group_tc(run: Run) -> None:
     run.phases.done("16 tc/intersect/pr fused main path")
 
     # 17. their times
-    time_tc(csr17, csr_m, csr13, g_u, card)
+    pr_counts = tc_launches["pr fused"]
+    time_tc(csr17, csr_m, csr13, g_u, card, sum(pr_counts.values()))
     t = time_tc_fill_kernels(bitmap_args, fill_args)
     run.t.update(t)
-    run.t.update(time_segmented_scan(g_u, card,
-                                     tc_launches["pr fused"]["scan"]))
-    run.t.update(time_pr_gather(
-        g_u, card, tc_launches["pr fused"]["gather_payloads"]))
+    run.t.update(time_scan_shapes(g_u, csr_m, card, pr_counts["scan"]))
+    run.t.update(time_pr_broadcast(g_u, card,
+                                   pr_counts["segment_broadcast_total"]))
+    run.t.update(time_pr_gather(g_u, card, pr_counts["gather_payloads"]))
     for name in (*TC_REPLACES, *FILL_REPLACES):
         lib = t[name + "/library"]
-        print(f"time [{card}]: {name} {t[name]:.4f} ms per launch, plain "
+        lib_dev = t.get(name + "/library_device")
+        dev = t.get(name + "/device")
+        print(f"time [{card}]: {name} {t[name]:.4f} ms per launch"
+              + ("" if dev is None else f" ({dev:.4f} ms of device time)")
+              + f", plain "
               f"{t[name + '/plain']:.4f} ms, bound "
               f"{t[name + '/bound'][0]:.4f} ms ({t[name + '/bound'][1]} at "
               f"{t[name + '/bound'][2]} rate), library call "
-              f"{'none' if lib is None else f'{lib:.4f} ms'}")
+              f"{'none' if lib is None else f'{lib:.4f} ms'}"
+              + ("" if lib_dev is None else f" ({lib_dev:.4f} ms of device "
+                                            f"time)"))
     print(f"time [{card}]: bitmap_intersect_counts without the witness "
           f"{t['bitmap_intersect_counts/no_witness']:.4f} ms per launch "
           f"(gen:rmat{TC_SCALE}x16)")
@@ -2940,7 +3256,8 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
         out["bound_streaming_ms"] = t[key + "/bound_streaming"][0]
         out["ms_no_witness"] = t[key + "/no_witness"]
     if name in ("spmv_rows", "spmv_slabs", "gather_payloads",
-                "advance_count"):
+                "advance_count", "scan", "segment_broadcast_total",
+                "suffix_fill_update"):
         # device times per call (torch.profiler) beside the wall times
         out["device_ms"] = t.get(key + "/device")
         out["library_device_ms"] = t.get(key + "/library_device")
@@ -2987,6 +3304,32 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
                 "ms": t["spmv_slabs<add,min>/sweep"],
                 "device_ms": t["spmv_slabs<add,min>/sweep_device"],
                 "bound_ms": b[0], "bound_memory": b[2]}
+    if name == "scan":
+        out["library_of"] = "torch.cumsum (int32) of compact_frontier's input"
+        for shape, k, lib in (
+                ("segmented_float_add_pagerank_fused", "scan<seg>", None),
+                ("unsegmented_float_add_2^26", "scan<f32>@big",
+                 "torch.cumsum"),
+                ("int32_max_tc_shift_rmat20x16", "scan<max>@tc",
+                 "torch.cummax")):
+            if k in t:
+                out[shape] = {"ms": t[k], "device_ms": t[k + "/device"],
+                              "plain_ms": t[k + "/plain"],
+                              "bound_ms": t[k + "/bound"][0],
+                              "bound_memory": t[k + "/bound"][2],
+                              "library_of": lib,
+                              "library_ms": t[k + "/library"],
+                              "library_device_ms": t[k + "/library_device"]}
+    if name == "segment_broadcast_total":
+        out["library_of"] = "torch.repeat_interleave of the segment-end values"
+        k = "segment_broadcast_total@pr"
+        if k in t:
+            out["pagerank_fused_undirected_rmat18"] = {
+                "ms": t[k], "device_ms": t[k + "/device"],
+                "plain_ms": t[k + "/plain"], "bound_ms": t[k + "/bound"][0],
+                "bound_memory": t[k + "/bound"][2],
+                "library_ms": t[k + "/library"],
+                "library_device_ms": t[k + "/library_device"]}
     if name == "advance_count":
         out["tier"] = t.get(key + "/tier")
         out["global_tier"] = {"ms": t.get(key + "/global"),

@@ -295,11 +295,13 @@ def _shift_prep(csr: Csr, device):
             _edge_keys(es, ec, device), shift_chunks(d))
 
 
-def _shift_chunk_count(wec_pad, pos_end, edge_keys, parts) -> torch.Tensor:
-    """The wedges of the passes ``parts`` ((s, B_s) pairs) that close a
-    triangle, as an int64 device scalar. Each pass's slots p in [0, B_s)
-    pair wec[p] with wec[p+s] when p + s lies in p's row; invalid slots get
-    a key that no edge has."""
+def _shift_runs(wec_pad, pos_end, edge_keys, parts) -> tuple:
+    """The running-max input of the passes ``parts`` ((s, B_s) pairs): the
+    sorted records of the edges and the passes' wedges, encoded as
+    (run-start index << 1 | opens-with-edge) at each run of one pair and -1
+    elsewhere (int32), and each record's tag (1: a wedge). Each pass's
+    slots p in [0, B_s) pair wec[p] with wec[p+s] when p + s lies in p's
+    row; invalid slots get a key that no edge has."""
     dev = wec_pad.device
     shifts = torch.tensor([s for s, _ in parts], device=dev)
     sizes = torch.tensor([b for _, b in parts], device=dev)
@@ -328,7 +330,14 @@ def _shift_chunk_count(wec_pad, pos_end, edge_keys, parts) -> torch.Tensor:
     del pair
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     enc = torch.where(run_start, (idx << 1) | (1 - tag), -1)
-    del idx, run_start
+    return enc, tag
+
+
+def _shift_chunk_count(wec_pad, pos_end, edge_keys, parts) -> torch.Tensor:
+    """The wedges of the passes ``parts`` that close a triangle, as an int64
+    device scalar: a running max over ``_shift_runs``' encoding carries the
+    nearest run start's flag to each wedge."""
+    enc, tag = _shift_runs(wec_pad, pos_end, edge_keys, parts)
     m = kernels.scan(enc, None, "max")
     return ((tag == 1) & ((m & 1) == 1)).sum()
 

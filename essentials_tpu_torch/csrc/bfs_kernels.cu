@@ -4,8 +4,9 @@
 //
 // Built by essentials_tpu_torch/kernels.py with nvcc into a shared library
 // with a plain C interface and loaded with ctypes. Every entry point launches
-// on the stream it is given, allocates nothing, and returns
-// cudaGetLastError() so that a refused launch reaches the Python wrapper.
+// on the stream it is given, allocates nothing (the fill zeroes the scratch
+// it is given with cudaMemsetAsync), and returns the CUDA status so that a
+// refused launch reaches the Python wrapper.
 //
 // Layout contract (essentials_tpu_torch/graph/graph.py): `off` is the graph's
 // [Vp+1] int32 CSR offsets, equal to its CSC offsets on a symmetric layout;
@@ -17,11 +18,16 @@
 #include <climits>
 #include <cstdint>
 
+#include "tile_status.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;                 // threads per block
 constexpr int kWarpsPerBlock = kBlock / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
+using etpu::load_status;
+using etpu::nonzero_bytes;
+using etpu::publish_status;
 
 // One BFS level on the edge axis, with one warp per destination vertex v.
 //
@@ -157,19 +163,9 @@ bfs_predecessors_kernel(const int* __restrict__ dist,
 // _suffix_fill_update_kernel :67) and fused_route_or (:603: _k1_eq_kernel
 // :173, a cube K2, _k3_segor_kernel :184). The Pallas bodies scan right to
 // left over a descending grid (or left to right for the OR) and carry the
-// nearest segment end (start) from block to block in SMEM.
-//
-// Blocks run in no order here, so each is three launches over tiles of
-// kFillTile positions, 8 rounds of one position per thread (coalesced):
-//   1. each block reduces its tile to the position of its marker nearest to
-//      the tile's far side (fill: the first segment end; route: the last
-//      frontier hit and the last segment start);
-//   2. one block scans those in tile order (marks_carry): for each tile, the
-//      nearest marker in the tiles beyond it;
-//   3. each block scans its tile round by round from the far side (a
-//      shuffle scan per warp, then the warps' totals), completes with the
-//      carry, and writes.
-// Every result is a position, not a sum, so it is exact for any 32-bit type.
+// nearest segment end (start) from block to block in SMEM. Every result is
+// a position, not a sum, so it is exact in any order and for any 32-bit
+// type.
 //
 // A fill position takes S at its segment's END: the first p' >= p with p' =
 // n-1 or flags[p'+1] set (the last position always ends a segment, which is
@@ -177,68 +173,241 @@ bfs_predecessors_kernel(const int* __restrict__ dist,
 // at or before q (lev[eid[q']] == it) is at or after q's segment start (the
 // last flag at or before q; position 0 always starts one).
 //
-// What bounds them: bytes. Passes 1 and 3 both read the flags; the fill
-// reads S once per position (a segment's positions share one address), the
-// route gathers lev through csc_edge_ids once and re-reads the hits it wrote.
+// The fill is one launch over tiles of kFillTile positions, handed out from
+// the far end by an atomic ticket (ticket t takes tile g-1-t, as the JAX
+// package's descending grid runs), so a tile's carry lies to its right, in
+// tiles that already run. Each thread takes kFillItems consecutive
+// positions and reads their flags as one 16-byte word, the next thread's
+// first flag by a shuffle; it finds each position's next end within itself
+// by a bit scan, then the first end after it by a suffix min over the warp
+// (__shfl_down_sync) and over the warps (shared memory): two barriers a
+// tile. The tile publishes its first end (or "none") in its 64-bit status
+// word at once; positions after its last end take the first end published
+// by the tiles after it, which one warp reads 32 at a time and stops at the
+// first tile that has one. A tile without an end of its own then publishes
+// the end it found, so a segment across many tiles is not walked again by
+// each of them (a decoupled look-forward). Each position reads S[end(p)]:
+// a segment's positions share one address, so S costs about one sector per
+// segment; out (and the update's lev) move by 16-byte vectors.
+//
+// The route OR stays three launches over tiles of kRouteTile positions, 8
+// rounds of one position per thread: (1) each block reduces its tile to
+// its last hit and last segment start; (2) one block scans those in tile
+// order (marks_carry); (3) each block scans its tile round by round,
+// completes with the carry, and writes.
+//
+// What bounds them: bytes. The fill reads the flags once and S about once
+// per segment, and writes out once (the update also reads lev); the route
+// gathers lev through csc_edge_ids once and re-reads the hits it wrote.
 
-constexpr int kFillItems = 8;               // rounds of kBlock positions
+constexpr int kFillItems = 16;              // consecutive positions a thread
 constexpr int kFillTile = kBlock * kFillItems;
+constexpr int kRouteItems = 8;              // rounds of kBlock positions
+constexpr int kRouteTile = kBlock * kRouteItems;
+// a fill tile's status word, bits 32-33: not yet published; no segment end
+// in the tile and none found after it yet; the first end at or after the
+// tile (bits 0-31)
+enum FillState : unsigned { kFillUnset = 0, kFillNone = 1, kFillEnd = 2 };
 
-__device__ __forceinline__ bool is_end(const unsigned char* flags, long long p,
-                                       int n) {
-  return p == n - 1 || flags[p + 1] != 0;
+// out[p] = S[end(p)]; with kUpdate (suffix_fill_update) out[p] = it where
+// that value, as int32, is above 0 and lev[p] is INT_MAX, else lev[p], and
+// `any` gets 1 if some position changed (one atomic per block). `vec`: out,
+// lev and flags are 16-byte aligned.
+template <bool kUpdate>
+__device__ __forceinline__ void segment_fill(
+    const unsigned* __restrict__ s, const unsigned char* __restrict__ flags,
+    int n, const int* __restrict__ lev, int it, unsigned* __restrict__ out,
+    bool vec, unsigned long long* status, unsigned* ticket, int* any) {
+  __shared__ int s_wmin[kWarpsPerBlock];
+  __shared__ int s_b, s_need, s_carry;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) {
+    s_b = static_cast<int>(gridDim.x - 1 - atomicAdd(ticket, 1u));
+  }
+  __syncthreads();
+  const int b = s_b;
+  const long long p0 = static_cast<long long>(b) * kFillTile +
+                       static_cast<long long>(tid) * kFillItems;
+  const bool whole = vec && p0 + kFillItems <= n;
+
+  // bit j of fm: flags[p0 + j] is set; of em: p0 + j ends a segment (or
+  // lies at or past n - 1)
+  unsigned fm = 0;
+  if (whole) {
+    const uint4 w = *reinterpret_cast<const uint4*>(flags + p0);
+    fm = nonzero_bytes(w.x) | nonzero_bytes(w.y) << 4 |
+         nonzero_bytes(w.z) << 8 | nonzero_bytes(w.w) << 12;
+  } else {
+    for (int j = 0; j < kFillItems; ++j) {
+      if (p0 + j < n && flags[p0 + j] != 0) fm |= 1u << j;
+    }
+  }
+  unsigned next = __shfl_down_sync(kFullMask, fm, 1) & 1u;
+  if (lane == 31) {
+    const long long q = p0 + kFillItems;
+    next = q < n && flags[q] != 0;
+  }
+  unsigned em = fm >> 1 | next << (kFillItems - 1);
+  const long long last = static_cast<long long>(n) - 1;
+  if (p0 + kFillItems > last) {
+    em |= ~0u << static_cast<int>(max(last - p0, 0ll));
+  }
+  em &= (1u << kFillItems) - 1u;
+
+  // the first end after this thread within the tile: a suffix min of the
+  // threads' first ends
+  const int own = em ? static_cast<int>(p0) + __ffs(em) - 1 : INT_MAX;
+  int incl = own;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_down_sync(kFullMask, incl, d);
+    if (lane + d < 32) incl = min(incl, y);
+  }
+  int after = __shfl_down_sync(kFullMask, incl, 1);
+  if (lane == 31) after = INT_MAX;
+  if (lane == 0) s_wmin[warp] = incl;
+  if (tid == kBlock - 1) s_need = !(em >> (kFillItems - 1) & 1u);
+  __syncthreads();
+  int first = INT_MAX;                      // the tile's first end
+  for (int i = 0; i < kWarpsPerBlock; ++i) {
+    if (i > warp) after = min(after, s_wmin[i]);
+    first = min(first, s_wmin[i]);
+  }
+
+  // publish the tile's first end, then (one warp) find the first end after
+  // the tile where its last position ends no segment
+  if (tid == 0) {
+    publish_status(status + b, first != INT_MAX ? kFillEnd : kFillNone,
+                   static_cast<unsigned>(first));
+  }
+  if (s_need && warp == 0) {                // never on the last tile
+    int found = INT_MAX;
+    for (int k = b + 1; found == INT_MAX; k += 32) {   // warp-uniform
+      const int t = k + lane;
+      unsigned long long st = 0;
+      if (t < static_cast<int>(gridDim.x)) {
+        while (((st = load_status(status + t)) >> 32) == kFillUnset) {
+          __nanosleep(32);
+        }
+      }
+      const unsigned hit = __ballot_sync(kFullMask, (st >> 32) == kFillEnd);
+      if (hit) {
+        found = __shfl_sync(kFullMask, static_cast<int>(st), __ffs(hit) - 1);
+      }
+    }
+    if (lane == 0) {
+      s_carry = found;
+      if (first == INT_MAX) {
+        publish_status(status + b, kFillEnd, static_cast<unsigned>(found));
+      }
+    }
+  }
+  __syncthreads();
+  if (after == INT_MAX && s_need) after = s_carry;
+
+  // every position's end, S there, and the stores
+  unsigned vals[kFillItems];
+  int prev_end = -1;
+  unsigned sv = 0;
+#pragma unroll
+  for (int j = 0; j < kFillItems; ++j) {
+    const unsigned rest = em >> j;
+    const int e = rest ? static_cast<int>(p0) + j + __ffs(rest) - 1 : after;
+    if (e != prev_end && p0 + j < n) {
+      sv = __ldg(s + e);
+      prev_end = e;
+    }
+    vals[j] = sv;
+  }
+  bool newly = false;
+  if (kUpdate) {
+    int l[kFillItems];
+    if (whole) {
+      const int4* lq = reinterpret_cast<const int4*>(lev + p0);
+#pragma unroll
+      for (int q = 0; q < kFillItems / 4; ++q) {
+        const int4 w = __ldcs(lq + q);
+        l[4 * q] = w.x;
+        l[4 * q + 1] = w.y;
+        l[4 * q + 2] = w.z;
+        l[4 * q + 3] = w.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kFillItems; ++j) {
+        l[j] = p0 + j < n ? lev[p0 + j] : 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kFillItems; ++j) {
+      const bool nw = static_cast<int>(vals[j]) > 0 && l[j] == INT_MAX &&
+                      p0 + j < n;
+      vals[j] = static_cast<unsigned>(nw ? it : l[j]);
+      newly = newly || nw;
+    }
+  }
+  if (whole) {
+    uint4* oq = reinterpret_cast<uint4*>(out + p0);
+#pragma unroll
+    for (int q = 0; q < kFillItems / 4; ++q) {
+      __stcs(oq + q, make_uint4(vals[4 * q], vals[4 * q + 1],
+                                vals[4 * q + 2], vals[4 * q + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kFillItems; ++j) {
+      if (p0 + j < n) out[p0 + j] = vals[j];
+    }
+  }
+  if (kUpdate) {
+    if (__syncthreads_or(newly) && tid == 0) atomicOr(any, 1);
+  }
 }
 
-// Inclusive scan of one int per thread over the block in thread order: a
-// running max (kForward) or a suffix min. Returns the thread's value and
-// sets `total` to the whole block's; `sh` holds kWarpsPerBlock ints and is
-// free again when this returns.
-template <bool kForward>
-__device__ int block_scan(int x, int* sh, int& total) {
+// The two forms under the names of their launch counts
+// (chip_smoke.profile matches device kernels to kernels.launches by name).
+__global__ void __launch_bounds__(kBlock)
+segment_broadcast_total_kernel(const unsigned* __restrict__ s,
+                               const unsigned char* __restrict__ flags, int n,
+                               unsigned* __restrict__ out, bool vec,
+                               unsigned long long* status, unsigned* ticket) {
+  segment_fill<false>(s, flags, n, nullptr, 0, out, vec, status, ticket,
+                      nullptr);
+}
+
+__global__ void __launch_bounds__(kBlock)
+suffix_fill_update_kernel(const unsigned* __restrict__ s,
+                          const unsigned char* __restrict__ flags, int n,
+                          const int* __restrict__ lev, int it,
+                          unsigned* __restrict__ out, bool vec,
+                          unsigned long long* status, unsigned* ticket,
+                          int* any) {
+  segment_fill<true>(s, flags, n, lev, it, out, vec, status, ticket, any);
+}
+
+// Inclusive running max of one int per thread over the block in thread
+// order. Returns the thread's value and sets `total` to the whole block's;
+// `sh` holds kWarpsPerBlock ints and is free again when this returns.
+__device__ int block_max_scan(int x, int* sh, int& total) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int d = 1; d < 32; d <<= 1) {
-    if (kForward) {
-      const int y = __shfl_up_sync(kFullMask, x, d);
-      if (lane >= d) x = max(x, y);
-    } else {
-      const int y = __shfl_down_sync(kFullMask, x, d);
-      if (lane + d < 32) x = min(x, y);
-    }
+    const int y = __shfl_up_sync(kFullMask, x, d);
+    if (lane >= d) x = max(x, y);
   }
-  if (lane == (kForward ? 31 : 0)) sh[warp] = x;   // the warp's total
+  if (lane == 31) sh[warp] = x;             // the warp's total
   __syncthreads();
-  int t = kForward ? INT_MIN : INT_MAX;
+  int t = INT_MIN;
   for (int w = 0; w < kWarpsPerBlock; ++w) {
     const int s = sh[w];
-    if (kForward) {
-      if (w < warp) x = max(x, s);
-      t = max(t, s);
-    } else {
-      if (w > warp) x = min(x, s);
-      t = min(t, s);
-    }
+    if (w < warp) x = max(x, s);
+    t = max(t, s);
   }
   __syncthreads();
   total = t;
   return x;
-}
-
-// Pass 1 of the fill: tile_end[b] = the first segment end in tile b, or
-// INT_MAX.
-__global__ void __launch_bounds__(kBlock)
-fill_tile_ends_kernel(const unsigned char* __restrict__ flags, int n,
-                      int* __restrict__ tile_end) {
-  __shared__ int sh[kWarpsPerBlock];
-  const long long t0 = static_cast<long long>(blockIdx.x) * kFillTile;
-  int m = INT_MAX;
-  for (int j = 0; j < kFillItems; ++j) {
-    const long long p = t0 + j * kBlock + threadIdx.x;
-    if (p < n && is_end(flags, p, n)) m = min(m, static_cast<int>(p));
-  }
-  int total;
-  block_scan<false>(m, sh, total);
-  if (threadIdx.x == 0) tile_end[blockIdx.x] = total;
 }
 
 // Pass 1 of the route OR: z[q] = (lev[eid[q]] == it), and per tile the last
@@ -249,10 +418,10 @@ route_marks_kernel(const int* __restrict__ lev, const int* __restrict__ eid,
                    int* __restrict__ z, int* __restrict__ tile_hit,
                    int* __restrict__ tile_start) {
   __shared__ int sh[kWarpsPerBlock];
-  const long long t0 = static_cast<long long>(blockIdx.x) * kFillTile;
+  const long long t0 = static_cast<long long>(blockIdx.x) * kRouteTile;
   int h = -1;
   int s = -1;
-  for (int j = 0; j < kFillItems; ++j) {
+  for (int j = 0; j < kRouteItems; ++j) {
     const long long p = t0 + j * kBlock + threadIdx.x;
     if (p < n) {
       const bool hit = lev[eid[p]] == it;
@@ -263,79 +432,36 @@ route_marks_kernel(const int* __restrict__ lev, const int* __restrict__ eid,
   }
   int th;
   int ts;
-  block_scan<true>(h, sh, th);
-  block_scan<true>(s, sh, ts);
+  block_max_scan(h, sh, th);
+  block_max_scan(s, sh, ts);
   if (threadIdx.x == 0) {
     tile_hit[blockIdx.x] = th;
     tile_start[blockIdx.x] = ts;
   }
 }
 
-// Pass 2, one block: out[t] = the max of in[0..t-1] (kForward; -1 for t =
-// 0) or the min of in[t+1..g-1] (INT_MAX for the last tile), for `in0` and,
-// when given, `in1`.
-template <bool kForward>
+// Pass 2 of the route OR, one block: out_k[t] = the max of in_k[0..t-1]
+// (-1 for t = 0), for the tiles' hits and starts.
 __global__ void __launch_bounds__(kBlock)
 marks_carry_kernel(const int* __restrict__ in0, const int* __restrict__ in1,
                    int* __restrict__ out0, int* __restrict__ out1, int g) {
   __shared__ int sh[kWarpsPerBlock];
-  const int ident = kForward ? -1 : INT_MAX;
   const int chunks = (g + kBlock - 1) / kBlock;
-  int c0 = ident;
-  int c1 = ident;
+  int c0 = -1;
+  int c1 = -1;
   for (int c = 0; c < chunks; ++c) {
-    const int base = (kForward ? c : chunks - 1 - c) * kBlock;
-    const int t = base + threadIdx.x;
-    const int src = kForward ? t - 1 : t + 1;     // the exclusive neighbour
+    const int t = c * kBlock + threadIdx.x;
+    const int src = t - 1;                  // the exclusive neighbour
     const bool in = src >= 0 && src < g;
-    for (int k = 0; k < (in1 != nullptr ? 2 : 1); ++k) {   // block-uniform
+    for (int k = 0; k < 2; ++k) {
       const int* a = k ? in1 : in0;
       int* o = k ? out1 : out0;
       int& carry = k ? c1 : c0;
       int total;
-      int x = block_scan<kForward>(in ? a[src] : ident, sh, total);
-      x = kForward ? max(x, carry) : min(x, carry);
-      carry = kForward ? max(carry, total) : min(carry, total);
+      const int x = max(block_max_scan(in ? a[src] : -1, sh, total), carry);
+      carry = max(carry, total);
       if (t < g) o[t] = x;
     }
-  }
-}
-
-// Pass 3 of the fill: out[p] = S[end(p)]. With kUpdate (suffix_fill_update)
-// out[p] = it where that value, as int32, is above 0 and lev[p] is INT_MAX,
-// else lev[p]; `any` gets 1 if some position changed (one atomic per block).
-template <bool kUpdate>
-__global__ void __launch_bounds__(kBlock)
-fill_apply_kernel(const unsigned* __restrict__ s,
-                  const unsigned char* __restrict__ flags,
-                  const int* __restrict__ next_end, int n,
-                  const int* __restrict__ lev, int it,
-                  unsigned* __restrict__ out, int* __restrict__ any) {
-  __shared__ int sh[kWarpsPerBlock];
-  const long long t0 = static_cast<long long>(blockIdx.x) * kFillTile;
-  int carry = next_end[blockIdx.x];
-  bool newly = false;
-  for (int j = kFillItems - 1; j >= 0; --j) {
-    const long long p = t0 + j * kBlock + threadIdx.x;
-    const int m = p < n && is_end(flags, p, n) ? static_cast<int>(p)
-                                               : INT_MAX;
-    int total;
-    const int e = min(block_scan<false>(m, sh, total), carry);
-    carry = min(carry, total);
-    if (p < n) {
-      const unsigned v = s[e];
-      if (kUpdate) {
-        const int l = lev[p];
-        const bool nw = static_cast<int>(v) > 0 && l == INT_MAX;
-        out[p] = static_cast<unsigned>(nw ? it : l);
-        newly = newly || nw;
-      } else {
-        out[p] = v;
-      }
-    }
-  }
-  if (kUpdate) {
-    if (__syncthreads_or(newly) && threadIdx.x == 0) atomicOr(any, 1);
   }
 }
 
@@ -347,18 +473,18 @@ route_or_apply_kernel(const unsigned char* __restrict__ flags, int n,
                       const int* __restrict__ prev_start,
                       int* __restrict__ z) {
   __shared__ int sh[kWarpsPerBlock];
-  const long long t0 = static_cast<long long>(blockIdx.x) * kFillTile;
+  const long long t0 = static_cast<long long>(blockIdx.x) * kRouteTile;
   int ch = prev_hit[blockIdx.x];
   int cs = prev_start[blockIdx.x];
-  for (int j = 0; j < kFillItems; ++j) {
+  for (int j = 0; j < kRouteItems; ++j) {
     const long long p = t0 + j * kBlock + threadIdx.x;
     const bool in = p < n;
     const int h = in && z[p] != 0 ? static_cast<int>(p) : -1;
     const int st = in && (p == 0 || flags[p] != 0) ? static_cast<int>(p) : -1;
     int th;
     int ts;
-    const int hit = max(block_scan<true>(h, sh, th), ch);
-    const int start = max(block_scan<true>(st, sh, ts), cs);
+    const int hit = max(block_max_scan(h, sh, th), ch);
+    const int start = max(block_max_scan(st, sh, ts), cs);
     ch = max(ch, th);
     cs = max(cs, ts);
     if (in) z[p] = hit >= start ? 1 : 0;
@@ -366,6 +492,7 @@ route_or_apply_kernel(const unsigned char* __restrict__ flags, int n,
 }
 
 int fill_tiles(int n) { return (n + kFillTile - 1) / kFillTile; }
+int route_tiles(int n) { return (n + kRouteTile - 1) / kRouteTile; }
 
 int warp_blocks(int vp) { return (vp + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 int thread_blocks(int vp) { return (vp + kBlock - 1) / kBlock; }
@@ -442,40 +569,46 @@ int etpu_bfs_predecessors(const void* dist, const void* off,
 
 int etpu_fill_tile() { return kFillTile; }
 
-// segment_broadcast_total (lev == nullptr) or suffix_fill_update. `scratch`
-// holds 2 * fill_tiles(n) ints; `any` is zeroed by the caller.
+int etpu_route_tile() { return kRouteTile; }
+
+// segment_broadcast_total (lev == nullptr) or suffix_fill_update, one
+// launch. `scratch`: 8 * fill_tiles(n) + 8 bytes, 8-byte aligned: the
+// tiles' status words, the ticket, and the update's any-flag (int32, 1 if
+// some position changed), all zeroed here on the stream before the launch.
 int etpu_segment_fill(const void* s, const void* flags, int n, const void* lev,
-                      int it, void* out, void* any, void* scratch,
-                      void* stream) {
+                      int it, void* out, void* scratch, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int g = n > 0 ? fill_tiles(n) : 0;
+  auto* status = static_cast<unsigned long long*>(scratch);
+  auto* ticket = reinterpret_cast<unsigned*>(status + g);
+  const cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(unsigned long long) * g + 2 * sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int g = fill_tiles(n);
-    int* tile_end = static_cast<int*>(scratch);
-    int* next_end = tile_end + g;
-    const unsigned char* f = static_cast<const unsigned char*>(flags);
-    fill_tile_ends_kernel<<<g, kBlock, 0, st>>>(f, n, tile_end);
-    marks_carry_kernel<false><<<1, kBlock, 0, st>>>(tile_end, nullptr,
-                                                    next_end, nullptr, g);
+    const bool vec = ((reinterpret_cast<uintptr_t>(flags) |
+                       reinterpret_cast<uintptr_t>(out) |
+                       reinterpret_cast<uintptr_t>(lev)) & 15u) == 0;
+    const auto* sv = static_cast<const unsigned*>(s);
+    const auto* f = static_cast<const unsigned char*>(flags);
+    auto* o = static_cast<unsigned*>(out);
     if (lev == nullptr) {
-      fill_apply_kernel<false><<<g, kBlock, 0, st>>>(
-          static_cast<const unsigned*>(s), f, next_end, n, nullptr, 0,
-          static_cast<unsigned*>(out), nullptr);
+      segment_broadcast_total_kernel<<<g, kBlock, 0, st>>>(sv, f, n, o, vec,
+                                                           status, ticket);
     } else {
-      fill_apply_kernel<true><<<g, kBlock, 0, st>>>(
-          static_cast<const unsigned*>(s), f, next_end, n,
-          static_cast<const int*>(lev), it, static_cast<unsigned*>(out),
-          static_cast<int*>(any));
+      suffix_fill_update_kernel<<<g, kBlock, 0, st>>>(
+          sv, f, n, static_cast<const int*>(lev), it, o, vec, status, ticket,
+          reinterpret_cast<int*>(ticket + 1));
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// fused_route_or: `scratch` holds 4 * fill_tiles(n) ints.
+// fused_route_or: `scratch` holds 4 * route_tiles(n) ints.
 int etpu_route_or(const void* lev, const void* eid, const void* flags, int n,
                   int it, void* out, void* scratch, void* stream) {
   if (n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int g = fill_tiles(n);
+    const int g = route_tiles(n);
     int* tile_hit = static_cast<int*>(scratch);
     int* tile_start = tile_hit + g;
     int* prev_hit = tile_start + g;
@@ -485,8 +618,8 @@ int etpu_route_or(const void* lev, const void* eid, const void* flags, int n,
     route_marks_kernel<<<g, kBlock, 0, st>>>(
         static_cast<const int*>(lev), static_cast<const int*>(eid), f, n, it,
         z, tile_hit, tile_start);
-    marks_carry_kernel<true><<<1, kBlock, 0, st>>>(tile_hit, tile_start,
-                                                   prev_hit, prev_start, g);
+    marks_carry_kernel<<<1, kBlock, 0, st>>>(tile_hit, tile_start, prev_hit,
+                                             prev_start, g);
     route_or_apply_kernel<<<g, kBlock, 0, st>>>(f, n, prev_hit, prev_start,
                                                 z);
   }

@@ -4,20 +4,24 @@
 // Built by essentials_tpu_torch/kernels.py with nvcc into the shared library
 // of every csrc/*.cu, with a plain C interface, loaded with ctypes. Every
 // entry point launches on the stream it is given, allocates nothing (the
-// wrapper passes outputs and scratch), and returns cudaGetLastError() so that
-// a refused launch reaches the Python wrapper.
+// wrapper passes outputs and scratch; scan zeroes its scratch with
+// cudaMemsetAsync), and returns the CUDA status so that a refused launch
+// reaches the Python wrapper.
 //
 // Layout contract (essentials_tpu_torch/graph/graph.py): offsets are [S+1]
 // int32 and sorted, segment s is [off[s], off[s+1]); `csc_src` is the [Ep]
 // int32 source of each CSC slot. The only atomics on data are
-// advance_count's int32 additions, which are exact in any order, so every
-// result, float sums included, is the same bit for bit on every run.
+// advance_count's int32 additions, which are exact in any order (scan's
+// ticket and status words only order its tiles), so every result, float
+// sums included, is the same bit for bit on every run.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
+#include "tile_status.cuh"
 #include "warp_search.cuh"
 
 namespace {
@@ -25,8 +29,11 @@ namespace {
 constexpr int kBlock = 256;                 // threads per block
 constexpr int kWarpsPerBlock = kBlock / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kScanItems = 8;               // consecutive elements per thread
-constexpr int kScanTile = kBlock * kScanItems;   // elements per scan block
+using etpu::bits_of;
+using etpu::from_bits;
+using etpu::load_status;
+using etpu::nonzero_bytes;
+using etpu::publish_status;
 
 // Operation codes shared with kernels.py (SCAN_OPS, REDUCE_OPS).
 enum { kAdd = 0, kMin = 1, kMax = 2, kFirst = 3, kOr = 3, kAnd = 4 };
@@ -60,85 +67,218 @@ template <> struct Op<kFirst> {             // keep the older value
 
 // ------------------------------------------------------------------ scan --
 //
-// Inclusive scan, optionally segmented by start flags. Replaces the JAX
-// package's scan_kernels.scan_1d (:274) and segmented_scan_1d (:296), whose
-// one Pallas body _scan_kernel (:124) streams [1024, 128] blocks in order
-// and carries the running value across its sequential grid in SMEM.
+// Inclusive scan, optionally segmented by start flags, in one launch.
+// Replaces the JAX package's scan_kernels.scan_1d (:274) and
+// segmented_scan_1d (:296), whose one Pallas body _scan_kernel (:124)
+// streams [1024, 128] blocks in order and carries the running value across
+// its sequential grid in SMEM.
 //
-// Blocks run in no order here, so the carry becomes three passes:
-//   1. scan_tiles: each block scans its tile of kScanTile elements alone
-//      (a serial scan of 8 consecutive elements per thread, a warp scan of
-//      the threads' totals with shuffles, then the warps' totals in warp
-//      order) and writes the tile's total pair and its first flagged
-//      position;
-//   2. scan_totals: one block scans the tile totals in tile order;
-//   3. scan_fixup: each element before its tile's first flag takes the
-//      running value of the tiles before it.
 // Elements are (value, flag) pairs under the associative operator of
 // scan_kernels.py:15-17, (v1,f1)·(v2,f2) = (f2 ? v2 : op(v1,v2), f1|f2);
-// position 0 always starts a segment. The order of every float addition is
-// fixed by n alone, without atomics or look-back, so a float scan repeats
-// bit for bit. No identity is needed: a pair with nothing before it is
-// left alone.
+// position 0 always starts a segment. No identity is needed: a pair with
+// nothing before it is left alone.
 //
-// What bounds it: bytes. Pass 1 reads x (and flags) and writes the output
-// once; pass 3 reads and writes the output again; passes 2 and 3 touch one
-// total per 2,048 elements. So 2-3 x the least traffic (one read and one
-// write); tiles are staged through shared memory so that loads and stores
-// are coalesced.
+// Tiles of kScanTile elements, one block each; tile ids come from an atomic
+// ticket, so a tile waits only on tiles that already run, and the launch
+// cannot deadlock. Within a tile each thread loads its kScanItems
+// consecutive elements with 16-byte loads (its flags as 4-byte words),
+// scans them serially, and the block joins its threads by a shuffle scan
+// per warp and one pass over the warps' totals. The tile then publishes its
+// aggregate pair in its 64-bit status word (state in bits 32-33, the
+// value's bits below) at once, before it waits for anything; the last tile
+// of each group of kScanGroup tiles also publishes the group's aggregate
+// (a fixed tree over its tiles' words) in the group's word. A tile's carry
+// is folded from the words before it back to the nearest "complete" one:
+// the 32 tiles before it by warp 0, waiting only for the words before the
+// nearest complete one; then the rest of its group, then the groups before
+// it, by the whole block, kBlock words at a time. So a tile reads at most
+// kScanGroup + g / kScanGroup words, g tiles. A word is complete
+//   - at once where its tile (group) holds a start flag: its aggregate does
+//     not depend on anything before it (tile 0 always holds one);
+//   - under int32 add (wrap-around), min, max and first, which are exact
+//     in any order, also once a tile knows its carry and publishes its
+//     inclusive prefix in its word: a decoupled look-back;
+//   - under float32 add by its flags alone: no prefix is published, and the
+//     carry is folded from aggregates by fixed trees, so the order of every
+//     float addition is set by n and the flags, and a float scan repeats
+//     bit for bit.
+//
+// What bounds it: bytes, x and the flags read once and the output written
+// once (8-9 bytes an element); the status words stay in the L2.
+
+constexpr int kScanItems = 8;               // consecutive elements per thread
+constexpr int kScanTile = kBlock * kScanItems;   // elements per tile
+constexpr int kScanGroup = kBlock;          // tiles per group word
+// a word's state, bits 32-33: not yet published; an aggregate with no start
+// flag; complete (no later tile needs anything before it: an aggregate with
+// a flag, or an inclusive prefix)
+enum ScanState : unsigned { kScanUnset = 0, kScanPartial = 1,
+                            kScanComplete = 2 };
+
+// bit j: byte j of the kItems bytes at f (4-byte aligned) is not 0
+template <int kItems>
+__device__ __forceinline__ unsigned flag_bits(const unsigned char* f) {
+  unsigned m = 0;
+#pragma unroll
+  for (int q = 0; q < kItems / 4; ++q) {
+    m |= nonzero_bytes(__ldcs(reinterpret_cast<const unsigned*>(f) + q))
+         << (4 * q);
+  }
+  return m;
+}
+
+// (h, v) = (ov older than v) then (h, v), for pairs that may hold nothing
+// and hold no start flag
+template <typename T, int OP>
+__device__ __forceinline__ void fold_older(bool& h, T& v, bool oh, T ov) {
+  if (oh) {
+    v = h ? Op<OP>::apply(ov, v) : ov;
+    h = true;
+  }
+}
+
+// (h, v, f) = (h, v, f) then the newer pair (nv, nf)
+template <typename T, int OP>
+__device__ __forceinline__ void append(bool& h, T& v, int& f, T nv, int nf) {
+  v = h && !nf ? Op<OP>::apply(v, nv) : nv;
+  f |= nf;
+  h = true;
+}
+
+// Folds the lanes' pairs (h, v) into lane 0's, lanes 0..31 from the newest
+// to the oldest, the older in front, by a fixed tree: lane l takes l+1,
+// then l+2..l+3, then l+4..l+7, ...
+template <typename T, int OP>
+__device__ __forceinline__ void warp_fold_older(bool& h, T& v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T ov = __shfl_down_sync(kFullMask, v, d);
+    const int oh = __shfl_down_sync(kFullMask, static_cast<int>(h), d);
+    if (lane + d < 32) fold_older<T, OP>(h, v, oh != 0, ov);
+  }
+}
 
 template <typename T>
 struct ScanShared {
-  T v[kScanTile];
-  unsigned char f[kScanTile];
-  T warp_v[kWarpsPerBlock];
-  int warp_f[kWarpsPerBlock];
-  int first;                  // first flagged offset in the tile
-  T total_v;                  // the tile's total pair
-  int total_f;
+  T wv[kWarpsPerBlock];                     // the warps' pairs
+  int wf[kWarpsPerBlock];
+  T gv[kWarpsPerBlock];                     // the warps' parts of a group
+  int gf[kWarpsPerBlock];
+  int stop[kWarpsPerBlock];
+  long long b;
+  int head;                                 // the tile's first element starts
+  int found;                                // warp 0 met a complete word
+  T carry;
 };
 
-// Scans positions [base, base + kScanTile) of x that lie below n into out
-// (x and out may be the same array), after the carry pair when has_carry.
-// Positions at or past n count as flagged. On return (after a barrier) the
-// tile's total pair and first flagged offset are in sh.
+// The whole block folds the words w[k], w[k-1], ..., w[lo], kBlock at a
+// time (thread t reads w[k - t]), back to the nearest complete one into
+// thread 0's (ch, cv), the older in front: a fixed tree per window and the
+// windows from near to far. Returns (to every thread) whether it met a
+// complete word.
 template <typename T, int OP>
-__device__ void scan_tile(const T* x, const unsigned char* flags, T* out,
-                          long long base, long long n, bool has_carry,
-                          T carry_v, bool carry_f, ScanShared<T>& sh) {
+__device__ bool block_look_back(const unsigned long long* w, long long k,
+                                long long lo, bool& ch, T& cv,
+                                ScanShared<T>& sh) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (tid == 0) sh.first = kScanTile;
-  for (int j = 0; j < kScanItems; ++j) {    // coalesced loads
-    const int k = j * kBlock + tid;
-    const long long p = base + k;
-    if (p < n) {
-      sh.v[k] = x[p];
-      sh.f[k] = (p == 0 || (flags != nullptr && flags[p] != 0)) ? 1 : 0;
-    } else {
-      sh.v[k] = T(0);
-      sh.f[k] = 1;
+  for (;; k -= kBlock) {
+    const long long p = k - tid;
+    unsigned long long s = 0;
+    if (p >= lo) {
+      while (((s = load_status(w + p)) >> 32) == kScanUnset) {
+        __nanosleep(32);
+      }
+    }
+    const unsigned done = __ballot_sync(
+        kFullMask, p >= lo && (s >> 32) == kScanComplete);
+    if (lane == 0) sh.stop[warp] = done ? warp * 32 + __ffs(done) - 1 : kBlock;
+    __syncthreads();
+    int stop = kBlock;
+    for (int i = 0; i < kWarpsPerBlock; ++i) stop = min(stop, sh.stop[i]);
+    bool h = p >= lo && tid <= stop;
+    T v = from_bits<T>(static_cast<unsigned>(s));
+    warp_fold_older<T, OP>(h, v);
+    if (lane == 0) {
+      sh.wv[warp] = v;
+      sh.wf[warp] = h;
+    }
+    __syncthreads();
+    if (tid == 0) {                         // the warps, oldest first
+      bool wh = false;
+      T wv = T(0);
+      for (int i = kWarpsPerBlock - 1; i >= 0; --i) {
+        if (sh.wf[i]) {
+          wv = wh ? Op<OP>::apply(wv, sh.wv[i]) : sh.wv[i];
+          wh = true;
+        }
+      }
+      fold_older<T, OP>(ch, cv, wh, wv);    // the window is older
+    }
+    if (stop < kBlock) return true;
+    if (k - kBlock < lo) return false;
+  }
+}
+
+// kPrefix: publish inclusive prefixes (every op but float add). `vec`: x,
+// out and flags are 16-byte aligned. status: the tiles' words; group: the
+// groups' words.
+template <typename T, int OP, bool kPrefix>
+__global__ void __launch_bounds__(kBlock)
+scan_kernel(const T* __restrict__ x, const unsigned char* __restrict__ flags,
+            T* __restrict__ out, long long n, bool vec,
+            unsigned long long* status, unsigned long long* group,
+            unsigned* ticket) {
+  __shared__ ScanShared<T> sh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) sh.b = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long b = sh.b;
+  const long long p0 = b * kScanTile + static_cast<long long>(tid) * kScanItems;
+  const bool whole = vec && p0 + kScanItems <= n;
+
+  // 1. load; bit j of fm: element j starts a segment (or lies past n)
+  T v[kScanItems];
+  unsigned fm = 0;
+  if (whole) {
+    const uint4* xq = reinterpret_cast<const uint4*>(x + p0);
+#pragma unroll
+    for (int q = 0; q < kScanItems / 4; ++q) {
+      const uint4 w = __ldcs(xq + q);       // read once: evict first
+      v[4 * q] = from_bits<T>(w.x);
+      v[4 * q + 1] = from_bits<T>(w.y);
+      v[4 * q + 2] = from_bits<T>(w.z);
+      v[4 * q + 3] = from_bits<T>(w.w);
+    }
+    if (flags != nullptr) fm = flag_bits<kScanItems>(flags + p0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      const long long p = p0 + j;
+      if (p < n) {
+        v[j] = x[p];
+        if (flags != nullptr && flags[p] != 0) fm |= 1u << j;
+      } else {
+        v[j] = T(0);
+        fm |= 1u << j;
+      }
     }
   }
-  __syncthreads();
+  if (p0 == 0) fm |= 1u;
 
-  T v[kScanItems];
-  bool f[kScanItems];
-  int my_first = kScanTile;
-  for (int j = 0; j < kScanItems; ++j) {
-    const int k = tid * kScanItems + j;
-    v[j] = sh.v[k];
-    f[j] = sh.f[k] != 0;
-    if (f[j] && my_first == kScanTile) my_first = k;
+  // 2. the thread's serial scan, then an inclusive shuffle scan of the
+  //    threads' total pairs within the warp
+#pragma unroll
+  for (int j = 1; j < kScanItems; ++j) {
+    if (!(fm >> j & 1u)) v[j] = Op<OP>::apply(v[j - 1], v[j]);
   }
-  for (int j = 1; j < kScanItems; ++j) {    // serial scan of 8 elements
-    if (!f[j]) v[j] = Op<OP>::apply(v[j - 1], v[j]);
-    f[j] = f[j] || f[j - 1];
-  }
-  // inclusive warp scan of the threads' totals
   T av = v[kScanItems - 1];
-  int af = f[kScanItems - 1] ? 1 : 0;
+  int af = fm != 0;
+#pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const T pv = __shfl_up_sync(kFullMask, av, d);
     const int pf = __shfl_up_sync(kFullMask, af, d);
@@ -147,146 +287,184 @@ __device__ void scan_tile(const T* x, const unsigned char* flags, T* out,
       af |= pf;
     }
   }
-  const T ev = __shfl_up_sync(kFullMask, av, 1);  // exclusive within warp
+  const T ev = __shfl_up_sync(kFullMask, av, 1);   // exclusive within warp
   const int ef = __shfl_up_sync(kFullMask, af, 1);
   if (lane == 31) {
-    sh.warp_v[warp] = av;
-    sh.warp_f[warp] = af;
+    sh.wv[warp] = av;
+    sh.wf[warp] = af;
   }
-  atomicMin(&sh.first, my_first);           // shared memory, order-free
+  if (tid == 0) sh.head = fm & 1u;
   __syncthreads();
 
-  // the pair of everything before this warp: the carry, then warps in order
-  bool wh = has_carry;
-  T wv = carry_v;
-  int wf = carry_f ? 1 : 0;
-  for (int i = 0; i < warp; ++i) {
-    if (!wh) {
-      wv = sh.warp_v[i];
-      wf = sh.warp_f[i];
-      wh = true;
-    } else {
-      wv = sh.warp_f[i] ? sh.warp_v[i] : Op<OP>::apply(wv, sh.warp_v[i]);
-      wf |= sh.warp_f[i];
+  // 3. the pair of everything before this thread within the tile, and
+  //    (thread 0) the tile's aggregate, published at once
+  bool th = false;
+  T tv = T(0);
+  int tf = 0;
+  for (int i = 0; i < warp; ++i) append<T, OP>(th, tv, tf, sh.wv[i], sh.wf[i]);
+  if (lane > 0) append<T, OP>(th, tv, tf, ev, ef);
+  T agg = T(0);
+  int agg_f = 0;
+  if (tid == 0) {
+    bool h = false;
+    for (int i = 0; i < kWarpsPerBlock; ++i) {
+      append<T, OP>(h, agg, agg_f, sh.wv[i], sh.wf[i]);
+    }
+    publish_status(status + b, agg_f ? kScanComplete : kScanPartial,
+                   bits_of(agg));
+  }
+
+  // 4. the last tile of a group publishes the group's pair: its tiles'
+  //    words (complete ones as flagged pairs) by a fixed tree, the older in
+  //    front (block-uniform)
+  if (b % kScanGroup == kScanGroup - 1) {
+    unsigned long long s;
+    while (((s = load_status(status + b - tid)) >> 32) == kScanUnset) {
+      __nanosleep(32);
+    }
+    T gv = from_bits<T>(static_cast<unsigned>(s));
+    int gf = (s >> 32) == kScanComplete;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {      // lane l takes l+1, l+2..l+3, ...
+      const T ov = __shfl_down_sync(kFullMask, gv, d);
+      const int of = __shfl_down_sync(kFullMask, gf, d);
+      if (lane + d < 32) {
+        if (!gf) gv = Op<OP>::apply(ov, gv);
+        gf |= of;
+      }
+    }
+    if (lane == 0) {
+      sh.gv[warp] = gv;
+      sh.gf[warp] = gf;
+    }
+    __syncthreads();
+    if (tid == 0) {                         // the warps, oldest first
+      bool h = false;
+      T v = T(0);
+      int f = 0;
+      for (int i = kWarpsPerBlock - 1; i >= 0; --i) {
+        append<T, OP>(h, v, f, sh.gv[i], sh.gf[i]);
+      }
+      publish_status(group + b / kScanGroup,
+                     f ? kScanComplete : kScanPartial, bits_of(v));
     }
   }
-  // the pair of everything before this thread
-  bool th = wh;
-  T tv = wv;
-  int tf = wf;
-  if (lane > 0) {
-    if (!wh) {
-      tv = ev;
-      tf = ef;
-      th = true;
-    } else {
-      tv = ef ? ev : Op<OP>::apply(wv, ev);
-      tf = wf | ef;
+
+  // 5. the carry, where the tile's first element starts no segment
+  //    (block-uniform): warp 0 folds the tiles b-1 .. b-32 of its group,
+  //    one a lane, waiting only for the words before the nearest complete
+  //    one; then the block the rest of its group and the groups before it
+  bool ch = false;
+  T cv = T(0);
+  if (b > 0 && !sh.head) {
+    const long long first = b / kScanGroup * kScanGroup;   // of b's group
+    if (warp == 0) {
+      const long long p = b - 1 - lane;
+      const bool in = p >= first;
+      unsigned long long s = in ? load_status(status + p) : 0;
+      unsigned c;                           // the lanes with a complete word
+      int stop;                             // the first of them
+      while (true) {
+        const unsigned st = in ? static_cast<unsigned>(s >> 32)
+                               : kScanPartial;
+        c = __ballot_sync(kFullMask, st == kScanComplete);
+        const unsigned known = __ballot_sync(kFullMask, st != kScanUnset);
+        stop = c ? __ffs(c) - 1 : 31;
+        const unsigned need = stop == 31 ? kFullMask : (2u << stop) - 1u;
+        if ((known & need) == need) break;  // warp-uniform
+        __nanosleep(32);
+        if (in && st == kScanUnset) s = load_status(status + p);
+      }
+      bool h = in && lane <= stop;
+      T w = from_bits<T>(static_cast<unsigned>(s));
+      warp_fold_older<T, OP>(h, w);
+      if (lane == 0) {
+        ch = h;
+        cv = w;
+        sh.found = c != 0;
+      }
     }
+    __syncthreads();
+    bool found = sh.found;
+    if (!found && b - 33 >= first) {
+      found = block_look_back<T, OP>(status, b - 33, first, ch, cv, sh);
+    }
+    if (!found) {                           // never in group 0: tile 0 is
+      block_look_back<T, OP>(group, b / kScanGroup - 1, 0, ch, cv, sh);
+    }
+    if (tid == 0) {
+      sh.carry = cv;
+      if (kPrefix && !agg_f) {
+        publish_status(status + b, kScanComplete,
+                       bits_of(Op<OP>::apply(cv, agg)));
+      }
+    }
+    __syncthreads();
+    ch = true;
+    cv = sh.carry;
+  }
+
+  // 6. the carry in front of the thread's prefix where nothing in the tile
+  //    before the thread starts a segment, then the thread's elements up to
+  //    its first start
+  if (ch && !tf) {
+    tv = th ? Op<OP>::apply(cv, tv) : cv;
+    th = true;
   }
   if (th) {
+#pragma unroll
     for (int j = 0; j < kScanItems; ++j) {
-      if (!f[j]) v[j] = Op<OP>::apply(tv, v[j]);
+      if (fm & ((2u << j) - 1u)) break;     // a start at or before j
+      v[j] = Op<OP>::apply(tv, v[j]);
     }
   }
-  // every read of sh.v happened before the last barrier
-  for (int j = 0; j < kScanItems; ++j) sh.v[tid * kScanItems + j] = v[j];
-  if (tid == kBlock - 1) {
-    sh.total_v = v[kScanItems - 1];
-    sh.total_f = (f[kScanItems - 1] ? 1 : 0) | tf;
-  }
-  __syncthreads();
-  for (int j = 0; j < kScanItems; ++j) {    // coalesced stores
-    const int k = j * kBlock + tid;
-    const long long p = base + k;
-    if (p < n) out[p] = sh.v[k];
-  }
-  __syncthreads();
-}
-
-template <typename T, int OP>
-__global__ void __launch_bounds__(kBlock)
-scan_tiles_kernel(const T* __restrict__ x,
-                  const unsigned char* __restrict__ flags, T* __restrict__ out,
-                  T* __restrict__ total_v, unsigned char* __restrict__ total_f,
-                  int* __restrict__ first, long long n) {
-  __shared__ ScanShared<T> sh;
-  scan_tile<T, OP>(x, flags, out,
-                   static_cast<long long>(blockIdx.x) * kScanTile, n, false,
-                   T(0), false, sh);
-  if (threadIdx.x == 0) {
-    total_v[blockIdx.x] = sh.total_v;
-    total_f[blockIdx.x] = static_cast<unsigned char>(sh.total_f);
-    first[blockIdx.x] = sh.first;
+  if (whole) {
+    uint4* oq = reinterpret_cast<uint4*>(out + p0);
+#pragma unroll
+    for (int q = 0; q < kScanItems / 4; ++q) {
+      __stcs(oq + q, make_uint4(bits_of(v[4 * q]), bits_of(v[4 * q + 1]),
+                                bits_of(v[4 * q + 2]), bits_of(v[4 * q + 3])));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      if (p0 + j < n) out[p0 + j] = v[j];
+    }
   }
 }
 
-// One block: the inclusive scan of the tiles' total pairs, in place, tile
-// of totals after tile of totals with the carry between them.
-template <typename T, int OP>
-__global__ void __launch_bounds__(kBlock)
-scan_totals_kernel(T* total_v, const unsigned char* total_f, long long g) {
-  __shared__ ScanShared<T> sh;
-  bool has = false;
-  T cv = T(0);
-  bool cf = false;
-  for (long long base = 0; base < g; base += kScanTile) {
-    scan_tile<T, OP>(total_v, total_f, total_v, base, g, has, cv, cf, sh);
-    cv = sh.total_v;
-    cf = sh.total_f != 0;
-    has = true;
-    __syncthreads();                        // before sh is written again
-  }
-}
+long long scan_tiles(long long n) { return (n + kScanTile - 1) / kScanTile; }
+long long scan_groups(long long g) { return (g + kScanGroup - 1) / kScanGroup; }
 
 template <typename T, int OP>
-__global__ void __launch_bounds__(kBlock)
-scan_fixup_kernel(T* __restrict__ out, const T* __restrict__ total_v,
-                  const int* __restrict__ first, long long n) {
-  const long long p = static_cast<long long>(blockIdx.x) * kBlock +
-                      threadIdx.x + kScanTile;       // tile 0 needs nothing
-  if (p >= n) return;
-  const long long b = p / kScanTile;
-  if (p - b * kScanTile < first[b]) out[p] = Op<OP>::apply(total_v[b - 1],
-                                                           out[p]);
-}
-
-template <typename T, int OP>
-int scan_launch(const void* x, const void* flags, void* out, void* total_v,
-                void* total_f, void* first, long long n, cudaStream_t s) {
+int scan_launch(const void* x, const void* flags, void* out, void* scratch,
+                long long n, cudaStream_t s) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const long long g = (n + kScanTile - 1) / kScanTile;
-  scan_tiles_kernel<T, OP><<<static_cast<unsigned>(g), kBlock, 0, s>>>(
+  const long long g = scan_tiles(n);
+  const long long words = g + scan_groups(g);
+  auto* status = static_cast<unsigned long long*>(scratch);
+  const cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(unsigned long long) * words + sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(out) |
+                     reinterpret_cast<uintptr_t>(flags)) & 15u) == 0;
+  constexpr bool kPrefix = !(std::is_same<T, float>::value && OP == kAdd);
+  scan_kernel<T, OP, kPrefix><<<static_cast<unsigned>(g), kBlock, 0, s>>>(
       static_cast<const T*>(x), static_cast<const unsigned char*>(flags),
-      static_cast<T*>(out), static_cast<T*>(total_v),
-      static_cast<unsigned char*>(total_f), static_cast<int*>(first), n);
-  if (g > 1) {
-    scan_totals_kernel<T, OP><<<1, kBlock, 0, s>>>(
-        static_cast<T*>(total_v), static_cast<const unsigned char*>(total_f),
-        g);
-    const long long rest = n - kScanTile;
-    scan_fixup_kernel<T, OP><<<static_cast<unsigned>((rest + kBlock - 1) /
-                                                     kBlock),
-                               kBlock, 0, s>>>(
-        static_cast<T*>(out), static_cast<const T*>(total_v),
-        static_cast<const int*>(first), n);
-  }
+      static_cast<T*>(out), n, vec, status, status + g,
+      reinterpret_cast<unsigned*>(status + words));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int scan_dispatch(const void* x, const void* flags, void* out, void* total_v,
-                  void* total_f, void* first, long long n, int op,
-                  cudaStream_t s) {
+int scan_dispatch(const void* x, const void* flags, void* out, void* scratch,
+                  long long n, int op, cudaStream_t s) {
   switch (op) {
-    case kAdd: return scan_launch<T, kAdd>(x, flags, out, total_v, total_f,
-                                           first, n, s);
-    case kMin: return scan_launch<T, kMin>(x, flags, out, total_v, total_f,
-                                           first, n, s);
-    case kMax: return scan_launch<T, kMax>(x, flags, out, total_v, total_f,
-                                           first, n, s);
-    case kFirst: return scan_launch<T, kFirst>(x, flags, out, total_v,
-                                               total_f, first, n, s);
+    case kAdd: return scan_launch<T, kAdd>(x, flags, out, scratch, n, s);
+    case kMin: return scan_launch<T, kMin>(x, flags, out, scratch, n, s);
+    case kMax: return scan_launch<T, kMax>(x, flags, out, scratch, n, s);
+    case kFirst: return scan_launch<T, kFirst>(x, flags, out, scratch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -868,23 +1046,25 @@ int count_launch(const void* frontier, const void* off, const void* src,
 
 extern "C" {
 
-// Scratch (from the wrapper): total_v [G] of the element type, total_f [G]
-// uint8, first [G] int32, G = ceil(n / 2048). `flags` may be null.
-int etpu_scan_i32(const void* x, const void* flags, void* out, void* total_v,
-                  void* total_f, void* first, long long n, int op,
-                  void* stream) {
-  return scan_dispatch<int>(x, flags, out, total_v, total_f, first, n, op,
+// scratch: 8 * (g + ceil(g / etpu_scan_group())) + 4 bytes, 8-byte aligned,
+// g = ceil(n / etpu_scan_tile()) (the tiles' status words, the groups',
+// then the ticket), zeroed here on the stream before the launch. `flags`
+// may be null.
+int etpu_scan_i32(const void* x, const void* flags, void* out, void* scratch,
+                  long long n, int op, void* stream) {
+  return scan_dispatch<int>(x, flags, out, scratch, n, op,
                             static_cast<cudaStream_t>(stream));
 }
 
-int etpu_scan_f32(const void* x, const void* flags, void* out, void* total_v,
-                  void* total_f, void* first, long long n, int op,
-                  void* stream) {
-  return scan_dispatch<float>(x, flags, out, total_v, total_f, first, n, op,
+int etpu_scan_f32(const void* x, const void* flags, void* out, void* scratch,
+                  long long n, int op, void* stream) {
+  return scan_dispatch<float>(x, flags, out, scratch, n, op,
                               static_cast<cudaStream_t>(stream));
 }
 
 int etpu_scan_tile() { return kScanTile; }
+
+int etpu_scan_group() { return kScanGroup; }
 
 // Payloads beyond the np-th may be null; the outputs must be 16-byte
 // aligned. rec: null, or scratch of len packed records (8 bytes each for

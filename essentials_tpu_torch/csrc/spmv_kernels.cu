@@ -25,6 +25,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "tile_status.cuh"
 #include "warp_search.cuh"
 
 namespace {
@@ -42,6 +43,8 @@ constexpr int kRowQuads = kRowTile / (4 * kBlock);   // col quads a thread
 // the hot columns
 constexpr int kRowCarveout = 30;
 constexpr unsigned kFullMask = 0xffffffffu;
+using etpu::bits_of;
+using etpu::from_bits;
 constexpr int kInfBits = 0x7f800000;        // float32 +inf as int32 bits
 
 enum Msg { kMul = 0, kAdd = 1, kNone = 2 };
@@ -79,21 +82,6 @@ template <> struct Op<kMin> {
 // Shared-memory index with one spare word per 32: a thread's kItems
 // consecutive items then fall in distinct banks.
 __device__ __forceinline__ int sidx(int i) { return i + (i >> 5); }
-
-// A value's 32 bits, and back (float sums travel as their bits).
-__device__ __forceinline__ unsigned bits_of(float v) {
-  return __float_as_uint(v);
-}
-__device__ __forceinline__ unsigned bits_of(int v) {
-  return static_cast<unsigned>(v);
-}
-template <typename T> __device__ __forceinline__ T from_bits(unsigned b);
-template <> __device__ __forceinline__ float from_bits<float>(unsigned b) {
-  return __uint_as_float(b);
-}
-template <> __device__ __forceinline__ int from_bits<int>(unsigned b) {
-  return static_cast<int>(b);
-}
 
 // The hand-off between neighbouring slabs: status[b] holds, once bit 32 is
 // set, the running value of the row that crosses out of slab b (its low 32

@@ -34,16 +34,20 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   write another.
 * ``csrc/bfs_kernels.cu`` also holds the segment fills and the route OR of
   ``fused_bfs.py``: ``segment_broadcast_total`` for
-  ``fused_bfs.segment_broadcast_total`` :262 (PageRank ``fused``),
-  ``suffix_fill_update`` for ``fused_bfs.suffix_fill_update`` :137 and
-  ``fused_route_or`` for ``fused_bfs.fused_route_or`` :603, each three
-  launches over tiles of ``FILL_TILE`` positions.
+  ``fused_bfs.segment_broadcast_total`` :262 (PageRank ``fused``) and
+  ``suffix_fill_update`` for ``fused_bfs.suffix_fill_update`` :137, one
+  launch over tiles of ``FILL_TILE`` positions whose carry comes from the
+  segment ends the tiles after them publish (a look-forward), and
+  ``fused_route_or`` for ``fused_bfs.fused_route_or`` :603, three launches
+  over tiles of ``ROUTE_TILE`` positions.
 * ``csrc/tc_kernels.cu`` (triangle counting and the intersection operator):
   ``bitmap_intersect_counts`` for ``bitmap_intersect.bitmap_intersect_counts``
   :118.
 * ``csrc/operator_kernels.cu`` (the operator layer: advance,
   neighbor_reduce, the spray tiers): ``scan`` for ``scan_kernels.scan_1d``
-  :274 and ``segmented_scan_1d`` :296; ``gather_payloads`` for the
+  :274 and ``segmented_scan_1d`` :296, one launch over tiles of
+  ``SCAN_TILE`` elements whose carry comes from the aggregates the tiles
+  before them publish (a look-back); ``gather_payloads`` for the
   permutation routes (``cube_router._pallas_apply`` :385,
   ``apply_cube_chain`` :586, ``permute._pallas_rowgather`` :364), four
   slots per thread, 2-4 payloads packed into 8- or 16-byte records by a
@@ -90,8 +94,10 @@ MESSAGES = ("mul", "add", "none")
 REDUCES = ("sum", "min")
 SCAN_OPS = ("add", "min", "max", "first")          # codes 0-3 in the .cu
 REDUCE_OPS = ("sum", "min", "max", "or", "and")    # codes 0-4 in the .cu
-SCAN_TILE = 2048               # elements per scan block (kScanTile)
-FILL_TILE = 2048               # positions per fill / route block (kFillTile)
+SCAN_TILE = 2048               # elements per scan tile (kScanTile)
+SCAN_GROUP = 256               # scan tiles per group word (kScanGroup)
+FILL_TILE = 4096               # positions per fill tile (kFillTile)
+ROUTE_TILE = 2048              # positions per route OR block (kRouteTile)
 # gather_payloads packs 2-4 payloads from PACK_MIN_SLOTS slots and from
 # one slot per record of the shortest payload. Measured by chip_ab.py's
 # sweep (uniform random indices, NVIDIA H100 80GB HBM3, 700 W): at
@@ -210,9 +216,10 @@ def _library():
             "etpu_kcore_sweep": (p, p, p, p, p, p, i, i, p, p),
             "etpu_collapse_starts": (p, p, i, i, i, p, p),
             "etpu_expand_segments": (p, p, i, i, p, p),
-            "etpu_scan_i32": (p, p, p, p, p, p, ll, i, p),
-            "etpu_scan_f32": (p, p, p, p, p, p, ll, i, p),
+            "etpu_scan_i32": (p, p, p, p, ll, i, p),
+            "etpu_scan_f32": (p, p, p, p, ll, i, p),
             "etpu_scan_tile": (),
+            "etpu_scan_group": (),
             "etpu_gather_payloads": (p, ll, p, p, p, p, p, p, p, p, i, p, i,
                                      p),
             "etpu_segment_reduce_i32": (p, p, i, i, i, p, p),
@@ -223,7 +230,8 @@ def _library():
             "etpu_advance_count_chunk": (),
             "etpu_advance_count_shared_bytes": (),
             "etpu_fill_tile": (),
-            "etpu_segment_fill": (p, p, i, p, i, p, p, p, p),
+            "etpu_route_tile": (),
+            "etpu_segment_fill": (p, p, i, p, i, p, p, p),
             "etpu_route_or": (p, p, p, i, i, p, p, p),
             "etpu_bitmap_intersect": (p, p, p, i, i, p, p, p),
         }
@@ -247,24 +255,40 @@ def _library():
                  f"advance_count: the library's chunk is "
                  f"{lib.etpu_advance_count_chunk()} slots, ADVANCE_CHUNK is "
                  f"{ADVANCE_CHUNK}")
-        throw_if(lib.etpu_scan_tile() != SCAN_TILE,
+        throw_if(lib.etpu_scan_tile() != SCAN_TILE
+                 or lib.etpu_scan_group() != SCAN_GROUP,
                  f"scan: the library's tile is {lib.etpu_scan_tile()} "
-                 f"elements, SCAN_TILE is {SCAN_TILE}")
+                 f"elements and its group {lib.etpu_scan_group()} tiles, "
+                 f"SCAN_TILE is {SCAN_TILE} and SCAN_GROUP {SCAN_GROUP}")
         throw_if(lib.etpu_fill_tile() != FILL_TILE,
                  f"segment fills: the library's tile is "
                  f"{lib.etpu_fill_tile()} positions, FILL_TILE is "
                  f"{FILL_TILE}")
+        throw_if(lib.etpu_route_tile() != ROUTE_TILE,
+                 f"fused_route_or: the library's tile is "
+                 f"{lib.etpu_route_tile()} positions, ROUTE_TILE is "
+                 f"{ROUTE_TILE}")
         _lib = lib
     return _lib
 
 
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (the private call
+    that torch's own compiler uses: no Stream object is made)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s current stream; raise on
-    a non-zero CUDA status."""
+    a non-zero CUDA status. ``device`` is made the current device only
+    where it is not already: the switch costs more host time than a
+    launch."""
     fn = getattr(_library(), name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, _stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _stream(device))
     if err != 0:
         raise EssentialsError(f"{name}: CUDA error {err}")
 
@@ -898,12 +922,27 @@ def scan_plain(x, flags=None, op: str = "add"):
     return _unordered(m - 2**31 if op == "max" else 2**31 - 1 - m, x.dtype)
 
 
+def scan_tiles(n: int) -> int:
+    """Tiles of one ``scan`` launch over ``n`` elements, one block each."""
+    return -(-n // SCAN_TILE)
+
+
+def scan_scratch_words(n: int) -> int:
+    """The 64-bit words of one ``scan`` launch's scratch over ``n``
+    elements: the tiles' status words, the groups' (one per SCAN_GROUP
+    tiles), then the 32-bit ticket."""
+    g = scan_tiles(n)
+    return g + -(-g // SCAN_GROUP) + 1
+
+
 def scan(x: torch.Tensor, flags: torch.Tensor | None = None,
          op: str = "add") -> torch.Tensor:
     """Inclusive scan of a 1-D int32 (add wraps around) or float32 tensor
     under ``op`` (add, min, max, first), segmented where ``flags`` ([n] bool
     or uint8) marks segment starts; position 0 always starts one. A float
-    add is deterministic: its order depends on n alone."""
+    add is deterministic: its order depends on n and the flags alone. One
+    launch: each tile's carry comes from the aggregates its predecessors
+    publish (a look-back)."""
     name = "scan"
     throw_if(op not in SCAN_OPS, f"{name}: op must be one of {SCAN_OPS}")
     throw_if(x.dtype not in (torch.int32, torch.float32) or x.dim() != 1,
@@ -918,14 +957,11 @@ def scan(x: torch.Tensor, flags: torch.Tensor | None = None,
     _check(name, dev, x=x, **({} if flags is None else {"flags": flags}))
     n = x.numel()
     out = torch.empty_like(x)
-    g = max(1, -(-n // SCAN_TILE))
-    total_v = torch.empty(g, dtype=x.dtype, device=dev)
-    total_f = torch.empty(g, dtype=torch.uint8, device=dev)
-    first = torch.empty(g, dtype=torch.int32, device=dev)
+    scratch = torch.empty(scan_scratch_words(n), dtype=torch.int64,
+                          device=dev)          # the C call zeroes it
     _launch("etpu_scan_f32" if x.dtype == torch.float32 else "etpu_scan_i32",
             dev, x.data_ptr(), None if flags is None else flags.data_ptr(),
-            out.data_ptr(), total_v.data_ptr(), total_f.data_ptr(),
-            first.data_ptr(), n, SCAN_OPS.index(op))
+            out.data_ptr(), scratch.data_ptr(), n, SCAN_OPS.index(op))
     launches[name] += 1
     return out
 
@@ -1200,19 +1236,32 @@ def _segment_ends(flags: torch.Tensor, n: int) -> torch.Tensor:
     return torch.flip(torch.cummin(torch.flip(pos, (0,)), 0).values, (0,))
 
 
+def fill_tiles(n: int) -> int:
+    """Tiles of one segment fill launch over ``n`` positions, one block
+    each."""
+    return -(-n // FILL_TILE)
+
+
+def fill_scratch(n: int, device) -> torch.Tensor:
+    """The int32 scratch of one segment fill launch over ``n`` positions:
+    the tiles' 64-bit status words, the ticket, and (last) the update's
+    any-flag; the C call zeroes all of it."""
+    return torch.empty(2 * fill_tiles(n) + 2, dtype=torch.int32,
+                       device=device)
+
+
 def _fill(name: str, S, flags, lev=None, it: int = 0):
-    """Launch etpu_segment_fill: the broadcast (lev None) or the update."""
+    """Launch etpu_segment_fill: the broadcast (lev None) or the update,
+    whose any-flag is returned as a view of the scratch."""
     dev, n = S.device, S.numel()
     _check(name, dev, S=S, start_flags=flags,
            **({} if lev is None else {"lev": lev}))
     out = torch.empty_like(S)
-    any_ = None if lev is None else torch.zeros(1, dtype=torch.int32,
-                                                device=dev)
-    scratch = torch.empty(2 * max(1, -(-n // FILL_TILE)), dtype=torch.int32,
-                          device=dev)
+    scratch = fill_scratch(n, dev)
+    any_ = None if lev is None else scratch[-1:]
     _launch("etpu_segment_fill", dev, S.data_ptr(), flags.data_ptr(), n,
             None if lev is None else lev.data_ptr(), it, out.data_ptr(),
-            None if lev is None else any_.data_ptr(), scratch.data_ptr())
+            scratch.data_ptr())
     launches[name] += 1
     return out, any_
 
@@ -1297,7 +1346,7 @@ def fused_route_or(lev: torch.Tensor, edge_ids: torch.Tensor,
     dev = lev.device
     _check(name, dev, lev=lev, edge_ids=edge_ids, start_flags=start_flags)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * max(1, -(-n // FILL_TILE)), dtype=torch.int32,
+    scratch = torch.empty(4 * max(1, -(-n // ROUTE_TILE)), dtype=torch.int32,
                           device=dev)
     _launch("etpu_route_or", dev, lev.data_ptr(), edge_ids.data_ptr(),
             start_flags.data_ptr(), n, it, out.data_ptr(), scratch.data_ptr())

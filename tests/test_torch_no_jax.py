@@ -359,24 +359,53 @@ def test_operator_kernels_match_plain_versions_on_the_card(monkeypatch):
         k, p = k.double(), p.double()
         return bool(((k - p).abs() <= 1e-5 * p.abs() + 1e-6).all())
 
+    def bits(t):
+        return t.view(torch.int32)
+
     csr = Csr.from_coo(generate.rmat(12, 16, seed=3, undirected=False,
                                      weighted=True))
     g = build_graph(csr, directed=True, weighted=True, device="cuda")
     rng = np.random.default_rng(0)
     n = g.n_edges_padded
-    flags = torch.from_numpy(rng.random(n) < 0.01).cuda()
     kernels.reset_launches()
+    # scan: 1, a tile -1, a tile, a tile +1, many tiles and the graph's Ep;
+    # flags absent, sparse, at every position, only at position 0; every
+    # op on both types; float add within tolerance and the same bits over
+    # three calls, every other case the plain version's bits
+    tile = kernels.SCAN_TILE
+    calls = 0
+    for m in (1, tile - 1, tile, tile + 1, 300 * tile + 5, n):
+        only0 = torch.zeros(m, dtype=torch.bool, device="cuda")
+        only0[0] = True
+        for fl in (None, torch.from_numpy(rng.random(m) < 0.01).cuda(),
+                   torch.ones(m, dtype=torch.uint8, device="cuda"), only0):
+            for x in (torch.from_numpy(rng.integers(-2**30, 2**30, m).astype(
+                    np.int32)).cuda(), torch.from_numpy(rng.random(m).astype(
+                        np.float32)).cuda()):
+                for op in kernels.SCAN_OPS:
+                    k = kernels.scan(x, fl, op)
+                    p = kernels.scan_plain(x, fl, op)
+                    again = [kernels.scan(x, fl, op) for _ in range(2)]
+                    calls += 3
+                    assert all(torch.equal(bits(k), bits(a)) for a in again)
+                    if op == "add" and x.is_floating_point():
+                        assert close(k, p), (m, op, fl is None)
+                    else:
+                        assert torch.equal(bits(k), bits(p)), (
+                            m, x.dtype, op, None if fl is None else
+                            int(fl.sum()))
+    big = torch.rand(1 << 26, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    k = kernels.scan(big)                 # unsegmented float add: g^2/2 reads
+    assert torch.equal(bits(k), bits(kernels.scan(big)))
+    assert close(k, kernels.scan_plain(big))
+    calls += 2
+    assert kernels.launches["scan"] == calls
+    del big, k
+    flags = torch.from_numpy(rng.random(n) < 0.01).cuda()
     for x in (torch.from_numpy(rng.integers(-2**30, 2**30, n).astype(
             np.int32)).cuda(), torch.from_numpy(rng.random(n).astype(
                 np.float32)).cuda()):
-        for op in kernels.SCAN_OPS:
-            for fl in (None, flags):
-                k = kernels.scan(x, fl, op)
-                assert torch.equal(k, kernels.scan(x, fl, op))
-                p = kernels.scan_plain(x, fl, op)
-                ok = close(k, p) if (op == "add" and x.is_floating_point()) \
-                    else torch.equal(k, p)
-                assert ok, (x.dtype, op, fl is None)
         for off in (g.csc_offsets, g.row_offsets):
             for op in kernels.REDUCE_OPS:
                 k = kernels.segment_reduce(x, off, op)
@@ -468,6 +497,30 @@ def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
         k = FB.segment_broadcast_total(s, flags)
         assert torch.equal(k, FB.segment_broadcast_total(s, flags))
         assert torch.equal(k, kernels.segment_broadcast_total_plain(s, flags))
+    # the fills at 1, a tile -1, a tile, a tile +1 and many tiles, flags
+    # sparse, at every position, only at position 0, and one segment across
+    # 42 tiles, bit for bit against plain
+    rng = np.random.default_rng(1)
+    tile = kernels.FILL_TILE
+    for m in (1, tile - 1, tile, tile + 1, 45 * tile + 77):
+        long_seg = torch.zeros(m, dtype=torch.bool, device="cuda")
+        long_seg[[0, min(100, m - 1), min(100 + 42 * tile, m - 1)]] = True
+        for fl in (torch.from_numpy(rng.random(m) < 0.01).cuda(),
+                   torch.ones(m, dtype=torch.uint8, device="cuda"),
+                   torch.arange(m, device="cuda") == 0, long_seg):
+            si = torch.from_numpy(rng.integers(-3, 3, m).astype(
+                np.int32)).cuda()
+            for s in (si, torch.from_numpy(rng.random(m).astype(
+                    np.float32)).cuda()):
+                k = kernels.segment_broadcast_total(s, fl)
+                assert torch.equal(k.view(torch.int32),
+                                   kernels.segment_broadcast_total_plain(
+                                       s, fl).view(torch.int32)), (m, s.dtype)
+            lv = torch.where(torch.from_numpy(rng.random(m) < 0.5).cuda(),
+                             2**31 - 1, si)
+            new, any_ = kernels.suffix_fill_update(si, fl, lv, 7)
+            new_p, any_p = kernels.suffix_fill_update_plain(si, fl, lv, 7)
+            assert torch.equal(new, new_p) and torch.equal(any_, any_p), m
     src = int(np.argmax(np.diff(csr.row_offsets)))
     lev = FB.init_lev_exp(g, src)
     off = g.row_offsets

@@ -13,6 +13,8 @@ are held to the SpMV tolerance of benchmarks/PARITY.md, |y - ref| <=
 float32 running sum in JAX drifts by up to 1e-5 of its size (rtol 1e-4)."""
 
 import importlib
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +49,7 @@ from essentials_tpu_torch.ops import sparse_advance as tsa
 # the packages export functions named like these modules
 jadv = importlib.import_module("essentials_tpu.ops.advance")
 tadv = importlib.import_module("essentials_tpu_torch.ops.advance")
+ROOT = Path(__file__).resolve().parent.parent
 
 RTOL, ATOL = 1e-5, 1e-6
 IMAX = np.iinfo(np.int32).max
@@ -491,6 +494,52 @@ def test_gather_packs_where_records_pay(monkeypatch):
 
 
 # -------------------------------------------------------------- wrappers --
+
+def _cu_constant(source: str, name: str) -> int:
+    """The value of ``constexpr int name = a * b;`` (or a literal) in a
+    csrc/ source, each factor a literal or another such constant."""
+    text = (ROOT / "essentials_tpu_torch" / "csrc" / source).read_text()
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+    value = 1
+    for factor in expr.split("*"):
+        factor = factor.strip()
+        value *= int(factor) if factor.isdigit() else _cu_constant(source,
+                                                                   factor)
+    return value
+
+
+def test_tile_constants_match_the_sources():
+    """The wrappers size the scratch with the tiles the kernels use. The
+    library checks the same where it loads, on the card only: this is the
+    check that runs where no library is built."""
+    assert kernels.SCAN_TILE == _cu_constant("operator_kernels.cu",
+                                             "kScanTile")
+    assert kernels.SCAN_GROUP == _cu_constant("operator_kernels.cu",
+                                              "kScanGroup")
+    assert kernels.FILL_TILE == _cu_constant("bfs_kernels.cu", "kFillTile")
+    assert kernels.ROUTE_TILE == _cu_constant("bfs_kernels.cu",
+                                              "kRouteTile")
+
+
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 4097, 524_289,
+                               7_611_904, 1 << 26])
+def test_scan_and_fill_scratch_hold_their_layouts(n):
+    """One tile per SCAN_TILE / FILL_TILE started; the scan's scratch holds
+    8 bytes a tile, 8 a group of SCAN_GROUP tiles started and the 4-byte
+    ticket, the fill's 8 bytes a tile, the ticket and the any-flag, last,
+    at byte 8 g + 4."""
+    g = kernels.scan_tiles(n)
+    assert (g - 1) * kernels.SCAN_TILE < n <= g * kernels.SCAN_TILE or n == 0
+    groups = -(-g // kernels.SCAN_GROUP)
+    assert (groups - 1) * kernels.SCAN_GROUP < g <= groups * kernels.SCAN_GROUP \
+        or g == 0
+    assert kernels.scan_scratch_words(n) * 8 >= 8 * (g + groups) + 4
+    g = kernels.fill_tiles(n)
+    assert (g - 1) * kernels.FILL_TILE < n <= g * kernels.FILL_TILE or n == 0
+    fs = kernels.fill_scratch(n, "cpu")
+    assert fs.dtype == torch.int32 and fs.numel() * 4 == 8 * g + 8
+    assert fs[-1:].data_ptr() - fs.data_ptr() == 8 * g + 4
+
 
 def test_wrappers_take_plain_version_on_cpu(graphs):
     _, _, g = graphs["directed"]
