@@ -23,11 +23,22 @@ at the fill shape of chip_smoke's kernel table (the rmat18 BFS level with
 the most new vertices), beside torch.repeat_interleave of the segment-end
 values; ``suffix_fill_update`` at that level.
 
+minmax: ``segment_minmax`` at m = 8 over JP's per-edge priorities at
+gen:rmat20x16, under the first round's mask (every real edge active) and
+the uncolored mask after one round, beside two torch.segment_reduce calls
+(max, min) on float32 copies of the masked payloads.
+
+kcore: ``kcore_sweep`` per wave over one k-core run at gen:rmat20x16: the
+mean wall time of a wave's call (CUDA events around each call) and the
+device time of the run's kcore_sweep kernels over its waves
+(torch.profiler).
+
 e2e (end to end, in E2E_ROUNDS rounds of turns: 8 runs a side): PageRank
 fused ms per iteration at undirected rmat18; BFS and SSSP adaptive from the
 8 highest out-degree sources of directed rmat20 seed 3, the device time of
-all 8 searches (torch.profiler) and the wall ms per search; TC shift ms per
-run at gen:rmat20x16 (424,267,437 triangles), in one round.
+all 8 searches (torch.profiler) and the wall ms per search; color JP and
+k-core ms per run at gen:rmat20x16 with the device time of a run; TC shift
+ms per run at gen:rmat20x16 (424,267,437 triangles), in one round.
 
 spmv, gather, neighbours, pack (the measurements of the previous slice):
 
@@ -78,7 +89,8 @@ import torch
 import chip_smoke as CS
 
 KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
-           "scan", "segment_broadcast_total", "suffix_fill_update")
+           "scan", "segment_broadcast_total", "suffix_fill_update",
+           "segment_minmax", "kcore_sweep")
 PR_HITS_ROUNDS = 4             # rounds of turns: 8 runs on each side
 E2E_ROUNDS = 4                 # rounds of turns: 8 runs on each side
 PACK_PAYLOADS = (2, 4)
@@ -97,8 +109,9 @@ def build(mod, name: str) -> None:
     print(f"build: {name} in {time.perf_counter() - t0:.1f} s")
     for i, line in enumerate(log):
         if "Compiling entry" in line and any(
-                k in line for k in ("scan_kernel", "segment_broadcast_total",
-                                    "suffix_fill_update")):
+                k in line for k in ("segment_minmax_kernel",
+                                    "kcore_sweep_kernel",
+                                    "kcore_sweep_push_kernel")):
             print(f"  {line.strip()}")
             for nxt in log[i + 1:i + 4]:
                 if "Used" in nxt or "spill" in nxt:
@@ -349,8 +362,91 @@ def fill_shapes(card: str, run, K0, out: dict) -> None:
             "torch.repeat_interleave", CS.SPMV_REPS), out)
 
 
+def minmax_shapes(card: str, run, K0, out: dict) -> None:
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import color
+    from essentials_tpu_torch.ops.advance import _expand_and_route
+    g = run.weighted_graph(CS.MAIN_SCALE)[1]
+    state = color.init(g)
+    pays, off = list(state.pri_csc), g.csc_offsets
+    for label, frontier in (
+            ("every real edge active", state.frontier),
+            ("the uncolored mask after one round",
+             color.step(g, state, 0).frontier)):
+        active = _expand_and_route(g, frontier, "vertices", ())[0]
+        args = (pays, active, off)
+        CS.check(same_bits(K0.segment_minmax(*args),
+                           K.segment_minmax(*args)),
+                 f"segment_minmax ({label}): parent and this tree disagree")
+        x = state.pri_csc.t().float()
+        hi = torch.where(active[:, None], x, float("-inf")).contiguous()
+        lo = torch.where(active[:, None], x, float("inf")).contiguous()
+        off64 = off.long()
+        turns(card, f"segment_minmax m = 8, gen:rmat{CS.MAIN_SCALE}x16, "
+                    f"{label} ({int(active.sum())} active slots)",
+              with_library(
+                  K0, lambda args=args: kernel_ms(
+                      lambda: K.segment_minmax(*args)),
+                  lambda hi=hi, lo=lo: (
+                      torch.segment_reduce(hi, "max", offsets=off64,
+                                           unsafe=True),
+                      torch.segment_reduce(lo, "min", offsets=off64,
+                                           unsafe=True)),
+                  "two torch.segment_reduce", CS.SPMV_REPS), out)
+
+
+def kcore_wave_ms(g) -> dict:
+    """kcore_sweep over one k-core run: the mean wall time of a wave's call
+    (CUDA events around each call), and the device time of the run's
+    kcore_sweep kernels (torch.profiler) over its waves."""
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    from torch.autograd import DeviceType
+    deg = FK.init_deg_exp(g)
+    core = torch.zeros_like(deg)
+    spare = [deg.clone(), core.clone()]
+    k, walls = FK.first_level(g), []
+    while k < FK.IMAX:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        s = FK.fused_kcore_sweep(g, deg, core, k, *spare)
+        e1.record()
+        min_alive = int(s[1])
+        walls.append(e0.elapsed_time(e1))
+        deg, core, spare = spare[0], spare[1], [deg, core]
+        k = FK.next_level(k, min_alive)
+    rows = CS.device_ms(lambda: FK.run_fused_kcore(g, 4 * g.n_vertices + 8),
+                        1)[1]
+    dev = sum(ms for name, ms in rows.items() if "kcore_sweep" in name)
+    return {"wall per wave": float(np.mean(walls)),
+            "device per wave": dev / len(walls) if rows else None,
+            "waves": len(walls)}
+
+
+def kcore_shapes(card: str, run, K0, out: dict) -> None:
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    g = run.weighted_graph(CS.MAIN_SCALE)[1]
+    deg = FK.init_deg_exp(g)
+    core = torch.zeros_like(deg)
+    k = FK.first_level(g)
+    outs = [t.clone() for t in (deg, core, deg, core)]
+    args = (deg, core, outs[0], outs[1], g.row_offsets, g.csc_src_indices,
+            k)
+    a = K0.kcore_sweep(*args)
+    b = K.kcore_sweep(deg, core, outs[2], outs[3], *args[4:])
+    CS.check(torch.equal(a, b) and torch.equal(outs[0], outs[2])
+             and torch.equal(outs[1], outs[3]),
+             "kcore_sweep's first wave: parent and this tree disagree")
+    turns(card, f"kcore_sweep per wave, one k-core run at "
+                f"gen:rmat{CS.MAIN_SCALE}x16",
+          {"parent": lambda: on(K0, lambda: kcore_wave_ms(g)),
+           "this": lambda: kcore_wave_ms(g)}, out)
+
+
 def end_to_end(card: str, run, K0, out: dict) -> None:
-    from essentials_tpu_torch.algorithms import bfs, pr, sssp, tc
+    from essentials_tpu_torch.algorithms import bfs, color, kcore, pr, sssp
+    from essentials_tpu_torch.algorithms import tc
     gu = run.bfs_graph(CS.SCALE)[1]
 
     def pr_fused() -> dict:
@@ -380,6 +476,16 @@ def end_to_end(card: str, run, K0, out: dict) -> None:
                     f"{CS.SPMV_SEED}", {
                         "parent": lambda m=searches: on(K0, m),
                         "this": searches}, out, E2E_ROUNDS)
+    g_m = run.weighted_graph(CS.MAIN_SCALE)[1]
+    for name, fn in (
+            ("color jp", lambda: color.run(g_m, variant="jp", warmup=False)),
+            ("kcore", lambda: kcore.run(g_m, warmup=False))):
+        def per_run(fn=fn) -> dict:
+            return {"ms per run": fn().elapsed_ms,
+                    "device ms of a run": CS.device_ms(fn, 1)[0]}
+        turns(card, f"{name} gen:rmat{CS.MAIN_SCALE}x16",
+              {"parent": lambda m=per_run: on(K0, m), "this": per_run}, out,
+              E2E_ROUNDS)
     csr_m = run.tc_graph(CS.MAIN_SCALE)
 
     def shift() -> dict:
@@ -406,9 +512,9 @@ def pack_sweep(card: str, out: dict) -> None:
             ms, res = {}, {}
             for pack in (False, True, True, False):
                 with CS.gather_path(pack):
-                    before = K.pack_launches["gather_payloads"]
+                    before = K.pass_launches["gather_payloads_pack"]
                     res[pack] = K.gather_payloads(idx, *pays[:m])
-                    CS.check(K.pack_launches["gather_payloads"] - before
+                    CS.check(K.pass_launches["gather_payloads_pack"] - before
                              == pack, f"gather_payloads packed: {pack}")
                     ms.setdefault(pack, []).append(CS.device_ms(
                         lambda: K.gather_payloads(idx, *pays[:m]),
@@ -426,7 +532,8 @@ def pack_sweep(card: str, out: dict) -> None:
     out["pack_sweep"] = rows
 
 
-GROUPS = {"scan": scan_shapes, "fill": fill_shapes, "e2e": end_to_end,
+GROUPS = {"minmax": minmax_shapes, "kcore": kcore_shapes,
+          "scan": scan_shapes, "fill": fill_shapes, "e2e": end_to_end,
           "spmv": spmv_shapes, "gather": gather_shapes,
           "neighbours": neighbours,
           "pack": lambda card, run, K0, out: pack_sweep(card, out)}

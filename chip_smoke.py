@@ -75,7 +75,8 @@ raises and exits non-zero:
    one k-core run (expand_segments for the initial degrees, every wave's
    kcore_sweep, then collapse_starts), each kernel against its plain
    version from the same input, exactly, and against a second launch,
-   bitwise;
+   bitwise; every wave of a run also on a graph with a hub, multi-edges
+   and self-loops (kcore_stress_coo);
 10. SSSP and k-core main path on the suite's graph gen:rmat20x16 (scale
    20, edge factor 16, seed 1, undirected, weighted). First its kernels at
    that graph's shapes, each against its plain version and a second launch
@@ -85,7 +86,10 @@ raises and exits non-zero:
    a BFS in both forms, from the
    highest-degree vertex. Then sssp.run(variant=
    "fused") and sssp.run(variant="windowed") from the 8 highest-degree
-   sources and one kcore.run, each run with the launch counters set to 0
+   sources and one kcore.run (kcore_sweep two device kernels a call, the
+   dense pass and the push, as torch.profiler sees them on the first and
+   the last wave: a form with no whole profiler window is not measured,
+   none measured fails), each run with the launch counters set to 0
    just before it and read just after, which must show exactly the
    launches it makes; fused and windowed bitwise equal with equal sweep
    counts; 2 sources against a float64 host Dijkstra (rtol 1e-5, the reach
@@ -96,9 +100,13 @@ raises and exits non-zero:
 11. SSSP and k-core times on CUDA events: ms per search and relaxations
    per second per variant, k-core ms and waves at scale 20, and each
    wave's kcore_sweep time beside the vertices alive before it, their edges
-   and their largest degree; each new kernel against its plain version at
-   scale 18; torch.profiler's device-busy share over each of the three
-   paths (after a warm-up step);
+   and their largest degree, the vertices it peels and their edges; over
+   the run's waves the median and spread of kcore_sweep's wall time, its
+   plain version's, its device time per wave (torch.profiler, the two
+   kernels of each wave), the per-wave and per-run bounds; the other
+   SSSP and k-core kernels against their plain versions at scale 18;
+   torch.profiler's device-busy share over each of the three paths (after
+   a warm-up step);
 12. operator kernels (scan, gather_payloads, segment_reduce,
    advance_count; replace scan_kernels.scan_1d/segmented_scan_1d, the
    cube_router/permute routes, segment.combine_by_offsets and
@@ -181,7 +189,14 @@ raises and exits non-zero:
    plain version exactly and a second launch bitwise, over JP's per-edge
    priorities for 1, 3 and 8 payloads under three active masks (all true,
    a seeded 30%, the uncolored mask after one JP round) on rmat12 and
-   rmat18 (the BFS graphs) and gen:rmat20x16 (phase 10's graph); and
+   rmat18 (the BFS graphs) and gen:rmat20x16 (phase 10's graph); then on
+   its stress case (minmax_stress_inputs: one segment across more than
+   MINMAX_LONG_TILES tiles, segment ends at every offset of a tile, a run
+   of MINMAX_EMPTY_RUN empty segments, all-inactive segments, offsets
+   from 37, payloads and flags as views at odd element offsets), and two
+   device launches per call (segment_minmax_split_kernel, then
+   segment_minmax_kernel) for 1, 3 and 8 payloads (as in phase 12, a
+   kernel with no form measured fails); and
    bitmap_intersect_counts at 12,288-word rows (48 KiB, where the shared
    row meets the launch's shared-memory limit), witness on and off;
 19. their main path, each run with the launch counters set to 0 just
@@ -196,9 +211,11 @@ raises and exits non-zero:
    with rounds and distinct colors, torch.profiler's idle share over one
    run of each, beside the TPU's history (TPU_COLOR_HISTORY, not a gate);
    PageRank and HITS generic ms per iteration; segment_minmax per launch
-   at m = 8 beside its plain version, its bound, two torch.segment_reduce
-   calls (max and min) computing the same function and the 16
-   segment_reduce launches it replaces, and on the largest segment alone.
+   at m = 8, wall and device, under the first round's mask (every real
+   edge active) and the uncolored mask after one round, beside its plain
+   version, its bound, two torch.segment_reduce calls (max and min)
+   computing the same function and the 16 segment_reduce launches it
+   replaces, and on the largest segment alone.
 
 Every kernel's bound is the least time an H100 could take for its work:
 the larger of the bytes it must move (each input element it needs read
@@ -331,6 +348,10 @@ COLOR_REPLACES = {   # in OP_SOURCE, beside segment_reduce
 }
 COLOR_SEED = 6         # the seeded active mask and the wide bitmap
 COLOR_PAYLOADS = (1, 3, 8)   # segment_minmax payload counts checked
+# segment_minmax's stress case (minmax_stress_inputs)
+MINMAX_LONG_TILES = 42       # tiles its longest segment spans, at least
+MINMAX_EMPTY_RUN = 6_144     # consecutive empty segments: 3 tiles of ends
+MINMAX_SHORT = 40_000        # segments of 0-4 slots: ends at every offset
 BITMAP_WIDE_WORDS = 12288    # 48 KiB rows: the shared-memory limit's edge
 # color at rmat20 recorded on the TPU (essentials_tpu/algorithms/color.py
 # :191, :295): printed beside the port's, not a gate
@@ -544,11 +565,12 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
     once in the profiler's warm-up step, so that the device tracing is
     running when the recorded call begins, and once recorded. ``expect``
     is the number of our kernels' launches the recorded call makes
-    (K.launches' counts); the pack passes of gather_payloads that the call
-    makes (K.pack_launches) are added to it, since each is a device kernel
-    of its own. A trace that saw fewer is reported, its busy share as a
-    lower bound. Returns {kernel name: (total ms, launches)}; empty when
-    the profiler saw no device time."""
+    (K.launches' counts); the second kernels that the call makes (the
+    pack passes of gather_payloads, the pushes of kcore_sweep and the
+    splits of segment_minmax: K.pass_launches) are added to it, since each
+    is a device kernel of its own. A trace that saw fewer is reported, its
+    busy share as a lower bound. Returns {kernel name: (total ms,
+    launches)}; empty when the profiler saw no device time."""
     from essentials_tpu_torch import kernels as K
     from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile as torch_profile,
@@ -560,13 +582,13 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
         fn()
         torch.cuda.synchronize()
         prof.step()
-        packs = sum(K.pack_launches.values())
+        packs = second_passes()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
-        packs = sum(K.pack_launches.values()) - packs
+        packs = second_passes() - packs
     # the step span (ProfilerStep*) carries the device time of its whole
     # window; it is not a kernel
     rows = {e.key: (e.self_device_time_total / 1e3, e.count)
@@ -591,12 +613,19 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
     return rows
 
 
+def second_passes() -> int:
+    """The second device kernels our wrappers have launched so far."""
+    from essentials_tpu_torch import kernels as K
+    return sum(K.pass_launches.values())
+
+
 def launches_seen(rows: dict) -> int:
     """Launches of our device kernels among profile()'s rows: each is named
-    <launch key>_kernel (<key>_pack_kernel for a pack pass)."""
+    <key>_kernel for a key of K.launches (without its type) or of
+    K.pass_launches."""
     from essentials_tpu_torch import kernels as K
-    ours = [f"{k.split('<')[0]}_kernel" for k in K.launches] + [
-        f"{k}_pack_kernel" for k in K.pack_launches]
+    ours = [f"{k.split('<')[0]}_kernel" for k in (*K.launches,
+                                                  *K.pass_launches)]
     return sum(n for name, (_, n) in rows.items()
                if any(k in name for k in ours))
 
@@ -1097,6 +1126,38 @@ def weighted_graph(scale: int, device: str):
     return csr, g
 
 
+KCORE_STRESS = (3000, 16, 1200, 300)   # vertices, edges a vertex, hub, doubled
+
+
+def kcore_stress_coo(seed: int = SEED) -> tuple:
+    """A symmetric multigraph: (n, src, dst, weights). Random pairs among
+    n vertices, vertex 0 joined to a hub's worth of others, some pairs
+    twice, self-loops at 5 and 17; every edge with its reverse (a self-loop
+    once), weights from the seed."""
+    rng = np.random.default_rng(seed)
+    n, per, hub, doubled = KCORE_STRESS
+    a = rng.integers(0, n, n * per // 2)
+    b = rng.integers(0, n, n * per // 2)
+    a, b = a[a != b], b[a != b]
+    twice = rng.integers(0, a.size, doubled)
+    a = np.concatenate([a, np.zeros(hub, np.int64), a[twice]])
+    b = np.concatenate([b, rng.choice(np.arange(1, n), hub, replace=False),
+                        b[twice]])
+    loops = np.array([5, 17])
+    src = np.concatenate([a, b, loops]).astype(np.int32)
+    dst = np.concatenate([b, a, loops]).astype(np.int32)
+    return n, src, dst, rng.random(src.size).astype(np.float32) + 0.5
+
+
+def kcore_stress_graph(device: str) -> tuple:
+    """kcore_stress_coo's graph: (csr, graph), undirected and weighted."""
+    from essentials_tpu_torch.formats import Coo, Csr
+    from essentials_tpu_torch.graph import build_graph
+    n, src, dst, w = kcore_stress_coo()
+    csr = Csr.from_coo(Coo(n, n, src, dst, w))
+    return csr, build_graph(csr, directed=False, weighted=True, device=device)
+
+
 def hold_exact(name: str, ks, agains, plains, errs: dict, where: str) -> None:
     """Each kernel output (int32) against a second launch's and the plain
     version's, bitwise."""
@@ -1161,6 +1222,34 @@ def check_sssp_kcore_kernels(csr, g, where: str, errs: dict) -> None:
           f"{int(torch.isfinite(dist.view(torch.float32)).sum())} reached, "
           f"{int((pred >= 0).sum())} predecessors; kcore: {waves} waves; "
           f"every kernel exact against plain and repeatable")
+
+
+def check_kcore_launches(g, where: str) -> None:
+    """One kcore_sweep call is two device kernels, its dense pass and its
+    push, on the first wave and on the last, as torch.profiler sees them;
+    fails where neither form was measured."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    off, src = g.row_offsets, g.csc_src_indices
+    deg = FK.init_deg_exp(g)
+    core = torch.zeros_like(deg)
+    k, waves = FK.first_level(g), 0
+    first = last = (deg, core, k)
+    while k < FK.IMAX:
+        last = (deg, core, k)
+        deg, core = torch.empty_like(deg), torch.empty_like(core)
+        s = K.kcore_sweep(*last[:2], deg, core, off, src, k)
+        k, waves = FK.next_level(k, int(s[1])), waves + 1
+    outs = (torch.empty_like(deg), torch.empty_like(core))
+    measured = sum(check_one_launch(
+        "kcore_sweep", lambda d=d, c=c, k=k: K.kcore_sweep(
+            d, c, *outs, off, src, k), f"{where} wave {i}",
+        ("kcore_sweep_kernel", "kcore_sweep_push_kernel"))
+        for i, (d, c, k) in ((0, first), (waves - 1, last)))
+    check(measured > 0, f"kcore_sweep {where}: launches per call measured "
+                        f"on no wave")
+    print(f"kernels: kcore_sweep {where}: two device kernels a call (dense "
+          f"pass and push) on {measured} of 2 waves measured")
 
 
 # ------------------------------------------------------------ phase 10 --
@@ -1375,41 +1464,130 @@ def time_sssp_kcore(g, sources, runs, card: str) -> None:
           f"{ms / waves:.4f} ms per wave")
 
 
-def time_kcore_waves(g, card: str) -> None:
-    """Each k-core wave's kcore_sweep on CUDA events, beside how many
-    vertices were alive before it, their edges and their largest degree:
-    a wave costs one warp per vertex plus a scan of every survivor's
-    in-edges, the largest on one warp."""
+def kcore_wave_bytes(g, deg, k: int) -> tuple:
+    """(the dense pass's bytes, the push's bytes) of a wave at level k from
+    state ``deg``: the offsets read, and the 32-byte sectors holding the
+    non-empty starts in each of deg_in, core_in, deg_out and core_out; then
+    per slot of each peeled segment its csc_src word and two scattered
+    32-byte sectors (off[u], and the degree at u's start that the atomic
+    takes one from)."""
+    off = g.row_offsets
+    nonempty = off[1:] > off[:-1]
+    starts = off[:-1][nonempty].long()
+    sectors = int(torch.unique(starts // 8).numel())
+    d = deg[starts]
+    lens = (off[1:] - off[:-1])[nonempty].long()
+    peeled = int(lens[(d >= 0) & (d < k)].sum())
+    return 4 * (g.n_vertices_padded + 1) + 4 * 32 * sectors, 68 * peeled
+
+
+def kcore_wave_device_ms(g) -> list | None:
+    """Each wave's device time over one k-core run (FK.run_fused_kcore)
+    from torch.profiler's events: its dense pass and its push, summed. None
+    where the profiler lost device activities (no whole pair per wave)."""
     from essentials_tpu_torch.ops import fused_kcore as FK
-    nonempty = g.row_offsets[1:] > g.row_offsets[:-1]
-    starts = g.row_offsets[:-1][nonempty].long()
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile as torch_profile,
+                                schedule)
+    max_it = 4 * g.n_vertices + 8
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as prof:
+            for _ in range(2):
+                waves = FK.run_fused_kcore(g, max_it)[1]
+                torch.cuda.synchronize()
+                prof.step()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "kcore_sweep" in e.name),
+                    key=lambda e: e.time_range.start)
+        dense = [e for e in ev if "kcore_sweep_kernel" in e.name]
+        push = [e for e in ev if "kcore_sweep_push_kernel" in e.name]
+        if len(dense) == len(push) == waves:
+            return [(a.time_range.elapsed_us() + b.time_range.elapsed_us())
+                    / 1e3 for a, b in zip(dense, push)]
+    return None
+
+
+def time_kcore_waves(g, card: str) -> dict:
+    """kcore_sweep wave by wave over one k-core run: each wave's wall time
+    on CUDA events and its plain version's on the same state (into spare
+    buffers), beside the vertices alive before it, their edges and their
+    largest degree, and the vertices it peels and their edges; each wave's
+    device time (kcore_wave_device_ms); the bounds per wave and per run
+    (kcore_wave_bytes). Returns chip_smoke's keys for kcore_sweep: the
+    times and bound per wave averaged over the run's waves, and the run's
+    totals."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    off, src = g.row_offsets, g.csc_src_indices
+    nonempty = off[1:] > off[:-1]
+    starts = off[:-1][nonempty].long()
     deg0 = g.out_degrees()[nonempty].long()
     deg = FK.init_deg_exp(g)
     core = torch.zeros_like(deg)
     spare = [deg.clone(), core.clone()]
-    k, rows = FK.first_level(g), []
+    plain_out = [deg.clone(), core.clone()]
+    k, rows, nbytes = FK.first_level(g), [], []
     while k < FK.IMAX:
-        alive = deg[starts] >= 0
+        d = deg[starts]
+        alive = d >= 0
+        peel = alive & (d < k)
+        nbytes.append(kcore_wave_bytes(g, deg, k))
+        plain = median_ms(lambda _: K.kcore_sweep_plain(
+            deg, core, *plain_out, off, src, k), 1)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         s = FK.fused_kcore_sweep(g, deg, core, k, *spare)
         e1.record()
         min_alive = int(s[1])
-        rows.append((e0.elapsed_time(e1), int(alive.sum()),
-                     int(deg0[alive].sum()), int(deg0[alive].max())))
+        rows.append((e0.elapsed_time(e1), plain, int(alive.sum()),
+                     int(deg0[alive].sum()), int(deg0[alive].max()),
+                     int(peel.sum()), int(deg0[peel].sum())))
         deg, core, spare = spare[0], spare[1], [deg, core]
         k = FK.next_level(k, min_alive)
     ms = np.array([r[0] for r in rows])
-    for i in sorted({0, len(rows) // 10, len(rows) // 2, 9 * len(rows) // 10,
-                     len(rows) - 1}):
-        t, n, e, hub = rows[i]
+    for i in sorted({0, 1, 2, len(rows) // 10, len(rows) // 2,
+                     9 * len(rows) // 10, len(rows) - 1}):
+        t, tp, n, e, hub, npeel, epeel = rows[i]
         print(f"time [{card}]: kcore_sweep rmat{MAIN_SCALE} wave {i}: "
-              f"{t:.4f} ms; {n} vertices alive, {e} edges, largest degree "
-              f"{hub}")
-    print(f"time [{card}]: kcore_sweep rmat{MAIN_SCALE}: {len(rows)} waves, "
-          f"{ms.sum():.3f} ms in all, median {np.median(ms):.4f} ms, "
-          f"min {ms.min():.4f} ms, max {ms.max():.4f} ms per wave")
+              f"{t:.4f} ms (plain {tp:.4f}); {n} vertices alive, {e} "
+              f"edges, largest degree {hub}; peels {npeel} vertices, "
+              f"{epeel} edges")
+    dev = kcore_wave_device_ms(g)
+    waves = len(rows)
+    dense, push = (sum(b[i] for b in nbytes) for i in (0, 1))
+    # each launch at the rate of where its own bytes fit
+    per = [(bound(a), bound(b)) for a, b in nbytes]
+    mems = "/".join(sorted({x[2] for pair in per for x in pair}))
+    run_bound = (sum(a[0] + b[0] for a, b in per), "bytes", mems)
+    print(f"time [{card}]: kcore_sweep rmat{MAIN_SCALE}: {waves} waves; "
+          f"wall {ms.sum():.3f} ms in all, median {np.median(ms):.4f} ms, "
+          f"min {ms.min():.4f}, max {ms.max():.4f} per wave; plain "
+          f"{sum(r[1] for r in rows):.1f} ms in all; device "
+          + ("not measured" if dev is None else
+             f"{sum(dev):.3f} ms in all, median {np.median(dev):.4f}, min "
+             f"{min(dev):.4f}, max {max(dev):.4f} per wave")
+          + f"; bound {run_bound[0]:.4f} ms a run ({run_bound[1]} at "
+          f"{run_bound[2]} rate: {dense / 1e9:.3f} GB of dense passes, "
+          f"{push / 1e9:.3f} GB of pushes over {push // 68} peeled slots), "
+          f"{run_bound[0] / waves:.4f} ms a wave on average")
+    return {"kcore_sweep": ms.mean(),
+            "kcore_sweep/plain": float(np.mean([r[1] for r in rows])),
+            "kcore_sweep/device": None if dev is None else float(np.mean(dev)),
+            "kcore_sweep/bound": (run_bound[0] / waves, *run_bound[1:]),
+            "kcore_sweep/run": {
+                "waves": waves, "ms": float(ms.sum()),
+                "device_ms": None if dev is None else float(sum(dev)),
+                "bound_ms": run_bound[0], "bound_memory": run_bound[2],
+                "wave_ms_median": float(np.median(ms)),
+                "wave_ms_min": float(ms.min()),
+                "wave_ms_max": float(ms.max()),
+                "wave_device_ms_median":
+                    None if dev is None else float(np.median(dev))}}
 
 
 def time_sssp_kcore_kernels(csr, g) -> dict:
@@ -1417,9 +1595,9 @@ def time_sssp_kcore_kernels(csr, g) -> dict:
     its wrapper: sssp_sweep summed over the sweeps of one search from the
     highest-degree vertex, each from its saved state; collapse_starts and
     sssp_predecessors once per search; expand_segments once per k-core
-    run; kcore_sweep on the first wave, where every vertex is alive."""
+    run (kcore_sweep is timed wave by wave at gen:rmat20x16:
+    time_kcore_waves)."""
     from essentials_tpu_torch import kernels as K
-    from essentials_tpu_torch.ops import fused_kcore as FK
     from essentials_tpu_torch.ops import fused_sssp as FS
     off, src, w = g.row_offsets, g.csc_src_indices, FS.csc_weights(g)
     source = int(np.argmax(np.diff(csr.row_offsets)))
@@ -1449,13 +1627,6 @@ def time_sssp_kcore_kernels(csr, g) -> dict:
     for suffix, fn in (("", K.expand_segments),
                        ("/plain", K.expand_segments_plain)):
         t["expand_segments" + suffix] = median_ms(lambda _: fn(*args))
-    deg = FK.init_deg_exp(g)
-    core = torch.zeros_like(deg)
-    outs = (torch.empty_like(deg), torch.empty_like(deg))
-    k = FK.first_level(g)
-    for suffix, fn in (("", K.kcore_sweep), ("/plain", K.kcore_sweep_plain)):
-        t["kcore_sweep" + suffix] = median_ms(
-            lambda _: fn(deg, core, *outs, off, src, k))
     t["sweeps"] = len(states)
     vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
     # per sweep: the starts' distances read and written, offsets, csc_src
@@ -1470,7 +1641,6 @@ def time_sssp_kcore_kernels(csr, g) -> dict:
     t["expand_segments/library"] = library_ms(
         "expand_segments (torch.repeat_interleave)",
         lambda: torch.repeat_interleave(vals, counts, output_size=ep))
-    t["kcore_sweep/bound"] = bound(16 * vp + 4 * (vp + 1) + 4 * ep + 8)
     return t
 
 # ------------------------------------------------------------ phase 12 --
@@ -1615,19 +1785,24 @@ def kernels_seen(fn, calls: int = PROFILED_CALLS) -> dict | None:
     return None
 
 
-def check_one_launch(name: str, fn, where: str) -> bool:
-    """One call of the wrapper ``name`` (fn()) is one device kernel launch,
-    and that kernel is <name>_kernel, as torch.profiler sees it. False
-    (printed) where the profiler lost device activities in every window;
-    the caller fails where that leaves a kernel with no form measured."""
+def check_one_launch(name: str, fn, where: str,
+                     kernels: tuple = ()) -> bool:
+    """One call of the wrapper ``name`` (fn()) launches one of each device
+    kernel ``kernels`` (by default <name>_kernel alone) and nothing else,
+    as torch.profiler sees it. False (printed) where the profiler lost
+    device activities in every window; the caller fails where that leaves
+    a kernel with no form measured."""
+    want = kernels or (f"{name}_kernel",)
     seen = kernels_seen(fn)
     if seen is None:
         print(f"kernels: {name} {where}: launches per call not measured "
               f"(every profiler window lost device activities)")
         return False
-    check(list(seen.values()) == [1] and f"{name}_kernel" in next(iter(seen)),
+    matched = sorted(w for key in seen for w in want if w in key)
+    check(len(seen) == len(want) and matched == sorted(want)
+          and all(n == 1 for n in seen.values()),
           f"{name} {where}: the profiler saw {seen} per call, not one "
-          f"{name}_kernel")
+          f"each of {want}")
     return True
 
 
@@ -2573,6 +2748,74 @@ def check_minmax_kernel(g, where: str, errs: dict) -> None:
           f"{after.live} vertices): exact against plain, repeatable")
 
 
+def minmax_stress_inputs(device, m: int = 8, seed: int = COLOR_SEED,
+                         short: int = MINMAX_SHORT,
+                         long_tiles: int = MINMAX_LONG_TILES,
+                         tile: int = 2048, tail: int = 2000) -> tuple:
+    """segment_minmax's stress case: (m payload views, active view,
+    offsets). Its segments in order: ``short`` of 0-4 slots (at the
+    defaults their ends fall at every offset of a tile of ``tile``
+    places), MINMAX_EMPTY_RUN empty ones, one of (long_tiles + 1) * tile
+    slots, and ``tail`` of 0-63 slots, the first quarter of them all
+    inactive.
+    The offsets start at 37 and end 11 slots before n; the payloads are the
+    rows of an [m, n + 1] array from element 1 on, the flags a view from
+    element 3 (60% set)."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([rng.integers(0, 5, short),
+                           np.zeros(MINMAX_EMPTY_RUN, np.int64),
+                           [(long_tiles + 1) * tile],
+                           rng.integers(0, 64, tail)])
+    off = 37 + np.concatenate([[0], np.cumsum(lens)])
+    n = int(off[-1]) + 11
+    pays = torch.from_numpy(rng.integers(-2**31, 2**31, (m, n + 1),
+                                         dtype=np.int64).astype(np.int32))
+    act = rng.random(n + 3) < 0.6
+    quiet = short + MINMAX_EMPTY_RUN + 1      # the first of the tail
+    act[3 + off[quiet]:3 + off[quiet + tail // 4]] = False
+    return ([pays.to(device)[k, 1:] for k in range(m)],
+            torch.from_numpy(act).to(device)[3:],
+            torch.from_numpy(off.astype(np.int32)).to(device))
+
+
+def check_minmax_shapes(errs: dict) -> None:
+    """segment_minmax on its stress case (minmax_stress_inputs) for 1, 3
+    and 8 payloads, against its plain version exactly and a second launch
+    bitwise; then one segment_minmax_split_kernel and one
+    segment_minmax_kernel per call for each, by torch.profiler (fails
+    where no form was measured)."""
+    from essentials_tpu_torch import kernels as K
+    pays, active, off = minmax_stress_inputs("cuda")
+    ends = (off[1:] - off[0]).long() + torch.arange(off.numel() - 1,
+                                                    device="cuda")
+    check(torch.unique(ends % K.MINMAX_TILE).numel() == K.MINMAX_TILE,
+          "segment_minmax's stress case misses a tile offset")
+    check(pays[0].data_ptr() % 16 != 0 and active.data_ptr() % 16 != 0,
+          "segment_minmax's stress views are aligned")
+    seg = off[1:] - off[:-1]
+    for m in COLOR_PAYLOADS:
+        args = (pays[:m], active, off)
+        hold_exact("segment_minmax", K.segment_minmax(*args),
+                   K.segment_minmax(*args), K.segment_minmax_plain(*args),
+                   errs, f"stress case m={m}")
+    measured = sum(check_one_launch(
+        "segment_minmax", lambda m=m: K.segment_minmax(pays[:m], active, off),
+        f"stress case m={m}", ("segment_minmax_split_kernel",
+                               "segment_minmax_kernel"))
+        for m in COLOR_PAYLOADS)
+    check(measured > 0, "segment_minmax: launches per call measured for no "
+                        "payload count")
+    print(f"kernels: segment_minmax stress case ({off.numel() - 1} "
+          f"segments over {int(off[-1] - off[0])} slots from offset "
+          f"{int(off[0])}, longest {int(seg.max())} slots = "
+          f"{int(seg.max()) / K.MINMAX_TILE:.1f} tiles, "
+          f"{int((seg == 0).sum())} empty, ends at all {K.MINMAX_TILE} "
+          f"offsets of a tile, views at odd offsets) at m = "
+          f"{COLOR_PAYLOADS}: exact against plain, repeatable; two device "
+          f"launches a call (split, tiles) for {measured} of "
+          f"{len(COLOR_PAYLOADS)} counts measured")
+
+
 def check_wide_bitmap(errs: dict) -> None:
     """bitmap_intersect_counts on rows of BITMAP_WIDE_WORDS words, where
     the shared row and the kernel's static shared memory would pass the 48
@@ -2729,31 +2972,36 @@ def time_color(g_m, results, g_d, card: str) -> None:
 
 def time_minmax_kernel(g_m) -> dict:
     """segment_minmax per launch with m = WAVES at gen:rmat20x16 under the
-    first JP round's mask (every real edge active), beside its plain
-    version, its bound, the library calls computing the same function and
-    the 16 segment_reduce launches (a MAX and a MIN per wave over masked
-    values) that it replaces."""
+    first JP round's mask (every real edge active) and the uncolored mask
+    after one round, wall and device time, beside its plain version, its
+    bound, the library calls computing the same function and the 16
+    segment_reduce launches (a MAX and a MIN per wave over masked values)
+    that it replaces; and on the largest segment alone."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.algorithms import color
     from essentials_tpu_torch.ops.advance import _expand_and_route
     state = color.init(g_m)
-    active, _ = _expand_and_route(g_m, state.frontier, "vertices", ())
     pays, off = list(state.pri_csc), g_m.csc_offsets
     m, s, ep = len(pays), off.numel() - 1, g_m.n_edges_padded
-
-    def per_call(fn) -> float:
-        return median_ms(lambda _: [fn() for _ in range(SPMV_REPS)]) \
-            / SPMV_REPS
-
-    t = {"segment_minmax": per_call(lambda: K.segment_minmax(pays, active,
-                                                             off)),
-         "segment_minmax/plain": median_ms(
-             lambda _: K.segment_minmax_plain(pays, active, off), TC_CYCLES)}
-    n_active = int(active.sum())
-    # flags read; the payloads at active positions read; offsets read; max
-    # and min written
-    t["segment_minmax/bound"] = bound(ep + 4 * m * n_active + 4 * (s + 1)
-                                      + 8 * m * s)
+    masks = {"": _expand_and_route(g_m, state.frontier, "vertices", ())[0],
+             "@round1": _expand_and_route(g_m, color.step(
+                 g_m, state, 0).frontier, "vertices", ())[0]}
+    t = {}
+    for tag, active in masks.items():
+        n_active = int(active.sum())
+        # active groups of 4 slots: the payload vectors the kernel reads
+        groups = int(active[:ep // 4 * 4].view(-1, 4).any(1).sum())
+        # flags read; the payloads at active positions read; offsets read;
+        # max and min written
+        k = against_library(
+            lambda active=active: K.segment_minmax(pays, active, off),
+            ep + 4 * m * n_active + 4 * (s + 1) + 8 * m * s,
+            lambda active=active: K.segment_minmax_plain(pays, active, off))
+        t.update(prefixed("segment_minmax" + tag, k))
+        t[f"segment_minmax{tag}/active"] = (n_active, groups)
+        t[f"segment_minmax{tag}/bound_groups"] = bound(
+            ep + 16 * m * groups + 4 * (s + 1) + 8 * m * s)
+    active = masks[""]
     # priorities are below 2^24, exact in float32; torch.segment_reduce
     # takes floating types: one amax and one amin call over [Ep, m]
     x = state.pri_csc.t().float()
@@ -2772,13 +3020,15 @@ def time_minmax_kernel(g_m) -> dict:
     t["segment_minmax/segment_reduce_x16"] = median_ms(
         lambda _: [(K.segment_reduce(a, off, "max"),
                     K.segment_reduce(b, off, "min")) for a, b in masked])
-    t["segment_minmax/active"] = n_active
-    # the largest segment alone, on its one warp: the launch's tail
+    # the largest segment alone (a warp-per-segment design ran it on one warp)
     hub = int(torch.argmax(off[1:] - off[:-1]))
     hub_off = off[hub:hub + 2].clone()
-    t["segment_minmax/hub"] = (hub, int(hub_off[1] - hub_off[0]), per_call(
-        lambda: K.segment_minmax(pays, active, hub_off)), per_call(
-        lambda: K.segment_reduce(masked[0][0], hub_off, "max")))
+    t["segment_minmax/hub"] = (
+        hub, int(hub_off[1] - hub_off[0]),
+        median_ms(lambda _: [K.segment_minmax(pays, active, hub_off)
+                             for _ in range(SPMV_REPS)]) / SPMV_REPS,
+        median_ms(lambda _: [K.segment_reduce(masked[0][0], hub_off, "max")
+                             for _ in range(SPMV_REPS)]) / SPMV_REPS)
     return t
 
 
@@ -3017,6 +3267,8 @@ def group_sssp(run: Run) -> None:
     for scale in SSSP_SCALES:
         check_sssp_kcore_kernels(*run.weighted_graph(scale), f"rmat{scale}",
                                  errs)
+    check_sssp_kcore_kernels(*kcore_stress_graph("cuda"),
+                             "a hub, multi-edges and self-loops", errs)
     run.phases.done("9 sssp/kcore kernels")
 
     # 10. the SSSP and k-core main path at rmat20
@@ -3029,6 +3281,7 @@ def group_sssp(run: Run) -> None:
     print(f"kernels: {where}: windowed sssp from {top}: {len(states)} "
           f"sweeps, spmv_slabs<add,min> exact against plain and repeatable")
     check_kernels(g_m, top, errs)
+    check_kcore_launches(g_m, where)
     run.phases.done("10a kernels at the main path's shapes")
     sssp_launches, sssp_sources, sssp_runs = sssp_kcore_main_path(csr_m, g_m)
     run.by_path.update(sssp_launches)
@@ -3037,15 +3290,16 @@ def group_sssp(run: Run) -> None:
     # 11. SSSP and k-core times
     time_sssp_kcore(g_m, sssp_sources, sssp_runs, card)
     run.t.update(time_windowed_sweeps(g_m, states, card))
-    time_kcore_waves(g_m, card)
+    run.t.update(time_kcore_waves(g_m, card))
     csr18, g18 = run.weighted_graph(SCALE)
     t = time_sssp_kcore_kernels(csr18, g18)
     run.t.update(t)
     for name in SSSP_REPLACES:
-        print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
-              f"{t[name + '/plain']:.4f} ms (weighted rmat{SCALE}; "
-              f"sssp_sweep summed over the {t['sweeps']} sweeps of one "
-              f"search, kcore_sweep the first wave)")
+        if name != "kcore_sweep":
+            print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
+                  f"{t[name + '/plain']:.4f} ms (weighted rmat{SCALE}; "
+                  f"sssp_sweep summed over the {t['sweeps']} sweeps of one "
+                  f"search)")
     for v in sssp.VARIANTS:
         profile(f"sssp {v} rmat{MAIN_SCALE}, {SSSP_RUNS} sssp.run calls",
                 lambda v=v: [sssp.run(g_m, int(s), variant=v, warmup=False)
@@ -3189,6 +3443,7 @@ def group_color(run: Run) -> None:
         check_minmax_kernel(run.bfs_graph(scale)[1], f"rmat{scale}", errs)
     csr_m, g_m = run.weighted_graph(MAIN_SCALE)
     check_minmax_kernel(g_m, f"gen:rmat{MAIN_SCALE}x16", errs)
+    check_minmax_shapes(errs)
     check_wide_bitmap(errs)
     run.phases.done("18 color kernels")
 
@@ -3206,19 +3461,28 @@ def group_color(run: Run) -> None:
     run.t.update(t)
     per_run = {p: c["segment_minmax"] for p, c in color_launches.items()
                if c["segment_minmax"]}
-    b, lib = t["segment_minmax/bound"], t["segment_minmax/library"]
-    print(f"time [{card}]: segment_minmax {t['segment_minmax']:.4f} ms per "
-          f"launch (m = 8, gen:rmat{MAIN_SCALE}x16, "
-          f"{t['segment_minmax/active']} active edges), plain "
-          f"{t['segment_minmax/plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]} "
-          f"at {b[2]} rate), library calls "
+    for tag, label in (("", "every real edge active"),
+                       ("@round1", "the uncolored mask after one round")):
+        key = "segment_minmax" + tag
+        n_active, groups = t[key + "/active"]
+        bg = t[key + "/bound_groups"]
+        print_against(card, f"segment_minmax m = 8, gen:rmat{MAIN_SCALE}x16,"
+                            f" {label} ({n_active} active slots, {groups} "
+                            f"active groups of 4)", {
+                                k[len(key):]: v for k, v in t.items()
+                                if k.startswith(key + "/") or k == key})
+        print(f"time [{card}]: {key}: bound counting the payloads of the "
+              f"active groups of 4 (what the kernel reads) {bg[0]:.4f} ms "
+              f"({bg[2]} rate)")
+    lib = t["segment_minmax/library"]
+    print(f"time [{card}]: segment_minmax: library calls "
           f"{'not measured' if lib is None else f'{lib:.4f} ms'}, the 16 "
           f"segment_reduce launches it replaces "
           f"{t['segment_minmax/segment_reduce_x16']:.4f} ms; launches per "
           f"run {per_run}")
     hub, n, ms, ms_reduce = t["segment_minmax/hub"]
     print(f"time [{card}]: segment_minmax on the largest segment alone "
-          f"(vertex {hub}, {n} in-edges, one warp): {ms:.4f} ms per launch "
+          f"(vertex {hub}, {n} in-edges): {ms:.4f} ms per launch "
           f"(segment_reduce max on it {ms_reduce:.4f} ms)")
     run.phases.done("20 color times")
 
@@ -3257,7 +3521,7 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
         out["ms_no_witness"] = t[key + "/no_witness"]
     if name in ("spmv_rows", "spmv_slabs", "gather_payloads",
                 "advance_count", "scan", "segment_broadcast_total",
-                "suffix_fill_update"):
+                "suffix_fill_update", "segment_minmax", "kcore_sweep"):
         # device times per call (torch.profiler) beside the wall times
         out["device_ms"] = t.get(key + "/device")
         out["library_device_ms"] = t.get(key + "/library_device")
@@ -3338,6 +3602,17 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
         out["library_of"] = "two torch.segment_reduce calls (max, min) on " \
                             "float32 copies of the masked payloads"
         out["ms_segment_reduce_x16"] = t[key + "/segment_reduce_x16"]
+        k = key + "@round1"
+        out["after_one_round"] = {
+            "ms": t[k], "device_ms": t[k + "/device"],
+            "plain_ms": t[k + "/plain"], "bound_ms": t[k + "/bound"][0],
+            "bound_memory": t[k + "/bound"][2],
+            "active_slots": t[k + "/active"][0],
+            "active_groups_of_4": t[k + "/active"][1],
+            "bound_active_groups_ms": t[k + "/bound_groups"][0]}
+    if name == "kcore_sweep":
+        out["per_wave"] = "mean over the waves of one run at gen:rmat20x16"
+        out["per_run"] = t[key + "/run"]
     return out
 
 

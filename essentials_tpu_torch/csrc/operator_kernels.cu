@@ -4,16 +4,17 @@
 // Built by essentials_tpu_torch/kernels.py with nvcc into the shared library
 // of every csrc/*.cu, with a plain C interface, loaded with ctypes. Every
 // entry point launches on the stream it is given, allocates nothing (the
-// wrapper passes outputs and scratch; scan zeroes its scratch with
-// cudaMemsetAsync), and returns the CUDA status so that a refused launch
-// reaches the Python wrapper.
+// wrapper passes outputs and scratch; scan and segment_minmax zero their
+// status words with cudaMemsetAsync), and returns the CUDA status so that a
+// refused launch reaches the Python wrapper.
 //
 // Layout contract (essentials_tpu_torch/graph/graph.py): offsets are [S+1]
 // int32 and sorted, segment s is [off[s], off[s+1]); `csc_src` is the [Ep]
 // int32 source of each CSC slot. The only atomics on data are
-// advance_count's int32 additions, which are exact in any order (scan's
-// ticket and status words only order its tiles), so every result, float
-// sums included, is the same bit for bit on every run.
+// advance_count's int32 additions and segment_minmax's int32 max and min,
+// which are exact in any order (the tickets and status words only order
+// tiles), so every result, float sums included, is the same bit for bit on
+// every run.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -714,72 +715,457 @@ int segment_reduce_launch(const void* vals, const void* off, int nseg, int op,
 // For each segment s and each of np <= 8 int32 payloads k: max[k][s] and
 // min[k][s] over the ACTIVE positions q of [off[s], off[s+1]) (active[q] !=
 // 0), with INT_MIN / INT_MAX where the segment is empty or has no active
-// position; one warp per segment. Replaces the JAX package's
-// scan_kernels.segmented_minmax_1d (:224), two inclusive segmented scans
-// (MAX, MIN) over active elements with a carry across its sequential grid,
-// whose caller segment.combine_minmax_multi (:351) then routes each
-// segment's last value back to the vertex axis. Here each segment is reduced
-// where it lies, as segment_reduce does for combine_by_offsets.
-// Each lane strides over the segment, reads active[q] once and, only where it
-// is set, the np payloads, folding them into 2 np registers; the warp folds
-// the lanes with __reduce_max_sync / __reduce_min_sync, which are exact and
-// independent of order, so the result repeats bit for bit.
-// What bounds it: bytes, the active flags (one byte per position) and, at
-// active positions, 4 np bytes of payloads, all coalesced, plus the offsets
-// and the 8 np bytes per segment written. A hub's segment runs on one warp.
+// position. Replaces the JAX package's scan_kernels.segmented_minmax_1d
+// (:224), two inclusive segmented scans (MAX, MIN) over active elements
+// with a carry across its sequential grid, whose caller
+// segment.combine_minmax_multi (:351) then routes each segment's last value
+// back to the vertex axis.
+//
+// Balanced by slots, not by segments: the merged sequence of the segment
+// ends and the slots [off[0], off[S]) (segment s's end at place off[s+1] -
+// off[0] + s, after its slots) is cut into tiles of kMmTile places, one
+// block each. A hub of 64K slots spans 32 tiles, and a run of empty
+// segments costs what as many slots cost. The merge-path split of every
+// tile boundary (etpu::warp_lower_bound_by, as in spmv_rows: five
+// dependent loads at a million segments) is found first, by
+// segment_minmax_split_kernel, a warp per boundary, all at once: in the
+// tile's own block it would be the longest wait of the tile. Block ids come
+// from an atomic ticket. What limits the tiles is the chain of waits each
+// runs through (ticket, splits, flags, payloads, publish, look-back), so
+// the design keeps many tiles per SM: a block stages the active bytes by
+// 16-byte words, then the payloads by 16-byte asynchronous copies
+// (cp.async: all in flight together, no registers), up to 4 payloads at
+// once (two passes at 8, so that four blocks fit an SM's shared memory),
+// skipping a vector whose 4 slots are all inactive; no load waits on a
+// flag. A pointer at any 4-byte offset is taken: each payload keeps its
+// own 16-byte grid in shared memory, and a vector that would leave the
+// array is read element by element. Each thread walks kMmItems places in
+// order, folding a slot into 2 np running values and writing each segment
+// that lies wholly inside its places. A segment that crosses threads is
+// completed in shared memory, by int atomicMax / atomicMin into the words
+// of the thread that holds its end (the next thread with an end, from a
+// ballot per warp). A segment that leaves the tile is completed by the
+// tile that holds its end, from the partials the tiles before it publish
+// (a look-back, as in spmv_rows): every tile publishes, before it waits,
+// the partial of the segment that leaves it, each value in a 64-bit word
+// that is its own flag, so that no fence waits on the tile's stores.
+// Max and min are exact and independent of order, so the result repeats
+// bit for bit.
+// What bounds it: bytes; the active flags (one byte a slot), the payloads
+// (4 np bytes a slot, where its vector holds an active slot), the offsets,
+// and 8 np bytes written per segment.
+
+constexpr int kMmItems = 8;                         // merge places a thread
+constexpr int kMmTile = kBlock * kMmItems;          // merge places a block
+constexpr int kMmVectors = kMmTile / 4 + 2;         // a payload's vectors, most
+constexpr int kMmStride =                           // a payload's staged words
+    4 * (kMmVectors + (kMmVectors + 7) / 8);
+constexpr int kMmVals = 16;                         // words of a partial
+static_assert(kMmTile / 16 + 2 <= kBlock, "one active word a thread");
+// the payloads staged at once: all of them up to 4, else half
+template <int NP> constexpr int kMmPasses = NP > 4 ? 2 : 1;
+template <int NP>
+constexpr int kMmPer = (NP + kMmPasses<NP> - 1) / kMmPasses<NP>;
+
+// A tile's partial words: each of the 2 np values of the partial it
+// publishes in bits 0-31 of a 64-bit word, and in bits 32-33 what the tile
+// is: not yet published; no segment leaves it; it lies inside the segment
+// that leaves it; that segment starts in it. A word is its own flag, so
+// publishing needs no fence.
+enum MmKind : unsigned { kMmUnset = 0, kMmNoTail = 1, kMmInside = 2,
+                         kMmStarts = 3 };
+
+// The staged word of a payload's element x of its tile's 16-byte grid (x =
+// its shift + the tile slot): a 16-byte pad after every 8 vectors, so that
+// the threads' slots, about 8 apart, fall in different banks.
+__device__ __forceinline__ int mm_word(int x) { return x + ((x >> 5) << 2); }
+
+template <int NP>
+constexpr int minmax_shared_bytes() {
+  return static_cast<int>(sizeof(int)) *
+             (kMmPer<NP> * kMmStride + kMmTile + 1) +
+         kMmTile;
+}
 
 struct Payloads {
   const int* p[8];
 };
 
+// splits[b] = (the segment ends before place b * kMmTile, the first slot
+// of the segment after them), for b in [0, tiles]; a warp per boundary.
+__global__ void __launch_bounds__(kBlock)
+segment_minmax_split_kernel(const int* __restrict__ off, int nseg, int tiles,
+                            int2* __restrict__ splits) {
+  const long long b = global_warp();
+  if (b > tiles) return;                    // warp-uniform
+  const int base = off[0];
+  const int d = static_cast<int>(min(b * kMmTile, 1LL * INT_MAX));
+  const int r = etpu::warp_lower_bound_by(
+      [off, base](int x) { return off[x + 1] - base + x; }, nseg, d);
+  if ((threadIdx.x & 31) == 0) splits[b] = make_int2(r, off[r]);
+}
+
 template <int NP>
 __global__ void __launch_bounds__(kBlock)
 segment_minmax_kernel(Payloads in, const unsigned char* __restrict__ active,
-                      const int* __restrict__ off, int nseg,
-                      int* __restrict__ mx, int* __restrict__ mn) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = global_warp();
-  if (warp >= nseg) return;                 // warp-uniform
-  const int s = static_cast<int>(warp);
-  const int b = off[s];
-  const int e = off[s + 1];
-  int hi[NP], lo[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    hi[k] = INT_MIN;
-    lo[k] = INT_MAX;
+                      long long n, const int* __restrict__ off, int nseg,
+                      const int2* __restrict__ splits,
+                      int* __restrict__ mx, int* __restrict__ mn,
+                      unsigned long long* words, unsigned* ticket) {
+  static_assert(2 * NP * kBlock <= kMmPer<NP> * kMmStride,
+                "the threads' sums fit the staged payloads");
+  // a pass's payloads [kMmPer][kMmStride] (then the threads' sums [kBlock]
+  // [2 NP]), the tile's segment ends as tile slots and a sentinel, the
+  // active bytes
+  extern __shared__ int4 s_mem[];
+  int* const s_pay = reinterpret_cast<int*>(s_mem);
+  int* const s_end = s_pay + kMmPer<NP> * kMmStride;
+  unsigned char* const s_act =
+      reinterpret_cast<unsigned char*>(s_end + kMmTile + 1);
+  __shared__ int s_out[2 * NP];             // the partial leaving the tile
+  __shared__ unsigned s_ball[kWarpsPerBlock];
+  __shared__ int s_b, s_base, s_total, s_r0, s_r1, s_off0, s_head;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  if (tid == 0) {
+    const int b = static_cast<int>(atomicAdd(ticket, 1u));
+    const int2 first = splits[b];
+    s_b = b;
+    s_r0 = first.x;
+    s_off0 = first.y;
+    s_r1 = splits[b + 1].x;
+    s_base = off[0];
+    s_total = nseg + (off[nseg] - off[0]);
   }
-  for (int q = b + lane; q < e; q += 32) {
-    if (active[q] == 0) continue;
+  __syncthreads();
+  const int b = s_b;
+  const int base = s_base;
+  const int d0 = b * kMmTile;
+  if (d0 >= s_total) return;                // past the last place: no tile
+                                            // waits for a later one
+  const int d1 = min(d0 + kMmTile, s_total);
+  const int r0 = s_r0;
+  const int nr = s_r1 - r0;                 // segment ends in the tile
+  const int ne = d1 - s_r1 - (d0 - r0);     // its slots: [eb, eb + ne)
+  const int eb = base + d0 - r0;
+
+  // 1. the ends and the active bytes, then the payloads' active vectors
+  for (int i = tid; i < nr; i += kBlock) s_end[i] = off[r0 + 1 + i] - eb;
+  if (tid == 0) s_end[nr] = INT_MAX;        // no end past the tile's
+  {
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(active);
+    const uintptr_t hi = lo + static_cast<uintptr_t>(n);
+    const uintptr_t a0 = lo + static_cast<uintptr_t>(eb);
+    const int words =
+        ne > 0 ? static_cast<int>(((a0 + ne - 1) >> 4) - (a0 >> 4)) + 1 : 0;
+    if (tid < words) {
+      const uintptr_t w = (a0 & ~uintptr_t{15}) + 16 * uintptr_t(tid);
+      unsigned v[4] = {0u, 0u, 0u, 0u};
+      if (w >= lo && w + 16 <= hi) {
+        const uint4 t = __ldcs(reinterpret_cast<const uint4*>(w));
+        v[0] = t.x;
+        v[1] = t.y;
+        v[2] = t.z;
+        v[3] = t.w;
+      } else {                              // the array's ragged ends
+        for (int u = 0; u < 16; ++u) {
+          if (w + u >= lo && w + u < hi) {
+            v[u >> 2] |= static_cast<unsigned>(
+                             *reinterpret_cast<const unsigned char*>(w + u))
+                         << (8 * (u & 3));
+          }
+        }
+      }
+      const long long l0 =
+          static_cast<long long>(w) - static_cast<long long>(a0);
 #pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      const int v = __ldg(in.p[k] + q);
-      hi[k] = max(hi[k], v);
-      lo[k] = min(lo[k], v);
+      for (int u = 0; u < 16; ++u) {
+        const long long l = l0 + u;
+        if (l >= 0 && l < ne) {
+          s_act[l] = static_cast<unsigned char>(v[u >> 2] >> (8 * (u & 3)));
+        }
+      }
     }
   }
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    hi[k] = __reduce_max_sync(kFullMask, hi[k]);
-    lo[k] = __reduce_min_sync(kFullMask, lo[k]);
+  __syncthreads();
+  // 2. the thread's kMmItems places, found by a search of the staged ends:
+  //    the first i whose end lies at or past the thread's diagonal
+  const int places = nr + ne;
+  const int diag = min(tid * kMmItems, places);
+  int lo = max(0, diag - ne);
+  int hi = min(diag, nr);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_end[mid] + mid < diag) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
   }
-  if (lane == 0) {
+  const int cnt = min(kMmItems, places - diag);
+  int run_hi[NP], run_lo[NP], head_hi[NP], head_lo[NP];
+  int first = -1;                           // the thread's first end, from r0
+
+  // 3. the payloads in passes of kMmPer (shared memory for kMmPer of them
+  //    lets twice the blocks run at 8 payloads): stage the pass's vectors
+  //    that hold an active slot, then walk the thread's places, folding a
+  //    slot into 2 kMmPer running values and writing each segment that
+  //    lies wholly inside the places
+#pragma unroll
+  for (int pass = 0; pass < kMmPasses<NP>; ++pass) {
+    constexpr int kPer = kMmPer<NP>;
+    int shift[kPer];                        // the tile's first slot in its
+    if (pass > 0) __syncthreads();          // payload's 16-byte grid
+#pragma unroll
+    for (int kk = 0; kk < kPer; ++kk) {
+      const int k = pass * kPer + kk;
+      if (k >= NP) break;
+      const uintptr_t lo_a = reinterpret_cast<uintptr_t>(in.p[k]);
+      const uintptr_t hi_a = lo_a + 4 * static_cast<uintptr_t>(n);
+      const uintptr_t a0 = lo_a + 4 * static_cast<uintptr_t>(eb);
+      const uintptr_t q0 = a0 & ~uintptr_t{15};
+      shift[kk] = static_cast<int>(a0 - q0) >> 2;
+      const int vectors = ne > 0 ? (shift[kk] + ne + 3) >> 2 : 0;
+      int* const s = s_pay + kk * kMmStride;
+      for (int c = tid; c < vectors; c += kBlock) {
+        const int l0 = 4 * c - shift[kk];   // the vector's first tile slot
+        bool take = false;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int l = l0 + u;
+          take = take || (l >= 0 && l < ne && s_act[l] != 0);
+        }
+        if (!take) continue;
+        const uintptr_t w = q0 + 16 * uintptr_t(c);
+        int* const dst = s + mm_word(4 * c);
+        if (w >= lo_a && w + 16 <= hi_a) {
+          __pipeline_memcpy_async(dst, reinterpret_cast<const int*>(w), 16);
+        } else {                            // the array's ragged ends
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uintptr_t x = w + 4 * u;
+            if (x >= lo_a && x < hi_a) {
+              dst[u] = *reinterpret_cast<const int*>(x);
+            }
+          }
+        }
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < kPer; ++kk) {
+      const int k = pass * kPer + kk;
+      if (k >= NP) break;
+      run_hi[k] = head_hi[k] = INT_MIN;
+      run_lo[k] = head_lo[k] = INT_MAX;
+    }
+    int i = lo;                             // ends taken
+    int j = diag - lo;                      // slots taken
+    bool seen = false;                      // an end taken in this pass
+#pragma unroll
+    for (int q = 0; q < kMmItems; ++q) {
+      if (q < cnt) {
+        if (s_end[i] <= j) {                // segment r0 + i ends here
+          if (!seen) {
+            seen = true;
+            first = i;
+#pragma unroll
+            for (int kk = 0; kk < kPer; ++kk) {
+              const int k = pass * kPer + kk;
+              if (k < NP) {
+                head_hi[k] = run_hi[k];
+                head_lo[k] = run_lo[k];
+              }
+            }
+          } else {                          // wholly inside the thread
+            const long long sg = r0 + i;
+#pragma unroll
+            for (int kk = 0; kk < kPer; ++kk) {
+              const int k = pass * kPer + kk;
+              if (k < NP) {
+                mx[k * static_cast<long long>(nseg) + sg] = run_hi[k];
+                mn[k * static_cast<long long>(nseg) + sg] = run_lo[k];
+              }
+            }
+          }
+#pragma unroll
+          for (int kk = 0; kk < kPer; ++kk) {
+            const int k = pass * kPer + kk;
+            if (k < NP) {
+              run_hi[k] = INT_MIN;
+              run_lo[k] = INT_MAX;
+            }
+          }
+          ++i;
+        } else {
+          if (s_act[j] != 0) {
+#pragma unroll
+            for (int kk = 0; kk < kPer; ++kk) {
+              const int k = pass * kPer + kk;
+              if (k < NP) {
+                const int x = s_pay[kk * kMmStride + mm_word(shift[kk] + j)];
+                run_hi[k] = max(run_hi[k], x);
+                run_lo[k] = min(run_lo[k], x);
+              }
+            }
+          }
+          ++j;
+        }
+      }
+    }
+  }
+
+  // 4. the segments across threads: each thread's first segment gets its
+  //    head part in the thread's words, and every thread folds its trailing
+  //    part into the next thread that holds an end, or into the partial
+  //    leaving the tile
+  const unsigned ball = __ballot_sync(kFullMask, first >= 0);
+  if (lane == 0) s_ball[wid] = ball;
+  if (first == 0) s_head = tid;
+  if (tid < 2 * NP) s_out[tid] = tid < NP ? INT_MIN : INT_MAX;
+  __syncthreads();                          // the payloads are read
+  int* const acc = s_pay;                   // [kBlock][2 NP]
+  if (first >= 0) {
 #pragma unroll
     for (int k = 0; k < NP; ++k) {
-      mx[static_cast<long long>(k) * nseg + s] = hi[k];
-      mn[static_cast<long long>(k) * nseg + s] = lo[k];
+      acc[tid * 2 * NP + k] = head_hi[k];
+      acc[tid * 2 * NP + NP + k] = head_lo[k];
+    }
+  }
+  __syncthreads();
+  {
+    const unsigned later =
+        lane == 31 ? 0u : s_ball[wid] & (kFullMask << (lane + 1));
+    int nxt = later ? (wid << 5) + __ffs(later) - 1 : -1;
+    for (int w = wid + 1; nxt < 0 && w < kWarpsPerBlock; ++w) {
+      if (s_ball[w]) nxt = (w << 5) + __ffs(s_ball[w]) - 1;
+    }
+    int* const dst = nxt >= 0 ? acc + nxt * 2 * NP : s_out;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      if (run_hi[k] != INT_MIN) atomicMax(dst + k, run_hi[k]);
+      if (run_lo[k] != INT_MAX) atomicMin(dst + NP + k, run_lo[k]);
+    }
+  }
+  __syncthreads();
+  const bool has_head = eb > s_off0;        // segment r0 began before the tile
+  if (first >= 0 && !(first == 0 && has_head)) {
+    const long long s = r0 + first;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      mx[k * static_cast<long long>(nseg) + s] = acc[tid * 2 * NP + k];
+      mn[k * static_cast<long long>(nseg) + s] = acc[tid * 2 * NP + NP + k];
+    }
+  }
+
+  // 5. publish the partial of the segment that leaves the tile, then
+  //    complete the segment that entered it
+  if (wid == 0) {
+    const int r1 = r0 + nr;
+    const int start = nr > 0 ? s_end[nr - 1] + eb : s_off0;   // off[r1]
+    const unsigned kind = r1 < nseg && eb + ne > start
+                              ? (start >= eb ? kMmStarts : kMmInside)
+                              : kMmNoTail;
+    if (lane < 2 * NP) {
+      publish_status(words + static_cast<long long>(b) * kMmVals + lane,
+                     kind, static_cast<unsigned>(s_out[lane]));
+    }
+  }
+  if (wid == 0 && has_head && nr > 0) {
+    int pre[2 * NP];
+#pragma unroll
+    for (int v = 0; v < 2 * NP; ++v) pre[v] = v < NP ? INT_MIN : INT_MAX;
+    for (int k = b - 1; k >= 0; k -= 32) {
+      const int p = k - lane;               // lane l reads tile k - l
+      const unsigned long long* const w =
+          words + static_cast<long long>(max(p, 0)) * kMmVals;
+      unsigned long long st = 0;
+      if (p >= 0) {
+        while (((st = load_status(w)) >> 32) == kMmUnset) {
+          __nanosleep(32);
+        }
+      }
+      const unsigned starts =
+          __ballot_sync(kFullMask, (st >> 32) == kMmStarts);
+      const int last = starts ? __ffs(starts) - 1 : 31;
+      const bool take = lane <= last && p >= 0;
+      unsigned long long x[2 * NP] = {};    // all in flight at once
+      bool ready = !take;
+      while (!ready) {
+#pragma unroll
+        for (int v = 0; v < 2 * NP; ++v) x[v] = load_status(w + v);
+        ready = true;
+#pragma unroll
+        for (int v = 0; v < 2 * NP; ++v) ready &= (x[v] >> 32) != kMmUnset;
+        if (!ready) __nanosleep(32);
+      }
+#pragma unroll
+      for (int v = 0; v < 2 * NP; ++v) {
+        const int val = static_cast<int>(static_cast<unsigned>(x[v]));
+        if (v < NP) {
+          pre[v] = max(pre[v],
+                       __reduce_max_sync(kFullMask, take ? val : INT_MIN));
+        } else {
+          pre[v] = min(pre[v],
+                       __reduce_min_sync(kFullMask, take ? val : INT_MAX));
+        }
+      }
+      if (starts) break;
+    }
+    if (lane == 0) {
+      const int* const h = acc + s_head * 2 * NP;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        mx[k * static_cast<long long>(nseg) + r0] = max(pre[k], h[k]);
+        mn[k * static_cast<long long>(nseg) + r0] = min(pre[NP + k], h[NP + k]);
+      }
     }
   }
 }
 
+int minmax_tiles(int nseg, long long n) {
+  return static_cast<int>((nseg + n + kMmTile - 1) / kMmTile);
+}
+
+// scratch: [tiles][kMmVals] 64-bit partial words, the 32-bit ticket (in a
+// 64-bit word), then [tiles + 1] int2 splits; the words and the ticket are
+// zeroed here on the stream, then the splits are found, then the tiles
+// run.
 template <int NP>
-void segment_minmax_launch(const Payloads& in, const unsigned char* active,
-                           const int* off, int nseg, int* mx, int* mn,
-                           cudaStream_t s) {
-  const unsigned blocks = (static_cast<unsigned>(nseg) + kWarpsPerBlock - 1) /
-                          kWarpsPerBlock;
-  segment_minmax_kernel<NP><<<blocks, kBlock, 0, s>>>(in, active, off, nseg,
-                                                      mx, mn);
+cudaError_t segment_minmax_launch(const Payloads& in,
+                                  const unsigned char* active, long long n,
+                                  const int* off, int nseg, int* mx, int* mn,
+                                  void* scratch, cudaStream_t s) {
+  const int tiles = minmax_tiles(nseg, n);
+  auto* words = static_cast<unsigned long long*>(scratch);
+  auto* ticket = reinterpret_cast<unsigned*>(words + tiles * kMmVals);
+  auto* splits = reinterpret_cast<int2*>(words + tiles * kMmVals + 1);
+  constexpr int bytes = minmax_shared_bytes<NP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      segment_minmax_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(segment_minmax_kernel<NP>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(
+        scratch, 0, sizeof(unsigned long long) * (tiles * kMmVals + 1), s);
+  }
+  if (err != cudaSuccess) return err;
+  segment_minmax_split_kernel<<<(tiles + kWarpsPerBlock) / kWarpsPerBlock,
+                                kBlock, 0, s>>>(off, nseg, tiles, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segment_minmax_kernel<NP><<<tiles, kBlock, bytes, s>>>(
+      in, active, n, off, nseg, splits, mx, mn, words, ticket);
+  return cudaGetLastError();
 }
 
 // --------------------------------------------------------- advance_count --
@@ -1105,41 +1491,57 @@ int etpu_segment_reduce_f32(const void* vals, const void* off, int nseg,
                                       static_cast<cudaStream_t>(stream));
 }
 
-// p0..p7: the np payloads, [n] int32 each (those beyond the np-th may be
-// null); active [n] uint8; mx, mn [np, nseg] int32.
+// p0..p7: the np payloads, [n] int32 each at any 4-byte offset (those
+// beyond the np-th may be null); active [n] uint8 at any offset; off
+// [nseg+1], sorted, within [0, n], nseg + n below 2^31; mx, mn [np, nseg]
+// int32; scratch: 136 * ceil((nseg + n) / etpu_minmax_tile()) + 16 bytes,
+// 8-byte aligned. Two launches: the tiles' splits, then the tiles.
 int etpu_segment_minmax(const void* p0, const void* p1, const void* p2,
                         const void* p3, const void* p4, const void* p5,
                         const void* p6, const void* p7, int np,
-                        const void* active, const void* off, int nseg,
-                        void* mx, void* mn, void* stream) {
+                        const void* active, long long n, const void* off,
+                        int nseg, void* mx, void* mn, void* scratch,
+                        void* stream) {
   if (np < 1 || np > 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (nseg > 0) {
-    const Payloads in = {{static_cast<const int*>(p0),
-                          static_cast<const int*>(p1),
-                          static_cast<const int*>(p2),
-                          static_cast<const int*>(p3),
-                          static_cast<const int*>(p4),
-                          static_cast<const int*>(p5),
-                          static_cast<const int*>(p6),
-                          static_cast<const int*>(p7)}};
-    const unsigned char* a = static_cast<const unsigned char*>(active);
-    const int* o = static_cast<const int*>(off);
-    int* hi = static_cast<int*>(mx);
-    int* lo = static_cast<int*>(mn);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (np) {
-      case 1: segment_minmax_launch<1>(in, a, o, nseg, hi, lo, s); break;
-      case 2: segment_minmax_launch<2>(in, a, o, nseg, hi, lo, s); break;
-      case 3: segment_minmax_launch<3>(in, a, o, nseg, hi, lo, s); break;
-      case 4: segment_minmax_launch<4>(in, a, o, nseg, hi, lo, s); break;
-      case 5: segment_minmax_launch<5>(in, a, o, nseg, hi, lo, s); break;
-      case 6: segment_minmax_launch<6>(in, a, o, nseg, hi, lo, s); break;
-      case 7: segment_minmax_launch<7>(in, a, o, nseg, hi, lo, s); break;
-      default: segment_minmax_launch<8>(in, a, o, nseg, hi, lo, s); break;
-    }
+  if (nseg <= 0) return static_cast<int>(cudaGetLastError());
+  const Payloads in = {{static_cast<const int*>(p0),
+                        static_cast<const int*>(p1),
+                        static_cast<const int*>(p2),
+                        static_cast<const int*>(p3),
+                        static_cast<const int*>(p4),
+                        static_cast<const int*>(p5),
+                        static_cast<const int*>(p6),
+                        static_cast<const int*>(p7)}};
+  const auto* a = static_cast<const unsigned char*>(active);
+  const int* o = static_cast<const int*>(off);
+  int* hi = static_cast<int*>(mx);
+  int* lo = static_cast<int*>(mn);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (np) {
+    case 1: err = segment_minmax_launch<1>(in, a, n, o, nseg, hi, lo,
+                                           scratch, s); break;
+    case 2: err = segment_minmax_launch<2>(in, a, n, o, nseg, hi, lo,
+                                           scratch, s); break;
+    case 3: err = segment_minmax_launch<3>(in, a, n, o, nseg, hi, lo,
+                                           scratch, s); break;
+    case 4: err = segment_minmax_launch<4>(in, a, n, o, nseg, hi, lo,
+                                           scratch, s); break;
+    case 5: err = segment_minmax_launch<5>(in, a, n, o, nseg, hi, lo,
+                                           scratch, s); break;
+    case 6: err = segment_minmax_launch<6>(in, a, n, o, nseg, hi, lo,
+                                           scratch, s); break;
+    case 7: err = segment_minmax_launch<7>(in, a, n, o, nseg, hi, lo,
+                                           scratch, s); break;
+    default: err = segment_minmax_launch<8>(in, a, n, o, nseg, hi, lo,
+                                            scratch, s); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
+
+// Merge places per segment_minmax tile; the Python wrapper sizes the
+// scratch with it and checks it against its own constant.
+int etpu_minmax_tile() { return kMmTile; }
 
 // bits: 16 * ceil(ceil(vp / 32) / 4) bytes of scratch, 16-byte aligned,
 // then 4 * (ceil(ep / kCountChunk) + 1) bytes;

@@ -138,12 +138,17 @@ sssp_predecessors_kernel(const float* __restrict__ dist,
   if (lane == 0) pred[v] = best;
 }
 
-// One k-core peel wave on the edge axis, with one warp per vertex v.
+// One k-core peel wave on the edge axis: a dense pass over the vertices,
+// then a push from the vertices it peels.
 //
 // Replaces the JAX package's three Pallas kernels of one wave
 // (essentials_tpu/ops/fused_kcore.py: _k1_fill_peel_kernel :78, the router
 // middle cube_router._k2_wbc_kernel :330 / _k2_tfbc_kernel :363, and
-// _k3_suffixsum_update_kernel :100), and their two scalar outputs.
+// _k3_suffixsum_update_kernel :100), and their two scalar outputs. Those pull:
+// every survivor counts its peeled in-neighbours, so every wave reads every
+// survivor's in-edges. Here only the peeled vertices' edges are read, in the
+// wave that peels them: about E edges over a whole run, not a rescan per
+// wave.
 //
 // deg holds the remaining degree at each start, -1 once peeled. For v with a
 // non-empty segment and d = deg_in[off[v]]:
@@ -152,59 +157,85 @@ sssp_predecessors_kernel(const float* __restrict__ dist,
 //                         csc_src[q]]] < k}, core_out = core_in, and the
 //                         new degree enters the minimum;
 //   d < 0 (peeled before): both copied.
-// scalars[0] is the number peeled (block count, then one atomicAdd per
-// block) and scalars[1] the smallest surviving new degree (block min, then
-// one atomicMin per block; INT_MAX when none survives). The entry point
-// copies {0, INT_MAX} into them on the stream before the sweep. (A ticket
-// that lets the last block finish the scalars instead costs one more
-// same-address atomic per block: +0.25 ms per wave on an H100 at RMAT scale
-// 20, where a wave runs 131,072 blocks.)
 //
-// What bounds it: as sssp_sweep, two scattered loads per in-edge, but only
-// survivors read their edges, so late waves, where few vertices are left,
-// cost little more than the per-vertex loads and the launch.
+// kcore_sweep_kernel, one thread per vertex, writes every start as if
+// nothing fell (a survivor's deg_out = d), counts the peeled (block count,
+// one atomicAdd per block), folds the survivors' d into the minimum (block
+// min, one atomicMin per block), and appends each peeled vertex's segment
+// to a list as ranges of at most kPushSplit slots (one atomicAdd per warp).
+// kcore_sweep_push_kernel then takes the ranges 32 at a time per warp (at
+// most 1,024 slots: a wave's slots spread over many warps, a hub's over 63),
+// a lane per slot and kPushItems slots in flight a lane: it loads u =
+// csc_src[q] and, where u survives on deg_in, takes one from
+// deg_out[off[u]] with atomicSub. On a symmetric layout
+// (each edge u -> v has its v -> u, with multiplicity, as an undirected
+// graph has) v's in-neighbours are its out-neighbours, so the subtractions
+// are exactly the pull's counts. Each subtraction's result enters the
+// minimum: a survivor's last one gives its new degree, the others more, and
+// a survivor with none keeps its d, so min(survivors' d, every result) is
+// the smallest new degree. Integer atomics are exact in any order: the
+// results repeat bit for bit. The push follows the dense pass on the stream,
+// so it sees every start written.
+//
+// scalars: {peeled, smallest surviving degree (INT_MAX when none survives),
+// ranges listed, unused}; the entry point copies {0, INT_MAX, 0, 0} into
+// them on the stream before the wave.
+//
+// What bounds it: a [Vp] pass (offsets, and the start's degree and core read
+// and written at each vertex: one 32-byte sector each where segments are
+// long), then per peeled slot its csc_src word and two scattered sectors,
+// off[u] and deg_in / deg_out at u's start.
+constexpr int kPushSplit = 32;              // slots per listed range
+constexpr int kPushItems = 8;               // slots a lane has in flight
+
 __global__ void __launch_bounds__(kBlock)
 kcore_sweep_kernel(const int* __restrict__ deg_in,
                    const int* __restrict__ core_in, int* __restrict__ deg_out,
                    int* __restrict__ core_out, const int* __restrict__ off,
-                   const int* __restrict__ csc_src, int vp, int k,
-                   int* __restrict__ scalars) {
+                   int vp, int k, int* __restrict__ scalars,
+                   int2* __restrict__ ranges) {
   __shared__ int warp_min[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
-  const long long warp = global_warp();
+  const int v = blockIdx.x * kBlock + threadIdx.x;
   bool peeled = false;
   int alive = INT_MAX;
-  if (warp < vp) {                          // warp-uniform
-    const int v = static_cast<int>(warp);
-    const int b = off[v];
-    const int e = off[v + 1];
-    if (b < e) {                            // warp-uniform
+  int b = 0;
+  int e = 0;
+  if (v < vp) {
+    b = off[v];
+    e = off[v + 1];
+    if (b < e) {
       const int d = deg_in[b];
-      int d2 = d;
-      int c2 = core_in[b];
       if (d >= 0 && d < k) {
         peeled = true;
-        d2 = -1;
-        c2 = k - 1;
-      } else if (d >= 0) {                  // warp-uniform
-        int cnt = 0;
-#pragma unroll 4
-        for (int q = b + lane; q < e; q += 32) {
-          const int du = deg_in[off[csc_src[q]]];
-          cnt += (du >= 0 && du < k) ? 1 : 0;
-        }
-        d2 = d - __reduce_add_sync(kFullMask, cnt);
-        alive = d2;
-      }
-      if (lane == 0) {
-        deg_out[b] = d2;
-        core_out[b] = c2;
+        deg_out[b] = -1;
+        core_out[b] = k - 1;
+      } else {
+        deg_out[b] = d;
+        core_out[b] = core_in[b];
+        if (d >= 0) alive = d;
       }
     }
   }
+  // the peeled segments' ranges, appended at one atomicAdd per warp
+  const int nr = peeled ? (e - b + kPushSplit - 1) / kPushSplit : 0;
+  int incl = nr;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int x = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += x;
+  }
+  int at = 0;
+  if (lane == 31 && incl > 0) at = atomicAdd(&scalars[2], incl);
+  at = __shfl_sync(kFullMask, at, 31) + incl - nr;
+  for (int r = 0; r < nr; ++r) {
+    const int q = b + r * kPushSplit;
+    ranges[at + r] = make_int2(q, min(q + kPushSplit, e));
+  }
+  alive = __reduce_min_sync(kFullMask, alive);
   if (lane == 0) warp_min[threadIdx.x >> 5] = alive;
   // the count is also the barrier that publishes warp_min
-  const int n = __syncthreads_count(peeled && lane == 0);
+  const int n = __syncthreads_count(peeled);
   if (threadIdx.x == 0) {
     if (n > 0) atomicAdd(&scalars[0], n);
     int m = warp_min[0];
@@ -213,8 +244,72 @@ kcore_sweep_kernel(const int* __restrict__ deg_in,
   }
 }
 
-// kcore_sweep's scalars before a wave: {peeled, smallest surviving degree}.
-__device__ int kcore_scalars_start[2] = {0, INT_MAX};
+__global__ void __launch_bounds__(kBlock)
+kcore_sweep_push_kernel(const int* __restrict__ deg_in, int* deg_out,
+                        const int* __restrict__ off,
+                        const int* __restrict__ csc_src, int k,
+                        int* scalars, const int2* __restrict__ ranges) {
+  const int lane = threadIdx.x & 31;
+  const int listed = scalars[2];            // written by the dense pass
+  const long long step = 32LL * gridDim.x * kWarpsPerBlock;
+  int least = INT_MAX;
+  for (long long r0 = 32 * global_warp(); r0 < listed; r0 += step) {
+    // lane l holds range r0 + l; its slots are the places [excl, incl) of
+    // the warp's 32 ranges laid end to end
+    int q0 = 0;
+    int len = 0;
+    if (r0 + lane < listed) {
+      const int2 r = ranges[r0 + lane];
+      q0 = r.x;
+      len = r.y - r.x;
+    }
+    int incl = len;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += x;
+    }
+    const int total = __shfl_sync(kFullMask, incl, 31);
+    const int shift = q0 - (incl - len);    // place t of the range: slot
+                                            // t + shift
+    for (int t0 = 0; t0 < total; t0 += 32 * kPushItems) {
+      int q[kPushItems];
+#pragma unroll
+      for (int u = 0; u < kPushItems; ++u) {
+        const int t = t0 + 32 * u + lane;
+        int owner = 0;                      // the lanes whose ranges end by t
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1) {
+          if (__shfl_sync(kFullMask, incl, owner + s - 1) <= t) owner += s;
+        }
+        const int sh = __shfl_sync(kFullMask, shift, owner);
+        q[u] = t < total ? t + sh : -1;
+      }
+      int src[kPushItems];
+#pragma unroll
+      for (int u = 0; u < kPushItems; ++u) {
+        src[u] = q[u] >= 0 ? csc_src[q[u]] : -1;
+      }
+      int at[kPushItems];
+#pragma unroll
+      for (int u = 0; u < kPushItems; ++u) {
+        at[u] = src[u] >= 0 ? off[src[u]] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kPushItems; ++u) {
+        if (at[u] >= 0 && deg_in[at[u]] >= k) {   // u survives this wave
+          least = min(least, atomicSub(&deg_out[at[u]], 1) - 1);
+        }
+      }
+    }
+  }
+  least = __reduce_min_sync(kFullMask, least);
+  if (lane == 0 && least < INT_MAX) atomicMin(&scalars[1], least);
+}
+
+// kcore_sweep's scalars before a wave: {peeled, smallest surviving degree,
+// ranges listed, unused}.
+__device__ int kcore_scalars_start[4] = {0, INT_MAX, 0, 0};
 
 // Per-vertex values -> the edge axis, with one warp per segment v.
 //
@@ -297,25 +392,45 @@ int etpu_sssp_predecessors(const void* dist, const void* off,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `scalars` ([2] int32) is set to {0, INT_MAX} here by a device-to-device
-// copy (no kernel launch), then filled.
+// `scalars` ([4] int32, 16-byte aligned) is set to {0, INT_MAX, 0, 0} here
+// by a device-to-device copy (no kernel launch), then filled; `ranges` holds
+// room for vp + ceil(ep / etpu_kcore_push_split()) int2 (8-byte aligned).
+// Two launches: the dense pass, then the push over the ranges it lists.
 int etpu_kcore_sweep(const void* deg_in, const void* core_in, void* deg_out,
                      void* core_out, const void* off, const void* csc_src,
-                     int vp, int k, void* scalars, void* stream) {
+                     int vp, int k, void* scalars, void* ranges,
+                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemcpyFromSymbolAsync(
       scalars, kcore_scalars_start, sizeof(kcore_scalars_start), 0,
       cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (vp > 0) {
-    kcore_sweep_kernel<<<warp_blocks(vp), kBlock, 0, s>>>(
-        static_cast<const int*>(deg_in), static_cast<const int*>(core_in),
-        static_cast<int*>(deg_out), static_cast<int*>(core_out),
-        static_cast<const int*>(off), static_cast<const int*>(csc_src), vp, k,
-        static_cast<int*>(scalars));
+  if (err != cudaSuccess || vp <= 0) return static_cast<int>(err);
+  int dev = 0;
+  int sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess) {
+    return static_cast<int>(err);
   }
+  kcore_sweep_kernel<<<thread_blocks(vp), kBlock, 0, s>>>(
+      static_cast<const int*>(deg_in), static_cast<const int*>(core_in),
+      static_cast<int*>(deg_out), static_cast<int*>(core_out),
+      static_cast<const int*>(off), vp, k, static_cast<int*>(scalars),
+      static_cast<int2*>(ranges));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a persistent grid: how many ranges the pass lists is known only on
+  // the device
+  kcore_sweep_push_kernel<<<4 * sms, kBlock, 0, s>>>(
+      static_cast<const int*>(deg_in), static_cast<int*>(deg_out),
+      static_cast<const int*>(off), static_cast<const int*>(csc_src), k,
+      static_cast<int*>(scalars), static_cast<const int2*>(ranges));
   return static_cast<int>(cudaGetLastError());
 }
+
+// Slots per range of kcore_sweep's push list; the Python wrapper sizes the
+// list with it and checks it against its own constant.
+int etpu_kcore_push_split() { return kPushSplit; }
 
 int etpu_expand_segments(const void* vals, const void* off, int vp, int n,
                          void* out, void* stream) {

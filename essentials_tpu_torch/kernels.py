@@ -26,7 +26,9 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
 * ``csrc/sssp_kcore_kernels.cu`` (SSSP and k-core): ``sssp_sweep`` for
   ``fused_sssp.fused_sssp_superstep`` :132; ``sssp_predecessors`` for the
   MIN advance of ``sssp.predecessors_from_distances``; ``kcore_sweep`` for
-  ``fused_kcore.fused_kcore_sweep`` :144; ``collapse_starts`` for the routed
+  ``fused_kcore.fused_kcore_sweep`` :144, a dense pass over the vertices
+  and a push from the ones it peels (each edge read in the wave that peels
+  its vertex, not in every wave); ``collapse_starts`` for the routed
   collapses ``collapse_dist_exp`` and ``collapse_core_exp``;
   ``expand_segments`` for the expansion of k-core's ``init_deg_exp``
   (``segment.expand_vertex_to_edges``, whose cumsum is
@@ -54,7 +56,10 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   first pass where the slots outnumber the records (``gather_packs``);
   ``segment_reduce`` for ``segment.combine_by_offsets`` :97 and its routed
   form :287; ``segment_minmax`` for ``scan_kernels.segmented_minmax_1d``
-  :224 with the routed pick of ``segment.combine_minmax_multi`` :351;
+  :224 with the routed pick of ``segment.combine_minmax_multi`` :351,
+  one launch over tiles of ``MINMAX_TILE`` places of the merged segment
+  ends and slots, a segment across tiles completed from the partials the
+  tiles before it publish;
   ``advance_count`` for ``advance.advance_count`` :175
   (``cube_router.apply_cube_chain_n`` :754): chunks of ``ADVANCE_CHUNK``
   CSC slots per block, the frontier packed to bits and, in its "shared"
@@ -98,6 +103,8 @@ SCAN_TILE = 2048               # elements per scan tile (kScanTile)
 SCAN_GROUP = 256               # scan tiles per group word (kScanGroup)
 FILL_TILE = 4096               # positions per fill tile (kFillTile)
 ROUTE_TILE = 2048              # positions per route OR block (kRouteTile)
+MINMAX_TILE = 2048             # merge places per segment_minmax tile (kMmTile)
+KCORE_PUSH_SPLIT = 32          # slots per range of kcore_sweep's push list
 # gather_payloads packs 2-4 payloads from PACK_MIN_SLOTS slots and from
 # one slot per record of the shortest payload. Measured by chip_ab.py's
 # sweep (uniform random indices, NVIDIA H100 80GB HBM3, 700 W): at
@@ -127,15 +134,18 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "segment_broadcast_total": 0, "suffix_fill_update": 0,
             "fused_route_or": 0}
 
-# launches of a kernel's second pass, beside its count in ``launches``:
-# gather_payloads' pack pass (gather_payloads_pack_kernel)
-pack_launches = {"gather_payloads": 0}
+# launches of a wrapper's second device kernel, beside its count in
+# ``launches``, by that kernel's name without "_kernel": gather_payloads'
+# pack pass (where it packs), kcore_sweep's push and segment_minmax's
+# split (in every call)
+pass_launches = {"gather_payloads_pack": 0, "kcore_sweep_push": 0,
+                 "segment_minmax_split": 0}
 
 _lib = None
 
 
 def reset_launches() -> None:
-    for counts in (launches, pack_launches):
+    for counts in (launches, pass_launches):
         for k in counts:
             counts[k] = 0
 
@@ -213,7 +223,8 @@ def _library():
             "etpu_spmv_slab_edges": (),
             "etpu_sssp_sweep": (p, p, p, p, p, i, p, p),
             "etpu_sssp_predecessors": (p, p, p, p, i, i, p, p),
-            "etpu_kcore_sweep": (p, p, p, p, p, p, i, i, p, p),
+            "etpu_kcore_sweep": (p, p, p, p, p, p, i, i, p, p, p),
+            "etpu_kcore_push_split": (),
             "etpu_collapse_starts": (p, p, i, i, i, p, p),
             "etpu_expand_segments": (p, p, i, i, p, p),
             "etpu_scan_i32": (p, p, p, p, ll, i, p),
@@ -224,8 +235,9 @@ def _library():
                                      p),
             "etpu_segment_reduce_i32": (p, p, i, i, i, p, p),
             "etpu_segment_reduce_f32": (p, p, i, i, ctypes.c_float, p, p),
-            "etpu_segment_minmax": (p, p, p, p, p, p, p, p, i, p, p, i, p,
-                                    p, p),
+            "etpu_segment_minmax": (p, p, p, p, p, p, p, p, i, p, ll, p, i,
+                                    p, p, p, p),
+            "etpu_minmax_tile": (),
             "etpu_advance_count": (p, p, p, i, i, p, i, p, p),
             "etpu_advance_count_chunk": (),
             "etpu_advance_count_shared_bytes": (),
@@ -264,6 +276,14 @@ def _library():
                  f"segment fills: the library's tile is "
                  f"{lib.etpu_fill_tile()} positions, FILL_TILE is "
                  f"{FILL_TILE}")
+        throw_if(lib.etpu_minmax_tile() != MINMAX_TILE,
+                 f"segment_minmax: the library's tile is "
+                 f"{lib.etpu_minmax_tile()} places, MINMAX_TILE is "
+                 f"{MINMAX_TILE}")
+        throw_if(lib.etpu_kcore_push_split() != KCORE_PUSH_SPLIT,
+                 f"kcore_sweep: the library's push ranges are "
+                 f"{lib.etpu_kcore_push_split()} slots, KCORE_PUSH_SPLIT is "
+                 f"{KCORE_PUSH_SPLIT}")
         throw_if(lib.etpu_route_tile() != ROUTE_TILE,
                  f"fused_route_or: the library's tile is "
                  f"{lib.etpu_route_tile()} positions, ROUTE_TILE is "
@@ -787,7 +807,14 @@ def kcore_sweep(deg_in: torch.Tensor, core_in: torch.Tensor,
     degree falls by its in-neighbours u with 0 <= deg_in(u) < k; otherwise
     both are copied. No other position is read or written. Returns int32
     [2] on the state's device: (vertices peeled, smallest surviving new
-    degree or INT32_MAX when none survives)."""
+    degree or INT32_MAX when none survives).
+
+    The kernel pushes: each peeled vertex takes one from every surviving
+    in-neighbour's degree, so its in-neighbours must also be its
+    out-neighbours, with multiplicity (``csc_src`` equal to the CSR column
+    indices, as on an undirected graph; ``kcore.fused_supported``). Two
+    device launches: the dense pass, counted in ``launches``, and the push,
+    in ``pass_launches``."""
     name = "kcore_sweep"
     ep = csc_src.numel()
     _check_state(name, ep, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
@@ -803,12 +830,22 @@ def kcore_sweep(deg_in: torch.Tensor, core_in: torch.Tensor,
     dev = deg_in.device
     _check(name, dev, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
            core_out=core_out, offsets=offsets, csc_src=csc_src)
-    scalars = torch.empty(2, dtype=torch.int32, device=dev)
+    vp = offsets.numel() - 1
+    # the four scalars, then room for every listed range (int2 pairs)
+    buf = torch.empty(4 + 2 * kcore_push_ranges(vp, ep), dtype=torch.int32,
+                      device=dev)
     _launch("etpu_kcore_sweep", dev, deg_in.data_ptr(), core_in.data_ptr(),
             deg_out.data_ptr(), core_out.data_ptr(), offsets.data_ptr(),
-            csc_src.data_ptr(), offsets.numel() - 1, k, scalars.data_ptr())
+            csc_src.data_ptr(), vp, k, buf.data_ptr(), buf[4:].data_ptr())
     launches[name] += 1
-    return scalars
+    pass_launches["kcore_sweep_push"] += 1
+    return buf[:2]
+
+
+def kcore_push_ranges(vp: int, ep: int) -> int:
+    """The most ranges kcore_sweep's push list can hold: a segment of L
+    slots is ceil(L / KCORE_PUSH_SPLIT) ranges."""
+    return vp + -(-ep // KCORE_PUSH_SPLIT)
 
 
 # ------------------------------------------------------ collapse_starts --
@@ -1014,7 +1051,7 @@ def gather_payloads(idx: torch.Tensor, *payloads: torch.Tensor) -> tuple:
         rec = torch.empty(length * (2 if len(payloads) == 2 else 4),
                           dtype=torch.int32, device=dev)
         # the C call packs only where there is a slot and a record
-        pack_launches[name] += bool(n and length)
+        pass_launches["gather_payloads_pack"] += bool(n and length)
     _launch("etpu_gather_payloads", dev, idx.data_ptr(), n, *ins, *ptrs,
             len(payloads), None if rec is None else rec.data_ptr(), length)
     launches[name] += 1
@@ -1108,13 +1145,24 @@ def segment_minmax_plain(payloads, active, offsets):
     return mx, mn
 
 
+def minmax_tiles(s: int, n: int) -> int:
+    """segment_minmax's tiles over S segments and [n] payloads: the merged
+    ends and slots, MINMAX_TILE places each (the offsets' span taken as n,
+    its most)."""
+    return -(-(s + n) // MINMAX_TILE)
+
+
 def segment_minmax(payloads, active: torch.Tensor,
                    offsets: torch.Tensor) -> tuple:
-    """Per segment s of the sorted [S+1] int32 ``offsets`` and per [n]
-    int32 payload k: the MAX and the MIN of payloads[k] over the positions
-    of s where the [n] bool ``active`` is set, INT32_MIN and INT32_MAX where
-    there is none. One warp per segment, one launch per MINMAX_PAYLOADS
-    payloads. Returns (max [m, S], min [m, S]) int32, m = len(payloads)."""
+    """Per segment s of the sorted [S+1] int32 ``offsets`` (within [0, n])
+    and per [n] int32 payload k: the MAX and the MIN of payloads[k] over the
+    positions of s where the [n] bool ``active`` is set, INT32_MIN and
+    INT32_MAX where there is none. One C call per MINMAX_PAYLOADS payloads:
+    a launch finds the splits of the merged segment ends and slots into
+    tiles of MINMAX_TILE places (counted in ``pass_launches``), a launch
+    reduces the tiles.
+    Payloads and ``active`` may be views at any element offset. Returns
+    (max [m, S], min [m, S]) int32, m = len(payloads)."""
     name = "segment_minmax"
     payloads = tuple(payloads)
     throw_if(not payloads, f"{name}: needs at least one payload")
@@ -1132,16 +1180,25 @@ def segment_minmax(payloads, active: torch.Tensor,
     _check(name, dev, active=active, offsets=offsets,
            **{f"payload{k}": p for k, p in enumerate(payloads)})
     s, m = offsets.numel() - 1, len(payloads)
+    throw_if(s + n > INT32_MAX, f"{name}: S + n must stay below 2^31")
     mx = torch.empty((m, s), dtype=torch.int32, device=dev)
     mn = torch.empty_like(mx)
+    if s == 0:
+        return mx, mn
+    # 16 partial words a tile, the ticket, the splits (one more than the
+    # tiles): 17 64-bit words a tile and two; the launches reuse it in
+    # stream order
+    scratch = torch.empty(17 * minmax_tiles(s, n) + 2, dtype=torch.int64,
+                          device=dev)
     for lo in range(0, m, MINMAX_PAYLOADS):
         chunk = payloads[lo:lo + MINMAX_PAYLOADS]
         ptrs = ([p.data_ptr() for p in chunk]
                 + [None] * (MINMAX_PAYLOADS - len(chunk)))
         _launch("etpu_segment_minmax", dev, *ptrs, len(chunk),
-                active.data_ptr(), offsets.data_ptr(), s, mx[lo].data_ptr(),
-                mn[lo].data_ptr())
+                active.data_ptr(), n, offsets.data_ptr(), s,
+                mx[lo].data_ptr(), mn[lo].data_ptr(), scratch.data_ptr())
         launches[name] += 1
+        pass_launches["segment_minmax_split"] += 1
     return mx, mn
 
 

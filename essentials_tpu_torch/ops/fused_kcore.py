@@ -3,11 +3,12 @@
 Counterpart of ``essentials_tpu/ops/fused_kcore.py`` (``init_deg_exp``,
 ``fused_kcore_sweep``, ``collapse_core_exp``, ``run_fused_kcore``). The
 remaining degree (-1 once peeled) and the core number live on the edge
-axis, start-authoritative. One wave is one ``kcore_sweep`` launch, which
+axis, start-authoritative. One wave is one ``kcore_sweep`` call, which
 peels every alive vertex of degree below k, subtracts each survivor's
-peeled in-neighbours and returns (peeled count, smallest surviving degree).
-It reads one pair of state buffers and writes the other: a neighbour
-peeled earlier in the same wave must still count as peeled.
+peeled in-neighbours and returns (peeled count, smallest surviving degree);
+on the card it pushes from the peeled vertices, so a run reads each edge
+about once. It reads one pair of state buffers and writes the other: a
+neighbour peeled earlier in the same wave must still count as peeled.
 
 The k schedule is the JAX package's: k0 = smallest start degree + 1, and
 after each wave k stays while some survivor's degree is below it, else

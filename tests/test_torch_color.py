@@ -166,6 +166,51 @@ def test_combine_minmax_multi_matches_colors_fallback(graphs, m):
         assert np.array_equal(tmn.numpy(), np.asarray(jmn))
 
 
+def _stress_inputs(m):
+    """chip_smoke.minmax_stress_inputs at a CPU test's size: one segment of
+    3 tiles of 2,048 places, a run of empty segments, all-inactive ones,
+    offsets from 37, views at odd element offsets."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.minmax_stress_inputs("cpu", m=m, short=3000, long_tiles=2,
+                                    tail=400)
+
+
+@pytest.mark.parametrize("m", [1, 3])
+def test_segment_minmax_plain_matches_pallas_on_stress_shapes(monkeypatch,
+                                                              m):
+    """The plain version against the JAX package's segmented_minmax_1d (in
+    interpret mode) and the pick of each segment's last slot, on the
+    kernel's stress shapes; empty segments get the identities."""
+    monkeypatch.setattr(jsk, "_INTERPRET", True)
+    pays, active, off = _stress_inputs(m)
+    o = off.numpy().astype(np.int64)
+    lo, hi = int(o[0]), int(o[-1])
+    seg = np.diff(o)
+    assert seg.max() > 2 * 2048 and (seg == 0).sum() > 6000 and lo == 37
+    flags = np.zeros(hi - lo, bool)
+    flags[o[:-1][seg > 0] - lo] = True
+    act = active.numpy()[lo:hi]
+    last = o[1:][seg > 0] - 1 - lo
+    quiet = np.add.reduceat(act.astype(np.int64), o[:-1][seg > 0] - lo) == 0
+    assert quiet.sum() > 90                # all-inactive segments
+    mx, mn = kernels.segment_minmax_plain(pays, active, off)
+    for k, p in enumerate(pays):
+        jmax, jmin = jsk.segmented_minmax_1d(jnp.asarray(p.numpy()[lo:hi]),
+                                             jnp.asarray(flags),
+                                             jnp.asarray(act))
+        want_mx = np.full(seg.size, -IMAX - 1, np.int32)
+        want_mn = np.full(seg.size, IMAX, np.int32)
+        want_mx[seg > 0] = np.asarray(jmax)[last]
+        want_mn[seg > 0] = np.asarray(jmin)[last]
+        assert np.array_equal(mx[k].numpy(), want_mx)
+        assert np.array_equal(mn[k].numpy(), want_mn)
+
+
 def test_segment_minmax_wrapper_on_the_cpu():
     """Any number of payloads, offsets that start past 0, identities at
     empty and all-inactive segments; the plain version counts nothing."""

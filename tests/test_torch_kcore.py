@@ -8,7 +8,11 @@ starts, the JAX CPU fallback whole segments), both scalars of each wave,
 the core numbers and the wave count of a whole run, and the host
 references. The JAX graphs are built with router plans and carried into
 the port with graph_from_arrays, so both packages compute on the same
-arrays."""
+arrays. "stress" is chip_smoke's graph with a hub, multi-edges and
+self-loops, on which the card's push wave is also modelled here."""
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -32,6 +36,16 @@ from essentials_tpu_torch.ops import fused_kcore as tfk
 
 IMAX = np.iinfo(np.int32).max
 _jax_sweep = jax.jit(jfk.fused_kcore_sweep_ref)
+
+
+def stress_coo():
+    """chip_smoke.kcore_stress_coo's graph as a JAX Coo."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    n, src, dst, w = mod.kcore_stress_coo()
+    return JCoo(n, n, src, dst, w)
 
 
 def carried(csr, directed=False):
@@ -74,10 +88,11 @@ def graphs():
         "grid16": carried(JCsr.from_coo(jgen.grid_2d(16, weighted=True))),
         "isolated": carried(JCsr.from_coo(isolated_coo())),
         "clique_tail": carried(JCsr.from_coo(clique_tail_coo())),
+        "stress": carried(JCsr.from_coo(stress_coo())),
     }
 
 
-NAMES = ["clique_tail", "grid16", "isolated", "rmat10", "rmat11"]
+NAMES = ["clique_tail", "grid16", "isolated", "rmat10", "rmat11", "stress"]
 
 
 def starts_of(g):
@@ -110,6 +125,55 @@ def test_sweeps_match_jax_fallback(graphs, name):
         k = tfk.next_level(k, min_alive)
         sweeps += 1
     assert sweeps >= 2
+
+
+def push_wave(off, src, deg, core, k):
+    """The card's kcore_sweep in NumPy, in its order of work: the dense
+    pass writes every start as if nothing fell and lists the peeled
+    segments; the push takes one from each surviving in-neighbour's start,
+    in a shuffled order, folding each result into the minimum. Returns
+    (deg_out, core_out, peeled, smallest surviving degree)."""
+    deg_out, core_out = deg.copy(), core.copy()
+    starts = off[:-1][off[1:] > off[:-1]]
+    d = deg[starts]
+    peel = (d >= 0) & (d < k)
+    deg_out[starts[peel]] = -1
+    core_out[starts[peel]] = k - 1
+    least = int(d[(d >= 0) & ~peel].min()) if ((d >= 0) & ~peel).any() \
+        else IMAX
+    v = np.nonzero(off[1:] > off[:-1])[0][peel]
+    slots = np.concatenate([np.arange(off[x], off[x + 1]) for x in v]) \
+        if v.size else np.zeros(0, np.int64)
+    for q in np.random.default_rng(k).permutation(slots):
+        at = off[src[q]]
+        if deg[at] >= k:
+            deg_out[at] -= 1
+            least = min(least, int(deg_out[at]))
+    return deg_out, core_out, int(peel.sum()), least
+
+
+@pytest.mark.parametrize("name", ["clique_tail", "isolated", "stress"])
+def test_push_wave_model_matches_plain_version(graphs, name):
+    """On a symmetric adjacency the push (each peeled vertex takes one from
+    its surviving in-neighbours, the minimum folded from the subtractions'
+    results) gives the pull's bits at every wave of a run."""
+    _, _, g = graphs[name]
+    off, src = g.row_offsets.numpy(), g.csc_src_indices.numpy()
+    assert np.array_equal(src, g.col_indices.numpy())   # symmetric
+    d, c = tfk.init_deg_exp(g), torch.zeros_like(tfk.init_deg_exp(g))
+    k, waves = tfk.first_level(g), 0
+    while k < IMAX:
+        d2, c2 = torch.empty_like(d), torch.empty_like(c)
+        peeled, least = kernels.kcore_sweep_plain(
+            d, c, d2, c2, g.row_offsets, g.csc_src_indices, k).tolist()
+        md, mc, mp, ml = push_wave(off, src, d.numpy(), c.numpy(), k)
+        starts = starts_of(g)
+        assert (mp, ml) == (peeled, least)
+        assert np.array_equal(md[starts], d2.numpy()[starts])
+        assert np.array_equal(mc[starts], c2.numpy()[starts])
+        d, c, waves = d2, c2, waves + 1
+        k = tfk.next_level(k, least)
+    assert waves >= 2
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -202,6 +266,16 @@ def test_unported_and_unsupported_runs_raise(graphs):
     assert not gd.symmetric_layout
     with pytest.raises(EssentialsError, match="queue 1, item 8"):
         tkcore.run(gd)
+    # a directed 5-cycle with a chord both ways: every in-degree equals its
+    # out-degree (a symmetric layout) but the adjacency is not symmetric,
+    # so the push wave would subtract from the wrong neighbours
+    src = np.array([0, 1, 2, 3, 4, 0, 2], np.int32)
+    dst = np.array([1, 2, 3, 4, 0, 2, 0], np.int32)
+    gc = carried(JCsr.from_coo(JCoo(5, 5, src, dst, np.ones(7, np.float32))),
+                 directed=True)[2]
+    assert gc.symmetric_layout and not tkcore.fused_supported(gc)
+    with pytest.raises(EssentialsError, match="queue 1, item 8"):
+        tkcore.run(gc)
 
 
 # -------------------------------------------------------------- wrappers --

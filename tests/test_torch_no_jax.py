@@ -5,7 +5,9 @@ directed graph, triangle counting and the intersection operator, coloring
 ``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph) run
 where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
-route and bitmap kernels exactly, advance_count in both its tiers,
+route and bitmap kernels exactly, k-core also on a graph with a hub,
+multi-edges and self-loops and segment min/max on chip_smoke's stress
+case, advance_count in both its tiers,
 spmv_slabs on a row of six slabs, spmv_rows on a row of 40 merge-path
 tiles and a run of empty rows, gather_payloads packed and unpacked through
 ragged and unaligned indices, but float sums: the SpMV kernels,
@@ -30,6 +32,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 _FORBIDDEN = ("jax", "jaxlib", "essentials_tpu")
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its stress inputs), by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _imported_roots(path: Path) -> set:
@@ -336,6 +348,31 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
     assert all(kernels.launches[n] > 0 for n in (
         "sssp_sweep", "sssp_predecessors", "kcore_sweep", "collapse_starts",
         "expand_segments"))
+    # every wave on a graph with a hub, multi-edges and self-loops, then
+    # its whole run against the host peeling
+    csr_s, g_s = _chip_smoke().kcore_stress_graph("cuda")
+    assert csr_s.degrees().max() > 1000 and kcore.fused_supported(g_s)
+    deg, core = FK.init_deg_exp(g_s), torch.zeros_like(FK.init_deg_exp(g_s))
+    k, waves = FK.first_level(g_s), 0
+    while k < FK.IMAX:
+        outs = [t.clone() for t in (deg, core, deg, core, deg, core)]
+        s = [kernels.kcore_sweep(deg, core, outs[i], outs[i + 1],
+                                 g_s.row_offsets, g_s.csc_src_indices, k)
+             for i in (0, 2)]
+        s_p = kernels.kcore_sweep_plain(deg, core, outs[4], outs[5],
+                                        g_s.row_offsets,
+                                        g_s.csc_src_indices, k)
+        assert torch.equal(s[0], s_p) and torch.equal(s[1], s_p)
+        for i in (0, 1):
+            assert torch.equal(outs[i], outs[i + 2])
+            assert torch.equal(outs[i], outs[i + 4])
+        deg, core, waves = outs[0], outs[1], waves + 1
+        k = FK.next_level(k, int(s_p[1]))
+    assert waves > 3
+    assert kernels.pass_launches["kcore_sweep_push"] == \
+        kernels.launches["kcore_sweep"]
+    assert np.array_equal(kcore.run(g_s).core.cpu().numpy(),
+                          kcore.cpu_reference(csr_s))
     ref = sssp.cpu_reference(csr, source)
     got = sssp.run(g, source).distances.cpu().numpy()
     reach = np.isfinite(ref)
@@ -436,7 +473,7 @@ def test_operator_kernels_match_plain_versions_on_the_card(monkeypatch):
                     for a, b in zip(k, p)), (idx.numel(), m, pack)
                 calls, packs = calls + 1, packs + pack
     assert kernels.launches["gather_payloads"] == calls
-    assert kernels.pack_launches["gather_payloads"] == packs
+    assert kernels.pass_launches["gather_payloads_pack"] == packs
     monkeypatch.undo()
     f = torch.from_numpy(rng.random(vp) < 0.3).cuda() & g.vertex_mask()
     args = (g.csc_offsets, g.csc_src_indices)
@@ -560,8 +597,11 @@ def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
 def test_color_kernel_matches_plain_version_on_the_card():
     """segment_minmax against its plain version exactly and against a
     second launch bitwise, for 1, 3, 8 and 11 payloads under full, seeded
-    and JP-uncolored masks at rmat12; then both color variants on the card
-    equal to a run on a CPU copy of the graph, bitwise."""
+    and JP-uncolored masks at rmat12, and on chip_smoke's stress case (a
+    segment across 43 tiles, ends at every offset of a tile, a run of
+    empty segments, all-inactive segments, offsets from 37, views at odd
+    element offsets); then both color variants on the card equal to a run
+    on a CPU copy of the graph, bitwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from essentials_tpu_torch import kernels
@@ -591,6 +631,17 @@ def test_color_kernel_matches_plain_version_on_the_card():
             for a, b, c in zip(k, again, p):
                 assert torch.equal(a, b) and torch.equal(a, c)
     assert kernels.launches["segment_minmax"] == 2 * 3 * (1 + 1 + 1 + 2)
+    assert kernels.pass_launches["segment_minmax_split"] == \
+        kernels.launches["segment_minmax"]
+    pays, active, off = _chip_smoke().minmax_stress_inputs("cuda", m=11)
+    assert int(off[0]) == 37 and pays[0].data_ptr() % 16 != 0
+    for m in (1, 3, 8, 11):
+        args = (pays[:m], active, off)
+        k, again = kernels.segment_minmax(*args), \
+            kernels.segment_minmax(*args)
+        p = kernels.segment_minmax_plain(*args)
+        for a, b, c in zip(k, again, p):
+            assert torch.equal(a, b) and torch.equal(a, c)
     g_cpu = g.to("cpu")
     for variant in color.VARIANTS:
         r = color.run(g, variant=variant, warmup=False)

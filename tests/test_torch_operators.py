@@ -490,7 +490,7 @@ def test_gather_packs_where_records_pay(monkeypatch):
     assert a.dtype == torch.int32 and b.dtype == torch.float32
     equal(a.numpy(), np.arange(8, dtype=np.int32)[::-1])
     equal(b.numpy(), np.arange(8, dtype=np.float32)[::-1])
-    assert kernels.pack_launches["gather_payloads"] == 0
+    assert kernels.pass_launches["gather_payloads_pack"] == 0
 
 
 # -------------------------------------------------------------- wrappers --
