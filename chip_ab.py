@@ -33,12 +33,25 @@ mean wall time of a wave's call (CUDA events around each call) and the
 device time of the run's kcore_sweep kernels over its waves
 (torch.profiler).
 
+sssp: ``sssp_sweep`` over the sweeps of one fused search from the
+highest-degree vertex at gen:rmat20x16, each call from its state (its
+output buffer holding the sweep before's distances, restored outside the
+timed region): wall and device time per sweep and per search
+(chip_smoke.sssp_sweep_ms).
+
+bitmap: ``bitmap_intersect_counts`` over gen:rmat17x16's oriented edges
+(TC bitmap's one launch), witness on and off: wall and device time per
+call.
+
 e2e (end to end, in E2E_ROUNDS rounds of turns: 8 runs a side): PageRank
 fused ms per iteration at undirected rmat18; BFS and SSSP adaptive from the
 8 highest out-degree sources of directed rmat20 seed 3, the device time of
 all 8 searches (torch.profiler) and the wall ms per search; color JP and
 k-core ms per run at gen:rmat20x16 with the device time of a run; TC shift
-ms per run at gen:rmat20x16 (424,267,437 triangles), in one round.
+ms per run at gen:rmat20x16 (424,267,437 triangles), in one round; SSSP
+fused ms per search from the 8 highest-degree sources of gen:rmat20x16 with
+the device time of the 8 searches; TC bitmap ms per run at gen:rmat17x16
+(36,033,712 triangles).
 
 spmv, gather, neighbours, pack (the measurements of the previous slice):
 
@@ -78,6 +91,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib.util
+import inspect
 import json
 import subprocess
 import time
@@ -90,7 +104,8 @@ import chip_smoke as CS
 
 KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
            "scan", "segment_broadcast_total", "suffix_fill_update",
-           "segment_minmax", "kcore_sweep")
+           "segment_minmax", "kcore_sweep", "sssp_sweep",
+           "bitmap_intersect_counts")
 PR_HITS_ROUNDS = 4             # rounds of turns: 8 runs on each side
 E2E_ROUNDS = 4                 # rounds of turns: 8 runs on each side
 PACK_PAYLOADS = (2, 4)
@@ -109,9 +124,9 @@ def build(mod, name: str) -> None:
     print(f"build: {name} in {time.perf_counter() - t0:.1f} s")
     for i, line in enumerate(log):
         if "Compiling entry" in line and any(
-                k in line for k in ("segment_minmax_kernel",
-                                    "kcore_sweep_kernel",
-                                    "kcore_sweep_push_kernel")):
+                k in line for k in ("sssp_sweep_kernel",
+                                    "sssp_sweep_push_kernel",
+                                    "bitmap_intersect_counts_kernel")):
             print(f"  {line.strip()}")
             for nxt in log[i + 1:i + 4]:
                 if "Used" in nxt or "spill" in nxt:
@@ -126,6 +141,14 @@ def load_parent(root: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     build(mod, f"parent from {root}")
+    if "col" not in inspect.signature(mod.kcore_sweep).parameters:
+        # the parent's push walks csc_src, equal to col on the undirected
+        # graphs timed here; this tree's callers pass both
+        old = mod.kcore_sweep
+
+        def kcore_sweep(di, ci, do, co, off, csc_src, col, k):
+            return old(di, ci, do, co, off, csc_src, k)
+        mod.kcore_sweep = kcore_sweep
     return mod
 
 
@@ -432,7 +455,7 @@ def kcore_shapes(card: str, run, K0, out: dict) -> None:
     k = FK.first_level(g)
     outs = [t.clone() for t in (deg, core, deg, core)]
     args = (deg, core, outs[0], outs[1], g.row_offsets, g.csc_src_indices,
-            k)
+            g.col_indices, k)
     a = K0.kcore_sweep(*args)
     b = K.kcore_sweep(deg, core, outs[2], outs[3], *args[4:])
     CS.check(torch.equal(a, b) and torch.equal(outs[0], outs[2])
@@ -442,6 +465,60 @@ def kcore_shapes(card: str, run, K0, out: dict) -> None:
                 f"gen:rmat{CS.MAIN_SCALE}x16",
           {"parent": lambda: on(K0, lambda: kcore_wave_ms(g)),
            "this": lambda: kcore_wave_ms(g)}, out)
+
+
+def sssp_shapes(card: str, run, K0, out: dict) -> None:
+    """sssp_sweep over one fused search at gen:rmat20x16. The parent's
+    sweep takes csc_src and the CSC weights, equal to the CSR columns and
+    weights on this undirected graph, and writes every start whatever its
+    output held."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    g = run.weighted_graph(CS.MAIN_SCALE)[1]
+    source = int(torch.argmax(g.out_degrees()[:g.n_vertices]))
+    states = CS.sssp_sweep_states(g, source)
+    args = (g.row_offsets, g.col_indices, edge_weights(g))
+    for d, prev in states:
+        a, b = prev.clone(), prev.clone()
+        CS.check(torch.equal(K0.sssp_sweep(d, a, *args),
+                             K.sssp_sweep(d, b, *args))
+                 and torch.equal(a, b),
+                 "sssp_sweep: parent and this tree disagree")
+
+    def measure(kernels=CS.SSSP_SWEEP_KERNELS) -> dict:
+        t = CS.sssp_sweep_ms(g, states, 3, kernels)
+        return {k: t[k] for k in ("wall per sweep", "device per sweep",
+                                  "wall per search", "device per search")}
+    # the device kernels of the parent's sweep: one a call in a tree
+    # whose sweep has no update pass
+    parent = CS.SSSP_SWEEP_KERNELS[:1 + 2 * ("sssp_sweep_update"
+                                             in K0.pass_launches)]
+    turns(card, f"sssp_sweep over the {len(states)} sweeps of one fused "
+                f"search from {source}, gen:rmat{CS.MAIN_SCALE}x16",
+          {"parent": lambda: on(K0, lambda: measure(parent)),
+           "this": measure}, out)
+
+
+def bitmap_shapes(card: str, run, K0, out: dict) -> None:
+    """bitmap_intersect_counts over gen:rmat17x16's oriented edges, witness
+    on and off."""
+    from essentials_tpu_torch import kernels as K
+    eu, ev, bitmap = CS.bitmap_inputs(run.tc_graph(CS.TC_SCALE))
+    for witness in (True, False):
+        a = K0.bitmap_intersect_counts(eu, ev, bitmap, witness)
+        b = K.bitmap_intersect_counts(eu, ev, bitmap, witness)
+        CS.check(all((x is None and y is None) or torch.equal(x, y)
+                     for x, y in zip(a, b)),
+                 f"bitmap_intersect_counts witness {witness}: parent and "
+                 f"this tree disagree")
+        del a, b
+
+        def measure(witness=witness) -> dict:
+            return kernel_ms(lambda: K.bitmap_intersect_counts(
+                eu, ev, bitmap, witness), CS.TC_CYCLES)
+        turns(card, f"bitmap_intersect_counts gen:rmat{CS.TC_SCALE}x16 "
+                    f"({eu.numel()} pairs), witness {witness}",
+              {"parent": lambda m=measure: on(K0, m), "this": measure}, out)
 
 
 def end_to_end(card: str, run, K0, out: dict) -> None:
@@ -494,6 +571,29 @@ def end_to_end(card: str, run, K0, out: dict) -> None:
         return {"ms per run": r.elapsed_ms}
     turns(card, f"tc shift gen:rmat{CS.MAIN_SCALE}x16", {
         "parent": lambda: on(K0, shift), "this": shift}, out)
+    top = np.argsort(-g_m.out_degrees()[:g_m.n_vertices].cpu().numpy())[
+        :CS.SSSP_RUNS].astype(int)
+
+    def sssp_fused() -> dict:
+        def searches():
+            return [sssp.run(g_m, int(s), variant="fused", warmup=False)
+                    for s in top]
+        wall = float(np.mean([r.elapsed_ms for r in searches()]))
+        return {"ms per search": wall,
+                f"device ms over {len(top)} searches":
+                    CS.device_ms(searches, 1)[0]}
+    turns(card, f"sssp fused gen:rmat{CS.MAIN_SCALE}x16, {len(top)} "
+                f"highest-degree sources", {
+                    "parent": lambda: on(K0, sssp_fused),
+                    "this": sssp_fused}, out, E2E_ROUNDS)
+    csr17 = run.tc_graph(CS.TC_SCALE)
+
+    def tc_bitmap() -> dict:
+        r = tc.run(csr17, variant="bitmap")
+        CS.check(r.total == CS.TC_RMAT17_TOTAL, f"tc bitmap: {r.total}")
+        return {"ms per run": r.elapsed_ms}
+    turns(card, f"tc bitmap gen:rmat{CS.TC_SCALE}x16", {
+        "parent": lambda: on(K0, tc_bitmap), "this": tc_bitmap}, out)
 
 
 def pack_sweep(card: str, out: dict) -> None:
@@ -532,7 +632,8 @@ def pack_sweep(card: str, out: dict) -> None:
     out["pack_sweep"] = rows
 
 
-GROUPS = {"minmax": minmax_shapes, "kcore": kcore_shapes,
+GROUPS = {"sssp": sssp_shapes, "bitmap": bitmap_shapes,
+          "minmax": minmax_shapes, "kcore": kcore_shapes,
           "scan": scan_shapes, "fill": fill_shapes, "e2e": end_to_end,
           "spmv": spmv_shapes, "gather": gather_shapes,
           "neighbours": neighbours,

@@ -70,13 +70,18 @@ raises and exits non-zero:
    scattered x gathers);
 9. SSSP and k-core kernels: on the weighted undirected RMAT graphs of
    scales 12 and 18 (edge factor 16, seed 1), every sweep of one SSSP
-   search (sssp_sweep; replaces fused_sssp.fused_sssp_superstep), the
-   collapse (collapse_starts), the predecessors (sssp_predecessors) and
-   one k-core run (expand_segments for the initial degrees, every wave's
-   kcore_sweep, then collapse_starts), each kernel against its plain
-   version from the same input, exactly, and against a second launch,
-   bitwise; every wave of a run also on a graph with a hub, multi-edges
-   and self-loops (kcore_stress_coo);
+   search (sssp_sweep; replaces fused_sssp.fused_sssp_superstep; each
+   sweep's output buffer holding the sweep before's distances, as in a
+   search), the collapse (collapse_starts), the predecessors
+   (sssp_predecessors) and one k-core run (expand_segments for the initial
+   degrees, every wave's kcore_sweep, then collapse_starts), each kernel
+   against its plain version from the same input, exactly, and against a
+   second launch, bitwise; all of it also on a graph with a hub,
+   multi-edges and self-loops (kcore_stress_coo) and on a degree-balanced
+   directed graph (balanced_coo: every in-degree equal to its out-degree,
+   the edges not symmetric, a hub on 3,000 directed triangles), whose
+   kcore.run is held against the host peeling and sssp.run (auto: fused)
+   against a float64 Dijkstra;
 10. SSSP and k-core main path on the suite's graph gen:rmat20x16 (scale
    20, edge factor 16, seed 1, undirected, weighted). First its kernels at
    that graph's shapes, each against its plain version and a second launch
@@ -84,7 +89,9 @@ raises and exits non-zero:
    of a windowed search (spmv_slabs<add,min> from states holding +inf),
    each sweep's wall and device time beside its bound, and every level of
    a BFS in both forms, from the
-   highest-degree vertex. Then sssp.run(variant=
+   highest-degree vertex; sssp_sweep three device kernels a call (the
+   dense pass, the push and the update) on a search's first and heaviest
+   sweep, as torch.profiler sees them. Then sssp.run(variant=
    "fused") and sssp.run(variant="windowed") from the 8 highest-degree
    sources and one kcore.run (kcore_sweep two device kernels a call, the
    dense pass and the push, as torch.profiler sees them on the first and
@@ -103,8 +110,13 @@ raises and exits non-zero:
    and their largest degree, the vertices it peels and their edges; over
    the run's waves the median and spread of kcore_sweep's wall time, its
    plain version's, its device time per wave (torch.profiler, the two
-   kernels of each wave), the per-wave and per-run bounds; the other
-   SSSP and k-core kernels against their plain versions at scale 18;
+   kernels of each wave), the per-wave and per-run bounds; sssp_sweep sweep
+   by sweep over one fused search from the highest-degree vertex at scale
+   20 (each call from its saved state): wall, device (its three kernels)
+   and plain time, the slots it pushes and its bound (sssp_sweep_bytes),
+   per sweep and per search; the same summed over a search at scale 18;
+   the other SSSP and k-core kernels against their plain versions at scale
+   18;
    torch.profiler's device-busy share over each of the three paths (after
    a warm-up step);
 12. operator kernels (scan, gather_payloads, segment_reduce,
@@ -149,7 +161,8 @@ raises and exits non-zero:
    integers exact and a second launch bitwise equal: bitmap_intersect_counts
    (replaces bitmap_intersect.bitmap_intersect_counts), witness on and off,
    over every oriented edge of undirected rmat12 and of the suite's
-   gen:rmat17x16; segment_broadcast_total (int32 and float32 S),
+   gen:rmat17x16, and over unsorted pairs with a hub u and pads among them
+   (hub_pairs_inputs); segment_broadcast_total (int32 and float32 S),
    suffix_fill_update and fused_route_or (replace fused_bfs.py's) at every
    level of one search on the BFS graphs rmat12 and rmat18, with the 5-pass
    level they make (route OR, segmented sum scan, fill and update) equal to
@@ -177,7 +190,8 @@ raises and exits non-zero:
    spmv ms per iteration; torch.profiler's device idle share over TC bitmap
    and shift runs at rmat17 and a PageRank fused run (taken again until
    it sees all of its launches, at most three times); each new kernel per
-   launch beside its plain version,
+   launch beside its plain version (bitmap_intersect_counts also with its
+   device time, witness on and off, and beside three bounds),
    its bound and a PyTorch call computing the same function where one
    exists, wall and device time; scan with flags (segmented float add),
    segment_broadcast_total (beside torch.repeat_interleave) and
@@ -197,8 +211,8 @@ raises and exits non-zero:
    device launches per call (segment_minmax_split_kernel, then
    segment_minmax_kernel) for 1, 3 and 8 payloads (as in phase 12, a
    kernel with no form measured fails); and
-   bitmap_intersect_counts at 12,288-word rows (48 KiB, where the shared
-   row meets the launch's shared-memory limit), witness on and off;
+   bitmap_intersect_counts at 12,288-word rows (48 KiB, whose non-zero
+   words the kernel lists in many passes), witness on and off;
 19. their main path, each run with the launch counters set to 0 just
    before it and read just after, which must show exactly the launches
    its rounds' tiers make: color.run jp, spec and auto (which must be
@@ -226,11 +240,17 @@ The memory rate is 3.35 TB/s (HBM) where one launch's bytes exceed the
 to back on the same operands. The L2 rate is measured in phase 1 of the
 same run (l2_rate): the extra bytes of a device-to-device copy of 12 MiB
 over one of 4 MiB, each repeated on the same buffers, over its extra time
-(never below 3.35 TB/s). bitmap_intersect_counts' bound reads each bitmap
-row that its pairs name once and counts an AND and a popcount per word at
-the float32 rate; its JSON entry also gives bound_streaming_ms, the bytes
-with B[v] read once per pair (the TPU kernel's streaming model), which the
-L2 can beat when pairs share rows.
+(never below 3.35 TB/s). bitmap_intersect_counts' bound reads each
+distinct u row once and each 32-byte sector of B[v] under a non-zero word
+of B[u] once (bitmap_work), and counts an AND and a popcount per such
+word and pair at the float32 rate; its JSON entry also gives
+bound_per_pair_sectors_ms (a sector per such word and pair),
+bound_named_rows_ms (each named row once, every word of each pair ANDed:
+the earlier work model) and bound_streaming_ms (B[v] read once per pair:
+the TPU kernel's model). sssp_sweep's bound reads each non-empty start's
+sector once per buffer, writes the sectors of the starts that change, and
+reads the CSR column and weight of each slot that the sweep must relax
+(the rows of the vertices that changed in the sweep before).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -333,6 +353,7 @@ FILL_REPLACES = {            # in SOURCE, beside the BFS kernels
 TC_SCALE = 17          # gen:rmat17x16: the bitmap path's graph
 TC_DENSE_SCALE = 13    # V = 8192, the dense path's largest
 TC_RMAT20_TOTAL = 424_267_437   # benchmarks/PARITY.md:58, scipy masked A^2
+TC_RMAT17_TOTAL = 36_033_712    # gen:rmat17x16, tc.cpu_reference_total
 PAIRS = 4096           # intersection queries per graph
 PAIR_SEED = 5
 TC_CYCLES = 3          # timed runs of the larger TC paths; median reported
@@ -352,7 +373,9 @@ COLOR_PAYLOADS = (1, 3, 8)   # segment_minmax payload counts checked
 MINMAX_LONG_TILES = 42       # tiles its longest segment spans, at least
 MINMAX_EMPTY_RUN = 6_144     # consecutive empty segments: 3 tiles of ends
 MINMAX_SHORT = 40_000        # segments of 0-4 slots: ends at every offset
-BITMAP_WIDE_WORDS = 12288    # 48 KiB rows: the shared-memory limit's edge
+BITMAP_WIDE_WORDS = 12288    # 48 KiB rows, listed in many passes
+# unsorted pairs: bitmap rows, words a row, pairs, pairs of the hub u, pads
+HUB_PAIRS = (512, 512, 4000, 1200, 40)
 # color at rmat20 recorded on the TPU (essentials_tpu/algorithms/color.py
 # :191, :295): printed beside the port's, not a gate
 TPU_COLOR_HISTORY = {"jp": "8.3 s per run, about 100 rounds",
@@ -1149,6 +1172,52 @@ def kcore_stress_coo(seed: int = SEED) -> tuple:
     return n, src, dst, rng.random(src.size).astype(np.float32) + 0.5
 
 
+BALANCED = (200_000, 8, 3000)   # vertices, cycles through all, hub triangles
+
+
+def cycles_coo(n: int, lengths, seed: int, hub: int = 0) -> tuple:
+    """A degree-balanced directed graph on n vertices: (n, src, dst,
+    weights). One directed cycle over a seeded choice of vertices for each
+    of ``lengths``, and vertex 0 a hub on ``hub`` directed triangles 0 -> a
+    -> b -> 0; every in-degree equals its out-degree (a symmetric layout),
+    but the edges are not symmetric, so a push along the CSC sources
+    instead of the CSR columns goes wrong here. Weights in [1, 64) from
+    the seed."""
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for m in lengths:
+        c = rng.permutation(n)[:m]
+        src.append(c)
+        dst.append(np.roll(c, -1))
+    a, b = rng.choice(np.arange(1, n), (2, hub), replace=False)
+    src += [np.zeros(hub, np.int64), a, b]
+    dst += [a, b, np.zeros(hub, np.int64)]
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    return (n, src.astype(np.int32), dst.astype(np.int32),
+            (rng.random(src.size) * 63 + 1).astype(np.float32))
+
+
+def balanced_coo(n: int = BALANCED[0]) -> tuple:
+    """cycles_coo with BALANCED[1] cycles through all n vertices and a hub
+    on BALANCED[2] triangles."""
+    _, cycles, hub = BALANCED
+    return cycles_coo(n, (n,) * cycles, SEED, hub)
+
+
+def balanced_graph(device: str) -> tuple:
+    """balanced_coo's graph: (csr, graph), directed and weighted."""
+    from essentials_tpu_torch.formats import Coo, Csr
+    from essentials_tpu_torch.graph import build_graph
+    n, src, dst, w = balanced_coo()
+    csr = Csr.from_coo(Coo(n, n, src, dst, w))
+    g = build_graph(csr, directed=True, weighted=True, device=device)
+    check(g.symmetric_layout and not torch.equal(g.col_indices,
+                                                 g.csc_src_indices),
+          "the degree-balanced graph must have a symmetric layout and an "
+          "asymmetric adjacency")
+    return csr, g
+
+
 def kcore_stress_graph(device: str) -> tuple:
     """kcore_stress_coo's graph: (csr, graph), undirected and weighted."""
     from essentials_tpu_torch.formats import Coo, Csr
@@ -1170,31 +1239,53 @@ def hold_exact(name: str, ks, agains, plains, errs: dict, where: str) -> None:
         check(e == 0, f"{name} differs from plain ({where})")
 
 
+def sssp_sweep_states(g, source: int) -> list:
+    """The inputs of every sweep of one fused search from ``source``:
+    [(dist_in, the output buffer's distances before the sweep)], the
+    search going on from the kernel's outputs; the last sweep improves
+    nothing."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_sssp as FS
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    args = (g.row_offsets, g.col_indices, edge_weights(g))
+    d, prev, states = FS.init_dist_exp(g, source), FS.init_spare(g), []
+    while True:
+        states.append((d, prev))
+        out = prev.clone()
+        if K.sssp_sweep(d, out, *args).item() == 0:
+            return states
+        d, prev = out, d
+
+
 def check_sssp_kcore_kernels(csr, g, where: str, errs: dict) -> None:
     """Every sweep of one SSSP search from the highest-degree vertex and
     every wave of one k-core run (its initial expansion included), each
-    kernel launched twice and its plain version once on the same input; the
-    search goes on from the kernel's output."""
+    kernel launched twice and its plain version once on the same input
+    (each sweep's output buffer holding the sweep before's distances, as
+    in a search); the search goes on from the kernel's output."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_kcore as FK
     from essentials_tpu_torch.ops import fused_sssp as FS
-    off, src, w = g.row_offsets, g.csc_src_indices, FS.csc_weights(g)
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    off, src, col = g.row_offsets, g.csc_src_indices, g.col_indices
+    w = edge_weights(g)
     source = int(np.argmax(np.diff(csr.row_offsets)))
-    d, sweeps = FS.init_dist_exp(g, source), 0
+    d, prev, sweeps = FS.init_dist_exp(g, source), FS.init_spare(g), 0
     while True:
-        outs = [d.clone() for _ in range(3)]
-        cnt = [K.sssp_sweep(d, o, off, src, w) for o in outs[:2]]
-        cnt_p = K.sssp_sweep_plain(d, outs[2], off, src, w)
+        outs = [prev.clone() for _ in range(3)]
+        cnt = [K.sssp_sweep(d, o, off, col, w) for o in outs[:2]]
+        cnt_p = K.sssp_sweep_plain(d, outs[2], off, col, w)
         hold_exact("sssp_sweep", (outs[0], cnt[0]), (outs[1], cnt[1]),
                    (outs[2], cnt_p), errs, f"{where} sweep {sweeps}")
-        d, sweeps = outs[0], sweeps + 1
+        d, prev, sweeps = outs[0], d, sweeps + 1
         if cnt[0].item() == 0:
             break
     args = (d, off, FS.INF_BITS, source)
     dist = K.collapse_starts(*args)
     hold_exact("collapse_starts", (dist,), (K.collapse_starts(*args),),
                (K.collapse_starts_plain(*args),), errs, f"{where} sssp")
-    args = (dist.view(torch.float32), g.csc_offsets, src, w, g.n_edges)
+    args = (dist.view(torch.float32), g.csc_offsets, src, FS.csc_weights(g),
+            g.n_edges)
     pred = K.sssp_predecessors(*args)
     hold_exact("sssp_predecessors", (pred,), (K.sssp_predecessors(*args),),
                (K.sssp_predecessors_plain(*args),), errs, where)
@@ -1207,9 +1298,10 @@ def check_sssp_kcore_kernels(csr, g, where: str, errs: dict) -> None:
     k, waves = FK.first_level(g), 0
     while k < FK.IMAX:
         outs = [t.clone() for _ in range(3) for t in (deg, core)]
-        s = [K.kcore_sweep(deg, core, outs[i], outs[i + 1], off, src, k)
-             for i in (0, 2)]
-        s_p = K.kcore_sweep_plain(deg, core, outs[4], outs[5], off, src, k)
+        s = [K.kcore_sweep(deg, core, outs[i], outs[i + 1], off, src, col,
+                           k) for i in (0, 2)]
+        s_p = K.kcore_sweep_plain(deg, core, outs[4], outs[5], off, src, col,
+                                  k)
         hold_exact("kcore_sweep", (*outs[:2], s[0]), (*outs[2:4], s[1]),
                    (*outs[4:], s_p), errs, f"{where} wave {waves}, k {k}")
         deg, core, waves = outs[0], outs[1], waves + 1
@@ -1230,7 +1322,7 @@ def check_kcore_launches(g, where: str) -> None:
     fails where neither form was measured."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_kcore as FK
-    off, src = g.row_offsets, g.csc_src_indices
+    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
     deg = FK.init_deg_exp(g)
     core = torch.zeros_like(deg)
     k, waves = FK.first_level(g), 0
@@ -1238,18 +1330,50 @@ def check_kcore_launches(g, where: str) -> None:
     while k < FK.IMAX:
         last = (deg, core, k)
         deg, core = torch.empty_like(deg), torch.empty_like(core)
-        s = K.kcore_sweep(*last[:2], deg, core, off, src, k)
+        s = K.kcore_sweep(*last[:2], deg, core, *adj, k)
         k, waves = FK.next_level(k, int(s[1])), waves + 1
     outs = (torch.empty_like(deg), torch.empty_like(core))
     measured = sum(check_one_launch(
         "kcore_sweep", lambda d=d, c=c, k=k: K.kcore_sweep(
-            d, c, *outs, off, src, k), f"{where} wave {i}",
+            d, c, *outs, *adj, k), f"{where} wave {i}",
         ("kcore_sweep_kernel", "kcore_sweep_push_kernel"))
         for i, (d, c, k) in ((0, first), (waves - 1, last)))
     check(measured > 0, f"kcore_sweep {where}: launches per call measured "
                         f"on no wave")
     print(f"kernels: kcore_sweep {where}: two device kernels a call (dense "
           f"pass and push) on {measured} of 2 waves measured")
+
+
+SSSP_SWEEP_KERNELS = ("sssp_sweep_kernel", "sssp_sweep_push_kernel",
+                      "sssp_sweep_update_kernel")
+
+
+def check_sssp_launches(g, source: int, where: str) -> None:
+    """One sssp_sweep call is three device kernels, its dense pass, its
+    push and its update, on the first sweep of a search from ``source`` and
+    on its heaviest (the most vertices changed), as torch.profiler sees
+    them; fails where neither form was measured."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    args = (g.row_offsets, g.col_indices, edge_weights(g))
+    states = sssp_sweep_states(g, source)
+    off = g.row_offsets
+    starts = off[:-1][off[1:] > off[:-1]].long()
+    heavy = max(range(len(states)), key=lambda i: int(
+        (states[i][0][starts] != states[i][1][starts]).sum()))
+    out = torch.empty_like(states[0][0])
+
+    def sweep(d, prev):
+        out.copy_(prev)
+        K.sssp_sweep(d, out, *args)
+    measured = sum(check_one_launch(
+        "sssp_sweep", lambda st=states[i]: sweep(*st), f"{where} sweep {i}",
+        SSSP_SWEEP_KERNELS) for i in sorted({0, heavy}))
+    check(measured > 0, f"sssp_sweep {where}: launches per call measured "
+                        f"on no sweep")
+    print(f"kernels: sssp_sweep {where}: three device kernels a call (dense "
+          f"pass, push, update) on {measured} of {len({0, heavy})} sweeps "
+          f"measured")
 
 
 # ------------------------------------------------------------ phase 10 --
@@ -1468,7 +1592,7 @@ def kcore_wave_bytes(g, deg, k: int) -> tuple:
     """(the dense pass's bytes, the push's bytes) of a wave at level k from
     state ``deg``: the offsets read, and the 32-byte sectors holding the
     non-empty starts in each of deg_in, core_in, deg_out and core_out; then
-    per slot of each peeled segment its csc_src word and two scattered
+    per slot of each peeled segment its col word and two scattered
     32-byte sectors (off[u], and the degree at u's start that the atomic
     takes one from)."""
     off = g.row_offsets
@@ -1481,34 +1605,43 @@ def kcore_wave_bytes(g, deg, k: int) -> tuple:
     return 4 * (g.n_vertices_padded + 1) + 4 * 32 * sectors, 68 * peeled
 
 
-def kcore_wave_device_ms(g) -> list | None:
-    """Each wave's device time over one k-core run (FK.run_fused_kcore)
-    from torch.profiler's events: its dense pass and its push, summed. None
-    where the profiler lost device activities (no whole pair per wave)."""
-    from essentials_tpu_torch.ops import fused_kcore as FK
+def per_call_device_ms(fn, names: tuple, calls: int) -> list | None:
+    """Each call's device time over fn() (``calls`` calls of a wrapper
+    that launches one of each device kernel ``names``) from torch.profiler's
+    events, its kernels summed; fn runs twice, the first time in a warm-up
+    step. None where the profiler lost device activities (not ``calls`` of
+    each) in three windows."""
     from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile as torch_profile,
                                 schedule)
-    max_it = 4 * g.n_vertices + 8
     for _ in range(3):
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA],
                            schedule=schedule(wait=0, warmup=1, active=1,
                                              repeat=1)) as prof:
             for _ in range(2):
-                waves = FK.run_fused_kcore(g, max_it)[1]
+                fn()
                 torch.cuda.synchronize()
                 prof.step()
         ev = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and "kcore_sweep" in e.name),
+                     if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-        dense = [e for e in ev if "kcore_sweep_kernel" in e.name]
-        push = [e for e in ev if "kcore_sweep_push_kernel" in e.name]
-        if len(dense) == len(push) == waves:
-            return [(a.time_range.elapsed_us() + b.time_range.elapsed_us())
-                    / 1e3 for a, b in zip(dense, push)]
+        each = [[e for e in ev if n in e.name] for n in names]
+        if all(len(x) == calls for x in each):
+            return [sum(e.time_range.elapsed_us() for e in call) / 1e3
+                    for call in zip(*each)]
     return None
+
+
+def kcore_wave_device_ms(g) -> list | None:
+    """Each wave's device time over one k-core run (FK.run_fused_kcore):
+    its dense pass and its push, summed (per_call_device_ms)."""
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    max_it = 4 * g.n_vertices + 8
+    waves = FK.run_fused_kcore(g, max_it)[1]
+    return per_call_device_ms(lambda: FK.run_fused_kcore(g, max_it),
+                              ("kcore_sweep_kernel",
+                               "kcore_sweep_push_kernel"), waves)
 
 
 def time_kcore_waves(g, card: str) -> dict:
@@ -1537,7 +1670,7 @@ def time_kcore_waves(g, card: str) -> dict:
         peel = alive & (d < k)
         nbytes.append(kcore_wave_bytes(g, deg, k))
         plain = median_ms(lambda _: K.kcore_sweep_plain(
-            deg, core, *plain_out, off, src, k), 1)
+            deg, core, *plain_out, off, src, g.col_indices, k), 1)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1590,54 +1723,166 @@ def time_kcore_waves(g, card: str) -> dict:
                     None if dev is None else float(np.median(dev))}}
 
 
+def sssp_sweep_bytes(g, d, prev, out) -> tuple:
+    """(the dense pass's bytes, the push's bytes, slots pushed) of a sweep
+    from ``d`` into a buffer holding ``prev`` that gave ``out``: the
+    offsets read, and the 32-byte sectors of the non-empty starts read in
+    each buffer and of those whose value the sweep changes written; then
+    the col and w words of each changed vertex's row (the targets' starts
+    lie in sectors the dense pass reads)."""
+    off = g.row_offsets
+    nonempty = off[1:] > off[:-1]
+    starts = off[:-1][nonempty].long()
+    lens = (off[1:] - off[:-1])[nonempty].long()
+    changed = d[starts] != prev[starts]
+    written = int(torch.unique(starts[out[starts] != prev[starts]]
+                               // 8).numel())
+    sectors = int(torch.unique(starts // 8).numel())
+    slots = int(lens[changed].sum())
+    return (4 * (g.n_vertices_padded + 1) + 32 * (2 * sectors + written),
+            8 * slots, slots)
+
+
+def sssp_sweep_bound(g, states) -> tuple:
+    """Per sweep of ``states`` (sssp_sweep_states) the bound of each launch
+    at the rate of where its own bytes fit, and the slots pushed: ([ms],
+    memories, [slots])."""
+    per, mems, slots = [], set(), []
+    for i, (d, prev) in enumerate(states):
+        out = states[i + 1][0] if i + 1 < len(states) else d
+        dense, push, n = sssp_sweep_bytes(g, d, prev, out)
+        a, b = bound(dense), bound(push, n)   # one float add a pushed slot
+        per.append(a[0] + b[0])
+        mems |= {a[2], b[2]}
+        slots.append(n)
+    return per, "/".join(sorted(mems)), slots
+
+
+def sssp_sweep_ms(g, states, reps: int = CYCLES,
+                  kernels: tuple = SSSP_SWEEP_KERNELS) -> dict:
+    """sssp_sweep over the sweeps of ``states``, each call from its state
+    (its output buffer restored outside the timed region): the wall time of
+    each (median of ``reps`` on CUDA events) and the device time of each
+    (torch.profiler, the device kernels ``kernels`` a call launches), per
+    sweep and per search."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    args = (g.row_offsets, g.col_indices, edge_weights(g))
+    out = torch.empty_like(states[0][0])
+
+    def restored(prev):
+        out.copy_(prev)
+        return out
+    wall = [median_ms(lambda o, d=d: K.sssp_sweep(d, o, *args), reps,
+                      lambda prev=prev: restored(prev))
+            for d, prev in states]
+
+    def search():
+        for d, prev in states:
+            K.sssp_sweep(d, restored(prev), *args)
+    n = len(states)
+    dev = per_call_device_ms(search, kernels, n)
+    total = None if dev is None else sum(dev)
+    return {"wall per sweep": sum(wall) / n, "wall per search": sum(wall),
+            "device per sweep": None if dev is None else total / n,
+            "device per search": total, "sweeps": n, "walls": wall,
+            "devices": dev}
+
+
+def time_sssp_sweeps(g, card: str) -> dict:
+    """sssp_sweep sweep by sweep over one fused search from the
+    highest-degree vertex at gen:rmat20x16: each sweep's wall and device
+    time (sssp_sweep_ms) beside the vertices whose distance changed before
+    it and the slots it pushes, its plain version's wall time, and the
+    bounds per sweep and per search (sssp_sweep_bound). Returns chip_smoke's
+    keys for sssp_sweep: per sweep, averaged over the search's sweeps, and
+    the search's totals."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    args = (g.row_offsets, g.col_indices, edge_weights(g))
+    source = int(torch.argmax(g.out_degrees()[:g.n_vertices]))
+    states = sssp_sweep_states(g, source)
+    t = sssp_sweep_ms(g, states)
+    per, mems, slots = sssp_sweep_bound(g, states)
+    out = torch.empty_like(states[0][0])
+    plain = [median_ms(lambda o, d=d: K.sssp_sweep_plain(d, o, *args), 1,
+                       lambda prev=prev: out.copy_(prev))
+             for d, prev in states]
+    n = t["sweeps"]
+    for i in range(n):
+        dev = "not measured" if t["devices"] is None else \
+            f"{t['devices'][i]:.4f} ms device"
+        print(f"time [{card}]: sssp_sweep gen:rmat{MAIN_SCALE}x16 sweep {i}: "
+              f"{t['walls'][i]:.4f} ms wall, {dev}, plain {plain[i]:.4f}; "
+              f"pushes {slots[i]} slots; bound {per[i]:.4f} ms")
+    dev = "not measured" if t["device per search"] is None else \
+        f"{t['device per search']:.4f} ms a search, " \
+        f"{t['device per sweep']:.4f} per sweep"
+    print(f"time [{card}]: sssp_sweep gen:rmat{MAIN_SCALE}x16 from {source}: "
+          f"{n} sweeps; wall {t['wall per search']:.4f} ms a search, "
+          f"{t['wall per sweep']:.4f} per sweep; device {dev}; plain "
+          f"{sum(plain):.3f} ms a search; {sum(slots)} slots pushed "
+          f"({sum(slots) / g.n_edges:.3f} E); bound {sum(per):.4f} ms a "
+          f"search, {sum(per) / n:.4f} per sweep (bytes at {mems} rate)")
+    return {"sssp_sweep": t["wall per sweep"],
+            "sssp_sweep/plain": sum(plain) / n,
+            "sssp_sweep/device": t["device per sweep"],
+            "sssp_sweep/bound": (sum(per) / n, "bytes", mems),
+            "sssp_sweep/search": {
+                "sweeps": n, "source": source, "ms": t["wall per search"],
+                "device_ms": t["device per search"], "plain_ms": sum(plain),
+                "bound_ms": sum(per), "bound_memory": mems,
+                "slots_pushed": sum(slots)}}
+
+
 def time_sssp_kcore_kernels(csr, g) -> dict:
     """Each new kernel and its plain version, one call at a time through
     its wrapper: sssp_sweep summed over the sweeps of one search from the
-    highest-degree vertex, each from its saved state; collapse_starts and
-    sssp_predecessors once per search; expand_segments once per k-core
-    run (kcore_sweep is timed wave by wave at gen:rmat20x16:
-    time_kcore_waves)."""
+    highest-degree vertex, each from its saved state (its output buffer
+    restored outside the timed region), with its bound summed the same way
+    (sssp_sweep_bound); collapse_starts and sssp_predecessors once per
+    search; expand_segments once per k-core run (kcore_sweep is timed wave
+    by wave at gen:rmat20x16: time_kcore_waves, and sssp_sweep sweep by
+    sweep: time_sssp_sweeps). sssp_sweep's keys here are per search."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_sssp as FS
-    off, src, w = g.row_offsets, g.csc_src_indices, FS.csc_weights(g)
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    off, src = g.row_offsets, g.csc_src_indices
+    args = (off, g.col_indices, edge_weights(g))
     source = int(np.argmax(np.diff(csr.row_offsets)))
-    states, d = [], FS.init_dist_exp(g, source)
-    while True:
-        states.append(d)
-        d = d.clone()
-        if K.sssp_sweep(states[-1], d, off, src, w).item() == 0:
-            break
-    out = torch.empty_like(d)
-    t = {}
-    for name, fn in (("sssp_sweep", K.sssp_sweep),
-                     ("sssp_sweep/plain", K.sssp_sweep_plain)):
-        t[name] = sum(median_ms(lambda _, s=s: fn(s, out, off, src, w))
-                      for s in states)
+    states = sssp_sweep_states(g, source)
+    out = torch.empty_like(states[0][0])
+    ts = sssp_sweep_ms(g, states)
+    t = {"sssp_sweep@search": ts["wall per search"],
+         "sssp_sweep@search/device": ts["device per search"]}
+    t["sssp_sweep@search/plain"] = sum(
+        median_ms(lambda o, d=d: K.sssp_sweep_plain(d, o, *args),
+                  setup=lambda prev=prev: out.copy_(prev))
+        for d, prev in states)
+    per, mems, _ = sssp_sweep_bound(g, states)
+    t["sssp_sweep@search/bound"] = (sum(per), "bytes", mems)
+    d = states[-1][0]
     for suffix, fn in (("", K.collapse_starts),
                        ("/plain", K.collapse_starts_plain)):
         t["collapse_starts" + suffix] = median_ms(
             lambda _: fn(d, off, FS.INF_BITS, source))
-    args = (K.collapse_starts(d, off, FS.INF_BITS, source).view(
+    w = FS.csc_weights(g)
+    pargs = (K.collapse_starts(d, off, FS.INF_BITS, source).view(
         torch.float32), g.csc_offsets, src, w, g.n_edges)
     for suffix, fn in (("", K.sssp_predecessors),
                        ("/plain", K.sssp_predecessors_plain)):
-        t["sssp_predecessors" + suffix] = median_ms(lambda _: fn(*args))
-    args = (torch.where(g.vertex_mask(), g.out_degrees(), -1).int(), off,
-            g.n_edges_padded)
+        t["sssp_predecessors" + suffix] = median_ms(lambda _: fn(*pargs))
+    eargs = (torch.where(g.vertex_mask(), g.out_degrees(), -1).int(), off,
+             g.n_edges_padded)
     for suffix, fn in (("", K.expand_segments),
                        ("/plain", K.expand_segments_plain)):
-        t["expand_segments" + suffix] = median_ms(lambda _: fn(*args))
+        t["expand_segments" + suffix] = median_ms(lambda _: fn(*eargs))
     t["sweeps"] = len(states)
     vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
-    # per sweep: the starts' distances read and written, offsets, csc_src
-    # and weights; one float addition per edge
-    t["sssp_sweep/bound"] = bound(len(states) * (8 * vp + 4 * (vp + 1)
-                                                 + 8 * ep + 4),
-                                  len(states) * e, len(states))
     t["collapse_starts/bound"] = bound(4 * (vp + 1) + 8 * vp)
     t["sssp_predecessors/bound"] = bound(8 * vp + 4 * (vp + 1) + 8 * e, e)
     t["expand_segments/bound"] = bound(4 * vp + 4 * (vp + 1) + 4 * ep)
-    vals, counts = args[0], (off[1:] - off[:-1]).long()
+    vals, counts = eargs[0], (off[1:] - off[:-1]).long()
     t["expand_segments/library"] = library_ms(
         "expand_segments (torch.repeat_interleave)",
         lambda: torch.repeat_interleave(vals, counts, output_size=ep))
@@ -2191,6 +2436,45 @@ def check_bitmap_kernel(csr, where: str, errs: dict) -> tuple:
     return args
 
 
+def hub_pairs_inputs(seed: int = COLOR_SEED) -> tuple:
+    """NumPy (eu, ev, bitmap) of unsorted query pairs: a bitmap of
+    HUB_PAIRS rows and words, the last row all zero, the others with 0.5%
+    of their bits set but a hub u (row 7) with 20% (every word non-zero);
+    random pairs, the hub as u in HUB_PAIRS[3] of them scattered among the
+    rest, and pads (both ends the zero row) among them."""
+    rng = np.random.default_rng(seed)
+    rows, words, npairs, nhub, npads = HUB_PAIRS
+    bits = rng.random((rows, words * 32)) < 0.005
+    bits[7] = rng.random(words * 32) < 0.2
+    bits[-1] = False
+    bitmap = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+    eu = rng.integers(0, rows - 1, npairs)
+    ev = rng.integers(0, rows - 1, npairs)
+    eu[rng.choice(npairs, nhub, replace=False)] = 7
+    pads = rng.choice(npairs, npads, replace=False)
+    eu[pads] = ev[pads] = rows - 1
+    return eu.astype(np.int32), ev.astype(np.int32), bitmap
+
+
+def check_hub_pairs(errs: dict) -> None:
+    """bitmap_intersect_counts on hub_pairs_inputs, witness on and off,
+    against its plain version and a second launch."""
+    from essentials_tpu_torch import kernels as K
+    args = [torch.from_numpy(a).cuda() for a in hub_pairs_inputs()]
+    for witness in (True, False):
+        outs = [f(*args, witness) for f in (K.bitmap_intersect_counts,
+                                            K.bitmap_intersect_counts,
+                                            K.bitmap_intersect_counts_plain)]
+        hold_exact("bitmap_intersect_counts",
+                   *[[t for t in o if t is not None] for o in outs], errs,
+                   f"unsorted pairs with a hub, witness {witness}")
+    rows, words, npairs, nhub, npads = HUB_PAIRS
+    print(f"kernels: bitmap_intersect_counts on {npairs} unsorted pairs "
+          f"({nhub} of a hub u with every word non-zero, {npads} pads) over "
+          f"{rows} rows of {words} words, {int(outs[0][0].sum())} common "
+          f"bits, witness on and off: exact against plain, repeatable")
+
+
 def check_fill_kernels(g, source: int, where: str, errs: dict) -> dict:
     """The three fill/route kernels at every level of one search from
     ``source`` on whole-segment levels, each against its plain version and
@@ -2379,7 +2663,7 @@ def tc_main_path(csr17, csr20, csr13, g_u, csr_u) -> dict:
     host_total, host_vt = host_vertex_triangles(csr17)
     t_vt = time.perf_counter() - t0
     vt = r.vertex_triangles.cpu().numpy()
-    check(r.total == total17 == host_total,
+    check(r.total == total17 == host_total == TC_RMAT17_TOTAL,
           f"tc bitmap rmat{TC_SCALE} total {r.total}, host {total17} / "
           f"{host_total}")
     check(vt.shape == (csr17.n_rows,) and np.array_equal(vt, host_vt),
@@ -2636,16 +2920,33 @@ def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
     # without the witness: what its atomics (one per common element) cost
     t["bitmap_intersect_counts/no_witness"] = median_ms(
         lambda _: K.bitmap_intersect_counts(eu, ev, bitmap, False))
+    for suffix, witness in (("/device", True), ("/no_witness_device", False)):
+        t["bitmap_intersect_counts" + suffix] = device_ms(
+            lambda w=witness: K.bitmap_intersect_counts(eu, ev, bitmap, w),
+            TC_CYCLES)[0]
     ne, row = eu.numel(), bitmap.shape[1] * 4
-    rows = torch.unique(torch.cat([eu, ev])).numel()
-    # each row the pairs name read once, eu/ev read and cnt written, the
-    # witness array written; an AND and a popcount per word of each pair
+    us, listed, sectors = bitmap_work(eu, ev, bitmap)
+    # each distinct u row read once, each 32-byte sector of B[v] that holds
+    # a word under a non-zero word of B[u] read once (those of u rows are
+    # already read), eu/ev read and cnt written, the witness array
+    # written; an AND and a popcount per such word and pair
     t["bitmap_intersect_counts/bound"] = bound(
-        rows * row + 12 * ne + 32 * row, 2 * ne * row / 4)
+        us * row + 32 * sectors + 12 * ne + 32 * row, 2 * listed)
+    # the same, but one sector read for each such word and pair
+    t["bitmap_intersect_counts/bound_per_pair"] = bound(
+        us * row + 32 * listed + 12 * ne + 32 * row, 2 * listed)
+    t["bitmap_intersect_counts/work"] = {"u_rows": us,
+                                         "listed_words": listed,
+                                         "other_sectors": sectors}
+    # each row the pairs name read once (every word of B[v], not only those
+    # under B[u]'s non-zero words), and an AND and a popcount per word of
+    # each pair: the earlier work model
+    named = torch.unique(torch.cat([eu, ev])).numel()
+    t["bitmap_intersect_counts/bound_named_rows"] = bound(
+        named * row + 12 * ne + 32 * row, 2 * ne * row / 4)
     # the same, but B[v] read per pair: the TPU kernel's streaming model
     t["bitmap_intersect_counts/bound_streaming"] = bound(
-        ne * row + torch.unique(eu).numel() * row + 12 * ne + 32 * row,
-        2 * ne * row / 4)
+        ne * row + us * row + 12 * ne + 32 * row, 2 * ne * row / 4)
     t["bitmap_intersect_counts/library"] = None
     route, fill, (s, flags) = (fill_args[k] for k in ("route", "fill",
                                                        "broadcast"))
@@ -2664,6 +2965,46 @@ def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
         "segment_broadcast_total (torch.repeat_interleave of the "
         "segment-end values)")))
     return t
+
+
+def bitmap_work(eu: torch.Tensor, ev: torch.Tensor, bitmap: torch.Tensor,
+                rows_at_once: int = 4096, pairs_at_once: int = 1 << 16
+                ) -> tuple:
+    """What bitmap_intersect_counts must read: (the distinct u rows, the
+    sum over pairs of B[u]'s non-zero words (the B[v] words under them),
+    the distinct 32-byte sectors of B[v] holding such words in rows that
+    are no u row)."""
+    us = torch.unique(eu)
+    rows, words = bitmap.shape
+    rr, ww = [], []
+    for lo in range(0, us.numel(), rows_at_once):
+        r = us[lo:lo + rows_at_once].long()
+        i, w = (bitmap[r] != 0).nonzero(as_tuple=True)
+        rr.append(r[i])
+        ww.append(w)
+    nz_row, nz_word = torch.cat(rr), torch.cat(ww)   # sorted by row
+    cnt = torch.bincount(nz_row, minlength=rows)
+    first = torch.cumsum(cnt, 0) - cnt
+    listed = int(cnt[eu.long()].sum())
+    is_u = torch.zeros(rows, dtype=torch.bool, device=eu.device)
+    is_u[us.long()] = True
+    keys = []
+    for lo in range(0, eu.numel(), pairs_at_once):
+        u, v = eu[lo:lo + pairs_at_once].long(), ev[lo:lo + pairs_at_once]
+        keep = ~is_u[v.long()]
+        u, v = u[keep], v[keep].long()
+        n = cnt[u]
+        total = int(n.sum())
+        if total == 0:
+            continue
+        own = torch.repeat_interleave(torch.arange(u.numel(),
+                                                   device=u.device), n,
+                                      output_size=total)
+        at = first[u][own] + torch.arange(total, device=u.device) \
+            - (torch.cumsum(n, 0) - n)[own]
+        keys.append(torch.unique(v[own] * (words // 8) + nz_word[at] // 8))
+    sectors = int(torch.unique(torch.cat(keys)).numel()) if keys else 0
+    return us.numel(), listed, sectors
 
 
 def segment_ends(flags: torch.Tensor) -> torch.Tensor:
@@ -3269,6 +3610,26 @@ def group_sssp(run: Run) -> None:
                                  errs)
     check_sssp_kcore_kernels(*kcore_stress_graph("cuda"),
                              "a hub, multi-edges and self-loops", errs)
+    csr_b, g_b = balanced_graph("cuda")
+    where = (f"a degree-balanced directed graph (V={g_b.n_vertices}, "
+             f"E={g_b.n_edges}, a hub of {g_b.max_degree})")
+    check_sssp_kcore_kernels(csr_b, g_b, where, errs)
+    rb = kcore.run(g_b, warmup=False)
+    check(np.array_equal(rb.core.cpu().numpy(), kcore.cpu_reference(csr_b)),
+          "kcore on the degree-balanced directed graph differs from the "
+          "host peeling")
+    s = int(np.argmax(np.diff(csr_b.row_offsets)))
+    d = sssp.run(g_b, s, warmup=False).distances.cpu().numpy()
+    ref = host_dijkstra(csr_b, s)
+    reach = np.isfinite(ref)
+    check(np.array_equal(np.isfinite(d), reach)
+          and bool(np.all(np.abs(d[reach] - ref[reach])
+                          <= SSSP_RTOL * ref[reach])),
+          "sssp on the degree-balanced directed graph outside rtol "
+          f"{SSSP_RTOL} of Dijkstra")
+    print(f"main path: {where}: kcore.run ({rb.iterations} waves) equal to "
+          f"the host peeling; sssp.run auto (fused) from {s} within rtol "
+          f"{SSSP_RTOL} of the float64 Dijkstra, reach set exact")
     run.phases.done("9 sssp/kcore kernels")
 
     # 10. the SSSP and k-core main path at rmat20
@@ -3282,6 +3643,7 @@ def group_sssp(run: Run) -> None:
           f"sweeps, spmv_slabs<add,min> exact against plain and repeatable")
     check_kernels(g_m, top, errs)
     check_kcore_launches(g_m, where)
+    check_sssp_launches(g_m, top, where)
     run.phases.done("10a kernels at the main path's shapes")
     sssp_launches, sssp_sources, sssp_runs = sssp_kcore_main_path(csr_m, g_m)
     run.by_path.update(sssp_launches)
@@ -3291,15 +3653,21 @@ def group_sssp(run: Run) -> None:
     time_sssp_kcore(g_m, sssp_sources, sssp_runs, card)
     run.t.update(time_windowed_sweeps(g_m, states, card))
     run.t.update(time_kcore_waves(g_m, card))
+    run.t.update(time_sssp_sweeps(g_m, card))
     csr18, g18 = run.weighted_graph(SCALE)
     t = time_sssp_kcore_kernels(csr18, g18)
     run.t.update(t)
+    dev = t["sssp_sweep@search/device"]
+    print(f"time [{card}]: sssp_sweep per search (weighted rmat{SCALE}, the "
+          f"{t['sweeps']} sweeps of one search summed): "
+          f"{t['sssp_sweep@search']:.4f} ms wall, "
+          + ("not measured" if dev is None else f"{dev:.4f} ms device")
+          + f", plain {t['sssp_sweep@search/plain']:.4f} ms, bound "
+          f"{t['sssp_sweep@search/bound'][0]:.4f} ms")
     for name in SSSP_REPLACES:
-        if name != "kcore_sweep":
+        if name not in ("kcore_sweep", "sssp_sweep"):
             print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
-                  f"{t[name + '/plain']:.4f} ms (weighted rmat{SCALE}; "
-                  f"sssp_sweep summed over the {t['sweeps']} sweeps of one "
-                  f"search)")
+                  f"{t[name + '/plain']:.4f} ms (weighted rmat{SCALE})")
     for v in sssp.VARIANTS:
         profile(f"sssp {v} rmat{MAIN_SCALE}, {SSSP_RUNS} sssp.run calls",
                 lambda v=v: [sssp.run(g_m, int(s), variant=v, warmup=False)
@@ -3385,6 +3753,7 @@ def group_tc(run: Run) -> None:
     check_bitmap_kernel(run.bfs_graph(12)[0], "rmat12", errs)
     csr17 = run.tc_graph(TC_SCALE)
     bitmap_args = check_bitmap_kernel(csr17, f"gen:rmat{TC_SCALE}x16", errs)
+    check_hub_pairs(errs)
     for scale in (12, SCALE):
         csr_b, g_b = run.bfs_graph(scale)
         fill_args = check_fill_kernels(
@@ -3423,13 +3792,25 @@ def group_tc(run: Run) -> None:
               f"{'none' if lib is None else f'{lib:.4f} ms'}"
               + ("" if lib_dev is None else f" ({lib_dev:.4f} ms of device "
                                             f"time)"))
+    dev = t["bitmap_intersect_counts/no_witness_device"]
+    work = t["bitmap_intersect_counts/work"]
     print(f"time [{card}]: bitmap_intersect_counts without the witness "
-          f"{t['bitmap_intersect_counts/no_witness']:.4f} ms per launch "
-          f"(gen:rmat{TC_SCALE}x16)")
-    b = t["bitmap_intersect_counts/bound_streaming"]
-    print(f"time [{card}]: bitmap_intersect_counts bound with B[v] read per "
-          f"pair (the streaming model): {b[0]:.4f} ms ({b[1]} at {b[2]} "
-          f"rate)")
+          f"{t['bitmap_intersect_counts/no_witness']:.4f} ms per launch"
+          + ("" if dev is None else f" ({dev:.4f} ms of device time)")
+          + f" (gen:rmat{TC_SCALE}x16); the bound reads each of "
+          f"{work['u_rows']} distinct u rows once and "
+          f"{work['other_sectors']} more sectors of B[v] under "
+          f"{work['listed_words']} listed words (a word of B[v] under each "
+          f"non-zero word of B[u], per pair)")
+    for key, what in (("bound_per_pair", "a sector of B[v] read per listed "
+                       "word and pair"),
+                      ("bound_named_rows", "each named row once, every "
+                       "word of each pair ANDed (the earlier model)"),
+                      ("bound_streaming", "B[v] read per pair (the TPU "
+                       "kernel's streaming model)")):
+        b = t["bitmap_intersect_counts/" + key]
+        print(f"time [{card}]: bitmap_intersect_counts bound with {what}: "
+              f"{b[0]:.4f} ms ({b[1]} at {b[2]} rate)")
     run.phases.done("17 tc/fill times")
 
 
@@ -3517,8 +3898,16 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
     if name in SPMV_REPLACES:
         out.update(max_rel_err=run.errs[name + "/rel"], timed=key)
     if name == "bitmap_intersect_counts":
+        out["bound_counts"] = "each distinct u row once, each 32-byte " \
+            "sector of B[v] under a non-zero word of B[u] once, eu/ev/cnt " \
+            "and the witness array"
+        out["work"] = t[key + "/work"]
+        out["bound_per_pair_sectors_ms"] = t[key + "/bound_per_pair"][0]
+        out["bound_named_rows_ms"] = t[key + "/bound_named_rows"][0]
         out["bound_streaming_ms"] = t[key + "/bound_streaming"][0]
         out["ms_no_witness"] = t[key + "/no_witness"]
+        out["device_ms"] = t[key + "/device"]
+        out["device_ms_no_witness"] = t[key + "/no_witness_device"]
     if name in ("spmv_rows", "spmv_slabs", "gather_payloads",
                 "advance_count", "scan", "segment_broadcast_total",
                 "suffix_fill_update", "segment_minmax", "kcore_sweep"):
@@ -3613,6 +4002,17 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
     if name == "kcore_sweep":
         out["per_wave"] = "mean over the waves of one run at gen:rmat20x16"
         out["per_run"] = t[key + "/run"]
+    if name == "sssp_sweep":
+        out["device_ms"] = t.get(key + "/device")
+        out["per_sweep"] = "mean over the sweeps of one search at " \
+                           "gen:rmat20x16"
+        out["per_search"] = t[key + "/search"]
+        k = key + "@search"
+        if k in t:
+            out["per_search_weighted_rmat18"] = {
+                "ms": t[k], "device_ms": t[k + "/device"],
+                "plain_ms": t[k + "/plain"], "bound_ms": t[k + "/bound"][0],
+                "bound_memory": t[k + "/bound"][2], "sweeps": t["sweeps"]}
     return out
 
 

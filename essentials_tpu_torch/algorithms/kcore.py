@@ -32,13 +32,12 @@ class KcoreResult(NamedTuple):
 
 
 def fused_supported(g: Graph) -> bool:
-    """The edge-axis wave needs the symmetric layout (each in-neighbour's
-    degree sits at the start of its own segment), and its push a symmetric
-    adjacency: each vertex's in-neighbours are its out-neighbours, with
-    multiplicity, so that the CSC sources equal the CSR columns (as on an
-    undirected graph)."""
-    return bool(g.symmetric_layout) and torch.equal(g.col_indices,
-                                                     g.csc_src_indices)
+    """The edge-axis wave needs the symmetric layout: each in-neighbour's
+    degree sits at the start of its own segment, and a vertex's CSR row
+    lies at the positions of its segment, so that its push along the CSR
+    columns reaches the vertices whose pull counts it (directed graphs
+    with in-degree equal to out-degree included)."""
+    return bool(g.symmetric_layout)
 
 
 def run(g: Graph, *, max_iterations: int | None = None, warmup: bool = True,
@@ -55,9 +54,9 @@ def run(g: Graph, *, max_iterations: int | None = None, warmup: bool = True,
         variant = "fused"
     throw_if(variant not in VARIANTS, f"unknown kcore variant {variant!r}")
     throw_if(not fused_supported(g),
-             "kcore on a graph without a symmetric layout and adjacency "
-             "needs the adaptive sweeps, which are not ported yet "
-             "(ROADMAP.md queue 1, item 8)")
+             "kcore on a graph without a symmetric layout needs the "
+             "adaptive sweeps, which are not ported yet (ROADMAP.md queue "
+             "1, item 8)")
     max_it = (max_iterations if max_iterations is not None
               else 4 * g.n_vertices + 8)
 

@@ -9,17 +9,20 @@
 //
 // Layout contract (essentials_tpu_torch/graph/graph.py), as in
 // bfs_kernels.cu: `off` is the graph's [Vp+1] int32 CSR offsets, equal to its
-// CSC offsets on a symmetric layout; `csc_src` is the [Ep] int32 source of
-// each CSC slot, sorted by (dst, src); `w` is the [Ep] float32 weight of each
-// CSC slot (the graph's csc_values). Edge-axis state arrays are [Ep] int32
-// of which only the positions off[v] (segment starts) are read or written.
+// CSC offsets on a symmetric layout; `col` is the [Ep] int32 column of each
+// CSR slot and `csc_src` the [Ep] int32 source of each CSC slot, sorted by
+// (dst, src); `w` is the [Ep] float32 weight of each CSR slot (the graph's
+// values) for the sweep, of each CSC slot (its csc_values) for the
+// predecessors. Edge-axis state arrays are [Ep] int32 of which only the
+// positions off[v] (segment starts) are read or written.
 //
 // The sweeps read one buffer and write another (ping-pong). A min or a peel
 // updated in place would let a vertex see a neighbour's state of the same
 // sweep: SSSP would converge in other sweeps than the JAX package's Jacobi
 // sweeps, and k-core would miss a neighbour peeled earlier in the sweep.
-// Every non-empty start of the output is written in each sweep, so the
-// buffers never need a copy.
+// k-core writes every non-empty start of the output in each wave; SSSP
+// reads the output buffer's old distances (the sweep before the input's)
+// and writes only the starts that differ, so the buffers never need a copy.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -36,58 +39,207 @@ __device__ __forceinline__ long long global_warp() {
   return (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> 5;
 }
 
-// One Bellman-Ford sweep on the edge axis, with one warp per destination v.
+// The push lists of both sweeps. A dense pass over the vertices lists the
+// CSR rows of the vertices that must push (the changed distances of an SSSP
+// sweep, the peeled vertices of a k-core wave) as ranges of at most
+// kPushSplit slots, each with a value for its slots (a distance, or 0); a
+// push kernel then takes the ranges 32 at a time per warp (at most 1,024
+// slots: a sweep's slots spread over many warps, a hub's over many), a lane
+// per slot and kPushItems slots in flight a lane.
+constexpr int kPushSplit = 32;              // slots per listed range
+constexpr int kPushItems = 8;               // slots a lane has in flight
+
+// Appends [b, e) of each lane with `on` to `ranges` as {first slot, end
+// slot, value, 0} pieces of at most kPushSplit slots, at one atomicAdd on
+// *listed per warp. Every lane of the warp calls it.
+__device__ __forceinline__ void list_row(bool on, int b, int e, int value,
+                                         int* listed, int4* ranges) {
+  const int lane = threadIdx.x & 31;
+  const int nr = on ? (e - b + kPushSplit - 1) / kPushSplit : 0;
+  int incl = nr;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int x = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += x;
+  }
+  int at = 0;
+  if (lane == 31 && incl > 0) at = atomicAdd(listed, incl);
+  at = __shfl_sync(kFullMask, at, 31) + incl - nr;
+  for (int r = 0; r < nr; ++r) {
+    const int q = b + r * kPushSplit;
+    ranges[at + r] = make_int4(q, min(q + kPushSplit, e), value, 0);
+  }
+}
+
+// A warp's 32 listed ranges laid end to end: lane l holds range r0 + l
+// (nothing past `listed`); place t < total lies in the range of lane
+// owner(t), at slot t + that lane's shift.
+struct WarpRanges {
+  int incl;                                 // places up to this lane's end
+  int shift;                                // this lane's slot - place
+  int value;                                // this lane's range's value
+  int total;                                // places of the 32 ranges
+
+  __device__ __forceinline__ WarpRanges(const int4* __restrict__ ranges,
+                                        long long r0, int listed) {
+    const int lane = threadIdx.x & 31;
+    int q0 = 0;
+    int len = 0;
+    value = 0;
+    if (r0 + lane < listed) {
+      const int4 r = ranges[r0 + lane];
+      q0 = r.x;
+      len = r.y - r.x;
+      value = r.z;
+    }
+    incl = len;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += x;
+    }
+    total = __shfl_sync(kFullMask, incl, 31);
+    shift = q0 - (incl - len);
+  }
+
+  // the lane whose range holds place t; every lane calls it
+  __device__ __forceinline__ int owner(int t) const {
+    int o = 0;                              // the lanes whose ranges end by t
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      if (__shfl_sync(kFullMask, incl, o + s - 1) <= t) o += s;
+    }
+    return o;
+  }
+};
+
+// One Bellman-Ford sweep on the edge axis: a dense pass over the vertices,
+// then a push from the vertices whose distance changed in the sweep before.
 //
 // Replaces the JAX package's three Pallas kernels of one sweep
 // (essentials_tpu/ops/fused_sssp.py: _k1_fill_addw_kernel :74, the Benes
 // router middle cube_router._k2_wbc_kernel :330 / _k2_tfbc_kernel :363, and
-// _k3_suffixmin_update_kernel :98). There the CSR->CSC move is a static
-// permutation because that device's gathers are element-serialized; here the
-// source's distance is loaded directly through csc_src and off.
+// _k3_suffixmin_update_kernel :98). Those relax every edge in every sweep:
+// d_{t+1}[v] = min(d_t[v], min over in-edges u -> v of f32(d_t[u] + w)).
+// Only the edges out of a vertex u with d_t[u] != d_{t-1}[u] can lower
+// anything: for any other u, sweep t already folded f32(d_{t-1}[u] + w) =
+// f32(d_t[u] + w) into d_t[v] (with d_{-1} all +inf, sweep 0 pushes from
+// the source alone). So each sweep reads only the changed vertices' edges,
+// with the same result.
 //
 // Distances are float32 bit patterns in int32: non-negative floats order as
-// their bits do, so the min runs on integers. For v with a non-empty segment:
-//   s = min over in-edges q of bits(f32(dist_in[off[csc_src[q]]]) + w[q])
-//   dist_out[off[v]] = s < dist_in[off[v]] ? s : dist_in[off[v]]
-// and v is counted when s is smaller. The add is __fadd_rn, which nvcc does
-// not contract, so the bits equal the plain version's and the JAX package's;
-// +inf + w stays +inf.
+// their bits do, so the min runs on integers. dist_in holds d_t and
+// dist_out d_{t-1} (the ping-pong buffers; +inf before the first sweep) at
+// the non-empty starts. Three launches:
+// * sssp_sweep_kernel, one thread per vertex v, reads both starts, writes
+//   d_t into dist_out where they differ and lists v's CSR row with d_t[v]
+//   there; it copies d_t[v] into two [Vp] arrays, best and cur (+inf at an
+//   empty segment);
+// * sssp_sweep_push_kernel takes each listed slot q of a row u: v = col[q],
+//   c = bits(__fadd_rn(d_t[u], w[q])) (nvcc does not contract __fadd_rn,
+//   so the bits equal the plain version's and the JAX package's; +inf + w
+//   stays +inf), and atomicMin(&best[v], c) where c is below what an L2
+//   read of best[v] shows. v is counted by the one atomic whose returned
+//   old value is still cur[v] and above c: the first that lowers it;
+// * sssp_sweep_update_kernel, one thread per vertex, writes best[v] into
+//   v's start where it is below cur[v].
+// The CSR row is u's out-edges, directed or not; on a symmetric layout v's
+// row starts where its segment does, so off[v] is v's start. The min is
+// exact in any order, so the bits repeat.
 //
-// What bounds it: each in-edge costs a coalesced csc_src and w load and two
-// dependent scattered loads (off[src], then dist_in[...]), so a sweep is
-// bound by the latency and sector traffic of random gathers. Unlike
-// bfs_level it cannot leave a segment early: the min needs every edge. A
-// hub's in-edges run on one warp, which leaves the load unbalanced on
-// power-law graphs; the loop is unrolled so that a lane keeps several
-// gathers in flight.
+// scratch: {improved, ranges listed, 0, 0}, best [vp4], cur [vp4], then the
+// ranges (vp4 = vp rounded up to 4, so the ranges are 16-byte aligned); the
+// entry point sets the first two to 0.
+//
+// What bounds it: the dense passes read the offsets and, at each non-empty
+// start, one 32-byte sector of each buffer, and stream the [Vp] arrays; the
+// push reads per listed slot its col and w words and one scattered sector
+// of best (a [Vp] array: 4 MB at 2^20 vertices, in the L2). A start's
+// sector (the edge axis is [Ep]) is touched only by the dense passes. A
+// hub's row is spread over many warps.
 __global__ void __launch_bounds__(kBlock)
 sssp_sweep_kernel(const int* __restrict__ dist_in, int* __restrict__ dist_out,
-                  const int* __restrict__ off, const int* __restrict__ csc_src,
-                  const float* __restrict__ w, int vp,
-                  int* __restrict__ count) {
+                  const int* __restrict__ off, int vp, int* scalars,
+                  int* __restrict__ best, int* __restrict__ cur,
+                  int4* __restrict__ ranges) {
+  const int v = blockIdx.x * kBlock + threadIdx.x;
+  bool changed = false;
+  int b = 0;
+  int e = 0;
+  int d = kInfBits;
+  if (v < vp) {
+    b = off[v];
+    e = off[v + 1];
+    if (b < e) {
+      d = dist_in[b];
+      changed = d != dist_out[b];
+      if (changed) dist_out[b] = d;
+    }
+    best[v] = d;
+    cur[v] = d;
+  }
+  list_row(changed, b, e, d, &scalars[1], ranges);
+}
+
+__global__ void __launch_bounds__(kBlock)
+sssp_sweep_push_kernel(const int* __restrict__ cur, int* best,
+                       const int* __restrict__ col,
+                       const float* __restrict__ w, int* scalars,
+                       const int4* __restrict__ ranges) {
   const int lane = threadIdx.x & 31;
-  const long long warp = global_warp();
-  bool improved = false;
-  if (warp < vp) {                          // warp-uniform
-    const int v = static_cast<int>(warp);
-    const int b = off[v];
-    const int e = off[v + 1];
-    if (b < e) {                            // warp-uniform
-      int s = kInfBits;
-#pragma unroll 4
-      for (int q = b + lane; q < e; q += 32) {
-        const float du = __int_as_float(dist_in[off[csc_src[q]]]);
-        s = min(s, __float_as_int(__fadd_rn(du, w[q])));
+  const int listed = scalars[1];            // written by the dense pass
+  const long long step = 32LL * gridDim.x * kWarpsPerBlock;
+  int improved = 0;
+  for (long long r0 = 32 * global_warp(); r0 < listed; r0 += step) {
+    const WarpRanges wr(ranges, r0, listed);
+    for (int t0 = 0; t0 < wr.total; t0 += 32 * kPushItems) {
+      int q[kPushItems];
+      float du[kPushItems];
+#pragma unroll
+      for (int i = 0; i < kPushItems; ++i) {
+        const int t = t0 + 32 * i + lane;
+        const int o = wr.owner(t);
+        const int sh = __shfl_sync(kFullMask, wr.shift, o);
+        du[i] = __int_as_float(__shfl_sync(kFullMask, wr.value, o));
+        q[i] = t < wr.total ? t + sh : -1;
       }
-      s = __reduce_min_sync(kFullMask, s);
-      const int old = dist_in[b];
-      improved = s < old;
-      if (lane == 0) dist_out[b] = improved ? s : old;
+      int v[kPushItems];
+      float c[kPushItems];
+#pragma unroll
+      for (int i = 0; i < kPushItems; ++i) {
+        v[i] = q[i] >= 0 ? col[q[i]] : -1;
+        c[i] = q[i] >= 0 ? w[q[i]] : 0.0f;
+      }
+      int seen[kPushItems];
+#pragma unroll
+      for (int i = 0; i < kPushItems; ++i) {
+        seen[i] = v[i] >= 0 ? __ldcg(&best[v[i]]) : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < kPushItems; ++i) {
+        const int cand = __float_as_int(__fadd_rn(du[i], c[i]));
+        // a stale read is never below best[v]: it only lets an atomic
+        // through that finds nothing to lower
+        if (v[i] >= 0 && cand < seen[i]) {
+          const int old = atomicMin(&best[v[i]], cand);
+          if (cand < old && old == cur[v[i]]) ++improved;
+        }
+      }
     }
   }
-  // only lane 0 of each warp stands for its vertex in the count
-  const int n = __syncthreads_count(improved && lane == 0);
-  if (threadIdx.x == 0 && n > 0) atomicAdd(count, n);
+  improved = __reduce_add_sync(kFullMask, improved);
+  if (lane == 0 && improved > 0) atomicAdd(&scalars[0], improved);
+}
+
+__global__ void __launch_bounds__(kBlock)
+sssp_sweep_update_kernel(int* __restrict__ dist_out,
+                         const int* __restrict__ off, int vp,
+                         const int* __restrict__ best,
+                         const int* __restrict__ cur) {
+  const int v = blockIdx.x * kBlock + threadIdx.x;
+  if (v >= vp) return;
+  const int d = best[v];
+  if (d < cur[v]) dist_out[off[v]] = d;     // below cur: a non-empty start
 }
 
 // Smallest-id shortest-path predecessor, with one warp per vertex v.
@@ -153,29 +305,26 @@ sssp_predecessors_kernel(const float* __restrict__ dist,
 // deg holds the remaining degree at each start, -1 once peeled. For v with a
 // non-empty segment and d = deg_in[off[v]]:
 //   0 <= d < k (peeled):  deg_out = -1, core_out = k - 1, counted;
-//   d >= k (survivor):    deg_out = d - #{in-edges q : 0 <= deg_in[off[
-//                         csc_src[q]]] < k}, core_out = core_in, and the
-//                         new degree enters the minimum;
+//   d >= k (survivor):    deg_out = d - #{in-edges u -> v : 0 <= deg_in[off[
+//                         u]] < k}, core_out = core_in, and the new degree
+//                         enters the minimum;
 //   d < 0 (peeled before): both copied.
 //
 // kcore_sweep_kernel, one thread per vertex, writes every start as if
 // nothing fell (a survivor's deg_out = d), counts the peeled (block count,
 // one atomicAdd per block), folds the survivors' d into the minimum (block
-// min, one atomicMin per block), and appends each peeled vertex's segment
-// to a list as ranges of at most kPushSplit slots (one atomicAdd per warp).
-// kcore_sweep_push_kernel then takes the ranges 32 at a time per warp (at
-// most 1,024 slots: a wave's slots spread over many warps, a hub's over 63),
-// a lane per slot and kPushItems slots in flight a lane: it loads u =
-// csc_src[q] and, where u survives on deg_in, takes one from
-// deg_out[off[u]] with atomicSub. On a symmetric layout
-// (each edge u -> v has its v -> u, with multiplicity, as an undirected
-// graph has) v's in-neighbours are its out-neighbours, so the subtractions
-// are exactly the pull's counts. Each subtraction's result enters the
-// minimum: a survivor's last one gives its new degree, the others more, and
-// a survivor with none keeps its d, so min(survivors' d, every result) is
-// the smallest new degree. Integer atomics are exact in any order: the
-// results repeat bit for bit. The push follows the dense pass on the stream,
-// so it sees every start written.
+// min, one atomicMin per block), and lists each peeled vertex's CSR row
+// (list_row). kcore_sweep_push_kernel loads v = col[q] for each listed slot
+// q of a peeled u and, where v survives on deg_in, takes one from
+// deg_out[off[v]] with atomicSub. On a symmetric layout u's row sits at the
+// positions of its segment and v's start is off[v], and the out-edges u ->
+// v are exactly the in-edges that v's pull counts, on a directed graph as
+// on an undirected one. Each subtraction's result enters the minimum: a
+// survivor's last one gives its new degree, the others more, and a survivor
+// with none keeps its d, so min(survivors' d, every result) is the smallest
+// new degree. Integer atomics are exact in any order: the results repeat
+// bit for bit. The push follows the dense pass on the stream, so it sees
+// every start written.
 //
 // scalars: {peeled, smallest surviving degree (INT_MAX when none survives),
 // ranges listed, unused}; the entry point copies {0, INT_MAX, 0, 0} into
@@ -183,17 +332,14 @@ sssp_predecessors_kernel(const float* __restrict__ dist,
 //
 // What bounds it: a [Vp] pass (offsets, and the start's degree and core read
 // and written at each vertex: one 32-byte sector each where segments are
-// long), then per peeled slot its csc_src word and two scattered sectors,
-// off[u] and deg_in / deg_out at u's start.
-constexpr int kPushSplit = 32;              // slots per listed range
-constexpr int kPushItems = 8;               // slots a lane has in flight
-
+// long), then per peeled slot its col word and two scattered sectors,
+// off[v] and deg_in / deg_out at v's start.
 __global__ void __launch_bounds__(kBlock)
 kcore_sweep_kernel(const int* __restrict__ deg_in,
                    const int* __restrict__ core_in, int* __restrict__ deg_out,
                    int* __restrict__ core_out, const int* __restrict__ off,
                    int vp, int k, int* __restrict__ scalars,
-                   int2* __restrict__ ranges) {
+                   int4* __restrict__ ranges) {
   __shared__ int warp_min[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
   const int v = blockIdx.x * kBlock + threadIdx.x;
@@ -217,21 +363,7 @@ kcore_sweep_kernel(const int* __restrict__ deg_in,
       }
     }
   }
-  // the peeled segments' ranges, appended at one atomicAdd per warp
-  const int nr = peeled ? (e - b + kPushSplit - 1) / kPushSplit : 0;
-  int incl = nr;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int x = __shfl_up_sync(kFullMask, incl, d);
-    if (lane >= d) incl += x;
-  }
-  int at = 0;
-  if (lane == 31 && incl > 0) at = atomicAdd(&scalars[2], incl);
-  at = __shfl_sync(kFullMask, at, 31) + incl - nr;
-  for (int r = 0; r < nr; ++r) {
-    const int q = b + r * kPushSplit;
-    ranges[at + r] = make_int2(q, min(q + kPushSplit, e));
-  }
+  list_row(peeled, b, e, 0, &scalars[2], ranges);
   alive = __reduce_min_sync(kFullMask, alive);
   if (lane == 0) warp_min[threadIdx.x >> 5] = alive;
   // the count is also the barrier that publishes warp_min
@@ -247,58 +379,36 @@ kcore_sweep_kernel(const int* __restrict__ deg_in,
 __global__ void __launch_bounds__(kBlock)
 kcore_sweep_push_kernel(const int* __restrict__ deg_in, int* deg_out,
                         const int* __restrict__ off,
-                        const int* __restrict__ csc_src, int k,
-                        int* scalars, const int2* __restrict__ ranges) {
+                        const int* __restrict__ col, int k,
+                        int* scalars, const int4* __restrict__ ranges) {
   const int lane = threadIdx.x & 31;
   const int listed = scalars[2];            // written by the dense pass
   const long long step = 32LL * gridDim.x * kWarpsPerBlock;
   int least = INT_MAX;
   for (long long r0 = 32 * global_warp(); r0 < listed; r0 += step) {
-    // lane l holds range r0 + l; its slots are the places [excl, incl) of
-    // the warp's 32 ranges laid end to end
-    int q0 = 0;
-    int len = 0;
-    if (r0 + lane < listed) {
-      const int2 r = ranges[r0 + lane];
-      q0 = r.x;
-      len = r.y - r.x;
-    }
-    int incl = len;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int x = __shfl_up_sync(kFullMask, incl, d);
-      if (lane >= d) incl += x;
-    }
-    const int total = __shfl_sync(kFullMask, incl, 31);
-    const int shift = q0 - (incl - len);    // place t of the range: slot
-                                            // t + shift
-    for (int t0 = 0; t0 < total; t0 += 32 * kPushItems) {
+    const WarpRanges wr(ranges, r0, listed);
+    for (int t0 = 0; t0 < wr.total; t0 += 32 * kPushItems) {
       int q[kPushItems];
 #pragma unroll
-      for (int u = 0; u < kPushItems; ++u) {
-        const int t = t0 + 32 * u + lane;
-        int owner = 0;                      // the lanes whose ranges end by t
-#pragma unroll
-        for (int s = 16; s > 0; s >>= 1) {
-          if (__shfl_sync(kFullMask, incl, owner + s - 1) <= t) owner += s;
-        }
-        const int sh = __shfl_sync(kFullMask, shift, owner);
-        q[u] = t < total ? t + sh : -1;
+      for (int i = 0; i < kPushItems; ++i) {
+        const int t = t0 + 32 * i + lane;
+        const int sh = __shfl_sync(kFullMask, wr.shift, wr.owner(t));
+        q[i] = t < wr.total ? t + sh : -1;
       }
-      int src[kPushItems];
+      int dst[kPushItems];
 #pragma unroll
-      for (int u = 0; u < kPushItems; ++u) {
-        src[u] = q[u] >= 0 ? csc_src[q[u]] : -1;
+      for (int i = 0; i < kPushItems; ++i) {
+        dst[i] = q[i] >= 0 ? col[q[i]] : -1;
       }
       int at[kPushItems];
 #pragma unroll
-      for (int u = 0; u < kPushItems; ++u) {
-        at[u] = src[u] >= 0 ? off[src[u]] : -1;
+      for (int i = 0; i < kPushItems; ++i) {
+        at[i] = dst[i] >= 0 ? off[dst[i]] : -1;
       }
 #pragma unroll
-      for (int u = 0; u < kPushItems; ++u) {
-        if (at[u] >= 0 && deg_in[at[u]] >= k) {   // u survives this wave
-          least = min(least, atomicSub(&deg_out[at[u]], 1) - 1);
+      for (int i = 0; i < kPushItems; ++i) {
+        if (at[i] >= 0 && deg_in[at[i]] >= k) {   // v survives this wave
+          least = min(least, atomicSub(&deg_out[at[i]], 1) - 1);
         }
       }
     }
@@ -360,22 +470,52 @@ collapse_starts_kernel(const int* __restrict__ exp, const int* __restrict__ off,
 int warp_blocks(int vp) { return (vp + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 int thread_blocks(int vp) { return (vp + kBlock - 1) / kBlock; }
 
+// The push kernels' persistent grid: blocks per SM.
+constexpr int kPushBlocksPerSm = 4;
+
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
 }  // namespace
 
 extern "C" {
 
-// `count` ([1] int32) is set to 0 here, then counts the improved vertices.
+// `scratch` (16-byte aligned) holds 4 + 2 * vp4 int32 and then room for
+// vp + ceil(ep / etpu_push_split()) int4, vp4 = vp rounded up to 4 (see
+// sssp_sweep_kernel); its first two words are set to 0 here and then hold
+// {improved, ranges listed}. Three launches: the dense pass, the push over
+// the ranges it lists, the update of the starts.
 int etpu_sssp_sweep(const void* dist_in, void* dist_out, const void* off,
-                    const void* csc_src, const void* w, int vp, void* count,
+                    const void* col, const void* w, int vp, void* scratch,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(count, 0, sizeof(int), s);
-  if (vp > 0) {
-    sssp_sweep_kernel<<<warp_blocks(vp), kBlock, 0, s>>>(
-        static_cast<const int*>(dist_in), static_cast<int*>(dist_out),
-        static_cast<const int*>(off), static_cast<const int*>(csc_src),
-        static_cast<const float*>(w), vp, static_cast<int*>(count));
-  }
+  int* scalars = static_cast<int*>(scratch);
+  cudaError_t err = cudaMemsetAsync(scalars, 0, 2 * sizeof(int), s);
+  if (err != cudaSuccess || vp <= 0) return static_cast<int>(err);
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return static_cast<int>(err);
+  int* best = scalars + 4;
+  int* cur = best + ((vp + 3) & ~3);
+  int4* ranges = reinterpret_cast<int4*>(cur + ((vp + 3) & ~3));
+  sssp_sweep_kernel<<<thread_blocks(vp), kBlock, 0, s>>>(
+      static_cast<const int*>(dist_in), static_cast<int*>(dist_out),
+      static_cast<const int*>(off), vp, scalars, best, cur, ranges);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a persistent grid: how many ranges the pass lists is known only on
+  // the device
+  sssp_sweep_push_kernel<<<kPushBlocksPerSm * sms, kBlock, 0, s>>>(
+      cur, best, static_cast<const int*>(col), static_cast<const float*>(w),
+      scalars, ranges);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sssp_sweep_update_kernel<<<thread_blocks(vp), kBlock, 0, s>>>(
+      static_cast<int*>(dist_out), static_cast<const int*>(off), vp, best,
+      cur);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,10 +534,10 @@ int etpu_sssp_predecessors(const void* dist, const void* off,
 
 // `scalars` ([4] int32, 16-byte aligned) is set to {0, INT_MAX, 0, 0} here
 // by a device-to-device copy (no kernel launch), then filled; `ranges` holds
-// room for vp + ceil(ep / etpu_kcore_push_split()) int2 (8-byte aligned).
+// room for vp + ceil(ep / etpu_push_split()) int4 (16-byte aligned).
 // Two launches: the dense pass, then the push over the ranges it lists.
 int etpu_kcore_sweep(const void* deg_in, const void* core_in, void* deg_out,
-                     void* core_out, const void* off, const void* csc_src,
+                     void* core_out, const void* off, const void* col,
                      int vp, int k, void* scalars, void* ranges,
                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -405,32 +545,27 @@ int etpu_kcore_sweep(const void* deg_in, const void* core_in, void* deg_out,
       scalars, kcore_scalars_start, sizeof(kcore_scalars_start), 0,
       cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess || vp <= 0) return static_cast<int>(err);
-  int dev = 0;
   int sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
+  if ((err = sm_count(&sms)) != cudaSuccess) return static_cast<int>(err);
   kcore_sweep_kernel<<<thread_blocks(vp), kBlock, 0, s>>>(
       static_cast<const int*>(deg_in), static_cast<const int*>(core_in),
       static_cast<int*>(deg_out), static_cast<int*>(core_out),
       static_cast<const int*>(off), vp, k, static_cast<int*>(scalars),
-      static_cast<int2*>(ranges));
+      static_cast<int4*>(ranges));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // a persistent grid: how many ranges the pass lists is known only on
   // the device
-  kcore_sweep_push_kernel<<<4 * sms, kBlock, 0, s>>>(
+  kcore_sweep_push_kernel<<<kPushBlocksPerSm * sms, kBlock, 0, s>>>(
       static_cast<const int*>(deg_in), static_cast<int*>(deg_out),
-      static_cast<const int*>(off), static_cast<const int*>(csc_src), k,
-      static_cast<int*>(scalars), static_cast<const int2*>(ranges));
+      static_cast<const int*>(off), static_cast<const int*>(col), k,
+      static_cast<int*>(scalars), static_cast<const int4*>(ranges));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Slots per range of kcore_sweep's push list; the Python wrapper sizes the
-// list with it and checks it against its own constant.
-int etpu_kcore_push_split() { return kPushSplit; }
+// Slots per range of the sweeps' push lists; the Python wrapper sizes the
+// lists with it and checks it against its own constant.
+int etpu_push_split() { return kPushSplit; }
 
 int etpu_expand_segments(const void* vals, const void* off, int vp, int n,
                          void* out, void* stream) {

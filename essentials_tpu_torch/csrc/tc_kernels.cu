@@ -13,19 +13,96 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kBlock = 256;                 // threads per block
 constexpr int kWarpsPerBlock = kBlock / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kPairsPerBlock = 16;          // consecutive pairs per block
-// The shared-memory path takes u rows of at most kSharedRowBytes: a launch
-// may hold 48 KiB of shared memory without opting in, and the kernel's own
-// static warp_sum takes kStaticSharedBytes of it, so the dynamic row gets the
-// rest (a row of exactly 48 KiB, 12,288 words, is read from device memory).
-constexpr int kStaticSharedBytes = 2 * kWarpsPerBlock * sizeof(int);
-constexpr int kSharedRowBytes = 48 * 1024 - kStaticSharedBytes;
+constexpr int kListWords = 256;             // B[u] words a warp lists at once
+constexpr int kScanLoads = 4;               // 16-byte loads a lane has in
+                                            // flight while it scans B[u]
+constexpr int kStepWords = 32 * 4;          // words one load of a warp lists
+constexpr int kGatherItems = 4;             // B[v] words a lane has in flight
+
+// What one warp keeps in shared memory: the listed non-zero words of B[u]
+// (index and value), the pairs of the group that shares u (row v and the
+// lane that holds the pair), and each lane's pair count; with the witness
+// also a count per listed word of its lowest bit's witnesses. Shared memory
+// is kept small: what it leaves of the SM's 256 KB is L1, which catches
+// repeated sectors of hub rows B[v].
+struct WarpList {
+  int idx[kListWords];
+  unsigned val[kListWords];
+  int v[32];
+  int lane[32];
+  int cnt[32];
+};
+
+struct WarpListWitness : WarpList {
+  int low[kListWords];
+};
+
+template <bool kWitness>
+using List = std::conditional_t<kWitness, WarpListWitness, WarpList>;
+
+// The group's pairs against the listed words: item t = j * n + k is pair j
+// and listed word k (neighbouring lanes read neighbouring words of one row
+// B[v_j], which share sectors where B[u]'s words are close), cnt +=
+// popcount(B[v_j][idx_k] & val_k). With a witness array, the lowest bit of
+// val_k is counted in shared memory over the group's pairs and added to
+// the witness once per listed word; other bits (a word of B[u] with
+// several) take one atomicAdd each. Every lane calls it with the same n
+// and np.
+template <bool kWitness>
+__device__ __forceinline__ void intersect_listed(
+    List<kWitness>& s, int n, int np, const unsigned* __restrict__ bitmap,
+    int words, int* __restrict__ wit) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();                             // the list and the group are set
+  const int total = n * np;
+  for (int t0 = 0; t0 < total; t0 += 32 * kGatherItems) {
+    unsigned x[kGatherItems];
+    int k[kGatherItems];
+    int j[kGatherItems];
+#pragma unroll
+    for (int i = 0; i < kGatherItems; ++i) {
+      const int t = t0 + 32 * i + lane;
+      j[i] = t < total ? t / n : -1;
+      k[i] = t < total ? t - j[i] * n : 0;
+      x[i] = t < total
+          ? bitmap[static_cast<long long>(s.v[j[i]]) * words + s.idx[k[i]]]
+          : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kGatherItems; ++i) {
+      const unsigned val = s.val[k[i]];
+      const unsigned w = x[i] & val;
+      if (w != 0) {
+        atomicAdd(&s.cnt[s.lane[j[i]]], __popc(w));
+        if constexpr (kWitness) {
+          const unsigned low = val & (0u - val);
+          if (w & low) atomicAdd(&s.low[k[i]], 1);
+          const int base = s.idx[k[i]] * 32;
+          unsigned b = w & ~low;
+          while (b != 0) {
+            atomicAdd(&wit[base + __ffs(b) - 1], 1);
+            b &= b - 1;
+          }
+        }
+      }
+    }
+  }
+  if constexpr (kWitness) {
+    __syncwarp();
+    for (int k = lane; k < n; k += 32) {
+      const int c = s.low[k];
+      if (c != 0) atomicAdd(&wit[s.idx[k] * 32 + __ffs(s.val[k]) - 1], c);
+    }
+  }
+  __syncwarp();                             // the list may be overwritten
+}
 
 // Per pair e = (u, v): cnt[e] = popcount(B[u] & B[v]); with a witness array,
 // wit[c] += 1 for every set bit c of B[u] & B[v].
@@ -36,87 +113,97 @@ constexpr int kSharedRowBytes = 48 * 1024 - kStaticSharedBytes;
 // sorted by u), popcounts with SWAR and accumulates the witness bits into a
 // [32, R, 128] VMEM block across its sequential grid.
 //
-// Here a block takes kPairsPerBlock consecutive pairs. B[u] is copied into
-// shared memory when u changes (kSharedU, rows of at most kSharedRowBytes;
-// wider rows are read from device memory, where consecutive pairs of one u
-// hit the L2), then the block streams B[v] in 16-byte loads, one uint4 per
-// thread per step: AND, __popc, a warp sum and the warps' sums (double
-// buffered, so one barrier per pair). Blocks run in no order, so the
-// witness histogram is per vertex in device memory, one atomicAdd per set
-// bit, that is one per (pair, common element): a triangle at a hub meets
-// every other block's atomics on the same word.
+// That streams all of B[v] for every pair, although only the words where
+// B[u] is non-zero can hold a common bit: at gen:rmat17x16 a row is 4,096
+// words and B[u] has about 20 non-zero ones. Here each warp takes 32
+// consecutive pairs (a hub u's pairs spread over many warps) and groups
+// those that share u, in any order (__match_any_sync). For each group it
+// scans B[u] once, in 16-byte streaming loads (evict-first: the B[v]
+// rows, hubs' rows, are the ones worth keeping in the L2), and lists B[u]'s
+// non-zero words in shared memory; then it gathers only those words of
+// each pair's B[v], one 32-byte sector a word, a lane per (pair, word).
+// When the list could overflow (a row with more than kListWords - 128
+// non-zero words listed so far) it is consumed and refilled, so a row of
+// any width works. Counts are folded by shared-memory atomics per pair, the
+// witness per listed word over the group's pairs (intersect_listed), then
+// by device atomics (blocks run in no order).
 //
-// What bounds it: bytes, V/8 per pair for B[v] at HBM rate when the bitmap
-// exceeds the L2 (at rmat17 a row is 16 KiB and the bitmap 2.1 GB). A sorted
-// merge over adjacency lists would read only the two lists; that is a
-// redesign, not a port.
-template <bool kSharedU, bool kWitness>
+// What bounds it: the bytes of each distinct u row, read once by the warps
+// that share it (neighbouring warps read a split group's row from the L2),
+// plus one sector of B[v] per non-zero word of B[u] and pair, most of them
+// L2 hits on hub rows.
+template <bool kWitness>
 __global__ void __launch_bounds__(kBlock)
 bitmap_intersect_counts_kernel(const int* __restrict__ eu,
                                const int* __restrict__ ev,
-                               const uint4* __restrict__ bitmap, int words4,
+                               const unsigned* __restrict__ bitmap, int words,
                                int ne, int* __restrict__ cnt,
                                int* __restrict__ wit) {
-  extern __shared__ uint4 urow[];
-  __shared__ int warp_sum[2][kWarpsPerBlock];
-  static_assert(sizeof(warp_sum) == kStaticSharedBytes,
-                "kSharedRowBytes must leave room for warp_sum");
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int e0 = blockIdx.x * kPairsPerBlock;
-  const int e1 = min(e0 + kPairsPerBlock, ne);
-  int cur_u = -1;
-  for (int e = e0; e < e1; ++e) {
-    const int u = eu[e];                    // block-uniform
-    const uint4* bu = bitmap + static_cast<long long>(u) * words4;
-    const uint4* bv = bitmap + static_cast<long long>(ev[e]) * words4;
-    if (kSharedU && u != cur_u) {
-      __syncthreads();                      // the old row is read
-      for (int k = tid; k < words4; k += kBlock) urow[k] = bu[k];
-      __syncthreads();
-      cur_u = u;
+  __shared__ List<kWitness> lists[kWarpsPerBlock];
+  List<kWitness>& s = lists[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const long long e = static_cast<long long>(blockIdx.x) * kBlock
+      + threadIdx.x;
+  const bool real = e < ne;
+  const int u = real ? eu[e] : -1;
+  const int v = real ? ev[e] : 0;
+  s.cnt[lane] = 0;
+  const unsigned lt = (1u << lane) - 1;
+  const int words4 = words / 4;
+  // the groups of this warp's pairs that share u; the pads' group is
+  // skipped
+  const unsigned group = __match_any_sync(kFullMask, u);
+  unsigned todo = __ballot_sync(kFullMask, real && (group & lt) == 0);
+  while (todo != 0) {
+    const int leader = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const unsigned members = __shfl_sync(kFullMask, group, leader);
+    const int gu = __shfl_sync(kFullMask, u, leader);
+    if (members >> lane & 1) {
+      const int j = __popc(members & lt);
+      s.v[j] = v;
+      s.lane[j] = lane;
     }
-    int c = 0;
-    for (int k = tid; k < words4; k += kBlock) {
-      const uint4 a = kSharedU ? urow[k] : bu[k];
-      const uint4 b = bv[k];
-      const unsigned w[4] = {a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w};
+    const int np = __popc(members);
+    const uint4* row = reinterpret_cast<const uint4*>(
+        bitmap + static_cast<long long>(gu) * words);
+    int n = 0;
+    for (int k0 = 0; k0 < words4; k0 += 32 * kScanLoads) {
+      uint4 a[kScanLoads];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        c += __popc(w[q]);
-        if (kWitness) {
-          unsigned x = w[q];
-          while (x != 0) {
-            atomicAdd(&wit[(4 * k + q) * 32 + __ffs(x) - 1], 1);
-            x &= x - 1;
+      for (int i = 0; i < kScanLoads; ++i) {
+        const int k = k0 + 32 * i + lane;
+        a[i] = k < words4 ? __ldcs(row + k) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int i = 0; i < kScanLoads; ++i) {
+        const unsigned w[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+        if (__ballot_sync(kFullMask, (w[0] | w[1] | w[2] | w[3]) != 0) == 0) {
+          continue;                         // warp-uniform: nothing to list
+        }
+        if (n > kListWords - kStepWords) {  // warp-uniform
+          intersect_listed<kWitness>(s, n, np, bitmap, words, wit);
+          n = 0;
+        }
+        const int k = 4 * (k0 + 32 * i + lane);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const unsigned m = __ballot_sync(kFullMask, w[q] != 0);
+          if (w[q] != 0) {
+            const int at = n + __popc(m & lt);
+            s.idx[at] = k + q;
+            s.val[at] = w[q];
+            if constexpr (kWitness) s.low[at] = 0;
           }
+          n += __popc(m);
         }
       }
     }
-    c = __reduce_add_sync(kFullMask, c);
-    if (lane == 0) warp_sum[e & 1][warp] = c;
-    __syncthreads();
-    if (tid == 0) {
-      int s = 0;
-      for (int w = 0; w < kWarpsPerBlock; ++w) s += warp_sum[e & 1][w];
-      cnt[e] = s;
-    }
+    if (n > 0) intersect_listed<kWitness>(s, n, np, bitmap, words, wit);
+    __syncwarp();                           // the group's slots are read
   }
-}
-
-template <bool kSharedU>
-void launch(const int* eu, const int* ev, const uint4* bitmap, int words4,
-            int ne, int* cnt, int* wit, cudaStream_t st) {
-  const int blocks = (ne + kPairsPerBlock - 1) / kPairsPerBlock;
-  const size_t smem = kSharedU ? static_cast<size_t>(words4) * 16 : 0;
-  if (wit != nullptr) {
-    bitmap_intersect_counts_kernel<kSharedU, true>
-        <<<blocks, kBlock, smem, st>>>(eu, ev, bitmap, words4, ne, cnt, wit);
-  } else {
-    bitmap_intersect_counts_kernel<kSharedU, false>
-        <<<blocks, kBlock, smem, st>>>(eu, ev, bitmap, words4, ne, cnt, wit);
-  }
+  __syncwarp();
+  if (real) cnt[e] = s.cnt[lane];
 }
 
 }  // namespace
@@ -129,17 +216,19 @@ int etpu_bitmap_intersect(const void* eu, const void* ev, const void* bitmap,
                           int words, int ne, void* cnt, void* wit,
                           void* stream) {
   if (ne > 0) {
-    const int words4 = words / 4;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int blocks = (ne + kBlock - 1) / kBlock;
     const int* u = static_cast<const int*>(eu);
     const int* v = static_cast<const int*>(ev);
-    const uint4* b = static_cast<const uint4*>(bitmap);
+    const unsigned* b = static_cast<const unsigned*>(bitmap);
     int* c = static_cast<int*>(cnt);
     int* w = static_cast<int*>(wit);
-    if (static_cast<long long>(words) * 4 <= kSharedRowBytes) {
-      launch<true>(u, v, b, words4, ne, c, w, st);
+    if (w != nullptr) {
+      bitmap_intersect_counts_kernel<true><<<blocks, kBlock, 0, st>>>(
+          u, v, b, words, ne, c, w);
     } else {
-      launch<false>(u, v, b, words4, ne, c, w, st);
+      bitmap_intersect_counts_kernel<false><<<blocks, kBlock, 0, st>>>(
+          u, v, b, words, ne, c, w);
     }
   }
   return static_cast<int>(cudaGetLastError());

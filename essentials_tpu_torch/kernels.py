@@ -24,11 +24,15 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   ``windowed_spmv.windowed_pipeline`` :454. It is bound by the bytes it
   streams and the scattered x gathers.
 * ``csrc/sssp_kcore_kernels.cu`` (SSSP and k-core): ``sssp_sweep`` for
-  ``fused_sssp.fused_sssp_superstep`` :132; ``sssp_predecessors`` for the
-  MIN advance of ``sssp.predecessors_from_distances``; ``kcore_sweep`` for
-  ``fused_kcore.fused_kcore_sweep`` :144, a dense pass over the vertices
-  and a push from the ones it peels (each edge read in the wave that peels
-  its vertex, not in every wave); ``collapse_starts`` for the routed
+  ``fused_sssp.fused_sssp_superstep`` :132, a dense pass over the vertices
+  and a push along the CSR rows of those whose distance changed in the
+  sweep before (only they can lower a distance) into a [Vp] copy of the
+  distances, then an update of the starts; ``sssp_predecessors`` for
+  the MIN advance of ``sssp.predecessors_from_distances``; ``kcore_sweep``
+  for ``fused_kcore.fused_kcore_sweep`` :144, a dense pass over the
+  vertices and a push along the rows of the ones it peels (each edge read
+  in the wave that peels its vertex, not in every wave); both pushes walk
+  ranges of ``PUSH_SPLIT`` slots; ``collapse_starts`` for the routed
   collapses ``collapse_dist_exp`` and ``collapse_core_exp``;
   ``expand_segments`` for the expansion of k-core's ``init_deg_exp``
   (``segment.expand_vertex_to_edges``, whose cumsum is
@@ -44,7 +48,8 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   over tiles of ``ROUTE_TILE`` positions.
 * ``csrc/tc_kernels.cu`` (triangle counting and the intersection operator):
   ``bitmap_intersect_counts`` for ``bitmap_intersect.bitmap_intersect_counts``
-  :118.
+  :118: a warp per 32 pairs, grouped by u in any order; each group lists
+  B[u]'s non-zero words once and reads only those words of each B[v].
 * ``csrc/operator_kernels.cu`` (the operator layer: advance,
   neighbor_reduce, the spray tiers): ``scan`` for ``scan_kernels.scan_1d``
   :274 and ``segmented_scan_1d`` :296, one launch over tiles of
@@ -104,7 +109,7 @@ SCAN_GROUP = 256               # scan tiles per group word (kScanGroup)
 FILL_TILE = 4096               # positions per fill tile (kFillTile)
 ROUTE_TILE = 2048              # positions per route OR block (kRouteTile)
 MINMAX_TILE = 2048             # merge places per segment_minmax tile (kMmTile)
-KCORE_PUSH_SPLIT = 32          # slots per range of kcore_sweep's push list
+PUSH_SPLIT = 32                # slots per range of the sweeps' push lists
 # gather_payloads packs 2-4 payloads from PACK_MIN_SLOTS slots and from
 # one slot per record of the shortest payload. Measured by chip_ab.py's
 # sweep (uniform random indices, NVIDIA H100 80GB HBM3, 700 W): at
@@ -134,11 +139,12 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "segment_broadcast_total": 0, "suffix_fill_update": 0,
             "fused_route_or": 0}
 
-# launches of a wrapper's second device kernel, beside its count in
-# ``launches``, by that kernel's name without "_kernel": gather_payloads'
-# pack pass (where it packs), kcore_sweep's push and segment_minmax's
-# split (in every call)
-pass_launches = {"gather_payloads_pack": 0, "kcore_sweep_push": 0,
+# launches of a wrapper's other device kernels, beside its count in
+# ``launches``, by each kernel's name without "_kernel": gather_payloads'
+# pack pass (where it packs), the sweeps' pushes, sssp_sweep's update and
+# segment_minmax's split (in every call)
+pass_launches = {"gather_payloads_pack": 0, "sssp_sweep_push": 0,
+                 "sssp_sweep_update": 0, "kcore_sweep_push": 0,
                  "segment_minmax_split": 0}
 
 _lib = None
@@ -224,7 +230,7 @@ def _library():
             "etpu_sssp_sweep": (p, p, p, p, p, i, p, p),
             "etpu_sssp_predecessors": (p, p, p, p, i, i, p, p),
             "etpu_kcore_sweep": (p, p, p, p, p, p, i, i, p, p, p),
-            "etpu_kcore_push_split": (),
+            "etpu_push_split": (),
             "etpu_collapse_starts": (p, p, i, i, i, p, p),
             "etpu_expand_segments": (p, p, i, i, p, p),
             "etpu_scan_i32": (p, p, p, p, ll, i, p),
@@ -280,10 +286,10 @@ def _library():
                  f"segment_minmax: the library's tile is "
                  f"{lib.etpu_minmax_tile()} places, MINMAX_TILE is "
                  f"{MINMAX_TILE}")
-        throw_if(lib.etpu_kcore_push_split() != KCORE_PUSH_SPLIT,
-                 f"kcore_sweep: the library's push ranges are "
-                 f"{lib.etpu_kcore_push_split()} slots, KCORE_PUSH_SPLIT is "
-                 f"{KCORE_PUSH_SPLIT}")
+        throw_if(lib.etpu_push_split() != PUSH_SPLIT,
+                 f"sweeps: the library's push ranges are "
+                 f"{lib.etpu_push_split()} slots, PUSH_SPLIT is "
+                 f"{PUSH_SPLIT}")
         throw_if(lib.etpu_route_tile() != ROUTE_TILE,
                  f"fused_route_or: the library's tile is "
                  f"{lib.etpu_route_tile()} positions, ROUTE_TILE is "
@@ -331,12 +337,13 @@ def _route(name: str, t: torch.Tensor) -> bool:
     return True
 
 
-def _check_graph(name: str, ep: int, offsets, csc_src=None) -> None:
+def _check_graph(name: str, ep: int, offsets, csc_src=None,
+                 arg: str = "csc_src") -> None:
     throw_if(offsets.dtype != torch.int32 or offsets.dim() != 1,
              f"{name}: offsets must be [Vp+1] int32")
     throw_if(csc_src is not None and (csc_src.dtype != torch.int32
                                       or csc_src.shape != (ep,)),
-             f"{name}: csc_src must be [Ep] int32")
+             f"{name}: {arg} must be [Ep] int32")
 
 
 def _segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
@@ -691,46 +698,67 @@ def _start_values(state, offsets, empty: int):
 
 # ----------------------------------------------------------- sssp_sweep --
 
-def sssp_sweep_plain(dist_in, dist_out, offsets, csc_src, w):
-    """Plain version of ``sssp_sweep`` (same contract, same writes)."""
+def sssp_sweep_plain(dist_in, dist_out, offsets, col, w):
+    """Plain version of ``sssp_sweep`` (same contract, same writes): the
+    messages of the changed vertices' rows, min-reduced per column."""
     nonempty, starts, dv = _start_values(dist_in, offsets, INF_BITS)
-    msg = (dv.view(torch.float32)[csc_src.long()] + w).view(torch.int32)
+    changed = nonempty & (dv != _start_values(dist_out, offsets,
+                                              INF_BITS)[2])
+    row = _segment_ids(offsets, w.numel())
+    msg = (dv.view(torch.float32)[row] + w).view(torch.int32)
     s = torch.full_like(dv, INF_BITS).scatter_reduce_(
-        0, _segment_ids(offsets, w.numel()), msg, "amin")
+        0, col.long(), torch.where(changed[row], msg, INF_BITS), "amin")
     dist_out[starts[nonempty]] = torch.minimum(s, dv)[nonempty]
     return (nonempty & (s < dv)).sum(dtype=torch.int32).reshape(1)
 
 
 def sssp_sweep(dist_in: torch.Tensor, dist_out: torch.Tensor,
-               offsets: torch.Tensor, csc_src: torch.Tensor,
+               offsets: torch.Tensor, col: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
     """One Bellman-Ford sweep on the edge axis of a symmetric-layout graph.
 
     ``dist_in`` and ``dist_out`` ([Ep] int32, distinct buffers) hold float32
-    distance bits at segment starts. For each vertex v with a non-empty
-    segment, ``dist_out[offsets[v]]`` = the smaller of ``dist_in``'s value
-    there and the bits of min over v's in-edges q of f32(dist_in at the
-    start of csc_src[q]) + w[q]; ``w`` is [Ep] float32 in CSC order. No
-    other position is read or written. Returns the number of vertices whose
-    distance fell, int32 [1], on the state's device."""
+    distance bits at segment starts: ``dist_in`` the distances d_t after
+    sweep t, ``dist_out`` those of the sweep before, d_{t-1} (+inf bits
+    before the first sweep; the ping-pong buffers of a search hold just
+    that). For each vertex v with a non-empty segment, ``dist_out[offsets[
+    v]]`` becomes the smaller of d_t[v] and the bits of min f32(d_t[u] +
+    w[q]) over the CSR slots q of the vertices u whose distance changed
+    (d_t[u] != d_{t-1}[u]) with ``col[q]`` == v; ``col`` and ``w`` ([Ep]
+    int32 and float32) are the CSR columns and weights. That is the full
+    sweep's result (an unchanged u's messages were folded in sweep t). No
+    other position is read or written. Returns the number of vertices
+    whose distance fell, int32 [1], on the state's device.
+
+    The kernel is three device launches: the dense pass, counted in
+    ``launches``, then the push from the changed rows into a [Vp] copy of
+    the distances and the update of the starts from it, in
+    ``pass_launches``."""
     name = "sssp_sweep"
-    ep = csc_src.numel()
+    ep = col.numel()
     _check_state(name, ep, dist_in=dist_in, dist_out=dist_out)
     _check_weights(name, ep, w)
-    _check_graph(name, ep, offsets, csc_src)
+    _check_graph(name, ep, offsets, col, "col")
     kernel = _route(name, dist_in)
     _check_disjoint(name, dist_in=dist_in, dist_out=dist_out)
     if not kernel:
-        return sssp_sweep_plain(dist_in, dist_out, offsets, csc_src, w)
+        return sssp_sweep_plain(dist_in, dist_out, offsets, col, w)
     dev = dist_in.device
     _check(name, dev, dist_in=dist_in, dist_out=dist_out, offsets=offsets,
-           csc_src=csc_src, w=w)
-    count = torch.empty(1, dtype=torch.int32, device=dev)
+           col=col, w=w)
+    vp = offsets.numel() - 1
+    vp4 = -(-vp // 4) * 4
+    # the scalars (improved, ranges listed, 2 unused), two [Vp] copies of
+    # the distances, then room for every listed range (int4)
+    buf = torch.empty(4 + 2 * vp4 + 4 * push_ranges(vp, ep),
+                      dtype=torch.int32, device=dev)
     _launch("etpu_sssp_sweep", dev, dist_in.data_ptr(), dist_out.data_ptr(),
-            offsets.data_ptr(), csc_src.data_ptr(), w.data_ptr(),
-            offsets.numel() - 1, count.data_ptr())
+            offsets.data_ptr(), col.data_ptr(), w.data_ptr(), vp,
+            buf.data_ptr())
     launches[name] += 1
-    return count
+    pass_launches["sssp_sweep_push"] += 1
+    pass_launches["sssp_sweep_update"] += 1
+    return buf[:1]
 
 
 # ---------------------------------------------------- sssp_predecessors --
@@ -778,8 +806,9 @@ def sssp_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
 # ---------------------------------------------------------- kcore_sweep --
 
 def kcore_sweep_plain(deg_in, core_in, deg_out, core_out, offsets, csc_src,
-                      k: int):
-    """Plain version of ``kcore_sweep`` (same contract, same writes)."""
+                      col, k: int):
+    """Plain version of ``kcore_sweep`` (same contract, same writes): the
+    pull over ``csc_src``; ``col`` is only the kernel's."""
     nonempty, starts, d = _start_values(deg_in, offsets, -1)
     hit = ((d >= 0) & (d < k)).int()
     cnt = torch.zeros_like(d).index_add_(
@@ -797,7 +826,7 @@ def kcore_sweep_plain(deg_in, core_in, deg_out, core_out, offsets, csc_src,
 def kcore_sweep(deg_in: torch.Tensor, core_in: torch.Tensor,
                 deg_out: torch.Tensor, core_out: torch.Tensor,
                 offsets: torch.Tensor, csc_src: torch.Tensor,
-                k: int) -> torch.Tensor:
+                col: torch.Tensor, k: int) -> torch.Tensor:
     """One k-core peel wave on the edge axis of a symmetric-layout graph.
 
     ``deg_*`` and ``core_*`` ([Ep] int32, four distinct buffers) hold each
@@ -809,43 +838,45 @@ def kcore_sweep(deg_in: torch.Tensor, core_in: torch.Tensor,
     [2] on the state's device: (vertices peeled, smallest surviving new
     degree or INT32_MAX when none survives).
 
-    The kernel pushes: each peeled vertex takes one from every surviving
-    in-neighbour's degree, so its in-neighbours must also be its
-    out-neighbours, with multiplicity (``csc_src`` equal to the CSR column
-    indices, as on an undirected graph; ``kcore.fused_supported``). Two
-    device launches: the dense pass, counted in ``launches``, and the push,
-    in ``pass_launches``."""
+    The plain version pulls over ``csc_src`` ([Ep] int32, the source of
+    each CSC slot). The kernel pushes: each peeled vertex u takes one from
+    the degree of every surviving out-neighbour, ``col`` ([Ep] int32, the
+    CSR column indices) over u's row. On a symmetric layout u's row sits
+    at the positions of its segment, and the vertices it reaches are those
+    whose pull counts it, directed or not. Two device launches: the dense
+    pass, counted in ``launches``, and the push, in ``pass_launches``."""
     name = "kcore_sweep"
     ep = csc_src.numel()
     _check_state(name, ep, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
                  core_out=core_out)
     _check_graph(name, ep, offsets, csc_src)
+    _check_graph(name, ep, offsets, col, "col")
     throw_if(not -INT32_MAX <= k <= INT32_MAX, f"{name}: k out of range")
     kernel = _route(name, deg_in)
     _check_disjoint(name, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
                     core_out=core_out)
     if not kernel:
         return kcore_sweep_plain(deg_in, core_in, deg_out, core_out, offsets,
-                                 csc_src, k)
+                                 csc_src, col, k)
     dev = deg_in.device
     _check(name, dev, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
-           core_out=core_out, offsets=offsets, csc_src=csc_src)
+           core_out=core_out, offsets=offsets, col=col)
     vp = offsets.numel() - 1
-    # the four scalars, then room for every listed range (int2 pairs)
-    buf = torch.empty(4 + 2 * kcore_push_ranges(vp, ep), dtype=torch.int32,
+    # the four scalars, then room for every listed range (int4)
+    buf = torch.empty(4 + 4 * push_ranges(vp, ep), dtype=torch.int32,
                       device=dev)
     _launch("etpu_kcore_sweep", dev, deg_in.data_ptr(), core_in.data_ptr(),
             deg_out.data_ptr(), core_out.data_ptr(), offsets.data_ptr(),
-            csc_src.data_ptr(), vp, k, buf.data_ptr(), buf[4:].data_ptr())
+            col.data_ptr(), vp, k, buf.data_ptr(), buf[4:].data_ptr())
     launches[name] += 1
     pass_launches["kcore_sweep_push"] += 1
     return buf[:2]
 
 
-def kcore_push_ranges(vp: int, ep: int) -> int:
-    """The most ranges kcore_sweep's push list can hold: a segment of L
-    slots is ceil(L / KCORE_PUSH_SPLIT) ranges."""
-    return vp + -(-ep // KCORE_PUSH_SPLIT)
+def push_ranges(vp: int, ep: int) -> int:
+    """The most ranges a sweep's push list can hold: a row of L slots is
+    ceil(L / PUSH_SPLIT) ranges."""
+    return vp + -(-ep // PUSH_SPLIT)
 
 
 # ------------------------------------------------------ collapse_starts --

@@ -39,7 +39,8 @@ def fused_kcore_sweep(g: Graph, deg_in: torch.Tensor, core_in: torch.Tensor,
     into (deg_out, core_out) at segment starts. Returns int32 [2]: (peeled
     count, smallest surviving degree or IMAX)."""
     return kernels.kcore_sweep(deg_in, core_in, deg_out, core_out,
-                               g.row_offsets, g.csc_src_indices, k)
+                               g.row_offsets, g.csc_src_indices,
+                               g.col_indices, k)
 
 
 def collapse_core_exp(g: Graph, core_exp: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,12 @@ Counterpart of ``essentials_tpu/ops/fused_sssp.py`` (``init_dist_exp``,
 Distances live on the edge axis as IEEE-754 float32 bit patterns in int32
 (non-negative floats order as their bits do), start-authoritative as in
 ``ops/fused_bfs.py``: only each segment's start ``row_offsets[v]`` is read
-or written. One sweep is one ``sssp_sweep`` launch, a Bellman-Ford
-relaxation of every edge. It reads one state buffer and writes the other,
-so each sweep sees only the previous sweep's distances, as the JAX
-package's sweeps do.
+or written. One sweep is one ``sssp_sweep`` call, a Bellman-Ford
+relaxation with the result of relaxing every edge; it reads one state
+buffer and writes the other, so each sweep sees only the previous sweep's
+distances, as the JAX package's sweeps do. The buffer it writes holds the
+distances of the sweep before (+inf before the first), from which the
+kernel knows which vertices changed: only their out-edges are relaxed.
 """
 
 from __future__ import annotations
@@ -17,13 +19,15 @@ import torch
 
 from essentials_tpu_torch import kernels
 from essentials_tpu_torch.graph.graph import Graph
+from essentials_tpu_torch.ops.fused_spmv import edge_weights
 
 INF_BITS = kernels.INF_BITS       # float32 +inf as int32 bits
 
 
 def csc_weights(g: Graph) -> torch.Tensor:
     """The graph's CSC weights as float32: the weight of each CSC slot (the
-    graph's own tensor when it is float32 already)."""
+    graph's own tensor when it is float32 already), for the
+    predecessors."""
     return g.csc_values.to(torch.float32).contiguous()
 
 
@@ -38,14 +42,23 @@ def init_dist_exp(g: Graph, source: int) -> torch.Tensor:
     return dist
 
 
+def init_spare(g: Graph) -> torch.Tensor:
+    """The second state buffer of a search: +inf bits, the distances
+    "before" the first sweep."""
+    return torch.full((g.n_edges_padded,), INF_BITS, dtype=torch.int32,
+                      device=g.device)
+
+
 def fused_sssp_superstep(g: Graph, dist_in: torch.Tensor,
                          dist_out: torch.Tensor) -> torch.Tensor:
     """One Bellman-Ford sweep (the ``sssp_sweep`` kernel) from ``dist_in``
-    into ``dist_out`` at segment starts. Returns the improvement count,
-    int32 [1]. The JAX fallback writes whole segments; the two agree at
-    segment starts, which is all either reads."""
+    into ``dist_out`` at segment starts; ``dist_out`` holds the distances
+    of the sweep before ``dist_in``'s (``init_spare`` before the first).
+    Returns the improvement count, int32 [1]. The JAX fallback writes whole
+    segments; the two agree at segment starts, which is all either
+    reads."""
     return kernels.sssp_sweep(dist_in, dist_out, g.row_offsets,
-                              g.csc_src_indices, csc_weights(g))
+                              g.col_indices, edge_weights(g))
 
 
 def collapse_dist_exp(g: Graph, dist_exp: torch.Tensor,
@@ -62,7 +75,7 @@ def run_fused_sssp(g: Graph, source: int, max_it: int) -> tuple:
     count; stops after the first sweep that improves nothing or after
     ``max_it`` sweeps. Returns (dist float32 [Vp], sweeps)."""
     dist = init_dist_exp(g, source)
-    spare = dist.clone()
+    spare = init_spare(g)
     it = 0
     while it < max_it:
         cnt = fused_sssp_superstep(g, dist, spare)

@@ -9,7 +9,9 @@ the core numbers and the wave count of a whole run, and the host
 references. The JAX graphs are built with router plans and carried into
 the port with graph_from_arrays, so both packages compute on the same
 arrays. "stress" is chip_smoke's graph with a hub, multi-edges and
-self-loops, on which the card's push wave is also modelled here."""
+self-loops; "chord_cycle" and "cycles300" are directed graphs whose every
+in-degree equals its out-degree (a symmetric layout without a symmetric
+adjacency). On these the card's push wave is also modelled here."""
 
 import importlib.util
 from pathlib import Path
@@ -38,13 +40,18 @@ IMAX = np.iinfo(np.int32).max
 _jax_sweep = jax.jit(jfk.fused_kcore_sweep_ref)
 
 
-def stress_coo():
-    """chip_smoke.kcore_stress_coo's graph as a JAX Coo."""
+def chip_smoke():
+    """chip_smoke.py as a module (its graphs), by its path."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    n, src, dst, w = mod.kcore_stress_coo()
+    return mod
+
+
+def stress_coo():
+    """chip_smoke.kcore_stress_coo's graph as a JAX Coo."""
+    n, src, dst, w = chip_smoke().kcore_stress_coo()
     return JCoo(n, n, src, dst, w)
 
 
@@ -65,6 +72,24 @@ def isolated_coo():
     a, b = (np.array(x, np.int32) for x in zip(*pairs))
     return JCoo(12, 12, np.concatenate([a, b]), np.concatenate([b, a]),
                 np.ones(2 * a.size, np.float32))
+
+
+def chord_cycle_coo():
+    """A directed 5-cycle with a chord both ways (0 -> 2, 2 -> 0): every
+    in-degree equals its out-degree (a symmetric layout) but the adjacency
+    is not symmetric."""
+    src = np.array([0, 1, 2, 3, 4, 0, 2], np.int32)
+    dst = np.array([1, 2, 3, 4, 0, 2, 0], np.int32)
+    return JCoo(5, 5, src, dst, np.ones(7, np.float32))
+
+
+def cycles_coo():
+    """chip_smoke.cycles_coo: a union of directed cycles over random
+    vertices of 300, degree-balanced, not symmetric (cores 1 and 2, 9
+    waves)."""
+    n, src, dst, w = chip_smoke().cycles_coo(300, (300, 200, 150, 100, 80,
+                                                    40), 3)
+    return JCoo(n, n, src, dst, w)
 
 
 def clique_tail_coo():
@@ -89,10 +114,16 @@ def graphs():
         "isolated": carried(JCsr.from_coo(isolated_coo())),
         "clique_tail": carried(JCsr.from_coo(clique_tail_coo())),
         "stress": carried(JCsr.from_coo(stress_coo())),
+        # degree-balanced directed: a push along the CSC sources instead of
+        # the CSR columns would subtract from the wrong neighbours
+        "chord_cycle": carried(JCsr.from_coo(chord_cycle_coo()),
+                               directed=True),
+        "cycles300": carried(JCsr.from_coo(cycles_coo()), directed=True),
     }
 
 
-NAMES = ["clique_tail", "grid16", "isolated", "rmat10", "rmat11", "stress"]
+NAMES = ["chord_cycle", "clique_tail", "cycles300", "grid16", "isolated",
+         "rmat10", "rmat11", "stress"]
 
 
 def starts_of(g):
@@ -127,12 +158,13 @@ def test_sweeps_match_jax_fallback(graphs, name):
     assert sweeps >= 2
 
 
-def push_wave(off, src, deg, core, k):
+def push_wave(off, col, deg, core, k):
     """The card's kcore_sweep in NumPy, in its order of work: the dense
     pass writes every start as if nothing fell and lists the peeled
-    segments; the push takes one from each surviving in-neighbour's start,
-    in a shuffled order, folding each result into the minimum. Returns
-    (deg_out, core_out, peeled, smallest surviving degree)."""
+    vertices' CSR rows; the push takes one from each surviving
+    out-neighbour's start, in a shuffled order, folding each result into
+    the minimum. Returns (deg_out, core_out, peeled, smallest surviving
+    degree)."""
     deg_out, core_out = deg.copy(), core.copy()
     starts = off[:-1][off[1:] > off[:-1]]
     d = deg[starts]
@@ -145,28 +177,31 @@ def push_wave(off, src, deg, core, k):
     slots = np.concatenate([np.arange(off[x], off[x + 1]) for x in v]) \
         if v.size else np.zeros(0, np.int64)
     for q in np.random.default_rng(k).permutation(slots):
-        at = off[src[q]]
+        at = off[col[q]]
         if deg[at] >= k:
             deg_out[at] -= 1
             least = min(least, int(deg_out[at]))
     return deg_out, core_out, int(peel.sum()), least
 
 
-@pytest.mark.parametrize("name", ["clique_tail", "isolated", "stress"])
+@pytest.mark.parametrize("name", ["chord_cycle", "clique_tail", "cycles300",
+                                  "isolated", "stress"])
 def test_push_wave_model_matches_plain_version(graphs, name):
-    """On a symmetric adjacency the push (each peeled vertex takes one from
-    its surviving in-neighbours, the minimum folded from the subtractions'
-    results) gives the pull's bits at every wave of a run."""
+    """On a symmetric layout the push (each peeled vertex takes one from
+    its surviving out-neighbours along its CSR row, the minimum folded from
+    the subtractions' results) gives the pull's bits at every wave of a
+    run, on undirected and on degree-balanced directed graphs."""
     _, _, g = graphs[name]
-    off, src = g.row_offsets.numpy(), g.csc_src_indices.numpy()
-    assert np.array_equal(src, g.col_indices.numpy())   # symmetric
+    off, col = g.row_offsets.numpy(), g.col_indices.numpy()
+    assert g.symmetric_layout
     d, c = tfk.init_deg_exp(g), torch.zeros_like(tfk.init_deg_exp(g))
     k, waves = tfk.first_level(g), 0
     while k < IMAX:
         d2, c2 = torch.empty_like(d), torch.empty_like(c)
         peeled, least = kernels.kcore_sweep_plain(
-            d, c, d2, c2, g.row_offsets, g.csc_src_indices, k).tolist()
-        md, mc, mp, ml = push_wave(off, src, d.numpy(), c.numpy(), k)
+            d, c, d2, c2, g.row_offsets, g.csc_src_indices, g.col_indices,
+            k).tolist()
+        md, mc, mp, ml = push_wave(off, col, d.numpy(), c.numpy(), k)
         starts = starts_of(g)
         assert (mp, ml) == (peeled, least)
         assert np.array_equal(md[starts], d2.numpy()[starts])
@@ -267,15 +302,14 @@ def test_unported_and_unsupported_runs_raise(graphs):
     with pytest.raises(EssentialsError, match="queue 1, item 8"):
         tkcore.run(gd)
     # a directed 5-cycle with a chord both ways: every in-degree equals its
-    # out-degree (a symmetric layout) but the adjacency is not symmetric,
-    # so the push wave would subtract from the wrong neighbours
-    src = np.array([0, 1, 2, 3, 4, 0, 2], np.int32)
-    dst = np.array([1, 2, 3, 4, 0, 2, 0], np.int32)
-    gc = carried(JCsr.from_coo(JCoo(5, 5, src, dst, np.ones(7, np.float32))),
-                 directed=True)[2]
-    assert gc.symmetric_layout and not tkcore.fused_supported(gc)
-    with pytest.raises(EssentialsError, match="queue 1, item 8"):
-        tkcore.run(gc)
+    # out-degree (a symmetric layout) but the adjacency is not symmetric;
+    # it runs, as the JAX package runs it
+    csr, gj, gc = graphs["chord_cycle"]
+    assert gc.symmetric_layout and tkcore.fused_supported(gc)
+    assert not torch.equal(gc.col_indices, gc.csc_src_indices)
+    r = tkcore.run(gc)
+    assert r.core.tolist() == jkcore.cpu_reference(csr).tolist() \
+        == np.asarray(jkcore.run(gj, variant="fused").core).tolist()
 
 
 # -------------------------------------------------------------- wrappers --
@@ -287,10 +321,9 @@ def test_wrappers_take_plain_version_on_cpu(graphs):
     c = torch.zeros_like(d)
     k = tfk.first_level(g)
     outs = [t.clone() for t in (d, c, d, c)]
-    s = kernels.kcore_sweep(d, c, outs[0], outs[1], g.row_offsets,
-                            g.csc_src_indices, k)
-    s_p = kernels.kcore_sweep_plain(d, c, outs[2], outs[3], g.row_offsets,
-                                    g.csc_src_indices, k)
+    adj = (g.row_offsets, g.csc_src_indices, g.col_indices, k)
+    s = kernels.kcore_sweep(d, c, outs[0], outs[1], *adj)
+    s_p = kernels.kcore_sweep_plain(d, c, outs[2], outs[3], *adj)
     assert torch.equal(s, s_p) and torch.equal(outs[0], outs[2])
     assert torch.equal(outs[1], outs[3])
     tfk.collapse_core_exp(g, outs[1])
@@ -302,7 +335,8 @@ def test_wrapper_raises_on_other_devices(graphs):
     d = torch.empty(g.n_edges_padded, dtype=torch.int32, device="meta")
     with pytest.raises(EssentialsError):
         kernels.kcore_sweep(d, d.clone(), d.clone(), d.clone(),
-                            g.row_offsets, g.csc_src_indices, 1)
+                            g.row_offsets, g.csc_src_indices, g.col_indices,
+                            1)
     vals = torch.empty(g.n_vertices_padded, dtype=torch.int32, device="meta")
     with pytest.raises(EssentialsError):
         kernels.expand_segments(vals, g.row_offsets, g.n_edges_padded)
@@ -310,7 +344,7 @@ def test_wrapper_raises_on_other_devices(graphs):
 
 def test_wrapper_rejects_bad_arguments(graphs):
     _, _, g = graphs["clique_tail"]
-    off, src = g.row_offsets, g.csc_src_indices
+    off, src, col = g.row_offsets, g.csc_src_indices, g.col_indices
     d = tfk.init_deg_exp(g)
     c = torch.zeros_like(d)
     vals = g.out_degrees().int()
@@ -321,16 +355,18 @@ def test_wrapper_rejects_bad_arguments(graphs):
         lambda: kernels.expand_segments(vals, off.long(), ep),
         lambda: kernels.expand_segments(vals, off, ep + 1),   # not covered
         lambda: kernels.expand_segments(vals, off, -1),
-        lambda: kernels.kcore_sweep(d, c, d, c.clone(), off, src, 2),
-        lambda: kernels.kcore_sweep(d, c, c.clone(), c, off, src, 2),
+        lambda: kernels.kcore_sweep(d, c, d, c.clone(), off, src, col, 2),
+        lambda: kernels.kcore_sweep(d, c, c.clone(), c, off, src, col, 2),
         lambda: kernels.kcore_sweep(d, c, d.clone()[1:], c.clone(), off,
-                                    src, 2),
+                                    src, col, 2),
         lambda: kernels.kcore_sweep(d.long(), c, d.clone(), c.clone(), off,
-                                    src, 2),
+                                    src, col, 2),
         lambda: kernels.kcore_sweep(d, c, d.clone(), c.clone(), off,
-                                    src[:-1], 2),
+                                    src[:-1], col, 2),
         lambda: kernels.kcore_sweep(d, c, d.clone(), c.clone(), off, src,
-                                    2**31),
+                                    col[:-1], 2),
+        lambda: kernels.kcore_sweep(d, c, d.clone(), c.clone(), off, src,
+                                    col, 2**31),
     ]
     for i, call in enumerate(bad):
         with pytest.raises(EssentialsError):

@@ -6,8 +6,10 @@ directed graph, triangle counting and the intersection operator, coloring
 where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
 route and bitmap kernels exactly, k-core also on a graph with a hub,
-multi-edges and self-loops and segment min/max on chip_smoke's stress
-case, advance_count in both its tiers,
+multi-edges and self-loops, SSSP and k-core also on a degree-balanced
+directed graph, the bitmap kernel also on unsorted pairs with a hub u,
+segment min/max on chip_smoke's stress case, advance_count in both its
+tiers,
 spmv_slabs on a row of six slabs, spmv_rows on a row of 40 merge-path
 tiles and a run of empty rows, gather_payloads packed and unpacked through
 ragged and unaligned indices, but float sums: the SpMV kernels,
@@ -299,36 +301,33 @@ def test_spmv_kernels_match_plain_versions_on_the_card():
     assert kernels.launches["spmv_rows"] == 4
 
 
-@pytest.mark.cuda
-def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _sweeps_on_the_card(csr, g):
+    """Every sweep of one SSSP search from the highest-degree vertex (each
+    output buffer holding the sweep before's distances) and every wave of
+    one k-core run, kernel against plain; then the collapse, the
+    predecessors and the expansion. Returns the source."""
     from essentials_tpu_torch import kernels
-    from essentials_tpu_torch.algorithms import kcore, sssp
-    from essentials_tpu_torch.formats import Csr
-    from essentials_tpu_torch.graph import build_graph
-    from essentials_tpu_torch.io import generate
     from essentials_tpu_torch.ops import fused_kcore as FK
     from essentials_tpu_torch.ops import fused_sssp as FS
-
-    csr = Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=True))
-    g = build_graph(csr, directed=False, weighted=True, device="cuda")
-    off, src, w = g.row_offsets, g.csc_src_indices, FS.csc_weights(g)
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+    off, src, col = g.row_offsets, g.csc_src_indices, g.col_indices
+    w = edge_weights(g)
     source = int(np.argmax(np.diff(csr.row_offsets)))
-    kernels.reset_launches()
-    d = FS.init_dist_exp(g, source)
-    d_k, d_p = d.clone(), d.clone()
+    d, prev, sweeps = FS.init_dist_exp(g, source), FS.init_spare(g), 0
     while True:
-        cnt = kernels.sssp_sweep(d, d_k, off, src, w)
-        cnt_p = kernels.sssp_sweep_plain(d, d_p, off, src, w)
-        assert torch.equal(d_k, d_p) and torch.equal(cnt, cnt_p)
-        d, d_k, d_p = d_k, d, d.clone()
+        d_k, d_p = prev.clone(), prev.clone()
+        cnt = kernels.sssp_sweep(d, d_k, off, col, w)
+        cnt_p = kernels.sssp_sweep_plain(d, d_p, off, col, w)
+        assert torch.equal(d_k, d_p) and torch.equal(cnt, cnt_p), sweeps
+        d, prev, sweeps = d_k, d, sweeps + 1
         if cnt.item() == 0:
             break
+    assert sweeps > 2
     dist = kernels.collapse_starts(d, off, FS.INF_BITS, source)
     assert torch.equal(dist, kernels.collapse_starts_plain(
         d, off, FS.INF_BITS, source))
-    args = (dist.view(torch.float32), g.csc_offsets, src, w, g.n_edges)
+    args = (dist.view(torch.float32), g.csc_offsets, src, FS.csc_weights(g),
+            g.n_edges)
     assert torch.equal(kernels.sssp_predecessors(*args),
                        kernels.sssp_predecessors_plain(*args))
     deg, core = FK.init_deg_exp(g), torch.zeros_like(d)
@@ -338,30 +337,65 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
     k = FK.first_level(g)
     while k < FK.IMAX:
         outs = [t.clone() for t in (deg, core, deg, core)]
-        s = kernels.kcore_sweep(deg, core, outs[0], outs[1], off, src, k)
+        s = kernels.kcore_sweep(deg, core, outs[0], outs[1], off, src, col,
+                                k)
         s_p = kernels.kcore_sweep_plain(deg, core, outs[2], outs[3], off,
-                                        src, k)
+                                        src, col, k)
         assert torch.equal(s, s_p)
         assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
         deg, core = outs[:2]
         k = FK.next_level(k, int(s[1]))
+    return source
+
+
+@pytest.mark.cuda
+def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import kcore, sssp
+    from essentials_tpu_torch.formats import Coo, Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    from essentials_tpu_torch.ops import fused_kcore as FK
+
+    csr = Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=True))
+    g = build_graph(csr, directed=False, weighted=True, device="cuda")
+    kernels.reset_launches()
+    source = _sweeps_on_the_card(csr, g)
     assert all(kernels.launches[n] > 0 for n in (
         "sssp_sweep", "sssp_predecessors", "kcore_sweep", "collapse_starts",
         "expand_segments"))
+    assert kernels.pass_launches["sssp_sweep_push"] == \
+        kernels.launches["sssp_sweep"]
+    # a degree-balanced directed graph (a symmetric layout, an asymmetric
+    # adjacency: the pushes must walk the CSR columns), every sweep and
+    # wave, then its runs against the host
+    n, src_b, dst_b, w_b = _chip_smoke().balanced_coo(n=20_000)
+    csr_b = Csr.from_coo(Coo(n, n, src_b, dst_b, w_b))
+    g_b = build_graph(csr_b, directed=True, weighted=True, device="cuda")
+    assert g_b.symmetric_layout and g_b.max_degree > 3000
+    assert not torch.equal(g_b.col_indices, g_b.csc_src_indices)
+    s_b = _sweeps_on_the_card(csr_b, g_b)
+    assert np.array_equal(kcore.run(g_b).core.cpu().numpy(),
+                          kcore.cpu_reference(csr_b))
+    ref = sssp.cpu_reference(csr_b, s_b)
+    got = sssp.run(g_b, s_b).distances.cpu().numpy()
+    reach = np.isfinite(ref)
+    assert np.array_equal(np.isfinite(got), reach)
+    assert np.allclose(got[reach], ref[reach], rtol=1e-5, atol=0)
     # every wave on a graph with a hub, multi-edges and self-loops, then
     # its whole run against the host peeling
     csr_s, g_s = _chip_smoke().kcore_stress_graph("cuda")
     assert csr_s.degrees().max() > 1000 and kcore.fused_supported(g_s)
     deg, core = FK.init_deg_exp(g_s), torch.zeros_like(FK.init_deg_exp(g_s))
     k, waves = FK.first_level(g_s), 0
+    adj = (g_s.row_offsets, g_s.csc_src_indices, g_s.col_indices)
     while k < FK.IMAX:
         outs = [t.clone() for t in (deg, core, deg, core, deg, core)]
-        s = [kernels.kcore_sweep(deg, core, outs[i], outs[i + 1],
-                                 g_s.row_offsets, g_s.csc_src_indices, k)
+        s = [kernels.kcore_sweep(deg, core, outs[i], outs[i + 1], *adj, k)
              for i in (0, 2)]
-        s_p = kernels.kcore_sweep_plain(deg, core, outs[4], outs[5],
-                                        g_s.row_offsets,
-                                        g_s.csc_src_indices, k)
+        s_p = kernels.kcore_sweep_plain(deg, core, outs[4], outs[5], *adj, k)
         assert torch.equal(s[0], s_p) and torch.equal(s[1], s_p)
         for i in (0, 1):
             assert torch.equal(outs[i], outs[i + 2])
@@ -500,7 +534,8 @@ def test_operator_kernels_match_plain_versions_on_the_card(monkeypatch):
 @pytest.mark.cuda
 def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
     """bitmap_intersect_counts, segment_broadcast_total, suffix_fill_update
-    and fused_route_or against their plain versions at rmat12, exactly and
+    and fused_route_or against their plain versions at rmat12 (the bitmap
+    kernel also on unsorted pairs with a hub u and pads), exactly and
     bitwise on a second launch, then the main paths that run them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -520,13 +555,19 @@ def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
                                                   ec)).cuda()
     eu = torch.from_numpy(es.astype(np.int32)).cuda()
     ev = torch.from_numpy(ec.astype(np.int32)).cuda()
-    for witness in (True, False):
-        k = kernels.bitmap_intersect_counts(eu, ev, bitmap, witness)
-        again = kernels.bitmap_intersect_counts(eu, ev, bitmap, witness)
-        p = kernels.bitmap_intersect_counts_plain(eu, ev, bitmap, witness)
-        for a, b, c in zip(k, again, p):
-            assert (a is None and c is None) or (torch.equal(a, b)
-                                                 and torch.equal(a, c))
+    # TC's oriented edges (sorted by u), then unsorted pairs with a hub u
+    # whose every word is non-zero, and pads among them
+    hub = [torch.from_numpy(a).cuda()
+           for a in _chip_smoke().hub_pairs_inputs()]
+    for args in ((eu, ev, bitmap), hub):
+        for witness in (True, False):
+            k = kernels.bitmap_intersect_counts(*args, witness)
+            again = kernels.bitmap_intersect_counts(*args, witness)
+            p = kernels.bitmap_intersect_counts_plain(*args, witness)
+            for a, b, c in zip(k, again, p):
+                assert (a is None and c is None) or (torch.equal(a, b)
+                                                     and torch.equal(a, c))
+            assert int(k[0].sum()) > 0
     flags = g.csc_seg_flags
     s_i = kernels.scan(torch.ones(g.n_edges_padded, dtype=torch.int32,
                                   device="cuda"), flags, "add")
@@ -653,10 +694,9 @@ def test_color_kernel_matches_plain_version_on_the_card():
 
 @pytest.mark.cuda
 def test_bitmap_kernel_at_12288_word_rows_on_the_card():
-    """A bitmap of 12,288-word (48 KiB) rows, where the kernel's shared
-    row and its static shared memory would pass the 48 KiB a launch may
-    hold: one launch with and one without the witness, each equal to the
-    plain version."""
+    """A bitmap of 12,288-word (48 KiB) rows, whose non-zero words the
+    kernel lists in many passes: one launch with and one without the
+    witness, each equal to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from essentials_tpu_torch import kernels

@@ -35,6 +35,7 @@ from essentials_tpu_torch.graph import build_graph, graph_from_arrays
 from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
 from essentials_tpu_torch.ops import fused_sssp as tfs
 from essentials_tpu_torch.ops import windowed_sssp as twss
+from essentials_tpu_torch.ops.fused_spmv import edge_weights
 
 RTOL = 1e-5
 _jax_sweep = jax.jit(jfs.fused_sssp_superstep_ref)
@@ -70,6 +71,24 @@ def clique_tail_coo():
     return JCoo(6, 6, src, dst, np.ones(len(edges), np.float32))
 
 
+def cycles_coo(n: int, lengths, seed: int):
+    """chip_smoke.cycles_coo as a JAX Coo: a union of directed cycles over
+    random vertices of n, one per length, with seeded weights; every
+    in-degree equals its out-degree (a symmetric layout), but the edges are
+    not symmetric."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    n, src, dst, w = mod.cycles_coo(n, lengths, seed)
+    return JCoo(n, n, src, dst, w)
+
+
+CYCLES300 = (300, 300, 220, 150, 90, 40)    # degrees 2-6
+
+
 @pytest.fixture(scope="module")
 def graphs():
     return {
@@ -79,12 +98,20 @@ def graphs():
         "grid16": carried(JCsr.from_coo(jgen.grid_2d(16, weighted=True))),
         "isolated": carried(JCsr.from_coo(isolated_coo())),
         "clique_tail": carried(JCsr.from_coo(clique_tail_coo())),
+        # degree-balanced directed graphs: a sweep that pushed along the
+        # CSC sources instead of the CSR columns would go wrong here
+        "cycle5": carried(JCsr.from_coo(JCoo(5, 5, *directed_cycle_edges())),
+                          directed=True),
+        "cycles300": carried(JCsr.from_coo(cycles_coo(300, CYCLES300, 8)),
+                             directed=True),
     }
 
 
 SOURCES = {"rmat10": (0, 37), "grid16": (3, 200), "isolated": (1, 0),
            "clique_tail": (5, 0)}
 NAMES = sorted(SOURCES)
+DIRECTED_SOURCES = {"cycle5": (0, 3), "cycles300": (0, 171)}
+SWEEP_NAMES = NAMES + sorted(DIRECTED_SOURCES)
 
 
 def starts_of(g):
@@ -96,15 +123,18 @@ def bits(t) -> np.ndarray:
     return np.asarray(t).view(np.int32)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", SWEEP_NAMES)
 def test_sweeps_match_jax_fallback(graphs, name):
+    """Every sweep of a search, bits at the starts and count, against the
+    JAX fallback's full relaxation: the port relaxes only the edges out of
+    the vertices that changed in the sweep before."""
     _, gj, g = graphs[name]
-    source = SOURCES[name][0]
+    source = {**SOURCES, **DIRECTED_SOURCES}[name][0]
     starts = starts_of(g)
     dj = jfs.init_dist_exp(gj, source)
     d = tfs.init_dist_exp(g, source)
     assert np.array_equal(d.numpy(), np.asarray(dj))
-    spare = d.clone()
+    spare = tfs.init_spare(g)
     for it in range(g.n_vertices + 1):
         dj, cnt_j = _jax_sweep(gj, dj)
         cnt = tfs.fused_sssp_superstep(g, d, spare)
@@ -124,10 +154,10 @@ def test_sweep_matches_pallas_pipeline(graphs):
     assert isinstance(gj.route_fwd, cube_router.CubePlan)
     dj = jfs.init_dist_exp(gj, 0)
     for _ in range(2):
-        dj = _jax_sweep(gj, dj)[0]
+        prev, dj = dj, _jax_sweep(gj, dj)[0]
     out_j, cnt_j = jfs.fused_sssp_superstep(gj, dj)
     d = torch.from_numpy(np.array(dj))
-    spare = d.clone()
+    spare = torch.from_numpy(np.array(prev))    # the sweep before d's
     cnt = tfs.fused_sssp_superstep(g, d, spare)
     starts = starts_of(g)
     assert int(cnt) == int(cnt_j[0, 0]) > 0
@@ -146,6 +176,29 @@ def test_run_matches_jax_fused(graphs, name, variant):
         d_j, it_j = _jax_run(gj, source, g.n_vertices + 1)
         assert np.array_equal(bits(r.distances), bits(d_j)[:v]), source
         assert r.iterations == int(it_j), source
+
+
+@pytest.mark.parametrize("variant", ["fused", "auto"])
+@pytest.mark.parametrize("name", sorted(DIRECTED_SOURCES))
+def test_degree_balanced_directed_run_matches_jax_fused(graphs, name,
+                                                        variant):
+    """A directed graph with a symmetric layout runs fused (auto's choice):
+    distances bitwise and sweeps equal to JAX's run_fused_sssp, and within
+    rtol 1e-5 of the host Dijkstra with the reach set exact."""
+    csr, gj, g = graphs[name]
+    assert g.symmetric_layout and g.properties.directed
+    assert not torch.equal(g.col_indices, g.csc_src_indices)
+    v = g.n_vertices
+    for source in DIRECTED_SOURCES[name]:
+        r = tsssp.run(g, source, variant=variant, warmup=False)
+        d_j, it_j = _jax_run(gj, source, g.n_vertices + 1)
+        assert np.array_equal(bits(r.distances), bits(d_j)[:v]), source
+        assert r.iterations == int(it_j) > 1, source
+        ref = jsssp.cpu_reference(csr, source)
+        reach = np.isfinite(ref)
+        d = r.distances.numpy()
+        assert np.array_equal(np.isfinite(d), reach), source
+        np.testing.assert_allclose(d[reach], ref[reach], rtol=RTOL, atol=0)
 
 
 def test_auto_picks_windowed_where_supported(graphs, monkeypatch):
@@ -225,13 +278,19 @@ def test_carried_weighted_graph_gives_jax_sssp():
 
 # -------------------------------------------------------------- refusals --
 
+def directed_cycle_edges():
+    """(src, dst, weights) of the directed 5-cycle i -> i + 1 with weight
+    i + 1."""
+    n = 5
+    return (np.arange(n, dtype=np.int32),
+            ((np.arange(n) + 1) % n).astype(np.int32),
+            np.arange(1, n + 1, dtype=np.float32))
+
+
 def directed_cycle():
     """A directed 5-cycle: in-degree == out-degree, so its layout is
     symmetric, but its edges are not."""
-    n = 5
-    w = np.arange(1, n + 1, dtype=np.float32)
-    csr = Csr.from_coo(Coo(n, n, np.arange(n, dtype=np.int32),
-                           ((np.arange(n) + 1) % n).astype(np.int32), w))
+    csr = Csr.from_coo(Coo(5, 5, *directed_cycle_edges()))
     return csr, build_graph(csr, directed=True, weighted=True, device="cpu")
 
 
@@ -278,13 +337,14 @@ def test_wrappers_take_plain_version_on_cpu(graphs):
     _, _, g = graphs["grid16"]
     kernels.reset_launches()
     d = tfs.init_dist_exp(g, 0)
-    out = d.clone()
-    ref = d.clone()
-    w = tfs.csc_weights(g)
-    cnt = kernels.sssp_sweep(d, out, g.row_offsets, g.csc_src_indices, w)
-    cnt_p = kernels.sssp_sweep_plain(d, ref, g.row_offsets,
-                                     g.csc_src_indices, w)
+    out = tfs.init_spare(g)
+    ref = tfs.init_spare(g)
+    w = edge_weights(g)
+    cnt = kernels.sssp_sweep(d, out, g.row_offsets, g.col_indices, w)
+    cnt_p = kernels.sssp_sweep_plain(d, ref, g.row_offsets, g.col_indices,
+                                     w)
     assert torch.equal(out, ref) and torch.equal(cnt, cnt_p)
+    assert int(cnt) == 2                      # the source's two neighbours
     dist = tfs.collapse_dist_exp(g, out, 0)
     tsssp.predecessors_from_distances(g, dist)
     twss.sweep(g, dist.view(torch.int32))
@@ -298,8 +358,8 @@ def test_wrappers_raise_on_other_devices(graphs, call):
     w = torch.empty(g.n_edges_padded, device="meta")
     with pytest.raises(EssentialsError):
         if call == "sweep":
-            kernels.sssp_sweep(d, d.clone(), g.row_offsets,
-                               g.csc_src_indices, w)
+            kernels.sssp_sweep(d, d.clone(), g.row_offsets, g.col_indices,
+                               w)
         elif call == "pred":
             kernels.sssp_predecessors(
                 torch.empty(g.n_vertices_padded, device="meta"),
@@ -310,17 +370,19 @@ def test_wrappers_raise_on_other_devices(graphs, call):
 
 def test_wrappers_reject_bad_arguments(graphs):
     _, _, g = graphs["clique_tail"]
-    off, src = g.row_offsets, g.csc_src_indices
+    off, src, col = g.row_offsets, g.csc_src_indices, g.col_indices
     d = tfs.init_dist_exp(g, 0)
-    w = tfs.csc_weights(g)
+    w = edge_weights(g)
+    wc = tfs.csc_weights(g)
     dist = torch.zeros(g.n_vertices_padded)
     bad = [
-        lambda: kernels.sssp_sweep(d, d, off, src, w),          # in place
-        lambda: kernels.sssp_sweep(d, d[1:], off, src, w),      # short out
-        lambda: kernels.sssp_sweep(d, d.clone(), off, src, w.double()),
-        lambda: kernels.sssp_sweep(d.float(), d.clone(), off, src, w),
-        lambda: kernels.sssp_predecessors(dist.double(), off, src, w, 1),
-        lambda: kernels.sssp_predecessors(dist, off, src, w,
+        lambda: kernels.sssp_sweep(d, d, off, col, w),          # in place
+        lambda: kernels.sssp_sweep(d, d[1:], off, col, w),      # short out
+        lambda: kernels.sssp_sweep(d, d.clone(), off, col, w.double()),
+        lambda: kernels.sssp_sweep(d.float(), d.clone(), off, col, w),
+        lambda: kernels.sssp_sweep(d, d.clone(), off, col.long(), w),
+        lambda: kernels.sssp_predecessors(dist.double(), off, src, wc, 1),
+        lambda: kernels.sssp_predecessors(dist, off, src, wc,
                                           g.n_edges_padded + 1),
         lambda: kernels.collapse_starts(d, off, tfs.INF_BITS,
                                         g.n_vertices_padded),

@@ -118,6 +118,45 @@ def test_plain_bitmap_counts_match_interpret_kernel(graph, witness):
         assert wit is None
 
 
+def hub_pairs_inputs():
+    """chip_smoke.hub_pairs_inputs: unsorted pairs with a hub u and pads."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.hub_pairs_inputs()
+
+
+@pytest.mark.parametrize("witness", [True, False])
+def test_plain_bitmap_counts_match_interpret_kernel_on_unsorted_pairs(
+        witness):
+    """Pairs in no order (a hub u with every word non-zero scattered among
+    random pairs) and pads at the zero row among them, the card's grouping
+    by u in any order: the plain version against JAX's kernel."""
+    eu, ev, bitmap = hub_pairs_inputs()
+    rows = bitmap.shape[0]
+    assert not (np.diff(eu) >= 0).all() and (eu == rows - 1).any()
+    e2 = -(-eu.size // jbi._EDGE_BLOCK) * jbi._EDGE_BLOCK
+    eu = np.concatenate([eu, np.full(e2 - eu.size, rows - 1, np.int32)])
+    ev = np.concatenate([ev, np.full(e2 - ev.size, rows - 1, np.int32)])
+    cnt_j, crole = jbi.bitmap_intersect_counts(
+        eu, ev, bitmap.reshape(rows, -1, 128), witness=witness)
+    cnt, wit = bi.bitmap_intersect_counts(
+        torch.from_numpy(eu), torch.from_numpy(ev), torch.from_numpy(bitmap),
+        witness=witness)
+    assert np.array_equal(cnt.numpy(), np.asarray(cnt_j))
+    assert int(cnt[eu == 7].min()) > 0 and not cnt[eu == rows - 1].any()
+    if witness:
+        assert np.array_equal(
+            bi.unpack_witness_counts(wit, bitmap.shape[1] * 32).numpy(),
+            jbi.unpack_witness_counts(np.asarray(crole),
+                                      bitmap.shape[1] * 32))
+    else:
+        assert wit is None
+
+
 # ---------------------------------------------------------------- tc.run --
 
 @pytest.mark.parametrize("variant", tc.VARIANTS)
