@@ -43,7 +43,23 @@ bitmap: ``bitmap_intersect_counts`` over gen:rmat17x16's oriented edges
 (TC bitmap's one launch), witness on and off: wall and device time per
 call.
 
-e2e (end to end, in E2E_ROUNDS rounds of turns: 8 runs a side): PageRank
+reduce: ``segment_reduce`` at the dense SSSP round of directed rmat20 seed
+3 (the MIN of its messages over the CSC offsets, the search from the
+highest out-degree vertex) and a float SUM at PageRank generic's shape
+(seeded float32 messages over the same offsets), wall and device time per
+call, beside torch.segment_reduce.
+
+bfs: ``bfs_level`` level by level over one search from the highest-degree
+vertex, each call from its saved state, int32 and int8, at undirected
+rmat18 and gen:rmat20x16: wall per level (median of CYCLES), device per
+level and per search (torch.profiler over a whole search; the parent's
+device kernel is bfs_level_kernel alone, this tree's the pass, the list,
+the push and the pull); this tree under the card's choice of form.
+
+e2e (end to end, in E2E_ROUNDS rounds of turns: 8 runs a side): BFS fused
+MTEPS at undirected rmat18 (the median search of the 16 highest-degree
+sources, as chip_smoke's phase 5) with the device time of the 16 searches;
+PageRank and HITS generic ms per run on directed rmat20 seed 3; PageRank
 fused ms per iteration at undirected rmat18; BFS and SSSP adaptive from the
 8 highest out-degree sources of directed rmat20 seed 3, the device time of
 all 8 searches (torch.profiler) and the wall ms per search; color JP and
@@ -105,7 +121,7 @@ import chip_smoke as CS
 KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
            "scan", "segment_broadcast_total", "suffix_fill_update",
            "segment_minmax", "kcore_sweep", "sssp_sweep",
-           "bitmap_intersect_counts")
+           "bitmap_intersect_counts", "segment_reduce", "bfs_level")
 PR_HITS_ROUNDS = 4             # rounds of turns: 8 runs on each side
 E2E_ROUNDS = 4                 # rounds of turns: 8 runs on each side
 PACK_PAYLOADS = (2, 4)
@@ -124,9 +140,10 @@ def build(mod, name: str) -> None:
     print(f"build: {name} in {time.perf_counter() - t0:.1f} s")
     for i, line in enumerate(log):
         if "Compiling entry" in line and any(
-                k in line for k in ("sssp_sweep_kernel",
-                                    "sssp_sweep_push_kernel",
-                                    "bitmap_intersect_counts_kernel")):
+                k in line for k in ("bfs_level_kernel",
+                                    "bfs_level_push_kernel",
+                                    "bfs_level_pull_kernel",
+                                    "segment_reduce_kernel")):
             print(f"  {line.strip()}")
             for nxt in log[i + 1:i + 4]:
                 if "Used" in nxt or "spill" in nxt:
@@ -149,6 +166,14 @@ def load_parent(root: Path):
         def kcore_sweep(di, ci, do, co, off, csc_src, col, k):
             return old(di, ci, do, co, off, csc_src, k)
         mod.kcore_sweep = kcore_sweep
+    if "col" not in inspect.signature(mod.bfs_level).parameters:
+        # the parent's level pulls over csc_src alone
+        old_level = mod.bfs_level
+
+        def bfs_level(lev, off, csc_src, col, it, unreached,
+                      max_shared_bytes=None):
+            return old_level(lev, off, csc_src, it, unreached)
+        mod.bfs_level = bfs_level
     return mod
 
 
@@ -521,10 +546,107 @@ def bitmap_shapes(card: str, run, K0, out: dict) -> None:
               {"parent": lambda m=measure: on(K0, m), "this": measure}, out)
 
 
+def reduce_shapes(card: str, run, K0, out: dict) -> None:
+    """segment_reduce: MIN at the dense SSSP round, a float SUM at PageRank
+    generic's shape (directed rmat20 seed 3), beside
+    torch.segment_reduce."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import sssp
+    csr, g = run.spmv_graph(CS.SPMV_TIME_SCALE)
+    source = int(np.argmax(np.diff(csr.row_offsets)))
+    st = CS.largest_dense_state(g, source, sssp)
+    cl = g.csc_src_indices.long()
+    msg = torch.where(st.frontier[cl], st.distances[cl] + g.csc_values,
+                      float("inf"))
+    contrib = torch.rand(g.n_edges_padded, generator=torch.Generator(
+        device=g.device).manual_seed(CS.SPMV_SEED), device=g.device) \
+        / g.n_vertices
+    off = g.csc_offsets
+    off64 = off.long()
+    for op, x, label in (
+            ("min", msg, "the dense SSSP round's MIN"),
+            ("sum", contrib, "a float SUM at PageRank generic's shape")):
+        a, b = K0.segment_reduce(x, off, op), K.segment_reduce(x, off, op)
+        CS.check(same_bits((a,), (b,)) if op == "min" else bool(
+            ((a.double() - b.double()).abs() <= CS.SUM_RTOL
+             * a.double().abs() + CS.SUM_ATOL).all()),
+            f"segment_reduce {op}: parent and this tree disagree")
+        turns(card, f"segment_reduce <{op}>, {label}, rmat"
+                    f"{CS.SPMV_TIME_SCALE} seed {CS.SPMV_SEED}",
+              with_library(
+                  K0, lambda x=x, op=op: kernel_ms(
+                      lambda: K.segment_reduce(x, off, op)),
+                  lambda x=x, op=op: torch.segment_reduce(
+                      x, op, offsets=off64, unsafe=True),
+                  "torch.segment_reduce", CS.SPMV_REPS), out)
+
+
+def bfs_shapes(card: str, run, K0, out: dict) -> None:
+    """bfs_level level by level over one search, int32 and int8, at
+    undirected rmat18 and gen:rmat20x16."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_bfs as FB
+    for where, (csr, g) in ((f"rmat{CS.SCALE}", run.bfs_graph(CS.SCALE)),
+                            (f"gen:rmat{CS.MAIN_SCALE}x16",
+                             run.weighted_graph(CS.MAIN_SCALE))):
+        source = int(np.argmax(np.diff(csr.row_offsets)))
+        args = CS.level_args(g)
+        for unreached in (FB.UNREACHED, FB.UNREACHED_E):
+            states = CS.bfs_level_states(g, source, unreached)[0]
+            for i, st in enumerate(states):
+                a, b = st.clone(), st.clone()
+                CS.check(torch.equal(K0.bfs_level(a, *args, i, unreached),
+                                     K.bfs_level(b, *args, i, unreached))
+                         and torch.equal(a, b),
+                         f"bfs_level {where} level {i}: parent and this tree "
+                         f"disagree")
+
+            def measure(kernels=CS.BFS_LEVEL_KERNELS, states=states,
+                        unreached=unreached) -> dict:
+                t = CS.bfs_level_ms(g, states, unreached, ("device",),
+                                    kernels=kernels)
+                dev = t["devices"]["device"]
+                r = {f"wall level {i}": w for i, w in enumerate(t["walls"])}
+                r.update({f"device level {i}": None if dev is None else d
+                          for i, d in enumerate(dev or [None] * len(states))})
+                r["wall per search"] = sum(t["walls"])
+                r["device per search"] = None if dev is None else sum(dev)
+                return r
+            form = "int8" if unreached == FB.UNREACHED_E else "int32"
+            turns(card, f"bfs_level<{form}> over the {len(states)} levels of "
+                        f"one search from {source}, {where}",
+                  {"parent": lambda m=measure: on(
+                      K0, lambda: m(CS.BFS_LEVEL_KERNELS[:1])),
+                   "this": measure}, out)
+
+
 def end_to_end(card: str, run, K0, out: dict) -> None:
-    from essentials_tpu_torch.algorithms import bfs, color, kcore, pr, sssp
-    from essentials_tpu_torch.algorithms import tc
-    gu = run.bfs_graph(CS.SCALE)[1]
+    from essentials_tpu_torch.algorithms import bfs, color, hits, kcore, pr
+    from essentials_tpu_torch.algorithms import sssp, tc
+    csr_u, gu = run.bfs_graph(CS.SCALE)
+    top16 = np.argsort(-np.diff(csr_u.row_offsets))[:CS.RUNS].astype(int)
+
+    def bfs_fused() -> dict:
+        def searches():
+            return [bfs.run(gu, int(s), variant="fused", warmup=False,
+                            compute_predecessors=False) for s in top16]
+        ms = float(np.median([r.elapsed_ms for r in searches()]))
+        return {"MTEPS": gu.n_edges / 1e3 / ms, "ms per search": ms,
+                f"device ms over {len(top16)} searches":
+                    CS.device_ms(searches, 1)[0]}
+    turns(card, f"bfs fused undirected rmat{CS.SCALE}, {len(top16)} "
+                f"highest-degree sources", {
+                    "parent": lambda: on(K0, bfs_fused), "this": bfs_fused},
+          out, E2E_ROUNDS)
+    g20 = run.spmv_graph(CS.SPMV_TIME_SCALE)[1]
+    for name, fn in (("pr", pr.run), ("hits", hits.run)):
+        def generic(fn=fn) -> dict:
+            r = fn(g20, variant="generic", warmup=False)
+            return {"ms per run": r.elapsed_ms, "iterations": r.iterations}
+        turns(card, f"{name} generic directed rmat{CS.SPMV_TIME_SCALE} seed "
+                    f"{CS.SPMV_SEED}", {
+                        "parent": lambda m=generic: on(K0, m),
+                        "this": generic}, out, E2E_ROUNDS)
 
     def pr_fused() -> dict:
         r = pr.run(gu, variant="fused")
@@ -632,7 +754,8 @@ def pack_sweep(card: str, out: dict) -> None:
     out["pack_sweep"] = rows
 
 
-GROUPS = {"sssp": sssp_shapes, "bitmap": bitmap_shapes,
+GROUPS = {"reduce": reduce_shapes, "bfs": bfs_shapes,
+          "sssp": sssp_shapes, "bitmap": bitmap_shapes,
           "minmax": minmax_shapes, "kcore": kcore_shapes,
           "scan": scan_shapes, "fill": fill_shapes, "e2e": end_to_end,
           "spmv": spmv_shapes, "gather": gather_shapes,

@@ -24,17 +24,23 @@ raises and exits non-zero:
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: compile every csrc/*.cu with nvcc for sm_90a (one nvcc per
    source, in parallel) into one library and load it;
-3. kernels: every level of a BFS, in the int32 and the int8 form, on rmat12
-   and rmat18, each kernel against its plain PyTorch version on the same
-   tensors, which must agree exactly;
+3. kernels: every level of a BFS, in the int32 and the int8 form, on rmat12,
+   rmat18 and a degree-balanced directed graph (balanced_coo), each kernel
+   against its plain PyTorch version on the same tensors, which must agree
+   exactly; bfs_level under the card's choice of push or pull per level,
+   under each forced (push, pull) and in the pull's global tier (BFS_CHECKS);
 4. main path: bfs.run(variant="fused") and bfs.run(variant="fused8",
    max_iterations=64) from the 16 highest-degree sources of the undirected
    RMAT graph of bench.py (scale 18, edge factor 16, seed 1), held against
    the host cpu_reference and a host check of the predecessors; the launch
    counters must show that every kernel ran on this path;
 5. times on CUDA events: BFS MTEPS per variant, and each kernel against its
-   plain version at rmat18 shapes; then torch.profiler's device time by
-   kernel over the main path, beside its wall time;
+   plain version at rmat18 shapes: bfs_level level by level from its saved
+   state, wall and device time (its four device kernels), the form the
+   card took, the device time of each form forced, and the level's bound
+   (bfs_level_work: the work the level must do) beside the dense bound
+   (every csc_src slot); then torch.profiler's device time by kernel over
+   the main path, beside its wall time;
 6. SpMV kernels: on bench.py's SpMV graph (directed, weighted RMAT, scale
    18, edge factor 16, seed 3) and on its scale-12 sibling, every instance
    of spmv_rows (messages mul, none; replaces fused_spmv._pallas_spmv_chain)
@@ -128,7 +134,10 @@ raises and exits non-zero:
    segmented; gather_payloads with 1-4 payloads of unequal lengths,
    packed and unpacked, through the whole index, a ragged count and a view
    at an odd offset; segment_reduce under its
-   five ops on both dtypes over the CSC and the CSR offsets;
+   five ops on both dtypes over the CSC and the CSR offsets, and (once)
+   over the offsets of the spmv_rows stress graph (hubs of 82,001 and 6,139
+   slots, 6,144 empty segments), over offsets that start past 0 and with
+   the values a view at a 4-byte offset (check_reduce_shapes);
    advance_count in both tiers (shared, and global under a cap of
    COUNT_GLOBAL_CAP bytes) under empty, full and seeded frontiers; integers
    exact, floats within SCAN_RTOL / SUM_RTOL, and every kernel bitwise
@@ -156,7 +165,9 @@ raises and exits non-zero:
    advance_count's and torch.mv's device time per call from torch.profiler
    (both tiers of advance_count), scan's and torch.cumsum's at
    compact_frontier's cumsum, gather_payloads' packed and unpacked
-   beside torch.index_select's of the payloads side by side;
+   beside torch.index_select's of the payloads side by side, and
+   segment_reduce's beside torch.segment_reduce's: MIN at the dense SSSP
+   round, a float SUM at PageRank generic's shape (the CSC offsets);
 15. the triangle-counting and fill kernels against their plain versions,
    integers exact and a second launch bitwise equal: bitmap_intersect_counts
    (replaces bitmap_intersect.bitmap_intersect_counts), witness on and off,
@@ -208,7 +219,7 @@ raises and exits non-zero:
    MINMAX_LONG_TILES tiles, segment ends at every offset of a tile, a run
    of MINMAX_EMPTY_RUN empty segments, all-inactive segments, offsets
    from 37, payloads and flags as views at odd element offsets), and two
-   device launches per call (segment_minmax_split_kernel, then
+   device launches per call (segment_split_kernel, then
    segment_minmax_kernel) for 1, 3 and 8 payloads (as in phase 12, a
    kernel with no form measured fails); and
    bitmap_intersect_counts at 12,288-word rows (48 KiB, whose non-zero
@@ -251,6 +262,13 @@ the TPU kernel's model). sssp_sweep's bound reads each non-empty start's
 sector once per buffer, writes the sectors of the starts that change, and
 reads the CSR column and weight of each slot that the sweep must relax
 (the rows of the vertices that changed in the sweep before).
+bfs_level's bound, per level of the timed search (bfs_level_work), reads
+the offsets and each non-empty start's sector once, writes and reads the
+two bitmaps once, reads the smaller of the push's col words (the
+frontier's out-slots) and the pull's csc_src words (each unreached
+segment up to its first frontier source), and writes the sectors of the
+starts it reaches; its JSON entry also gives bound_dense_ms, the model
+of the earlier pull-only kernel (every csc_src slot every level).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -312,6 +330,7 @@ FILL_LONG = 42         # fill tiles one segment spans in the fill sweep
 PROFILED_CALLS = 4     # calls a launch check records
 COUNT_GLOBAL_CAP = 0   # advance_count's shared-tier cap that forces "global"
 GATHER_EXTRA = (0, 5, 9, 130)   # gather_payloads' payloads: Vp + these words
+REDUCE_CUT = 1000      # segment_reduce over offsets[REDUCE_CUT:], from past 0
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
 # bytes per second by where a launch's operands live: HBM is the data
@@ -319,6 +338,15 @@ L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
 MEMORY_RATE = {"HBM": 3.35e12, "L2": None}
 L2_PROBE_MIB = (4, 12)  # the sizes of the two copies that l2_rate compares
 L2_COPIES = 50
+
+# bfs_level's checks: (form, shared-memory cap of the pull): the card's
+# choice per level, push and pull forced, and the pull's global tier
+BFS_CHECKS = (("device", None), ("push", None), ("pull", None),
+              ("device", COUNT_GLOBAL_CAP))
+# bfs_level's device kernels: the pass, the list, the push, the pull
+BFS_LEVEL_KERNELS = ("bfs_level_kernel", "bfs_level_list_kernel",
+                     "bfs_level_push_kernel", "bfs_level_pull_kernel")
+BFS_FORMS_TIMED = ("device", "push", "pull")   # kernels.BFS_FORMS
 
 SOURCE = "essentials_tpu_torch/csrc/bfs_kernels.cu"
 SPMV_SOURCE = "essentials_tpu_torch/csrc/spmv_kernels.cu"
@@ -457,27 +485,58 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 # ------------------------------------------------------------- phase 3 --
 
-def check_kernels(g, source: int, errs: dict) -> None:
-    """Every level of one BFS in both forms, kernel against plain."""
+@contextlib.contextmanager
+def bfs_form(form: str):
+    """bfs_level made to take one form while the block runs ("device", the
+    card's choice per level, or "push" or "pull" throughout):
+    kernels.bfs_level_form bound to a constant."""
+    from essentials_tpu_torch import kernels as K
+    saved = K.bfs_level_form
+    K.bfs_level_form = lambda: form
+    try:
+        yield
+    finally:
+        K.bfs_level_form = saved
+
+
+def level_args(g) -> tuple:
+    """bfs_level's graph arguments: offsets, csc_src, col."""
+    return g.row_offsets, g.csc_src_indices, g.col_indices
+
+
+def check_kernels(g, source: int, errs: dict) -> bool:
+    """Every level of one BFS in both forms, kernel against plain, under
+    each of BFS_CHECKS; then the collapse and the predecessors; then one
+    of each of BFS_LEVEL_KERNELS per bfs_level call, as torch.profiler sees
+    it (False where every profiler window lost device activities)."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_bfs as FB
+    args = level_args(g)
     for unreached in (FB.UNREACHED, FB.UNREACHED_E):
         form = "int8" if unreached == FB.UNREACHED_E else "int32"
-        lev_k = FB.init_lev_exp(g, source, unreached)
-        lev_p = lev_k.clone()
-        it = 0
-        while True:
-            cnt_k = K.bfs_level(lev_k, g.row_offsets, g.csc_src_indices, it,
-                                unreached)
-            cnt_p = K.bfs_level_plain(lev_p, g.row_offsets,
-                                      g.csc_src_indices, it, unreached)
-            torch.cuda.synchronize()
-            e = max(max_err(lev_k, lev_p), max_err(cnt_k, cnt_p))
-            errs[f"bfs_level<{form}>"] = max(errs[f"bfs_level<{form}>"], e)
-            check(e == 0, f"bfs_level<{form}> level {it} differs from plain")
-            it += 1
-            if cnt_k.item() == 0 or it >= MAX_IT:
-                break
+        took = {}
+        for how, cap in BFS_CHECKS:
+            lev_k = FB.init_lev_exp(g, source, unreached)
+            lev_p = lev_k.clone()
+            it, forms = 0, []
+            with bfs_form(how):
+                while True:
+                    if how == "device":
+                        forms.append("pull" if bfs_level_work(
+                            g, lev_k, it, unreached)["pulls"] else "push")
+                    cnt_k = K.bfs_level(lev_k, *args, it, unreached, cap)
+                    cnt_p = K.bfs_level_plain(lev_p, *args, it, unreached)
+                    torch.cuda.synchronize()
+                    e = max(max_err(lev_k, lev_p), max_err(cnt_k, cnt_p))
+                    errs[f"bfs_level<{form}>"] = max(
+                        errs[f"bfs_level<{form}>"], e)
+                    check(e == 0, f"bfs_level<{form}> ({how}, cap {cap}) "
+                                  f"level {it} differs from plain")
+                    it += 1
+                    if cnt_k.item() == 0 or it >= MAX_IT:
+                        break
+            tier = K.advance_count_tier(g.n_vertices_padded, g.device, cap)
+            took[f"{how}, pull tier {tier}"] = ",".join(forms) or it
         dist_k = K.collapse_levels(lev_k, g.row_offsets, source, unreached)
         dist_p = K.collapse_levels_plain(lev_p, g.row_offsets, source,
                                          unreached)
@@ -492,9 +551,16 @@ def check_kernels(g, source: int, errs: dict) -> None:
         e = max_err(pred_k, pred_p)
         errs["bfs_predecessors"] = max(errs["bfs_predecessors"], e)
         check(e == 0, "bfs_predecessors differs from plain")
-        print(f"kernels: rmat V={g.n_vertices} source {source} {form}: "
-              f"{it} levels, {int((dist_k < FB.UNREACHED).sum())} reached, "
-              f"exact against plain")
+        print(f"kernels: V={g.n_vertices} E={g.n_edges} source {source} "
+              f"{form}: {it} levels, {int((dist_k < FB.UNREACHED).sum())} "
+              f"reached, exact against plain under each form "
+              f"({'; '.join(f'{k}: {v}' for k, v in took.items())})")
+    state = FB.init_lev_exp(g, source)
+    buf = state.clone()
+    return check_one_launch(
+        "bfs_level", lambda: K.bfs_level(buf.copy_(state), *args, 0,
+                                         FB.UNREACHED),
+        f"V={g.n_vertices} level 0", BFS_LEVEL_KERNELS)
 
 
 # ------------------------------------------------------------- phase 4 --
@@ -536,40 +602,184 @@ def median_ms(fn, reps: int = CYCLES, setup=None) -> float:
     return float(np.median(times))
 
 
-def time_kernels(g, source: int) -> dict:
-    """Each kernel and its plain version at rmat18 shapes, one call at a
-    time through its wrapper (so a short kernel's time is mostly the
-    wrapper's host time): bfs_level summed over the levels of one search,
-    each level from its saved state; collapse_levels and bfs_predecessors
-    once per search."""
+def bfs_level_states(g, source: int, unreached: int) -> tuple:
+    """The level array before each level of one search from ``source``,
+    and after its last."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_bfs as FB
+    states, lev, it = [], FB.init_lev_exp(g, source, unreached), 0
+    while True:
+        states.append(lev.clone())
+        cnt = K.bfs_level(lev, *level_args(g), it, unreached)
+        it += 1
+        if cnt.item() == 0 or it >= MAX_IT:
+            return states, lev
+
+
+def bfs_level_work(g, lev, it: int, unreached: int) -> dict:
+    """What the level from ``lev`` must do, on the card's tensors: the
+    frontier's vertices n_f and out-slots m_f and the unreached vertices'
+    in-slots m_u, the form the card takes (kernels.bfs_level_pulls), the vertices it reaches,
+    and the bytes of its bound: the offsets and each non-empty start's
+    32-byte sector read once, the two bitmaps written and read once, the
+    smaller of the push's col words (m_f) and the pull's csc_src words (each
+    unreached segment up to its first slot from the frontier), and the
+    sectors of the starts reached written; beside them the dense bound's
+    bytes (the earlier pull-only kernel's model: every start read and
+    written, the offsets, every csc_src slot)."""
+    from essentials_tpu_torch import kernels as K
+    off, src = g.row_offsets, g.csc_src_indices
+    vp, ep = g.n_vertices_padded, g.n_edges_padded
+    elt = lev.element_size()
+    nonempty = off[1:] > off[:-1]
+    starts = torch.where(nonempty, off[:-1], 0).long()
+    lens = (off[1:] - off[:-1]).long()
+    lv = torch.where(nonempty, lev[starts].int(), unreached)
+    front = nonempty & (lv == it)
+    opened = nonempty & (lv == unreached)
+    m_f, m_u = int(lens[front].sum()), int(lens[opened].sum())
+    n_f = int(front.sum())
+    seg = K._segment_ids(off, ep)
+    hit = front[src.long()] & opened[seg]
+    pos = torch.arange(ep, device=lev.device)
+    first = torch.full((vp,), ep, dtype=torch.int64, device=lev.device)
+    first.scatter_reduce_(0, seg[hit], pos[hit], "amin")
+    reached = opened & (first < ep)
+    scanned = int(torch.where(reached, first - starts + 1, lens)[opened].sum())
+    per = 32 // elt                  # starts of one 32-byte sector
+    sectors = int(torch.unique(starts[nonempty] // per).numel())
+    written = int(torch.unique(starts[reached] // per).numel())
+    bits = 4 * 4 * K.bitmap_words(vp)
+    return {"m_f": m_f, "m_u": m_u, "n_f": n_f,
+            "pulls": K.bfs_level_pulls(m_f, m_u, n_f, vp),
+            "reached": int(reached.sum()), "pull_slots": scanned,
+            "bytes": 4 * (vp + 1) + 32 * (sectors + written) + bits
+            + 4 * min(m_f, scanned),
+            "dense_bytes": 2 * elt * vp + 4 * (vp + 1) + 4 * ep + 4}
+
+
+def bfs_level_ms(g, states, unreached: int, forms=BFS_FORMS_TIMED,
+                 reps: int = CYCLES, kernels: tuple = BFS_LEVEL_KERNELS
+                 ) -> dict:
+    """bfs_level over the levels of ``states`` (bfs_level_states), each call
+    from its saved state (restored outside the timed region): each level's
+    wall time (median of ``reps`` on CUDA events) and, under each of
+    ``forms``, its device time (torch.profiler, the device kernels
+    ``kernels`` a call launches)."""
+    from essentials_tpu_torch import kernels as K
+    args = level_args(g)
+    buf = torch.empty_like(states[0])
+
+    def restored(lev):
+        return buf.copy_(lev)
+    wall = [median_ms(lambda x, i=i: K.bfs_level(x, *args, i, unreached),
+                      reps, lambda s=s: restored(s))
+            for i, s in enumerate(states)]
+
+    def search():
+        for i, s in enumerate(states):
+            K.bfs_level(restored(s), *args, i, unreached)
+    dev = {}
+    for form in forms:
+        with bfs_form(form):
+            dev[form] = per_call_device_ms(search, kernels, len(states))
+    return {"walls": wall, "devices": dev}
+
+
+def ms_by_form(dev: dict) -> str:
+    """bfs_level's device ms by form, as bfs_level_ms gives them."""
+    label = {"device": "as chosen", "push": "push forced",
+             "pull": "pull forced"}
+    return ", ".join(f"{label[f]} " + ("not measured" if v is None
+                                       else f"{v:.4f} ms")
+                     for f, v in dev.items())
+
+
+def time_bfs_levels(g, source: int, card: str, where: str) -> dict:
+    """bfs_level level by level over one search from ``source`` in both
+    forms: wall and device time (bfs_level_ms), the form the card took,
+    the device time of each form forced, the plain version's wall time,
+    the level's bound and the dense bound (bfs_level_work), per level and
+    summed per search. Returns chip_smoke's keys for bfs_level<int32> and
+    <int8>."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_bfs as FB
     out = {}
-    off, csrc = g.row_offsets, g.csc_src_indices
-    vp, ep = g.n_vertices_padded, g.n_edges_padded
+    args = level_args(g)
     for unreached in (FB.UNREACHED, FB.UNREACHED_E):
         form = "int8" if unreached == FB.UNREACHED_E else "int32"
-        states, lev, it = [], FB.init_lev_exp(g, source, unreached), 0
-        while True:
-            states.append(lev.clone())
-            cnt = K.bfs_level(lev, off, csrc, it, unreached)
-            it += 1
-            if cnt.item() == 0 or it >= MAX_IT:
-                break
-        for name, fn in ((f"bfs_level<{form}>", K.bfs_level),
-                         (f"bfs_level<{form}>/plain", K.bfs_level_plain)):
-            out[name] = sum(
-                median_ms(lambda x, i=i: fn(x, off, csrc, i, unreached),
-                          setup=lambda s=s: s.clone())
-                for i, s in enumerate(states))
+        name = f"bfs_level<{form}>"
+        states = bfs_level_states(g, source, unreached)[0]
+        work = [bfs_level_work(g, s, i, unreached)
+                for i, s in enumerate(states)]
+        t = bfs_level_ms(g, states, unreached)
+        buf = torch.empty_like(states[0])
+        plain = [median_ms(lambda x, i=i: K.bfs_level_plain(
+            x, *args, i, unreached), setup=lambda s=s: buf.copy_(s))
+            for i, s in enumerate(states)]
+        bounds = [bound(w["bytes"]) for w in work]
+        dense = [bound(w["dense_bytes"]) for w in work]
+        levels = []
+        for i, w in enumerate(work):
+            dev = {f: None if d is None else d[i]
+                   for f, d in t["devices"].items()}
+            levels.append({
+                "level": i, "form": "pull" if w["pulls"] else "push",
+                "n_f": w["n_f"], "m_f": w["m_f"], "m_u": w["m_u"],
+                "reached": w["reached"],
+                "ms": t["walls"][i], "device_ms": dev["device"],
+                "push_device_ms": dev["push"], "pull_device_ms": dev["pull"],
+                "plain_ms": plain[i], "bound_ms": bounds[i][0],
+                "bound_memory": bounds[i][2], "dense_bound_ms": dense[i][0]})
+            print(f"time [{card}]: {name} {where} from {source} level {i}: "
+                  f"{levels[-1]['form']} (n_f {w['n_f']}, m_f {w['m_f']}, "
+                  f"m_u {w['m_u']}, "
+                  f"reaches {w['reached']}, pull slots to the first hit "
+                  f"{w['pull_slots']}): {t['walls'][i]:.4f} ms wall; "
+                  f"device {ms_by_form(dev)}; plain {plain[i]:.4f} ms; "
+                  f"bound "
+                  f"{bounds[i][0]:.4f} ms ({bounds[i][2]}), dense bound "
+                  f"{dense[i][0]:.4f}")
+        search = {f: None if d is None else sum(d)
+                  for f, d in t["devices"].items()}
+        mems = "/".join(sorted({b[2] for b in bounds}))
+        print(f"time [{card}]: {name} {where} from {source}, a search of "
+              f"{len(states)} levels ({','.join(lv['form'] for lv in levels)}"
+              f"): {sum(t['walls']):.4f} ms wall; device "
+              f"{ms_by_form(search)}; plain {sum(plain):.4f} ms; bound "
+              f"{sum(b[0] for b in bounds):.4f} ms ({mems}), dense bound "
+              f"{sum(b[0] for b in dense):.4f}")
+        out[name] = sum(t["walls"])
+        out[name + "/plain"] = sum(plain)
+        out[name + "/device"] = search["device"]
+        out[name + "/bound"] = (sum(b[0] for b in bounds), "bytes", mems)
+        out[name + "/bound_dense"] = (sum(b[0] for b in dense), "bytes",
+                                      "/".join(sorted({b[2] for b in dense})))
+        out[name + "/levels"] = levels
+        out[name + "/forced"] = {"push_device_ms": search["push"],
+                                 "pull_device_ms": search["pull"]}
+    return out
+
+
+def time_kernels(g, source: int, card: str) -> dict:
+    """Each kernel and its plain version at rmat18 shapes, one call at a
+    time through its wrapper (so a short kernel's time is mostly the
+    wrapper's host time): bfs_level level by level over one search
+    (time_bfs_levels); collapse_levels and bfs_predecessors once per
+    search."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_bfs as FB
+    out = time_bfs_levels(g, source, card, f"rmat{SCALE}")
+    off, csrc = g.row_offsets, g.csc_src_indices
+    vp = g.n_vertices_padded
+    for unreached in (FB.UNREACHED, FB.UNREACHED_E):
+        form = "int8" if unreached == FB.UNREACHED_E else "int32"
+        lev = bfs_level_states(g, source, unreached)[1]
         out[f"collapse_levels<{form}>"] = median_ms(
             lambda _: K.collapse_levels(lev, off, source, unreached))
         out[f"collapse_levels<{form}>/plain"] = median_ms(
             lambda _: K.collapse_levels_plain(lev, off, source, unreached))
         elt = 1 if form == "int8" else 4
-        # per level: the starts' levels read and written, offsets, csc_src
-        out[f"bfs_level<{form}>/bound"] = bound(len(states) * (
-            2 * elt * vp + 4 * (vp + 1) + 4 * ep + 4), launches=len(states))
         out[f"collapse_levels<{form}>/bound"] = bound(
             elt * vp + 4 * (vp + 1) + 4 * vp)
     dist = K.collapse_levels(lev, off, source, unreached)
@@ -1998,6 +2208,80 @@ def check_operator_kernels(g, where: str, errs: dict) -> None:
           f"segment_reduce {errs['segment_reduce']:.6g}), all repeatable")
 
 
+def check_reduce_shapes(errs: dict) -> None:
+    """segment_reduce under its five ops on int32 and float32 values (seeded;
+    the int32 ones from -3 to 3, so that or and and see values other than 0
+    and 1; the float32 ones in [0, 1), as in check_operator_kernels) over
+    the CSR and the CSC offsets of the spmv_rows stress graph
+    (rows_stress_graph: hubs of 82,001 and 6,139 slots, a run of 6,144
+    empty segments), over offsets[REDUCE_CUT:] (from past 0) and with the
+    values a view at a 4-byte offset: integers, minima, maxima, ORs and
+    ANDs bitwise equal to plain, float sums within SUM_RTOL of plain and of
+    a float64 sum, every result the same bits over three calls; then one
+    segment_split_kernel and one segment_reduce_kernel a call, by
+    torch.profiler."""
+    from essentials_tpu_torch import kernels as K
+    _, g = rows_stress_graph("cuda")
+    rng = np.random.default_rng(SPMV_SEED)
+    n = g.n_edges_padded
+    whole = (torch.from_numpy(rng.integers(-3, 4, n + 1).astype(
+        np.int32)).cuda(), torch.from_numpy(rng.random(n + 1).astype(
+            np.float32)).cuda())
+    cases = 0
+    for x1 in whole:
+        for label, x in (("aligned", x1[:n]), ("a view at a 4-byte offset",
+                                               x1[1:])):
+            for order, off in (("csr", g.row_offsets),
+                               ("csc", g.csc_offsets),
+                               (f"csc[{REDUCE_CUT}:]",
+                                g.csc_offsets[REDUCE_CUT:])):
+                where = f"rows stress graph {order}, {x.dtype}, {label}"
+                for op in K.REDUCE_OPS:
+                    k = K.segment_reduce(x, off, op)
+                    again = K.segment_reduce(x, off, op)
+                    third = K.segment_reduce(x, off, op)
+                    p = K.segment_reduce_plain(x, off, op)
+                    if op == "sum" and x.is_floating_point():
+                        hold_close("segment_reduce", f"<{op}>", k, again, p,
+                                   SUM_RTOL, errs, where)
+                        check(torch.equal(exact_bits(k), exact_bits(third)),
+                              f"segment_reduce <sum> {where}: other bits on "
+                              f"a third call")
+                        lo, hi = int(off[0]), int(off[-1])
+                        ref = torch.zeros(off.numel() - 1, dtype=torch.float64,
+                                          device=x.device).index_add_(
+                            0, K._segment_ids(off - lo, hi - lo),
+                            x[lo:hi].double())
+                        check(bool(((k.double() - ref).abs() <= SUM_RTOL
+                                    * ref.abs() + SUM_ATOL).all()),
+                              f"segment_reduce <sum> {where}: outside "
+                              f"{SUM_RTOL} of the float64 sum")
+                    else:
+                        hold_exact("segment_reduce", (exact_bits(k),
+                                                      exact_bits(third)),
+                                   (exact_bits(again), exact_bits(k)),
+                                   (exact_bits(p), exact_bits(p)), errs,
+                                   f"{where} <{op}>")
+                    cases += 1
+    x, off = whole[1][1:], g.csc_offsets
+    seg = (g.row_offsets[1:] - g.row_offsets[:-1]).long()
+    measured = sum(check_one_launch(
+        "segment_reduce", lambda op=op: K.segment_reduce(x, off, op),
+        f"rows stress graph <{op}>", ("segment_split_kernel",
+                                      "segment_reduce_kernel"))
+        for op in ("sum", "or"))
+    check(measured > 0, "segment_reduce: launches per call measured for no "
+                        "op")
+    print(f"kernels: segment_reduce on the rows stress graph (longest CSR "
+          f"segment {int(seg.max())} slots = "
+          f"{int(seg.max()) / K.REDUCE_TILE:.1f} tiles, "
+          f"{int((seg == 0).sum())} empty), CSC offsets from "
+          f"{int(off[REDUCE_CUT])}, a view at a 4-byte offset: {cases} "
+          f"cases exact against plain (float sums within {SUM_RTOL}), the "
+          f"same bits over three calls; two device launches a call (split, "
+          f"tiles) for {measured} of 2 ops measured")
+
+
 def kernels_seen(fn, calls: int = PROFILED_CALLS) -> dict | None:
     """{device kernel name: launches per call} over ``calls`` calls of fn()
     recorded by torch.profiler, memsets and copies left out: in a window
@@ -2324,6 +2608,17 @@ def time_operator_kernels(g, source: int) -> dict:
         lambda: K.segment_reduce_plain(msg, off, "min"),
         lambda: torch.segment_reduce(msg, "min", offsets=off64, unsafe=True),
         "segment_reduce (torch.segment_reduce)")))
+    # PageRank generic's SUM: the [Ep] float messages over the CSC offsets
+    contrib = torch.rand(ep, generator=torch.Generator(
+        device=csrc.device).manual_seed(SPMV_SEED), device=csrc.device) \
+        / g.n_vertices
+    t.update(prefixed("segment_reduce@sum", against_library(
+        lambda: K.segment_reduce(contrib, off, "sum"),
+        4 * ep + 4 * (vp + 1) + 4 * vp,
+        lambda: K.segment_reduce_plain(contrib, off, "sum"),
+        lambda: torch.segment_reduce(contrib, "sum", offsets=off64,
+                                     unsafe=True),
+        "segment_reduce sum (torch.segment_reduce)")))
     # the counts as a product: the CSC as a CSR matrix of ones times the
     # frontier
     ones = torch.sparse_csr_tensor(off, csrc, torch.ones(
@@ -2509,7 +2804,7 @@ def check_fill_kernels(g, source: int, where: str, errs: dict) -> dict:
         hold_exact("suffix_fill_update", new, K.suffix_fill_update(*args),
                    K.suffix_fill_update_plain(*args), errs,
                    f"{where} level {it}")
-        cnt = K.bfs_level(lev, off, g.csc_src_indices, it, FB.UNREACHED)
+        cnt = K.bfs_level(lev, *level_args(g), it, FB.UNREACHED)
         check(torch.equal(new[0][starts], lev[starts])
               and int(new[1]) == int(cnt > 0),
               f"{where} level {it}: the 5-pass level differs from bfs_level")
@@ -3122,7 +3417,7 @@ def minmax_stress_inputs(device, m: int = 8, seed: int = COLOR_SEED,
 def check_minmax_shapes(errs: dict) -> None:
     """segment_minmax on its stress case (minmax_stress_inputs) for 1, 3
     and 8 payloads, against its plain version exactly and a second launch
-    bitwise; then one segment_minmax_split_kernel and one
+    bitwise; then one segment_split_kernel and one
     segment_minmax_kernel per call for each, by torch.profiler (fails
     where no form was measured)."""
     from essentials_tpu_torch import kernels as K
@@ -3141,7 +3436,7 @@ def check_minmax_shapes(errs: dict) -> None:
                    errs, f"stress case m={m}")
     measured = sum(check_one_launch(
         "segment_minmax", lambda m=m: K.segment_minmax(pays[:m], active, off),
-        f"stress case m={m}", ("segment_minmax_split_kernel",
+        f"stress case m={m}", ("segment_split_kernel",
                                "segment_minmax_kernel"))
         for m in COLOR_PAYLOADS)
     check(measured > 0, "segment_minmax: launches per call measured for no "
@@ -3441,6 +3736,9 @@ class Run:
         return self._get(("weighted", scale),
                          lambda: weighted_graph(scale, "cuda"))
 
+    def balanced_graph(self) -> tuple:
+        return self._get(("balanced",), lambda: balanced_graph("cuda"))
+
     def tc_graph(self, scale: int, weighted: bool = True):
         return self._get(("tc", scale, weighted),
                          lambda: tc_graph(scale, weighted))
@@ -3453,9 +3751,13 @@ def group_bfs(run: Run) -> None:
     card, errs = run.card, run.errs
 
     # 3. kernels against their plain versions
-    for scale in (12, SCALE):
-        csr, g = run.bfs_graph(scale)
-        check_kernels(g, int(np.argmax(np.diff(csr.row_offsets))), errs)
+    measured = sum(check_kernels(g, int(np.argmax(np.diff(csr.row_offsets))),
+                                 errs)
+                   for csr, g in (run.bfs_graph(12), run.bfs_graph(SCALE),
+                                  run.balanced_graph()))
+    check(measured > 0, "bfs_level: launches per call measured on no graph")
+    print(f"kernels: bfs_level four device kernels a call (pass, list, "
+          f"push, pull) on {measured} of 3 graphs measured")
     run.phases.done("3 bfs kernels")
 
     # 4. the main path
@@ -3467,15 +3769,21 @@ def group_bfs(run: Run) -> None:
                    for s in sources] for v, kw in variants.items()}
     torch.cuda.synchronize()
     launches = dict(K.launches)
+    passes = {k: K.pass_launches[k] for k in (
+        "bfs_level_list", "bfs_level_push", "bfs_level_pull")}
     run.by_path[f"bfs rmat{SCALE}"] = launches
     iters = {v: [r.iterations for r in rs] for v, rs in results.items()}
-    print(f"main path: launches {launches}")
+    print(f"main path: launches {launches}; bfs_level's list, push and "
+          f"pull kernels {passes}")
     for v in variants:
         print(f"main path: {v} iterations per source {iters[v]}")
     check(launches["bfs_level<int32>"] == sum(iters["fused"]),
           "bfs_level<int32> launches != fused iterations")
     check(launches["bfs_level<int8>"] == sum(iters["fused8"]),
           "bfs_level<int8> launches != fused8 iterations")
+    for name, n in passes.items():
+        check(n == sum(iters["fused"]) + sum(iters["fused8"]),
+              f"{name} launches != bfs_level's")
     for name in ("collapse_levels<int32>", "collapse_levels<int8>"):
         check(launches[name] == RUNS, f"{name} launches != {RUNS}")
     check(launches["bfs_predecessors"] == 2 * RUNS,
@@ -3514,7 +3822,7 @@ def group_bfs(run: Run) -> None:
         print(f"time [{card}]: bfs {v} rmat{SCALE} ef{EDGE_FACTOR}: "
               f"{ms:.4f} ms per search (median of {CYCLES} cycles of "
               f"{RUNS} sources), {g.n_edges / 1e3 / ms:.2f} MTEPS")
-    t = time_kernels(g, int(sources[0]))
+    t = time_kernels(g, int(sources[0]), card)
     run.t.update(t)
     for name in REPLACES:
         print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
@@ -3610,7 +3918,7 @@ def group_sssp(run: Run) -> None:
                                  errs)
     check_sssp_kcore_kernels(*kcore_stress_graph("cuda"),
                              "a hub, multi-edges and self-loops", errs)
-    csr_b, g_b = balanced_graph("cuda")
+    csr_b, g_b = run.balanced_graph()
     where = (f"a degree-balanced directed graph (V={g_b.n_vertices}, "
              f"E={g_b.n_edges}, a hub of {g_b.max_degree})")
     check_sssp_kcore_kernels(csr_b, g_b, where, errs)
@@ -3693,6 +4001,7 @@ def group_operators(run: Run) -> None:
     check(not g20.symmetric_layout, f"{where20} has a symmetric layout")
     check_operator_kernels(g20, where20, errs)
     check_scan_shapes(errs)
+    check_reduce_shapes(errs)
     run.phases.done("12 operator kernels")
 
     # 13. the adaptive main path on the directed rmat20 graph
@@ -3736,6 +4045,13 @@ def group_operators(run: Run) -> None:
           + ("device not measured" if t["gather_payloads/unpacked_device"]
              is None else f"{t['gather_payloads/unpacked_device']:.4f} ms of "
                           f"device time"))
+    for key, label in (("segment_reduce", "<min>, the dense SSSP round"),
+                       ("segment_reduce@sum", "<sum>, PageRank generic's "
+                                              "shape (float32, CSC offsets)")):
+        print_against(card, f"segment_reduce {label}, {where20}",
+                      {k[len(key):]: v for k, v in t.items()
+                       if k == key or k.startswith(key + "/")},
+                      "torch.segment_reduce")
     print(f"time [{card}]: advance_count {where20}, global tier: "
           f"{t['advance_count/global']:.4f} ms per launch (wall)")
     print_device(card, f"advance_count {where20}, global tier",
@@ -3908,9 +4224,36 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
         out["ms_no_witness"] = t[key + "/no_witness"]
         out["device_ms"] = t[key + "/device"]
         out["device_ms_no_witness"] = t[key + "/no_witness_device"]
+    if name.startswith("bfs_level<"):
+        out["per"] = "search: summed over the levels of one search from " \
+            "the highest-degree vertex at rmat18, each from its saved state"
+        out["bound_counts"] = "per level: the offsets and each non-empty " \
+            "start's 32-byte sector read once, the frontier and unreached " \
+            "bitmaps written and read once, the smaller of the push's col " \
+            "words and the pull's csc_src words up to each unreached " \
+            "segment's first frontier source, the reached starts' sectors"
+        out["device_ms"] = t.get(key + "/device")
+        out["bound_dense_ms"] = t[key + "/bound_dense"][0]
+        out["bound_dense_counts"] = "per level: every start read and " \
+            "written, the offsets, every csc_src slot (the earlier " \
+            "pull-only kernel's model)"
+        out["forced"] = t[key + "/forced"]
+        out["levels"] = t[key + "/levels"]
+    if name == "segment_reduce":
+        out["library_of"] = "torch.segment_reduce (min) of the dense SSSP " \
+                            "round's messages over the CSC offsets"
+        k = "segment_reduce@sum"
+        if k in t:
+            out["float_sum_pagerank_generic"] = {
+                "ms": t[k], "device_ms": t[k + "/device"],
+                "plain_ms": t[k + "/plain"], "bound_ms": t[k + "/bound"][0],
+                "bound_memory": t[k + "/bound"][2],
+                "library_ms": t[k + "/library"],
+                "library_device_ms": t[k + "/library_device"]}
     if name in ("spmv_rows", "spmv_slabs", "gather_payloads",
                 "advance_count", "scan", "segment_broadcast_total",
-                "suffix_fill_update", "segment_minmax", "kcore_sweep"):
+                "suffix_fill_update", "segment_minmax", "kcore_sweep",
+                "segment_reduce"):
         # device times per call (torch.profiler) beside the wall times
         out["device_ms"] = t.get(key + "/device")
         out["library_device_ms"] = t.get(key + "/library_device")

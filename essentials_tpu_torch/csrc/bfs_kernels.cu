@@ -4,20 +4,23 @@
 //
 // Built by essentials_tpu_torch/kernels.py with nvcc into a shared library
 // with a plain C interface and loaded with ctypes. Every entry point launches
-// on the stream it is given, allocates nothing (the fill zeroes the scratch
-// it is given with cudaMemsetAsync), and returns the CUDA status so that a
-// refused launch reaches the Python wrapper.
+// on the stream it is given, allocates nothing (bfs_level and the fill zero
+// the scratch they are given with cudaMemsetAsync), and returns the CUDA
+// status so that a refused launch reaches the Python wrapper.
 //
 // Layout contract (essentials_tpu_torch/graph/graph.py): `off` is the graph's
 // [Vp+1] int32 CSR offsets, equal to its CSC offsets on a symmetric layout;
 // `csc_src` is the [Ep] int32 source of each CSC slot, sorted by (dst, src);
-// `lev` is the [Ep] edge-axis level array, of which only the positions
-// off[v] (segment starts) are read or written here.
+// `col` is the [Ep] int32 column of each CSR slot; `lev` is the [Ep]
+// edge-axis level array, of which only the positions off[v] (segment
+// starts) are read or written here.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
 
+#include "push_list.cuh"
 #include "tile_status.cuh"
 
 namespace {
@@ -28,57 +31,268 @@ constexpr unsigned kFullMask = 0xffffffffu;
 using etpu::load_status;
 using etpu::nonzero_bytes;
 using etpu::publish_status;
+using etpu::kPushItems;
+using etpu::list_row;
+using etpu::WarpRanges;
 
-// One BFS level on the edge axis, with one warp per destination vertex v.
+__device__ __forceinline__ long long global_warp() {
+  return (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> 5;
+}
+
+// One BFS level on the edge axis: a pass over the vertices, then a push
+// from the frontier or a pull into the unreached vertices, chosen on the
+// card from the pass's sums.
 //
 // Replaces the JAX package's three Pallas kernels of one level
 // (essentials_tpu/ops/fused_bfs.py: _k1_fill_eq_kernel :327 or its byte-SWAR
 // form :425, the Benes router middle cube_router._k2_wbc_kernel :330 /
 // _k2_tfbc_kernel :363, and _k3_suffixor_update_kernel :384 or :451). There
-// the CSR->CSC move is a static permutation because that device's gathers
-// are element-serialized; here the source's level is loaded directly through
-// csc_src and off.
+// every level tests every in-edge, through a static permutation, because
+// that device's gathers are element-serialized.
 //
-// For each v with a non-empty segment whose start holds `unreached`: if any
-// in-edge q in [off[v], off[v+1]) has lev[off[csc_src[q]]] == it, write it+1
-// at off[v] and count v. The update is made in place: a concurrent reader
-// sees either `unreached` or it+1 at a start, and neither equals `it`, so the
-// level reads the same frontier whatever the order of the warps.
+// For each v with a non-empty segment whose start holds `unreached`: if an
+// in-edge u -> v has u's start at `it`, v's start becomes it + 1 and v is
+// counted. Four launches, in stream order:
+// * bfs_level_kernel, the pass, a thread per vertex: reads each start once,
+//   packs the frontier (start == it) and the unreached vertices into two
+//   bitmaps of one bit a vertex, and sums the frontier's vertices n_f and
+//   out-slots m_f and the unreached vertices' in-slots m_u;
+// * bfs_level_list_kernel, where the push runs, lists the frontier's CSR
+//   rows as ranges of kPushSplit slots (push_list.cuh), a thread per word
+//   of the frontier's bitmap;
+// * bfs_level_push_kernel walks the listed ranges through `col`, the
+//   frontier's out-neighbours (on a symmetric layout a vertex's CSR row lies
+//   at its segment, so these are the vertices whose pull would find it,
+//   directed or not), and claims each unreached neighbour v by clearing its
+//   bit with atomicAnd: the one thread that cleared it writes it + 1 at
+//   off[v] and counts v, so an int8 level needs no byte atomics; a hub's
+//   row spreads over many warps, and a short list over as many warps as it
+//   has ranges (up to 32 ranges a warp);
+// * bfs_level_pull_kernel visits only the unreached vertices (the set bits
+//   of their bitmap), 8 lanes a vertex and 4 vertices a warp at once, reads
+//   each in-edge's source from csc_src (coalesced) and tests its bit of the
+//   frontier, held in shared memory ("shared" tier) or read through the L1
+//   ("global" tier, a bitmap larger than a block's shared memory), and
+//   leaves a vertex at its first hit.
+// Under form kFormDevice the pull runs where m_f * alpha > m_u and n_f *
+// beta >= vp (Beamer's direction-optimizing rules: the push reads m_f
+// slots, the pull at most m_u, and a small frontier is pushed whatever its
+// slots, since the pull's fixed cost is a pass over every unreached word)
+// and the push elsewhere; kFormPush and kFormPull force one. The kernels
+// of the other form return at once, so each level launches all four and
+// reads nothing back. Both read the frontier from the pass's bitmap, made before
+// any start is written, so the order of the writes does not matter; BFS
+// levels are unique, so push and pull write the same starts and count the
+// same vertices.
 //
-// What bounds it: each scanned in-edge costs three dependent loads, two of
-// them scattered (off[src], then lev[...]), so the level is bound by the
-// latency and sector traffic of random gathers, not by bandwidth. The warp
-// leaves a vertex at the first 32-edge chunk that holds a frontier source,
-// and reached vertices cost two loads. A hub's in-edges run on one warp,
-// which leaves the load unbalanced on power-law graphs.
+// What bounds it: the pass reads each start once (a 32-byte sector of the
+// edge axis a vertex) and the offsets; the push reads the frontier rows'
+// `col` and, per slot, a bitmap word (L2) and, per reached vertex, its
+// offset and start; the pull reads the unreached segments' csc_src up to
+// the first hit.
+
+enum { kFormDevice = 0, kFormPush = 1, kFormPull = 2 };
+constexpr int kPullBlock = 1024;            // threads per pull block
+constexpr int kPullWarps = kPullBlock / 32;
+constexpr int kPullGroup = 8;               // lanes per pulled vertex
+constexpr int kPushBlocksPerSm = 4;
+
+constexpr int kLevelScalars = 8;            // the scratch's first words
+
+// scalars: {vertices reached, ranges listed, m_f, m_u, n_f, 0, 0, 0}; rule:
+// {form, alpha, beta, vp}
+struct LevelRule {
+  int form;
+  int alpha;
+  int beta;
+  int vp;
+};
+
+__device__ __forceinline__ bool level_pulls(const LevelRule& r,
+                                            const int* scalars) {
+  if (r.form != kFormDevice) return r.form == kFormPull;
+  return static_cast<long long>(scalars[2]) * r.alpha > scalars[3] &&
+         static_cast<long long>(scalars[4]) * r.beta >= r.vp;
+}
+
+// A thread per vertex v < 32 * words (words: the bitmaps' 32-bit words).
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
-bfs_level_kernel(T* __restrict__ lev, const int* __restrict__ off,
-                 const int* __restrict__ csc_src, int vp, int it,
-                 int unreached, int* __restrict__ count) {
+bfs_level_kernel(const T* __restrict__ lev, const int* __restrict__ off,
+                 int vp, int words, int it, int unreached,
+                 unsigned* __restrict__ fbits, unsigned* __restrict__ ubits,
+                 int* scalars) {
+  __shared__ int s_sum[3][kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> 5;
-  bool newly = false;
-  if (warp < vp) {                          // warp-uniform
-    const int v = static_cast<int>(warp);
-    const int b = off[v];
-    const int e = off[v + 1];
-    if (b < e && static_cast<int>(lev[b]) == unreached) {
-      for (int base = b; base < e; base += 32) {   // warp-uniform bounds
-        const int q = base + lane;
-        const bool f = q < e && static_cast<int>(lev[off[csc_src[q]]]) == it;
-        if (__any_sync(kFullMask, f)) {
-          newly = true;
-          break;
-        }
-      }
-      if (newly && lane == 0) lev[b] = static_cast<T>(it + 1);
+  const int wid = threadIdx.x >> 5;
+  const int v = blockIdx.x * kBlock + threadIdx.x;
+  int b = 0;
+  int e = 0;
+  bool front = false;
+  bool open = false;
+  if (v < vp) {
+    b = off[v];
+    e = off[v + 1];
+    if (b < e) {
+      const int l = static_cast<int>(lev[b]);
+      front = l == it;
+      open = l == unreached;
     }
   }
-  // only lane 0 of each warp stands for its vertex in the count
-  const int n = __syncthreads_count(newly && lane == 0);
-  if (threadIdx.x == 0 && n > 0) atomicAdd(count, n);
+  const unsigned fw = __ballot_sync(kFullMask, front);
+  const unsigned uw = __ballot_sync(kFullMask, open);
+  if (lane == 0 && (v >> 5) < words) {
+    fbits[v >> 5] = fw;
+    ubits[v >> 5] = uw;
+  }
+  const int mf = __reduce_add_sync(kFullMask, front ? e - b : 0);
+  const int mu = __reduce_add_sync(kFullMask, open ? e - b : 0);
+  if (lane == 0) {
+    s_sum[0][wid] = mf;
+    s_sum[1][wid] = mu;
+    s_sum[2][wid] = __popc(fw);
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    int t = 0;
+    for (int k = 0; k < kWarpsPerBlock; ++k) t += s_sum[threadIdx.x][k];
+    if (t) atomicAdd(&scalars[2 + threadIdx.x], t);
+  }
+}
+
+// A thread per 32-bit word of the frontier's bitmap, each set bit's row in
+// turn; the warp lists its lanes' rows together.
+__global__ void __launch_bounds__(kBlock)
+bfs_level_list_kernel(const int* __restrict__ off, int words, LevelRule rule,
+                      const unsigned* __restrict__ fbits, int* scalars,
+                      int4* __restrict__ ranges) {
+  if (level_pulls(rule, scalars)) return;
+  const int w = blockIdx.x * kBlock + threadIdx.x;
+  unsigned bits = w < words ? fbits[w] : 0u;
+  while (__any_sync(kFullMask, bits != 0)) {
+    const bool on = bits != 0;
+    int b = 0;
+    int e = 0;
+    if (on) {
+      const int v = (w << 5) + __ffs(bits) - 1;
+      bits &= bits - 1;
+      b = off[v];
+      e = off[v + 1];
+    }
+    list_row(on, b, e, 0, &scalars[1], ranges);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+bfs_level_push_kernel(T* __restrict__ lev, const int* __restrict__ off,
+                      const int* __restrict__ col, int it, LevelRule rule,
+                      unsigned* ubits, int* scalars,
+                      const int4* __restrict__ ranges) {
+  if (level_pulls(rule, scalars)) return;
+  const int lane = threadIdx.x & 31;
+  const int listed = scalars[1];            // written by the list kernel
+  // up to 32 ranges a warp: a short list spreads over as many warps
+  const long long warps = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  const long long per = min(32LL, max(1LL, (listed + warps - 1) / warps));
+  int reached = 0;
+  for (long long r0 = per * global_warp(); r0 < listed; r0 += per * warps) {
+    const WarpRanges wr(ranges, r0, static_cast<int>(min(r0 + per,
+                                                         1LL * listed)));
+    for (int t0 = 0; t0 < wr.total; t0 += 32 * kPushItems) {
+      int v[kPushItems];
+#pragma unroll
+      for (int i = 0; i < kPushItems; ++i) {
+        const int t = t0 + 32 * i + lane;
+        const int sh = __shfl_sync(kFullMask, wr.shift, wr.owner(t));
+        v[i] = t < wr.total ? __ldcs(col + t + sh) : -1;
+      }
+      unsigned w[kPushItems];
+#pragma unroll
+      for (int i = 0; i < kPushItems; ++i) {
+        w[i] = v[i] >= 0 ? __ldcg(ubits + (v[i] >> 5)) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < kPushItems; ++i) {
+        // a stale word only lets an atomic through that finds the bit clear
+        const unsigned bit = 1u << (v[i] & 31);
+        if ((w[i] & bit) && (atomicAnd(ubits + (v[i] >> 5), ~bit) & bit)) {
+          lev[off[v[i]]] = static_cast<T>(it + 1);
+          ++reached;
+        }
+      }
+    }
+  }
+  reached = __reduce_add_sync(kFullMask, reached);
+  if (lane == 0 && reached > 0) atomicAdd(&scalars[0], reached);
+}
+
+// A warp per 32-bit word of the unreached bitmap (grid-stride); its lanes in
+// 4 groups of kPullGroup, group g taking the word's vertices 8g .. 8g + 7 in
+// turn.
+template <typename T, bool kShared>
+__global__ void __launch_bounds__(kPullBlock, 2)
+bfs_level_pull_kernel(T* __restrict__ lev, const int* __restrict__ off,
+                      const int* __restrict__ csc_src, int words, int it,
+                      LevelRule rule, const unsigned* __restrict__ fbits,
+                      const unsigned* __restrict__ ubits, int* scalars) {
+  extern __shared__ uint4 s_front4[];       // kShared: the frontier's bits
+  if (!level_pulls(rule, scalars)) return;
+  const unsigned* front = fbits;
+  if constexpr (kShared) {
+    const uint4* g4 = reinterpret_cast<const uint4*>(fbits);
+    for (int i = threadIdx.x; i < words / 4; i += kPullBlock) {
+      __pipeline_memcpy_async(s_front4 + i, g4 + i, sizeof(uint4));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    front = reinterpret_cast<const unsigned*>(s_front4);
+  }
+  const int lane = threadIdx.x & 31;
+  const int g = lane / kPullGroup;
+  const int gl = lane % kPullGroup;
+  int reached = 0;
+  for (int w = blockIdx.x * kPullWarps + (threadIdx.x >> 5); w < words;
+       w += gridDim.x * kPullWarps) {           // warp-uniform
+    unsigned todo = (ubits[w] >> (kPullGroup * g)) & 0xffu;
+    bool busy = false;                      // the group's vertex, uniform
+    int b = 0;                              // in the group: its start,
+    int q = 0;                              // its next slots and its end
+    int e = 0;
+    while (true) {
+      if (!busy && todo) {
+        const int v = (w << 5) + kPullGroup * g + __ffs(todo) - 1;
+        todo &= todo - 1;
+        b = off[v];
+        q = b;
+        e = off[v + 1];
+        busy = true;
+      }
+      if (!__any_sync(kFullMask, busy)) break;
+      bool hit = false;
+      if (busy && q + gl < e) {
+        const unsigned u = static_cast<unsigned>(__ldcs(csc_src + q + gl));
+        hit = (front[u >> 5] >> (u & 31)) & 1u;
+      }
+      const unsigned hits =
+          (__ballot_sync(kFullMask, hit) >> (kPullGroup * g)) & 0xffu;
+      if (busy) {
+        if (hits) {
+          if (gl == 0) {
+            lev[b] = static_cast<T>(it + 1);
+            ++reached;
+          }
+          busy = false;
+        } else {
+          q += kPullGroup;
+          busy = q < e;
+        }
+      }
+    }
+  }
+  reached = __reduce_add_sync(kFullMask, reached);
+  if (lane == 0 && reached > 0) atomicAdd(&scalars[0], reached);
 }
 
 // Edge-axis levels -> per-vertex distances, one thread per vertex.
@@ -497,17 +711,76 @@ int route_tiles(int n) { return (n + kRouteTile - 1) / kRouteTile; }
 int warp_blocks(int vp) { return (vp + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 int thread_blocks(int vp) { return (vp + kBlock - 1) / kBlock; }
 
-template <typename T>
-int launch_bfs_level(void* lev, const void* off, const void* csc_src, int vp,
-                     int it, int unreached, void* count, void* stream) {
-  if (vp > 0) {
-    bfs_level_kernel<T><<<warp_blocks(vp), kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<T*>(lev), static_cast<const int*>(off),
-        static_cast<const int*>(csc_src), vp, it, unreached,
-        static_cast<int*>(count));
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+template <typename T, bool kShared>
+cudaError_t launch_pull(T* lev, const int* off, const int* csc_src,
+                        int words, int it, const LevelRule& rule,
+                        const unsigned* fbits, const unsigned* ubits,
+                        int* scalars, int sms, cudaStream_t s) {
+  const int bytes = kShared ? static_cast<int>(sizeof(unsigned)) * words : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      bfs_level_pull_kernel<T, kShared>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bfs_level_pull_kernel<T, kShared>, kPullBlock, bytes);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return err;
+  const int grid = max(1, min(max(per_sm, 1) * sms,
+                              (words + kPullWarps - 1) / kPullWarps));
+  bfs_level_pull_kernel<T, kShared><<<grid, kPullBlock, bytes, s>>>(
+      lev, off, csc_src, words, it, rule, fbits, ubits, scalars);
+  return cudaGetLastError();
+}
+
+// scratch (int32, 16-byte aligned): the kLevelScalars scalars, the
+// frontier's and the unreached vertices' bitmaps of `words` = 4 ceil(vp /
+// 128) words each, then room for the listed ranges (int4); the scalars are
+// zeroed here.
+template <typename T>
+int launch_bfs_level(void* lev_, const void* off_, const void* csc_src,
+                     const void* col, int vp, int it, int unreached, int form,
+                     int alpha, int beta, int shared, void* scratch,
+                     void* stream) {
+  if (vp <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* lev = static_cast<T*>(lev_);
+  const int* off = static_cast<const int*>(off_);
+  const int words = 4 * ((vp + 127) / 128);
+  int* scalars = static_cast<int*>(scratch);
+  unsigned* fbits = reinterpret_cast<unsigned*>(scalars + kLevelScalars);
+  unsigned* ubits = fbits + words;
+  int4* ranges = reinterpret_cast<int4*>(ubits + words);
+  const LevelRule rule = {form, alpha, beta, vp};
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(scalars, 0, kLevelScalars * sizeof(int), s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bfs_level_kernel<T><<<(32 * words + kBlock - 1) / kBlock, kBlock, 0, s>>>(
+      lev, off, vp, words, it, unreached, fbits, ubits, scalars);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bfs_level_list_kernel<<<(words + kBlock - 1) / kBlock, kBlock, 0, s>>>(
+      off, words, rule, fbits, scalars, ranges);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bfs_level_push_kernel<T><<<kPushBlocksPerSm * sms, kBlock, 0, s>>>(
+      lev, off, static_cast<const int*>(col), it, rule, ubits, scalars,
+      ranges);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int* src = static_cast<const int*>(csc_src);
+  err = shared ? launch_pull<T, true>(lev, off, src, words, it, rule, fbits,
+                                      ubits, scalars, sms, s)
+               : launch_pull<T, false>(lev, off, src, words, it, rule, fbits,
+                                       ubits, scalars, sms, s);
+  return static_cast<int>(err);
 }
 
 template <typename T>
@@ -527,18 +800,31 @@ int launch_collapse_levels(const void* lev, const void* off, int vp,
 
 extern "C" {
 
+// form: 0 the card's choice per level (pull where m_f * alpha > m_u and
+// n_f * beta >= vp), 1 push, 2 pull; shared: 1 to hold the frontier's
+// bitmap in shared memory
+// (its 16 ceil(vp / 128) bytes must not pass the opt-in limit), 0 to read
+// it through the L1. scratch: see launch_bfs_level; the count of reached
+// vertices is its first word.
 int etpu_bfs_level_i32(void* lev, const void* off, const void* csc_src,
-                       int vp, int it, int unreached, void* count,
-                       void* stream) {
-  return launch_bfs_level<int32_t>(lev, off, csc_src, vp, it, unreached,
-                                   count, stream);
+                       const void* col, int vp, int it, int unreached,
+                       int form, int alpha, int beta, int shared,
+                       void* scratch, void* stream) {
+  return launch_bfs_level<int32_t>(lev, off, csc_src, col, vp, it, unreached,
+                                   form, alpha, beta, shared, scratch,
+                                   stream);
 }
 
-int etpu_bfs_level_i8(void* lev, const void* off, const void* csc_src, int vp,
-                      int it, int unreached, void* count, void* stream) {
-  return launch_bfs_level<int8_t>(lev, off, csc_src, vp, it, unreached, count,
-                                  stream);
+int etpu_bfs_level_i8(void* lev, const void* off, const void* csc_src,
+                      const void* col, int vp, int it, int unreached,
+                      int form, int alpha, int beta, int shared,
+                      void* scratch, void* stream) {
+  return launch_bfs_level<int8_t>(lev, off, csc_src, col, vp, it, unreached,
+                                  form, alpha, beta, shared, scratch, stream);
 }
+
+// The scalar words at the head of bfs_level's scratch (the count first).
+int etpu_bfs_level_scalars() { return kLevelScalars; }
 
 int etpu_collapse_levels_i32(const void* lev, const void* off, int vp,
                              int source, int unreached, void* dist,

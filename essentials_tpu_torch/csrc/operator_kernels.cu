@@ -4,9 +4,9 @@
 // Built by essentials_tpu_torch/kernels.py with nvcc into the shared library
 // of every csrc/*.cu, with a plain C interface, loaded with ctypes. Every
 // entry point launches on the stream it is given, allocates nothing (the
-// wrapper passes outputs and scratch; scan and segment_minmax zero their
-// status words with cudaMemsetAsync), and returns the CUDA status so that a
-// refused launch reaches the Python wrapper.
+// wrapper passes outputs and scratch; scan, segment_reduce and
+// segment_minmax zero their status words with cudaMemsetAsync), and returns
+// the CUDA status so that a refused launch reaches the Python wrapper.
 //
 // Layout contract (essentials_tpu_torch/graph/graph.py): offsets are [S+1]
 // int32 and sorted, segment s is [off[s], off[s+1]); `csc_src` is the [Ep]
@@ -624,92 +624,6 @@ int gather_launch(const int* idx, long long n, const Gather& g, void* rec,
   return static_cast<int>(cudaGetLastError());
 }
 
-// -------------------------------------------------------- segment_reduce --
-//
-// out[s] = the reduction of vals[off[s] .. off[s+1]) with the identity at an
-// empty segment, one warp per segment. Replaces segment.combine_by_offsets
-// (:97) and combine_by_offsets_routed (:287), whose TPU kernels are
-// segmented_scan_1d (:296) and the routed end-of-segment pick (the cube
-// route of the prefix back through the offsets). Here the segment is
-// reduced where it lies.
-// SUM, MIN, MAX on int32 (the sum wraps around) and float32. Each lane
-// folds its strided elements in order and the warp folds the lanes by a
-// fixed shuffle tree, so a float sum (__fadd_rn) repeats bit for bit; its
-// order differs from the JAX package's scan, so float sums agree with it to
-// a tolerance. MIN and MAX are exact. OR and AND read each value as a truth
-// value (nonzero) and write 0 or 1 bytes.
-// What bounds it: bytes, one coalesced read of vals and one read of the
-// offsets. A hub's segment runs on one warp.
-
-template <typename T, int OP>
-__global__ void __launch_bounds__(kBlock)
-segment_reduce_kernel(const T* __restrict__ vals, const int* __restrict__ off,
-                      int nseg, T ident, T* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = global_warp();
-  if (warp >= nseg) return;                 // warp-uniform
-  const int s = static_cast<int>(warp);
-  const int b = off[s];
-  const int e = off[s + 1];
-  T acc = ident;
-  for (int q = b + lane; q < e; q += 32) acc = Op<OP>::apply(acc, vals[q]);
-  for (int d = 16; d > 0; d >>= 1) {
-    acc = Op<OP>::apply(acc, __shfl_down_sync(kFullMask, acc, d));
-  }
-  if (lane == 0) out[s] = acc;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-segment_any_all_kernel(const T* __restrict__ vals,
-                       const int* __restrict__ off, int nseg, int all,
-                       unsigned char* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = global_warp();
-  if (warp >= nseg) return;
-  const int s = static_cast<int>(warp);
-  const int b = off[s];
-  const int e = off[s + 1];
-  bool hit = false;             // OR: some value is set; AND: some is not
-  for (int q = b + lane; q < e && !hit; q += 32) {
-    hit = all ? (vals[q] == T(0)) : (vals[q] != T(0));
-  }
-  hit = __any_sync(kFullMask, hit);
-  if (lane == 0) out[s] = (all ? !hit : hit) ? 1 : 0;
-}
-
-template <typename T>
-int segment_reduce_launch(const void* vals, const void* off, int nseg, int op,
-                          T ident, void* out, cudaStream_t s) {
-  if (nseg <= 0) return static_cast<int>(cudaGetLastError());
-  const unsigned blocks = (static_cast<unsigned>(nseg) + kWarpsPerBlock - 1) /
-                          kWarpsPerBlock;
-  const T* v = static_cast<const T*>(vals);
-  const int* o = static_cast<const int*>(off);
-  switch (op) {
-    case kAdd:
-      segment_reduce_kernel<T, kAdd><<<blocks, kBlock, 0, s>>>(
-          v, o, nseg, ident, static_cast<T*>(out));
-      break;
-    case kMin:
-      segment_reduce_kernel<T, kMin><<<blocks, kBlock, 0, s>>>(
-          v, o, nseg, ident, static_cast<T*>(out));
-      break;
-    case kMax:
-      segment_reduce_kernel<T, kMax><<<blocks, kBlock, 0, s>>>(
-          v, o, nseg, ident, static_cast<T*>(out));
-      break;
-    case kOr:
-    case kAnd:
-      segment_any_all_kernel<T><<<blocks, kBlock, 0, s>>>(
-          v, o, nseg, op == kAnd ? 1 : 0, static_cast<unsigned char*>(out));
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // -------------------------------------------------------- segment_minmax --
 //
 // For each segment s and each of np <= 8 int32 payloads k: max[k][s] and
@@ -728,7 +642,7 @@ int segment_reduce_launch(const void* vals, const void* off, int nseg, int op,
 // segments costs what as many slots cost. The merge-path split of every
 // tile boundary (etpu::warp_lower_bound_by, as in spmv_rows: five
 // dependent loads at a million segments) is found first, by
-// segment_minmax_split_kernel, a warp per boundary, all at once: in the
+// segment_split_kernel, a warp per boundary, all at once: in the
 // tile's own block it would be the longest wait of the tile. Block ids come
 // from an atomic ticket. What limits the tiles is the chain of waits each
 // runs through (ticket, splits, flags, payloads, publish, look-back), so
@@ -791,15 +705,59 @@ struct Payloads {
   const int* p[8];
 };
 
-// splits[b] = (the segment ends before place b * kMmTile, the first slot
-// of the segment after them), for b in [0, tiles]; a warp per boundary.
+// The look-back of the merge-path tiles (segment_minmax, segment_reduce):
+// warp 0 of tile b folds the partials that the tiles before it published
+// for the segment that enters it, back to the tile where that segment
+// starts. Tile k published NV values in the 64-bit words at words + k *
+// kStride, each with the tile's kind (MmKind) in its high half. Lane l reads
+// tile k - l, 32 tiles a step; fold(v, bits, take, newest) folds value v of
+// the lanes that take part into the caller's running value (newest: the step
+// of the 32 tiles just before b), every lane alike, by a fixed tree where
+// the order matters.
+template <int NV, int kStride, typename Fold>
+__device__ __forceinline__ void tile_look_back(const unsigned long long* words,
+                                               int b, Fold fold) {
+  const int lane = threadIdx.x & 31;
+  for (int k = b - 1; k >= 0; k -= 32) {
+    const int p = k - lane;                 // lane l reads tile k - l
+    const unsigned long long* const w =
+        words + static_cast<long long>(max(p, 0)) * kStride;
+    unsigned long long st = 0;
+    if (p >= 0) {
+      while (((st = load_status(w)) >> 32) == kMmUnset) __nanosleep(32);
+    }
+    const unsigned starts = __ballot_sync(kFullMask, (st >> 32) == kMmStarts);
+    const int last = starts ? __ffs(starts) - 1 : 31;
+    const bool take = lane <= last && p >= 0;
+    unsigned long long x[NV] = {};          // all in flight at once
+    bool ready = !take;
+    while (!ready) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) x[v] = load_status(w + v);
+      ready = true;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) ready &= (x[v] >> 32) != kMmUnset;
+      if (!ready) __nanosleep(32);
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      fold(v, static_cast<unsigned>(x[v]), take, k == b - 1);
+    }
+    if (starts) break;
+  }
+}
+
+// splits[b] = (the segment ends before place b * kTile, the first slot of
+// the segment after them), for b in [0, tiles]; a warp per boundary. The
+// first launch of segment_minmax and of segment_reduce.
+template <int kTile>
 __global__ void __launch_bounds__(kBlock)
-segment_minmax_split_kernel(const int* __restrict__ off, int nseg, int tiles,
-                            int2* __restrict__ splits) {
+segment_split_kernel(const int* __restrict__ off, int nseg, int tiles,
+                     int2* __restrict__ splits) {
   const long long b = global_warp();
   if (b > tiles) return;                    // warp-uniform
   const int base = off[0];
-  const int d = static_cast<int>(min(b * kMmTile, 1LL * INT_MAX));
+  const int d = static_cast<int>(min(b * kTile, 1LL * INT_MAX));
   const int r = etpu::warp_lower_bound_by(
       [off, base](int x) { return off[x + 1] - base + x; }, nseg, d);
   if ((threadIdx.x & 31) == 0) splits[b] = make_int2(r, off[r]);
@@ -1080,43 +1038,17 @@ segment_minmax_kernel(Payloads in, const unsigned char* __restrict__ active,
     int pre[2 * NP];
 #pragma unroll
     for (int v = 0; v < 2 * NP; ++v) pre[v] = v < NP ? INT_MIN : INT_MAX;
-    for (int k = b - 1; k >= 0; k -= 32) {
-      const int p = k - lane;               // lane l reads tile k - l
-      const unsigned long long* const w =
-          words + static_cast<long long>(max(p, 0)) * kMmVals;
-      unsigned long long st = 0;
-      if (p >= 0) {
-        while (((st = load_status(w)) >> 32) == kMmUnset) {
-          __nanosleep(32);
-        }
-      }
-      const unsigned starts =
-          __ballot_sync(kFullMask, (st >> 32) == kMmStarts);
-      const int last = starts ? __ffs(starts) - 1 : 31;
-      const bool take = lane <= last && p >= 0;
-      unsigned long long x[2 * NP] = {};    // all in flight at once
-      bool ready = !take;
-      while (!ready) {
-#pragma unroll
-        for (int v = 0; v < 2 * NP; ++v) x[v] = load_status(w + v);
-        ready = true;
-#pragma unroll
-        for (int v = 0; v < 2 * NP; ++v) ready &= (x[v] >> 32) != kMmUnset;
-        if (!ready) __nanosleep(32);
-      }
-#pragma unroll
-      for (int v = 0; v < 2 * NP; ++v) {
-        const int val = static_cast<int>(static_cast<unsigned>(x[v]));
-        if (v < NP) {
-          pre[v] = max(pre[v],
-                       __reduce_max_sync(kFullMask, take ? val : INT_MIN));
-        } else {
-          pre[v] = min(pre[v],
-                       __reduce_min_sync(kFullMask, take ? val : INT_MAX));
-        }
-      }
-      if (starts) break;
-    }
+    tile_look_back<2 * NP, kMmVals>(
+        words, b, [&](int v, unsigned bits, bool take, bool) {
+          const int val = static_cast<int>(bits);
+          if (v < NP) {
+            pre[v] = max(pre[v],
+                         __reduce_max_sync(kFullMask, take ? val : INT_MIN));
+          } else {
+            pre[v] = min(pre[v],
+                         __reduce_min_sync(kFullMask, take ? val : INT_MAX));
+          }
+        });
     if (lane == 0) {
       const int* const h = acc + s_head * 2 * NP;
 #pragma unroll
@@ -1159,13 +1091,311 @@ cudaError_t segment_minmax_launch(const Payloads& in,
         scratch, 0, sizeof(unsigned long long) * (tiles * kMmVals + 1), s);
   }
   if (err != cudaSuccess) return err;
-  segment_minmax_split_kernel<<<(tiles + kWarpsPerBlock) / kWarpsPerBlock,
-                                kBlock, 0, s>>>(off, nseg, tiles, splits);
+  segment_split_kernel<kMmTile><<<(tiles + kWarpsPerBlock) / kWarpsPerBlock,
+                                  kBlock, 0, s>>>(off, nseg, tiles, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   segment_minmax_kernel<NP><<<tiles, kBlock, bytes, s>>>(
       in, active, n, off, nseg, splits, mx, mn, words, ticket);
   return cudaGetLastError();
+}
+
+// -------------------------------------------------------- segment_reduce --
+//
+// out[s] = the reduction of vals[off[s] .. off[s+1]) under SUM, MIN or MAX
+// on int32 (the sum wraps around) or float32, with the identity at an empty
+// segment; OR and AND read each value as a truth value (nonzero) and write
+// 0 or 1 bytes: they are MAX and MIN over the truth values. Replaces
+// segment.combine_by_offsets (:97) and combine_by_offsets_routed (:287),
+// whose TPU kernels are segmented_scan_1d (:296) and the routed
+// end-of-segment pick (the cube route of the prefix back through the
+// offsets). Here the segment is reduced where it lies.
+//
+// Balanced by slots, not by segments, as segment_minmax is: the merged
+// sequence of the segment ends and the slots [off[0], off[S]) is cut into
+// tiles of kRdTile places, one block each, whose splits
+// segment_split_kernel finds first. A hub of 64K slots spans 16 tiles, and
+// a run of empty segments costs what as many places cost. The tiles hold
+// 4,096 places (16 a thread), twice segment_minmax's: each tile is a
+// latency-bound chain (ticket, splits, loads, look-back), and fewer tiles
+// make fewer chains (PERF.md, section 6). A block stages
+// its slots of vals by 16-byte evict-first loads (any 4-byte offset: the
+// tile keeps vals' own 16-byte grid in shared memory, and a vector that
+// would leave the array is read element by element), then each thread
+// walks its kRdItems places in order, folding a slot into its running
+// value and writing each segment that lies wholly inside its places. A
+// segment that crosses threads is completed by a segmented scan of the
+// threads' (trailing value, saw an end) pairs, a shuffle scan in each warp
+// and the warps in order; a segment that leaves the tile by the tile that
+// holds its end, from the partials the tiles before it publish
+// (tile_look_back, one self-flagged word a tile). Every fold follows the
+// places and fixed trees, and the only atomics are the ticket and the
+// status words, so a float sum (__fadd_rn) repeats bit for bit; its order
+// differs from the JAX package's scan, so float sums agree with it to a
+// tolerance. The other reductions are exact in any order.
+//
+// What bounds it: bytes, vals and the offsets read once (4 bytes a slot and
+// a segment) and out written once; nothing is gathered.
+
+constexpr int kRdItems = 16;                        // merge places a thread
+constexpr int kRdTile = kBlock * kRdItems;          // merge places a block
+constexpr int kRdVec = kRdTile / 4 + 2;             // vals' vectors, most
+constexpr int kRdStride = 4 * (kRdVec + (kRdVec + 7) / 8);   // staged words
+constexpr int kRdVectors = (kRdVec + kBlock - 1) / kBlock;   // a thread's
+
+template <typename T, int OP, bool kTruth>
+__global__ void __launch_bounds__(kBlock)
+segment_reduce_kernel(const T* __restrict__ vals, long long n,
+                      const int* __restrict__ off, int nseg,
+                      const int2* __restrict__ splits, T ident,
+                      void* __restrict__ out_, unsigned long long* words,
+                      unsigned* ticket) {
+  // OR and AND fold int truth values (0 or 1) by MAX and MIN
+  using U = std::conditional_t<kTruth, int, T>;
+  using Out = std::conditional_t<kTruth, unsigned char, T>;
+  Out* const out = static_cast<Out*>(out_);
+  __shared__ int s_val[kRdStride];          // the tile's slots, staged
+  __shared__ int s_end[kRdTile + 1];        // its segment ends, tile slots
+  __shared__ U s_warp_v[kWarpsPerBlock];
+  __shared__ int s_warp_f[kWarpsPerBlock];
+  __shared__ U s_head;
+  __shared__ int s_b, s_base, s_total, s_r0, s_r1, s_off0;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const U id = kTruth ? static_cast<U>(ident != T(0)) : static_cast<U>(ident);
+  if (tid == 0) {
+    const int b = static_cast<int>(atomicAdd(ticket, 1u));
+    const int2 first = splits[b];
+    s_b = b;
+    s_r0 = first.x;
+    s_off0 = first.y;
+    s_r1 = splits[b + 1].x;
+    s_base = off[0];
+    s_total = nseg + (off[nseg] - off[0]);
+  }
+  __syncthreads();
+  const int b = s_b;
+  const int d0 = b * kRdTile;
+  if (d0 >= s_total) return;                // past the last place: no tile
+                                            // waits for a later one
+  const int d1 = min(d0 + kRdTile, s_total);
+  const int r0 = s_r0;
+  const int nr = s_r1 - r0;                 // segment ends in the tile
+  const int ne = d1 - s_r1 - (d0 - r0);     // its slots: [eb, eb + ne)
+  const int eb = s_base + d0 - r0;
+
+  // 1. the slots' vectors (all loads in flight before any store), then the
+  //    segment ends
+  const uintptr_t lo_a = reinterpret_cast<uintptr_t>(vals);
+  const uintptr_t hi_a = lo_a + 4 * static_cast<uintptr_t>(n);
+  const uintptr_t a0 = lo_a + 4 * static_cast<uintptr_t>(eb);
+  const uintptr_t q0 = a0 & ~uintptr_t{15};
+  const int shift = static_cast<int>(a0 - q0) >> 2;
+  const int vectors = ne > 0 ? (shift + ne + 3) >> 2 : 0;
+  {
+    int4 x[kRdVectors];
+#pragma unroll
+    for (int k = 0; k < kRdVectors; ++k) {
+      const int c = tid + k * kBlock;
+      const uintptr_t w = q0 + 16 * uintptr_t(c);
+      x[k] = make_int4(0, 0, 0, 0);
+      if (c < vectors) {
+        if (w >= lo_a && w + 16 <= hi_a) {
+          x[k] = __ldcs(reinterpret_cast<const int4*>(w));
+        } else {                            // the array's ragged ends
+          int* const e = reinterpret_cast<int*>(&x[k]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uintptr_t a = w + 4 * u;
+            if (a >= lo_a && a < hi_a) {
+              e[u] = *reinterpret_cast<const int*>(a);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRdVectors; ++k) {
+      const int c = tid + k * kBlock;
+      if (c < vectors) {
+        int* const dst = s_val + mm_word(4 * c);
+        dst[0] = x[k].x;
+        dst[1] = x[k].y;
+        dst[2] = x[k].z;
+        dst[3] = x[k].w;
+      }
+    }
+  }
+  for (int i = tid; i < nr; i += kBlock) s_end[i] = off[r0 + 1 + i] - eb;
+  if (tid == 0) s_end[nr] = INT_MAX;        // no end past the tile's
+  __syncthreads();
+
+  // 2. the thread's kRdItems places, found by a search of the staged ends:
+  //    the first i whose end lies at or past the thread's diagonal
+  const int places = nr + ne;
+  const int diag = min(tid * kRdItems, places);
+  int lo = max(0, diag - ne);
+  int hi = min(diag, nr);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_end[mid] + mid < diag) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int i = lo;                               // ends taken
+  int j = diag - lo;                        // slots taken
+  const int cnt = min(kRdItems, places - diag);
+  U acc = id;                               // the running segment's value
+  U head = id;                              // the thread's first segment's
+  int first = -1;                           // that segment, from r0
+#pragma unroll
+  for (int q = 0; q < kRdItems; ++q) {
+    if (q < cnt) {
+      if (s_end[i] <= j) {                  // segment r0 + i ends here
+        if (first < 0) {
+          first = i;
+          head = acc;
+        } else {                            // wholly inside the thread
+          out[r0 + i] = static_cast<Out>(acc);
+        }
+        acc = id;
+        ++i;
+      } else {
+        const T x = from_bits<T>(static_cast<unsigned>(
+            s_val[mm_word(shift + j)]));
+        acc = Op<OP>::apply(acc, kTruth ? static_cast<U>(x != T(0))
+                                        : static_cast<U>(x));
+        ++j;
+      }
+    }
+  }
+
+  // 3. the segmented scan of the threads' (trailing value, saw an end)
+  //    pairs, under (a,fa).(b,fb) = (fb ? b : a op b, fa | fb): a shuffle
+  //    scan in each warp, then the warps in order
+  U v = acc;
+  int f = first >= 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const U pv = __shfl_up_sync(kFullMask, v, d);
+    const int pf = __shfl_up_sync(kFullMask, f, d);
+    if (lane >= d) {
+      if (!f) v = Op<OP>::apply(pv, v);
+      f |= pf;
+    }
+  }
+  if (lane == 31) {
+    s_warp_v[wid] = v;
+    s_warp_f[wid] = f;
+  }
+  const U ev = __shfl_up_sync(kFullMask, v, 1);
+  const int ef = __shfl_up_sync(kFullMask, f, 1);
+  __syncthreads();
+  U run = id;                               // the running segment before
+  for (int k = 0; k < wid; ++k) {           // the thread
+    run = s_warp_f[k] ? s_warp_v[k] : Op<OP>::apply(run, s_warp_v[k]);
+  }
+  if (lane > 0) run = ef ? ev : Op<OP>::apply(run, ev);
+  const bool has_head = eb > s_off0;        // segment r0 began before the tile
+  if (first >= 0) {
+    const U val = Op<OP>::apply(run, head);
+    if (first == 0 && has_head) {
+      s_head = val;                         // completed after the look-back
+    } else {
+      out[r0 + first] = static_cast<Out>(val);
+    }
+  }
+
+  // 4. publish the partial of the segment that leaves the tile, then
+  //    complete the segment that entered it
+  if (tid == 0) {
+    U tail = id;
+    for (int k = 0; k < kWarpsPerBlock; ++k) {
+      tail = s_warp_f[k] ? s_warp_v[k] : Op<OP>::apply(tail, s_warp_v[k]);
+    }
+    const int r1 = r0 + nr;
+    const int start = nr > 0 ? s_end[nr - 1] + eb : s_off0;   // off[r1]
+    const unsigned kind = r1 < nseg && eb + ne > start
+                              ? (start >= eb ? kMmStarts : kMmInside)
+                              : kMmNoTail;
+    publish_status(words + b, kind, bits_of(tail));
+  }
+  __syncthreads();
+  if (wid == 0 && has_head && nr > 0) {
+    U prefix = id;
+    tile_look_back<1, 1>(words, b, [&](int, unsigned x, bool take,
+                                       bool newest) {
+      U part = take ? from_bits<U>(x) : id;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {    // every lane: the same bits
+        part = Op<OP>::apply(part, __shfl_xor_sync(kFullMask, part, d));
+      }
+      prefix = newest ? part : Op<OP>::apply(part, prefix);
+    });
+    if (lane == 0) out[r0] = static_cast<Out>(Op<OP>::apply(prefix, s_head));
+  }
+}
+
+// scratch: [tiles] 64-bit status words, the 32-bit ticket (in a 64-bit
+// word), then [tiles + 1] int2 splits; the words and the ticket are zeroed
+// here on the stream, then the splits are found, then the tiles run.
+template <typename T, int OP, bool kTruth>
+cudaError_t reduce_tiles(const T* vals, long long n, const int* off,
+                         int nseg, T ident, void* out, void* scratch,
+                         cudaStream_t s) {
+  const int tiles = static_cast<int>((nseg + n + kRdTile - 1) / kRdTile);
+  auto* words = static_cast<unsigned long long*>(scratch);
+  auto* ticket = reinterpret_cast<unsigned*>(words + tiles);
+  auto* splits = reinterpret_cast<int2*>(words + tiles + 1);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(unsigned long long) * (tiles + 1), s);
+  if (err != cudaSuccess) return err;
+  segment_split_kernel<kRdTile><<<(tiles + kWarpsPerBlock) / kWarpsPerBlock,
+                                  kBlock, 0, s>>>(off, nseg, tiles, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segment_reduce_kernel<T, OP, kTruth><<<tiles, kBlock, 0, s>>>(
+      vals, n, off, nseg, splits, ident, out, words, ticket);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int segment_reduce_launch(const void* vals, long long n, const void* off,
+                          int nseg, int op, T ident, void* out, void* scratch,
+                          cudaStream_t s) {
+  if (nseg <= 0) return static_cast<int>(cudaGetLastError());
+  const T* v = static_cast<const T*>(vals);
+  const int* o = static_cast<const int*>(off);
+  cudaError_t err;
+  switch (op) {
+    case kAdd:
+      err = reduce_tiles<T, kAdd, false>(v, n, o, nseg, ident, out, scratch,
+                                         s);
+      break;
+    case kMin:
+      err = reduce_tiles<T, kMin, false>(v, n, o, nseg, ident, out, scratch,
+                                         s);
+      break;
+    case kMax:
+      err = reduce_tiles<T, kMax, false>(v, n, o, nseg, ident, out, scratch,
+                                         s);
+      break;
+    case kOr:
+      err = reduce_tiles<T, kMax, true>(v, n, o, nseg, ident, out, scratch,
+                                        s);
+      break;
+    case kAnd:
+      err = reduce_tiles<T, kMin, true>(v, n, o, nseg, ident, out, scratch,
+                                        s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 // --------------------------------------------------------- advance_count --
@@ -1478,16 +1708,24 @@ int etpu_gather_payloads(const void* idx, long long n, const void* in0,
   }
 }
 
-// op: 0 sum, 1 min, 2 max (out of the value type), 3 or, 4 and (uint8 out).
-int etpu_segment_reduce_i32(const void* vals, const void* off, int nseg,
-                            int op, int ident, void* out, void* stream) {
-  return segment_reduce_launch<int>(vals, off, nseg, op, ident, out,
+// op: 0 sum, 1 min, 2 max (out of the value type), 3 or, 4 and (uint8 out;
+// ident 0 or 1). vals [n] at any 4-byte offset; off [nseg+1], sorted, within
+// [0, n], nseg + n below 2^31; scratch: 16 * (ceil((nseg + n) /
+// etpu_reduce_tile()) + 1) bytes, 8-byte aligned. Two launches: the tiles'
+// splits, then the tiles.
+int etpu_segment_reduce_i32(const void* vals, long long n, const void* off,
+                            int nseg, int op, int ident, void* out,
+                            void* scratch, void* stream) {
+  return segment_reduce_launch<int>(vals, n, off, nseg, op, ident, out,
+                                    scratch,
                                     static_cast<cudaStream_t>(stream));
 }
 
-int etpu_segment_reduce_f32(const void* vals, const void* off, int nseg,
-                            int op, float ident, void* out, void* stream) {
-  return segment_reduce_launch<float>(vals, off, nseg, op, ident, out,
+int etpu_segment_reduce_f32(const void* vals, long long n, const void* off,
+                            int nseg, int op, float ident, void* out,
+                            void* scratch, void* stream) {
+  return segment_reduce_launch<float>(vals, n, off, nseg, op, ident, out,
+                                      scratch,
                                       static_cast<cudaStream_t>(stream));
 }
 
@@ -1542,6 +1780,9 @@ int etpu_segment_minmax(const void* p0, const void* p1, const void* p2,
 // Merge places per segment_minmax tile; the Python wrapper sizes the
 // scratch with it and checks it against its own constant.
 int etpu_minmax_tile() { return kMmTile; }
+
+// Merge places per segment_reduce tile (REDUCE_TILE in kernels.py).
+int etpu_reduce_tile() { return kRdTile; }
 
 // bits: 16 * ceil(ceil(vp / 32) / 4) bytes of scratch, 16-byte aligned,
 // then 4 * (ceil(ep / kCountChunk) + 1) bytes;

@@ -9,7 +9,12 @@ an edited source builds anew. It is loaded with ``ctypes``.
 The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
 
 * ``csrc/bfs_kernels.cu`` (the fused BFS path): ``bfs_level`` (int32 and
-  int8) for ``fused_bfs.fused_superstep2`` :502; ``collapse_levels`` for the
+  int8) for ``fused_bfs.fused_superstep2`` :502, a pass over the vertices
+  that packs the frontier and the unreached vertices into bitmaps, then a
+  push from the frontier's CSR rows or a pull into the unreached vertices
+  over ``csc_src``, chosen on the card from the pass's sums
+  (``bfs_level_pulls``, or forced by ``bfs_level_form``);
+  ``collapse_levels`` for the
   ``cube_router._pallas_apply`` route :385 and "first" fill of the collapse;
   ``bfs_predecessors`` for the ``cube_router.apply_cube_chain`` :586 advance.
 * ``csrc/spmv_kernels.cu`` (SpMV, PageRank and HITS): ``spmv_rows`` (``mul``
@@ -60,11 +65,12 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   slots per thread, 2-4 payloads packed into 8- or 16-byte records by a
   first pass where the slots outnumber the records (``gather_packs``);
   ``segment_reduce`` for ``segment.combine_by_offsets`` :97 and its routed
-  form :287; ``segment_minmax`` for ``scan_kernels.segmented_minmax_1d``
-  :224 with the routed pick of ``segment.combine_minmax_multi`` :351,
-  one launch over tiles of ``MINMAX_TILE`` places of the merged segment
-  ends and slots, a segment across tiles completed from the partials the
-  tiles before it publish;
+  form :287, and ``segment_minmax`` for ``scan_kernels.segmented_minmax_1d``
+  :224 with the routed pick of ``segment.combine_minmax_multi`` :351: both
+  one launch over tiles of ``REDUCE_TILE`` and ``MINMAX_TILE`` places of
+  the merged segment ends and slots, after a launch that finds the tiles'
+  splits, a segment across tiles completed from the partials the tiles
+  before it publish;
   ``advance_count`` for ``advance.advance_count`` :175
   (``cube_router.apply_cube_chain_n`` :754): chunks of ``ADVANCE_CHUNK``
   CSC slots per block, the frontier packed to bits and, in its "shared"
@@ -109,7 +115,18 @@ SCAN_GROUP = 256               # scan tiles per group word (kScanGroup)
 FILL_TILE = 4096               # positions per fill tile (kFillTile)
 ROUTE_TILE = 2048              # positions per route OR block (kRouteTile)
 MINMAX_TILE = 2048             # merge places per segment_minmax tile (kMmTile)
-PUSH_SPLIT = 32                # slots per range of the sweeps' push lists
+REDUCE_TILE = 4096             # merge places per segment_reduce tile (kRdTile)
+PUSH_SPLIT = 32                # slots per range of the push lists
+BFS_FORMS = ("device", "push", "pull")             # codes 0-2 in the .cu
+# bfs_level pulls where the frontier's out-slots m_f times BFS_PULL_ALPHA
+# pass the unreached vertices' in-slots m_u and its vertices n_f times
+# BFS_PULL_BETA reach Vp (Beamer's direction-optimizing rules, with his
+# alpha and beta): the push reads m_f slots, the pull at most m_u, and a
+# small frontier is pushed, since the pull's fixed cost is a pass over
+# every word of the unreached bitmap
+BFS_PULL_ALPHA = 14
+BFS_PULL_BETA = 24
+BFS_LEVEL_SCALARS = 8          # words before bfs_level's bitmaps (the .cu's)
 # gather_payloads packs 2-4 payloads from PACK_MIN_SLOTS slots and from
 # one slot per record of the shortest payload. Measured by chip_ab.py's
 # sweep (uniform random indices, NVIDIA H100 80GB HBM3, 700 W): at
@@ -141,11 +158,14 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
 
 # launches of a wrapper's other device kernels, beside its count in
 # ``launches``, by each kernel's name without "_kernel": gather_payloads'
-# pack pass (where it packs), the sweeps' pushes, sssp_sweep's update and
-# segment_minmax's split (in every call)
+# pack pass (where it packs), the sweeps' pushes, sssp_sweep's update,
+# bfs_level's list, push and pull (in every call, the list and the push or
+# the pull returning at once) and the split of segment_reduce and
+# segment_minmax (in every call)
 pass_launches = {"gather_payloads_pack": 0, "sssp_sweep_push": 0,
                  "sssp_sweep_update": 0, "kcore_sweep_push": 0,
-                 "segment_minmax_split": 0}
+                 "bfs_level_list": 0, "bfs_level_push": 0,
+                 "bfs_level_pull": 0, "segment_split": 0}
 
 _lib = None
 
@@ -218,8 +238,9 @@ def _library():
         lib = ctypes.CDLL(str(build()[0]))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         argtypes = {
-            "etpu_bfs_level_i32": (p, p, p, i, i, i, p, p),
-            "etpu_bfs_level_i8": (p, p, p, i, i, i, p, p),
+            "etpu_bfs_level_i32": (p, p, p, p, i, i, i, i, i, i, i, p, p),
+            "etpu_bfs_level_i8": (p, p, p, p, i, i, i, i, i, i, i, p, p),
+            "etpu_bfs_level_scalars": (),
             "etpu_collapse_levels_i32": (p, p, i, i, i, p, p),
             "etpu_collapse_levels_i8": (p, p, i, i, i, p, p),
             "etpu_bfs_predecessors": (p, p, p, i, i, p, p),
@@ -239,11 +260,13 @@ def _library():
             "etpu_scan_group": (),
             "etpu_gather_payloads": (p, ll, p, p, p, p, p, p, p, p, i, p, i,
                                      p),
-            "etpu_segment_reduce_i32": (p, p, i, i, i, p, p),
-            "etpu_segment_reduce_f32": (p, p, i, i, ctypes.c_float, p, p),
+            "etpu_segment_reduce_i32": (p, ll, p, i, i, i, p, p, p),
+            "etpu_segment_reduce_f32": (p, ll, p, i, i, ctypes.c_float, p, p,
+                                        p),
             "etpu_segment_minmax": (p, p, p, p, p, p, p, p, i, p, ll, p, i,
                                     p, p, p, p),
             "etpu_minmax_tile": (),
+            "etpu_reduce_tile": (),
             "etpu_advance_count": (p, p, p, i, i, p, i, p, p),
             "etpu_advance_count_chunk": (),
             "etpu_advance_count_shared_bytes": (),
@@ -286,10 +309,18 @@ def _library():
                  f"segment_minmax: the library's tile is "
                  f"{lib.etpu_minmax_tile()} places, MINMAX_TILE is "
                  f"{MINMAX_TILE}")
+        throw_if(lib.etpu_reduce_tile() != REDUCE_TILE,
+                 f"segment_reduce: the library's tile is "
+                 f"{lib.etpu_reduce_tile()} places, REDUCE_TILE is "
+                 f"{REDUCE_TILE}")
         throw_if(lib.etpu_push_split() != PUSH_SPLIT,
                  f"sweeps: the library's push ranges are "
                  f"{lib.etpu_push_split()} slots, PUSH_SPLIT is "
                  f"{PUSH_SPLIT}")
+        throw_if(lib.etpu_bfs_level_scalars() != BFS_LEVEL_SCALARS,
+                 f"bfs_level: the library's scratch begins with "
+                 f"{lib.etpu_bfs_level_scalars()} scalars, BFS_LEVEL_SCALARS "
+                 f"is {BFS_LEVEL_SCALARS}")
         throw_if(lib.etpu_route_tile() != ROUTE_TILE,
                  f"fused_route_or: the library's tile is "
                  f"{lib.etpu_route_tile()} positions, ROUTE_TILE is "
@@ -356,8 +387,10 @@ def _segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
 
 # ------------------------------------------------------------ bfs_level --
 
-def bfs_level_plain(lev, offsets, csc_src, it: int, unreached: int):
-    """Plain version of ``bfs_level`` (same contract, same in-place write)."""
+def bfs_level_plain(lev, offsets, csc_src, col, it: int, unreached: int):
+    """Plain version of ``bfs_level`` (same contract, same in-place write):
+    the pull over ``csc_src``, the definition; ``col`` is only the
+    kernel's."""
     nonempty = offsets[1:] > offsets[:-1]
     starts = torch.where(nonempty, offsets[:-1], 0).long()
     lev_v = torch.where(nonempty, lev[starts].int(), unreached)
@@ -369,32 +402,87 @@ def bfs_level_plain(lev, offsets, csc_src, it: int, unreached: int):
     return newly.sum(dtype=torch.int32).reshape(1)
 
 
+def bfs_level_form() -> str:
+    """The form every ``bfs_level`` launch takes, one of BFS_FORMS:
+    "device", the card's choice per level from the pass's sums
+    (``bfs_level_pulls``), or "push" or "pull" throughout. Tests and
+    chip_smoke bind it to a constant to force a form (chip_smoke.bfs_form);
+    the result is the same in every form."""
+    return "device"
+
+
+def bfs_level_pulls(m_f: int, m_u: int, n_f: int, vp: int) -> bool:
+    """The card's choice under form "device": pull where the frontier's
+    out-slots ``m_f`` times BFS_PULL_ALPHA pass the unreached vertices'
+    in-slots ``m_u`` and its ``n_f`` vertices times BFS_PULL_BETA reach
+    ``vp``, else push."""
+    return m_f * BFS_PULL_ALPHA > m_u and n_f * BFS_PULL_BETA >= vp
+
+
+def bitmap_words(vp: int) -> int:
+    """32-bit words of a packed [vp] bitmap in whole 16-byte words (the
+    frontiers of ``advance_count`` and ``bfs_level``)."""
+    return 4 * -(-vp // 128)
+
+
 def bfs_level(lev: torch.Tensor, offsets: torch.Tensor,
-              csc_src: torch.Tensor, it: int, unreached: int) -> torch.Tensor:
+              csc_src: torch.Tensor, col: torch.Tensor, it: int,
+              unreached: int,
+              max_shared_bytes: int | None = None) -> torch.Tensor:
     """One BFS level on the edge axis of a symmetric-layout graph.
 
     ``lev`` ([Ep] int32 or int8) holds each segment's level at its start
     position ``offsets[v]``; other positions are neither read nor written.
     Every vertex whose start holds ``unreached`` and that has an in-neighbour
     at level ``it`` gets ``it + 1``, IN PLACE. Returns the number of vertices
-    reached, int32 [1], on ``lev``'s device."""
+    reached, int32 [1], on ``lev``'s device.
+
+    The plain version pulls over ``csc_src`` ([Ep] int32, the source of each
+    CSC slot). The kernel is four device launches: a pass over the vertices
+    (counted in ``launches``) that packs the frontier and the unreached
+    vertices into bitmaps and sums them, then a list of the frontier's CSR
+    rows and a push along them (``col``, [Ep] int32: on a symmetric layout
+    a vertex's row lies at its segment, and its columns are the vertices
+    whose pull finds it, directed or not), and a pull into the unreached
+    vertices; the kernels of one form return at once (``pass_launches``):
+    the card chooses by ``bfs_level_pulls`` unless ``bfs_level_form``
+    forces one.
+    The pull holds the frontier's bits in shared memory where
+    ``advance_count_tier`` says "shared" (under ``max_shared_bytes`` when
+    given; 0 forces "global")."""
     name = f"bfs_level<{'int8' if lev.dtype == torch.int8 else 'int32'}>"
     throw_if(lev.dtype not in (torch.int8, torch.int32) or lev.dim() != 1,
              f"{name}: lev must be [Ep] int8 or int32")
     throw_if(not (0 <= it and it + 1 < unreached
                   <= torch.iinfo(lev.dtype).max),
              f"{name}: need 0 <= it and it + 1 < unreached <= dtype max")
-    _check_graph(name, lev.numel(), offsets, csc_src)
+    ep = lev.numel()
+    _check_graph(name, ep, offsets, csc_src)
+    _check_graph(name, ep, offsets, col, "col")
+    form = bfs_level_form()
+    throw_if(form not in BFS_FORMS, f"{name}: form must be one of {BFS_FORMS}")
     if not _route(name, lev):
-        return bfs_level_plain(lev, offsets, csc_src, it, unreached)
-    _check(name, lev.device, lev=lev, offsets=offsets, csc_src=csc_src)
-    count = torch.zeros(1, dtype=torch.int32, device=lev.device)
-    fn = "etpu_bfs_level_i8" if lev.dtype == torch.int8 else "etpu_bfs_level_i32"
-    _launch(fn, lev.device, lev.data_ptr(), offsets.data_ptr(),
-            csc_src.data_ptr(), offsets.numel() - 1, it, unreached,
-            count.data_ptr())
+        return bfs_level_plain(lev, offsets, csc_src, col, it, unreached)
+    dev = lev.device
+    _check(name, dev, lev=lev, offsets=offsets, csc_src=csc_src, col=col)
+    vp = offsets.numel() - 1
+    shared = advance_count_tier(vp, dev, max_shared_bytes) == "shared"
+    # the scalars (the count first), the frontier's and the unreached
+    # vertices' bitmaps, then room for the listed ranges (int4) where the
+    # push may run
+    buf = torch.empty(BFS_LEVEL_SCALARS + 2 * bitmap_words(vp) + (
+        4 * push_ranges(vp, ep) if form != "pull" else 0),
+        dtype=torch.int32, device=dev)
+    _launch("etpu_bfs_level_i8" if lev.dtype == torch.int8
+            else "etpu_bfs_level_i32", dev, lev.data_ptr(),
+            offsets.data_ptr(), csc_src.data_ptr(), col.data_ptr(), vp, it,
+            unreached, BFS_FORMS.index(form), BFS_PULL_ALPHA, BFS_PULL_BETA,
+            int(shared), buf.data_ptr())
     launches[name] += 1
-    return count
+    pass_launches["bfs_level_list"] += 1
+    pass_launches["bfs_level_push"] += 1
+    pass_launches["bfs_level_pull"] += 1
+    return buf[:1]
 
 
 # ------------------------------------------------------ collapse_levels --
@@ -1130,9 +1218,14 @@ def segment_reduce(vals: torch.Tensor, offsets: torch.Tensor,
                    op: str) -> torch.Tensor:
     """Per-segment ``op`` (sum, min, max, or, and) of ``vals`` ([n] int32,
     whose sum wraps around, or float32) over the sorted [S+1] int32
-    ``offsets``, one warp per segment, with the identity at empty segments.
-    sum/min/max give ``vals``' dtype, or/and bool (each value read as a
-    truth value). A float sum is deterministic: a fixed order per segment."""
+    ``offsets`` (within [0, n]; offsets[0] need not be 0), with the identity
+    at empty segments. sum/min/max give ``vals``' dtype, or/and bool (each
+    value read as a truth value). ``vals`` may be a view at any element
+    offset. One C call: a launch finds the splits of the merged segment ends
+    and slots into tiles of REDUCE_TILE places (counted in
+    ``pass_launches``), a launch reduces the tiles; a segment across tiles
+    is completed from the partials the tiles before it publish. A float sum
+    is deterministic: its order depends on the offsets alone."""
     name = "segment_reduce"
     throw_if(op not in REDUCE_OPS, f"{name}: op must be one of {REDUCE_OPS}")
     throw_if(vals.dtype not in (torch.int32, torch.float32)
@@ -1143,15 +1236,23 @@ def segment_reduce(vals: torch.Tensor, offsets: torch.Tensor,
         return segment_reduce_plain(vals, offsets, op)
     dev = vals.device
     _check(name, dev, vals=vals, offsets=offsets)
-    s = offsets.numel() - 1
+    s, n = offsets.numel() - 1, vals.numel()
+    throw_if(s + n > INT32_MAX, f"{name}: S + n must stay below 2^31")
     out = torch.empty(s, dtype=torch.bool if op in ("or", "and")
                       else vals.dtype, device=dev)
-    ident = reduce_identity(op, vals.dtype)
+    if s == 0:
+        return out
+    # the tiles' status words, the ticket, the splits (one more than the
+    # tiles): 2 64-bit words a tile and two
+    scratch = torch.empty(2 * -(-(s + n) // REDUCE_TILE) + 2,
+                          dtype=torch.int64, device=dev)
     _launch("etpu_segment_reduce_f32" if vals.dtype == torch.float32
-            else "etpu_segment_reduce_i32", dev, vals.data_ptr(),
-            offsets.data_ptr(), s, REDUCE_OPS.index(op), ident,
-            out.data_ptr())
+            else "etpu_segment_reduce_i32", dev, vals.data_ptr(), n,
+            offsets.data_ptr(), s, REDUCE_OPS.index(op),
+            reduce_identity(op, vals.dtype), out.data_ptr(),
+            scratch.data_ptr())
     launches[name] += 1
+    pass_launches["segment_split"] += 1
     return out
 
 
@@ -1229,7 +1330,7 @@ def segment_minmax(payloads, active: torch.Tensor,
                 active.data_ptr(), n, offsets.data_ptr(), s,
                 mx[lo].data_ptr(), mn[lo].data_ptr(), scratch.data_ptr())
         launches[name] += 1
-        pass_launches["segment_minmax_split"] += 1
+        pass_launches["segment_split"] += 1
     return mx, mn
 
 
@@ -1244,9 +1345,10 @@ def advance_count_plain(frontier, offsets, csc_src):
 
 
 def advance_count_bitmap_bytes(vp: int) -> int:
-    """Bytes of the packed frontier that ``advance_count`` builds for a
-    [vp] frontier: one bit per vertex, in whole 16-byte words."""
-    return 16 * (-(-vp // 128))
+    """Bytes of the packed frontier that ``advance_count`` (and
+    ``bfs_level``'s pull) builds for a [vp] frontier: one bit per vertex, in
+    whole 16-byte words."""
+    return 4 * bitmap_words(vp)
 
 
 _shared_bytes = {}

@@ -50,12 +50,14 @@ def init_lev_exp(g: Graph, source: int,
 
 def fused_superstep(g: Graph, lev_exp: torch.Tensor, it: int, *,
                     unreached: int = UNREACHED) -> tuple:
-    """One BFS level (the ``bfs_level`` kernel). Updates ``lev_exp`` IN
-    PLACE at segment starts and returns (lev_exp, newly-reached count int32
-    [1]). The JAX fallback writes whole segments; the two agree at segment
-    starts, which is all either reads."""
-    cnt = kernels.bfs_level(lev_exp, g.row_offsets, g.csc_src_indices, it,
-                            unreached)
+    """One BFS level (the ``bfs_level`` kernel: a push along the CSR
+    columns from the frontier or a pull over the CSC sources into the
+    unreached vertices). Updates ``lev_exp`` IN PLACE at segment starts and
+    returns (lev_exp, newly-reached count int32 [1]). The JAX fallback
+    writes whole segments; the two agree at segment starts, which is all
+    either reads."""
+    cnt = kernels.bfs_level(lev_exp, g.row_offsets, g.csc_src_indices,
+                            g.col_indices, it, unreached)
     return lev_exp, cnt
 
 

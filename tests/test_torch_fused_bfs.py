@@ -8,8 +8,16 @@ segment starts. The int8 form's sentinel 127 is mapped to int32 max where it
 is held against the int32 JAX fallback. The segment fills and the route OR
 (``segment_broadcast_total``, ``suffix_fill_update``, ``fused_route_or``)
 are held against the JAX package's Pallas kernels in interpret mode, and the
-5-pass level they make against ``bfs_level``. Every value is an integer or
-a copied float32: the tolerance is exact equality."""
+5-pass level they make against ``bfs_level``. ``bfs_level`` takes the CSR
+columns (``col``) for the card's push; on the CPU it runs its plain pull
+whatever form ``kernels.bfs_level_form`` names, and a NumPy model of the
+push along ``col`` is held against it, also on degree-balanced directed
+graphs (a symmetric layout without a symmetric adjacency), where ``bfs.run``
+is held against ``cpu_reference`` and JAX's fused BFS. Every value is an
+integer or a copied float32: the tolerance is exact equality."""
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -112,6 +120,128 @@ def test_levels_match_jax_fallback(graphs, name, source, form):
     assert len(counts) > 2 and counts[-1] == 0
 
 
+@pytest.mark.parametrize("form", ["device", "push", "pull"])
+@pytest.mark.parametrize("dtype", sorted(FORMS))
+@pytest.mark.parametrize("name,source", [("rmat10", 0), ("grid24", 0)])
+def test_bfs_level_with_col_matches_jax_at_starts(graphs, name, source,
+                                                  dtype, form, monkeypatch):
+    """kernels.bfs_level with ``col`` (its plain version on the CPU) under
+    each form the card can take, against JAX's fused_superstep at segment
+    starts, level by level, with equal counts."""
+    monkeypatch.setattr(kernels, "bfs_level_form", lambda: form)
+    gj, g = graphs[name]
+    unreached = FORMS[dtype]
+    starts = starts_of(g)
+    levs, counts = jax_levels(gj, source)
+    lev = tfb.init_lev_exp(g, source, unreached)
+    args = (g.row_offsets, g.csc_src_indices, g.col_indices)
+    for it, (lev_j, cnt_j) in enumerate(zip(levs, counts)):
+        ref = lev.clone()
+        cnt = kernels.bfs_level(lev, *args, it, unreached)
+        cnt_p = kernels.bfs_level_plain(ref, *args, it, unreached)
+        assert torch.equal(lev, ref) and torch.equal(cnt, cnt_p), it
+        assert int(cnt) == cnt_j, it
+        assert np.array_equal(as_int32_levels(lev, unreached)[starts],
+                              lev_j[starts]), it
+
+
+def push_level(g, lev: np.ndarray, it: int, unreached: int) -> int:
+    """The card's push of one level as a NumPy model: every CSR slot of a
+    frontier vertex (start at ``it``) reaches its column's start where it
+    holds ``unreached``. Updates ``lev`` in place; returns the count."""
+    off = g.row_offsets.numpy().astype(np.int64)
+    col = g.col_indices.numpy()
+    nonempty = off[1:] > off[:-1]
+    lv = np.where(nonempty, lev[np.where(nonempty, off[:-1], 0)], unreached)
+    rows = np.flatnonzero(nonempty & (lv == it))
+    slots = np.concatenate([np.arange(off[u], off[u + 1]) for u in rows]
+                           or [np.zeros(0, np.int64)])
+    dst = np.unique(col[slots])
+    dst = dst[lv[dst] == unreached]
+    lev[off[dst]] = it + 1
+    return dst.size
+
+
+def balanced(coo):
+    """A degree-balanced directed graph in both packages: the JAX graph
+    (with router plans), the port's graph made from its fields, and the
+    host CSR."""
+    csr = JCsr.from_coo(coo)
+    gj = jbuild(csr, directed=True, weighted=False, build_router=True)
+    fields = {f: np.asarray(getattr(gj, f)) for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return gj, graph_from_arrays(fields, meta, "cpu"), csr
+
+
+@pytest.fixture(scope="module")
+def directed():
+    """The degree-balanced directed graphs of tests/test_torch_kcore.py:
+    the 5-cycle with a chord both ways and chip_smoke's union of directed
+    cycles over 300 vertices. Every in-degree equals its out-degree (a symmetric
+    layout), but col_indices differs from csc_src_indices, so a push along
+    csc_src would reach the wrong vertices."""
+    from essentials_tpu.formats import Coo as JCoo
+    chord = JCoo(5, 5, np.array([0, 1, 2, 3, 4, 0, 2], np.int32),
+                 np.array([1, 2, 3, 4, 0, 2, 0], np.int32),
+                 np.ones(7, np.float32))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    n, src, dst, w = cs.cycles_coo(300, (300, 200, 150, 100, 80, 40), 3)
+    out = {"chord_cycle": balanced(chord),
+           "cycles300": balanced(JCoo(n, n, src, dst, w))}
+    for gj, g, _ in out.values():
+        assert g.symmetric_layout and jbfs.fused_supported(gj)
+        assert not torch.equal(g.col_indices, g.csc_src_indices)
+    return out
+
+
+@pytest.mark.parametrize("name", ["rmat10", "grid24", "chord_cycle",
+                                  "cycles300"])
+def test_push_model_walks_col(graphs, directed, name):
+    """The card's push (along the frontier's CSR rows, col_indices) gives
+    the plain pull's levels and counts at every level, on undirected graphs
+    and on degree-balanced directed ones."""
+    g = {**graphs, **directed}[name][1]
+    source = int(np.argmax(np.diff(g.row_offsets.numpy())[:g.n_vertices]))
+    for unreached in FORMS.values():
+        lev = tfb.init_lev_exp(g, source, unreached)
+        model = lev.numpy().copy()
+        for it in range(64):
+            cnt = kernels.bfs_level_plain(lev, g.row_offsets,
+                                          g.csc_src_indices, g.col_indices,
+                                          it, unreached)
+            assert push_level(g, model, it, unreached) == int(cnt), it
+            assert np.array_equal(model[starts_of(g)],
+                                  lev.numpy()[starts_of(g)]), it
+            if int(cnt) == 0:
+                break
+        assert it >= 2
+
+
+@pytest.mark.parametrize("variant", ["fused", "fused8"])
+@pytest.mark.parametrize("name", ["chord_cycle", "cycles300"])
+def test_fused_bfs_on_degree_balanced_directed_graphs(directed, name,
+                                                      variant):
+    """bfs.run fused/fused8 on a directed graph with a symmetric layout:
+    against cpu_reference from every source of the chord cycle and a few
+    of cycles300, and against JAX's fused BFS (its router plans built)."""
+    gj, g, csr = directed[name]
+    sources = range(g.n_vertices) if g.n_vertices < 10 else (0, 7, 151)
+    for s in sources:
+        r = tbfs.run(g, s, variant=variant, max_iterations=64, warmup=False)
+        want = tbfs.cpu_reference(csr, s)
+        assert np.array_equal(r.distances.numpy(), want), s
+        rj = jbfs.run(gj, s, variant="fused", compute_predecessors=False,
+                      warmup=False)
+        assert np.array_equal(r.distances.numpy(), np.asarray(rj.distances))
+        assert r.iterations == rj.iterations
+        pred = r.predecessors.numpy()
+        reached = (want > 0) & (want != INT32_MAX)
+        assert np.all(want[pred[reached]] + 1 == want[reached])
+
+
 def test_level_matches_pallas_pipeline_int32(rmat12, monkeypatch):
     monkeypatch.setattr(jfb, "_INTERPRET", True)
     gj, g = rmat12
@@ -181,10 +311,10 @@ def test_wrappers_take_plain_version_on_cpu():
     kernels.reset_launches()
     lev = tfb.init_lev_exp(g, 0)
     ref = lev.clone()
-    cnt = kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices, 0,
-                            tfb.UNREACHED)
+    cnt = kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices,
+                            g.col_indices, 0, tfb.UNREACHED)
     cnt_p = kernels.bfs_level_plain(ref, g.row_offsets, g.csc_src_indices,
-                                    0, tfb.UNREACHED)
+                                    g.col_indices, 0, tfb.UNREACHED)
     assert torch.equal(lev, ref) and torch.equal(cnt, cnt_p)
     dist = kernels.collapse_levels(lev, g.row_offsets, 0, tfb.UNREACHED)
     kernels.bfs_predecessors(dist, g.csc_offsets, g.csc_src_indices,
@@ -201,8 +331,8 @@ def test_wrappers_raise_on_other_devices(call):
     flags = g.csc_seg_flags
     with pytest.raises(EssentialsError):
         if call == "level":
-            kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices, 0,
-                              tfb.UNREACHED)
+            kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices,
+                              g.col_indices, 0, tfb.UNREACHED)
         elif call == "collapse":
             kernels.collapse_levels(lev, g.row_offsets, 0, tfb.UNREACHED)
         elif call == "pred":
@@ -216,18 +346,23 @@ def test_wrappers_raise_on_other_devices(call):
             tfb.fused_route_or(g, lev, 0)
 
 
-def test_bfs_level_rejects_bad_arguments():
+def test_bfs_level_rejects_bad_arguments(monkeypatch):
     g = small_graph()
     lev8 = tfb.init_lev_exp(g, 0, tfb.UNREACHED_E)
+    off, src, col = g.row_offsets, g.csc_src_indices, g.col_indices
     with pytest.raises(EssentialsError):      # it + 1 would hit the sentinel
-        kernels.bfs_level(lev8, g.row_offsets, g.csc_src_indices, 126,
-                          tfb.UNREACHED_E)
+        kernels.bfs_level(lev8, off, src, col, 126, tfb.UNREACHED_E)
     with pytest.raises(EssentialsError):      # no int64 form
-        kernels.bfs_level(lev8.long(), g.row_offsets, g.csc_src_indices, 0,
-                          tfb.UNREACHED)
+        kernels.bfs_level(lev8.long(), off, src, col, 0, tfb.UNREACHED)
     with pytest.raises(EssentialsError):      # csc_src of the wrong length
-        kernels.bfs_level(lev8, g.row_offsets, g.csc_src_indices[:-1], 0,
-                          tfb.UNREACHED_E)
+        kernels.bfs_level(lev8, off, src[:-1], col, 0, tfb.UNREACHED_E)
+    with pytest.raises(EssentialsError):      # col of the wrong length
+        kernels.bfs_level(lev8, off, src, col[:-1], 0, tfb.UNREACHED_E)
+    with pytest.raises(EssentialsError):      # col of the wrong type
+        kernels.bfs_level(lev8, off, src, col.long(), 0, tfb.UNREACHED_E)
+    monkeypatch.setattr(kernels, "bfs_level_form", lambda: "sideways")
+    with pytest.raises(EssentialsError):      # no such form
+        kernels.bfs_level(lev8, off, src, col, 0, tfb.UNREACHED_E)
 
 
 # ------------------------------------------- segment fills and route OR --
@@ -301,8 +436,8 @@ def test_five_pass_level_matches_bfs_level(graphs, name, source):
     full = lev.clone()             # init_lev_exp fills whole segments
     levs = jax_levels(gj, source)[0]
     for it in range(64):
-        cnt = kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices, it,
-                                tfb.UNREACHED)
+        cnt = kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices,
+                                g.col_indices, it, tfb.UNREACHED)
         full, any_ = tfb.five_pass_superstep(g, full, it)
         assert np.array_equal(full.numpy(), levs[it])
         assert np.array_equal(full.numpy()[starts], lev.numpy()[starts]), it

@@ -177,30 +177,65 @@ def test_chip_smoke_refuses_to_run_without_a_card():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_versions_on_the_card():
+def test_kernels_match_plain_versions_on_the_card(monkeypatch):
+    """bfs_level against its plain version at every level, int32 and int8,
+    in each form (the card's choice, push and pull forced) and both tiers
+    of the pull, on rmat12 and on a degree-balanced directed graph (where a
+    push along csc_src would go wrong); bfs.run fused/fused8 against
+    cpu_reference there; then the collapse and the predecessors."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from essentials_tpu_torch import kernels
     from essentials_tpu_torch.algorithms import bfs
-    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.formats import Coo, Csr
     from essentials_tpu_torch.graph import build_graph
     from essentials_tpu_torch.io import generate
     from essentials_tpu_torch.ops import fused_bfs as FB
 
-    csr = Csr.from_coo(generate.rmat(10, 8, seed=4, weighted=False))
-    g = build_graph(csr, directed=False, weighted=False, device="cuda")
+    csr = Csr.from_coo(generate.rmat(12, 16, seed=4, weighted=False))
+    n, src, dst, w = _chip_smoke().balanced_coo(n=20_000)
+    csr_b = Csr.from_coo(Coo(n, n, src, dst, w))
+    graphs = [(csr, build_graph(csr, directed=False, weighted=False,
+                                device="cuda")),
+              (csr_b, build_graph(csr_b, directed=True, weighted=False,
+                                  device="cuda"))]
+    assert graphs[1][1].symmetric_layout
+    assert not torch.equal(graphs[1][1].col_indices,
+                           graphs[1][1].csc_src_indices)
     kernels.reset_launches()
+    levels = {"int32": 0, "int8": 0}
+    for c, g in graphs:
+        source = int(np.argmax(np.diff(c.row_offsets)))
+        args = (g.row_offsets, g.csc_src_indices, g.col_indices)
+        for form in kernels.BFS_FORMS:
+            monkeypatch.setattr(kernels, "bfs_level_form",
+                                lambda form=form: form)
+            for cap in (None, 0):           # the shared and the global tier
+                for unreached in (FB.UNREACHED, FB.UNREACHED_E):
+                    lev = FB.init_lev_exp(g, source, unreached)
+                    ref = lev.clone()
+                    for it in range(64):
+                        cnt = kernels.bfs_level(lev, *args, it, unreached,
+                                                cap)
+                        cnt_p = kernels.bfs_level_plain(ref, *args, it,
+                                                        unreached)
+                        assert torch.equal(lev, ref), (form, cap, it)
+                        assert torch.equal(cnt, cnt_p), (form, cap, it)
+                        levels["int8" if unreached == FB.UNREACHED_E
+                               else "int32"] += 1
+                        if cnt.item() == 0:
+                            break
+                    assert it > 2
+            for variant in ("fused", "fused8"):
+                r = bfs.run(g, source, variant=variant, max_iterations=64,
+                            warmup=False)
+                assert np.array_equal(r.distances.cpu().numpy(),
+                                      bfs.cpu_reference(c, source)), form
+    monkeypatch.undo()
+    g = graphs[0][1]
     for unreached in (FB.UNREACHED, FB.UNREACHED_E):
-        lev = FB.init_lev_exp(g, 0, unreached)
-        ref = lev.clone()
-        for it in range(64):
-            cnt = kernels.bfs_level(lev, g.row_offsets, g.csc_src_indices,
-                                    it, unreached)
-            cnt_p = kernels.bfs_level_plain(ref, g.row_offsets,
-                                            g.csc_src_indices, it, unreached)
-            assert torch.equal(lev, ref) and torch.equal(cnt, cnt_p), it
-            if cnt.item() == 0:
-                break
+        lev = bfs.run_fused_levels(g, 0, 64,
+                                   int8=unreached == FB.UNREACHED_E)[0]
         dist = kernels.collapse_levels(lev, g.row_offsets, 0, unreached)
         assert torch.equal(dist, kernels.collapse_levels_plain(
             lev, g.row_offsets, 0, unreached))
@@ -212,6 +247,12 @@ def test_kernels_match_plain_versions_on_the_card():
                    "bfs_predecessors")
     assert all(kernels.launches[k] > 0 for k in bfs_kernels), \
         kernels.launches
+    calls = kernels.launches["bfs_level<int32>"] + \
+        kernels.launches["bfs_level<int8>"]
+    assert calls > sum(levels.values())     # the runs' levels besides
+    assert kernels.pass_launches["bfs_level_list"] == calls
+    assert kernels.pass_launches["bfs_level_push"] == calls
+    assert kernels.pass_launches["bfs_level_pull"] == calls
     assert np.array_equal(dist[:g.n_vertices].cpu().numpy(),
                           bfs.cpu_reference(csr, 0))
 
@@ -433,6 +474,9 @@ def test_operator_kernels_match_plain_versions_on_the_card(monkeypatch):
     def bits(t):
         return t.view(torch.int32)
 
+    def exact(t):
+        return bits(t) if t.is_floating_point() else t
+
     csr = Csr.from_coo(generate.rmat(12, 16, seed=3, undirected=False,
                                      weighted=True))
     g = build_graph(csr, directed=True, weighted=True, device="cuda")
@@ -473,18 +517,35 @@ def test_operator_kernels_match_plain_versions_on_the_card(monkeypatch):
     calls += 2
     assert kernels.launches["scan"] == calls
     del big, k
-    flags = torch.from_numpy(rng.random(n) < 0.01).cuda()
+    # segment_reduce over the graph's offsets, and across tile boundaries:
+    # a hub over 40 tiles, a run of empty segments longer than a tile,
+    # offsets from 37, values as a view at a 4-byte offset; values other
+    # than 0 and 1 for or/and; the float sum the same bits over 3 calls
+    tile = kernels.REDUCE_TILE
+    lengths = rng.integers(0, 6, 30_000)
+    lengths[7] = 40 * tile + 37
+    lengths[20_000:20_000 + tile + 300] = 0
+    off_s = torch.from_numpy(np.concatenate([[37], 37 + np.cumsum(
+        lengths)]).astype(np.int32)).cuda()
+    m = int(off_s[-1]) + 50
     for x in (torch.from_numpy(rng.integers(-2**30, 2**30, n).astype(
             np.int32)).cuda(), torch.from_numpy(rng.random(n).astype(
-                np.float32)).cuda()):
-        for off in (g.csc_offsets, g.row_offsets):
+                np.float32)).cuda(),
+            torch.from_numpy(rng.integers(-3, 4, m + 1).astype(
+                np.int32)).cuda()[1:],
+            torch.from_numpy(rng.random(m + 1).astype(
+                np.float32)).cuda()[1:]):
+        offs = (g.csc_offsets, g.row_offsets) if x.numel() == n else (off_s,)
+        for off in offs:
             for op in kernels.REDUCE_OPS:
                 k = kernels.segment_reduce(x, off, op)
-                assert torch.equal(k, kernels.segment_reduce(x, off, op))
+                again = [kernels.segment_reduce(x, off, op)
+                         for _ in range(2)]
+                assert all(torch.equal(k, a) for a in again), (x.dtype, op)
                 p = kernels.segment_reduce_plain(x, off, op)
                 ok = close(k, p) if (op == "sum" and x.is_floating_point()) \
-                    else torch.equal(k, p)
-                assert ok, (x.dtype, op)
+                    else torch.equal(exact(k), exact(p))
+                assert ok, (x.dtype, op, off.numel())
     vp = g.n_vertices_padded
     # payloads of unequal lengths; the whole index, a ragged count and a
     # view at an odd offset; packed and unpacked, bit for bit
@@ -606,7 +667,8 @@ def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
         lev[off[:-1].clamp(max=g.n_edges_padded - 1).long()],
         (off[1:] - off[:-1]).long())
     for it in range(64):
-        cnt = kernels.bfs_level(lev, off, g.csc_src_indices, it, FB.UNREACHED)
+        cnt = kernels.bfs_level(lev, off, g.csc_src_indices, g.col_indices,
+                                it, FB.UNREACHED)
         z = FB.fused_route_or(g, full, it)
         assert torch.equal(z, FB.fused_route_or(g, full, it))
         assert torch.equal(z, kernels.fused_route_or_plain(
@@ -672,7 +734,7 @@ def test_color_kernel_matches_plain_version_on_the_card():
             for a, b, c in zip(k, again, p):
                 assert torch.equal(a, b) and torch.equal(a, c)
     assert kernels.launches["segment_minmax"] == 2 * 3 * (1 + 1 + 1 + 2)
-    assert kernels.pass_launches["segment_minmax_split"] == \
+    assert kernels.pass_launches["segment_split"] == \
         kernels.launches["segment_minmax"]
     pays, active, off = _chip_smoke().minmax_stress_inputs("cuda", m=11)
     assert int(off[0]) == 37 and pays[0].data_ptr() % 16 != 0

@@ -195,6 +195,46 @@ def test_combine_by_offsets_matches_jax(graphs, combine, dtype, order):
         equal(got, want)
 
 
+def hub_offsets(start: int) -> np.ndarray:
+    """[S+1] int32 offsets from ``start``: 6,000 segments of 0-5 slots, one
+    a hub of 5,000 slots, 2,500 of them a run of empty segments."""
+    rng = np.random.default_rng(9)
+    lengths = rng.integers(0, 6, 6000)
+    lengths[11] = 5000
+    lengths[3000:5500] = 0
+    return np.concatenate([[start], start + np.cumsum(lengths)]).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("start", [0, 37])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("combine", ["sum", "min", "max", "or", "and"])
+def test_combine_by_offsets_hub_and_empty_runs_match_jax(combine, dtype,
+                                                         start):
+    """A hub segment, a run of empty segments, and offsets that do not
+    start at 0: the port reduces vals[offsets[0]:offsets[-1]] alone. JAX's
+    prefix differences count from position 0, so its copy holds the
+    identity (0, False) before offsets[0] under sum, or and and; min and
+    max restart at the segment flags."""
+    off = hub_offsets(start)
+    n = int(off[-1]) + 13
+    x = combine_input(combine, dtype, n, 8)
+    x_j = x.copy()
+    if combine in ("sum", "or", "and"):
+        x_j[:start] = 0
+    flags = np.zeros(n, bool)
+    flags[off[:-1][off[1:] > off[:-1]]] = True
+    got = tseg.combine_by_offsets(t(x), t(off), Combine(combine)).numpy()
+    want = np.asarray(jseg.combine_by_offsets(
+        jnp.asarray(x_j), jnp.asarray(off), JCombine(combine),
+        jnp.asarray(flags)))
+    if combine == "sum" and dtype == np.float32:
+        close(got, want)
+    else:
+        equal(got, want)
+    assert got.shape == (off.size - 1,)
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_expand_and_permutation_match_jax(graphs, name):
     _, gj, g = graphs[name]
