@@ -56,6 +56,17 @@ level and per search (torch.profiler over a whole search; the parent's
 device kernel is bfs_level_kernel alone, this tree's the pass, the list,
 the push and the pull); this tree under the card's choice of form.
 
+pred: ``bfs_predecessors`` at the distances of a fused search from each
+of the 16 highest-degree sources of undirected rmat18 (the mean is what a
+search pays) and from the highest-degree vertex of gen:rmat20x16,
+``sssp_predecessors`` from the highest-degree vertex of weighted rmat18
+and of gen:rmat20x16: wall per call (median of CYCLES) and device per call
+(torch.profiler, memsets included), mean and max over the searches, and
+the range walk's device time (mean); beside
+the parent and this tree, this tree at each PRED_SPLIT of PRED_SPLITS,
+and the kernels of each checkout named by --side (a copy of
+the package whose csrc/ was edited: a variant that is only timed).
+
 e2e (end to end, in E2E_ROUNDS rounds of turns: 8 runs a side): BFS fused
 MTEPS at undirected rmat18 (the median search of the 16 highest-degree
 sources, as chip_smoke's phase 5) with the device time of the 16 searches;
@@ -121,8 +132,11 @@ import chip_smoke as CS
 KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
            "scan", "segment_broadcast_total", "suffix_fill_update",
            "segment_minmax", "kcore_sweep", "sssp_sweep",
-           "bitmap_intersect_counts", "segment_reduce", "bfs_level")
+           "bitmap_intersect_counts", "segment_reduce", "bfs_level",
+           "bfs_predecessors", "sssp_predecessors")
 PR_HITS_ROUNDS = 4             # rounds of turns: 8 runs on each side
+PRED_SPLITS = (512, 1024)      # kernels.PRED_SPLIT's other values timed
+SIDES = {}                     # --side: name -> kernels module
 E2E_ROUNDS = 4                 # rounds of turns: 8 runs on each side
 PACK_PAYLOADS = (2, 4)
 PACK_LENGTH = 1 << 20          # L: a [Vp] payload at RMAT scale 20
@@ -207,11 +221,6 @@ def kernel_ms(fn, reps: int = CS.SPMV_REPS) -> dict:
             / reps, "device": CS.device_ms(fn, reps)[0]}
 
 
-def fmt(values) -> str:
-    return ", ".join("not measured" if v is None else f"{v:.4f}"
-                     for v in values)
-
-
 def turns(card: str, label: str, sides: dict, out: dict,
           rounds: int = 1) -> None:
     """Each side's measure() ({metric: ms}) in turns, the sides in order
@@ -223,7 +232,7 @@ def turns(card: str, label: str, sides: dict, out: dict,
         got[s].append(sides[s]())
     for s in names:
         print(f"ab [{card}]: {label}: {s}: " + "; ".join(
-            f"{m} {fmt([r[m] for r in got[s]])}" for m in got[s][0])
+            f"{m} {CS.fmt_ms([r[m] for r in got[s]])}" for m in got[s][0])
             + " ms")
     out[label] = got
 
@@ -620,6 +629,68 @@ def bfs_shapes(card: str, run, K0, out: dict) -> None:
                    "this": measure}, out)
 
 
+@contextlib.contextmanager
+def pred_split(split: int):
+    """This tree's predecessor kernels at another PRED_SPLIT while the
+    block runs."""
+    from essentials_tpu_torch import kernels as K
+    saved, K.PRED_SPLIT = K.PRED_SPLIT, split
+    try:
+        yield
+    finally:
+        K.PRED_SPLIT = saved
+
+
+def pred_shapes(card: str, run, K0, out: dict) -> None:
+    """Both predecessor kernels at the shapes of the module docstring."""
+    from essentials_tpu_torch import kernels as K
+    csr, g = run.bfs_graph(CS.SCALE)
+    top16 = np.argsort(-np.diff(csr.row_offsets))[:CS.RUNS]
+    csr18, g18 = run.weighted_graph(CS.SCALE)
+    csr_m, g_m = run.weighted_graph(CS.MAIN_SCALE)
+    top18, top_m = ([int(np.argmax(np.diff(c.row_offsets)))]
+                    for c in (csr18, csr_m))
+    shapes = {
+        f"bfs_predecessors rmat{CS.SCALE}, {CS.RUNS} sources":
+            ("bfs_predecessors", CS.bfs_pred_cases(g, top16)),
+        f"sssp_predecessors weighted rmat{CS.SCALE} from {top18[0]}":
+            ("sssp_predecessors", CS.sssp_pred_cases(g18, top18)),
+        f"bfs_predecessors gen:rmat{CS.MAIN_SCALE}x16 from {top_m[0]}":
+            ("bfs_predecessors", CS.bfs_pred_cases(g_m, top_m)),
+        f"sssp_predecessors gen:rmat{CS.MAIN_SCALE}x16 from {top_m[0]}":
+            ("sssp_predecessors", CS.sssp_pred_cases(g_m, top_m))}
+    for label, (name, cases) in shapes.items():
+        for args in cases:
+            CS.check(torch.equal(getattr(K0, name)(*args),
+                                 getattr(K, name)(*args)),
+                     f"{label}: parent and this tree disagree")
+
+        def measure(name=name, cases=cases) -> dict:
+            walls, devs, ranges = [], [], []
+            for args in cases:
+                kernel = getattr(K, name)       # the side's wrapper
+                walls.append(CS.median_ms(lambda _: kernel(*args)))
+                ms, rows = CS.device_ms(lambda: kernel(*args),
+                                        CS.PRED_DEVICE_REPS)
+                devs.append(ms)
+                ranges.append(sum(t for k, t in rows.items()
+                                  if "_ranges_kernel" in k))
+            seen = [d for d in devs if d is not None]
+            return {"wall mean": float(np.mean(walls)),
+                    "device mean": float(np.mean(seen)) if seen else None,
+                    "device max": max(seen) if seen else None,
+                    "range walk mean": float(np.mean(ranges))}
+        sides = {"parent": lambda m=measure: on(K0, m), "this": measure}
+        for split in PRED_SPLITS:
+            def variant(m=measure, split=split):
+                with pred_split(split):
+                    return m()
+            sides[f"this, split {split}"] = variant
+        for side, mod in SIDES.items():
+            sides[side] = lambda m=measure, mod=mod: on(mod, m)
+        turns(card, label, sides, out)
+
+
 def end_to_end(card: str, run, K0, out: dict) -> None:
     from essentials_tpu_torch.algorithms import bfs, color, hits, kcore, pr
     from essentials_tpu_torch.algorithms import sssp, tc
@@ -748,13 +819,14 @@ def pack_sweep(card: str, out: dict) -> None:
                          "packed_device_ms": ms[True],
                          "rule_packs": K.gather_packs(n, [length] * m)})
             print(f"ab [{card}]: gather_payloads {m} payloads, L={length}, "
-                  f"n={n} (n/L {n / length:g}): unpacked {fmt(ms[False])} "
-                  f"ms, packed {fmt(ms[True])} ms of device time per call; "
+                  f"n={n} (n/L {n / length:g}): unpacked "
+                  f"{CS.fmt_ms(ms[False])} ms, packed {CS.fmt_ms(ms[True])} "
+                  f"ms of device time per call; "
                   f"the rule packs: {rows[-1]['rule_packs']}")
     out["pack_sweep"] = rows
 
 
-GROUPS = {"reduce": reduce_shapes, "bfs": bfs_shapes,
+GROUPS = {"pred": pred_shapes, "reduce": reduce_shapes, "bfs": bfs_shapes,
           "sssp": sssp_shapes, "bitmap": bitmap_shapes,
           "minmax": minmax_shapes, "kcore": kcore_shapes,
           "scan": scan_shapes, "fill": fill_shapes, "e2e": end_to_end,
@@ -767,6 +839,10 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, required=True,
                         help="root of the parent checkout")
+    parser.add_argument("--side", action="append", default=[],
+                        metavar="NAME=ROOT",
+                        help="time the kernels of the checkout at ROOT as "
+                             "one more side named NAME (group pred)")
     parser.add_argument("--out", type=Path,
                         help="write the measurements as JSON here")
     parser.add_argument("--only", metavar="GROUP[,GROUP]",
@@ -790,6 +866,9 @@ def main(argv=None) -> None:
     CS.MEMORY_RATE["L2"] = max(rate, CS.MEMORY_RATE["HBM"])
     t0 = time.perf_counter()
     K0 = load_parent(args.parent.resolve())
+    for side in args.side:
+        name, root = side.split("=", 1)
+        SIDES[name] = load_parent(Path(root).resolve())
     build(K, "this tree")
     run = CS.Run(card)
     out = {"card": card}

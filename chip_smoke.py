@@ -29,15 +29,33 @@ raises and exits non-zero:
    against its plain PyTorch version on the same tensors, which must agree
    exactly; bfs_level under the card's choice of push or pull per level,
    under each forced (push, pull) and in the pull's global tier (BFS_CHECKS);
+   bfs_predecessors (its first walk and its range walk, csrc/first_hit.cuh)
+   at the int32 distances of a fused search from each of the 16
+   highest-degree sources of rmat18, against plain exactly and a second
+   launch bitwise, with PRED_SPLIT and what each search's first walk lists
+   printed; both predecessor kernels (pred_cases) on a graph
+   whose hub has its only qualifying in-edge in the last range of its
+   segment, with multi-edges and zero-weight self-loops (pred_stress_coo),
+   on kcore_stress_coo's hub, multi-edges and self-loops and on the
+   degree-balanced directed graph, each at n_edges E, E - 1 and E -
+   PRED_CUT (and, for SSSP, with the padding vertex given distance 1,
+   whose zero-weight padding self-loops the cut must drop); the range walk
+   once a call, and the first walk and the range walk one device kernel
+   each per call (torch.profiler);
 4. main path: bfs.run(variant="fused") and bfs.run(variant="fused8",
    max_iterations=64) from the 16 highest-degree sources of the undirected
    RMAT graph of bench.py (scale 18, edge factor 16, seed 1), held against
    the host cpu_reference and a host check of the predecessors; the launch
-   counters must show that every kernel ran on this path;
+   counters must show that every kernel ran on this path, each predecessor
+   wrapper's range walk once a call (check_range_walks, on every main path);
 5. times on CUDA events: BFS MTEPS per variant, and each kernel against its
-   plain version at rmat18 shapes: bfs_level level by level from its saved
-   state, wall and device time (its four device kernels), the form the
-   card took, the device time of each form forced, and the level's bound
+   plain version at rmat18 shapes: bfs_predecessors at each of the 16
+   searches (wall, device, plain; mean and max; the first-hit bound and the
+   dense bound of pred_work), the fused bfs.run with and without
+   predecessors (wall and device per search); bfs_level level by level
+   from its saved state, wall and device time (its four device kernels),
+   the form the card took, the device time of each form forced, and the
+   level's bound
    (bfs_level_work: the work the level must do) beside the dense bound
    (every csc_src slot); then torch.profiler's device time by kernel over
    the main path, beside its wall time;
@@ -87,7 +105,9 @@ raises and exits non-zero:
    directed graph (balanced_coo: every in-degree equal to its out-degree,
    the edges not symmetric, a hub on 3,000 directed triangles), whose
    kcore.run is held against the host peeling and sssp.run (auto: fused)
-   against a float64 Dijkstra;
+   against a float64 Dijkstra; sssp_predecessors at the distances of a
+   fused search from each of the 8 highest-degree sources of weighted
+   rmat18, as in phase 3;
 10. SSSP and k-core main path on the suite's graph gen:rmat20x16 (scale
    20, edge factor 16, seed 1, undirected, weighted). First its kernels at
    that graph's shapes, each against its plain version and a second launch
@@ -122,7 +142,11 @@ raises and exits non-zero:
    and plain time, the slots it pushes and its bound (sssp_sweep_bytes),
    per sweep and per search; the same summed over a search at scale 18;
    the other SSSP and k-core kernels against their plain versions at scale
-   18;
+   18 (sssp_predecessors as bfs_predecessors in phase 5); both predecessor
+   kernels at gen:rmat20x16 from its highest-degree vertex; sssp.run
+   (auto), its windowed search alone, and bfs.run fused with and without
+   predecessors, wall and device per search from the 8 sources, at
+   weighted rmat18 and gen:rmat20x16;
    torch.profiler's device-busy share over each of the three paths (after
    a warm-up step);
 12. operator kernels (scan, gather_payloads, segment_reduce,
@@ -157,7 +181,9 @@ raises and exits non-zero:
    smallest-id rule; SSSP within rtol 1e-5 of a float64 Dijkstra for 2
    sources (reach set exact) and predecessors the host's; spmv.run(variant
    "pull") and ("push") once each, held against float64; the steps each
-   tier took;
+   tier took; both predecessor kernels at the distances of every adaptive
+   search (the CSC offsets are not the CSR offsets) and at pred_cases'
+   cuts, against plain and a second launch;
 14. adaptive times on CUDA events: ms per search, MTEPS and relaxations
    per second, torch.profiler's device idle share over each path, and each
    operator kernel's time per launch at the path's shapes beside its plain
@@ -268,7 +294,10 @@ two bitmaps once, reads the smaller of the push's col words (the
 frontier's out-slots) and the pull's csc_src words (each unreached
 segment up to its first frontier source), and writes the sectors of the
 starts it reaches; its JSON entry also gives bound_dense_ms, the model
-of the earlier pull-only kernel (every csc_src slot every level).
+of the earlier pull-only kernel (every csc_src slot every level). The
+predecessor kernels' bound (pred_work) reads the offsets, dist and pred
+once each and csc_src (and, for SSSP, w) up to each reached vertex's
+first qualifying slot; their bound_dense_ms reads every real slot.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -285,6 +314,7 @@ import numpy as np
 import torch
 
 SCALE, EDGE_FACTOR, SEED = 18, 16, 1
+INT32_MAX = 2**31 - 1  # BFS: unreached; the predecessors kernels take it
 RUNS = 16              # sources: the highest-degree vertices
 MAX_IT = 64            # as bench.py
 CYCLES = 7             # timed cycles; the median is reported
@@ -347,6 +377,10 @@ BFS_CHECKS = (("device", None), ("push", None), ("pull", None),
 BFS_LEVEL_KERNELS = ("bfs_level_kernel", "bfs_level_list_kernel",
                      "bfs_level_push_kernel", "bfs_level_pull_kernel")
 BFS_FORMS_TIMED = ("device", "push", "pull")   # kernels.BFS_FORMS
+# each predecessor wrapper's device kernels: the first walk, the range walk
+PRED_KERNELS = {algo: (f"{algo}_predecessors_kernel",
+                       f"{algo}_predecessors_ranges_kernel")
+                for algo in ("bfs", "sssp")}
 
 SOURCE = "essentials_tpu_torch/csrc/bfs_kernels.cu"
 SPMV_SOURCE = "essentials_tpu_torch/csrc/spmv_kernels.cu"
@@ -583,6 +617,164 @@ def host_predecessors(csr, dist: np.ndarray) -> np.ndarray:
     return pred
 
 
+PRED_HUB_RANGES = 3    # ranges of the stress hub's segment past its first walk
+PRED_CHAIN = 6         # vertices of the stress chain, the source to the hub
+PRED_CUT = 40          # real CSC slots the stress graph's last cut drops
+
+
+def pred_stress_coo(split: int, seed: int = SEED) -> tuple:
+    """An undirected multigraph whose hub's only qualifying in-edge, for BFS
+    and SSSP from ``source``, lies in the last range of its segment: (n,
+    src, dst, weights, source). Leaves 0..k-1 (k = (PRED_HUB_RANGES + 1)
+    * split + 7) hang on the hub n - 1, a tenth of them twice, and are
+    joined among themselves at random; a chain from ``source`` = k through
+    k + PRED_CHAIN - 1 = n - 2 ends at the hub, which is the hub's largest
+    in-neighbour and the only one a level (or a path) before it: the leaves
+    hang below. Zero-weight self-loops at leaf 3 and at chain vertex k + 2
+    (SSSP's predicate takes them, BFS's never); other weights in [0.5,
+    1.5) from the seed."""
+    rng = np.random.default_rng(seed)
+    k = (PRED_HUB_RANGES + 1) * split + 7
+    n = k + PRED_CHAIN + 1
+    hub = n - 1
+    twice = rng.choice(k, k // 10, replace=False)
+    a, b = rng.integers(0, k, (2, k))
+    chain = np.arange(k, n)                 # k .. n - 2, then the hub
+    src = np.concatenate([np.arange(k), twice, a[a != b], chain[:-1]])
+    dst = np.concatenate([np.full(k + twice.size, hub), b[a != b],
+                          chain[1:]])
+    w = rng.random(src.size).astype(np.float32) + 0.5
+    loops = np.array([3, k + 2])
+    return (n, np.concatenate([src, dst, loops]).astype(np.int32),
+            np.concatenate([dst, src, loops]).astype(np.int32),
+            np.concatenate([w, w, np.zeros(2, np.float32)]), k)
+
+
+def pred_stress_graph(device: str, split: int) -> tuple:
+    """pred_stress_coo's graph, undirected and weighted: (csr, graph,
+    source)."""
+    from essentials_tpu_torch.formats import Coo, Csr
+    from essentials_tpu_torch.graph import build_graph
+    n, src, dst, w, source = pred_stress_coo(split)
+    csr = Csr.from_coo(Coo(n, n, src, dst, w))
+    return (csr, build_graph(csr, directed=False, weighted=True,
+                             device=device), source)
+
+
+def padded_dist(g, dist: torch.Tensor, empty) -> torch.Tensor:
+    """A [V] distance vector as the [Vp] one the predecessor kernels take,
+    ``empty`` at the padding vertices."""
+    out = torch.full((g.n_vertices_padded,), empty, dtype=dist.dtype,
+                     device=dist.device)
+    out[:dist.numel()] = dist
+    return out
+
+
+def pred_cases(g, source: int) -> dict:
+    """The predecessor kernels' arguments of one BFS and one SSSP search
+    from ``source`` on ``g`` (fused where the layout is symmetric, else
+    adaptive), each with n_edges = E, E - 1 and E - PRED_CUT (the last real
+    segments cut) and, for SSSP, the padding vertex given distance 1: its
+    zero-weight padding self-loops would qualify were the slots from E on
+    not cut. {"bfs": [args], "sssp": [args]}."""
+    from essentials_tpu_torch.algorithms import bfs, sssp
+    from essentials_tpu_torch.ops import fused_sssp as FS
+    variant = "fused" if g.symmetric_layout else "adaptive"
+    d_b = padded_dist(g, bfs.run(g, source, variant=variant, warmup=False,
+                                 compute_predecessors=False).distances,
+                      INT32_MAX)
+    d_s = padded_dist(g, sssp.run(g, source, variant=variant,
+                                  warmup=False).distances, float("inf"))
+    d_pad = d_s.clone()
+    d_pad[g.pad_vertex] = 1.0
+    off, src, e = g.csc_offsets, g.csc_src_indices, g.n_edges
+    w = FS.csc_weights(g)
+    cuts = (e, max(e - 1, 0), max(e - PRED_CUT, 0))
+    return {"bfs": [(d_b, off, src, n) for n in cuts],
+            "sssp": [(d, off, src, w, n) for n in cuts
+                     for d in (d_s, d_pad)]}
+
+
+def pred_work(dist, offsets, csc_src, n_edges: int, w=None,
+              split: int | None = None) -> dict:
+    """What a predecessor search must do on ``dist`` (int32 BFS levels; or
+    float32 SSSP distances with ``w``, the CSC weights), on its device:
+    each reached vertex's walk to its first qualifying slot (its whole
+    segment below n_edges where none qualifies), and what the first walk
+    lists at ``split`` (kernels.PRED_SPLIT by default). Keys: reached,
+    hits, slots (csc_src slots up to each first hit), sectors (distinct
+    32-byte sectors of dist under those slots' sources), listed (vertices),
+    ranges, listed_slots, bytes (the first-hit bound's: the offsets, dist
+    and pred once each, csc_src and w up to each first hit; every sector of
+    dist is read, by its own vertex at least) and dense_bytes (the dense
+    model's: every real csc_src slot, and w)."""
+    from essentials_tpu_torch import kernels as K
+    split = K.PRED_SPLIT if split is None else split
+    vp = offsets.numel() - 1
+    seg = K._segment_ids(offsets, csc_src.numel())[:n_edges]
+    src = csc_src[:n_edges].long()
+    if w is None:
+        reached = (dist != INT32_MAX) & (dist > 0)
+        ds = dist[src].long()
+        ok = (ds != INT32_MAX) & (ds + 1 == dist[seg].long())
+    else:
+        reached = torch.isfinite(dist) & (dist > 0)
+        ok = dist[src] + w[:n_edges] == dist[seg]
+    ok &= reached[seg]
+    q = torch.arange(n_edges, device=dist.device)
+    big = torch.iinfo(torch.int64).max
+    first = torch.full((vp,), big, dtype=torch.int64, device=dist.device)
+    first.scatter_reduce_(0, seg, torch.where(ok, q, big), "amin")
+    hit = first < big
+    b = offsets[:-1].long()
+    length = (offsets[1:].long().clamp(max=n_edges) - b).clamp(min=0)
+    walk = torch.where(reached, torch.where(hit, first - b + 1, length), 0)
+    read = (q - b[seg]) < walk[seg]
+    listed = reached & (length > split) & (~hit | (first - b >= split))
+    words = 2 if w is not None else 1
+    slots = int(walk.sum())
+    return {"reached": int(reached.sum()), "hits": int(hit.sum()),
+            "slots": slots,
+            "sectors": int(torch.unique(src[read] // 8).numel()),
+            "listed": int(listed.sum()),
+            "ranges": int(torch.where(listed, (length - 1) // split,
+                                      0).sum()),
+            "listed_slots": int(torch.where(listed, length - split,
+                                            0).sum()),
+            "bytes": 4 * (vp + 1) + 8 * vp + 4 * words * slots,
+            "dense_bytes": 4 * (vp + 1) + 8 * vp + 4 * words * n_edges}
+
+
+def pred_work_args(args: tuple) -> tuple:
+    """A predecessor kernel's arguments (BFS's four, SSSP's five) in
+    pred_work's order: dist, offsets, csc_src, n_edges, w."""
+    return (*args[:3], args[-1], args[3] if len(args) == 5 else None)
+
+
+def hold_pred_cases(g, source: int, where: str, errs: dict) -> str:
+    """pred_cases' arguments through both predecessor kernels, each against
+    a second launch and its plain version, bitwise; the range walk launched
+    once a call. Returns a summary of what the first walk listed."""
+    from essentials_tpu_torch import kernels as K
+    cases, said = pred_cases(g, source), []
+    for name, kernel, plain in (
+            ("bfs_predecessors", K.bfs_predecessors,
+             K.bfs_predecessors_plain),
+            ("sssp_predecessors", K.sssp_predecessors,
+             K.sssp_predecessors_plain)):
+        for args in cases[name.split("_")[0]]:
+            ranges = K.pass_launches[name + "_ranges"]
+            hold_exact(name, (kernel(*args),), (kernel(*args),),
+                       (plain(*args),), errs,
+                       f"{where}, n_edges {args[-1]}")
+            check(K.pass_launches[name + "_ranges"] == ranges + 2,
+                  f"{name}: the range walk is not launched once a call")
+        work = pred_work(*pred_work_args(cases[name.split("_")[0]][0]))
+        said.append(f"{name.split('_')[0]}: {work['reached']} reached, "
+                    f"{work['listed']} listed in {work['ranges']} ranges")
+    return "; ".join(said)
+
+
 # ------------------------------------------------------------- phase 5 --
 
 def median_ms(fn, reps: int = CYCLES, setup=None) -> float:
@@ -761,17 +953,156 @@ def time_bfs_levels(g, source: int, card: str, where: str) -> dict:
     return out
 
 
-def time_kernels(g, source: int, card: str) -> dict:
+PRED_DEVICE_REPS = 10   # calls a predecessor device time is taken over
+
+
+def time_predecessors(name: str, cases: list, card: str, where: str,
+                      key: str | None = None) -> dict:
+    """``name``'s wrapper at each of ``cases`` (its arguments: one search's
+    distances each), one call at a time: wall (median of CYCLES), device
+    (torch.profiler over PRED_DEVICE_REPS calls, the memset included), the
+    plain version's wall, and the first-hit and dense bounds of pred_work;
+    mean and max over the cases. Keys (under ``key``, by default ``name``): "", /max, /device,
+    /device_max, /plain, /bound, /bound_dense, /work (pred_work's counts,
+    mean over the cases), /walls and /devices (by case)."""
+    from essentials_tpu_torch import kernels as K
+    kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+    walls, devs, plains, bounds, dense, works = [], [], [], [], [], []
+    for args in cases:
+        walls.append(median_ms(lambda _: kernel(*args)))
+        devs.append(device_ms(lambda: kernel(*args), PRED_DEVICE_REPS)[0])
+        plains.append(median_ms(lambda _: plain(*args)))
+        works.append(pred_work(*pred_work_args(args)))
+        bounds.append(bound(works[-1]["bytes"]))
+        dense.append(bound(works[-1]["dense_bytes"]))
+    seen = [d for d in devs if d is not None]
+    key = key or name
+    out = {name: float(np.mean(walls)), name + "/max": max(walls),
+           name + "/device": float(np.mean(seen)) if seen else None,
+           name + "/device_max": max(seen) if seen else None,
+           name + "/plain": float(np.mean(plains)),
+           name + "/bound": (float(np.mean([b[0] for b in bounds])),
+                             "bytes", "/".join(sorted({b[2]
+                                                       for b in bounds}))),
+           name + "/bound_dense": (float(np.mean([b[0] for b in dense])),
+                                   "bytes",
+                                   "/".join(sorted({b[2] for b in dense}))),
+           name + "/work": {k: float(np.mean([w[k] for w in works]))
+                            for k in works[0]},
+           name + "/walls": walls, name + "/devices": devs}
+    out = {key + k[len(name):]: v for k, v in out.items()}
+    b, d, wk = out[key + "/bound"], out[key + "/bound_dense"], \
+        out[key + "/work"]
+    dev = out[key + "/device"]
+    print(f"time [{card}]: {name} {where}, {len(cases)} searches: wall "
+          f"{out[key]:.4f} ms mean, {out[key + '/max']:.4f} max; device "
+          + ("not measured" if dev is None else
+             f"{dev:.4f} ms mean, {out[key + '/device_max']:.4f} max")
+          + f" (by search: wall {fmt_ms(walls)}; device {fmt_ms(devs)})"
+          f"; plain {out[key + '/plain']:.4f}"
+          f" ms; first-hit bound {b[0]:.4f} ms ({b[2]}), dense bound "
+          f"{d[0]:.4f} ms ({d[2]}); per search {wk['reached']:.0f} reached, "
+          f"{wk['slots']:.0f} slots to the first hits, {wk['listed']:.1f} "
+          f"vertices listed in {wk['ranges']:.1f} ranges of PRED_SPLIT "
+          f"{K.PRED_SPLIT} ({wk['listed_slots']:.0f} slots)")
+    return out
+
+
+def fmt_ms(values) -> str:
+    return ", ".join("not measured" if v is None else f"{v:.4f}"
+                     for v in values)
+
+
+def bfs_pred_cases(g, sources) -> list:
+    """bfs_predecessors' arguments after a fused int32 search from each
+    source (bfs_level, then collapse_levels)."""
+    from essentials_tpu_torch.algorithms import bfs
+    return [(bfs._search(g, int(s), MAX_IT, False)[0], g.csc_offsets,
+             g.csc_src_indices, g.n_edges) for s in sources]
+
+
+def sssp_pred_cases(g, sources) -> list:
+    """sssp_predecessors' arguments after a fused search from each
+    source."""
+    from essentials_tpu_torch.algorithms import sssp
+    from essentials_tpu_torch.ops import fused_sssp as FS
+    w = FS.csc_weights(g)
+    return [(sssp.VARIANTS["fused"](g, int(s), g.n_vertices + 1)[0],
+             g.csc_offsets, g.csc_src_indices, w, g.n_edges)
+            for s in sources]
+
+
+def pred_stress_inputs(run) -> list:
+    """[(where, graph, source)]: pred_stress_graph at kernels.PRED_SPLIT
+    (its hub's only hit in its last range), kcore_stress_graph (a hub,
+    multi-edges and self-loops) from its highest-degree vertex and the
+    degree-balanced directed graph from its hub."""
+    from essentials_tpu_torch import kernels as K
+    _, g_h, s_h = pred_stress_graph("cuda", K.PRED_SPLIT)
+    csr_k, g_k = kcore_stress_graph("cuda")
+    csr_b, g_b = run.balanced_graph()
+    return [(f"the last-range hub graph (V={g_h.n_vertices}, hub of "
+             f"{g_h.max_degree})", g_h, s_h),
+            ("a hub, multi-edges and self-loops", g_k,
+             int(np.argmax(np.diff(csr_k.row_offsets)))),
+            ("the degree-balanced directed graph", g_b,
+             int(np.argmax(np.diff(csr_b.row_offsets))))]
+
+
+def time_searches(label: str, card: str, search, sources) -> dict:
+    """search(source) over ``sources``: wall ms per search (median of
+    CYCLES cycles) and device ms per search (torch.profiler over two
+    cycles, so that a window that lost activities shows), printed."""
+    def cycle(_=None):
+        for s in sources:
+            search(int(s))
+    wall = median_ms(cycle) / len(sources)
+    dev = device_ms(cycle, 2)[0]
+    dev = None if dev is None else dev / len(sources)
+    print(f"time [{card}]: {label}: {wall:.4f} ms per search wall (median "
+          f"of {CYCLES} cycles of {len(sources)} sources), "
+          + ("device not measured" if dev is None else
+             f"{dev:.4f} ms of device time per search (two cycles)"))
+    return {"wall": wall, "device": dev}
+
+
+def check_pred_sources(name: str, cases: list, where: str,
+                       errs: dict) -> None:
+    """``name``'s kernel at each of ``cases`` against a second launch and
+    its plain version, bitwise; prints what the first walks listed and the
+    range walk's launches."""
+    from essentials_tpu_torch import kernels as K
+    kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+    ranges = K.pass_launches[name + "_ranges"]
+    works = []
+    for i, args in enumerate(cases):
+        hold_exact(name, (kernel(*args),), (kernel(*args),), (plain(*args),),
+                   errs, f"{where}, search {i}")
+        works.append(pred_work(*pred_work_args(args)))
+    launched = K.pass_launches[name + "_ranges"] - ranges
+    check(launched == 2 * len(cases),
+          f"{name}: {launched} range walks over {2 * len(cases)} calls")
+    listed = [w["listed"] for w in works]
+    print(f"kernels: {name} {where} from {len(cases)} sources: PRED_SPLIT "
+          f"{K.PRED_SPLIT}; vertices listed per "
+          f"search {listed}, ranges "
+          f"{[w['ranges'] for w in works]}; the range walk launched "
+          f"{launched} times in {2 * len(cases)} calls; exact against plain "
+          f"and repeatable")
+
+
+def time_kernels(g, sources, card: str) -> dict:
     """Each kernel and its plain version at rmat18 shapes, one call at a
     time through its wrapper (so a short kernel's time is mostly the
-    wrapper's host time): bfs_level level by level over one search
-    (time_bfs_levels); collapse_levels and bfs_predecessors once per
-    search."""
+    wrapper's host time): bfs_level level by level over one search from
+    the first source (time_bfs_levels); collapse_levels once per search;
+    bfs_predecessors once per search from each source (time_predecessors:
+    the mean is what a search pays) and from the first alone."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_bfs as FB
+    source = int(sources[0])
     out = time_bfs_levels(g, source, card, f"rmat{SCALE}")
-    off, csrc = g.row_offsets, g.csc_src_indices
-    vp = g.n_vertices_padded
+    off, vp = g.row_offsets, g.n_vertices_padded
     for unreached in (FB.UNREACHED, FB.UNREACHED_E):
         form = "int8" if unreached == FB.UNREACHED_E else "int32"
         lev = bfs_level_states(g, source, unreached)[1]
@@ -782,13 +1113,9 @@ def time_kernels(g, source: int, card: str) -> dict:
         elt = 1 if form == "int8" else 4
         out[f"collapse_levels<{form}>/bound"] = bound(
             elt * vp + 4 * (vp + 1) + 4 * vp)
-    dist = K.collapse_levels(lev, off, source, unreached)
-    args = (dist, g.csc_offsets, csrc, g.n_edges)
-    out["bfs_predecessors"] = median_ms(lambda _: K.bfs_predecessors(*args))
-    out["bfs_predecessors/plain"] = median_ms(
-        lambda _: K.bfs_predecessors_plain(*args))
-    out["bfs_predecessors/bound"] = bound(8 * vp + 4 * (vp + 1)
-                                          + 4 * g.n_edges)
+    out.update(time_predecessors("bfs_predecessors",
+                                 bfs_pred_cases(g, sources), card,
+                                 f"rmat{SCALE}"))
     return out
 
 
@@ -1096,12 +1423,24 @@ def check_spmv_kernels(g, where: str, errs: dict) -> None:
 
 def counted(fn):
     """fn() with every launch count set to 0 just before it and read just
-    after. Returns (fn's result, the counts)."""
+    after; each predecessor wrapper's range walk must have launched once
+    per call of it. Returns (fn's result, the counts)."""
     from essentials_tpu_torch import kernels as K
     K.reset_launches()
     out = fn()
     torch.cuda.synchronize()
+    check_range_walks()
     return out, dict(K.launches)
+
+
+def check_range_walks() -> None:
+    """Since the counts were last set to 0, each predecessor wrapper
+    launched its range walk once a call."""
+    from essentials_tpu_torch import kernels as K
+    for name in ("bfs_predecessors", "sssp_predecessors"):
+        check(K.pass_launches[name + "_ranges"] == K.launches[name],
+              f"{name}: {K.pass_launches[name + '_ranges']} range walks "
+              f"in {K.launches[name]} calls")
 
 
 def hold_host(vec: np.ndarray, ref: np.ndarray, what: str, n: int) -> None:
@@ -2045,15 +2384,16 @@ def time_sssp_sweeps(g, card: str) -> dict:
                 "slots_pushed": sum(slots)}}
 
 
-def time_sssp_kcore_kernels(csr, g) -> dict:
+def time_sssp_kcore_kernels(csr, g, card: str) -> dict:
     """Each new kernel and its plain version, one call at a time through
     its wrapper: sssp_sweep summed over the sweeps of one search from the
     highest-degree vertex, each from its saved state (its output buffer
     restored outside the timed region), with its bound summed the same way
-    (sssp_sweep_bound); collapse_starts and sssp_predecessors once per
-    search; expand_segments once per k-core run (kcore_sweep is timed wave
-    by wave at gen:rmat20x16: time_kcore_waves, and sssp_sweep sweep by
-    sweep: time_sssp_sweeps). sssp_sweep's keys here are per search."""
+    (sssp_sweep_bound); collapse_starts once per search; sssp_predecessors
+    once per search (time_predecessors); expand_segments once per k-core
+    run (kcore_sweep is timed wave by wave at gen:rmat20x16:
+    time_kcore_waves, and sssp_sweep sweep by sweep: time_sssp_sweeps).
+    sssp_sweep's keys here are per search."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_sssp as FS
     from essentials_tpu_torch.ops.fused_spmv import edge_weights
@@ -2076,21 +2416,19 @@ def time_sssp_kcore_kernels(csr, g) -> dict:
                        ("/plain", K.collapse_starts_plain)):
         t["collapse_starts" + suffix] = median_ms(
             lambda _: fn(d, off, FS.INF_BITS, source))
-    w = FS.csc_weights(g)
-    pargs = (K.collapse_starts(d, off, FS.INF_BITS, source).view(
-        torch.float32), g.csc_offsets, src, w, g.n_edges)
-    for suffix, fn in (("", K.sssp_predecessors),
-                       ("/plain", K.sssp_predecessors_plain)):
-        t["sssp_predecessors" + suffix] = median_ms(lambda _: fn(*pargs))
+    t.update(time_predecessors(
+        "sssp_predecessors", [(K.collapse_starts(
+            d, off, FS.INF_BITS, source).view(torch.float32), g.csc_offsets,
+            src, FS.csc_weights(g), g.n_edges)], card,
+        f"weighted rmat{SCALE} from {source}"))
     eargs = (torch.where(g.vertex_mask(), g.out_degrees(), -1).int(), off,
              g.n_edges_padded)
     for suffix, fn in (("", K.expand_segments),
                        ("/plain", K.expand_segments_plain)):
         t["expand_segments" + suffix] = median_ms(lambda _: fn(*eargs))
     t["sweeps"] = len(states)
-    vp, ep, e = g.n_vertices_padded, g.n_edges_padded, g.n_edges
+    vp, ep = g.n_vertices_padded, g.n_edges_padded
     t["collapse_starts/bound"] = bound(4 * (vp + 1) + 8 * vp)
-    t["sssp_predecessors/bound"] = bound(8 * vp + 4 * (vp + 1) + 8 * e, e)
     t["expand_segments/bound"] = bound(4 * vp + 4 * (vp + 1) + 4 * ep)
     vals, counts = eargs[0], (off[1:] - off[:-1]).long()
     t["expand_segments/library"] = library_ms(
@@ -2518,6 +2856,29 @@ def adaptive_main_path(csr, g) -> tuple:
               f"({'A' if v == 'pull' else 'A^T'} x; within {SUM_RTOL} |ref| "
               f"+ {SUM_ATOL}); launches exact")
     return by_path, sources, runs
+
+
+def check_adaptive_predecessors(g, sources, runs, where: str,
+                                errs: dict) -> None:
+    """Both predecessor kernels at the distances of every adaptive search
+    of the main path (a graph whose CSC offsets are not its CSR offsets),
+    against a second launch and their plain versions, and at pred_cases'
+    cuts from the first source."""
+    from essentials_tpu_torch.ops import fused_sssp as FS
+    check(not torch.equal(g.csc_offsets, g.row_offsets),
+          f"{where}: CSC offsets equal to the CSR offsets")
+    off, src, e = g.csc_offsets, g.csc_src_indices, g.n_edges
+    check_pred_sources("bfs_predecessors", [
+        (padded_dist(g, r.distances, INT32_MAX), off, src, e)
+        for r in runs["bfs"]], f"{where} adaptive", errs)
+    w = FS.csc_weights(g)
+    check_pred_sources("sssp_predecessors", [
+        (padded_dist(g, r.distances, float("inf")), off, src, w, e)
+        for r in runs["sssp"]], f"{where} adaptive", errs)
+    print(f"kernels: predecessors on {where} adaptive from {sources[0]}: "
+          f"{hold_pred_cases(g, int(sources[0]), where, errs)}; both exact "
+          f"against plain and repeatable at n_edges E, E - 1 and E - "
+          f"{PRED_CUT}")
 
 
 # ------------------------------------------------------------ phase 14 --
@@ -3758,6 +4119,20 @@ def group_bfs(run: Run) -> None:
     check(measured > 0, "bfs_level: launches per call measured on no graph")
     print(f"kernels: bfs_level four device kernels a call (pass, list, "
           f"push, pull) on {measured} of 3 graphs measured")
+    csr, g = run.bfs_graph(SCALE)
+    sources = np.argsort(-np.diff(csr.row_offsets))[:RUNS].astype(int)
+    cases = bfs_pred_cases(g, sources)
+    check_pred_sources("bfs_predecessors", cases, f"rmat{SCALE}", errs)
+    for where, g_x, s_x in pred_stress_inputs(run):
+        print(f"kernels: predecessors on {where} from {s_x}: "
+              f"{hold_pred_cases(g_x, s_x, where, errs)}; both exact "
+              f"against plain and repeatable at n_edges E, E - 1 and E - "
+              f"{PRED_CUT}")
+    check(any(check_one_launch("bfs_predecessors",
+                               lambda a=a: K.bfs_predecessors(*a),
+                               f"rmat{SCALE}", PRED_KERNELS["bfs"])
+              for a in cases[:2]),
+          "bfs_predecessors: launches per call measured nowhere")
     run.phases.done("3 bfs kernels")
 
     # 4. the main path
@@ -3774,7 +4149,8 @@ def group_bfs(run: Run) -> None:
     run.by_path[f"bfs rmat{SCALE}"] = launches
     iters = {v: [r.iterations for r in rs] for v, rs in results.items()}
     print(f"main path: launches {launches}; bfs_level's list, push and "
-          f"pull kernels {passes}")
+          f"pull kernels {passes}; bfs_predecessors' range walk "
+          f"{K.pass_launches['bfs_predecessors_ranges']}")
     for v in variants:
         print(f"main path: {v} iterations per source {iters[v]}")
     check(launches["bfs_level<int32>"] == sum(iters["fused"]),
@@ -3788,6 +4164,7 @@ def group_bfs(run: Run) -> None:
         check(launches[name] == RUNS, f"{name} launches != {RUNS}")
     check(launches["bfs_predecessors"] == 2 * RUNS,
           f"bfs_predecessors launches != {2 * RUNS}")
+    check_range_walks()
     for i, s in enumerate(sources):
         rf, r8 = results["fused"][i], results["fused8"][i]
         d = rf.distances.cpu().numpy()
@@ -3822,12 +4199,18 @@ def group_bfs(run: Run) -> None:
         print(f"time [{card}]: bfs {v} rmat{SCALE} ef{EDGE_FACTOR}: "
               f"{ms:.4f} ms per search (median of {CYCLES} cycles of "
               f"{RUNS} sources), {g.n_edges / 1e3 / ms:.2f} MTEPS")
-    t = time_kernels(g, int(sources[0]), card)
+    t = time_kernels(g, sources, card)
     run.t.update(t)
     for name in REPLACES:
         print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
-              f"{t[name + '/plain']:.4f} ms (rmat{SCALE}, source "
-              f"{sources[0]})")
+              f"{t[name + '/plain']:.4f} ms (rmat{SCALE}, "
+              + (f"mean of {RUNS} sources)" if name == "bfs_predecessors"
+                 else f"source {sources[0]})"))
+    for pred in (False, True):
+        time_searches(f"bfs fused rmat{SCALE}" + (
+            ", with predecessors" if pred else ""), card, lambda s, p=pred:
+            bfs.run(g, s, variant="fused", warmup=False,
+                    compute_predecessors=p), sources)
     for v, kw in variants.items():
         profile_searches(g, sources, v, kw)
     run.phases.done("5 bfs times")
@@ -3909,7 +4292,8 @@ def group_spmv(run: Run) -> None:
 
 def group_sssp(run: Run) -> None:
     """Phases 9-11: SSSP (fused, windowed) and k-core."""
-    from essentials_tpu_torch.algorithms import kcore, sssp
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.algorithms import bfs, kcore, sssp
     card, errs = run.card, run.errs
 
     # 9. SSSP and k-core kernels against their plain versions
@@ -3938,6 +4322,16 @@ def group_sssp(run: Run) -> None:
     print(f"main path: {where}: kcore.run ({rb.iterations} waves) equal to "
           f"the host peeling; sssp.run auto (fused) from {s} within rtol "
           f"{SSSP_RTOL} of the float64 Dijkstra, reach set exact")
+    csr18, g18 = run.weighted_graph(SCALE)
+    cases = sssp_pred_cases(g18, np.argsort(-np.diff(csr18.row_offsets))[
+        :SSSP_RUNS])
+    check_pred_sources("sssp_predecessors", cases, f"weighted rmat{SCALE}",
+                       errs)
+    check(any(check_one_launch("sssp_predecessors",
+                               lambda a=a: K.sssp_predecessors(*a),
+                               f"weighted rmat{SCALE}", PRED_KERNELS["sssp"])
+              for a in cases[:2]),
+          "sssp_predecessors: launches per call measured nowhere")
     run.phases.done("9 sssp/kcore kernels")
 
     # 10. the SSSP and k-core main path at rmat20
@@ -3963,7 +4357,7 @@ def group_sssp(run: Run) -> None:
     run.t.update(time_kcore_waves(g_m, card))
     run.t.update(time_sssp_sweeps(g_m, card))
     csr18, g18 = run.weighted_graph(SCALE)
-    t = time_sssp_kcore_kernels(csr18, g18)
+    t = time_sssp_kcore_kernels(csr18, g18, card)
     run.t.update(t)
     dev = t["sssp_sweep@search/device"]
     print(f"time [{card}]: sssp_sweep per search (weighted rmat{SCALE}, the "
@@ -3976,6 +4370,31 @@ def group_sssp(run: Run) -> None:
         if name not in ("kcore_sweep", "sssp_sweep"):
             print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
                   f"{t[name + '/plain']:.4f} ms (weighted rmat{SCALE})")
+    top = [int(sssp_sources[0])]
+    where = f"gen:rmat{MAIN_SCALE}x16 from {top[0]}"
+    run.t.update(time_predecessors("bfs_predecessors", bfs_pred_cases(
+        g_m, top), card, where, key="bfs_predecessors@rmat20"))
+    run.t.update(time_predecessors("sssp_predecessors", sssp_pred_cases(
+        g_m, top), card, where, key="sssp_predecessors@rmat20"))
+    top18 = np.argsort(-np.diff(csr18.row_offsets))[:SSSP_RUNS].astype(int)
+    for where, g_x, srcs in ((f"weighted rmat{SCALE}", g18, top18),
+                             (f"gen:rmat{MAIN_SCALE}x16", g_m,
+                              sssp_sources)):
+        max_it = g_x.n_vertices + 1
+        searches = {
+            "sssp auto, with predecessors": lambda s, g_x=g_x: sssp.run(
+                g_x, s, warmup=False),
+            "sssp windowed search alone (auto's)":
+                lambda s, g_x=g_x, m=max_it: sssp.VARIANTS["windowed"](
+                    g_x, s, m),
+            "bfs fused, with predecessors": lambda s, g_x=g_x: bfs.run(
+                g_x, s, variant="fused", warmup=False),
+            "bfs fused, without": lambda s, g_x=g_x: bfs.run(
+                g_x, s, variant="fused", warmup=False,
+                compute_predecessors=False)}
+        for label, search in searches.items():
+            run.t[f"e2e {label} {where}"] = time_searches(
+                f"{label} {where}", card, search, srcs)
     for v in sssp.VARIANTS:
         profile(f"sssp {v} rmat{MAIN_SCALE}, {SSSP_RUNS} sssp.run calls",
                 lambda v=v: [sssp.run(g_m, int(s), variant=v, warmup=False)
@@ -4007,6 +4426,7 @@ def group_operators(run: Run) -> None:
     # 13. the adaptive main path on the directed rmat20 graph
     op_launches, op_sources, op_runs = adaptive_main_path(csr20, g20)
     run.by_path.update(op_launches)
+    check_adaptive_predecessors(g20, op_sources, op_runs, where20, errs)
     run.phases.done("13 adaptive main path")
 
     # 14. adaptive times
@@ -4239,6 +4659,33 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
             "pull-only kernel's model)"
         out["forced"] = t[key + "/forced"]
         out["levels"] = t[key + "/levels"]
+    if name in ("bfs_predecessors", "sssp_predecessors"):
+        from essentials_tpu_torch import kernels as K
+        out["per"] = ("search: the mean over the 16 highest-degree sources "
+                      "of rmat18" if name == "bfs_predecessors" else
+                      "search from the highest-degree vertex of weighted "
+                      "rmat18")
+        out["device_ms"] = t.get(key + "/device")
+        out["ms_max"] = t[key + "/max"]
+        out["device_ms_max"] = t[key + "/device_max"]
+        out["ms_by_search"] = t[key + "/walls"]
+        out["device_ms_by_search"] = t[key + "/devices"]
+        out["bound_counts"] = "per search: the offsets, dist and pred once " \
+            "each, csc_src (and w) up to each reached vertex's first hit"
+        out["bound_dense_ms"] = t[key + "/bound_dense"][0]
+        out["bound_dense_counts"] = "the offsets, dist and pred once each, " \
+            "every real csc_src slot (and w)"
+        out["work"] = t[key + "/work"]
+        out["pred_split"] = K.PRED_SPLIT
+        out["range_walk_launches"] = out["launches"]
+        k = key + "@rmat20"
+        if k in t:
+            out["rmat20x16_top_vertex"] = {
+                "ms": t[k], "device_ms": t[k + "/device"],
+                "plain_ms": t[k + "/plain"], "bound_ms": t[k + "/bound"][0],
+                "bound_memory": t[k + "/bound"][2],
+                "bound_dense_ms": t[k + "/bound_dense"][0],
+                "work": t[k + "/work"]}
     if name == "segment_reduce":
         out["library_of"] = "torch.segment_reduce (min) of the dense SSSP " \
                             "round's messages over the CSC offsets"

@@ -20,6 +20,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "first_hit.cuh"
 #include "push_list.cuh"
 #include "tile_status.cuh"
 
@@ -322,7 +323,8 @@ collapse_levels_kernel(const T* __restrict__ lev, const int* __restrict__ off,
   dist[v] = v == source ? 0 : d;
 }
 
-// Smallest-id predecessor one level up, with one warp per vertex v.
+// Smallest-id predecessor one level up: the first walk and the range walk
+// of first_hit.cuh.
 //
 // Replaces the MIN advance of essentials_tpu/algorithms/bfs.py
 // predecessors_from_distances (:431): the cube-chain expand of dist over the
@@ -332,42 +334,38 @@ collapse_levels_kernel(const T* __restrict__ lev, const int* __restrict__ off,
 // pred[v] = min csc_src[q] over real in-edges q < n_edges with
 // dist[src] != INT_MAX and dist[src] + 1 == dist[v]; -1 when dist[v] is
 // INT_MAX or 0, or when no such edge exists. dist[src] is tested against
-// INT_MAX before the add, which would overflow. csc_src is sorted within a
-// segment, so the lowest qualifying lane of the first chunk that qualifies
-// holds the minimum and the warp stops there.
-// What bounds it: as bfs_level, scattered dist[src] loads, once per search.
-__global__ void __launch_bounds__(kBlock)
-bfs_predecessors_kernel(const int* __restrict__ dist,
-                        const int* __restrict__ off,
-                        const int* __restrict__ csc_src, int vp, int n_edges,
-                        int* __restrict__ pred) {
-  const int lane = threadIdx.x & 31;
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) >> 5;
-  if (warp >= vp) return;                   // warp-uniform; no block sync
-  const int v = static_cast<int>(warp);
-  const int dv = dist[v];
-  int best = -1;
-  if (dv != INT_MAX && dv > 0) {
-    const int b = off[v];
-    const int e = min(off[v + 1], n_edges);
-    for (int base = b; base < e; base += 32) {     // warp-uniform bounds
-      const int q = base + lane;
-      int s = 0;
-      bool ok = false;
-      if (q < e) {
-        s = csc_src[q];
-        const int ds = dist[s];
-        ok = ds != INT_MAX && ds + 1 == dv;
-      }
-      const unsigned m = __ballot_sync(kFullMask, ok);
-      if (m) {
-        best = __shfl_sync(kFullMask, s, __ffs(m) - 1);
-        break;
-      }
-    }
+// INT_MAX before the add, which would overflow.
+// What bounds it: csc_src up to each reached vertex's first hit, a
+// scattered dist[src] sector per slot read, pred written; once per search.
+struct BfsHit {
+  using Dist = int;
+  using Weight = int;                       // no word per slot
+  const int* __restrict__ dist;
+
+  __device__ static bool reached(int dv) { return dv != INT_MAX && dv > 0; }
+  __device__ static int bits(int dv) { return dv; }
+  __device__ static int from_bits(int x) { return x; }
+  __device__ int weight(int) const { return 0; }
+  __device__ bool qualifies(int s, int, int dv) const {
+    const int ds = dist[s];
+    return ds != INT_MAX && ds + 1 == dv;
   }
-  if (lane == 0) pred[v] = best;
+};
+
+__global__ void __launch_bounds__(etpu::kHitBlock)
+bfs_predecessors_kernel(BfsHit hit, const int* __restrict__ off,
+                        const int* __restrict__ csc_src, int vp, int n_edges,
+                        int split, int* __restrict__ pred,
+                        int* __restrict__ listed, int4* __restrict__ ranges) {
+  etpu::first_walk(hit, off, csc_src, vp, n_edges, split, pred, listed,
+                   ranges);
+}
+
+__global__ void __launch_bounds__(etpu::kHitBlock)
+bfs_predecessors_ranges_kernel(BfsHit hit, const int* __restrict__ csc_src,
+                               int* pred, const int* __restrict__ listed,
+                               const int4* __restrict__ ranges) {
+  etpu::range_walk(hit, csc_src, pred, listed, ranges);
 }
 
 // ------------------------------------------------- segment fills, route OR --
@@ -708,7 +706,6 @@ route_or_apply_kernel(const unsigned char* __restrict__ flags, int n,
 int fill_tiles(int n) { return (n + kFillTile - 1) / kFillTile; }
 int route_tiles(int n) { return (n + kRouteTile - 1) / kRouteTile; }
 
-int warp_blocks(int vp) { return (vp + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 int thread_blocks(int vp) { return (vp + kBlock - 1) / kBlock; }
 
 cudaError_t sm_count(int* sms) {
@@ -840,17 +837,17 @@ int etpu_collapse_levels_i8(const void* lev, const void* off, int vp,
                                         stream);
 }
 
+// `scratch` as first_hit.cuh's launch_first_hits takes it: room for
+// csc_src's slots / split + 1 ranges after 4 words.
 int etpu_bfs_predecessors(const void* dist, const void* off,
-                          const void* csc_src, int vp, int n_edges, void* pred,
-                          void* stream) {
-  if (vp > 0) {
-    bfs_predecessors_kernel<<<warp_blocks(vp), kBlock, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(dist), static_cast<const int*>(off),
-        static_cast<const int*>(csc_src), vp, n_edges,
-        static_cast<int*>(pred));
-  }
-  return static_cast<int>(cudaGetLastError());
+                          const void* csc_src, int vp, int n_edges, int split,
+                          void* pred, void* scratch, void* stream) {
+  const BfsHit hit = {static_cast<const int*>(dist)};
+  return static_cast<int>(etpu::launch_first_hits(
+      hit, bfs_predecessors_kernel, bfs_predecessors_ranges_kernel,
+      static_cast<const int*>(off), static_cast<const int*>(csc_src), vp,
+      n_edges, split, static_cast<int*>(pred), scratch,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int etpu_fill_tile() { return kFillTile; }

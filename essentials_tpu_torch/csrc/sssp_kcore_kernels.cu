@@ -28,6 +28,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "first_hit.cuh"
 #include "push_list.cuh"
 
 namespace {
@@ -177,7 +178,8 @@ sssp_sweep_update_kernel(int* __restrict__ dist_out,
   if (d < cur[v]) dist_out[off[v]] = d;     // below cur: a non-empty start
 }
 
-// Smallest-id shortest-path predecessor, with one warp per vertex v.
+// Smallest-id shortest-path predecessor: the first walk and the range walk
+// of first_hit.cuh.
 //
 // Replaces the MIN advance of essentials_tpu/algorithms/sssp.py
 // predecessors_from_distances (:133), which reaches the cube-chain expand
@@ -186,43 +188,44 @@ sssp_sweep_update_kernel(int* __restrict__ dist_out,
 //
 // pred[v] = min csc_src[q] over real in-edges q < n_edges with
 // f32(dist[src] + w[q]) == dist[v] (float compare, __fadd_rn as in the
-// sweep, so the edge that set dist[v] qualifies); -1 unless dist[v] is
-// finite and above 0 and such an edge exists. csc_src is sorted within a
-// segment, so the lowest qualifying lane of the first chunk that qualifies
-// holds the minimum and the warp stops there.
-// What bounds it: scattered dist[src] loads, once per search.
-__global__ void __launch_bounds__(kBlock)
-sssp_predecessors_kernel(const float* __restrict__ dist,
-                         const int* __restrict__ off,
-                         const int* __restrict__ csc_src,
-                         const float* __restrict__ w, int vp, int n_edges,
-                         int* __restrict__ pred) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = global_warp();
-  if (warp >= vp) return;                   // warp-uniform; no block sync
-  const int v = static_cast<int>(warp);
-  const float dv = dist[v];
-  int best = -1;
+// sweep, so the edge that set dist[v] qualifies; a zero-weight self-loop
+// of v does too); -1 unless dist[v] is finite and above 0 and such an edge
+// exists.
+// What bounds it: csc_src and w up to each reached vertex's first hit, a
+// scattered dist[src] sector per slot read, pred written; once per search.
+struct SsspHit {
+  using Dist = float;
+  using Weight = float;
+  const float* __restrict__ dist;
+  const float* __restrict__ w;
+
   // finite and above 0: positive floats below +inf have smaller bits
-  if (dv > 0.0f && __float_as_int(dv) < kInfBits) {
-    const int b = off[v];
-    const int e = min(off[v + 1], n_edges);
-    for (int base = b; base < e; base += 32) {     // warp-uniform bounds
-      const int q = base + lane;
-      int s = 0;
-      bool ok = false;
-      if (q < e) {
-        s = csc_src[q];
-        ok = __fadd_rn(dist[s], w[q]) == dv;
-      }
-      const unsigned m = __ballot_sync(kFullMask, ok);
-      if (m) {
-        best = __shfl_sync(kFullMask, s, __ffs(m) - 1);
-        break;
-      }
-    }
+  __device__ static bool reached(float dv) {
+    return dv > 0.0f && __float_as_int(dv) < kInfBits;
   }
-  if (lane == 0) pred[v] = best;
+  __device__ static int bits(float dv) { return __float_as_int(dv); }
+  __device__ static float from_bits(int x) { return __int_as_float(x); }
+  __device__ float weight(int q) const { return w[q]; }
+  __device__ bool qualifies(int s, float wq, float dv) const {
+    return __fadd_rn(dist[s], wq) == dv;
+  }
+};
+
+__global__ void __launch_bounds__(etpu::kHitBlock)
+sssp_predecessors_kernel(SsspHit hit, const int* __restrict__ off,
+                         const int* __restrict__ csc_src, int vp,
+                         int n_edges, int split, int* __restrict__ pred,
+                         int* __restrict__ listed,
+                         int4* __restrict__ ranges) {
+  etpu::first_walk(hit, off, csc_src, vp, n_edges, split, pred, listed,
+                   ranges);
+}
+
+__global__ void __launch_bounds__(etpu::kHitBlock)
+sssp_predecessors_ranges_kernel(SsspHit hit, const int* __restrict__ csc_src,
+                                int* pred, const int* __restrict__ listed,
+                                const int4* __restrict__ ranges) {
+  etpu::range_walk(hit, csc_src, pred, listed, ranges);
 }
 
 // One k-core peel wave on the edge axis: a dense pass over the vertices,
@@ -454,17 +457,19 @@ int etpu_sssp_sweep(const void* dist_in, void* dist_out, const void* off,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `scratch` as first_hit.cuh's launch_first_hits takes it: room for
+// csc_src's slots / split + 1 ranges after 4 words.
 int etpu_sssp_predecessors(const void* dist, const void* off,
                            const void* csc_src, const void* w, int vp,
-                           int n_edges, void* pred, void* stream) {
-  if (vp > 0) {
-    sssp_predecessors_kernel<<<warp_blocks(vp), kBlock, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(dist), static_cast<const int*>(off),
-        static_cast<const int*>(csc_src), static_cast<const float*>(w), vp,
-        n_edges, static_cast<int*>(pred));
-  }
-  return static_cast<int>(cudaGetLastError());
+                           int n_edges, int split, void* pred, void* scratch,
+                           void* stream) {
+  const SsspHit hit = {static_cast<const float*>(dist),
+                       static_cast<const float*>(w)};
+  return static_cast<int>(etpu::launch_first_hits(
+      hit, sssp_predecessors_kernel, sssp_predecessors_ranges_kernel,
+      static_cast<const int*>(off), static_cast<const int*>(csc_src), vp,
+      n_edges, split, static_cast<int*>(pred), scratch,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // `scalars` ([4] int32, 16-byte aligned) is set to {0, INT_MAX, 0, 0} here

@@ -16,7 +16,11 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   (``bfs_level_pulls``, or forced by ``bfs_level_form``);
   ``collapse_levels`` for the
   ``cube_router._pallas_apply`` route :385 and "first" fill of the collapse;
-  ``bfs_predecessors`` for the ``cube_router.apply_cube_chain`` :586 advance.
+  ``bfs_predecessors`` for the ``cube_router.apply_cube_chain`` :586 advance:
+  a walk to each vertex's first qualifying in-edge over at most the first
+  ``PRED_SPLIT`` slots, then a range walk that spreads the rest of the long
+  segments without a hit over many warps (``csrc/first_hit.cuh``, shared
+  with ``sssp_predecessors``).
 * ``csrc/spmv_kernels.cu`` (SpMV, PageRank and HITS): ``spmv_rows`` (``mul``
   and ``none`` messages), one block per tile of ``ROW_TILE`` places of the
   merged sequence of row ends and edges (a merge-path partition), a row
@@ -33,7 +37,8 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   and a push along the CSR rows of those whose distance changed in the
   sweep before (only they can lower a distance) into a [Vp] copy of the
   distances, then an update of the starts; ``sssp_predecessors`` for
-  the MIN advance of ``sssp.predecessors_from_distances``; ``kcore_sweep``
+  the MIN advance of ``sssp.predecessors_from_distances`` (the two walks
+  of ``bfs_predecessors``); ``kcore_sweep``
   for ``fused_kcore.fused_kcore_sweep`` :144, a dense pass over the
   vertices and a push along the rows of the ones it peels (each edge read
   in the wave that peels its vertex, not in every wave); both pushes walk
@@ -117,6 +122,15 @@ ROUTE_TILE = 2048              # positions per route OR block (kRouteTile)
 MINMAX_TILE = 2048             # merge places per segment_minmax tile (kMmTile)
 REDUCE_TILE = 4096             # merge places per segment_reduce tile (kRdTile)
 PUSH_SPLIT = 32                # slots per range of the push lists
+# The predecessor kernels (csrc/first_hit.cuh): the first walk gives each
+# reached vertex 8 lanes over at most the first PRED_SPLIT slots of its
+# segment and lists the rest of a segment without a hit there as ranges of
+# PRED_SPLIT slots, which the range walk spreads over the card, a warp a
+# range. Measured by chip_ab.py's pred group (NVIDIA H100 80GB HBM3,
+# 700 W): at rmat18 a split of 256 was 3% ahead of 512 for BFS and 10%
+# for SSSP, and 1,024 19-37% behind; at gen:rmat20x16 all three were
+# within 5% of one another
+PRED_SPLIT = 256
 BFS_FORMS = ("device", "push", "pull")             # codes 0-2 in the .cu
 # bfs_level pulls where the frontier's out-slots m_f times BFS_PULL_ALPHA
 # pass the unreached vertices' in-slots m_u and its vertices n_f times
@@ -160,12 +174,15 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
 # ``launches``, by each kernel's name without "_kernel": gather_payloads'
 # pack pass (where it packs), the sweeps' pushes, sssp_sweep's update,
 # bfs_level's list, push and pull (in every call, the list and the push or
-# the pull returning at once) and the split of segment_reduce and
-# segment_minmax (in every call)
+# the pull returning at once), the split of segment_reduce and
+# segment_minmax (in every call) and the predecessors' range walks (in
+# every call, returning at once where nothing was listed)
 pass_launches = {"gather_payloads_pack": 0, "sssp_sweep_push": 0,
                  "sssp_sweep_update": 0, "kcore_sweep_push": 0,
                  "bfs_level_list": 0, "bfs_level_push": 0,
-                 "bfs_level_pull": 0, "segment_split": 0}
+                 "bfs_level_pull": 0, "segment_split": 0,
+                 "bfs_predecessors_ranges": 0,
+                 "sssp_predecessors_ranges": 0}
 
 _lib = None
 
@@ -243,13 +260,13 @@ def _library():
             "etpu_bfs_level_scalars": (),
             "etpu_collapse_levels_i32": (p, p, i, i, i, p, p),
             "etpu_collapse_levels_i8": (p, p, i, i, i, p, p),
-            "etpu_bfs_predecessors": (p, p, p, i, i, p, p),
+            "etpu_bfs_predecessors": (p, p, p, i, i, i, p, p, p),
             "etpu_spmv_rows_mul": (p, p, p, p, i, i, p, p, p),
             "etpu_spmv_rows_none": (p, p, p, p, i, i, p, p, p),
             "etpu_spmv_row_tile": (),
             "etpu_spmv_slab_edges": (),
             "etpu_sssp_sweep": (p, p, p, p, p, i, p, p),
-            "etpu_sssp_predecessors": (p, p, p, p, i, i, p, p),
+            "etpu_sssp_predecessors": (p, p, p, p, i, i, i, p, p, p),
             "etpu_kcore_sweep": (p, p, p, p, p, p, i, i, p, p, p),
             "etpu_push_split": (),
             "etpu_collapse_starts": (p, p, i, i, i, p, p),
@@ -539,7 +556,10 @@ def bfs_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
                      csc_src: torch.Tensor, n_edges: int) -> torch.Tensor:
     """[Vp] int32: the smallest-id in-neighbour one level up over the real
     in-edges (CSC slots below ``n_edges``); -1 at the source, at unreached
-    vertices and where there is none. ``offsets`` are the CSC offsets."""
+    vertices and where there is none. ``offsets`` are the CSC offsets.
+
+    Two device launches (``csrc/first_hit.cuh``): the first walk, counted
+    in ``launches``, and the range walk, in ``pass_launches``."""
     name = "bfs_predecessors"
     vp = offsets.numel() - 1
     throw_if(dist.dtype != torch.int32 or dist.shape != (vp,),
@@ -551,11 +571,29 @@ def bfs_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
         return bfs_predecessors_plain(dist, offsets, csc_src, n_edges)
     _check(name, dist.device, dist=dist, offsets=offsets, csc_src=csc_src)
     pred = torch.empty(vp, dtype=torch.int32, device=dist.device)
+    scratch = pred_scratch(csc_src.numel(), dist.device)
     _launch("etpu_bfs_predecessors", dist.device, dist.data_ptr(),
-            offsets.data_ptr(), csc_src.data_ptr(), vp, n_edges,
-            pred.data_ptr())
+            offsets.data_ptr(), csc_src.data_ptr(), vp, n_edges, PRED_SPLIT,
+            pred.data_ptr(), scratch.data_ptr())
     launches[name] += 1
+    pass_launches["bfs_predecessors_ranges"] += 1
     return pred
+
+
+def pred_ranges(ep: int, split: int) -> int:
+    """The most ranges the predecessors' first walk can list: a segment of
+    L > split slots lists ceil((L - split) / split) <= L // split."""
+    return ep // split + 1
+
+
+def pred_scratch(ep: int, device: torch.device) -> torch.Tensor:
+    """The predecessor kernels' scratch: the count of listed ranges and 3
+    unused words, then room for every range (int4); the C call zeroes the
+    count."""
+    throw_if(PRED_SPLIT < 1,
+             f"predecessors: PRED_SPLIT {PRED_SPLIT} must be positive")
+    return torch.empty(4 + 4 * pred_ranges(ep, PRED_SPLIT),
+                       dtype=torch.int32, device=device)
 
 
 # ------------------------------------------------------------------ spmv --
@@ -871,7 +909,8 @@ def sssp_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
     (CSC slots below ``n_edges``) with f32(dist[u] + w[q]) == dist[v]; -1
     unless dist[v] is finite and above 0 and such an edge exists. ``dist``
     is [Vp] float32, ``offsets`` the CSC offsets, ``w`` [Ep] float32 in CSC
-    order."""
+    order. Two device launches, as ``bfs_predecessors``: the first walk in
+    ``launches``, the range walk in ``pass_launches``."""
     name = "sssp_predecessors"
     vp, ep = offsets.numel() - 1, csc_src.numel()
     throw_if(dist.dtype != torch.float32 or dist.shape != (vp,),
@@ -884,10 +923,12 @@ def sssp_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
     _check(name, dist.device, dist=dist, offsets=offsets, csc_src=csc_src,
            w=w)
     pred = torch.empty(vp, dtype=torch.int32, device=dist.device)
+    scratch = pred_scratch(ep, dist.device)
     _launch("etpu_sssp_predecessors", dist.device, dist.data_ptr(),
             offsets.data_ptr(), csc_src.data_ptr(), w.data_ptr(), vp,
-            n_edges, pred.data_ptr())
+            n_edges, PRED_SPLIT, pred.data_ptr(), scratch.data_ptr())
     launches[name] += 1
+    pass_launches["sssp_predecessors_ranges"] += 1
     return pred
 
 

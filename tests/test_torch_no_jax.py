@@ -9,7 +9,8 @@ route and bitmap kernels exactly, k-core also on a graph with a hub,
 multi-edges and self-loops, SSSP and k-core also on a degree-balanced
 directed graph, the bitmap kernel also on unsorted pairs with a hub u,
 segment min/max on chip_smoke's stress case, advance_count in both its
-tiers,
+tiers, the BFS and SSSP predecessors under four splits on a hub whose only
+qualifying in-edge lies in its last range and with n_edges cutting it,
 spmv_slabs on a row of six slabs, spmv_rows on a row of 40 merge-path
 tiles and a run of empty rows, gather_payloads packed and unpacked through
 ragged and unaligned indices, but float sums: the SpMV kernels,
@@ -255,6 +256,50 @@ def test_kernels_match_plain_versions_on_the_card(monkeypatch):
     assert kernels.pass_launches["bfs_level_pull"] == calls
     assert np.array_equal(dist[:g.n_vertices].cpu().numpy(),
                           bfs.cpu_reference(csr, 0))
+    _predecessor_walks_on_the_card("bfs", monkeypatch)
+
+
+def _predecessor_walks_on_the_card(algo: str, monkeypatch) -> None:
+    """``algo``'s predecessor kernel (bfs or sssp) against its plain
+    version and a second launch under four splits (at 1 every slot past a
+    segment's first is a range of its own), on chip_smoke's graph whose hub
+    has its only qualifying in-edge in its last range (with n_edges cutting
+    that in-edge and the padding), on the degree-balanced directed graph
+    and on directed rmat12 (CSC offsets unlike the CSR's, adaptive
+    searches); the range walk launches once a call."""
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.formats import Coo, Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    cs = _chip_smoke()
+    name = f"{algo}_predecessors"
+    kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    n, src, dst, w = cs.balanced_coo(n=20_000)
+    csr_b = Csr.from_coo(Coo(n, n, src, dst, w))
+    csr_d = Csr.from_coo(generate.rmat(12, 16, seed=3, undirected=False,
+                                       weighted=True))
+    others = [(build_graph(c, directed=True, weighted=True, device="cuda"),
+               int(np.argmax(np.diff(c.row_offsets)))) for c in (csr_b,
+                                                                 csr_d)]
+    assert not torch.equal(others[1][0].csc_offsets,
+                           others[1][0].row_offsets)
+    listed = 0
+    for split in (1, 32, 100, kernels.PRED_SPLIT):
+        _, g_h, s_h = cs.pred_stress_graph("cuda", split)
+        cases = [a for g, s in ((g_h, s_h), *others)
+                 for a in cs.pred_cases(g, s)[algo]]
+        listed += cs.pred_work(*cs.pred_work_args(cases[0]), split)["ranges"]
+        monkeypatch.setattr(kernels, "PRED_SPLIT", split)
+        calls = kernels.launches[name]
+        ranges = kernels.pass_launches[name + "_ranges"]
+        for args in cases:
+            pred = kernel(*args)
+            assert torch.equal(pred, plain(*args)), (split, args[-1])
+            assert torch.equal(pred, kernel(*args)), split
+        assert kernels.launches[name] - calls == 2 * len(cases)
+        assert kernels.pass_launches[name + "_ranges"] - ranges == \
+            2 * len(cases)
+    assert listed >= 4 * cs.PRED_HUB_RANGES
 
 
 @pytest.mark.cuda
@@ -390,7 +435,7 @@ def _sweeps_on_the_card(csr, g):
 
 
 @pytest.mark.cuda
-def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
+def test_sssp_kcore_kernels_match_plain_versions_on_the_card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from essentials_tpu_torch import kernels
@@ -455,6 +500,7 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card():
     assert np.allclose(got[reach], ref[reach], rtol=1e-5, atol=0)
     assert np.array_equal(kcore.run(g).core.cpu().numpy(),
                           kcore.cpu_reference(csr))
+    _predecessor_walks_on_the_card("sssp", monkeypatch)
 
 
 @pytest.mark.cuda
