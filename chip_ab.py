@@ -56,6 +56,18 @@ level and per search (torch.profiler over a whole search; the parent's
 device kernel is bfs_level_kernel alone, this tree's the pass, the list,
 the push and the pull); this tree under the card's choice of form.
 
+starts: ``expand_segments`` at init_deg_exp's input (k-core's initial
+degrees) and ``collapse_starts`` at the final state of a fused SSSP
+search from the highest-degree vertex, at weighted rmat18 and
+gen:rmat20x16: wall per call (SPMV_REPS calls back to back on CUDA
+events) and device per call (torch.profiler), beside
+torch.repeat_interleave and index_select at the graph's non-empty starts
+(the gather alone), and the kernels of each checkout named by --side;
+``collapse_levels`` int32 and int8 at the levels of a fused BFS from the
+same vertex on the same graphs (its kernel is unchanged: the row the next
+slice starts from); and the host's read of ``offsets[-1]`` that
+expand_segments' wrapper makes each call, alone on an idle stream.
+
 pred: ``bfs_predecessors`` at the distances of a fused search from each
 of the 16 highest-degree sources of undirected rmat18 (the mean is what a
 search pays) and from the highest-degree vertex of gen:rmat20x16,
@@ -133,7 +145,8 @@ KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
            "scan", "segment_broadcast_total", "suffix_fill_update",
            "segment_minmax", "kcore_sweep", "sssp_sweep",
            "bitmap_intersect_counts", "segment_reduce", "bfs_level",
-           "bfs_predecessors", "sssp_predecessors")
+           "bfs_predecessors", "sssp_predecessors", "expand_segments",
+           "collapse_starts", "collapse_levels")
 PR_HITS_ROUNDS = 4             # rounds of turns: 8 runs on each side
 PRED_SPLITS = (512, 1024)      # kernels.PRED_SPLIT's other values timed
 SIDES = {}                     # --side: name -> kernels module
@@ -157,7 +170,9 @@ def build(mod, name: str) -> None:
                 k in line for k in ("bfs_level_kernel",
                                     "bfs_level_push_kernel",
                                     "bfs_level_pull_kernel",
-                                    "segment_reduce_kernel")):
+                                    "segment_reduce_kernel",
+                                    "expand_segments_kernel",
+                                    "collapse_starts_kernel")):
             print(f"  {line.strip()}")
             for nxt in log[i + 1:i + 4]:
                 if "Used" in nxt or "spill" in nxt:
@@ -691,6 +706,59 @@ def pred_shapes(card: str, run, K0, out: dict) -> None:
         turns(card, label, sides, out)
 
 
+def starts_shapes(card: str, run, K0, out: dict) -> None:
+    """expand_segments, collapse_starts and collapse_levels at the shapes
+    of the module docstring."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_bfs as FB
+    for scale in (CS.SCALE, CS.MAIN_SCALE):
+        csr, g = run.weighted_graph(scale)
+        where = (f"weighted rmat{scale}" if scale == CS.SCALE
+                 else f"gen:rmat{scale}x16")
+        off, ep = g.row_offsets, g.n_edges_padded
+        top = int(np.argmax(np.diff(csr.row_offsets)))
+        starts = CS.segment_starts(off)
+        vals = torch.where(g.vertex_mask(), g.out_degrees(), -1).int()
+        counts = (off[1:] - off[:-1]).long()
+        d = CS.sssp_sweep_states(g, top)[-1][0]
+        cases = {
+            f"expand_segments {where} (init_deg_exp)": (
+                "expand_segments", (vals, off, ep),
+                lambda vals=vals, counts=counts, ep=ep:
+                    torch.repeat_interleave(vals, counts, output_size=ep),
+                "torch.repeat_interleave"),
+            f"collapse_starts {where}, fused SSSP's final state from {top}":
+                ("collapse_starts", (d, off, K.INF_BITS, top),
+                 lambda d=d, starts=starts: torch.index_select(d, 0, starts),
+                 "index_select at the starts")}
+        for form, unreached in (("int32", FB.UNREACHED),
+                                ("int8", FB.UNREACHED_E)):
+            lev = CS.bfs_level_states(g, top, unreached)[1]
+            cases[f"collapse_levels<{form}> {where} from {top}"] = (
+                "collapse_levels", (lev, off, top, unreached),
+                lambda lev=lev, starts=starts: torch.index_select(
+                    lev, 0, starts), "index_select at the starts")
+        for label, (name, args, lib, lib_name) in cases.items():
+            for side, mod in {"parent": K0, **SIDES}.items():
+                CS.check(torch.equal(getattr(mod, name)(*args),
+                                     getattr(K, name)(*args)),
+                         f"{label}: {side} and this tree disagree")
+
+            def measure(name=name, args=args) -> dict:
+                return kernel_ms(lambda: getattr(K, name)(*args))
+            sides = with_library(K0, measure, lib, lib_name, CS.SPMV_REPS)
+            for side, mod in SIDES.items():
+                sides[side] = lambda m=measure, mod=mod: on(mod, m)
+            if name == "expand_segments":       # the write alone
+                buf = torch.empty(ep, dtype=torch.int32, device="cuda")
+                sides["fill_ of [Ep] int32"] = lambda buf=buf: kernel_ms(
+                    lambda: buf.fill_(7))
+            turns(card, label, sides, out)
+        turns(card, f"host read of offsets[-1] alone, {where}",
+              {"this": lambda off=off: {"wall": CS.median_ms(
+                  lambda _: int(off[-1]))}}, out)
+
+
 def end_to_end(card: str, run, K0, out: dict) -> None:
     from essentials_tpu_torch.algorithms import bfs, color, hits, kcore, pr
     from essentials_tpu_torch.algorithms import sssp, tc
@@ -826,7 +894,8 @@ def pack_sweep(card: str, out: dict) -> None:
     out["pack_sweep"] = rows
 
 
-GROUPS = {"pred": pred_shapes, "reduce": reduce_shapes, "bfs": bfs_shapes,
+GROUPS = {"starts": starts_shapes, "pred": pred_shapes,
+          "reduce": reduce_shapes, "bfs": bfs_shapes,
           "sssp": sssp_shapes, "bitmap": bitmap_shapes,
           "minmax": minmax_shapes, "kcore": kcore_shapes,
           "scan": scan_shapes, "fill": fill_shapes, "e2e": end_to_end,
@@ -842,7 +911,8 @@ def main(argv=None) -> None:
     parser.add_argument("--side", action="append", default=[],
                         metavar="NAME=ROOT",
                         help="time the kernels of the checkout at ROOT as "
-                             "one more side named NAME (group pred)")
+                             "one more side named NAME (groups starts, "
+                             "pred)")
     parser.add_argument("--out", type=Path,
                         help="write the measurements as JSON here")
     parser.add_argument("--only", metavar="GROUP[,GROUP]",

@@ -52,7 +52,10 @@ raises and exits non-zero:
    plain version at rmat18 shapes: bfs_predecessors at each of the 16
    searches (wall, device, plain; mean and max; the first-hit bound and the
    dense bound of pred_work), the fused bfs.run with and without
-   predecessors (wall and device per search); bfs_level level by level
+   predecessors (wall and device per search); collapse_levels in both
+   forms at the search's last levels: wall (back to back), device, plain,
+   bound, and index_select at the non-empty starts (the gather alone);
+   bfs_level level by level
    from its saved state, wall and device time (its four device kernels),
    the form the card took, the device time of each form forced, and the
    level's bound
@@ -115,7 +118,12 @@ raises and exits non-zero:
    of a windowed search (spmv_slabs<add,min> from states holding +inf),
    each sweep's wall and device time beside its bound, and every level of
    a BFS in both forms, from the
-   highest-degree vertex; sssp_sweep three device kernels a call (the
+   highest-degree vertex; expand_segments and collapse_starts on
+   starts_cases (a hub of 3.5 expand tiles, an empty run across a tile
+   edge, segment ends on a tile's last and first places, n and Vp not
+   multiples of 4, offsets at a 4-byte offset, n = 0; the collapse at no
+   source, an empty segment's, the hub's and the last vertex's);
+   sssp_sweep three device kernels a call (the
    dense pass, the push and the update) on a search's first and heaviest
    sweep, as torch.profiler sees them. Then sssp.run(variant=
    "fused") and sssp.run(variant="windowed") from the 8 highest-degree
@@ -142,7 +150,12 @@ raises and exits non-zero:
    and plain time, the slots it pushes and its bound (sssp_sweep_bytes),
    per sweep and per search; the same summed over a search at scale 18;
    the other SSSP and k-core kernels against their plain versions at scale
-   18 (sssp_predecessors as bfs_predecessors in phase 5); both predecessor
+   18 (sssp_predecessors as bfs_predecessors in phase 5); collapse_starts
+   at a fused search's final state and expand_segments at init_deg_exp's
+   input, at weighted rmat18 and gen:rmat20x16: wall (back to back),
+   device (torch.profiler), plain, bound, and the PyTorch call beside
+   (index_select at the non-empty starts, the gather alone;
+   torch.repeat_interleave); both predecessor
    kernels at gen:rmat20x16 from its highest-degree vertex; sssp.run
    (auto), its windowed search alone, and bfs.run fused with and without
    predecessors, wall and device per search from the 8 sources, at
@@ -617,6 +630,9 @@ def host_predecessors(csr, dist: np.ndarray) -> np.ndarray:
     return pred
 
 
+# expand_segments' and collapse_starts' stress offsets (starts_stress_offsets)
+STARTS_EMPTY_RUN = 700       # empty segments in a run across a tile edge
+STARTS_HUB_TILES = 3.5       # tiles of slots the hub spans
 PRED_HUB_RANGES = 3    # ranges of the stress hub's segment past its first walk
 PRED_CHAIN = 6         # vertices of the stress chain, the source to the hub
 PRED_CUT = 40          # real CSC slots the stress graph's last cut drops
@@ -1103,16 +1119,24 @@ def time_kernels(g, sources, card: str) -> dict:
     source = int(sources[0])
     out = time_bfs_levels(g, source, card, f"rmat{SCALE}")
     off, vp = g.row_offsets, g.n_vertices_padded
+    starts = segment_starts(off)
     for unreached in (FB.UNREACHED, FB.UNREACHED_E):
         form = "int8" if unreached == FB.UNREACHED_E else "int32"
         lev = bfs_level_states(g, source, unreached)[1]
-        out[f"collapse_levels<{form}>"] = median_ms(
-            lambda _: K.collapse_levels(lev, off, source, unreached))
-        out[f"collapse_levels<{form}>/plain"] = median_ms(
-            lambda _: K.collapse_levels_plain(lev, off, source, unreached))
         elt = 1 if form == "int8" else 4
-        out[f"collapse_levels<{form}>/bound"] = bound(
-            elt * vp + 4 * (vp + 1) + 4 * vp)
+        name = f"collapse_levels<{form}>"
+        t = against_library(
+            lambda: K.collapse_levels(lev, off, source, unreached),
+            elt * vp + 4 * (vp + 1) + 4 * vp,
+            plain=lambda: K.collapse_levels_plain(lev, off, source,
+                                                  unreached),
+            lib=lambda: torch.index_select(lev, 0, starts),
+            label=f"{name} (index_select at the starts)")
+        t["/bound_sectors"] = bound(32 * starts.numel() + 4 * (vp + 1)
+                                    + 4 * vp)
+        print_against(card, f"{name} rmat{SCALE} from {source}", t,
+                      "index_select at the starts (the gather alone)")
+        out.update(prefixed(name, t))
     out.update(time_predecessors("bfs_predecessors",
                                  bfs_pred_cases(g, sources), card,
                                  f"rmat{SCALE}"))
@@ -1865,6 +1889,98 @@ def check_sssp_kcore_kernels(csr, g, where: str, errs: dict) -> None:
           f"every kernel exact against plain and repeatable")
 
 
+def starts_stress_offsets(tile: int, seed: int = SEED) -> np.ndarray:
+    """expand_segments' and collapse_starts' stress offsets ([Vp+1] int32
+    from 0), cut for tiles of ``tile`` merge places (segment v's end at
+    place offsets[v+1] + v). The segments in order: 300 of 0-40 slots; a
+    run of STARTS_EMPTY_RUN empty ones across a tile edge (from 300 places
+    before it); a hub of STARTS_HUB_TILES tiles of slots; 200 short; one
+    whose end is the last place of a tile; 50 short; one whose end is the
+    first place of a tile; 101 of 0-9 slots; then short ones until Vp % 8
+    is 5, the last one cut so that n % 4 is 3."""
+    rng = np.random.default_rng(seed)
+    lens: list[int] = []
+
+    def place() -> int:                     # places the segments take
+        return sum(lens) + len(lens)
+
+    def end_at(d: int) -> None:             # one segment, its end at d
+        lens.append(d - place())
+
+    def edge_past(margin: int) -> int:      # the first tile edge past
+        return (place() + margin) // tile * tile + tile   # place() + margin
+
+    lens += rng.integers(0, 41, 300).tolist()
+    end_at(edge_past(STARTS_EMPTY_RUN) - 301)
+    lens += [0] * STARTS_EMPTY_RUN
+    lens.append(int(STARTS_HUB_TILES * tile))
+    lens += rng.integers(0, 41, 200).tolist()
+    end_at(edge_past(10) - 1)
+    lens += rng.integers(0, 41, 50).tolist()
+    end_at(edge_past(10))
+    lens += rng.integers(0, 10, 101).tolist()
+    while len(lens) % 8 != 5:
+        lens.append(int(rng.integers(4, 41)))
+    lens[-1] += (3 - sum(lens)) % 4
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+
+
+def starts_cases(device, tile: int, seed: int = SEED) -> list:
+    """(what, vals [Vp] int32, offsets [Vp+1] int32, exp [n + 5] int32,
+    collapse sources) for expand_segments (n = offsets[-1]) and
+    collapse_starts, values from ``seed``: the stress offsets
+    (starts_stress_offsets), also as a view from element 1 of a longer
+    array (4-byte aligned only), n = 0 over 1,000 empty segments, and n =
+    0 over no segment. The sources: none (-1), the first empty segment,
+    the hub, the last vertex."""
+    rng = np.random.default_rng(seed)
+    off = starts_stress_offsets(tile, seed)
+    shifted = torch.from_numpy(np.concatenate([[7], off]).astype(
+        np.int32)).to(device)[1:]
+    cases = []
+    for what, o in (("the stress offsets", torch.from_numpy(off)),
+                    ("the stress offsets from a 4-byte offset", shifted),
+                    ("n = 0, 1000 empty segments",
+                     torch.zeros(1001, dtype=torch.int32)),
+                    ("n = 0, no segment", torch.zeros(1, dtype=torch.int32))):
+        o = o.to(device)
+        lens = np.diff(o.cpu().numpy())
+        vp, n = lens.size, int(o[-1])
+        empty = np.flatnonzero(lens == 0)
+        sources = list(dict.fromkeys([-1] + (
+            [int(empty[0])] if empty.size else []) + (
+            [int(np.argmax(lens)), vp - 1] if vp else [])))
+        vals, exp = (torch.from_numpy(rng.integers(
+            -2**31, 2**31, k, dtype=np.int64).astype(np.int32)).to(device)
+            for k in (vp, n + 5))
+        cases.append((what, vals, o, exp, sources))
+    return cases
+
+
+def check_starts_shapes(errs: dict) -> None:
+    """expand_segments and collapse_starts on starts_cases (a hub of more
+    than three tiles, an empty run across a tile edge, segments ending at
+    a tile's last and first places, n and Vp not multiples of 4, offsets
+    at a 4-byte offset, n = 0), each against its plain version exactly and
+    a second launch bitwise; collapse_starts at every source of each."""
+    from essentials_tpu_torch import kernels as K
+    for what, vals, off, exp, sources in starts_cases("cuda", K.EXPAND_TILE):
+        n = int(off[-1])
+        args = (vals, off, n)
+        hold_exact("expand_segments", (K.expand_segments(*args),),
+                   (K.expand_segments(*args),),
+                   (K.expand_segments_plain(*args),), errs, what)
+        for source in sources:
+            args = (exp, off, K.INF_BITS, source)
+            hold_exact("collapse_starts", (K.collapse_starts(*args),),
+                       (K.collapse_starts(*args),),
+                       (K.collapse_starts_plain(*args),), errs,
+                       f"{what}, source {source}")
+        print(f"kernels: expand_segments and collapse_starts on {what} "
+              f"(Vp {off.numel() - 1}, n {n}, sources {sources}): exact "
+              f"against plain and repeatable")
+
+
 def check_kcore_launches(g, where: str) -> None:
     """One kcore_sweep call is two device kernels, its dense pass and its
     push, on the first wave and on the last, as torch.profiler sees them;
@@ -2412,29 +2528,57 @@ def time_sssp_kcore_kernels(csr, g, card: str) -> dict:
     per, mems, _ = sssp_sweep_bound(g, states)
     t["sssp_sweep@search/bound"] = (sum(per), "bytes", mems)
     d = states[-1][0]
-    for suffix, fn in (("", K.collapse_starts),
-                       ("/plain", K.collapse_starts_plain)):
-        t["collapse_starts" + suffix] = median_ms(
-            lambda _: fn(d, off, FS.INF_BITS, source))
+    t.update(time_starts(g, d, source, card, f"weighted rmat{SCALE}"))
     t.update(time_predecessors(
         "sssp_predecessors", [(K.collapse_starts(
             d, off, FS.INF_BITS, source).view(torch.float32), g.csc_offsets,
             src, FS.csc_weights(g), g.n_edges)], card,
         f"weighted rmat{SCALE} from {source}"))
-    eargs = (torch.where(g.vertex_mask(), g.out_degrees(), -1).int(), off,
-             g.n_edges_padded)
-    for suffix, fn in (("", K.expand_segments),
-                       ("/plain", K.expand_segments_plain)):
-        t["expand_segments" + suffix] = median_ms(lambda _: fn(*eargs))
     t["sweeps"] = len(states)
-    vp, ep = g.n_vertices_padded, g.n_edges_padded
-    t["collapse_starts/bound"] = bound(4 * (vp + 1) + 8 * vp)
-    t["expand_segments/bound"] = bound(4 * vp + 4 * (vp + 1) + 4 * ep)
-    vals, counts = eargs[0], (off[1:] - off[:-1]).long()
-    t["expand_segments/library"] = library_ms(
-        "expand_segments (torch.repeat_interleave)",
-        lambda: torch.repeat_interleave(vals, counts, output_size=ep))
     return t
+
+
+def segment_starts(off: torch.Tensor) -> torch.Tensor:
+    """[the non-empty segments] int64: each one's start, in order."""
+    return off[:-1][off[1:] > off[:-1]].long()
+
+
+def time_starts(g, d, source: int, card: str, where: str,
+                tag: str = "") -> dict:
+    """collapse_starts at ``d`` (a fused search's final state from
+    ``source``) and expand_segments at init_deg_exp's input, each through
+    against_library: wall (back to back), device, bound, plain, and the
+    PyTorch call: index_select at the graph's non-empty starts (the gather
+    alone, without the empty segments or the source) and
+    torch.repeat_interleave. Keys are the kernel's name, then ``tag``,
+    then against_library's; /bound_sectors counts a 32-byte sector for
+    each start's gather, what a gather costs on the card."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_sssp as FS
+    off, vp, ep = g.row_offsets, g.n_vertices_padded, g.n_edges_padded
+    starts = segment_starts(off)
+    cargs = (d, off, FS.INF_BITS, source)
+    tc = against_library(
+        lambda: K.collapse_starts(*cargs), 4 * (vp + 1) + 8 * vp,
+        plain=lambda: K.collapse_starts_plain(*cargs),
+        lib=lambda: torch.index_select(d, 0, starts),
+        label="collapse_starts (index_select at the starts)")
+    tc["/bound_sectors"] = bound(32 * starts.numel() + 4 * (vp + 1)
+                                 + 4 * vp)
+    print_against(card, f"collapse_starts {where} from {source}", tc,
+                  "index_select at the starts (the gather alone)")
+    vals = torch.where(g.vertex_mask(), g.out_degrees(), -1).int()
+    counts = (off[1:] - off[:-1]).long()
+    te = against_library(
+        lambda: K.expand_segments(vals, off, ep),
+        4 * vp + 4 * (vp + 1) + 4 * ep,
+        plain=lambda: K.expand_segments_plain(vals, off, ep),
+        lib=lambda: torch.repeat_interleave(vals, counts, output_size=ep),
+        label="expand_segments (torch.repeat_interleave)")
+    print_against(card, f"expand_segments {where} (init_deg_exp)", te,
+                  "torch.repeat_interleave")
+    return {**prefixed("collapse_starts" + tag, tc),
+            **prefixed("expand_segments" + tag, te)}
 
 # ------------------------------------------------------------ phase 12 --
 
@@ -4344,6 +4488,7 @@ def group_sssp(run: Run) -> None:
     print(f"kernels: {where}: windowed sssp from {top}: {len(states)} "
           f"sweeps, spmv_slabs<add,min> exact against plain and repeatable")
     check_kernels(g_m, top, errs)
+    check_starts_shapes(errs)
     check_kcore_launches(g_m, where)
     check_sssp_launches(g_m, top, where)
     run.phases.done("10a kernels at the main path's shapes")
@@ -4356,6 +4501,9 @@ def group_sssp(run: Run) -> None:
     run.t.update(time_windowed_sweeps(g_m, states, card))
     run.t.update(time_kcore_waves(g_m, card))
     run.t.update(time_sssp_sweeps(g_m, card))
+    top = int(torch.argmax(g_m.out_degrees()[:g_m.n_vertices]))
+    run.t.update(time_starts(g_m, sssp_sweep_states(g_m, top)[-1][0], top,
+                             card, f"gen:rmat{MAIN_SCALE}x16", "@rmat20"))
     csr18, g18 = run.weighted_graph(SCALE)
     t = time_sssp_kcore_kernels(csr18, g18, card)
     run.t.update(t)
@@ -4789,6 +4937,39 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
             "active_slots": t[k + "/active"][0],
             "active_groups_of_4": t[k + "/active"][1],
             "bound_active_groups_ms": t[k + "/bound_groups"][0]}
+    if name.startswith("collapse_levels<") or name in ("collapse_starts",
+                                                       "expand_segments"):
+        # wall per call (back to back), device per call, the PyTorch call
+        out["device_ms"] = t.get(key + "/device")
+        out["library_device_ms"] = t.get(key + "/library_device")
+        out["per"] = {
+            "collapse_starts": "call at the final state of a fused search "
+                               "from the highest-degree vertex of weighted "
+                               f"rmat{SCALE}",
+            "expand_segments": "call at init_deg_exp's input, weighted "
+                               f"rmat{SCALE}"}.get(
+            name, f"call at the levels of a fused search from the "
+                  f"highest-degree vertex of rmat{SCALE}")
+        if name == "expand_segments":
+            out["library_of"] = "torch.repeat_interleave of vals by the " \
+                                "segment lengths"
+        else:
+            out["library_of"] = "torch.index_select at the non-empty " \
+                                "segment starts: the gather alone"
+            out["bound_sectors_ms"] = t[key + "/bound_sectors"][0]
+            out["bound_sectors_counts"] = "a 32-byte sector for each " \
+                "non-empty start's gather, the offsets, the output"
+        k = key + "@rmat20"
+        if k in t:
+            out["rmat20x16"] = {
+                "ms": t[k], "device_ms": t[k + "/device"],
+                "plain_ms": t[k + "/plain"], "bound_ms": t[k + "/bound"][0],
+                "bound_memory": t[k + "/bound"][2],
+                "library_ms": t[k + "/library"],
+                "library_device_ms": t[k + "/library_device"]}
+            if k + "/bound_sectors" in t:
+                out["rmat20x16"]["bound_sectors_ms"] = \
+                    t[k + "/bound_sectors"][0]
     if name == "kcore_sweep":
         out["per_wave"] = "mean over the waves of one run at gen:rmat20x16"
         out["per_run"] = t[key + "/run"]

@@ -30,6 +30,8 @@
 
 #include "first_hit.cuh"
 #include "push_list.cuh"
+#include "segment_starts.cuh"
+#include "warp_search.cuh"
 
 namespace {
 
@@ -359,31 +361,118 @@ kcore_sweep_push_kernel(const int* __restrict__ deg_in, int* deg_out,
 // ranges listed, unused}.
 __device__ int kcore_scalars_start[4] = {0, INT_MAX, 0, 0};
 
-// Per-vertex values -> the edge axis, with one warp per segment v.
+// Per-vertex values -> the edge axis, in tiles balanced by slots.
 //
 // Replaces the expansion of essentials_tpu/ops/segment.py
 // expand_vertex_to_edges (:77), which k-core's init_deg_exp
 // (essentials_tpu/ops/fused_kcore.py :253) calls: a scatter of per-vertex
 // differences at the segment starts and a telescoping int32 cumsum over the
-// edge axis, scan_kernels.scan_1d (:274) on the TPU. Here every slot of v's
-// segment is written directly:
-//   out[p] = vals[v] for off[v] <= p < min(off[v+1], n).
-// What bounds it: [Ep] int32 of coalesced stores; a hub's segment runs on
-// one warp. It runs once per k-core run.
+// edge axis, scan_kernels.scan_1d (:274) on the TPU. Here every slot is
+// written directly, a pure fill:
+//   out[p] = vals[v] for off[v] <= p < off[v+1], over [0, n).
+// What bounds it: the [n] int32 written (the offsets and vals are read
+// once, a word a segment), so each block must write about the same number
+// of bytes, whatever the degrees. One launch over tiles of kExpandTile
+// places of the merged sequence of segment ends and slots (segment v's end
+// at place off[v+1] + v, after its slots, as in spmv_rows): an empty
+// segment costs a tile one place, so a run of them cannot crowd a tile,
+// and a hub spread over many tiles costs each the same. A block finds its
+// own two splits (etpu::warp_merge_split, warps 0 and 1 at once: a fill
+// needs no carry, so there is no split kernel and no look-back). Each warp
+// then owns a run of the tile's 16-byte vectors of slots, whole rounds of
+// 32, and finds the owner of its first slot by a warp-wide search of the
+// offsets. Each non-empty segment that starts in the tile marks its start
+// slot in shared memory with its index; a round reads a vector of marks a
+// lane, and a slot's owner is the last mark at or before it: the nearest
+// lane below with a mark (a ballot) or the round before's. So a slot costs
+// no search, and each warp store covers 512 contiguous bytes. Which slots
+// a vector holds past the tile's edges is masked, so tiles share no word.
+constexpr int kExpandItems = 16;            // merge places a thread
+constexpr int kExpandTile = kBlock * kExpandItems;
+constexpr int kExpandVectors = kExpandTile / 4 + 1;   // that hold its slots
+
 __global__ void __launch_bounds__(kBlock)
 expand_segments_kernel(const int* __restrict__ vals,
                        const int* __restrict__ off, int vp, int n,
                        int* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = global_warp();
-  if (warp >= vp) return;
-  const int v = static_cast<int>(warp);
-  const int x = vals[v];
-  const int e = min(off[v + 1], n);
-  for (int q = off[v] + lane; q < e; q += 32) out[q] = x;
+  // from the tile's first vector on, a slot's mark: the index from r0 of
+  // the non-empty segment that starts there, else 0
+  __shared__ int4 s_mark[kExpandVectors];
+  __shared__ int s_split[2];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int places = vp + n;
+  const int d0 = blockIdx.x * kExpandTile;
+  const int d1 = min(d0 + kExpandTile, places);
+  if (wid < 2) {
+    const int r = etpu::warp_merge_split(off, vp, wid == 0 ? d0 : d1);
+    if (lane == 0) s_split[wid] = r;
+  }
+  for (int c = tid; c < kExpandVectors; c += kBlock) {
+    s_mark[c] = make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  const int r0 = s_split[0];
+  const int nr = s_split[1] - r0;           // segments that end in the tile
+  const int p0 = max(d0 - r0, 0);           // the tile's slots: [p0, p1)
+  const int p1 = min(d1 - s_split[1], n);
+  const int qb = p0 & ~3;                   // its first vector's first slot
+  const int nvec = p1 > p0 ? (p1 - qb + 3) >> 2 : 0;
+  const int per_warp = 32 * ((nvec + kBlock - 1) / kBlock);
+  const int c0 = wid * per_warp;            // the warp's vectors: [c0, c1)
+  const int c1 = min(c0 + per_warp, nvec);
+  int carry = 0;                            // the owner of the slot before
+  if (c0 < c1) {                            // warp-uniform
+    const int p = max(qb + 4 * c0, p0);     // the warp's first slot
+    carry = etpu::warp_lower_bound_by(
+        [off, r0](int x) { return off[r0 + 1 + x]; }, nr, p + 1);
+  }
+  int* const marks = reinterpret_cast<int*>(s_mark);
+  for (int i = 1 + tid; i <= nr; i += kBlock) {
+    const int b = off[r0 + i];              // segment r0 + i's start
+    if (b >= p0 && b < p1 && (i == nr || b < off[r0 + i + 1])) {
+      marks[b - qb] = i;
+    }
+  }
+  __syncthreads();
+  const int* const v = vals + r0;
+  const int last = vp - 1 - r0;             // an owner past it owns no slot
+  for (int c = c0 + lane; c - lane < c1; c += 32) {   // warp-uniform
+    const int4 m = c < c1 ? s_mark[c] : make_int4(0, 0, 0, 0);
+    const int m1 = max(m.x, m.y);
+    const int m2 = max(m1, m.z);
+    const int m3 = max(m2, m.w);            // the vector's last mark
+    const unsigned bal = __ballot_sync(kFullMask, m3 > 0);
+    const unsigned below = bal & ((1u << lane) - 1);
+    const int from = __shfl_sync(kFullMask, m3, below ? 31 - __clz(below) : 0);
+    const int before = below ? from : carry;
+    carry = bal ? __shfl_sync(kFullMask, m3, 31 - __clz(bal)) : carry;
+    if (c < c1) {
+      const int w0 = min(max(before, m.x), last);
+      const int w1 = min(max(before, m1), last);
+      const int w2 = min(max(before, m2), last);
+      const int w3 = min(max(before, m3), last);
+      const int x0 = __ldg(v + w0);
+      const int x1 = w1 == w0 ? x0 : __ldg(v + w1);
+      const int x2 = w2 == w1 ? x1 : __ldg(v + w2);
+      const int x3 = w3 == w2 ? x2 : __ldg(v + w3);
+      const int q = qb + 4 * c;
+      if (q >= p0 && q + 4 <= p1) {
+        *reinterpret_cast<int4*>(out + q) = make_int4(x0, x1, x2, x3);
+      } else {                              // the tile's or the array's edge
+        const int x[4] = {x0, x1, x2, x3};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (q + u >= p0 && q + u < p1) out[q + u] = x[u];
+        }
+      }
+    }
+  }
 }
 
-// Edge-axis state -> per-vertex values, one thread per vertex.
+// Edge-axis state -> per-vertex values, several segments a thread
+// (segment_starts.cuh).
 //
 // Replaces the routed collapses of essentials_tpu/ops/fused_sssp.py
 // collapse_dist_exp (:244) and fused_kcore.py collapse_core_exp (:260):
@@ -393,19 +482,20 @@ expand_segments_kernel(const int* __restrict__ vals,
 //
 // out[v] = exp[off[v]] for a non-empty segment, `empty` otherwise;
 // out[source] = 0 when source >= 0 (SSSP's source, whose segment may be
-// empty). What bounds it: one strided gather per vertex plus [Vp] int32
-// reads and writes; it runs once per search.
-__global__ void __launch_bounds__(kBlock)
+// empty). What bounds it: a sector of exp a non-empty segment, the [Vp+1]
+// offsets and the [Vp] output; it runs once per search.
+struct StartValue {
+  int empty_value;
+  __device__ int operator()(int x) const { return x; }
+  __device__ int empty() const { return empty_value; }
+};
+
+__global__ void __launch_bounds__(etpu::kStartsBlock)
 collapse_starts_kernel(const int* __restrict__ exp, const int* __restrict__ off,
                        int vp, int empty, int source, int* __restrict__ out) {
-  const int v = blockIdx.x * kBlock + threadIdx.x;
-  if (v >= vp) return;
-  const int b = off[v];
-  const int x = b < off[v + 1] ? exp[b] : empty;
-  out[v] = v == source ? 0 : x;
+  etpu::collapse_segment_starts(exp, off, vp, source, StartValue{empty}, out);
 }
 
-int warp_blocks(int vp) { return (vp + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 int thread_blocks(int vp) { return (vp + kBlock - 1) / kBlock; }
 
 // The push kernels' persistent grid: blocks per SM.
@@ -507,10 +597,14 @@ int etpu_kcore_sweep(const void* deg_in, const void* core_in, void* deg_out,
 // lists with it and checks it against its own constant.
 int etpu_push_split() { return kPushSplit; }
 
+// One launch over ceil((vp + n) / kExpandTile) tiles; the wrapper keeps
+// vp + n + kExpandTile within an int.
 int etpu_expand_segments(const void* vals, const void* off, int vp, int n,
                          void* out, void* stream) {
-  if (vp > 0) {
-    expand_segments_kernel<<<warp_blocks(vp), kBlock, 0,
+  if (n > 0) {
+    const int tiles = static_cast<int>(
+        (static_cast<long long>(vp) + n + kExpandTile - 1) / kExpandTile);
+    expand_segments_kernel<<<tiles, kBlock, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(vals), static_cast<const int*>(off), vp, n,
         static_cast<int*>(out));
@@ -518,10 +612,14 @@ int etpu_expand_segments(const void* vals, const void* off, int vp, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Merge places per expand_segments tile; the Python wrapper checks it
+// against its own constant.
+int etpu_expand_tile() { return kExpandTile; }
+
 int etpu_collapse_starts(const void* exp, const void* off, int vp, int empty,
                          int source, void* out, void* stream) {
   if (vp > 0) {
-    collapse_starts_kernel<<<thread_blocks(vp), kBlock, 0,
+    collapse_starts_kernel<<<etpu::starts_blocks(vp), etpu::kStartsBlock, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(exp), static_cast<const int*>(off), vp, empty,
         source, static_cast<int*>(out));

@@ -43,11 +43,14 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   vertices and a push along the rows of the ones it peels (each edge read
   in the wave that peels its vertex, not in every wave); both pushes walk
   ranges of ``PUSH_SPLIT`` slots; ``collapse_starts`` for the routed
-  collapses ``collapse_dist_exp`` and ``collapse_core_exp``;
-  ``expand_segments`` for the expansion of k-core's ``init_deg_exp``
-  (``segment.expand_vertex_to_edges``, whose cumsum is
-  ``scan_kernels.scan_1d`` :274). The sweeps read one state buffer and
-  write another.
+  collapses ``collapse_dist_exp`` and ``collapse_core_exp``, several
+  segment starts a thread, their gathers in flight together
+  (``csrc/segment_starts.cuh``); ``expand_segments`` for the expansion of
+  k-core's ``init_deg_exp`` (``segment.expand_vertex_to_edges``, whose
+  cumsum is ``scan_kernels.scan_1d`` :274), one launch over tiles of
+  ``EXPAND_TILE`` places of the merged segment ends and slots, each tile
+  finding its own split. The sweeps read one state buffer and write
+  another.
 * ``csrc/bfs_kernels.cu`` also holds the segment fills and the route OR of
   ``fused_bfs.py``: ``segment_broadcast_total`` for
   ``fused_bfs.segment_broadcast_total`` :262 (PageRank ``fused``) and
@@ -121,6 +124,11 @@ FILL_TILE = 4096               # positions per fill tile (kFillTile)
 ROUTE_TILE = 2048              # positions per route OR block (kRouteTile)
 MINMAX_TILE = 2048             # merge places per segment_minmax tile (kMmTile)
 REDUCE_TILE = 4096             # merge places per segment_reduce tile (kRdTile)
+# merge places per expand_segments tile (kExpandTile). Measured by
+# chip_ab.py's starts group (NVIDIA H100 80GB HBM3, 700 W): tiles of 2,048
+# and 8,192 places took 3-21% more device time at weighted rmat18 and
+# gen:rmat20x16
+EXPAND_TILE = 4096
 PUSH_SPLIT = 32                # slots per range of the push lists
 # The predecessor kernels (csrc/first_hit.cuh): the first walk gives each
 # reached vertex 8 lanes over at most the first PRED_SPLIT slots of its
@@ -271,6 +279,7 @@ def _library():
             "etpu_push_split": (),
             "etpu_collapse_starts": (p, p, i, i, i, p, p),
             "etpu_expand_segments": (p, p, i, i, p, p),
+            "etpu_expand_tile": (),
             "etpu_scan_i32": (p, p, p, p, ll, i, p),
             "etpu_scan_f32": (p, p, p, p, ll, i, p),
             "etpu_scan_tile": (),
@@ -330,6 +339,10 @@ def _library():
                  f"segment_reduce: the library's tile is "
                  f"{lib.etpu_reduce_tile()} places, REDUCE_TILE is "
                  f"{REDUCE_TILE}")
+        throw_if(lib.etpu_expand_tile() != EXPAND_TILE,
+                 f"expand_segments: the library's tile is "
+                 f"{lib.etpu_expand_tile()} places, EXPAND_TILE is "
+                 f"{EXPAND_TILE}")
         throw_if(lib.etpu_push_split() != PUSH_SPLIT,
                  f"sweeps: the library's push ranges are "
                  f"{lib.etpu_push_split()} slots, PUSH_SPLIT is "
@@ -1032,6 +1045,8 @@ def collapse_starts(exp: torch.Tensor, offsets: torch.Tensor, empty: int,
         return collapse_starts_plain(exp, offsets, empty, source)
     _check(name, exp.device, exp=exp, offsets=offsets)
     out = torch.empty(vp, dtype=torch.int32, device=exp.device)
+    if vp == 0:
+        return out
     _launch("etpu_collapse_starts", exp.device, exp.data_ptr(),
             offsets.data_ptr(), vp, empty, source, out.data_ptr())
     launches[name] += 1
@@ -1056,12 +1071,16 @@ def expand_segments(vals: torch.Tensor, offsets: torch.Tensor,
     throw_if(vals.dtype != torch.int32 or vals.shape != (vp,),
              f"{name}: vals must be [Vp] = [{vp}] int32")
     kernel = _route(name, vals)
-    throw_if(not 0 <= n <= INT32_MAX or int(offsets[-1]) != n,
+    # the tiles' places (segment ends and slots) are int32 on the card
+    throw_if(not 0 <= n <= INT32_MAX - EXPAND_TILE - vp
+             or int(offsets[-1]) != n,
              f"{name}: the segments must cover [0, n), n = {n}")
     if not kernel:
         return expand_segments_plain(vals, offsets, n)
     _check(name, vals.device, vals=vals, offsets=offsets)
     out = torch.empty(n, dtype=torch.int32, device=vals.device)
+    if n == 0:
+        return out
     _launch("etpu_expand_segments", vals.device, vals.data_ptr(),
             offsets.data_ptr(), vp, n, out.data_ptr())
     launches[name] += 1

@@ -7,7 +7,9 @@ where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
 route and bitmap kernels exactly, k-core also on a graph with a hub,
 multi-edges and self-loops, SSSP and k-core also on a degree-balanced
-directed graph, the bitmap kernel also on unsorted pairs with a hub u,
+directed graph, the expansion and the collapse of segment starts also on
+chip_smoke's stress cases (a hub of 3.5 tiles, empty runs across tile
+edges, n = 0), the bitmap kernel also on unsorted pairs with a hub u,
 segment min/max on chip_smoke's stress case, advance_count in both its
 tiers, the BFS and SSSP predecessors under four splits on a hub whose only
 qualifying in-edge lies in its last range and with n_edges cutting it,
@@ -493,6 +495,14 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card(monkeypatch):
         kernels.launches["kcore_sweep"]
     assert np.array_equal(kcore.run(g_s).core.cpu().numpy(),
                           kcore.cpu_reference(csr_s))
+    # the expansion and the collapse on chip_smoke's stress cases (a hub of
+    # 3.5 tiles, an empty run across a tile edge, ends on a tile's last
+    # and first places, n and Vp not multiples of 4, n = 0, every source)
+    errs = {"expand_segments": 0, "collapse_starts": 0}
+    before = dict(kernels.launches)
+    _chip_smoke().check_starts_shapes(errs)
+    assert errs == {"expand_segments": 0, "collapse_starts": 0}
+    assert all(kernels.launches[k] > before[k] for k in errs)
     ref = sssp.cpu_reference(csr, source)
     got = sssp.run(g, source).distances.cpu().numpy()
     reach = np.isfinite(ref)
