@@ -21,7 +21,11 @@ scan: ``scan`` (wall and device time per call, beside the PyTorch call):
 fill: ``segment_broadcast_total`` (float32 S) at PageRank fused's shape and
 at the fill shape of chip_smoke's kernel table (the rmat18 BFS level with
 the most new vertices), beside torch.repeat_interleave of the segment-end
-values; ``suffix_fill_update`` at that level.
+values; ``suffix_fill_update`` at that level; ``fused_route_or`` at that
+level and at gen:rmat20x16's level with the most new vertices from its
+top vertex (also in each --side checkout); one BFS search on
+five_pass_superstep (the path fused_route_or runs on) at rmat18 from the
+top vertex, wall (median of CYCLES) and device time (over 3 searches).
 
 minmax: ``segment_minmax`` at m = 8 over JP's per-edge priorities at
 gen:rmat20x16, under the first round's mask (every real edge active) and
@@ -64,8 +68,8 @@ events) and device per call (torch.profiler), beside
 torch.repeat_interleave and index_select at the graph's non-empty starts
 (the gather alone), and the kernels of each checkout named by --side;
 ``collapse_levels`` int32 and int8 at the levels of a fused BFS from the
-same vertex on the same graphs (its kernel is unchanged: the row the next
-slice starts from); and the host's read of ``offsets[-1]`` that
+same vertex on the same graphs (on ``collapse_starts``' body since the
+redesign); and the host's read of ``offsets[-1]`` that
 expand_segments' wrapper makes each call, alone on an idle stream.
 
 pred: ``bfs_predecessors`` at the distances of a fused search from each
@@ -143,6 +147,7 @@ import chip_smoke as CS
 
 KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
            "scan", "segment_broadcast_total", "suffix_fill_update",
+           "fused_route_or",
            "segment_minmax", "kcore_sweep", "sssp_sweep",
            "bitmap_intersect_counts", "segment_reduce", "bfs_level",
            "bfs_predecessors", "sssp_predecessors", "expand_segments",
@@ -172,7 +177,10 @@ def build(mod, name: str) -> None:
                                     "bfs_level_pull_kernel",
                                     "segment_reduce_kernel",
                                     "expand_segments_kernel",
-                                    "collapse_starts_kernel")):
+                                    "collapse_starts_kernel",
+                                    "collapse_levels_kernel",
+                                    "fused_route_or_kernel",
+                                    "scan_kernel")):
             print(f"  {line.strip()}")
             for nxt in log[i + 1:i + 4]:
                 if "Used" in nxt or "spill" in nxt:
@@ -402,6 +410,18 @@ def scan_shapes(card: str, run, K0, out: dict) -> None:
                 lambda: K.scan(*args), reps), lib, lib_name, reps), out)
 
 
+def five_pass_search(g, source: int) -> int:
+    """One BFS search from ``source`` on five_pass_superstep, the path
+    fused_route_or runs on; returns its levels."""
+    from essentials_tpu_torch.ops import fused_bfs as FB
+    lev, it = FB.init_lev_exp(g, source), 0
+    while True:
+        lev, any_ = FB.five_pass_superstep(g, lev, it)
+        it += 1
+        if not int(any_):
+            return it
+
+
 def fill_shapes(card: str, run, K0, out: dict) -> None:
     from essentials_tpu_torch import kernels as K
     csr_u, gu = run.bfs_graph(CS.SCALE)
@@ -409,9 +429,13 @@ def fill_shapes(card: str, run, K0, out: dict) -> None:
     m = torch.rand(gu.n_edges_padded, generator=torch.Generator(
         device="cuda").manual_seed(CS.SEED), device="cuda")
     S = K.scan(m, fl, "add")
-    errs = dict.fromkeys(CS.FILL_REPLACES, 0)
-    level = CS.check_fill_kernels(gu, int(np.argmax(np.diff(
-        csr_u.row_offsets))), f"rmat{CS.SCALE}", errs)
+    errs = dict.fromkeys((*CS.FILL_REPLACES, *CS.ROUTE_REPLACES), 0)
+    top = int(np.argmax(np.diff(csr_u.row_offsets)))
+    level = CS.check_fill_kernels(gu, top, f"rmat{CS.SCALE}", errs)
+    csr_m, g_m = run.weighted_graph(CS.MAIN_SCALE)
+    top_m = int(np.argmax(np.diff(csr_m.row_offsets)))
+    level_m = CS.check_fill_kernels(g_m, top_m, f"gen:rmat{CS.MAIN_SCALE}x16",
+                                    errs)
 
     cases = (
         (f"segment_broadcast_total float32, PageRank fused (undirected "
@@ -420,18 +444,41 @@ def fill_shapes(card: str, run, K0, out: dict) -> None:
          f"(rmat{CS.SCALE}'s largest level)", "segment_broadcast_total",
          level["broadcast"]),
         (f"suffix_fill_update, rmat{CS.SCALE}'s largest level",
-         "suffix_fill_update", level["fill"]))
+         "suffix_fill_update", level["fill"]),
+        (f"fused_route_or, rmat{CS.SCALE}'s largest level from {top}",
+         "fused_route_or", level["route"]),
+        (f"fused_route_or, gen:rmat{CS.MAIN_SCALE}x16's largest level from "
+         f"{top_m}", "fused_route_or", level_m["route"]))
     for label, name, args in cases:
         a, b = getattr(K0, name)(*args), getattr(K, name)(*args)
         a, b = (a, b) if name != "suffix_fill_update" else (a[0], b[0])
         CS.check(same_bits((a,), (b,)), f"{label}: parent and this tree "
                                         f"disagree")
         lib = CS.repeat_interleave_of(*args) \
-            if name != "suffix_fill_update" else None
-        turns(card, label, with_library(
+            if name == "segment_broadcast_total" else None
+        sides = with_library(
             K0, lambda name=name, args=args: kernel_ms(
                 lambda: getattr(K, name)(*args)), lib,
-            "torch.repeat_interleave", CS.SPMV_REPS), out)
+            "torch.repeat_interleave", CS.SPMV_REPS)
+        if name == "fused_route_or":
+            for side, mod in SIDES.items():
+                CS.check(torch.equal(mod.fused_route_or(*args), b),
+                         f"{label}: {side} and this tree disagree")
+                sides[side] = lambda m=sides["this"], mod=mod: on(mod, m)
+        turns(card, label, sides, out)
+
+    def search() -> dict:
+        # 3 searches a window: a window that lost a kernel's activity is
+        # retaken (device_ms wants whole multiples of the calls)
+        wall = CS.median_ms(lambda _: five_pass_search(gu, top))
+        return {"wall": wall, "device": CS.device_ms(
+            lambda: five_pass_search(gu, top), 3)[0]}
+    levels = five_pass_search(gu, top)
+    CS.check(on(K0, lambda: five_pass_search(gu, top)) == levels,
+             "the 5-pass search: parent and this tree disagree")
+    turns(card, f"5-pass BFS search (five_pass_superstep, {levels} levels) "
+                f"rmat{CS.SCALE} from {top}",
+          {"parent": lambda: on(K0, search), "this": search}, out)
 
 
 def minmax_shapes(card: str, run, K0, out: dict) -> None:
@@ -912,7 +959,7 @@ def main(argv=None) -> None:
                         metavar="NAME=ROOT",
                         help="time the kernels of the checkout at ROOT as "
                              "one more side named NAME (groups starts, "
-                             "pred)")
+                             "pred, and fill's fused_route_or)")
     parser.add_argument("--out", type=Path,
                         help="write the measurements as JSON here")
     parser.add_argument("--only", metavar="GROUP[,GROUP]",

@@ -214,14 +214,17 @@ raises and exits non-zero:
    gen:rmat17x16, and over unsorted pairs with a hub u and pads among them
    (hub_pairs_inputs); segment_broadcast_total (int32 and float32 S),
    suffix_fill_update and fused_route_or (replace fused_bfs.py's) at every
-   level of one search on the BFS graphs rmat12 and rmat18, with the 5-pass
-   level they make (route OR, segmented sum scan, fill and update) equal to
-   bfs_level<int32> at segment starts, level by level; then the fills
-   alone at n = 1, a tile - 1, a tile, a tile + 1 and FILL_LONG + 3 tiles
+   level of one search on the BFS graphs rmat12 and rmat18 and on
+   gen:rmat20x16, with the 5-pass level they make (route OR, segmented sum
+   scan, fill and update) equal to bfs_level<int32> at segment starts,
+   level by level; then the fills and the route OR alone at n = 1, a tile
+   - 1, a tile, a tile + 1, FILL_LONG + 3 tiles and SCAN_MANY scan tiles
    with flags sparse, at every position, only at position 0 and with one
-   segment across FILL_LONG = 42 tiles, and one device launch per call of
-   each under those four flag sets (torch.profiler; as in phase 12, a kernel
-   with no form measured fails);
+   segment across FILL_LONG = 42 tiles (the route OR under an `it` with
+   some hits, none, every position hit and the INT32_MAX sentinel), and
+   one device launch per call of each under those four flag sets
+   (torch.profiler; as in phase 12, a kernel with no form measured
+   fails);
 16. their main paths, each with the launch counters set to 0 just before it
    and read just after, which must show exactly the launches it makes:
    tc.run (auto, which must choose bitmap) on gen:rmat17x16 against
@@ -423,6 +426,8 @@ TC_REPLACES = {
 FILL_REPLACES = {            # in SOURCE, beside the BFS kernels
     "segment_broadcast_total": "essentials_tpu/ops/fused_bfs.py:262",
     "suffix_fill_update": "essentials_tpu/ops/fused_bfs.py:137",
+}
+ROUTE_REPLACES = {           # in OP_SOURCE, a form of scan's tiles
     "fused_route_or": "essentials_tpu/ops/fused_bfs.py:603",
 }
 TC_SCALE = 17          # gen:rmat17x16: the bitmap path's graph
@@ -1957,12 +1962,26 @@ def starts_cases(device, tile: int, seed: int = SEED) -> list:
     return cases
 
 
+def starts_levels(exp: torch.Tensor) -> dict:
+    """collapse_levels' level arrays made from a starts case's seeded
+    ``exp``, by form: (levels, unreached), the sentinel at about a quarter
+    of the slots (int32: 0-65,535 and INT32_MAX; int8: 0-63 and 127)."""
+    from essentials_tpu_torch import kernels as K
+    from essentials_tpu_torch.ops import fused_bfs as FB
+    gone = exp % 4 == 0
+    return {"int32": (torch.where(gone, K.INT32_MAX, exp & 0xFFFF),
+                      FB.UNREACHED),
+            "int8": (torch.where(gone, FB.UNREACHED_E, exp & 63).to(
+                torch.int8), FB.UNREACHED_E)}
+
+
 def check_starts_shapes(errs: dict) -> None:
-    """expand_segments and collapse_starts on starts_cases (a hub of more
-    than three tiles, an empty run across a tile edge, segments ending at
-    a tile's last and first places, n and Vp not multiples of 4, offsets
-    at a 4-byte offset, n = 0), each against its plain version exactly and
-    a second launch bitwise; collapse_starts at every source of each."""
+    """expand_segments, collapse_starts and collapse_levels (int32, int8)
+    on starts_cases (a hub of more than three tiles, an empty run across a
+    tile edge, segments ending at a tile's last and first places, n and Vp
+    not multiples of 4, offsets at a 4-byte offset, n = 0), each against
+    its plain version exactly and a second launch bitwise; collapse_starts
+    at every source of each, collapse_levels at every source in [0, Vp)."""
     from essentials_tpu_torch import kernels as K
     for what, vals, off, exp, sources in starts_cases("cuda", K.EXPAND_TILE):
         n = int(off[-1])
@@ -1976,9 +1995,18 @@ def check_starts_shapes(errs: dict) -> None:
                        (K.collapse_starts(*args),),
                        (K.collapse_starts_plain(*args),), errs,
                        f"{what}, source {source}")
-        print(f"kernels: expand_segments and collapse_starts on {what} "
-              f"(Vp {off.numel() - 1}, n {n}, sources {sources}): exact "
-              f"against plain and repeatable")
+        vp = off.numel() - 1
+        for form, (lev, unreached) in starts_levels(exp).items():
+            for source in (v for v in sources if 0 <= v < vp):
+                args = (lev, off, source, unreached)
+                hold_exact(f"collapse_levels<{form}>",
+                           (K.collapse_levels(*args),),
+                           (K.collapse_levels(*args),),
+                           (K.collapse_levels_plain(*args),), errs,
+                           f"{what}, source {source}")
+        print(f"kernels: expand_segments, collapse_starts and "
+              f"collapse_levels (int32, int8) on {what} (Vp {vp}, n {n}, "
+              f"sources {sources}): exact against plain and repeatable")
 
 
 def check_kcore_launches(g, where: str) -> None:
@@ -3327,18 +3355,36 @@ def check_fill_kernels(g, source: int, where: str, errs: dict) -> dict:
     return best[1]
 
 
+def route_inputs(n: int, rng) -> dict:
+    """fused_route_or's (lev, eid, it) over [n] by what the compare sees:
+    seeded levels 0-3 with INT32_MAX (unreached) at about a third, eid a
+    seeded permutation, and `it` 1 (some hits), 9 (none) and INT32_MAX
+    (the sentinel); and levels all 2 under `it` 2 (every position hits)."""
+    from essentials_tpu_torch import kernels as K
+    lev = torch.from_numpy(np.where(rng.random(n) < 0.3, K.INT32_MAX,
+                                    rng.integers(0, 4, n)).astype(
+                                        np.int32)).cuda()
+    eid = torch.from_numpy(rng.permutation(n).astype(np.int32)).cuda()
+    return {"some hits": (lev, eid, 1), "no hit": (lev, eid, 9),
+            "the sentinel": (lev, eid, K.INT32_MAX),
+            "every hit": (torch.full_like(lev, 2), eid, 2)}
+
+
 def check_fill_shapes(errs: dict) -> None:
-    """segment_broadcast_total (int32 and float32 S) and suffix_fill_update
-    at n = 1, a tile - 1, a tile, a tile + 1 and FILL_LONG + 3 tiles, with
-    flags sparse (1%), at every position, only at position 0, and with one
-    segment across FILL_LONG tiles, each against its plain version and a
-    second launch, bitwise; then one device launch per call of each under
-    the largest n's four flag sets."""
+    """segment_broadcast_total (int32 and float32 S), suffix_fill_update and
+    fused_route_or (under each of route_inputs) at n = 1, a tile - 1, a
+    tile, a tile + 1, FILL_LONG + 3 tiles and SCAN_MANY scan tiles (a
+    route OR carry across scan groups), with flags sparse (1%), at every
+    position, only at position 0, and with one segment across FILL_LONG
+    tiles, each against its plain version and a second launch, bitwise;
+    then one device launch per call of each under the largest n's four
+    flag sets."""
     from essentials_tpu_torch import kernels as K
     rng = np.random.default_rng(15)
     tile = K.FILL_TILE
     cases = 0
-    for n in (1, tile - 1, tile, tile + 1, (FILL_LONG + 3) * tile + 77):
+    for n in (1, tile - 1, tile, tile + 1, (FILL_LONG + 3) * tile + 77,
+              SCAN_MANY * K.SCAN_TILE + 5):
         pos = torch.arange(n, device="cuda")
         flag_sets = {
             "sparse": torch.from_numpy(rng.random(n) < 0.01).cuda(),
@@ -3350,6 +3396,7 @@ def check_fill_shapes(errs: dict) -> None:
         sf = torch.from_numpy(rng.random(n).astype(np.float32)).cuda()
         lev = torch.where(torch.from_numpy(rng.random(n) < 0.5).cuda(),
                           K.INT32_MAX, si)
+        routes = route_inputs(n, rng)
         for label, fl in flag_sets.items():
             where = f"n = {n}, flags {label}"
             for x in (si, sf):
@@ -3363,24 +3410,33 @@ def check_fill_shapes(errs: dict) -> None:
             hold_exact("suffix_fill_update", K.suffix_fill_update(*args),
                        K.suffix_fill_update(*args),
                        K.suffix_fill_update_plain(*args), errs, where)
+            for what, (rl, eid, it) in routes.items():
+                args = (rl, eid, fl, it)
+                hold_exact("fused_route_or", (K.fused_route_or(*args),),
+                           (K.fused_route_or(*args),),
+                           (K.fused_route_or_plain(*args),), errs,
+                           f"{where}, {what}")
             cases += 1
+    rl, eid, it = routes["some hits"]
     seen = {}
     for name, call in (
             ("segment_broadcast_total",
              lambda fl: K.segment_broadcast_total(sf, fl)),
             ("suffix_fill_update",
-             lambda fl: K.suffix_fill_update(si, fl, lev, 7))):
+             lambda fl: K.suffix_fill_update(si, fl, lev, 7)),
+            ("fused_route_or", lambda fl: K.fused_route_or(rl, eid, fl, it))):
         seen[name] = sum(check_one_launch(
             name, lambda fl=fl: call(fl), f"n = {n}, flags {label}")
             for label, fl in flag_sets.items())
         check(seen[name] > 0, f"{name}: launches per call measured in none "
                               f"of the {len(flag_sets)} forms profiled")
-    print(f"kernels: fills at n = 1 to {FILL_LONG + 3} tiles of {tile}: "
-          f"{cases} flag sets, segment_broadcast_total (int32, float32) and "
-          f"suffix_fill_update exact against plain and repeatable, a "
-          f"segment across {FILL_LONG} tiles included; one device launch "
-          f"per call in {seen} of {len(flag_sets)} forms profiled each (the "
-          f"others not measured)")
+    print(f"kernels: fills and route OR at n = 1 to {SCAN_MANY} scan tiles: "
+          f"{cases} flag sets, segment_broadcast_total (int32, float32), "
+          f"suffix_fill_update and fused_route_or ({len(routes)} level sets) "
+          f"exact against plain and repeatable, a segment across "
+          f"{FILL_LONG} fill tiles included; one device launch per call in "
+          f"{seen} of {len(flag_sets)} forms profiled each (the others not "
+          f"measured)")
 
 
 # ------------------------------------------------------------ phase 16 --
@@ -3755,6 +3811,7 @@ def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
     t.update(prefixed("fused_route_or", against_library(
         lambda: K.fused_route_or(*route), 13 * n,
         lambda: K.fused_route_or_plain(*route))))
+    t["fused_route_or/bound_sectors"] = route_sector_bound(n)
     t.update(prefixed("suffix_fill_update", against_library(
         lambda: K.suffix_fill_update(*fill), fill_bytes(fill[1], True),
         lambda: K.suffix_fill_update_plain(*fill))))
@@ -3765,6 +3822,15 @@ def time_tc_fill_kernels(bitmap_args, fill_args) -> dict:
         "segment_broadcast_total (torch.repeat_interleave of the "
         "segment-end values)")))
     return t
+
+
+def route_sector_bound(n: int) -> tuple:
+    """fused_route_or's bound over n positions with each lev gather a
+    32-byte sector at the run's L2 rate, beside the streamed ids, flags and
+    output (9 bytes a position at bound()'s rate for them)."""
+    ms, _, memory = bound(9 * n)
+    return (ms + 32 * n / MEMORY_RATE["L2"] * 1e3, "bytes",
+            f"L2 sectors + {memory}")
 
 
 def bitmap_work(eu: torch.Tensor, ev: torch.Tensor, bitmap: torch.Tensor,
@@ -4643,6 +4709,9 @@ def group_tc(run: Run) -> None:
         fill_args = check_fill_kernels(
             g_b, int(np.argmax(np.diff(csr_b.row_offsets))),
             f"rmat{scale}", errs)
+    csr_m, g_m = run.weighted_graph(MAIN_SCALE)
+    check_fill_kernels(g_m, int(np.argmax(np.diff(csr_m.row_offsets))),
+                       f"gen:rmat{MAIN_SCALE}x16", errs)
     check_fill_shapes(errs)
     run.phases.done("15 tc/fill kernels")
 
@@ -4663,7 +4732,7 @@ def group_tc(run: Run) -> None:
     run.t.update(time_pr_broadcast(g_u, card,
                                    pr_counts["segment_broadcast_total"]))
     run.t.update(time_pr_gather(g_u, card, pr_counts["gather_payloads"]))
-    for name in (*TC_REPLACES, *FILL_REPLACES):
+    for name in (*TC_REPLACES, *FILL_REPLACES, *ROUTE_REPLACES):
         lib = t[name + "/library"]
         lib_dev = t.get(name + "/library_device")
         dev = t.get(name + "/device")
@@ -4676,6 +4745,9 @@ def group_tc(run: Run) -> None:
               f"{'none' if lib is None else f'{lib:.4f} ms'}"
               + ("" if lib_dev is None else f" ({lib_dev:.4f} ms of device "
                                             f"time)"))
+    b = t["fused_route_or/bound_sectors"]
+    print(f"time [{card}]: fused_route_or bound with a 32-byte sector a lev "
+          f"gather: {b[0]:.4f} ms ({b[2]})")
     dev = t["bitmap_intersect_counts/no_witness_device"]
     work = t["bitmap_intersect_counts/work"]
     print(f"time [{card}]: bitmap_intersect_counts without the witness "
@@ -4761,6 +4833,7 @@ KERNEL_TABLE = (("bfs", SOURCE, REPLACES),
                 ("sssp", SSSP_SOURCE, SSSP_REPLACES),
                 ("operators", OP_SOURCE, OP_REPLACES),
                 ("tc", TC_SOURCE, TC_REPLACES), ("tc", SOURCE, FILL_REPLACES),
+                ("tc", OP_SOURCE, ROUTE_REPLACES),
                 ("color", OP_SOURCE, COLOR_REPLACES))
 
 
@@ -4848,7 +4921,7 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
     if name in ("spmv_rows", "spmv_slabs", "gather_payloads",
                 "advance_count", "scan", "segment_broadcast_total",
                 "suffix_fill_update", "segment_minmax", "kcore_sweep",
-                "segment_reduce"):
+                "segment_reduce", "fused_route_or"):
         # device times per call (torch.profiler) beside the wall times
         out["device_ms"] = t.get(key + "/device")
         out["library_device_ms"] = t.get(key + "/library_device")
@@ -4921,6 +4994,12 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
                 "bound_memory": t[k + "/bound"][2],
                 "library_ms": t[k + "/library"],
                 "library_device_ms": t[k + "/library_device"]}
+    if name == "fused_route_or":
+        out["per"] = f"call at the inputs of rmat{SCALE}'s BFS level with " \
+                     "the most new vertices"
+        out["bound_sectors_ms"] = t[key + "/bound_sectors"][0]
+        out["bound_sectors_counts"] = "a 32-byte L2 sector for each lev " \
+            "gather, the ids, flags and output streamed"
     if name == "advance_count":
         out["tier"] = t.get(key + "/tier")
         out["global_tier"] = {"ms": t.get(key + "/global"),

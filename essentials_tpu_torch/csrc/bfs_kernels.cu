@@ -1,6 +1,7 @@
 // Hand-written CUDA kernels of the fused BFS main path, and the segment fills
-// and route OR of fused_bfs.py that PageRank `fused` and the 5-pass BFS level
-// use, for Hopper (sm_90a).
+// of fused_bfs.py that PageRank `fused` and the 5-pass BFS level use, for
+// Hopper (sm_90a). The 5-pass level's route OR is a tile scan
+// (operator_kernels.cu, fused_route_or_kernel).
 //
 // Built by essentials_tpu_torch/kernels.py with nvcc into a shared library
 // with a plain C interface and loaded with ctypes. Every entry point launches
@@ -22,6 +23,7 @@
 
 #include "first_hit.cuh"
 #include "push_list.cuh"
+#include "segment_starts.cuh"
 #include "tile_status.cuh"
 
 namespace {
@@ -296,7 +298,8 @@ bfs_level_pull_kernel(T* __restrict__ lev, const int* __restrict__ off,
   if (lane == 0 && reached > 0) atomicAdd(&scalars[0], reached);
 }
 
-// Edge-axis levels -> per-vertex distances, one thread per vertex.
+// Edge-axis levels -> per-vertex distances, several segments a thread
+// (segment_starts.cuh, the body of collapse_starts too).
 //
 // Replaces the routed collapse in essentials_tpu/ops/fused_bfs.py
 // collapse_lev_exp (:706): permute.apply_plan over off_route_csr.inv_plan
@@ -305,22 +308,24 @@ bfs_level_pull_kernel(T* __restrict__ lev, const int* __restrict__ off,
 //
 // dist[v] = lev[off[v]] widened to int32 when the segment is non-empty and
 // the level is below `unreached`, INT_MAX otherwise; dist[source] = 0.
-// What bounds it: one strided gather of lev per vertex plus [Vp] int32
-// reads and writes; it runs once per search.
+// What bounds it: a sector of lev a non-empty segment, the [Vp+1] offsets
+// and the [Vp] output; it runs once per search.
 template <typename T>
-__global__ void __launch_bounds__(kBlock)
+struct LevelAt {
+  int unreached;
+  __device__ int operator()(T l) const {
+    return l < unreached ? static_cast<int>(l) : INT_MAX;
+  }
+  __device__ int empty() const { return INT_MAX; }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(etpu::kStartsBlock)
 collapse_levels_kernel(const T* __restrict__ lev, const int* __restrict__ off,
                        int vp, int source, int unreached,
                        int* __restrict__ dist) {
-  const int v = blockIdx.x * kBlock + threadIdx.x;
-  if (v >= vp) return;
-  const int b = off[v];
-  int d = INT_MAX;
-  if (b < off[v + 1]) {
-    const int l = static_cast<int>(lev[b]);
-    if (l < unreached) d = l;
-  }
-  dist[v] = v == source ? 0 : d;
+  etpu::collapse_segment_starts(lev, off, vp, source, LevelAt<T>{unreached},
+                                dist);
 }
 
 // Smallest-id predecessor one level up: the first walk and the range walk
@@ -368,22 +373,18 @@ bfs_predecessors_ranges_kernel(BfsHit hit, const int* __restrict__ csc_src,
   etpu::range_walk(hit, csc_src, pred, listed, ranges);
 }
 
-// ------------------------------------------------- segment fills, route OR --
+// ---------------------------------------------------------- segment fills --
 //
 // Replace the JAX package's segment_broadcast_total (fused_bfs.py:262, body
-// _fill_total_kernel :250), suffix_fill_update (:137, body
-// _suffix_fill_update_kernel :67) and fused_route_or (:603: _k1_eq_kernel
-// :173, a cube K2, _k3_segor_kernel :184). The Pallas bodies scan right to
-// left over a descending grid (or left to right for the OR) and carry the
-// nearest segment end (start) from block to block in SMEM. Every result is
-// a position, not a sum, so it is exact in any order and for any 32-bit
-// type.
+// _fill_total_kernel :250) and suffix_fill_update (:137, body
+// _suffix_fill_update_kernel :67). The Pallas bodies scan right to left
+// over a descending grid and carry the nearest segment end from block to
+// block in SMEM. Every result is a position, not a sum, so it is exact in
+// any order and for any 32-bit type.
 //
 // A fill position takes S at its segment's END: the first p' >= p with p' =
 // n-1 or flags[p'+1] set (the last position always ends a segment, which is
-// JAX's carry_start = 1). The route OR at q is 1 iff the last frontier hit
-// at or before q (lev[eid[q']] == it) is at or after q's segment start (the
-// last flag at or before q; position 0 always starts one).
+// JAX's carry_start = 1).
 //
 // The fill is one launch over tiles of kFillTile positions, handed out from
 // the far end by an atomic ticket (ticket t takes tile g-1-t, as the JAX
@@ -402,20 +403,11 @@ bfs_predecessors_ranges_kernel(BfsHit hit, const int* __restrict__ csc_src,
 // a segment's positions share one address, so S costs about one sector per
 // segment; out (and the update's lev) move by 16-byte vectors.
 //
-// The route OR stays three launches over tiles of kRouteTile positions, 8
-// rounds of one position per thread: (1) each block reduces its tile to
-// its last hit and last segment start; (2) one block scans those in tile
-// order (marks_carry); (3) each block scans its tile round by round,
-// completes with the carry, and writes.
-//
 // What bounds them: bytes. The fill reads the flags once and S about once
-// per segment, and writes out once (the update also reads lev); the route
-// gathers lev through csc_edge_ids once and re-reads the hits it wrote.
+// per segment, and writes out once (the update also reads lev).
 
 constexpr int kFillItems = 16;              // consecutive positions a thread
 constexpr int kFillTile = kBlock * kFillItems;
-constexpr int kRouteItems = 8;              // rounds of kBlock positions
-constexpr int kRouteTile = kBlock * kRouteItems;
 // a fill tile's status word, bits 32-33: not yet published; no segment end
 // in the tile and none found after it yet; the first end at or after the
 // tile (bits 0-31)
@@ -599,114 +591,7 @@ suffix_fill_update_kernel(const unsigned* __restrict__ s,
   segment_fill<true>(s, flags, n, lev, it, out, vec, status, ticket, any);
 }
 
-// Inclusive running max of one int per thread over the block in thread
-// order. Returns the thread's value and sets `total` to the whole block's;
-// `sh` holds kWarpsPerBlock ints and is free again when this returns.
-__device__ int block_max_scan(int x, int* sh, int& total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFullMask, x, d);
-    if (lane >= d) x = max(x, y);
-  }
-  if (lane == 31) sh[warp] = x;             // the warp's total
-  __syncthreads();
-  int t = INT_MIN;
-  for (int w = 0; w < kWarpsPerBlock; ++w) {
-    const int s = sh[w];
-    if (w < warp) x = max(x, s);
-    t = max(t, s);
-  }
-  __syncthreads();
-  total = t;
-  return x;
-}
-
-// Pass 1 of the route OR: z[q] = (lev[eid[q]] == it), and per tile the last
-// hit and the last segment start, or -1.
-__global__ void __launch_bounds__(kBlock)
-route_marks_kernel(const int* __restrict__ lev, const int* __restrict__ eid,
-                   const unsigned char* __restrict__ flags, int n, int it,
-                   int* __restrict__ z, int* __restrict__ tile_hit,
-                   int* __restrict__ tile_start) {
-  __shared__ int sh[kWarpsPerBlock];
-  const long long t0 = static_cast<long long>(blockIdx.x) * kRouteTile;
-  int h = -1;
-  int s = -1;
-  for (int j = 0; j < kRouteItems; ++j) {
-    const long long p = t0 + j * kBlock + threadIdx.x;
-    if (p < n) {
-      const bool hit = lev[eid[p]] == it;
-      z[p] = hit ? 1 : 0;
-      if (hit) h = static_cast<int>(p);
-      if (p == 0 || flags[p] != 0) s = static_cast<int>(p);
-    }
-  }
-  int th;
-  int ts;
-  block_max_scan(h, sh, th);
-  block_max_scan(s, sh, ts);
-  if (threadIdx.x == 0) {
-    tile_hit[blockIdx.x] = th;
-    tile_start[blockIdx.x] = ts;
-  }
-}
-
-// Pass 2 of the route OR, one block: out_k[t] = the max of in_k[0..t-1]
-// (-1 for t = 0), for the tiles' hits and starts.
-__global__ void __launch_bounds__(kBlock)
-marks_carry_kernel(const int* __restrict__ in0, const int* __restrict__ in1,
-                   int* __restrict__ out0, int* __restrict__ out1, int g) {
-  __shared__ int sh[kWarpsPerBlock];
-  const int chunks = (g + kBlock - 1) / kBlock;
-  int c0 = -1;
-  int c1 = -1;
-  for (int c = 0; c < chunks; ++c) {
-    const int t = c * kBlock + threadIdx.x;
-    const int src = t - 1;                  // the exclusive neighbour
-    const bool in = src >= 0 && src < g;
-    for (int k = 0; k < 2; ++k) {
-      const int* a = k ? in1 : in0;
-      int* o = k ? out1 : out0;
-      int& carry = k ? c1 : c0;
-      int total;
-      const int x = max(block_max_scan(in ? a[src] : -1, sh, total), carry);
-      carry = max(carry, total);
-      if (t < g) o[t] = x;
-    }
-  }
-}
-
-// Pass 3 of the route OR: z[q] (the hits of pass 1) becomes 1 iff the last
-// hit at or before q lies at or after the last segment start at or before q.
-__global__ void __launch_bounds__(kBlock)
-route_or_apply_kernel(const unsigned char* __restrict__ flags, int n,
-                      const int* __restrict__ prev_hit,
-                      const int* __restrict__ prev_start,
-                      int* __restrict__ z) {
-  __shared__ int sh[kWarpsPerBlock];
-  const long long t0 = static_cast<long long>(blockIdx.x) * kRouteTile;
-  int ch = prev_hit[blockIdx.x];
-  int cs = prev_start[blockIdx.x];
-  for (int j = 0; j < kRouteItems; ++j) {
-    const long long p = t0 + j * kBlock + threadIdx.x;
-    const bool in = p < n;
-    const int h = in && z[p] != 0 ? static_cast<int>(p) : -1;
-    const int st = in && (p == 0 || flags[p] != 0) ? static_cast<int>(p) : -1;
-    int th;
-    int ts;
-    const int hit = max(block_max_scan(h, sh, th), ch);
-    const int start = max(block_max_scan(st, sh, ts), cs);
-    ch = max(ch, th);
-    cs = max(cs, ts);
-    if (in) z[p] = hit >= start ? 1 : 0;
-  }
-}
-
 int fill_tiles(int n) { return (n + kFillTile - 1) / kFillTile; }
-int route_tiles(int n) { return (n + kRouteTile - 1) / kRouteTile; }
-
-int thread_blocks(int vp) { return (vp + kBlock - 1) / kBlock; }
 
 cudaError_t sm_count(int* sms) {
   int dev = 0;
@@ -785,8 +670,8 @@ int launch_collapse_levels(const void* lev, const void* off, int vp,
                            int source, int unreached, void* dist,
                            void* stream) {
   if (vp > 0) {
-    collapse_levels_kernel<T><<<thread_blocks(vp), kBlock, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+    collapse_levels_kernel<T><<<etpu::starts_blocks(vp), etpu::kStartsBlock,
+                                0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(lev), static_cast<const int*>(off), vp, source,
         unreached, static_cast<int*>(dist));
   }
@@ -852,8 +737,6 @@ int etpu_bfs_predecessors(const void* dist, const void* off,
 
 int etpu_fill_tile() { return kFillTile; }
 
-int etpu_route_tile() { return kRouteTile; }
-
 // segment_broadcast_total (lev == nullptr) or suffix_fill_update, one
 // launch. `scratch`: 8 * fill_tiles(n) + 8 bytes, 8-byte aligned: the
 // tiles' status words, the ticket, and the update's any-flag (int32, 1 if
@@ -882,29 +765,6 @@ int etpu_segment_fill(const void* s, const void* flags, int n, const void* lev,
           sv, f, n, static_cast<const int*>(lev), it, o, vec, status, ticket,
           reinterpret_cast<int*>(ticket + 1));
     }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// fused_route_or: `scratch` holds 4 * route_tiles(n) ints.
-int etpu_route_or(const void* lev, const void* eid, const void* flags, int n,
-                  int it, void* out, void* scratch, void* stream) {
-  if (n > 0) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int g = route_tiles(n);
-    int* tile_hit = static_cast<int*>(scratch);
-    int* tile_start = tile_hit + g;
-    int* prev_hit = tile_start + g;
-    int* prev_start = prev_hit + g;
-    const unsigned char* f = static_cast<const unsigned char*>(flags);
-    int* z = static_cast<int*>(out);
-    route_marks_kernel<<<g, kBlock, 0, st>>>(
-        static_cast<const int*>(lev), static_cast<const int*>(eid), f, n, it,
-        z, tile_hit, tile_start);
-    marks_carry_kernel<<<1, kBlock, 0, st>>>(tile_hit, tile_start, prev_hit,
-                                             prev_start, g);
-    route_or_apply_kernel<<<g, kBlock, 0, st>>>(f, n, prev_hit, prev_start,
-                                                z);
   }
   return static_cast<int>(cudaGetLastError());
 }

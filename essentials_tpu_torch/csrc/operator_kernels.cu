@@ -106,6 +106,11 @@ template <> struct Op<kFirst> {             // keep the older value
 //
 // What bounds it: bytes, x and the flags read once and the output written
 // once (8-9 bytes an element); the status words stay in the L2.
+//
+// The tile body, scan_tile, takes its elements from a load functor:
+// PlainLoad reads x (scan_kernel); RouteLoad computes (lev[eid[p]] == it)
+// as it loads, so that fused_route_or_kernel is the segmented int32 max of
+// those 0/1 values (an OR) in the same one launch.
 
 constexpr int kScanItems = 8;               // consecutive elements per thread
 constexpr int kScanTile = kBlock * kScanItems;   // elements per tile
@@ -223,15 +228,63 @@ __device__ bool block_look_back(const unsigned long long* w, long long k,
   }
 }
 
-// kPrefix: publish inclusive prefixes (every op but float add). `vec`: x,
-// out and flags are 16-byte aligned. status: the tiles' words; group: the
-// groups' words.
-template <typename T, int OP, bool kPrefix>
-__global__ void __launch_bounds__(kBlock)
-scan_kernel(const T* __restrict__ x, const unsigned char* __restrict__ flags,
-            T* __restrict__ out, long long n, bool vec,
-            unsigned long long* status, unsigned long long* group,
-            unsigned* ticket) {
+// The elements of scan: x[p], a thread's kScanItems at p0 by 16-byte loads
+// that evict first (read once).
+template <typename T>
+struct PlainLoad {
+  const T* __restrict__ x;
+  __device__ T at(long long p) const { return x[p]; }
+  __device__ void whole(long long p0, T (&v)[kScanItems]) const {
+    const uint4* xq = reinterpret_cast<const uint4*>(x + p0);
+#pragma unroll
+    for (int q = 0; q < kScanItems / 4; ++q) {
+      const uint4 w = __ldcs(xq + q);
+      v[4 * q] = from_bits<T>(w.x);
+      v[4 * q + 1] = from_bits<T>(w.y);
+      v[4 * q + 2] = from_bits<T>(w.z);
+      v[4 * q + 3] = from_bits<T>(w.w);
+    }
+  }
+};
+
+// The elements of fused_route_or: 1 where lev[eid[p]] == it, else 0. A
+// thread's ids arrive by 16-byte loads, then all its lev gathers are issued
+// before any is compared, so that each thread has kScanItems in flight.
+// (Tiles of 16 a thread took 11-19% more device time at rmat18's and
+// gen:rmat20x16's largest BFS levels: chip_ab.py's fill group, NVIDIA H100
+// 80GB HBM3, 700 W.)
+struct RouteLoad {
+  const int* __restrict__ lev;
+  const int* __restrict__ eid;
+  int it;
+  __device__ int at(long long p) const { return __ldg(lev + eid[p]) == it; }
+  __device__ void whole(long long p0, int (&v)[kScanItems]) const {
+    int e[kScanItems];
+    const uint4* q4 = reinterpret_cast<const uint4*>(eid + p0);
+#pragma unroll
+    for (int q = 0; q < kScanItems / 4; ++q) {
+      const uint4 w = __ldcs(q4 + q);
+      e[4 * q] = static_cast<int>(w.x);
+      e[4 * q + 1] = static_cast<int>(w.y);
+      e[4 * q + 2] = static_cast<int>(w.z);
+      e[4 * q + 3] = static_cast<int>(w.w);
+    }
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) v[j] = __ldg(lev + e[j]);
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) v[j] = v[j] == it;
+  }
+};
+
+// One tile of kScanTile elements taken from `ld`. kPrefix: publish
+// inclusive prefixes (every op but float add). `vec`: ld's vector loads,
+// out and flags are aligned for whole-thread vectors. status: the tiles'
+// words; group: the groups' words.
+template <typename T, int OP, bool kPrefix, typename Load>
+__device__ __forceinline__ void scan_tile(
+    const Load& ld, const unsigned char* __restrict__ flags,
+    T* __restrict__ out, long long n, bool vec, unsigned long long* status,
+    unsigned long long* group, unsigned* ticket) {
   __shared__ ScanShared<T> sh;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -246,22 +299,14 @@ scan_kernel(const T* __restrict__ x, const unsigned char* __restrict__ flags,
   T v[kScanItems];
   unsigned fm = 0;
   if (whole) {
-    const uint4* xq = reinterpret_cast<const uint4*>(x + p0);
-#pragma unroll
-    for (int q = 0; q < kScanItems / 4; ++q) {
-      const uint4 w = __ldcs(xq + q);       // read once: evict first
-      v[4 * q] = from_bits<T>(w.x);
-      v[4 * q + 1] = from_bits<T>(w.y);
-      v[4 * q + 2] = from_bits<T>(w.z);
-      v[4 * q + 3] = from_bits<T>(w.w);
-    }
+    ld.whole(p0, v);
     if (flags != nullptr) fm = flag_bits<kScanItems>(flags + p0);
   } else {
 #pragma unroll
     for (int j = 0; j < kScanItems; ++j) {
       const long long p = p0 + j;
       if (p < n) {
-        v[j] = x[p];
+        v[j] = ld.at(p);
         if (flags != nullptr && flags[p] != 0) fm |= 1u << j;
       } else {
         v[j] = T(0);
@@ -434,18 +479,55 @@ scan_kernel(const T* __restrict__ x, const unsigned char* __restrict__ flags,
   }
 }
 
+template <typename T, int OP, bool kPrefix>
+__global__ void __launch_bounds__(kBlock)
+scan_kernel(const T* __restrict__ x, const unsigned char* __restrict__ flags,
+            T* __restrict__ out, long long n, bool vec,
+            unsigned long long* status, unsigned long long* group,
+            unsigned* ticket) {
+  scan_tile<T, OP, kPrefix>(PlainLoad<T>{x}, flags, out, n, vec, status,
+                            group, ticket);
+}
+
+// The route OR of fused_bfs.py: the segmented OR of (lev[eid[p]] == it),
+// i.e. scan's int32 max over those 0/1 values, one launch.
+//
+// Replaces the JAX package's essentials_tpu/ops/fused_bfs.py
+// fused_route_or (:603): the compare fused into the first cube kernel
+// (_k1_eq_kernel :173), the Benes middle, and the segmented OR fused into
+// the last (_k3_segor_kernel :184). Here the move is a gather through
+// csc_edge_ids, done as the tile loads. What bounds it: the streamed ids,
+// flags and output (9 bytes a position) and one L2 sector a lev gather.
+__global__ void __launch_bounds__(kBlock)
+fused_route_or_kernel(const int* __restrict__ lev,
+                      const int* __restrict__ eid,
+                      const unsigned char* __restrict__ flags, int it,
+                      int* __restrict__ out, long long n, bool vec,
+                      unsigned long long* status, unsigned long long* group,
+                      unsigned* ticket) {
+  scan_tile<int, kMax, true>(RouteLoad{lev, eid, it}, flags, out, n, vec,
+                             status, group, ticket);
+}
+
 long long scan_tiles(long long n) { return (n + kScanTile - 1) / kScanTile; }
 long long scan_groups(long long g) { return (g + kScanGroup - 1) / kScanGroup; }
+
+// Zeroes the status words of g tiles, then their groups' words, then the
+// ticket, at `scratch` on the stream.
+cudaError_t zero_scan_scratch(void* scratch, long long g, cudaStream_t s) {
+  return cudaMemsetAsync(
+      scratch, 0,
+      sizeof(unsigned long long) * (g + scan_groups(g)) + sizeof(unsigned),
+      s);
+}
 
 template <typename T, int OP>
 int scan_launch(const void* x, const void* flags, void* out, void* scratch,
                 long long n, cudaStream_t s) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const long long g = scan_tiles(n);
-  const long long words = g + scan_groups(g);
   auto* status = static_cast<unsigned long long*>(scratch);
-  const cudaError_t err = cudaMemsetAsync(
-      scratch, 0, sizeof(unsigned long long) * words + sizeof(unsigned), s);
+  const cudaError_t err = zero_scan_scratch(scratch, g, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = ((reinterpret_cast<uintptr_t>(x) |
                      reinterpret_cast<uintptr_t>(out) |
@@ -454,7 +536,24 @@ int scan_launch(const void* x, const void* flags, void* out, void* scratch,
   scan_kernel<T, OP, kPrefix><<<static_cast<unsigned>(g), kBlock, 0, s>>>(
       static_cast<const T*>(x), static_cast<const unsigned char*>(flags),
       static_cast<T*>(out), n, vec, status, status + g,
-      reinterpret_cast<unsigned*>(status + words));
+      reinterpret_cast<unsigned*>(status + g + scan_groups(g)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int route_or_launch(const int* lev, const int* eid, const unsigned char* f,
+                    long long n, int it, int* out, void* scratch,
+                    cudaStream_t s) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const long long g = scan_tiles(n);
+  auto* status = static_cast<unsigned long long*>(scratch);
+  const cudaError_t err = zero_scan_scratch(scratch, g, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = ((reinterpret_cast<uintptr_t>(eid) |
+                     reinterpret_cast<uintptr_t>(out)) & 15u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(f) & 3u) == 0;
+  fused_route_or_kernel<<<static_cast<unsigned>(g), kBlock, 0, s>>>(
+      lev, eid, f, it, out, n, vec, status, status + g,
+      reinterpret_cast<unsigned*>(status + g + scan_groups(g)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1679,6 +1778,17 @@ int etpu_scan_f32(const void* x, const void* flags, void* out, void* scratch,
 }
 
 int etpu_scan_tile() { return kScanTile; }
+
+// fused_route_or: lev [>= max id + 1] and eid, out [n] int32, flags [n]
+// uint8 (flags[0] is not read); scratch as scan's over n elements, zeroed
+// here on the stream before the one launch.
+int etpu_route_or(const void* lev, const void* eid, const void* flags, int n,
+                  int it, void* out, void* scratch, void* stream) {
+  return route_or_launch(
+      static_cast<const int*>(lev), static_cast<const int*>(eid),
+      static_cast<const unsigned char*>(flags), n, it, static_cast<int*>(out),
+      scratch, static_cast<cudaStream_t>(stream));
+}
 
 int etpu_scan_group() { return kScanGroup; }
 

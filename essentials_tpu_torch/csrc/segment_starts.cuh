@@ -1,8 +1,7 @@
 // Per-segment values read at the segment starts of an edge-axis array,
 // several segments a thread: the body of collapse_starts
-// (sssp_kcore_kernels.cu), written so that collapse_levels
-// (bfs_kernels.cu), the same function over int8 or int32 levels, can take
-// it as it is.
+// (sssp_kcore_kernels.cu) and of collapse_levels (bfs_kernels.cu, the same
+// function over int8 or int32 levels).
 //
 // out[v] = at(x[off[v]]) for a non-empty segment v (off[v] < off[v+1]),
 // at.empty() for an empty one, and 0 at v == source (none where source

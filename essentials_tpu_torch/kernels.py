@@ -15,7 +15,9 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   over ``csc_src``, chosen on the card from the pass's sums
   (``bfs_level_pulls``, or forced by ``bfs_level_form``);
   ``collapse_levels`` for the
-  ``cube_router._pallas_apply`` route :385 and "first" fill of the collapse;
+  ``cube_router._pallas_apply`` route :385 and "first" fill of the collapse,
+  several segment starts a thread (``csrc/segment_starts.cuh``, shared with
+  ``collapse_starts``);
   ``bfs_predecessors`` for the ``cube_router.apply_cube_chain`` :586 advance:
   a walk to each vertex's first qualifying in-edge over at most the first
   ``PRED_SPLIT`` slots, then a range walk that spreads the rest of the long
@@ -51,14 +53,12 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   ``EXPAND_TILE`` places of the merged segment ends and slots, each tile
   finding its own split. The sweeps read one state buffer and write
   another.
-* ``csrc/bfs_kernels.cu`` also holds the segment fills and the route OR of
-  ``fused_bfs.py``: ``segment_broadcast_total`` for
-  ``fused_bfs.segment_broadcast_total`` :262 (PageRank ``fused``) and
-  ``suffix_fill_update`` for ``fused_bfs.suffix_fill_update`` :137, one
-  launch over tiles of ``FILL_TILE`` positions whose carry comes from the
-  segment ends the tiles after them publish (a look-forward), and
-  ``fused_route_or`` for ``fused_bfs.fused_route_or`` :603, three launches
-  over tiles of ``ROUTE_TILE`` positions.
+* ``csrc/bfs_kernels.cu`` also holds the segment fills of ``fused_bfs.py``:
+  ``segment_broadcast_total`` for ``fused_bfs.segment_broadcast_total``
+  :262 (PageRank ``fused``) and ``suffix_fill_update`` for
+  ``fused_bfs.suffix_fill_update`` :137, one launch over tiles of
+  ``FILL_TILE`` positions whose carry comes from the segment ends the tiles
+  after them publish (a look-forward).
 * ``csrc/tc_kernels.cu`` (triangle counting and the intersection operator):
   ``bitmap_intersect_counts`` for ``bitmap_intersect.bitmap_intersect_counts``
   :118: a warp per 32 pairs, grouped by u in any order; each group lists
@@ -67,7 +67,10 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   neighbor_reduce, the spray tiers): ``scan`` for ``scan_kernels.scan_1d``
   :274 and ``segmented_scan_1d`` :296, one launch over tiles of
   ``SCAN_TILE`` elements whose carry comes from the aggregates the tiles
-  before them publish (a look-back); ``gather_payloads`` for the
+  before them publish (a look-back); ``fused_route_or`` for
+  ``fused_bfs.fused_route_or`` :603, the same tile scan (int32 max of 0/1
+  values) whose load gathers ``lev`` through the edge ids and compares;
+  ``gather_payloads`` for the
   permutation routes (``cube_router._pallas_apply`` :385,
   ``apply_cube_chain`` :586, ``permute._pallas_rowgather`` :364), four
   slots per thread, 2-4 payloads packed into 8- or 16-byte records by a
@@ -121,7 +124,6 @@ REDUCE_OPS = ("sum", "min", "max", "or", "and")    # codes 0-4 in the .cu
 SCAN_TILE = 2048               # elements per scan tile (kScanTile)
 SCAN_GROUP = 256               # scan tiles per group word (kScanGroup)
 FILL_TILE = 4096               # positions per fill tile (kFillTile)
-ROUTE_TILE = 2048              # positions per route OR block (kRouteTile)
 MINMAX_TILE = 2048             # merge places per segment_minmax tile (kMmTile)
 REDUCE_TILE = 4096             # merge places per segment_reduce tile (kRdTile)
 # merge places per expand_segments tile (kExpandTile). Measured by
@@ -297,7 +299,6 @@ def _library():
             "etpu_advance_count_chunk": (),
             "etpu_advance_count_shared_bytes": (),
             "etpu_fill_tile": (),
-            "etpu_route_tile": (),
             "etpu_segment_fill": (p, p, i, p, i, p, p, p),
             "etpu_route_or": (p, p, p, i, i, p, p, p),
             "etpu_bitmap_intersect": (p, p, p, i, i, p, p, p),
@@ -351,10 +352,6 @@ def _library():
                  f"bfs_level: the library's scratch begins with "
                  f"{lib.etpu_bfs_level_scalars()} scalars, BFS_LEVEL_SCALARS "
                  f"is {BFS_LEVEL_SCALARS}")
-        throw_if(lib.etpu_route_tile() != ROUTE_TILE,
-                 f"fused_route_or: the library's tile is "
-                 f"{lib.etpu_route_tile()} positions, ROUTE_TILE is "
-                 f"{ROUTE_TILE}")
         _lib = lib
     return _lib
 
@@ -1582,7 +1579,8 @@ def fused_route_or(lev: torch.Tensor, edge_ids: torch.Tensor,
     """[n] int32: y[q] = (lev[edge_ids[q]] == it), routed through the
     gather, then an inclusive segmented OR over ``start_flags`` (position 0
     always starts a segment). ``lev`` and ``edge_ids`` are [n] int32, the
-    ids in [0, n)."""
+    ids in [0, n). One launch: ``scan``'s tiles and look-back, the compare
+    made as each tile loads."""
     name = "fused_route_or"
     throw_if(lev.dtype != torch.int32 or lev.dim() != 1,
              f"{name}: lev must be 1-D int32")
@@ -1596,8 +1594,8 @@ def fused_route_or(lev: torch.Tensor, edge_ids: torch.Tensor,
     dev = lev.device
     _check(name, dev, lev=lev, edge_ids=edge_ids, start_flags=start_flags)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * max(1, -(-n // ROUTE_TILE)), dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty(scan_scratch_words(n), dtype=torch.int64,
+                          device=dev)          # the C call zeroes it
     _launch("etpu_route_or", dev, lev.data_ptr(), edge_ids.data_ptr(),
             start_flags.data_ptr(), n, it, out.data_ptr(), scratch.data_ptr())
     launches[name] += 1

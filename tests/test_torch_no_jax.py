@@ -498,10 +498,12 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card(monkeypatch):
     # the expansion and the collapse on chip_smoke's stress cases (a hub of
     # 3.5 tiles, an empty run across a tile edge, ends on a tile's last
     # and first places, n and Vp not multiples of 4, n = 0, every source)
-    errs = {"expand_segments": 0, "collapse_starts": 0}
+    errs = dict.fromkeys(("expand_segments", "collapse_starts",
+                          "collapse_levels<int32>", "collapse_levels<int8>"),
+                         0)
     before = dict(kernels.launches)
     _chip_smoke().check_starts_shapes(errs)
-    assert errs == {"expand_segments": 0, "collapse_starts": 0}
+    assert set(errs.values()) == {0}
     assert all(kernels.launches[k] > before[k] for k in errs)
     ref = sssp.cpu_reference(csr, source)
     got = sssp.run(g, source).distances.cpu().numpy()
@@ -653,7 +655,10 @@ def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
     """bitmap_intersect_counts, segment_broadcast_total, suffix_fill_update
     and fused_route_or against their plain versions at rmat12 (the bitmap
     kernel also on unsorted pairs with a hub u and pads), exactly and
-    bitwise on a second launch, then the main paths that run them."""
+    bitwise on a second launch, then the main paths that run them; the
+    fills, the route OR and the collapses of segment starts on chip_smoke's
+    stress shapes (check_fill_shapes, check_starts_shapes), one device
+    launch a call of each fill and of the route OR."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from essentials_tpu_torch import kernels
@@ -692,30 +697,6 @@ def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
         k = FB.segment_broadcast_total(s, flags)
         assert torch.equal(k, FB.segment_broadcast_total(s, flags))
         assert torch.equal(k, kernels.segment_broadcast_total_plain(s, flags))
-    # the fills at 1, a tile -1, a tile, a tile +1 and many tiles, flags
-    # sparse, at every position, only at position 0, and one segment across
-    # 42 tiles, bit for bit against plain
-    rng = np.random.default_rng(1)
-    tile = kernels.FILL_TILE
-    for m in (1, tile - 1, tile, tile + 1, 45 * tile + 77):
-        long_seg = torch.zeros(m, dtype=torch.bool, device="cuda")
-        long_seg[[0, min(100, m - 1), min(100 + 42 * tile, m - 1)]] = True
-        for fl in (torch.from_numpy(rng.random(m) < 0.01).cuda(),
-                   torch.ones(m, dtype=torch.uint8, device="cuda"),
-                   torch.arange(m, device="cuda") == 0, long_seg):
-            si = torch.from_numpy(rng.integers(-3, 3, m).astype(
-                np.int32)).cuda()
-            for s in (si, torch.from_numpy(rng.random(m).astype(
-                    np.float32)).cuda()):
-                k = kernels.segment_broadcast_total(s, fl)
-                assert torch.equal(k.view(torch.int32),
-                                   kernels.segment_broadcast_total_plain(
-                                       s, fl).view(torch.int32)), (m, s.dtype)
-            lv = torch.where(torch.from_numpy(rng.random(m) < 0.5).cuda(),
-                             2**31 - 1, si)
-            new, any_ = kernels.suffix_fill_update(si, fl, lv, 7)
-            new_p, any_p = kernels.suffix_fill_update_plain(si, fl, lv, 7)
-            assert torch.equal(new, new_p) and torch.equal(any_, any_p), m
     src = int(np.argmax(np.diff(csr.row_offsets)))
     lev = FB.init_lev_exp(g, src)
     off = g.row_offsets
@@ -742,6 +723,18 @@ def test_tc_and_fill_kernels_match_plain_versions_on_the_card():
     assert all(kernels.launches[n] > 0 for n in (
         "bitmap_intersect_counts", "segment_broadcast_total",
         "suffix_fill_update", "fused_route_or"))
+    # the fills and the route OR at 1 to 45 fill tiles and 300 scan tiles
+    # under four flag sets (sparse, at every position, only at 0, one
+    # segment across 42 tiles) and four level sets, bit for bit against
+    # plain, one launch a call; the collapses (collapse_levels int32 and
+    # int8 too) on the starts cases
+    errs = dict.fromkeys(("segment_broadcast_total", "suffix_fill_update",
+                          "fused_route_or", "expand_segments",
+                          "collapse_starts", "collapse_levels<int32>",
+                          "collapse_levels<int8>"), 0)
+    _chip_smoke().check_fill_shapes(errs)
+    _chip_smoke().check_starts_shapes(errs)
+    assert set(errs.values()) == {0}
     total, vt = tc.cpu_reference(csr)
     for variant in tc.VARIANTS:
         r = tc.run(csr, variant=variant, warmup=False)

@@ -557,8 +557,6 @@ def test_tile_constants_match_the_sources():
     assert kernels.SCAN_GROUP == _cu_constant("operator_kernels.cu",
                                               "kScanGroup")
     assert kernels.FILL_TILE == _cu_constant("bfs_kernels.cu", "kFillTile")
-    assert kernels.ROUTE_TILE == _cu_constant("bfs_kernels.cu",
-                                              "kRouteTile")
 
 
 @pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 4097, 524_289,

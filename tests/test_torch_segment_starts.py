@@ -1,13 +1,17 @@
-"""Port parity of ``expand_segments`` and ``collapse_starts``, on the CPU.
+"""Port parity of ``expand_segments``, ``collapse_starts`` and
+``collapse_levels``, on the CPU.
 
 ``expand_segments(vals, offsets, n)`` writes ``vals[v]`` into every slot of
 segment v; ``collapse_starts(exp, offsets, empty, source)`` reads each
 non-empty segment's first slot (``empty`` at an empty one, 0 at
-``source``). On the CPU the wrappers take their plain versions, which
+``source``); ``collapse_levels(lev, offsets, source, unreached)`` is the
+same collapse over int32 or int8 levels on the card (one body,
+``csrc/segment_starts.cuh``), a level at or above ``unreached`` read as
+INT32_MAX. On the CPU the wrappers take their plain versions, which
 define the kernels, so these are held against the JAX package:
 ``expand_vertex_to_edges`` for the expansion, a NumPy gather at the starts
-and the routed ``collapse_dist_exp`` / ``collapse_core_exp`` for the
-collapse. The inputs are chip_smoke's ``starts_cases`` (the card test's: a
+and the routed ``collapse_dist_exp`` / ``collapse_core_exp`` /
+``collapse_lev_exp`` for the collapses. The inputs are chip_smoke's ``starts_cases`` (the card test's: a
 hub of 3.5 tiles, an empty run across a tile edge, segments ending at a
 tile's last and first places, n and Vp not multiples of 4, n = 0), RMAT
 and small graphs, all from a seed with numpy. NumPy models of the card's
@@ -29,6 +33,7 @@ from essentials_tpu.formats import Coo as JCoo
 from essentials_tpu.formats import Csr as JCsr
 from essentials_tpu.graph import build_graph as jbuild
 from essentials_tpu.io import generate as jgen
+from essentials_tpu.ops import fused_bfs as jfb
 from essentials_tpu.ops import fused_kcore as jfk
 from essentials_tpu.ops import fused_sssp as jfs
 from essentials_tpu.ops.segment import expand_vertex_to_edges
@@ -36,6 +41,7 @@ from essentials_tpu.ops.segment import expand_vertex_to_edges
 from essentials_tpu_torch import kernels
 from essentials_tpu_torch.graph import graph_from_arrays
 from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
+from essentials_tpu_torch.ops import fused_bfs as tfb
 
 
 def _chip_smoke():
@@ -50,6 +56,11 @@ CS = _chip_smoke()
 CASES = [c[0] for c in CS.starts_cases("cpu", kernels.EXPAND_TILE)]
 TILES = (kernels.EXPAND_TILE, 128)     # the card's tile and a small one
 RUNS = (4, 8)                          # segments a thread of the collapse
+FORMS = ("int32", "int8")              # collapse_levels' level types
+INT32_MAX = np.iinfo(np.int32).max
+
+_jax_collapse_lev = jax.jit(jfb.collapse_lev_exp,
+                            static_argnames=("unreached",))
 
 
 def case(what: str) -> tuple:
@@ -158,10 +169,11 @@ def expand_tiles_model(vals: np.ndarray, off: np.ndarray, n: int,
 
 
 def collapse_runs_model(exp: np.ndarray, off: np.ndarray, empty: int,
-                        source: int, run: int) -> np.ndarray:
+                        source: int, run: int, at=None) -> np.ndarray:
     """collapse_segment_starts' decomposition: thread t takes segments
     [run t, run (t+1)) cut at vp, reads their run + 1 offsets and gathers
-    each non-empty one's first slot; the threads' runs cover [0, vp)
+    each non-empty one's first slot, which ``at`` (the functor; None: the
+    value itself) maps to the output; the threads' runs cover [0, vp)
     once."""
     vp = off.size - 1
     out = np.full(vp, 0x5EED, np.int64)
@@ -169,7 +181,8 @@ def collapse_runs_model(exp: np.ndarray, off: np.ndarray, empty: int,
     for v0 in range(0, vp, run):
         v = np.arange(v0, min(v0 + run, vp))
         b, e = off[v], off[v + 1]
-        got = np.where(b < e, exp[np.where(b < e, b, 0)], empty)
+        y = exp[np.where(b < e, b, 0)]
+        got = np.where(b < e, y if at is None else at(y), empty)
         out[v] = np.where(v == source, 0, got)
         seen[v] += 1
     assert (seen == 1).all()
@@ -281,3 +294,83 @@ def test_collapse_plain_matches_jax_routed_collapses(graphs, name):
     ref = jfk.collapse_core_exp(gj, jax.numpy.asarray(core))
     out = kernels.collapse_starts(torch.from_numpy(core), g.row_offsets, 0)
     assert np.array_equal(out.numpy(), np.asarray(ref))
+
+
+# ------------------------------------------------------- collapse_levels --
+
+def levels_of(exp: torch.Tensor, form: str) -> tuple:
+    """A starts case's seeded levels of ``form`` and their sentinel
+    (tfb.UNREACHED or tfb.UNREACHED_E), as the card test makes them."""
+    lev, unreached = CS.starts_levels(exp)[form]
+    assert unreached == {"int32": tfb.UNREACHED,
+                         "int8": tfb.UNREACHED_E}[form]
+    assert lev.dtype == getattr(torch, form)
+    return lev, unreached
+
+
+def level_at(unreached: int):
+    """LevelAt: a level below ``unreached`` is the distance, else
+    INT32_MAX."""
+    def at(y: np.ndarray) -> np.ndarray:
+        y = y.astype(np.int64)
+        return np.where(y < unreached, y, INT32_MAX)
+    return at
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("what", CASES)
+def test_collapse_levels_plain_matches_numpy_gather(what, form):
+    _, _, off, exp, _ = case(what)
+    lev, unreached = levels_of(exp, form)
+    o, lv = off.numpy(), lev.numpy()
+    vp = o.size - 1
+    b, e = o[:-1], o[1:]
+    gathered = level_at(unreached)(lv[np.where(b < e, b, 0)])
+    for source in range(vp) if vp < 8 else (0, 1, vp // 2, vp - 1):
+        ref = np.where(b < e, gathered, INT32_MAX)
+        ref[source] = 0
+        out = kernels.collapse_levels(lev, off, source, unreached)
+        assert out.dtype == torch.int32
+        assert np.array_equal(out.numpy(), ref), source
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("run", RUNS)
+@pytest.mark.parametrize("what", CASES)
+def test_collapse_levels_runs_model_matches_plain(what, run, form):
+    """collapse_segment_starts' runs under LevelAt, at every source of the
+    case in [0, Vp)."""
+    _, _, off, exp, sources = case(what)
+    lev, unreached = levels_of(exp, form)
+    vp = off.numel() - 1
+    for source in (v for v in sources if 0 <= v < vp):
+        got = collapse_runs_model(lev.numpy(), off.numpy(), INT32_MAX,
+                                  source, run, level_at(unreached))
+        assert np.array_equal(got, kernels.collapse_levels_plain(
+            lev, off, source, unreached).numpy()), source
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("name", GRAPHS)
+def test_collapse_levels_plain_matches_jax_routed_collapse(graphs, name,
+                                                           form):
+    """Seeded edge-axis levels (0-126, a quarter unreached) through JAX's
+    routed collapse_lev_exp on int32 levels, from the hub and from an
+    empty segment's vertex where there is one; the port's int8 form holds
+    the same levels with its sentinel 127."""
+    gj, g = graphs[name]
+    ep = g.n_edges_padded
+    rng = np.random.default_rng(13)
+    lev = rng.integers(0, 127, ep).astype(np.int32)
+    lev[rng.random(ep) < 0.25] = INT32_MAX
+    unreached = tfb.UNREACHED if form == "int32" else tfb.UNREACHED_E
+    mine = torch.from_numpy(np.where(lev == INT32_MAX, unreached, lev).astype(
+        getattr(np, form)))
+    lens = np.diff(g.row_offsets.numpy())[:g.n_vertices]
+    sources = [int(np.argmax(lens))] + [int(v) for v in
+                                        np.flatnonzero(lens == 0)[:1]]
+    for source in sources:
+        ref = np.asarray(_jax_collapse_lev(gj, jax.numpy.asarray(lev),
+                                           source))
+        out = kernels.collapse_levels(mine, g.row_offsets, source, unreached)
+        assert np.array_equal(out.numpy(), ref), source
