@@ -4,7 +4,9 @@ SpMV (fused and windowed) with PageRank and HITS on it, then SSSP (fused
 and windowed) and k-core, then the operator layer with BFS and SSSP
 adaptive and SpMV pull and push on a directed graph, then triangle
 counting, the intersection operator and PageRank fused, then graph
-coloring (jp and spec) with PageRank and HITS generic on a directed graph.
+coloring (jp and spec) with PageRank and HITS generic on a directed graph,
+then BFS hybrid, phased and the timed auto with k-core adaptive, then
+betweenness centrality and personalized PageRank.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -13,8 +15,11 @@ the CUDA toolkit:
     python3 chip_smoke.py --only color,tc   # phases 1-2 and these groups
 
 The groups are bfs (phases 3-5), spmv (6-8), sssp (9-11), operators
-(12-14), tc (15-17) and color (18-20); phases 1-2 always run, and the
-groups run in this order. Each graph is built by the first group that
+(12-14), tc (15-17), color (18-20), variants (21-23) and bcppr (24-25);
+phases 1-2 always run, and the groups run in this order. variants and
+bcppr add no kernel: they run the kernels of the groups before them on
+new paths, so with --only they add no entry to the JSON line, and their
+launches count in the entries of the groups chosen with them. Each graph is built by the first group that
 needs it and kept for the others. With --only, the JSON line lists the
 chosen groups' kernels and their launches on the chosen groups' paths.
 
@@ -282,7 +287,39 @@ raises and exits non-zero:
    edge active) and the uncolored mask after one round, beside its plain
    version, its bound, two torch.segment_reduce calls (max and min)
    computing the same function and the 16 segment_reduce launches it
-   replaces, and on the largest segment alone.
+   replaces, and on the largest segment alone;
+21. BFS hybrid and phased (bfs_level<int32>, collapse_levels<int32>,
+   expand_segments, scan, bfs_predecessors on new paths) from the 16
+   highest-degree sources of rmat18 at MAX_IT = 64 (the spray on by
+   itself: E > 2^21) and from the top vertex of gen:rmat20x16, each with
+   the launch counters set to 0 just before it and read just after, which
+   must show exactly the launches its spray and dense levels, expands,
+   collapses and compactions make (expect_bfs_variant); distances,
+   predecessors and levels equal to fused's, fused's from CHECKED_SOURCES
+   equal to cpu_reference; once with the spray gate closed on each graph
+   (spray_gate); the levels each search ran as spray and as dense; then the timed auto: each
+   candidate's probed time and the choice, and a second call that probes
+   nothing and launches exactly what its choice makes;
+22. k-core adaptive (advance_count, scan) on the directed rmat20 seed 3
+   (auto: no symmetric layout), the core numbers equal to cpu_reference,
+   and on gen:rmat20x16, equal to fused's; each with spray_override left
+   at None and once False; the waves per branch; launches exact;
+23. times on CUDA events: BFS fused, fused8, hybrid and phased ms per
+   search and MTEPS over the 16 rmat18 sources (median of CYCLES cycles),
+   k-core fused and adaptive ms per run and waves at gen:rmat20x16,
+   each with torch.profiler's busy and idle share;
+24. BC spmv (spmv_rows) from BC_SOURCES of rmat18's highest-degree
+   vertices and BC generic (gather_payloads, segment_reduce) from the top
+   vertex of the directed rmat20, each within bc_bound() of the largest
+   value of the float64 host Brandes; run_all over rmat18's BC_ALL_SOURCES
+   highest-degree vertices against the sum of the single-source runs, and
+   over the first BC_ALL_HOST against the host, within bc_bound of the
+   sources summed; PPR run from rmat18's top vertex and run_batch over
+   PPR_SEEDS seeds (gather_payloads, segment_reduce) within ppr_bound of
+   the float64 host; each with launches exact;
+25. times on CUDA events: ms per BC source (spmv, generic), per run_all of
+   32 sources and per PPR seed, each with torch.profiler's busy and idle
+   share.
 
 Every kernel's bound is the least time an H100 could take for its work:
 the larger of the bytes it must move (each input element it needs read
@@ -458,8 +495,48 @@ BITMAP_WIDE_WORDS = 12288    # 48 KiB rows, listed in many passes
 HUB_PAIRS = (512, 512, 4000, 1200, 40)
 # color at rmat20 recorded on the TPU (essentials_tpu/algorithms/color.py
 # :191, :295): printed beside the port's, not a gate
+BC_SOURCES = 4         # BC spmv sources held against the host Brandes
+BC_ALL_SOURCES = 32    # run_all's sources: rmat18's highest-degree vertices
+BC_ALL_HOST = 4        # run_all's sources also summed on the host
+# BC and PPR against the float64 host: benchmarks/PARITY.md's bounds of
+# the JAX package against its host references (BC 2.3e-7 of the largest
+# value for one source, PPR 4.5e-8 absolute) plus the float32 rounding of
+# the result, as tests/test_torch_bc_ppr.py holds the CPU: one ulp of the
+# largest BC value a source summed (bc_bound), half an ulp of the largest
+# mass a PPR iteration, since p takes one float32 add an iteration
+# (ppr_bound). A PPR vertex whose residual the card's float32 compare
+# r >= eps * deg put on the other side of its threshold from the host's
+# would break the bound: none did in PR 16's runs
+BC_REL = 2.3e-7
+PPR_ABS = 4.5e-8
+F32_ULP = 2.0 ** -23   # float32's relative spacing at 1
+PPR_SEEDS = 8          # run_batch's seeds: rmat18's highest-degree vertices
 TPU_COLOR_HISTORY = {"jp": "8.3 s per run, about 100 rounds",
                      "spec": "206 ms per run"}
+
+
+def bc_bound(n_sources: int = 1) -> float:
+    """BC's bound against the float64 host, over the largest value."""
+    return BC_REL + n_sources * F32_ULP
+
+
+def ppr_bound(iterations: int, ref: np.ndarray) -> float:
+    """PPR's absolute bound against the float64 host ``ref``."""
+    return PPR_ABS + iterations * F32_ULP / 2 * float(np.abs(ref).max())
+
+
+@contextlib.contextmanager
+def spray_gate(min_edges: int):
+    """sparse_advance._MIN_EDGES bound to ``min_edges`` while the block
+    runs: 0 opens the spray on any graph, a count past the graph's edges
+    closes it."""
+    from essentials_tpu_torch.ops import sparse_advance as SA
+    saved = SA._MIN_EDGES
+    SA._MIN_EDGES = min_edges
+    try:
+        yield
+    finally:
+        SA._MIN_EDGES = saved
 
 
 def check(cond: bool, what: str) -> None:
@@ -2625,6 +2702,16 @@ def hold_close(name: str, form: str, k, again, p, rtol: float, errs: dict,
           f"plain ({where}): max abs {err}")
 
 
+def float64_sum(x: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """segment_reduce's float SUM of ``x`` over ``off`` in float64 on the
+    host, in a fixed order: the reference of the float sum checks
+    (segment_reduce_plain's CUDA index_add_ adds in another order on every
+    call)."""
+    from essentials_tpu_torch import kernels as K
+    return K.segment_reduce_plain(x.cpu().double(), off.cpu(),
+                                  "sum").to(x.device)
+
+
 def exact_bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
@@ -2632,7 +2719,8 @@ def exact_bits(x: torch.Tensor) -> torch.Tensor:
 def check_operator_kernels(g, where: str, errs: dict) -> None:
     """Every instance of the four operator kernels against its plain
     version and a second launch, on inputs made from a seed at ``g``'s
-    shapes."""
+    shapes; segment_reduce's float sums against a float64 sum on the host
+    (float64_sum) instead of the plain version."""
     from essentials_tpu_torch import kernels as K
     rng = np.random.default_rng(12)
     vp, ep, dev = g.n_vertices_padded, g.n_edges_padded, g.device
@@ -2662,11 +2750,11 @@ def check_operator_kernels(g, where: str, errs: dict) -> None:
                 form = f"<{ty},{op},{order}>"
                 k = K.segment_reduce(x, off, op)
                 again = K.segment_reduce(x, off, op)
-                p = K.segment_reduce_plain(x, off, op)
                 if op == "sum" and x.is_floating_point():
-                    hold_close("segment_reduce", form, k, again, p, SUM_RTOL,
-                               errs, where)
+                    hold_close("segment_reduce", form, k, again,
+                               float64_sum(x, off), SUM_RTOL, errs, where)
                 else:
+                    p = K.segment_reduce_plain(x, off, op)
                     hold_exact("segment_reduce", (exact_bits(k),),
                                (exact_bits(again),), (exact_bits(p),), errs,
                                f"{where} {form}")
@@ -2726,10 +2814,10 @@ def check_reduce_shapes(errs: dict) -> None:
     (rows_stress_graph: hubs of 82,001 and 6,139 slots, a run of 6,144
     empty segments), over offsets[REDUCE_CUT:] (from past 0) and with the
     values a view at a 4-byte offset: integers, minima, maxima, ORs and
-    ANDs bitwise equal to plain, float sums within SUM_RTOL of plain and of
-    a float64 sum, every result the same bits over three calls; then one
-    segment_split_kernel and one segment_reduce_kernel a call, by
-    torch.profiler."""
+    ANDs bitwise equal to plain, float sums within SUM_RTOL of a float64
+    sum on the host (float64_sum), every result the same bits over three
+    calls; then one segment_split_kernel and one segment_reduce_kernel a
+    call, by torch.profiler."""
     from essentials_tpu_torch import kernels as K
     _, g = rows_stress_graph("cuda")
     rng = np.random.default_rng(SPMV_SEED)
@@ -2750,23 +2838,14 @@ def check_reduce_shapes(errs: dict) -> None:
                     k = K.segment_reduce(x, off, op)
                     again = K.segment_reduce(x, off, op)
                     third = K.segment_reduce(x, off, op)
-                    p = K.segment_reduce_plain(x, off, op)
                     if op == "sum" and x.is_floating_point():
-                        hold_close("segment_reduce", f"<{op}>", k, again, p,
-                                   SUM_RTOL, errs, where)
+                        hold_close("segment_reduce", f"<{op}>", k, again,
+                                   float64_sum(x, off), SUM_RTOL, errs, where)
                         check(torch.equal(exact_bits(k), exact_bits(third)),
                               f"segment_reduce <sum> {where}: other bits on "
                               f"a third call")
-                        lo, hi = int(off[0]), int(off[-1])
-                        ref = torch.zeros(off.numel() - 1, dtype=torch.float64,
-                                          device=x.device).index_add_(
-                            0, K._segment_ids(off - lo, hi - lo),
-                            x[lo:hi].double())
-                        check(bool(((k.double() - ref).abs() <= SUM_RTOL
-                                    * ref.abs() + SUM_ATOL).all()),
-                              f"segment_reduce <sum> {where}: outside "
-                              f"{SUM_RTOL} of the float64 sum")
                     else:
+                        p = K.segment_reduce_plain(x, off, op)
                         hold_exact("segment_reduce", (exact_bits(k),
                                                       exact_bits(third)),
                                    (exact_bits(again), exact_bits(k)),
@@ -4239,6 +4318,356 @@ def time_minmax_kernel(g_m) -> dict:
     return t
 
 
+# ------------------------------------------------------- phases 21-23 --
+
+def run_counted(by_path: dict, path: str, fn, expect):
+    """fn() under counted(): its launches must be exactly expect(result)
+    (zeros left out); they are added to by_path[path]. Returns fn's
+    result."""
+    from essentials_tpu_torch import kernels as K
+    r, launches = counted(fn)
+    ran = {k: n for k, n in launches.items() if n}
+    want = {k: n for k, n in expect(r).items() if n}
+    check(ran == want, f"{path} launched {ran}, expected {want}")
+    total = by_path.setdefault(path, dict.fromkeys(K.launches, 0))
+    for k, n in launches.items():
+        total[k] += n
+    return r
+
+
+def expect_bfs_variant(variant: str, r) -> dict:
+    """Launches of one bfs.run of ``variant`` from its result. fused and
+    fused8: a bfs_level a level, one collapse. hybrid and phased, from
+    their LevelCounts: a spray level scans twice (the members' prefix, the
+    edge ids), a dense level is one bfs_level<int32>, a compaction one
+    scan, each expand and collapse one launch. Then the predecessors."""
+    if variant in ("fused", "fused8"):
+        ty = "int8" if variant == "fused8" else "int32"
+        return {f"bfs_level<{ty}>": r.iterations,
+                f"collapse_levels<{ty}>": 1, "bfs_predecessors": 1}
+    n = r.modes
+    return {"scan": 2 * n.spray + n.compactions,
+            "bfs_level<int32>": n.dense, "expand_segments": n.expands,
+            "collapse_levels<int32>": n.collapses, "bfs_predecessors": 1}
+
+
+def expect_kcore_adaptive(r) -> dict:
+    """Launches of one adaptive k-core run from its waves: a spray wave
+    scans twice (the members' prefix, the edge ids) and once more where
+    it compacts the peel set; a dense wave is one advance_count."""
+    _, tiny, spray, dense = r.tiers
+    return {"scan": 2 * (tiny + spray) + r.compactions,
+            "advance_count": dense}
+
+
+def variant_main_path(run) -> tuple:
+    """Phase 21: bfs.run hybrid and phased from the RUNS highest-degree
+    sources of rmat18 at MAX_IT levels and from the top vertex of
+    gen:rmat20x16, each with its launches exact and its distances,
+    predecessors and levels equal to fused's (and fused's from
+    CHECKED_SOURCES equal to cpu_reference); once with the spray gate
+    closed on each graph; then the timed auto on rmat18: the candidates'
+    probed times and the choice, and calls that probe nothing.
+    Returns ({path: launches}, the rmat18 sources)."""
+    from essentials_tpu_torch.algorithms import bfs
+    from essentials_tpu_torch.ops import sparse_advance as SA
+    by_path = {}
+    csr, g = run.bfs_graph(SCALE)
+    sources = np.argsort(-np.diff(csr.row_offsets))[:RUNS].astype(int)
+    csr_m, g_m = run.weighted_graph(MAIN_SCALE)
+    top_m = int(np.argmax(np.diff(csr_m.row_offsets)))
+    for where, c, gx, srcs, max_it in (
+            (f"rmat{SCALE}", csr, g, sources, MAX_IT),
+            (f"gen:rmat{MAIN_SCALE}x16", csr_m, g_m, [top_m], None)):
+        check(SA.spray_enabled(gx), f"{where}: the spray is not on")
+        fused = [bfs.run(gx, int(s), variant="fused", max_iterations=max_it,
+                         warmup=False) for s in srcs]
+        for s, f in zip(srcs[:CHECKED_SOURCES], fused):
+            check(np.array_equal(f.distances.cpu().numpy(),
+                                 bfs.cpu_reference(c, int(s))),
+                  f"bfs fused from {s} on {where} differs from "
+                  f"cpu_reference")
+        for v in ("hybrid", "phased"):
+            for spray in (True, False):
+                path = f"bfs {v}" + ("" if spray else " spray off")
+                with (contextlib.nullcontext() if spray
+                      else spray_gate(1 << 62)):
+                    rs = [run_counted(by_path, path, lambda s=s: bfs.run(
+                        gx, int(s), variant=v, max_iterations=max_it,
+                        warmup=False),
+                        lambda r, v=v: expect_bfs_variant(v, r))
+                        for s in (srcs if spray else srcs[:1])]
+                for s, r, f in zip(srcs, rs, fused):
+                    check(torch.equal(r.distances, f.distances)
+                          and torch.equal(r.predecessors, f.predecessors)
+                          and r.iterations == f.iterations,
+                          f"bfs {v} (spray {'on' if spray else 'off'}) "
+                          f"from {s} on {where} differs from fused")
+                check(spray or rs[0].modes.spray == 0,
+                      f"bfs {v} sprayed with the spray off")
+                print(f"main path: bfs {v} {where} (spray "
+                      f"{'on' if spray else 'off'}): levels spray/dense "
+                      f"per source ["
+                      + ", ".join(f"{r.modes.spray}/{r.modes.dense}"
+                                  for r in rs)
+                      + f"], expands {sum(r.modes.expands for r in rs)}, "
+                        f"collapses {sum(r.modes.collapses for r in rs)}, "
+                        f"compactions "
+                        f"{sum(r.modes.compactions for r in rs)} in all; "
+                        f"distances, predecessors and levels equal fused's "
+                        f"from {len(rs)} sources; launches exact")
+    # the timed auto: one probe of each candidate (bfs.run's own probe,
+    # called first to read its times), then the cached choice
+    bfs._auto_cache.clear()
+    probed, real = [], bfs._variant_fn
+    bfs._variant_fn = lambda cand: (probed.append(cand), real(cand))[1]
+    try:
+        chosen, times = bfs._auto_variant(g, int(sources[0]), MAX_IT)
+        check(probed == list(bfs.auto_candidates(MAX_IT))
+              and list(times) == probed, f"bfs auto probed {probed}")
+        probed.clear()
+        first = bfs.run(g, int(sources[0]), variant="auto",
+                        max_iterations=MAX_IT, warmup=False)
+        again = run_counted(by_path, "bfs auto", lambda: bfs.run(
+            g, int(sources[1]), variant="auto", max_iterations=MAX_IT,
+            warmup=False), lambda r: expect_bfs_variant(chosen, r))
+        check(probed == [], f"bfs auto probed {probed} after its probe")
+    finally:
+        bfs._variant_fn = real
+    check(torch.equal(first.distances, bfs.run(
+        g, int(sources[0]), variant="fused", max_iterations=MAX_IT,
+        warmup=False).distances), "bfs auto differs from fused")
+    print(f"main path: bfs auto rmat{SCALE}: probed (one warm search each, "
+          f"ms on CUDA events) "
+          + ", ".join(f"{v} {ms:.4f}" for v, ms in times.items())
+          + f"; chose {chosen}; bfs.run auto then probed nothing and ran "
+            f"{chosen} ({again.iterations} levels); launches exact")
+    return by_path, sources
+
+
+def kcore_adaptive_main_path(run) -> tuple:
+    """Phase 22: kcore.run adaptive on the directed rmat20 seed 3 (auto:
+    no symmetric layout), core numbers equal to cpu_reference, and on
+    gen:rmat20x16, equal to fused's; each with spray_override left at None
+    and once False; launches exact. Returns ({path: launches}, {where:
+    result})."""
+    from essentials_tpu_torch.algorithms import kcore
+    by_path, results = {}, {}
+    csr_d, g_d = run.spmv_graph(SPMV_TIME_SCALE)
+    csr_m, g_m = run.weighted_graph(MAIN_SCALE)
+    where_d = f"directed rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}"
+    where_m = f"gen:rmat{MAIN_SCALE}x16"
+    check(not kcore.fused_supported(g_d), f"{where_d}: fused supported")
+    want = {where_d: kcore.cpu_reference(csr_d),
+            where_m: kcore.run(g_m, variant="fused",
+                               warmup=False).core.cpu().numpy()}
+    for where, gx in ((where_d, g_d), (where_m, g_m)):
+        for override in (None, False):
+            path = "kcore adaptive" + (" spray off" if override is False
+                                       else "")
+            r = run_counted(by_path, path, lambda: kcore.run(
+                gx, variant="adaptive" if gx is g_m else "auto",
+                spray_override=override, warmup=False),
+                expect_kcore_adaptive)
+            check(np.array_equal(r.core.cpu().numpy(), want[where]),
+                  f"kcore adaptive (spray_override {override}) on {where} "
+                  f"differs from "
+                  + ("cpu_reference" if gx is g_d else "fused"))
+            check(override is None or r.tiers[1] + r.tiers[2] == 0,
+                  "kcore adaptive sprayed with the spray off")
+            results[(where, override)] = r
+            print(f"main path: kcore adaptive {where} (spray_override "
+                  f"{override}): {r.iterations} waves: "
+                  + ", ".join(f"{t} {n}" for t, n in zip(kcore.TIERS,
+                                                          r.tiers))
+                  + f"; {r.compactions} spray waves compacted the peel "
+                    f"set; core numbers equal "
+                  + ("cpu_reference" if gx is g_d else "fused's")
+                  + "; launches exact")
+    return by_path, results
+
+
+def time_variants(run, sources) -> None:
+    """Phase 23: BFS MTEPS per variant (fused, fused8, hybrid, phased) over
+    the RUNS sources of rmat18 at MAX_IT (median of CYCLES cycles, no
+    predecessors), k-core adaptive ms per run on gen:rmat20x16 beside
+    fused, each with torch.profiler's busy and idle share."""
+    from essentials_tpu_torch.algorithms import bfs, kcore
+    card = run.card
+    csr, g = run.bfs_graph(SCALE)
+    for v in ("fused", "fused8", "hybrid", "phased"):
+        def cycle(_=None, v=v):
+            for s in sources:
+                bfs.run(g, int(s), variant=v, max_iterations=MAX_IT,
+                        warmup=False, compute_predecessors=False)
+        ms = median_ms(cycle) / RUNS
+        print(f"time [{card}]: bfs {v} rmat{SCALE} ef{EDGE_FACTOR}: "
+              f"{ms:.4f} ms per search (median of {CYCLES} cycles of "
+              f"{RUNS} sources, no predecessors), "
+              f"{g.n_edges / 1e3 / ms:.2f} MTEPS")
+        profile(f"bfs {v} rmat{SCALE}, {RUNS} searches", cycle)
+    _, g_m = run.weighted_graph(MAIN_SCALE)
+    where = f"gen:rmat{MAIN_SCALE}x16"
+    for v in ("fused", "adaptive"):
+        waves = kcore.run(g_m, variant=v, warmup=False).iterations
+        ms = median_ms(lambda _: kcore.run(g_m, variant=v, warmup=False),
+                       KCORE_CYCLES)
+        print(f"time [{card}]: kcore {v} {where}: {ms:.3f} ms per run "
+              f"(median of {KCORE_CYCLES}, kcore.run with its collapse), "
+              f"{waves} waves, {ms / waves:.4f} ms per wave")
+        profile(f"kcore {v} {where}, one kcore.run",
+                lambda: kcore.run(g_m, variant=v, warmup=False))
+
+
+# ------------------------------------------------------- phases 24-25 --
+
+def bc_rel_err(a: torch.Tensor, ref: np.ndarray) -> float:
+    """max |a - ref| over the largest |ref|."""
+    a = a.cpu().numpy().astype(np.float64)
+    return float(np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def hold_bc(what: str, vals: torch.Tensor, ref: np.ndarray, n: int,
+            n_sources: int = 1) -> float:
+    check(vals.shape == (n,) and bool(vals.isfinite().all()),
+          f"{what}: shape or non-finite values")
+    err, bound = bc_rel_err(vals, ref), bc_bound(n_sources)
+    check(err <= bound, f"{what}: {err} of the largest value from the "
+                        f"float64 host Brandes (bound {bound:.3g})")
+    return err
+
+
+def bc_levels(g, sources) -> list:
+    """Each source's BC levels: its BFS eccentricity + 1 (the forward
+    loop's last level finds nothing), from fused searches."""
+    from essentials_tpu_torch.algorithms import bfs
+    out = []
+    for s in sources:
+        d = bfs.run(g, int(s), variant="fused", compute_predecessors=False,
+                    warmup=False).distances
+        out.append(int(d[d != bfs.UNREACHED].max()) + 1)
+    return out
+
+
+def bcppr_main_path(run) -> tuple:
+    """Phase 24: BC spmv from BC_SOURCES of rmat18's highest-degree
+    vertices and BC generic from the top vertex of the directed rmat20
+    seed 3, against the float64 host Brandes (bc_bound() of the largest
+    value); run_all over rmat18's BC_ALL_SOURCES highest-degree vertices
+    against the sum of the single-source generic runs and, for the first
+    BC_ALL_HOST of them, the host (bc_bound of the sources summed); PPR run
+    from rmat18's top vertex and run_batch over PPR_SEEDS seeds against the
+    float64 host (ppr_bound); launches exact. Returns ({path: launches}, sources)."""
+    from essentials_tpu_torch.algorithms import bc, ppr
+    by_path = {}
+    csr, g = run.bfs_graph(SCALE)
+    sources = np.argsort(-np.diff(csr.row_offsets))[:BC_ALL_SOURCES].astype(
+        int)
+    where = f"rmat{SCALE}"
+    for s in sources[:BC_SOURCES]:
+        r = run_counted(by_path, "bc spmv", lambda s=s: bc.run(
+            g, int(s), variant="spmv", warmup=False),
+            lambda r: {"spmv_rows": 2 * r.iterations})
+        err = hold_bc(f"bc spmv {where} from {s}", r.bc_values,
+                      bc.cpu_reference(csr, [int(s)],
+                                       normalize_undirected=False),
+                      g.n_vertices)
+        print(f"main path: bc spmv {where} from {s}: {r.iterations} "
+              f"levels, {err:.3g} of the largest value from the float64 "
+              f"host Brandes (bound {bc_bound():.3g}); launches exact")
+    csr_d, g_d = run.spmv_graph(SPMV_TIME_SCALE)
+    where_d = f"directed rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}"
+    top_d = int(np.argmax(np.diff(csr_d.row_offsets)))
+    r = run_counted(by_path, "bc generic", lambda: bc.run(
+        g_d, top_d, warmup=False), lambda r: {
+            "gather_payloads": 3 * r.iterations,
+            "segment_reduce": 2 * r.iterations})
+    err = hold_bc(f"bc auto (generic) {where_d} from {top_d}", r.bc_values,
+                  bc.cpu_reference(csr_d, [top_d],
+                                   normalize_undirected=False),
+                  g_d.n_vertices)
+    print(f"main path: bc auto (generic) {where_d} from {top_d}: "
+          f"{r.iterations} levels, {err:.3g} of the largest value from the "
+          f"float64 host Brandes (bound {bc_bound():.3g}); launches exact")
+    levels = sum(bc_levels(g, sources))
+    ra = run_counted(by_path, "bc run_all", lambda: bc.run_all(
+        g, sources=sources, warmup=False), lambda r: {
+            "gather_payloads": 3 * levels, "segment_reduce": 2 * levels})
+    singles = sum(bc.run(g, int(s), variant="generic",
+                         warmup=False).bc_values for s in sources) * 0.5
+    err_sum = bc_rel_err(ra.bc_values, singles.cpu().numpy().astype(
+        np.float64))
+    check(err_sum <= bc_bound(len(sources)),
+          f"bc run_all differs from its single-source sum by {err_sum} "
+          f"(bound {bc_bound(len(sources)):.3g})")
+    part = bc.run_all(g, sources=sources[:BC_ALL_HOST], warmup=False)
+    err = hold_bc(f"bc run_all {where} ({BC_ALL_HOST} sources)",
+                  part.bc_values, bc.cpu_reference(csr, sources[:BC_ALL_HOST]),
+                  g.n_vertices, BC_ALL_HOST)
+    print(f"main path: bc run_all {where} over {len(sources)} sources: "
+          f"{levels} levels in all, {err_sum:.3g} of the largest value from "
+          f"the sum of the single-source generic runs; over the first "
+          f"{BC_ALL_HOST}, {err:.3g} from the float64 host; launches exact")
+    seeds = sources[:PPR_SEEDS]
+    rp = run_counted(by_path, "ppr", lambda: ppr.run(
+        g, int(seeds[0]), warmup=False), lambda r: {
+            "gather_payloads": r.iterations,
+            "segment_reduce": r.iterations})
+    iters = [rp.iterations] + [ppr.run(g, int(s), warmup=False).iterations
+                               for s in seeds[1:]]
+    rb = run_counted(by_path, "ppr run_batch", lambda: ppr.run_batch(
+        g, seeds), lambda r: {"gather_payloads": sum(iters),
+                              "segment_reduce": sum(iters)})
+    check(tuple(rb.shape) == (len(seeds), g.n_vertices)
+          and torch.equal(rb[0], rp.p), "ppr run_batch's first row differs "
+                                        "from ppr.run")
+    errs, bounds = [], []
+    for s, row, it in zip(seeds, rb, iters):
+        ref = ppr.cpu_reference(csr, int(s))
+        p = row.cpu().numpy()
+        errs.append(float(np.abs(p - ref).max()))
+        bounds.append(ppr_bound(it, ref))
+        check(bool(np.isfinite(p).all()) and errs[-1] <= bounds[-1],
+              f"ppr from {s}: max abs err {errs[-1]} against the float64 "
+              f"host (bound {bounds[-1]:.3g})")
+    print(f"main path: ppr {where} from {seeds[0]}: {rp.iterations} "
+          f"iterations; run_batch over {len(seeds)} seeds, iterations "
+          f"{iters}: max abs err against the float64 host per seed "
+          + ", ".join(f"{e:.3g} (bound {b:.3g})"
+                      for e, b in zip(errs, bounds))
+          + "; launches exact")
+    return by_path, sources
+
+
+def time_bcppr(run, sources) -> None:
+    """Phase 25: ms per BC source (spmv on rmat18, generic on the directed
+    rmat20), per run_all of BC_ALL_SOURCES and per PPR seed on rmat18,
+    median of CYCLES (KCORE_CYCLES for run_all), each with torch.profiler's
+    busy and idle share."""
+    from essentials_tpu_torch.algorithms import bc, ppr
+    card = run.card
+    _, g = run.bfs_graph(SCALE)
+    csr_d, g_d = run.spmv_graph(SPMV_TIME_SCALE)
+    top_d = int(np.argmax(np.diff(csr_d.row_offsets)))
+    cases = (
+        (f"bc spmv rmat{SCALE}, per source ({BC_SOURCES} sources)",
+         lambda: [bc.run(g, int(s), variant="spmv", warmup=False)
+                  for s in sources[:BC_SOURCES]], BC_SOURCES, CYCLES),
+        (f"bc generic directed rmat{SPMV_TIME_SCALE} seed {SPMV_SEED}, per "
+         f"source (from {top_d})",
+         lambda: [bc.run(g_d, top_d, warmup=False)], 1, CYCLES),
+        (f"bc run_all rmat{SCALE}, per run of {len(sources)} sources",
+         lambda: [bc.run_all(g, sources=sources, warmup=False)], 1,
+         KCORE_CYCLES),
+        (f"ppr rmat{SCALE}, per seed ({PPR_SEEDS} seeds)",
+         lambda: [ppr.run(g, int(s), warmup=False)
+                  for s in sources[:PPR_SEEDS]], PPR_SEEDS, CYCLES))
+    for label, fn, per, reps in cases:
+        ms = median_ms(lambda _: fn(), reps) / per
+        print(f"time [{card}]: {label}: {ms:.3f} ms (median of {reps})")
+        profile(label, fn)
+
+
 class Phases:
     """Prints each phase's seconds as it ends."""
 
@@ -4824,9 +5253,32 @@ def group_color(run: Run) -> None:
     run.phases.done("20 color times")
 
 
+def group_variants(run: Run) -> None:
+    """Phases 21-23: BFS hybrid, phased and the timed auto, and k-core
+    adaptive."""
+    by_path, sources = variant_main_path(run)
+    run.by_path.update(by_path)
+    run.phases.done("21 bfs hybrid/phased/auto main path")
+    by_path, _ = kcore_adaptive_main_path(run)
+    run.by_path.update(by_path)
+    run.phases.done("22 kcore adaptive main path")
+    time_variants(run, sources)
+    run.phases.done("23 variant times")
+
+
+def group_bcppr(run: Run) -> None:
+    """Phases 24-25: betweenness centrality and personalized PageRank."""
+    by_path, sources = bcppr_main_path(run)
+    run.by_path.update(by_path)
+    run.phases.done("24 bc/ppr main path")
+    time_bcppr(run, sources)
+    run.phases.done("25 bc/ppr times")
+
+
 GROUPS = {"bfs": group_bfs, "spmv": group_spmv, "sssp": group_sssp,
           "operators": group_operators, "tc": group_tc,
-          "color": group_color}
+          "color": group_color, "variants": group_variants,
+          "bcppr": group_bcppr}
 # each group's kernels, in the order of the JSON line
 KERNEL_TABLE = (("bfs", SOURCE, REPLACES),
                 ("spmv", SPMV_SOURCE, SPMV_REPLACES),

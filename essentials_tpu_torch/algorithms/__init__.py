@@ -1,12 +1,15 @@
 """Graph algorithms. Counterpart of ``essentials_tpu/algorithms``; ported so
-far: ``bfs`` (variants ``fused``, ``fused8`` and ``adaptive``), ``spmv``
-(``fused``, ``windowed``, ``pull`` and ``push``), ``pr`` (``spmv``,
-``fused`` and ``generic``), ``hits`` (``spmv`` and ``generic``), ``sssp``
-(``fused``, ``windowed`` and ``adaptive``), ``kcore`` (``fused``), ``tc``
-(``dense``, ``bitmap``, ``sorted`` and ``shift``) and ``color`` (``jp``
-and ``spec``)."""
+far: ``bfs`` (variants ``fused``, ``fused8``, ``hybrid``, ``phased``,
+``adaptive`` and the timed ``auto``), ``spmv`` (``fused``, ``windowed``,
+``pull`` and ``push``), ``pr`` (``spmv``, ``fused`` and ``generic``),
+``hits`` (``spmv`` and ``generic``), ``sssp`` (``fused``, ``windowed`` and
+``adaptive``), ``kcore`` (``fused`` and ``adaptive``), ``tc`` (``dense``,
+``bitmap``, ``sorted`` and ``shift``), ``color`` (``jp`` and ``spec``),
+``bc`` (``spmv``, ``generic`` and ``run_all``) and ``ppr`` (``run`` and
+``run_batch``)."""
 
-from essentials_tpu_torch.algorithms import (bfs, color, hits, kcore, pr,
-                                             spmv, sssp, tc)
+from essentials_tpu_torch.algorithms import (bc, bfs, color, hits, kcore, pr,
+                                             ppr, spmv, sssp, tc)
 
-__all__ = ["bfs", "color", "hits", "kcore", "pr", "spmv", "sssp", "tc"]
+__all__ = ["bc", "bfs", "color", "hits", "kcore", "pr", "ppr", "spmv",
+           "sssp", "tc"]

@@ -1263,6 +1263,11 @@ def segment_reduce_plain(vals, offsets, op: str):
     if op == "sum" and vals.dtype == torch.int32:
         out = torch.zeros(s, dtype=torch.int64, device=vals.device)
         return _wrap_i32(out.index_add_(0, seg, v.long()))
+    if op == "sum" and vals.dtype == torch.float32:
+        # accumulated in float64 and rounded once: a sequential float32 sum
+        # drifts with the segment's length
+        out = torch.zeros(s, dtype=torch.float64, device=vals.device)
+        return out.index_add_(0, seg, v.double()).float()
     if op == "sum":
         out = torch.zeros(s, dtype=vals.dtype, device=vals.device)
         return out.index_add_(0, seg, v)

@@ -2,13 +2,14 @@
 (``advance``, ``neighbor_reduce``, the ``segment`` engine,
 ``scan_kernels``, the ``sparse_advance`` spray tiers), the fused engines
 ``fused_bfs``, ``fused_spmv``, ``windowed_spmv``, ``fused_sssp``,
-``windowed_sssp`` and ``fused_kcore``, and the intersection operator
-``intersect`` on ``bitmap_intersect``. Not ported yet: ``filter``,
-``parallel_for``, ``uniquify``, ``advance_edges``, ``apply_permutation``
-and ``segment_combine`` (they come with their first caller), ``batch``,
-``bucketed``, ``swar`` (see ROADMAP.md, queue 1)."""
+``windowed_sssp`` and ``fused_kcore``, the intersection operator
+``intersect`` on ``bitmap_intersect``, and ``batch`` (a host loop over
+seeds). Not ported yet: ``filter``, ``parallel_for``, ``uniquify``,
+``advance_edges``, ``apply_permutation`` and ``segment_combine`` (they come
+with their first caller), ``bucketed``, ``swar`` (see ROADMAP.md, queue
+1)."""
 
-from essentials_tpu_torch.ops import (bitmap_intersect, fused_bfs,
+from essentials_tpu_torch.ops import (batch, bitmap_intersect, fused_bfs,
                                       fused_kcore, fused_sssp, fused_spmv,
                                       intersect, scan_kernels, segment,
                                       sparse_advance, windowed_spmv,
@@ -24,7 +25,7 @@ from essentials_tpu_torch.ops.segment import (combine_by_offsets,
 __all__ = [
     "Combine", "AdvanceIO", "advance", "advance_multi", "advance_count",
     "Edges", "neighbor_reduce", "combine_by_offsets", "combine_minmax_multi",
-    "expand_vertex_to_edges", "bitmap_intersect", "fused_bfs", "fused_kcore",
+    "expand_vertex_to_edges", "batch", "bitmap_intersect", "fused_bfs", "fused_kcore",
     "fused_sssp", "fused_spmv", "intersect", "scan_kernels", "segment",
     "sparse_advance", "windowed_spmv", "windowed_sssp",
 ]

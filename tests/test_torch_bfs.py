@@ -123,6 +123,8 @@ def test_isolated_source_one_iteration():
 
 
 def test_auto_is_fused():
+    """auto (a timed choice among the edge-axis variants) gives fused's
+    distances and predecessors."""
     csr, g, _ = graphs("chesapeake")
     a = tbfs.run(g, 3, variant="auto", warmup=False)
     f = tbfs.run(g, 3, variant="fused", warmup=False)
@@ -132,9 +134,19 @@ def test_auto_is_fused():
 
 @pytest.mark.parametrize("variant", ["hybrid", "phased", "nope"])
 def test_unported_variants_raise(variant):
+    """hybrid and phased (no longer unported) run and give fused's
+    distances, predecessors and levels; an unknown variant raises."""
     _, g, _ = graphs("chesapeake")
-    with pytest.raises(EssentialsError, match="ROADMAP|unknown"):
-        tbfs.run(g, 0, variant=variant)
+    if variant == "nope":
+        with pytest.raises(EssentialsError, match="unknown"):
+            tbfs.run(g, 0, variant=variant)
+        return
+    r = tbfs.run(g, 0, variant=variant, warmup=False)
+    f = tbfs.run(g, 0, variant="fused", warmup=False)
+    assert torch.equal(r.distances, f.distances)
+    assert torch.equal(r.predecessors, f.predecessors)
+    assert r.iterations == f.iterations
+    assert r.modes.spray + r.modes.dense == r.iterations
 
 
 @pytest.mark.parametrize("name", ["chesapeake", "grid24"])

@@ -11,7 +11,13 @@ the port with graph_from_arrays, so both packages compute on the same
 arrays. "stress" is chip_smoke's graph with a hub, multi-edges and
 self-loops; "chord_cycle" and "cycles300" are directed graphs whose every
 in-degree equals its out-degree (a symmetric layout without a symmetric
-adjacency). On these the card's push wave is also modelled here."""
+adjacency). On these the card's push wave is also modelled here.
+
+The adaptive variant is held against the JAX package's run(variant=
+"adaptive") on graphs built without router plans (its CPU path): core
+numbers, wave counts and the host reference exactly, with the spray forced
+on, forced off and left to the graph's size, and once with the spray gate
+opened in both packages so that every branch fires."""
 
 import importlib.util
 from pathlib import Path
@@ -28,6 +34,7 @@ from essentials_tpu.graph import build_graph as jbuild
 from essentials_tpu.io import generate as jgen
 from essentials_tpu.ops import cube_router
 from essentials_tpu.ops import fused_kcore as jfk
+from essentials_tpu.ops import sparse_advance as jsa
 
 from essentials_tpu_torch import kernels
 from essentials_tpu_torch.algorithms import kcore as tkcore
@@ -35,6 +42,7 @@ from essentials_tpu_torch.errors import EssentialsError
 from essentials_tpu_torch.graph import graph_from_arrays
 from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
 from essentials_tpu_torch.ops import fused_kcore as tfk
+from essentials_tpu_torch.ops import sparse_advance as tsa
 
 IMAX = np.iinfo(np.int32).max
 _jax_sweep = jax.jit(jfk.fused_kcore_sweep_ref)
@@ -291,16 +299,22 @@ def test_edgeless_graph_runs_no_wave():
 # -------------------------------------------------------------- refusals --
 
 def test_unported_and_unsupported_runs_raise(graphs):
-    _, _, g = graphs["grid16"]
-    with pytest.raises(EssentialsError, match="queue 1, item 8"):
-        tkcore.run(g, variant="adaptive")
+    """adaptive, and a graph without a symmetric layout (auto: adaptive),
+    no longer raise: they run and give the host's core numbers; fused on
+    such a graph and an unknown variant raise."""
+    csr, _, g = graphs["grid16"]
+    r = tkcore.run(g, variant="adaptive")
+    assert r.core.tolist() == tkcore.cpu_reference(csr).tolist()
+    assert sum(r.tiers) == r.iterations
     with pytest.raises(EssentialsError):
         tkcore.run(g, variant="onion")
     coo = jgen.rmat(8, 8, seed=2, undirected=False, weighted=True)
-    gd = carried(JCsr.from_coo(coo), directed=True)[2]
+    csr_d, _, gd = carried(JCsr.from_coo(coo), directed=True)
     assert not gd.symmetric_layout
-    with pytest.raises(EssentialsError, match="queue 1, item 8"):
-        tkcore.run(gd)
+    assert tkcore.run(gd).core.tolist() == \
+        tkcore.cpu_reference(csr_d).tolist()
+    with pytest.raises(EssentialsError, match="symmetric layout"):
+        tkcore.run(gd, variant="fused")
     # a directed 5-cycle with a chord both ways: every in-degree equals its
     # out-degree (a symmetric layout) but the adjacency is not symmetric;
     # it runs, as the JAX package runs it
@@ -310,6 +324,113 @@ def test_unported_and_unsupported_runs_raise(graphs):
     r = tkcore.run(gc)
     assert r.core.tolist() == jkcore.cpu_reference(csr).tolist() \
         == np.asarray(jkcore.run(gj, variant="fused").core).tolist()
+
+
+# -------------------------------------------------------------- adaptive --
+
+def carried_plain(coo, directed):
+    """The host csr, the JAX graph without router plans (its CPU path) and
+    the port's graph made from its fields."""
+    csr = JCsr.from_coo(coo)
+    gj = jbuild(csr, directed=directed, weighted=True, build_router=False)
+    fields = {f: np.asarray(getattr(gj, f)) for f in ARRAY_FIELDS}
+    meta = {f: getattr(gj, f) for f in META_FIELDS}
+    return csr, gj, graph_from_arrays(fields, meta, "cpu")
+
+
+def directed_hubs_coo():
+    """stress_coo's pairs one way only (src < dst): a directed graph with
+    a hub, multi-edges and no symmetric layout."""
+    c = stress_coo()
+    keep = c.row_indices < c.col_indices
+    return JCoo(c.n_rows, c.n_cols, c.row_indices[keep], c.col_indices[keep],
+                c.values[keep])
+
+
+ADAPTIVE = {
+    "rmat8d": lambda: carried_plain(jgen.rmat(8, 8, seed=2, undirected=False,
+                                              weighted=True), True),
+    "rmat9u": lambda: carried_plain(jgen.rmat(9, 8, seed=2, undirected=True,
+                                              weighted=True), False),
+    "rmat10d": lambda: carried_plain(jgen.rmat(10, 16, seed=3,
+                                               undirected=False,
+                                               weighted=True), True),
+    "stress": lambda: carried_plain(stress_coo(), False),
+    "hubs_d": lambda: carried_plain(directed_hubs_coo(), True),
+}
+
+
+@pytest.fixture(scope="module")
+def adaptive_graphs():
+    return {name: make() for name, make in ADAPTIVE.items()}
+
+
+@pytest.mark.parametrize("override", [None, True, False])
+@pytest.mark.parametrize("name", list(ADAPTIVE))
+def test_adaptive_matches_jax_and_cpu_reference(adaptive_graphs, name,
+                                                override):
+    csr, gj, g = adaptive_graphs[name]
+    r = tkcore.run(g, variant="adaptive", warmup=False,
+                   spray_override=override)
+    rj = jkcore.run(gj, variant="adaptive", warmup=False,
+                    spray_override=override)
+    assert r.core.dtype == torch.int32 and r.core.shape == (g.n_vertices,)
+    assert np.array_equal(r.core.numpy(), np.asarray(rj.core))
+    assert r.iterations == rj.iterations == sum(r.tiers)
+    assert np.array_equal(r.core.numpy(), tkcore.cpu_reference(csr))
+    skip, tiny, spray, dense = r.tiers
+    if override:                 # the spray takes every small peel set
+        assert tiny + spray > 0 and r.compactions <= spray + tiny
+    else:                        # E < 2^21: the spray gate is closed
+        assert tiny == spray == r.compactions == 0 and dense > 0
+
+
+def test_adaptive_auto_on_a_directed_graph(adaptive_graphs):
+    """auto is adaptive where fused is unsupported, as in the JAX package."""
+    _, gj, g = adaptive_graphs["rmat10d"]
+    assert not tkcore.fused_supported(g)
+    r = tkcore.run(g, warmup=False)
+    rj = jkcore.run(gj, warmup=False)
+    assert np.array_equal(r.core.numpy(), np.asarray(rj.core))
+    assert r.iterations == rj.iterations and sum(r.tiers) == r.iterations
+
+
+def test_adaptive_every_branch_with_the_spray_gate_open(monkeypatch):
+    """With _MIN_EDGES at 0 in both packages (and JAX's traced enactor
+    dropped), undirected rmat13 ef16 takes every branch: skip, tiny spray,
+    spray (filtering the candidate list and compacting the peel set) and
+    dense; core numbers and waves exact."""
+    monkeypatch.setattr(jsa, "_MIN_EDGES", 0)
+    monkeypatch.setattr(tsa, "_MIN_EDGES", 0)
+    jax.clear_caches()
+    try:
+        csr, gj, g = carried_plain(jgen.rmat(13, 16, seed=2, undirected=True,
+                                             weighted=True), False)
+        r = tkcore.run(g, variant="adaptive", warmup=False)
+        rj = jkcore.run(gj, variant="adaptive", warmup=False)
+    finally:
+        jax.clear_caches()
+    assert np.array_equal(r.core.numpy(), np.asarray(rj.core))
+    assert r.iterations == rj.iterations
+    assert np.array_equal(r.core.numpy(), tkcore.cpu_reference(csr))
+    assert all(n > 0 for n in r.tiers), r.tiers
+    assert 0 < r.compactions < r.tiers[1] + r.tiers[2]
+
+
+def test_adaptive_wave_choice():
+    """branch_of follows the JAX package's switch at its edges."""
+    b = tkcore.branch_of
+    tk, tb, sk, sb = tsa.TINY_K, tsa.TINY_BUDGET, tsa.SPRAY_K, tsa.SPRAY_BUDGET
+    assert b(0, 0, True, True, True) == b(0, 0, True, True, False) == 0
+    assert b(tk, tb, True, True, True) == 1
+    assert b(tk, tb, False, True, True) == 2          # list tail not pad
+    assert b(tk, tb, True, False, True) == 2          # list not current
+    assert b(tk + 1, tb, True, True, True) == 2
+    assert b(tk, tb + 1, True, True, True) == 2
+    assert b(sk, sb, True, False, True) == 2
+    assert b(sk + 1, sb, True, True, True) == 3
+    assert b(sk, sb + 1, True, True, True) == 3
+    assert b(1, 1, True, True, False) == 3            # spray off: dense
 
 
 # -------------------------------------------------------------- wrappers --

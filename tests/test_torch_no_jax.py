@@ -2,8 +2,9 @@
 neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank
 ``spmv`` and ``fused``, HITS, SSSP, k-core, BFS and SSSP ``adaptive`` on a
 directed graph, triangle counting and the intersection operator, coloring
-``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph) run
-where importing jax fails, and, on a CUDA card, its kernels agree with their
+``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph, BFS
+``hybrid`` and ``phased``, k-core ``adaptive``, BC and PPR) run where
+importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
 route and bitmap kernels exactly, k-core also on a graph with a hub,
 multi-edges and self-loops, SSSP and k-core also on a degree-balanced
@@ -68,6 +69,7 @@ TC_AND_FILLS = ("algorithms/tc.py", "algorithms/pr.py", "ops/intersect.py",
                 "ops/bitmap_intersect.py", "ops/fused_bfs.py",
                 "csrc/tc_kernels.cu")
 COLOR = ("algorithms/color.py", "algorithms/hits.py", "kernels.py")
+BC_PPR = ("algorithms/bc.py", "algorithms/ppr.py", "ops/batch.py")
 
 
 def test_sources_import_no_jax():
@@ -75,7 +77,8 @@ def test_sources_import_no_jax():
     files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 15
     assert {ROOT / "essentials_tpu_torch" / m
-            for m in OPERATOR_LAYER + TC_AND_FILLS[:-1] + COLOR} <= set(files)
+            for m in OPERATOR_LAYER + TC_AND_FILLS[:-1] + COLOR + BC_PPR} \
+        <= set(files)
     assert (ROOT / "essentials_tpu_torch" / TC_AND_FILLS[-1]).exists()
     for f in files:
         assert not _imported_roots(f) & set(_FORBIDDEN), f
@@ -155,6 +158,36 @@ _MAIN_PATH = textwrap.dedent("""
                        rtol=1e-4, atol=1e-6)
     assert np.allclose(hits.run(gd, max_iterations=8).auth.numpy(),
                        hits.cpu_reference(cd, 8)[0], rtol=1e-3, atol=1e-4)
+    from essentials_tpu_torch.ops import sparse_advance as SA
+    gate = SA._MIN_EDGES
+    for variant in ("hybrid", "phased"):
+        for spray in (True, False):      # the gate opened, then as it was
+            SA._MIN_EDGES = 0 if spray else gate
+            rv = bfs.run(g, 1, variant=variant)
+            assert np.array_equal(rv.distances.numpy(),
+                                  bfs.cpu_reference(csr, 1))
+            assert (rv.modes.spray > 0) == spray
+    SA._MIN_EDGES = gate
+    for override in (None, True):
+        rk = kcore.run(gd, spray_override=override)
+        assert np.array_equal(rk.core.numpy(), kcore.cpu_reference(cd))
+    from essentials_tpu_torch.algorithms import bc, ppr
+    # benchmarks/PARITY.md's bounds plus the float32 rounding of the
+    # result, as tests/test_torch_bc_ppr.py: BC 2.3e-7 of the largest value
+    # and an ulp of it a source, PPR 4.5e-8 and half an ulp of the largest
+    # mass an iteration
+    def bc_err(a, b):
+        return np.abs(a - b).max() / np.abs(b).max()
+    for variant in ("spmv", "generic"):
+        rc = bc.run(g, 1, variant=variant)
+        assert bc_err(rc.bc_values.numpy(), bc.cpu_reference(
+            csr, [1], normalize_undirected=False)) <= 2.3e-7 + 2.0 ** -23
+    assert bc_err(bc.run_all(gd, sources=[1, 2, 3]).bc_values.numpy(),
+                  bc.cpu_reference(cd, [1, 2, 3])) <= 2.3e-7 + 3 * 2.0 ** -23
+    rp, ref = ppr.run(gd, 1), ppr.cpu_reference(cd, 1)
+    assert np.abs(rp.p.numpy() - ref).max() <= \
+        4.5e-8 + rp.iterations * 2.0 ** -24 * np.abs(ref).max()
+    assert ppr.run_batch(g, [1, 2]).shape == (2, g.n_vertices)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -600,9 +633,15 @@ def test_operator_kernels_match_plain_versions_on_the_card(monkeypatch):
                 again = [kernels.segment_reduce(x, off, op)
                          for _ in range(2)]
                 assert all(torch.equal(k, a) for a in again), (x.dtype, op)
-                p = kernels.segment_reduce_plain(x, off, op)
-                ok = close(k, p) if (op == "sum" and x.is_floating_point()) \
-                    else torch.equal(exact(k), exact(p))
+                if op == "sum" and x.is_floating_point():
+                    # a float64 sum on the host: the plain version's CUDA
+                    # index_add_ adds in another order on every call
+                    p = kernels.segment_reduce_plain(x.cpu().double(),
+                                                     off.cpu(), op)
+                    ok = close(k.cpu(), p)
+                else:
+                    p = kernels.segment_reduce_plain(x, off, op)
+                    ok = torch.equal(exact(k), exact(p))
                 assert ok, (x.dtype, op, off.numel())
     vp = g.n_vertices_padded
     # payloads of unequal lengths; the whole index, a ragged count and a
@@ -825,3 +864,65 @@ def test_bitmap_kernel_at_12288_word_rows_on_the_card():
         assert torch.equal(k[0], p[0])
         assert (k[1] is None and p[1] is None) or torch.equal(k[1], p[1])
         assert int(k[0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_variants_and_bc_ppr_on_the_card():
+    """BFS hybrid and phased (the spray forced on and off), k-core adaptive
+    on a directed graph (every branch, the spray gate opened), BC spmv and
+    generic, run_all and PPR run and run_batch on the card: BFS and k-core
+    exactly equal to the host and to a run on a CPU copy of the graph, BC
+    and PPR within chip_smoke's bc_bound and ppr_bound of the float64 host
+    (benchmarks/PARITY.md's bounds plus the float32 rounding of the
+    result), each path's kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import bc, bfs, kcore, ppr
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+
+    csr = Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=False))
+    g = build_graph(csr, directed=False, weighted=False, device="cuda")
+    gc = g.to("cpu")
+    s = int(np.argmax(np.diff(csr.row_offsets)))
+    ref = bfs.cpu_reference(csr, s)
+    cs = _chip_smoke()
+    for variant in ("hybrid", "phased"):
+        for min_edges in (0, 1 << 62):         # the spray on, then off
+            with cs.spray_gate(min_edges):
+                kernels.reset_launches()
+                r = bfs.run(g, s, variant=variant, warmup=False)
+                rc = bfs.run(gc, s, variant=variant, warmup=False)
+            assert np.array_equal(r.distances.cpu().numpy(), ref)
+            assert (r.modes.spray > 0) == (min_edges == 0)
+            assert torch.equal(r.predecessors.cpu(), rc.predecessors)
+            assert r.modes == rc.modes and r.iterations == rc.iterations
+            assert kernels.launches["bfs_predecessors"] == 1
+            assert kernels.launches["bfs_level<int32>"] == r.modes.dense
+            assert kernels.launches["scan"] == \
+                2 * r.modes.spray + r.modes.compactions
+    cd = Csr.from_coo(generate.rmat(13, 16, seed=2, undirected=False,
+                                    weighted=True))
+    gd = build_graph(cd, directed=True, weighted=True, device="cuda")
+    with cs.spray_gate(0):
+        kernels.reset_launches()
+        rk = kcore.run(gd, warmup=False)
+        rkc = kcore.run(gd.to("cpu"), warmup=False)
+    assert np.array_equal(rk.core.cpu().numpy(), kcore.cpu_reference(cd))
+    assert rk.tiers == rkc.tiers and rk.iterations == rkc.iterations
+    assert kernels.launches["advance_count"] == rk.tiers[3]
+    for variant, gb in (("spmv", g), ("generic", gd)):
+        cb = csr if gb is g else cd
+        rb = bc.run(gb, s, variant=variant, warmup=False)
+        assert cs.bc_rel_err(rb.bc_values, bc.cpu_reference(
+            cb, [s], normalize_undirected=False)) <= cs.bc_bound()
+    sources = np.argsort(-np.diff(csr.row_offsets))[:8]
+    assert cs.bc_rel_err(bc.run_all(g, sources=sources).bc_values,
+                         bc.cpu_reference(csr, sources)) \
+        <= cs.bc_bound(len(sources))
+    for seed, row in zip(sources[:3], ppr.run_batch(g, sources[:3]).cpu()):
+        ref = ppr.cpu_reference(csr, int(seed))
+        it = ppr.run(g, int(seed), warmup=False).iterations
+        assert np.abs(row.numpy() - ref).max() <= cs.ppr_bound(it, ref)
