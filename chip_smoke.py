@@ -6,7 +6,8 @@ adaptive and SpMV pull and push on a directed graph, then triangle
 counting, the intersection operator and PageRank fused, then graph
 coloring (jp and spec) with PageRank and HITS generic on a directed graph,
 then BFS hybrid, phased and the timed auto with k-core adaptive, then
-betweenness centrality and personalized PageRank.
+betweenness centrality and personalized PageRank, then the minimum
+spanning forest, geolocation and SpGEMM.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -15,11 +16,12 @@ the CUDA toolkit:
     python3 chip_smoke.py --only color,tc   # phases 1-2 and these groups
 
 The groups are bfs (phases 3-5), spmv (6-8), sssp (9-11), operators
-(12-14), tc (15-17), color (18-20), variants (21-23) and bcppr (24-25);
-phases 1-2 always run, and the groups run in this order. variants and
-bcppr add no kernel: they run the kernels of the groups before them on
-new paths, so with --only they add no entry to the JSON line, and their
-launches count in the entries of the groups chosen with them. Each graph is built by the first group that
+(12-14), tc (15-17), color (18-20), variants (21-23), bcppr (24-25), mst
+(26-27), geo (28-29) and spgemm (30-31); phases 1-2 always run, and the
+groups run in this order. variants, bcppr, mst, geo and spgemm add no
+kernel: they run the kernels of the groups before them on new paths, so
+with --only they add no entry to the JSON line, and their launches count
+in the entries of the groups chosen with them. Each graph is built by the first group that
 needs it and kept for the others. With --only, the JSON line lists the
 chosen groups' kernels and their launches on the chosen groups' paths.
 
@@ -319,7 +321,44 @@ raises and exits non-zero:
    the float64 host; each with launches exact;
 25. times on CUDA events: ms per BC source (spmv, generic), per run_all of
    32 sources and per PPR seed, each with torch.profiler's busy and idle
-   share.
+   share;
+26. mst.run (expand_segments, gather_payloads, segment_reduce: 3, 1 and 4
+   a round) on gen:rmat20x16, kron_s16 and road_512x512, launches exact:
+   each a spanning forest (V - c edges, as many components as the graph)
+   whose chosen weights, summed in float64, lie within MST_FOREST_RTOL
+   (1e-9) of the float64 host forest's (the minimum forest's weight is
+   unique) and whose float32 total lies within mst_bound (ceil(log2 k)
+   2^-24 of the total for k edges, a tree sum's rounding) of it,
+   kron_s16's host total 631,663.8 (benchmarks/PARITY.md); on kron_s16 and road_512x512 in_mst and the
+   rounds bit for bit equal to a run on a CPU copy of the graph;
+27. mst ms per run and per round (median of KCORE_CYCLES), rounds beside
+   the TPU history (TPU_MST_ROUNDS, not a gate), torch.profiler's busy and
+   idle share;
+28. geo.run (gather_payloads once and segment_reduce three times an
+   iteration) on gen:rmat20x16 and chesapeake from the suite's input
+   (seed 7, 20% located, 10 iterations), every located vertex within
+   GEO_DEG (1.5e-3 degrees, longitudes around the circle) of the float64
+   host or, where larger, of the host's own bound on float32 rounding
+   (geo.cpu_reference's error_bound), NaN patterns equal; then
+   spatial_median (twice and four times a sweep) for 1 and
+   MEDIAN_ITERATIONS sweeps from its positions, each vertex's Weiszfeld
+   objective within MEDIAN_RTOL of the float64 host's and their sum
+   within MEDIAN_SUM_RTOL, NaN patterns equal; launches exact;
+29. geo and spatial_median ms per run (median of KCORE_CYCLES) with
+   torch.profiler's busy and idle share;
+30. spgemm.run, the static plan (gather_payloads twice, segment_reduce
+   once), of A @ A on uniform_65536 and road_512x512; run_chunked on
+   uniform_65536 (CHUNK_PRODUCTS products and CHUNK_EDGES A edges a chunk,
+   which splits its longest rows: the merge spans are not empty),
+   resident and streamed (per device batch: expand_segments 3,
+   gather_payloads 2, scan 1, segment_reduce 1); launches exact; C's
+   structure equal to the vectorised host Gustavson's (the chunked C's to
+   the static C's) and values within SPGEMM_RTOL of float64; the host
+   symbolic phases' seconds;
+31. the static numeric phase's ms and products per second (CUDA events)
+   beside its bound, the chunked numeric phase's resident and streamed
+   (host clock, with the host merge), each with torch.profiler's busy and
+   idle share.
 
 Every kernel's bound is the least time an H100 could take for its work:
 the larger of the bytes it must move (each input element it needs read
@@ -4668,6 +4707,406 @@ def time_bcppr(run, sources) -> None:
         profile(label, fn)
 
 
+# ------------------------------------------------------- phases 26-31 --
+
+MST_DATASETS = ("kron_s16", "road_512x512")
+KRON_S16_MST = 631_663.8      # benchmarks/PARITY.md: the host Kruskal total
+TPU_MST_ROUNDS = 7            # benchmarks/PARITY.md: Borůvka rounds at rmat20
+# geo's input, benchmarks/run_benchmarks.py:262-270: seed 7, lat U(-60, 60),
+# lon U(-180, 180), 20% located, 10 iterations
+GEO_SEED, GEO_LOCATED, GEO_ITERATIONS = 7, 0.2, 10
+GEO_DEG = 1.5e-3              # benchmarks/PARITY.md: geo, degrees
+MEDIAN_ITERATIONS = 5
+# spatial_median's gate: each vertex's Weiszfeld objective (its summed
+# chord distance to its located neighbours) within MEDIAN_RTOL[sweeps] of
+# the float64 host's, past what a move of GEO_DEG can change, and the
+# objective summed over the vertices within MEDIAN_SUM_RTOL. After a few
+# sweeps float32 rounding decides which of two near-equal points an
+# estimate heads for, so estimates part by degrees where objectives do not.
+# The largest gaps seen (H100, gen:rmat20x16): 0 for one sweep, 0.161 for
+# five, summed 7.5e-6
+MEDIAN_RTOL = {1: 1e-3, MEDIAN_ITERATIONS: 0.5}
+MEDIAN_SUM_RTOL = 1e-4
+SPGEMM_DATASETS = ("uniform_65536", "road_512x512")
+SPGEMM_RTOL = 1e-5
+CHUNK_PRODUCTS = 1 << 22
+# A edges a chunk: below uniform_65536's longest rows (36 edges), so that
+# those rows split across chunks and the merge spans are not empty
+CHUNK_EDGES = 24
+
+
+MST_FOREST_RTOL = 1e-9         # the chosen weights in float64 against the host
+
+
+def mst_bound(k: int, total: float) -> float:
+    """The float32 rounding of a tree sum of k positive weights (each
+    rounded at most once a level): ceil(log2 k) 2^-24 of the total."""
+    return (max(int(np.ceil(np.log2(max(k, 2)))), 1) * F32_ULP / 2
+            * abs(total))
+
+
+def mst_launches(r) -> dict:
+    """Launches of one mst.run: a round expands three times (comp and the
+    two minima), gathers once (comp at each edge's destination) and takes
+    four MINs."""
+    return {"expand_segments": 3 * r.iterations,
+            "gather_payloads": r.iterations,
+            "segment_reduce": 4 * r.iterations}
+
+
+def mst_main_path(run) -> tuple:
+    """Phase 26: mst.run on gen:rmat20x16, kron_s16 and road_512x512, each
+    with its launches exact; each a spanning forest (V - c edges, as many
+    components as the graph) whose chosen weights, summed in float64,
+    lie within MST_FOREST_RTOL of the float64 host forest's and whose
+    float32 total lies within mst_bound of it (kron_s16's host total
+    PARITY.md's
+    631,663.8); on kron_s16 and road_512x512 in_mst and the rounds equal
+    to a run on a CPU copy of the graph (plain versions), bit for bit.
+    Returns ({path: launches}, [(where, graph)])."""
+    from essentials_tpu_torch.algorithms import mst
+    by_path, cases = {}, []
+    graphs = [(f"gen:rmat{MAIN_SCALE}x16", *run.weighted_graph(MAIN_SCALE))]
+    graphs += [(n, *run.dataset_graph(n)) for n in MST_DATASETS]
+    for where, csr, g in graphs:
+        r = run_counted(by_path, "mst", lambda: mst.run(g, warmup=False),
+                        mst_launches)
+        in_mst = r.in_mst.cpu().numpy()
+        t0 = time.perf_counter()
+        host = mst.cpu_reference(csr)
+        chosen, c_graph, c_tree = mst.forest_check(csr, in_mst)
+        host_s = time.perf_counter() - t0
+        check(chosen == csr.n_rows - c_graph and c_tree == c_graph,
+              f"mst on {where}: {chosen} edges in {c_tree} components, the "
+              f"graph has {c_graph}: not a spanning forest")
+        # the minimum spanning forest's weight is unique: the chosen
+        # edges' weights, summed in float64, are the host forest's
+        exact = float(np.sum(np.asarray(csr.values, np.float64)[in_mst]))
+        check(abs(exact - host) <= MST_FOREST_RTOL * host,
+              f"mst on {where}: the chosen edges weigh {exact!r} in "
+              f"float64, the host forest {host!r}: not a minimum forest")
+        err, b = abs(r.total_weight - host), mst_bound(chosen, host)
+        check(err <= b, f"mst on {where}: total {r.total_weight} against "
+                        f"the float64 host's {host} (bound {b:.4g})")
+        if where == "kron_s16":
+            check(abs(host - KRON_S16_MST) < 0.05,
+                  f"kron_s16's host forest {host}, not {KRON_S16_MST}")
+        same = ""
+        if where in MST_DATASETS:
+            rc = mst.run(g.to("cpu"), warmup=False)
+            check(np.array_equal(rc.in_mst.numpy(), in_mst)
+                  and rc.iterations == r.iterations,
+                  f"mst on {where}: the card's forest differs from a CPU "
+                  f"copy's")
+            same = "; in_mst and rounds equal a CPU copy's"
+        print(f"main path: mst {where}: {r.iterations} rounds"
+              + (f" (TPU history: {TPU_MST_ROUNDS})"
+                 if where.startswith("gen:") else "")
+              + f", {chosen} edges, {c_graph} components, total "
+                f"{r.total_weight:.6f} against the float64 host's "
+                f"{host:.6f} (|d| {err:.4g}, bound {b:.4g}; chosen "
+                f"weights in float64 {exact:.6f}, relative "
+                f"{abs(exact - host) / max(host, 1e-300):.3g}; host "
+                f"{host_s:.1f} s){same}; launches exact")
+        cases.append((where, g))
+    return by_path, cases
+
+
+def time_mst(run, cases) -> None:
+    """Phase 27: mst.run ms per run and per round (median of
+    KCORE_CYCLES), with torch.profiler's busy and idle share."""
+    from essentials_tpu_torch.algorithms import mst
+    for where, g in cases:
+        rounds = mst.run(g, warmup=False).iterations
+        ms = median_ms(lambda _: mst.run(g, warmup=False), KCORE_CYCLES)
+        print(f"time [{run.card}]: mst {where}: {ms:.3f} ms per run "
+              f"(median of {KCORE_CYCLES}), {rounds} rounds, "
+              f"{ms / rounds:.3f} ms per round")
+        profile(f"mst {where}, one mst.run",
+                lambda: mst.run(g, warmup=False))
+
+
+def geo_inputs(n: int) -> tuple:
+    """The suite's geo input for n vertices (GEO_SEED, GEO_LOCATED)."""
+    rng = np.random.default_rng(GEO_SEED)
+    lat = rng.uniform(-60, 60, n).astype(np.float32)
+    lon = rng.uniform(-180, 180, n).astype(np.float32)
+    unknown = rng.random(n) > GEO_LOCATED
+    lat[unknown] = np.nan
+    lon[unknown] = np.nan
+    return lat, lon
+
+
+def geo_errors(what: str, lat, lon, ref_lat, ref_lon) -> tuple:
+    """(|d lat|, |d lon|, located) [n] against the reference, in degrees,
+    0 where it is unlocated; longitudes around the circle (min(|d|, 360 -
+    |d|): a centroid near +-180 degrees may land on either side in
+    float32). The NaN patterns must be equal."""
+    ref_lat = np.asarray(ref_lat, np.float64)
+    ref_lon = np.asarray(ref_lon, np.float64)
+    n = ref_lat.size
+    lat = np.asarray(lat, np.float64)[:n]
+    lon = np.asarray(lon, np.float64)[:n]
+    check(np.array_equal(np.isnan(lat), np.isnan(ref_lat))
+          and np.array_equal(np.isnan(lon), np.isnan(ref_lon)),
+          f"{what}: the NaN pattern differs from the float64 host's")
+    ok = ~np.isnan(ref_lat)
+    d = np.where(ok, np.abs(lon - ref_lon), 0.0)
+    return (np.where(ok, np.abs(lat - ref_lat), 0.0),
+            np.minimum(d, 360.0 - d), ok)
+
+
+def hold_geo(what: str, lat, lon, ref) -> str:
+    """geo.run's gate: every located vertex within GEO_DEG of the float64
+    host or, where larger, of the host's own error bound
+    (geo.cpu_reference's ``error_bound``: float32 rounding carried through
+    the iterations, from the host's data alone; a longitude's over
+    cos(lat)). Returns what it saw."""
+    ref_lat, ref_lon, bound = ref
+    dlat, dlon, ok = geo_errors(what, lat, lon, ref_lat, ref_lon)
+    cos = np.cos(np.deg2rad(np.nan_to_num(ref_lat.astype(np.float64))))
+    lim = np.maximum(GEO_DEG, bound)
+    bad = (dlat > lim) | (dlon > np.maximum(GEO_DEG, bound / cos))
+    check(not bad.any(), f"{what}: {int(bad.sum())} vertices past GEO_DEG "
+                         f"and the host's error bound, the first "
+                         f"{np.flatnonzero(bad)[:5].tolist()}")
+    dev = np.maximum(dlat, dlon)
+    wide = ok & (bound > GEO_DEG)
+    return (f"{int(ok.sum())} located, {int((ok & (dev <= GEO_DEG)).sum())}"
+            f" within {GEO_DEG} degrees of the float64 host and the rest "
+            f"within the host's error bound ({int(wide.sum())} bounds past "
+            f"{GEO_DEG}, the largest {bound.max(initial=0.0):.3g}); largest "
+            f"|d| {dev.max(initial=0.0):.3g}, NaN pattern equal")
+
+
+def hold_median(what: str, csr, start, out, ref, sweeps: int) -> str:
+    """spatial_median's gate from the positions ``start`` (host (lat,
+    lon)): equal NaN patterns; each vertex's Weiszfeld objective
+    (geo.spatial_median_objective) at ``out`` within MEDIAN_RTOL[sweeps]
+    of the float64 host's at ``ref``, past GEO_DEG in radians a located
+    neighbour (what a move of GEO_DEG can change); their sum within
+    MEDIAN_SUM_RTOL. Returns what it saw."""
+    from essentials_tpu_torch.algorithms import geo
+    dlat, dlon, ok = geo_errors(what, *out, *ref)
+    f, m = geo.spatial_median_objective(csr, *start, *out)
+    fh, _ = geo.spatial_median_objective(csr, *start, *ref)
+    excess = np.maximum(np.abs(f - fh) - np.deg2rad(GEO_DEG) * m, 0.0) \
+        / np.maximum(fh, 1e-300)
+    rtol = MEDIAN_RTOL[sweeps]
+    check(bool((excess <= rtol).all()),
+          f"{what}: {int((excess > rtol).sum())} vertices' objective past "
+          f"rtol {rtol} of the float64 host's (worst {excess.max():.3g})")
+    total = abs(f.sum() - fh.sum()) / max(fh.sum(), 1e-300)
+    check(total <= MEDIAN_SUM_RTOL,
+          f"{what}: the summed objective {f.sum()!r} against the float64 "
+          f"host's {fh.sum()!r} (rtol {MEDIAN_SUM_RTOL})")
+    near = int((ok & (np.maximum(dlat, dlon) <= GEO_DEG)).sum())
+    q = np.quantile(excess[m > 0], [0.99, 0.9999]) if (m > 0).any() \
+        else (0.0, 0.0)
+    return (f"objective within {excess.max(initial=0.0):.3g} of the "
+            f"host's (rtol {rtol}; 99% within {q[0]:.3g}, 99.99% within "
+            f"{q[1]:.3g}), summed within {total:.3g} (rtol "
+            f"{MEDIAN_SUM_RTOL}); {near} of {int(ok.sum())} within "
+            f"{GEO_DEG} degrees, NaN pattern equal")
+
+
+def geo_main_path(run) -> tuple:
+    """Phase 28: geo.run (the suite's input) on gen:rmat20x16 and
+    chesapeake, held by hold_geo against the float64 host
+    (geo.cpu_reference), then spatial_median for 1 and MEDIAN_ITERATIONS
+    sweeps from its positions, held by hold_median against the float64
+    host's sweeps (geo.spatial_median_reference); each with its launches
+    exact. Returns ({path: launches}, [(where, graph, lat, lon)])."""
+    from essentials_tpu_torch.algorithms import geo
+    by_path, cases = {}, []
+    graphs = [(f"gen:rmat{MAIN_SCALE}x16", *run.weighted_graph(MAIN_SCALE)),
+              ("chesapeake", *run.dataset_graph("chesapeake"))]
+    for where, csr, g in graphs:
+        lat, lon = geo_inputs(csr.n_rows)
+        r = run_counted(by_path, "geo", lambda: geo.run(
+            g, lat, lon, total_iterations=GEO_ITERATIONS, warmup=False),
+            lambda r: {"gather_payloads": r.iterations,
+                       "segment_reduce": 3 * r.iterations})
+        t0 = time.perf_counter()
+        ref = geo.cpu_reference(csr, lat, lon, GEO_ITERATIONS,
+                                error_bound=True)
+        host_s = time.perf_counter() - t0
+        said = [f"{r.iterations} iterations, "
+                + hold_geo(f"geo on {where}", r.lat.cpu(), r.lon.cpu(), ref)
+                + f" (host {host_s:.1f} s); spatial_median from its "
+                  f"positions:"]
+        s = geo.init(g, r.lat, r.lon)
+        n = csr.n_rows
+        start = (s.lat[:n].cpu().numpy(), s.lon[:n].cpu().numpy())
+        for sweeps in (1, MEDIAN_ITERATIONS):
+            m = run_counted(
+                by_path, "geo spatial_median", lambda: geo.spatial_median(
+                    g, s.lat, s.lon, iterations=sweeps),
+                lambda _: {"gather_payloads": 2 * sweeps,
+                           "segment_reduce": 4 * sweeps})
+            mref = geo.spatial_median_reference(csr, *start, sweeps)
+            said.append(f"{sweeps} sweep(s): " + hold_median(
+                f"spatial_median ({sweeps} sweeps) on {where}", csr, start,
+                (m[0][:n].cpu().numpy(), m[1][:n].cpu().numpy()), mref,
+                sweeps))
+        print(f"main path: geo {where}: {said[0]} " + "; ".join(said[1:])
+              + "; launches exact")
+        cases.append((where, g, lat, lon))
+    return by_path, cases
+
+
+def time_geo(run, cases) -> None:
+    """Phase 29: geo.run and spatial_median ms per run (median of
+    KCORE_CYCLES), with torch.profiler's busy and idle share."""
+    from essentials_tpu_torch.algorithms import geo
+    for where, g, lat, lon in cases:
+        r = geo.run(g, lat, lon, total_iterations=GEO_ITERATIONS,
+                    warmup=False)
+        s = geo.init(g, r.lat, r.lon)
+        for label, fn in (
+                (f"geo {where}, one geo.run ({r.iterations} iterations)",
+                 lambda: geo.run(g, lat, lon, total_iterations=GEO_ITERATIONS,
+                                 warmup=False)),
+                (f"geo spatial_median {where}, {MEDIAN_ITERATIONS} sweeps",
+                 lambda: geo.spatial_median(g, s.lat, s.lon,
+                                            iterations=MEDIAN_ITERATIONS))):
+            ms = median_ms(lambda _: fn(), KCORE_CYCLES)
+            print(f"time [{run.card}]: {label}: {ms:.3f} ms per run (median "
+                  f"of {KCORE_CYCLES})")
+            profile(label, fn)
+
+
+def hold_spgemm(what: str, c, ref) -> float:
+    """C's structure equal to ref's; its values within SPGEMM_RTOL of
+    ref's. Returns the largest relative error."""
+    check(np.array_equal(np.asarray(c.row_offsets), ref.row_offsets)
+          and np.array_equal(np.asarray(c.col_indices), ref.col_indices),
+          f"{what}: C's structure differs from the host's")
+    v = np.asarray(c.values, np.float64)
+    rv = np.asarray(ref.values, np.float64)
+    check(bool(np.isfinite(v).all()), f"{what}: non-finite values")
+    err = float((np.abs(v - rv) / np.maximum(np.abs(rv), 1e-30)).max(
+        initial=0.0))
+    check(err <= SPGEMM_RTOL, f"{what}: values {err} from the float64 host "
+                              f"(rtol {SPGEMM_RTOL})")
+    return err
+
+
+def chunked_launches(plan) -> dict:
+    """Launches of one numeric_chunked: a device batch expands three
+    times, gathers twice (B's values and columns; the products into key
+    order), scans once (the runs) and sums once."""
+    from essentials_tpu_torch.algorithms import spgemm
+    n = len(spgemm.device_batches(plan))
+    return {"expand_segments": 3 * n, "gather_payloads": 2 * n, "scan": n,
+            "segment_reduce": n}
+
+
+def spgemm_main_path(run) -> tuple:
+    """Phase 30: spgemm.run (the static plan) of A @ A on uniform_65536 and
+    road_512x512, then run_chunked on uniform_65536 (CHUNK_PRODUCTS
+    products and CHUNK_EDGES edges a chunk, which splits its longest
+    rows), resident and streamed, each with its launches exact; C's
+    structure equal to the host Gustavson's (and the chunked C's to the
+    static C's), values within SPGEMM_RTOL of the float64 host. Returns
+    ({path: launches}, {what: value})."""
+    from essentials_tpu_torch.algorithms import spgemm
+    from essentials_tpu_torch.formats import Csr
+    by_path, t = {}, {}
+    for name in SPGEMM_DATASETS:
+        csr = run.dataset_csr(name)
+        t0 = time.perf_counter()
+        plan = spgemm.make_plan(csr, csr, device="cuda")
+        t[name + "/symbolic_s"] = time.perf_counter() - t0
+        r = run_counted(by_path, "spgemm", lambda: spgemm.run(
+            csr, csr, plan=plan, warmup=False),
+            lambda _: {"gather_payloads": 2, "segment_reduce": 1})
+        t0 = time.perf_counter()
+        ref = spgemm.cpu_reference(csr, csr)
+        host_s = time.perf_counter() - t0
+        err = hold_spgemm(f"spgemm {name}", r.c, ref)
+        t[name] = (csr, plan, ref)
+        print(f"main path: spgemm {name} A @ A: {plan.n_products} "
+              f"products, C {plan.c_nnz} entries; symbolic phase (host) "
+              f"{t[name + '/symbolic_s']:.2f} s; structure equal to the "
+              f"host Gustavson's, values within {err:.3g} of float64 "
+              f"(rtol {SPGEMM_RTOL}; host {host_s:.1f} s); launches exact")
+    name = SPGEMM_DATASETS[0]
+    csr, _, ref = t[name]
+    t0 = time.perf_counter()
+    plan = spgemm.make_chunked_plan(csr, csr, chunk_products=CHUNK_PRODUCTS,
+                                    chunk_edges=CHUNK_EDGES)
+    t["chunked/symbolic_s"] = time.perf_counter() - t0
+    check(plan.merge_spans.shape[0] > 0,
+          f"spgemm chunked {name}: no row split across chunks")
+    for stream in (False, True):
+        mode = "streamed" if stream else "resident"
+        vals = run_counted(by_path, f"spgemm chunked {mode}",
+                           lambda: spgemm.numeric_chunked(
+                               plan, csr, csr, stream_to_host=stream),
+                           lambda _: chunked_launches(plan))
+        err = hold_spgemm(f"spgemm chunked {mode} {name}", Csr(
+            csr.n_rows, csr.n_cols, plan.c_row_offsets, plan.c_col_indices,
+            vals), ref)
+        print(f"main path: spgemm chunked {mode} {name}: "
+              f"{len(plan.chunks)} chunks of at most {CHUNK_PRODUCTS} "
+              f"products and {CHUNK_EDGES} edges in "
+              f"{len(spgemm.device_batches(plan))} device batches, "
+              f"{plan.merge_spans.shape[0]} merge spans; symbolic phase "
+              f"(host) {t['chunked/symbolic_s']:.2f} s; structure equal to "
+              f"the static C's and the host's, values within {err:.3g}; "
+              f"launches exact")
+    t["chunked"] = plan
+    return by_path, t
+
+
+def time_spgemm(run, t: dict) -> None:
+    """Phase 31: the static numeric phase's ms (CUDA events, median of
+    CYCLES) and products per second beside its bound (the plan's ids and
+    C's offsets read once, C's values written once), and the
+    chunked numeric phase's, resident and streamed (host clock, with the
+    host merge; median of KCORE_CYCLES), each with torch.profiler's busy
+    and idle share."""
+    from essentials_tpu_torch.algorithms import spgemm
+    card = run.card
+    for name in SPGEMM_DATASETS:
+        csr, plan, _ = t[name]
+        av = torch.as_tensor(csr.values, dtype=torch.float32).cuda()
+        w, c = plan.n_products, plan.c_nnz
+        # each input read once, each output written once: per product its
+        # A and B edge ids, per entry its offset and its value (A's and B's
+        # values are gathered from the L2 and not counted)
+        b = bound(w * 8 + c * 8)
+        ms = median_ms(lambda _: spgemm.numeric(plan, av, av))
+        print(f"time [{card}]: spgemm numeric {name}: {ms:.4f} ms "
+              f"(median of {CYCLES}), {w / ms / 1e6:.3f} G products/s; "
+              f"bound {b[0]:.4f} ms ({b[2]}); symbolic phase (host) "
+              f"{t[name + '/symbolic_s']:.2f} s")
+        profile(f"spgemm numeric {name}",
+                lambda: spgemm.numeric(plan, av, av))
+    name = SPGEMM_DATASETS[0]
+    csr, _, _ = t[name]
+    plan = t["chunked"]
+    for stream in (False, True):
+        mode = "streamed" if stream else "resident"
+
+        def fn(stream=stream):
+            return spgemm.numeric_chunked(plan, csr, csr,
+                                          stream_to_host=stream)
+        times = []
+        for _ in range(KCORE_CYCLES + 1):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times[1:]))
+        print(f"time [{card}]: spgemm numeric_chunked {mode} {name}: "
+              f"{ms:.3f} ms (host clock with the merge, median of "
+              f"{KCORE_CYCLES}), {plan.n_products / ms / 1e6:.3f} G "
+              f"products/s; symbolic phase (host) "
+              f"{t['chunked/symbolic_s']:.2f} s")
+        profile(f"spgemm numeric_chunked {mode} {name}", fn)
+
+
 class Phases:
     """Prints each phase's seconds as it ends."""
 
@@ -4742,6 +5181,27 @@ class Run:
     def tc_graph(self, scale: int, weighted: bool = True):
         return self._get(("tc", scale, weighted),
                          lambda: tc_graph(scale, weighted))
+
+    def dataset_csr(self, name: str):
+        """datasets/<name>.mtx as a host Csr (not cached on disk)."""
+        def make():
+            from essentials_tpu_torch.io import load_graph_file
+            t0 = time.perf_counter()
+            csr = load_graph_file(f"datasets/{name}.mtx", cache=False)
+            print(f"graph: {name}: V={csr.n_rows} E={csr.nnz}, max degree "
+                  f"{int(np.diff(csr.row_offsets).max())}, loaded in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            return csr
+        return self._get(("csr", name), make)
+
+    def dataset_graph(self, name: str) -> tuple:
+        """datasets/<name>.mtx, undirected and weighted: (csr, graph)."""
+        def make():
+            from essentials_tpu_torch.graph import build_graph
+            csr = self.dataset_csr(name)
+            return csr, build_graph(csr, directed=False, weighted=True,
+                                    device="cuda")
+        return self._get(("dataset", name), make)
 
 
 def group_bfs(run: Run) -> None:
@@ -5275,10 +5735,38 @@ def group_bcppr(run: Run) -> None:
     run.phases.done("25 bc/ppr times")
 
 
+def group_mst(run: Run) -> None:
+    """Phases 26-27: the minimum spanning forest (Borůvka)."""
+    by_path, cases = mst_main_path(run)
+    run.by_path.update(by_path)
+    run.phases.done("26 mst main path")
+    time_mst(run, cases)
+    run.phases.done("27 mst times")
+
+
+def group_geo(run: Run) -> None:
+    """Phases 28-29: geolocation and its spatial median."""
+    by_path, cases = geo_main_path(run)
+    run.by_path.update(by_path)
+    run.phases.done("28 geo main path")
+    time_geo(run, cases)
+    run.phases.done("29 geo times")
+
+
+def group_spgemm(run: Run) -> None:
+    """Phases 30-31: SpGEMM, the static plan and the chunked path."""
+    by_path, t = spgemm_main_path(run)
+    run.by_path.update(by_path)
+    run.phases.done("30 spgemm main path")
+    time_spgemm(run, t)
+    run.phases.done("31 spgemm times")
+
+
 GROUPS = {"bfs": group_bfs, "spmv": group_spmv, "sssp": group_sssp,
           "operators": group_operators, "tc": group_tc,
           "color": group_color, "variants": group_variants,
-          "bcppr": group_bcppr}
+          "bcppr": group_bcppr, "mst": group_mst, "geo": group_geo,
+          "spgemm": group_spgemm}
 # each group's kernels, in the order of the JSON line
 KERNEL_TABLE = (("bfs", SOURCE, REPLACES),
                 ("spmv", SPMV_SOURCE, SPMV_REPLACES),

@@ -12,11 +12,14 @@ PageRank and HITS on it (``csrc/spmv_kernels.cu``), SSSP and k-core
 neighbor_reduce, segment, scans, the spray tiers; ``frontier``;
 ``framework``) with BFS and SSSP ``adaptive`` and SpMV ``pull``/``push`` on
 it (``csrc/operator_kernels.cu``), PageRank ``fused`` on the segment fill
-of ``csrc/bfs_kernels.cu``, and triangle counting with the intersection
-operator (``csrc/tc_kernels.cu``); ``kernels`` builds and binds the CUDA
+of ``csrc/bfs_kernels.cu``, triangle counting with the intersection
+operator (``csrc/tc_kernels.cu``), and on the kernels above the rest of the
+thirteen algorithms (BFS ``hybrid``/``phased``, k-core ``adaptive``, color,
+BC, PPR, MST, geolocation, SpGEMM); ``kernels`` builds and binds the CUDA
 sources. Every function takes its device from its arguments: a graph's or a
 tensor's, or, for the entry points that start from a host ``Csr``
-(``tc.run``, ``intersect``), a ``device`` argument that defaults to CUDA.
+(``tc.run``, ``intersect``, ``spgemm``), a ``device`` argument that
+defaults to CUDA.
 """
 
 __version__ = "0.1.0"

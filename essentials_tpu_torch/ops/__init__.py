@@ -4,10 +4,9 @@
 ``fused_bfs``, ``fused_spmv``, ``windowed_spmv``, ``fused_sssp``,
 ``windowed_sssp`` and ``fused_kcore``, the intersection operator
 ``intersect`` on ``bitmap_intersect``, and ``batch`` (a host loop over
-seeds). Not ported yet: ``filter``, ``parallel_for``, ``uniquify``,
-``advance_edges``, ``apply_permutation`` and ``segment_combine`` (they come
-with their first caller), ``bucketed``, ``swar`` (see ROADMAP.md, queue
-1)."""
+seeds). Not ported yet: ``filter``, ``parallel_for``, ``uniquify`` and
+``advance_edges`` (they come with their first caller), ``bucketed``,
+``swar`` (see ROADMAP.md, queue 1)."""
 
 from essentials_tpu_torch.ops import (batch, bitmap_intersect, fused_bfs,
                                       fused_kcore, fused_sssp, fused_spmv,
@@ -18,14 +17,17 @@ from essentials_tpu_torch.ops.advance import (Edges, advance, advance_count,
                                               advance_multi)
 from essentials_tpu_torch.ops.configs import AdvanceIO, Combine
 from essentials_tpu_torch.ops.neighborreduce import neighbor_reduce
-from essentials_tpu_torch.ops.segment import (combine_by_offsets,
+from essentials_tpu_torch.ops.segment import (apply_permutation,
+                                              combine_by_offsets,
                                               combine_minmax_multi,
-                                              expand_vertex_to_edges)
+                                              expand_vertex_to_edges,
+                                              segment_combine)
 
 __all__ = [
     "Combine", "AdvanceIO", "advance", "advance_multi", "advance_count",
     "Edges", "neighbor_reduce", "combine_by_offsets", "combine_minmax_multi",
-    "expand_vertex_to_edges", "batch", "bitmap_intersect", "fused_bfs", "fused_kcore",
+    "expand_vertex_to_edges", "apply_permutation", "segment_combine",
+    "batch", "bitmap_intersect", "fused_bfs", "fused_kcore",
     "fused_sssp", "fused_spmv", "intersect", "scan_kernels", "segment",
     "sparse_advance", "windowed_spmv", "windowed_sssp",
 ]

@@ -15,8 +15,10 @@ data lies:
 * ``combine_minmax_multi`` takes each segment's MAX and MIN over its active
   edges of up to eight payloads at once (the ``segment_minmax`` kernel).
 
-``apply_permutation`` waits for its first caller, and the keyed
-``segment_combine`` for MST.
+``apply_permutation`` (``R[rank[e]] = payload[e]``) and the keyed
+``segment_combine`` are not Pallas kernels in the JAX package either (a
+sort and an XLA scatter): here they are one ``index_put_`` per payload and
+one ``scatter_reduce_``.
 
 The routed forms (``OffsetsRoute``, ``*_routed``, ``expand_multi_then_route``)
 stage these moves through Benes networks on the TPU; the port's graph has no
@@ -120,3 +122,37 @@ def combine_minmax_multi(edge_vals_list, active: torch.Tensor,
         [v.contiguous() for v in edge_vals_list], active.contiguous(),
         offsets)
     return list(zip(mx, mn))
+
+
+def apply_permutation(rank: torch.Tensor, *payloads: torch.Tensor):
+    """Reorder each payload so slot rank[e] receives payload[e]: the result
+    R satisfies R[rank[e]] = payload[e] (``rank`` a permutation of [0, n)).
+    One ``index_put_`` per payload; one payload gives a tensor, several a
+    tuple."""
+    idx = (rank.long(),)
+    out = tuple(torch.empty_like(p).index_put_(idx, p) for p in payloads)
+    return out if len(out) > 1 else out[0]
+
+
+def segment_combine(data: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, combine: Combine) -> torch.Tensor:
+    """Keyed segmented reduction: [num_segments], the identity at empty
+    segments; ids outside [0, num_segments) are dropped, as the JAX
+    package's ``jax.ops.segment_*`` drop them. OR and AND give bool (each
+    value read as a truth value), SUM, MIN and MAX ``data``'s dtype."""
+    combine = Combine(combine)
+    keep = (segment_ids >= 0) & (segment_ids < num_segments)
+    # dropped values land in a spare last segment
+    ids = torch.where(keep, segment_ids.long(), num_segments)
+    if combine in (Combine.OR, Combine.AND):
+        data = data != 0
+        combine = Combine.MAX if combine == Combine.OR else Combine.MIN
+    dt = data.dtype
+    carrier = data.to(torch.int32) if dt == torch.bool else data
+    out = torch.full((num_segments + 1,), combine_identity(combine, dt),
+                     dtype=carrier.dtype, device=data.device)
+    reduce = {Combine.SUM: "sum", Combine.MIN: "amin",
+              Combine.MAX: "amax"}[combine]
+    out.scatter_reduce_(0, ids, carrier, reduce)
+    return from_words(out[:num_segments], dt) if dt == torch.bool \
+        else out[:num_segments]

@@ -3,8 +3,8 @@ neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank
 ``spmv`` and ``fused``, HITS, SSSP, k-core, BFS and SSSP ``adaptive`` on a
 directed graph, triangle counting and the intersection operator, coloring
 ``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph, BFS
-``hybrid`` and ``phased``, k-core ``adaptive``, BC and PPR) run where
-importing jax fails, and, on a CUDA card, its kernels agree with their
+``hybrid`` and ``phased``, k-core ``adaptive``, BC and PPR, MST, geo,
+SpGEMM static and chunked, the helpers) run where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
 route and bitmap kernels exactly, k-core also on a graph with a hub,
 multi-edges and self-loops, SSSP and k-core also on a degree-balanced
@@ -70,6 +70,8 @@ TC_AND_FILLS = ("algorithms/tc.py", "algorithms/pr.py", "ops/intersect.py",
                 "csrc/tc_kernels.cu")
 COLOR = ("algorithms/color.py", "algorithms/hits.py", "kernels.py")
 BC_PPR = ("algorithms/bc.py", "algorithms/ppr.py", "ops/batch.py")
+MST_GEO_SPGEMM = ("algorithms/mst.py", "algorithms/geo.py",
+                  "algorithms/spgemm.py", "algorithms/helpers.py")
 
 
 def test_sources_import_no_jax():
@@ -77,7 +79,8 @@ def test_sources_import_no_jax():
     files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 15
     assert {ROOT / "essentials_tpu_torch" / m
-            for m in OPERATOR_LAYER + TC_AND_FILLS[:-1] + COLOR + BC_PPR} \
+            for m in OPERATOR_LAYER + TC_AND_FILLS[:-1] + COLOR + BC_PPR
+            + MST_GEO_SPGEMM} \
         <= set(files)
     assert (ROOT / "essentials_tpu_torch" / TC_AND_FILLS[-1]).exists()
     for f in files:
@@ -95,6 +98,7 @@ _MAIN_PATH = textwrap.dedent("""
 
     sys.meta_path.insert(0, _NoJax())
     import numpy as np
+    import torch
     from essentials_tpu_torch.algorithms import bfs
     from essentials_tpu_torch.formats import Csr
     from essentials_tpu_torch.graph import build_graph
@@ -188,6 +192,31 @@ _MAIN_PATH = textwrap.dedent("""
     assert np.abs(rp.p.numpy() - ref).max() <= \
         4.5e-8 + rp.iterations * 2.0 ** -24 * np.abs(ref).max()
     assert ppr.run_batch(g, [1, 2]).shape == (2, g.n_vertices)
+    from essentials_tpu_torch.algorithms import geo, helpers, mst, spgemm
+    rm = mst.run(gw)
+    host = mst.cpu_reference(cw)
+    assert abs(rm.total_weight - host) <= rm.in_mst.sum().item() * \
+        2.0 ** -24 * host
+    chosen, c_graph, c_tree = mst.forest_check(cw, rm.in_mst.numpy())
+    assert chosen == cw.n_rows - c_graph and c_tree == c_graph
+    rng = np.random.default_rng(7)
+    lat = rng.uniform(-60, 60, g.n_vertices).astype(np.float32)
+    lon = rng.uniform(-180, 180, g.n_vertices).astype(np.float32)
+    lat[rng.random(g.n_vertices) > 0.2] = np.nan
+    lon[np.isnan(lat)] = np.nan
+    rg = geo.run(g, lat, lon)
+    ref_lat, _ = geo.cpu_reference(csr, lat, lon)
+    assert np.array_equal(np.isnan(rg.lat.numpy()), np.isnan(ref_lat))
+    assert np.nanmax(np.abs(rg.lat.numpy() - ref_lat)) <= 1.5e-3
+    assert geo.spatial_median(g, *geo.init(g, rg.lat, rg.lon),
+                              iterations=2)[0].shape == (g.n_vertices_padded,)
+    ref = spgemm.cpu_reference(cd, cd)
+    for c in (spgemm.run(cd, cd, device="cpu").c,
+              spgemm.run_chunked(cd, cd, chunk_products=1 << 10,
+                                 chunk_edges=7, device="cpu").c):
+        assert np.array_equal(c.col_indices, ref.col_indices)
+        assert np.allclose(c.values, ref.values, rtol=1e-5)
+    assert int(helpers.rightmost(torch.tensor([1, 3, 3]), 2)) == 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -926,3 +955,74 @@ def test_variants_and_bc_ppr_on_the_card():
         ref = ppr.cpu_reference(csr, int(seed))
         it = ppr.run(g, int(seed), warmup=False).iterations
         assert np.abs(row.numpy() - ref).max() <= cs.ppr_bound(it, ref)
+
+
+@pytest.mark.cuda
+def test_mst_geo_spgemm_on_the_card():
+    """MST on weighted rmat12 (in_mst and rounds equal to a run on a CPU
+    copy, a spanning forest whose weights sum in float64 to the host
+    forest's and whose float32 total is within chip_smoke's mst_bound of
+    it), geo and spatial_median (chip_smoke's hold_geo and hold_median
+    against the float64 host), SpGEMM static and chunked, resident and streamed, on
+    uniform_4096 with chunks that split rows (structure equal to the host
+    Gustavson's, values within rtol 1e-5 of float64), each path's
+    launches exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import geo, mst, spgemm
+    from essentials_tpu_torch.formats import Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate, load_graph_file
+
+    cs = _chip_smoke()
+    csr = Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=True))
+    g = build_graph(csr, directed=False, weighted=True, device="cuda")
+    kernels.reset_launches()
+    r = mst.run(g, warmup=False)
+    assert {k: v for k, v in kernels.launches.items() if v} == \
+        cs.mst_launches(r)
+    rc = mst.run(g.to("cpu"), warmup=False)
+    assert torch.equal(r.in_mst.cpu(), rc.in_mst)
+    assert r.iterations == rc.iterations
+    chosen, c_graph, c_tree = mst.forest_check(csr, r.in_mst.cpu().numpy())
+    assert chosen == csr.n_rows - c_graph and c_tree == c_graph
+    host = mst.cpu_reference(csr)
+    chosen_w = np.asarray(csr.values, np.float64)[r.in_mst.cpu().numpy()]
+    assert abs(chosen_w.sum() - host) <= cs.MST_FOREST_RTOL * host
+    assert abs(r.total_weight - host) <= cs.mst_bound(chosen, host)
+
+    lat, lon = cs.geo_inputs(csr.n_rows)
+    rg = geo.run(g, lat, lon, warmup=False)
+    cs.hold_geo("geo", rg.lat.cpu(), rg.lon.cpu(),
+                geo.cpu_reference(csr, lat, lon, error_bound=True))
+    s = geo.init(g, rg.lat, rg.lon)
+    n = csr.n_rows
+    start = (s.lat[:n].cpu().numpy(), s.lon[:n].cpu().numpy())
+    m = geo.spatial_median(g, s.lat, s.lon, iterations=1)
+    cs.hold_median("spatial_median", csr, start,
+                   (m[0][:n].cpu().numpy(), m[1][:n].cpu().numpy()),
+                   geo.spatial_median_reference(csr, *start, 1), 1)
+
+    a = load_graph_file(str(ROOT / "datasets" / "uniform_4096.mtx"),
+                        cache=False)
+    ref = spgemm.cpu_reference(a, a)
+    kernels.reset_launches()
+    c = spgemm.run(a, a, warmup=False).c
+    assert {k: v for k, v in kernels.launches.items() if v} == \
+        {"gather_payloads": 2, "segment_reduce": 1}
+    plan = spgemm.make_chunked_plan(a, a, chunk_products=1 << 16,
+                                    chunk_edges=24)
+    assert plan.merge_spans.shape[0] > 0
+    results = [c]
+    for stream in (False, True):
+        kernels.reset_launches()
+        vals = spgemm.numeric_chunked(plan, a, a, stream_to_host=stream)
+        assert {k: v for k, v in kernels.launches.items() if v} == \
+            cs.chunked_launches(plan)
+        results.append(Csr(a.n_rows, a.n_cols, plan.c_row_offsets,
+                           plan.c_col_indices, vals))
+    for c in results:
+        assert np.array_equal(c.row_offsets, ref.row_offsets)
+        assert np.array_equal(c.col_indices, ref.col_indices)
+        assert np.allclose(c.values, ref.values, rtol=1e-5, atol=0)
