@@ -7,19 +7,22 @@ counting, the intersection operator and PageRank fused, then graph
 coloring (jp and spec) with PageRank and HITS generic on a directed graph,
 then BFS hybrid, phased and the timed auto with k-core adaptive, then
 betweenness centrality and personalized PageRank, then the minimum
-spanning forest, geolocation and SpGEMM.
+spanning forest, geolocation and SpGEMM, then the single-chip harness: the
+leftover graph, io, runtime and operator modules and the
+essentials-tpu-torch command-line driver.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
 
     python3 chip_smoke.py                   # every phase
     python3 chip_smoke.py --only color,tc   # phases 1-2 and these groups
+    python3 chip_smoke.py --only harness    # the harness and the CLI
 
 The groups are bfs (phases 3-5), spmv (6-8), sssp (9-11), operators
 (12-14), tc (15-17), color (18-20), variants (21-23), bcppr (24-25), mst
-(26-27), geo (28-29) and spgemm (30-31); phases 1-2 always run, and the
-groups run in this order. variants, bcppr, mst, geo and spgemm add no
-kernel: they run the kernels of the groups before them on new paths, so
+(26-27), geo (28-29), spgemm (30-31) and harness (32-33); phases 1-2
+always run, and the groups run in this order. variants, bcppr, mst, geo,
+spgemm and harness add no kernel: they run the kernels of the groups before them on new paths, so
 with --only they add no entry to the JSON line, and their launches count
 in the entries of the groups chosen with them. Each graph is built by the first group that
 needs it and kept for the others. With --only, the JSON line lists the
@@ -358,7 +361,30 @@ raises and exits non-zero:
 31. the static numeric phase's ms and products per second (CUDA events)
    beside its bound, the chunked numeric phase's resident and streamed
    (host clock, with the host merge), each with torch.profiler's busy and
-   idle share.
+   idle share;
+32. the harness's modules on the card (harness_checks): the native .mtx
+   parser (built with the host C++ compiler) against the NumPy parser on
+   the seven datasets, the same entries; graph.convert.offsets_to_indices
+   at gen:rmat20x16's row offsets (and at OFFSET_CASES) against its plain
+   version on a CPU copy, exactly, one expand_segments launch a call;
+   ops.advance_edges (three gather_payloads launches: the route into CSC
+   order, the destination values, the route back through csc_rank),
+   filter_frontier, for_each_vertex / for_each_edge and uniquify at
+   weighted rmat18, each equal to the same call on a CPU copy; the
+   degree analytics against NumPy (the histogram exactly, by bit
+   lengths; the mean and standard deviation within ANALYTICS_RTOL of
+   float64); runtime.trace around one fused BFS, whose Chrome trace must
+   hold a bfs_level kernel event;
+33. the command-line driver in process (cli.main), each call with the
+   launch counters set to 0 just before it and read just after (some
+   kernel must have launched): the 12 algorithms other than SpGEMM on
+   datasets/kron_s16.mtx --undirected --validate --json --runs
+   CLI_RUNS (bfs, sssp, ppr and bc from its highest-degree vertex:
+   vertex 0 is isolated) and spgemm on datasets/uniform_65536.mtx
+   (kron_s16's A @ A is 1.25e9 products), each exiting 0 (validated
+   against its host reference) with backend "cuda"; their mean ms and
+   MTEPS beside the card's name and power limit; then the run_all
+   example on datasets/chesapeake.mtx.
 
 Every kernel's bound is the least time an H100 could take for its work:
 the larger of the bytes it must move (each input element it needs read
@@ -398,6 +424,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import time
@@ -5107,6 +5134,254 @@ def time_spgemm(run, t: dict) -> None:
         profile(f"spgemm numeric_chunked {mode} {name}", fn)
 
 
+# ---------------------------------------------------------------- harness --
+
+DATASETS = ("chesapeake", "kron_s12", "kron_s16", "road_64x64",
+            "road_512x512", "uniform_4096", "uniform_65536")
+# offsets_to_indices' edge cases (JAX's scatter-add and cumsum semantics):
+# empty leading, middle and trailing segments, repeated offsets, and
+# offsets[-1] below and above n
+OFFSET_CASES = (([0, 0, 2, 4], 4), ([0, 2, 2, 2, 5, 5], 5), ([0, 1, 1], 4),
+                ([0, 2, 9], 5), ([2, 3, 5], 6), ([0, 5, 5, 5], 5))
+ANALYTICS_RTOL = 1e-5          # float32 sums over the vertices
+HARNESS_OP_SCALE = 18
+CLI_GRAPH = "kron_s16"
+CLI_SPGEMM_GRAPH = "uniform_65536"
+CLI_RUNS = 3
+CLI_SOURCE_ALGOS = ("bfs", "sssp", "ppr", "bc")
+
+
+def canonical_entries(coo) -> tuple:
+    """A Coo's entries in (row, col, value) order."""
+    o = np.lexsort((coo.values, coo.col_indices, coo.row_indices))
+    return (coo.n_rows, coo.n_cols, coo.row_indices[o], coo.col_indices[o],
+            coo.values[o])
+
+
+def check_parser(names=DATASETS) -> None:
+    """The native parser against the NumPy parser: the same entries."""
+    from essentials_tpu_torch.io import load_mtx
+    from essentials_tpu_torch.native import mmio_native
+    t0 = time.perf_counter()
+    lib = mmio_native.build()
+    print(f"harness: native parser {lib.name} ready in "
+          f"{time.perf_counter() - t0:.2f} s ({mmio_native.compiler()})")
+    for name in names:
+        path = f"datasets/{name}.mtx"
+        t0 = time.perf_counter()
+        native = load_mtx(path)
+        t1 = time.perf_counter()
+        plain = load_mtx(path, use_native=False)
+        t2 = time.perf_counter()
+        same = all(np.array_equal(a, b) for a, b in zip(
+            canonical_entries(native), canonical_entries(plain)))
+        check(same, f"native parser on {name}: entries differ from NumPy's")
+        print(f"harness: parser {name}: {native.nnz} entries equal to the "
+              f"NumPy parser's; native {t1 - t0:.3f} s, NumPy "
+              f"{t2 - t1:.3f} s")
+
+
+def check_offsets_to_indices(g, where: str) -> None:
+    """offsets_to_indices over g's row offsets and OFFSET_CASES on the card
+    against the plain version on the CPU, one expand_segments launch a
+    call (none where there is no element)."""
+    from essentials_tpu_torch.graph import convert
+    cases = [(g.row_offsets, g.n_edges_padded)] + [
+        (torch.tensor(o, dtype=torch.int32, device=g.device), n)
+        for o, n in OFFSET_CASES]
+    for off, n in cases:
+        ids, launches = counted(lambda: convert.offsets_to_indices(off, n))
+        check(launches["expand_segments"] == 1
+              and sum(launches.values()) == 1,
+              f"offsets_to_indices at {where}: launches {launches}")
+        plain = convert.offsets_to_indices(off.cpu(), n)
+        check(torch.equal(ids.cpu(), plain),
+              f"offsets_to_indices at {where}: differs from plain")
+    ids = convert.offsets_to_indices(g.row_offsets, g.n_edges_padded)
+    check(torch.equal(ids, g.src_indices),
+          f"offsets_to_indices at {where}: not the CSR sources")
+    print(f"harness: offsets_to_indices at {where} (Ep = "
+          f"{g.n_edges_padded}) and {len(OFFSET_CASES)} edge cases equal "
+          f"to plain, one expand_segments launch each")
+
+
+def check_operators(g, where: str, seed: int = SEED) -> dict:
+    """advance_edges (vertex frontier, one source and one destination
+    value), filter_frontier, for_each_vertex / for_each_edge and uniquify
+    on the card against the same calls on a CPU copy, exactly. Returns
+    advance_edges' launches."""
+    from essentials_tpu_torch import ops
+    from essentials_tpu_torch.frontier import frontier_from_indices
+    gc = g.to("cpu")
+    rng = np.random.default_rng(seed)
+    sv = torch.from_numpy(rng.random(g.n_vertices_padded, np.float32))
+    dv = torch.from_numpy(rng.random(g.n_vertices_padded, np.float32))
+    ids = torch.from_numpy(rng.choice(g.n_vertices, max(g.n_vertices // 16,
+                                                        1), replace=False))
+
+    def edges(gr, dev):
+        def msg(e):
+            return (e.src_vals[0] + e.weight * 1e-3 > e.dst_vals[0]) & \
+                (e.eid % 3 != 0)
+        return ops.advance_edges(gr, msg, frontier_from_indices(gr, ids.to(
+            dev)), src_values=(sv.to(dev),), dst_values=(dv.to(dev),))
+    out, launches = counted(lambda: edges(g, g.device))
+    ran = {k: n for k, n in launches.items() if n}
+    check(ran == {"gather_payloads": 3},
+          f"advance_edges at {where}: launched {ran}")
+    check(torch.equal(out.cpu(), edges(gc, "cpu")),
+          f"advance_edges at {where}: differs from the CPU")
+    fired = int(out.sum())
+    calls = {
+        "filter_frontier": lambda gr, fe: ops.filter_frontier(
+            gr, fe, lambda e: e % 5 != 2, "edge"),
+        "for_each_vertex": lambda gr, fe: ops.for_each_vertex(
+            gr, lambda v: v * 7 - 3, default=-1),
+        "for_each_edge": lambda gr, fe: ops.for_each_edge(
+            gr, lambda s, d, e, w: w * 2 + (s - d), frontier=fe),
+        "uniquify": lambda gr, fe: ops.uniquify(
+            gr.col_indices[:4096].flip(0), capacity=gr.n_vertices_padded),
+    }
+    for name, fn in calls.items():
+        check(torch.equal(fn(g, out).cpu(), fn(gc, out.cpu())),
+              f"{name} at {where}: differs from the CPU")
+    print(f"harness: advance_edges at {where}: {fired} of {g.n_edges} "
+          f"edges fired, equal to the CPU's, gather_payloads x3 (route in, "
+          f"destination values, route back through csc_rank); "
+          f"{', '.join(calls)} equal to the CPU's")
+    return launches
+
+
+def check_analytics(csr, g, where: str) -> None:
+    """The degree analytics against NumPy: the histogram exactly (bins by
+    bit length), the mean and standard deviation within ANALYTICS_RTOL of
+    float64."""
+    from essentials_tpu_torch.graph import analytics
+    deg = np.diff(np.asarray(csr.row_offsets, np.int64))
+    hist = np.bincount(np.minimum(np.frexp(deg.astype(np.float64))[1], 31)
+                       * (deg > 0), minlength=32)
+    got = analytics.degree_histogram(g)
+    check(got.device.type == "cuda" and got.dtype == torch.int32
+          and np.array_equal(got.cpu().numpy(), hist),
+          f"degree_histogram at {where}: differs from NumPy")
+    for name, fn, ref in (("average_degree", analytics.average_degree,
+                           deg.mean()),
+                          ("degree_standard_deviation",
+                           analytics.degree_standard_deviation, deg.std())):
+        val = fn(g)
+        check(abs(val - ref) <= ANALYTICS_RTOL * ref,
+              f"{name} at {where}: {val} against NumPy's {ref}")
+    print(f"harness: analytics at {where}: histogram equal to NumPy's, "
+          f"mean {analytics.average_degree(g):.6f} (NumPy {deg.mean():.6f}),"
+          f" std {analytics.degree_standard_deviation(g):.6f} (NumPy "
+          f"{deg.std():.6f})")
+
+
+def check_trace(g, source: int, log_dir: str, attempts: int = 3) -> str:
+    """runtime.trace around one fused BFS: its Chrome trace must hold a
+    bfs_level kernel event. A trace whose device activity came back empty
+    (the profiler's windows sometimes do on this card, see device_ms) is
+    taken again, at most ``attempts`` times. Returns the trace's path."""
+    from essentials_tpu_torch import runtime
+    from essentials_tpu_torch.algorithms import bfs
+    bfs.run(g, source, variant="fused", warmup=False)
+    for attempt in range(1, attempts + 1):
+        with runtime.trace(log_dir) as t:
+            bfs.run(g, source, variant="fused", warmup=False)
+            torch.cuda.synchronize()
+        with open(t.path) as f:
+            events = json.load(f)["traceEvents"]
+        on_card = [e for e in events if e.get("cat") == "kernel"]
+        kernels = [e for e in on_card
+                   if "bfs_level_kernel" in e.get("name", "")]
+        if kernels or on_card:
+            break
+        print(f"harness: runtime.trace attempt {attempt}: no device "
+              f"activity in {len(events)} events, taken again")
+    check(bool(kernels), f"runtime.trace: no bfs_level kernel event in "
+          f"{t.path} ({len(events)} events, {len(on_card)} kernel events, "
+          f"attempt {attempt})")
+    print(f"harness: runtime.trace of one fused BFS (attempt {attempt}): "
+          f"{len(events)} events, {len(kernels)} bfs_level kernel events, "
+          f"{t.path}")
+    return t.path
+
+
+def harness_checks(csr_o, g_o, csr_ops, g_ops, where_o: str,
+                   where_ops: str, log_dir: str,
+                   datasets=DATASETS) -> dict:
+    """Phase 32's checks (also the card test's, at smaller graphs): the
+    parser, offsets_to_indices at g_o, the operators and analytics at g_ops
+    (which needs a symmetric layout for the fused BFS of the trace).
+    Returns {path: launches}."""
+    check_parser(datasets)
+    check_offsets_to_indices(g_o, where_o)
+    launches = check_operators(g_ops, where_ops)
+    check_analytics(csr_o, g_o, where_o)
+    check_analytics(csr_ops, g_ops, where_ops)
+    source = int(np.argmax(np.diff(csr_ops.row_offsets)))
+    check_trace(g_ops, source, log_dir)
+    return {"advance_edges": launches}
+
+
+def cli_call(argv: list) -> tuple:
+    """cli.main(argv) with its standard output captured and the launch
+    counts set to 0 just before it and read just after. Returns (exit
+    code, the JSON stats or None, the output, the counts)."""
+    from essentials_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, launches = counted(lambda: cli.main(argv))
+    out = buf.getvalue()
+    lines = [x for x in out.splitlines() if x.startswith("{")]
+    return rc, json.loads(lines[-1]) if lines else None, out, launches
+
+
+def cli_main_path(run) -> dict:
+    """Phase 33: the CLI on the card (see the module docstring). Returns
+    {path: launches}."""
+    from essentials_tpu_torch import cli
+    from essentials_tpu_torch.examples import run_all
+    hub = int(np.argmax(np.diff(run.dataset_csr(CLI_GRAPH).row_offsets)))
+    by_path, rows = {}, []
+    cases = [(a, CLI_GRAPH) for a in cli.ALGORITHMS if a != "spgemm"]
+    cases.append(("spgemm", CLI_SPGEMM_GRAPH))
+    for algo, graph in cases:
+        argv = [algo, f"datasets/{graph}.mtx", "--undirected", "--validate",
+                "--json", "--runs", str(CLI_RUNS), "--no-cache"]
+        if algo in CLI_SOURCE_ALGOS:
+            argv += ["--source", str(hub)]
+        t0 = time.perf_counter()
+        rc, stats, out, launches = cli_call(argv)
+        wall = time.perf_counter() - t0
+        check(rc == 0 and stats is not None,
+              f"cli {' '.join(argv)}: exit {rc}, output {out[-2000:]}")
+        check(stats["backend"] == "cuda",
+              f"cli {algo}: backend {stats['backend']!r}")
+        ran = {k: n for k, n in launches.items() if n}
+        check(bool(ran), f"cli {algo}: launched no kernel")
+        by_path[f"cli {algo}"] = launches
+        rows.append((algo, graph, stats, wall, ran))
+        print(f"cli [{run.card}]: {algo} {graph}: mean {stats['elapsed_ms']:.3f}"
+              f" ms of {CLI_RUNS} runs {stats['cycles_ms']}, "
+              f"{stats['iterations']} iterations, {stats['mteps']:.1f} MTEPS,"
+              f" {stats['pct_hbm_roofline'] * 100:.2f}% of the HBM rate by "
+              f"the useful-bytes model; validated; {wall:.1f} s with the "
+              f"load, the runs and the host reference; launches {ran}")
+    print(f"cli [{run.card}]: summary (mean ms, MTEPS): " + "; ".join(
+        f"{a} {s['elapsed_ms']:.3f} ms {s['mteps']:.1f}" for a, _, s, _, _
+        in rows))
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_all.main(["datasets/chesapeake.mtx"])
+    summary = [x for x in buf.getvalue().splitlines() if "validated" in x]
+    check(rc == 0, f"run_all chesapeake: exit {rc}: {buf.getvalue()[-2000:]}")
+    print(f"cli: run_all chesapeake on the card: {summary[-1]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 class Phases:
     """Prints each phase's seconds as it ends."""
 
@@ -5762,11 +6037,26 @@ def group_spgemm(run: Run) -> None:
     run.phases.done("31 spgemm times")
 
 
+def group_harness(run: Run) -> None:
+    """Phases 32-33: the harness's modules, then the CLI."""
+    t0 = time.perf_counter()
+    csr_o, g_o = run.weighted_graph(MAIN_SCALE)
+    csr_ops, g_ops = run.weighted_graph(HARNESS_OP_SCALE)
+    by_path = harness_checks(
+        csr_o, g_o, csr_ops, g_ops, f"gen:rmat{MAIN_SCALE}x16",
+        f"weighted rmat{HARNESS_OP_SCALE}", "chiprun_out/harness_trace")
+    run.by_path.update({f"harness {k}": v for k, v in by_path.items()})
+    run.phases.done("32 harness modules")
+    run.by_path.update(cli_main_path(run))
+    run.phases.done("33 cli")
+    print(f"harness group: {time.perf_counter() - t0:.1f} s")
+
+
 GROUPS = {"bfs": group_bfs, "spmv": group_spmv, "sssp": group_sssp,
           "operators": group_operators, "tc": group_tc,
           "color": group_color, "variants": group_variants,
           "bcppr": group_bcppr, "mst": group_mst, "geo": group_geo,
-          "spgemm": group_spgemm}
+          "spgemm": group_spgemm, "harness": group_harness}
 # each group's kernels, in the order of the JSON line
 KERNEL_TABLE = (("bfs", SOURCE, REPLACES),
                 ("spmv", SPMV_SOURCE, SPMV_REPLACES),

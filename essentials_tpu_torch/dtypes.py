@@ -10,6 +10,7 @@ tensors of the matching torch dtype.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def invalid(dtype) -> np.generic:
@@ -25,6 +26,19 @@ def invalid(dtype) -> np.generic:
     if np.issubdtype(dt, np.signedinteger):
         return dt.type(-1)
     raise TypeError(f"no invalid sentinel for dtype {dt}")
+
+
+def is_valid(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise validity test against the sentinel convention: not NaN
+    for floats, not the maximum for unsigned integers, >= 0 for signed ones
+    (reference parity: util::limits::is_valid, type_limits.hxx:57-71)."""
+    if x.is_floating_point():
+        return ~torch.isnan(x)
+    if x.dtype == torch.bool:
+        return x >= 0
+    if not x.dtype.is_signed:
+        return x != torch.iinfo(x.dtype).max
+    return x >= 0
 
 
 def infinity(dtype) -> np.generic:

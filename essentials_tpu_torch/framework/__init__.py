@@ -1,12 +1,15 @@
 """Problem/Enactor framework: the bulk-synchronous superstep loop.
 
 Counterpart of ``essentials_tpu/framework`` (reference parity:
-enactor.hxx): a host loop over supersteps with one convergence check per
-iteration. The JAX package's ``problem.py`` (``Problem``, ``BfsProblem``,
-``SsspProblem``) has no caller among its algorithms and is not carried.
+enactor.hxx, problem.hxx): a host loop over supersteps with one convergence
+check per iteration, and the ``Problem`` wrapper (``BfsProblem``,
+``SsspProblem``) around an algorithm's init and step.
 """
 
 from essentials_tpu_torch.framework.enactor import (EnactResult,
                                                     default_converged, enact)
+from essentials_tpu_torch.framework.problem import (BfsProblem, Problem,
+                                                    SsspProblem)
 
-__all__ = ["enact", "EnactResult", "default_converged"]
+__all__ = ["enact", "EnactResult", "default_converged", "Problem",
+           "BfsProblem", "SsspProblem"]

@@ -7,8 +7,11 @@ MatrixMarket spec: banner parsing, ``%`` comments, 1-based coordinate
 triples, ``pattern`` fields defaulting to weight 1.0, and symmetric /
 skew-symmetric expansion duplicating off-diagonal entries.
 
-The NumPy bulk parser only; the JAX package's native C++ parser
-(``essentials_tpu/native/mmio.cpp``) is not ported yet.
+``load_mtx`` reads a coordinate file with the port's native C++ parser
+(``native/mmio.cpp``, built at first use) unless ``use_native=False``; a
+file in array format goes to the NumPy bulk parser, which reads both
+formats. Where the native parser cannot be built, ``load_mtx`` raises: it
+does not fall back to NumPy as the JAX package does.
 """
 
 from __future__ import annotations
@@ -36,13 +39,21 @@ def _parse_banner(line: str):
     return fmt, field, sym
 
 
-def load_mtx(path, *, expand_symmetric: bool = True) -> Coo:
+def load_mtx(path, *, expand_symmetric: bool = True,
+             use_native: bool = True) -> Coo:
     """Read a .mtx file into a host Coo.
 
     Pattern matrices get weight 1.0 (matrix_market.hxx:146-164 parity);
     symmetric matrices are expanded by mirroring off-diagonal entries
     (matrix_market.hxx:194-235 parity) unless ``expand_symmetric=False``.
+    The native parser keeps each mirrored entry beside its original, the
+    NumPy parser appends the mirrors: the same entries in another order.
     """
+    if use_native:
+        from essentials_tpu_torch.native import mmio_native
+        out = mmio_native.load_mtx(str(path), expand_symmetric)
+        if out is not None:
+            return Coo(*out)
     with open(path, "rb") as f:
         data = f.read()
     return parse_mtx_bytes(data, expand_symmetric=expand_symmetric)
@@ -127,3 +138,19 @@ def _parse_dense(body: str, size_parts, field: str, sym: str) -> Coo:
     return Coo(n_rows, n_cols, r.astype(dtypes.vertex_dtype),
                c.astype(dtypes.vertex_dtype), dense[r, c].astype(dtypes.weight_dtype))
 
+
+def write_mtx(path, coo: Coo, *, field: str = "real") -> None:
+    """Write a Coo as a general coordinate .mtx (round-trip/testing utility)."""
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {field} general\n")
+        f.write(f"{coo.n_rows} {coo.n_cols} {coo.nnz}\n")
+        if field == "pattern":
+            np.savetxt(f, np.stack([coo.row_indices + 1,
+                                    coo.col_indices + 1], 1), fmt="%d")
+        else:
+            np.savetxt(
+                f,
+                np.stack([coo.row_indices + 1.0, coo.col_indices + 1.0,
+                          coo.values.astype(np.float64)], 1),
+                fmt=("%d", "%d", "%.9g"),
+            )

@@ -15,8 +15,9 @@ Here the move is one gather:
   combine      one warp per destination over ``csc_offsets`` (the
                ``segment_reduce`` kernel).
 
-``advance_count`` is the ``advance_count`` kernel. ``advance_edges`` (an
-edge frontier back in CSR order) waits for its first caller.
+``advance_count`` is the ``advance_count`` kernel. ``advance_edges`` fires
+an edge frontier in CSC order and moves it back to CSR order with one more
+gather, through ``csc_rank``.
 """
 
 from __future__ import annotations
@@ -150,3 +151,21 @@ def advance(g: Graph, message_fn: Callable,
         outs, out_frontier = res
         return outs[0], out_frontier
     return res[0]
+
+
+def advance_edges(g: Graph, message_fn: Callable,
+                  frontier: torch.Tensor | None = None, *,
+                  src_values: Sequence[torch.Tensor] = (),
+                  dst_values: Sequence[torch.Tensor] = (),
+                  input_kind: AdvanceIO = AdvanceIO.VERTICES) -> torch.Tensor:
+    """Advance producing an *edge* frontier: bool[Ep] in CSR edge-id order.
+
+    ``message_fn(Edges) -> cond bool[Ep]`` (CSC order). The fired edges go
+    back to CSR order in one ``gather_payloads`` launch: edge e's slot in
+    CSC order is ``csc_rank[e]``. The JAX package routes them back with its
+    ``route_bwd`` plan or a permutation sort by ``csc_edge_ids``."""
+    active, src_vals = _expand_and_route(g, frontier, input_kind, src_values)
+    edges = _edges(g, active, src_vals, dst_values)
+    fired = active & edge_array(message_fn(edges), active)
+    (back,) = gather(g.csc_rank, fired)
+    return back & g.edge_mask()

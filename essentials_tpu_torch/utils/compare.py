@@ -3,6 +3,10 @@
 Counterpart of ``essentials_tpu/utils/compare.py`` (reference parity:
 util::compare, gunrock ``util/compare.hxx:37-56``): returns the number of
 mismatching elements; float comparisons take an absolute/relative tolerance.
+Two non-finite values agree where both are NaN or both the same infinity.
+The JAX package's compare counts NaN against NaN as a mismatch, so its CLI
+fails geo's validation wherever a vertex stays unlocated (NaN in the
+result and in the host reference alike).
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ def compare(result, reference, *, atol: float = 1e-5, rtol: float = 1e-5,
     if np.issubdtype(a.dtype, np.floating) or np.issubdtype(b.dtype, np.floating):
         af = a.astype(np.float64)
         bf = b.astype(np.float64)
-        both_nonfinite = ~np.isfinite(af) & ~np.isfinite(bf) & (np.sign(af) == np.sign(bf))
+        both_nan = np.isnan(af) & np.isnan(bf)
+        both_nonfinite = both_nan | (~np.isfinite(af) & ~np.isfinite(bf)
+                                     & (np.sign(af) == np.sign(bf)))
         mismatch = ~(np.isclose(af, bf, atol=atol, rtol=rtol) | both_nonfinite)
     else:
         mismatch = a != b

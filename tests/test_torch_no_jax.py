@@ -4,7 +4,8 @@ neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank
 directed graph, triangle counting and the intersection operator, coloring
 ``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph, BFS
 ``hybrid`` and ``phased``, k-core ``adaptive``, BC and PPR, MST, geo,
-SpGEMM static and chunked, the helpers) run where importing jax fails, and, on a CUDA card, its kernels agree with their
+SpGEMM static and chunked, the helpers, the native parser and the CLI)
+run where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
 route and bitmap kernels exactly, k-core also on a graph with a hub,
 multi-edges and self-loops, SSSP and k-core also on a degree-balanced
@@ -72,6 +73,12 @@ COLOR = ("algorithms/color.py", "algorithms/hits.py", "kernels.py")
 BC_PPR = ("algorithms/bc.py", "algorithms/ppr.py", "ops/batch.py")
 MST_GEO_SPGEMM = ("algorithms/mst.py", "algorithms/geo.py",
                   "algorithms/spgemm.py", "algorithms/helpers.py")
+HARNESS = ("cli.py", "examples/run_all.py", "native/mmio_native.py",
+           "native/__init__.py", "graph/convert.py", "graph/analytics.py",
+           "graph/validate.py", "io/points.py", "ops/filter.py",
+           "ops/uniquify.py", "ops/parallel_for.py", "framework/problem.py",
+           "utils/printing.py", "utils/stats.py", "utils/checkpoint.py",
+           "runtime.py", "dtypes.py")
 
 
 def test_sources_import_no_jax():
@@ -80,7 +87,7 @@ def test_sources_import_no_jax():
     assert len(files) > 15
     assert {ROOT / "essentials_tpu_torch" / m
             for m in OPERATOR_LAYER + TC_AND_FILLS[:-1] + COLOR + BC_PPR
-            + MST_GEO_SPGEMM} \
+            + MST_GEO_SPGEMM + HARNESS} \
         <= set(files)
     assert (ROOT / "essentials_tpu_torch" / TC_AND_FILLS[-1]).exists()
     for f in files:
@@ -217,6 +224,15 @@ _MAIN_PATH = textwrap.dedent("""
         assert np.array_equal(c.col_indices, ref.col_indices)
         assert np.allclose(c.values, ref.values, rtol=1e-5)
     assert int(helpers.rightmost(torch.tensor([1, 3, 3]), 2)) == 0
+    from essentials_tpu_torch import cli
+    from essentials_tpu_torch.io import load_mtx
+    assert load_mtx("datasets/kron_s12.mtx").nnz == 97112    # native parser
+    import contextlib, io
+    for algo in ("bfs", "geo", "tc"):
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = cli.main([algo, "datasets/chesapeake.mtx", "--cpu",
+                           "--validate", "--runs", "1", "--no-cache"])
+        assert rc == 0 and "PASS" in out.getvalue()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -1026,3 +1042,30 @@ def test_mst_geo_spgemm_on_the_card():
         assert np.array_equal(c.row_offsets, ref.row_offsets)
         assert np.array_equal(c.col_indices, ref.col_indices)
         assert np.allclose(c.values, ref.values, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_harness_modules_on_the_card(tmp_path):
+    """chip_smoke's phase 32 checks (harness_checks) at weighted rmat12 and
+    rmat10 and four datasets: the native parser against NumPy's,
+    offsets_to_indices against its plain version (one expand_segments
+    launch), advance_edges (three gather_payloads launches), filter,
+    for_each and uniquify against a CPU copy, the analytics against NumPy
+    and a trace of one fused BFS holding a bfs_level kernel event; then the
+    CLI on the card (bfs and geo on chesapeake, validated, backend cuda)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cs = _chip_smoke()
+    csr_o, g_o = cs.weighted_graph(12, "cuda")
+    csr_ops, g_ops = cs.weighted_graph(10, "cuda")
+    paths = cs.harness_checks(csr_o, g_o, csr_ops, g_ops, "rmat12",
+                              "rmat10", str(tmp_path),
+                              ("chesapeake", "kron_s12", "road_64x64",
+                               "uniform_4096"))
+    assert paths["advance_edges"]["gather_payloads"] == 3
+    for algo in ("bfs", "geo"):
+        rc, stats, out, launches = cs.cli_call(
+            [algo, "datasets/chesapeake.mtx", "--validate", "--json",
+             "--runs", "1", "--no-cache"])
+        assert rc == 0 and stats["backend"] == "cuda", out
+        assert any(launches.values())
