@@ -9,7 +9,8 @@ then BFS hybrid, phased and the timed auto with k-core adaptive, then
 betweenness centrality and personalized PageRank, then the minimum
 spanning forest, geolocation and SpGEMM, then the single-chip harness: the
 leftover graph, io, runtime and operator modules and the
-essentials-tpu-torch command-line driver.
+essentials-tpu-torch command line (cli.main), then the parallel layer
+(dist_bfs, dist_sssp, dist_pagerank) on a one-rank NCCL group.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -17,12 +18,14 @@ the CUDA toolkit:
     python3 chip_smoke.py                   # every phase
     python3 chip_smoke.py --only color,tc   # phases 1-2 and these groups
     python3 chip_smoke.py --only harness    # the harness and the CLI
+    python3 chip_smoke.py --only parallel   # the dist_* supersteps
 
 The groups are bfs (phases 3-5), spmv (6-8), sssp (9-11), operators
 (12-14), tc (15-17), color (18-20), variants (21-23), bcppr (24-25), mst
-(26-27), geo (28-29), spgemm (30-31) and harness (32-33); phases 1-2
-always run, and the groups run in this order. variants, bcppr, mst, geo,
-spgemm and harness add no kernel: they run the kernels of the groups before them on new paths, so
+(26-27), geo (28-29), spgemm (30-31), harness (32-33) and parallel
+(34-35); phases 1-2 always run, and the groups run in this order.
+variants, bcppr, mst, geo, spgemm, harness and parallel add no kernel:
+they run the kernels of the groups before them on new paths, so
 with --only they add no entry to the JSON line, and their launches count
 in the entries of the groups chosen with them. Each graph is built by the first group that
 needs it and kept for the others. With --only, the JSON line lists the
@@ -384,7 +387,30 @@ raises and exits non-zero:
    (kron_s16's A @ A is 1.25e9 products), each exiting 0 (validated
    against its host reference) with backend "cuda"; their mean ms and
    MTEPS beside the card's name and power limit; then the run_all
-   example on datasets/chesapeake.mtx.
+   example on datasets/chesapeake.mtx;
+34. the parallel layer on a one-rank NCCL group (multihost.initialize,
+   num_processes 1; NCCL refuses two ranks on one card, so P > 1 is held
+   on the CPU over gloo by tests/test_torch_parallel.py): one partition of
+   gen:rmat20x16 per exchange mode (all_gather, boundary), each built with
+   overlap=True, then dist_bfs, dist_sssp and dist_pagerank (tol 0,
+   PR_ITERATIONS iterations) in both modes, with and without overlap, from
+   the highest-degree vertex, each gathered by multihost.gather_global and
+   run with the launch counters set to 0 just before it and read just
+   after: expand_segments, gather_payloads and segment_reduce once a
+   superstep (gather_payloads once more where SSSP moves its weights
+   without overlap), nothing else, BFS levels + 1 supersteps and PageRank
+   PR_ITERATIONS; BFS equal to cpu_reference and to the fused single-chip
+   BFS, SSSP within rtol 1e-5 of a float64 Dijkstra (the reach set exact)
+   and bit for bit equal across the four runs, PageRank within PR_RTOL /
+   PR_ATOL_V / V of a float64 power iteration with the JAX package's
+   formula (host_pagerank) and summing to 1 within PR_SUM_TOL; pads
+   unreached (0 for PageRank); then a planted fault, two route_idx
+   entries swapped between low-ranked vertices (plant_route_swap), which
+   the PageRank check must refuse;
+35. per run and per superstep on CUDA events (median of CYCLES): ms,
+   supersteps and MTEPS (E x supersteps, and E over the run) for each of
+   phase 34's twelve paths, each with torch.profiler's busy and idle
+   share; per mode the host partition seconds and comm_values_per_step.
 
 Every kernel's bound is the least time an H100 could take for its work:
 the larger of the bytes it must move (each input element it needs read
@@ -5382,6 +5408,227 @@ def cli_main_path(run) -> dict:
     return by_path
 
 
+# -------------------------------------------------------- phases 34-35 --
+
+PARALLEL_MODES = ("all_gather", "boundary")
+PARALLEL_ALGOS = ("bfs", "sssp", "pagerank")
+PR_ITERATIONS = 20      # dist_pagerank's fixed count (tol 0), the host's too
+# PageRank against the float64 host power iteration: |got - ref| <=
+# PR_ATOL_V / V + PR_RTOL |ref|, the absolute term a ten-thousandth of the
+# mean rank 1 / V (ranks are at least the teleport 0.15 / V)
+PR_RTOL, PR_ATOL_V = 1e-4, 1e-4
+PR_SUM_TOL = 1e-5       # |sum of the ranks - 1|
+
+
+def pr_worst(got: np.ndarray, ref: np.ndarray) -> float:
+    """The largest |got - ref| over its allowance PR_ATOL_V / V + PR_RTOL
+    |ref| (at most 1 where the check holds)."""
+    allow = PR_ATOL_V / ref.shape[0] + PR_RTOL * np.abs(ref)
+    return float((np.abs(got.astype(np.float64) - ref) / allow).max())
+
+
+def plant_route_swap(part, ref_pr: np.ndarray):
+    """A planted fault for phase 34's PageRank check, on a one-rank
+    all_gather partition: its route_idx with the slots of two in-degree-1
+    destinations swapped, so each takes the other's one contribution. The
+    two are those whose contributions (rank / out-degree of the source, on
+    the host's ranks) are the least and the median among such vertices:
+    mass moved between two low-ranked vertices, where the sum check sees
+    nothing. Returns the faulty partition and the contribution moved."""
+    import dataclasses
+    n = ref_pr.shape[0]
+    soff = part.src_offsets.cpu().numpy().astype(np.int64)
+    doff = part.dst_offsets.cpu().numpy().astype(np.int64)
+    route = part.route_idx.cpu().numpy()
+    slot = doff[np.flatnonzero(np.diff(doff[:n + 1]) == 1)]
+    check(slot.shape[0] >= 2, "plant_route_swap: fewer than two "
+          "in-degree-1 vertices")
+    src = np.searchsorted(soff, route[slot], side="right") - 1
+    contrib = ref_pr[src] / np.diff(soff)[src]
+    order = np.argsort(contrib, kind="stable")
+    lo, mid = order[0], order[order.shape[0] // 2]
+    bad = route.copy()
+    bad[[slot[lo], slot[mid]]] = route[[slot[mid], slot[lo]]]
+    return (dataclasses.replace(part, route_idx=torch.from_numpy(bad).to(
+        part.device)), float(contrib[mid] - contrib[lo]))
+
+
+def host_pagerank(csr, iterations: int, alpha: float = 0.85) -> np.ndarray:
+    """float64 power iteration with the JAX package's distributed formula
+    (essentials_tpu/parallel/distributed.py:359-362): the dangling mass
+    spread evenly, the teleport (1 - alpha) / V."""
+    n = csr.n_rows
+    deg = np.diff(csr.row_offsets).astype(np.int64)
+    src = np.repeat(np.arange(n), deg)
+    p = np.full(n, 1.0 / n)
+    for _ in range(iterations):
+        contrib = np.where(deg > 0, p / np.maximum(deg, 1), 0.0)
+        pulled = np.bincount(csr.col_indices, weights=contrib[src],
+                             minlength=n)
+        p = (1 - alpha) / n + alpha * p[deg == 0].sum() / n + alpha * pulled
+    return p
+
+
+def dist_call(D, part, mesh, algo: str, source: int, overlap: bool):
+    """One dist_* run on a rank's partition, as a user calls it."""
+    if algo == "bfs":
+        return D.dist_bfs(part, mesh, source, overlap=overlap)
+    if algo == "sssp":
+        return D.dist_sssp(part, mesh, source, overlap=overlap)
+    return D.dist_pagerank(part, mesh, tol=0.0,
+                           max_iterations=PR_ITERATIONS, overlap=overlap)
+
+
+def parallel_main_path(csr, g, where: str) -> tuple:
+    """Phase 34 (also the card test's, at rmat12): a one-rank NCCL group
+    (made here where none exists), one partition per exchange mode built
+    with overlap=True, then dist_bfs, dist_sssp and dist_pagerank in both
+    modes, with and without overlap, from the highest-degree vertex, each
+    with the launch counts set to 0 just before it and read just after.
+    Returns ({path: launches}, {path: supersteps}, the local partitions,
+    the host partition seconds by mode, the source)."""
+    import torch.distributed as tdist
+    from essentials_tpu_torch.algorithms import bfs
+    from essentials_tpu_torch.parallel import distributed as D, multihost
+    from essentials_tpu_torch.parallel.partition import partition_graph
+    if not tdist.is_initialized():
+        multihost.initialize(num_processes=1, device="cuda")
+    mesh = multihost.global_mesh()
+    check(mesh.size == 1 and mesh.device.type == "cuda"
+          and tdist.get_backend() == "nccl",
+          f"parallel: mesh {mesh} on {tdist.get_backend()}")
+    n = csr.n_rows
+    source = int(np.argmax(np.diff(csr.row_offsets)))
+    t0 = time.perf_counter()
+    ref_bfs = bfs.cpu_reference(csr, source)
+    fused = bfs.run(g, source, variant="fused").distances.cpu().numpy()
+    check(np.array_equal(fused, ref_bfs),
+          f"parallel {where}: fused BFS differs from cpu_reference")
+    ref_sssp = host_dijkstra(csr, source)
+    ref_pr = host_pagerank(csr, PR_ITERATIONS)
+    levels = int(ref_bfs[ref_bfs != INT32_MAX].max())
+    print(f"parallel {where}: host references (BFS, Dijkstra, PageRank "
+          f"float64 x{PR_ITERATIONS}) in {time.perf_counter() - t0:.1f} s; "
+          f"source {source}, {levels} BFS levels")
+    parts, seconds = {}, {}
+    for mode in PARALLEL_MODES:
+        t0 = time.perf_counter()
+        dg = partition_graph(csr, 1, exchange=mode, overlap=True)
+        seconds[mode] = time.perf_counter() - t0
+        check((dg.boundary_size > 0) == (mode == "boundary"),
+              f"parallel {where}: {mode} partition has boundary size "
+              f"{dg.boundary_size}")
+        parts[mode] = dg.local(mesh.rank, mesh.device)
+        print(f"parallel {where}: partition {mode} (overlap built): "
+              f"{seconds[mode]:.2f} s on the host; Vs {dg.block_size}, Es "
+              f"{dg.edges_per_device}, Eq {dg.peer_edges}, Smax "
+              f"{dg.boundary_size}, {dg.comm_values_per_step} values "
+              f"exchanged a superstep")
+    by_path, steps, sssp_bits = {}, {}, {}
+    for mode in PARALLEL_MODES:
+        for overlap in (False, True):
+            for algo in PARALLEL_ALGOS:
+                path = f"dist_{algo} {mode}" + (" overlap" if overlap else "")
+                out, launches = counted(lambda: multihost.gather_global(
+                    mesh, dist_call(D, parts[mode], mesh, algo, source,
+                                    overlap)))
+                ran = {k: c for k, c in launches.items() if c}
+                s = launches["expand_segments"]
+                extra = algo == "sssp" and not overlap  # the weights' move
+                want = {"expand_segments": s, "gather_payloads": s + extra,
+                        "segment_reduce": s}
+                check(s > 0 and ran == want,
+                      f"{path}: launched {ran}, expected {want}")
+                check(algo != "bfs" or s == levels + 1,
+                      f"{path}: {s} supersteps for {levels} levels")
+                check(algo != "pagerank" or s == PR_ITERATIONS,
+                      f"{path}: {s} iterations, not {PR_ITERATIONS}")
+                by_path[path], steps[path] = launches, s
+                vec = out.cpu().numpy()
+                check(vec.shape == (parts[mode].graph.n_vertices_global,),
+                      f"{path}: shape {vec.shape}")
+                got, pad = vec[:n], vec[n:]
+                if algo == "bfs":
+                    check(np.array_equal(got, ref_bfs)
+                          and np.all(pad == INT32_MAX),
+                          f"{path}: distances differ from cpu_reference "
+                          f"and the fused BFS")
+                    what = "equal to cpu_reference and fused"
+                elif algo == "sssp":
+                    fin = np.isfinite(ref_sssp)
+                    check(np.array_equal(np.isfinite(got), fin)
+                          and np.all(np.isinf(pad))
+                          and np.allclose(got[fin], ref_sssp[fin],
+                                          rtol=SSSP_RTOL, atol=0),
+                          f"{path}: outside rtol {SSSP_RTOL} of Dijkstra "
+                          f"or reach set differs")
+                    sssp_bits[path] = got.view(np.int32)
+                    rel = np.abs(got[fin] - ref_sssp[fin]) / np.maximum(
+                        ref_sssp[fin], np.finfo(np.float32).tiny)
+                    what = (f"max rel err {rel.max():.3g} against Dijkstra, "
+                            f"reach set exact")
+                else:
+                    total = float(got.astype(np.float64).sum())
+                    worst = pr_worst(got, ref_pr)
+                    check(np.all(np.isfinite(got)) and np.all(pad == 0)
+                          and worst <= 1.0
+                          and abs(total - 1.0) <= PR_SUM_TOL,
+                          f"{path}: {worst:.3g} of its allowance (rtol "
+                          f"{PR_RTOL}, atol {PR_ATOL_V} / V) of the float64 "
+                          f"host, or sum {total}")
+                    what = (f"max abs err {np.abs(got - ref_pr).max():.3g} "
+                            f"against float64, {worst:.3g} of the allowance"
+                            f", sum {total:.9f}")
+                print(f"main path: {path} {where}: {s} supersteps, {what}; "
+                      f"launches {ran}")
+    first = next(iter(sssp_bits.values()))
+    check(all(np.array_equal(b, first) for b in sssp_bits.values()),
+          f"parallel {where}: dist_sssp differs bitwise across modes")
+    print(f"main path: dist_sssp {where}: bit-equal across "
+          f"{len(sssp_bits)} mode/overlap runs")
+    bad, moved = plant_route_swap(parts["all_gather"], ref_pr)
+    got = multihost.gather_global(mesh, dist_call(
+        D, bad, mesh, "pagerank", source, False)).cpu().numpy()[:n]
+    worst = pr_worst(got, ref_pr)
+    check(worst > 1.0, f"parallel {where}: the planted route swap "
+          f"({moved:.3g} moved) passed the PageRank check ({worst:.3g} of "
+          f"the allowance)")
+    print(f"control: dist_pagerank all_gather {where}, two route_idx slots "
+          f"swapped ({moved:.3g} of contribution moved): max abs err "
+          f"{np.abs(got - ref_pr).max():.3g}, {worst:.3g} of the allowance "
+          f"(atol {PR_ATOL_V / n:.3g}), refused; sum "
+          f"{float(got.astype(np.float64).sum()):.9f}")
+    return by_path, steps, parts, seconds, source
+
+
+def time_parallel(run, csr, steps: dict, parts: dict, seconds: dict,
+                  source: int, where: str) -> None:
+    """Phase 35: ms per run and per superstep on CUDA events (median of
+    CYCLES), supersteps and MTEPS for each path of phase 34, its device
+    busy and idle share under torch.profiler, and per mode the host
+    partition seconds and the values exchanged a superstep."""
+    from essentials_tpu_torch.parallel import distributed as D, multihost
+    card, e = run.card, csr.nnz
+    mesh = multihost.global_mesh()
+    for mode in PARALLEL_MODES:
+        dg = parts[mode].graph
+        print(f"time [{card}]: parallel partition {mode} {where}: "
+              f"{seconds[mode]:.2f} s on the host (overlap built), "
+              f"comm_values_per_step {dg.comm_values_per_step}")
+    for path, s in steps.items():
+        algo, mode = path.split()[0][5:], path.split()[1]
+        overlap = path.endswith("overlap")
+
+        def fn(_=None, algo=algo, mode=mode, overlap=overlap):
+            return dist_call(D, parts[mode], mesh, algo, source, overlap)
+        ms = median_ms(fn)
+        print(f"time [{card}]: {path} {where}: {ms:.4f} ms per run "
+              f"(median of {CYCLES}), {s} supersteps, {ms / s:.4f} ms per "
+              f"superstep, {e * s / 1e3 / ms:.1f} MTEPS (E x supersteps), "
+              f"{e / 1e3 / ms:.1f} MTEPS (E over the run)")
+        profile(f"{path} {where}, one run", fn)
+
+
 class Phases:
     """Prints each phase's seconds as it ends."""
 
@@ -6052,11 +6299,28 @@ def group_harness(run: Run) -> None:
     print(f"harness group: {time.perf_counter() - t0:.1f} s")
 
 
+def group_parallel(run: Run) -> None:
+    """Phases 34-35: the parallel layer on a one-rank NCCL group."""
+    import torch.distributed as tdist
+    t0 = time.perf_counter()
+    csr, g = run.weighted_graph(MAIN_SCALE)
+    where = f"gen:rmat{MAIN_SCALE}x16"
+    by_path, steps, parts, seconds, source = parallel_main_path(csr, g,
+                                                                where)
+    run.by_path.update(by_path)
+    run.phases.done("34 parallel main path")
+    time_parallel(run, csr, steps, parts, seconds, source, where)
+    tdist.destroy_process_group()
+    run.phases.done("35 parallel times")
+    print(f"parallel group: {time.perf_counter() - t0:.1f} s")
+
+
 GROUPS = {"bfs": group_bfs, "spmv": group_spmv, "sssp": group_sssp,
           "operators": group_operators, "tc": group_tc,
           "color": group_color, "variants": group_variants,
           "bcppr": group_bcppr, "mst": group_mst, "geo": group_geo,
-          "spgemm": group_spgemm, "harness": group_harness}
+          "spgemm": group_spgemm, "harness": group_harness,
+          "parallel": group_parallel}
 # each group's kernels, in the order of the JSON line
 KERNEL_TABLE = (("bfs", SOURCE, REPLACES),
                 ("spmv", SPMV_SOURCE, SPMV_REPLACES),

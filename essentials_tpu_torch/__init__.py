@@ -14,22 +14,26 @@ neighbor_reduce, segment, scans, the spray tiers, batch; ``frontier``;
 CUDA kernels of ``csrc/`` (``kernels`` builds and binds them), ``runtime``
 (device properties, ``torch.profiler`` traces), ``utils`` (compare, timer,
 stats, checkpoints) and the command-line driver ``cli``
-(``essentials-tpu-torch``). The JAX package's ``parallel`` layer is not
-ported yet. Every function takes its device from its arguments: a graph's
-or a tensor's, or, for the entry points that start from a host ``Csr``
-(``tc.run``, ``intersect``, ``spgemm``), a ``device`` argument that
-defaults to CUDA; the CLI runs on the card unless ``--cpu`` is given.
+(``essentials-tpu-torch``), and the scale-out layer ``parallel``: 1-D
+vertex partitions (``partition_graph``) and ``dist_bfs`` / ``dist_sssp`` /
+``dist_pagerank`` with one process per device over ``torch.distributed``
+(NCCL between cards, gloo between CPU processes). Every function takes its
+device from its arguments: a graph's or a tensor's, or, for the entry
+points that start from a host ``Csr`` (``tc.run``, ``intersect``,
+``spgemm``, ``DistGraph.local``, ``multihost.initialize``), a ``device``
+argument that defaults to CUDA; the CLI runs on the card unless ``--cpu``
+is given.
 """
 
 __version__ = "0.1.0"
 
 from essentials_tpu_torch import (algorithms, formats, framework, frontier,
-                                  graph, io, ops, runtime, utils)
+                                  graph, io, ops, parallel, runtime, utils)
 from essentials_tpu_torch.errors import EssentialsError, throw_if
 from essentials_tpu_torch.graph import Graph, build_graph, graph_from_arrays
 
 __all__ = [
     "algorithms", "formats", "framework", "frontier", "graph", "io", "ops",
-    "runtime", "utils", "Graph", "build_graph",
+    "parallel", "runtime", "utils", "Graph", "build_graph",
     "graph_from_arrays", "EssentialsError", "throw_if",
 ]

@@ -4,7 +4,8 @@ neither jax nor the JAX package, its main paths (BFS, SpMV, PageRank
 directed graph, triangle counting and the intersection operator, coloring
 ``jp`` and ``spec``, PageRank and HITS ``generic`` on a directed graph, BFS
 ``hybrid`` and ``phased``, k-core ``adaptive``, BC and PPR, MST, geo,
-SpGEMM static and chunked, the helpers, the native parser and the CLI)
+SpGEMM static and chunked, the helpers, the native parser, the CLI and the
+parallel layer on a one-rank gloo group)
 run where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
 route and bitmap kernels exactly, k-core also on a graph with a hub,
@@ -79,6 +80,9 @@ HARNESS = ("cli.py", "examples/run_all.py", "native/mmio_native.py",
            "ops/uniquify.py", "ops/parallel_for.py", "framework/problem.py",
            "utils/printing.py", "utils/stats.py", "utils/checkpoint.py",
            "runtime.py", "dtypes.py")
+PARALLEL = ("parallel/__init__.py", "parallel/partition.py",
+            "parallel/mesh.py", "parallel/multihost.py",
+            "parallel/distributed.py")
 
 
 def test_sources_import_no_jax():
@@ -87,7 +91,7 @@ def test_sources_import_no_jax():
     assert len(files) > 15
     assert {ROOT / "essentials_tpu_torch" / m
             for m in OPERATOR_LAYER + TC_AND_FILLS[:-1] + COLOR + BC_PPR
-            + MST_GEO_SPGEMM + HARNESS} \
+            + MST_GEO_SPGEMM + HARNESS + PARALLEL} \
         <= set(files)
     assert (ROOT / "essentials_tpu_torch" / TC_AND_FILLS[-1]).exists()
     for f in files:
@@ -233,6 +237,20 @@ _MAIN_PATH = textwrap.dedent("""
             rc = cli.main([algo, "datasets/chesapeake.mtx", "--cpu",
                            "--validate", "--runs", "1", "--no-cache"])
         assert rc == 0 and "PASS" in out.getvalue()
+    import torch.distributed as tdist
+    from essentials_tpu_torch.parallel import distributed as D, multihost
+    from essentials_tpu_torch.parallel.partition import partition_graph
+    multihost.initialize(num_processes=1, device="cpu")
+    mesh = multihost.global_mesh()
+    for mode in ("all_gather", "boundary"):
+        dg = partition_graph(cw, 1, exchange=mode, overlap=True)
+        for ov in (False, True):
+            d = D.dist_bfs(dg, mesh, 1, overlap=ov).numpy()[:cw.n_rows]
+            assert np.array_equal(d, bfs.cpu_reference(cw, 1))
+            s = D.dist_sssp(dg, mesh, 1, overlap=ov).numpy()[:cw.n_rows]
+            assert np.allclose(s, sssp.cpu_reference(cw, 1), rtol=1e-5)
+            assert D.dist_pagerank(dg, mesh, overlap=ov).isfinite().all()
+    tdist.destroy_process_group()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in {forbidden!r})
     assert not loaded, loaded
@@ -1069,3 +1087,28 @@ def test_harness_modules_on_the_card(tmp_path):
              "--runs", "1", "--no-cache"])
         assert rc == 0 and stats["backend"] == "cuda", out
         assert any(launches.values())
+
+
+@pytest.mark.cuda
+def test_parallel_layer_on_the_card():
+    """chip_smoke's phase 34 checks (parallel_main_path) at weighted rmat12
+    on a one-rank NCCL group: in both exchange modes, with and without
+    overlap, dist_bfs equal to cpu_reference and the fused BFS, dist_sssp
+    within rtol 1e-5 of a float64 Dijkstra (the reach set exact) and bit
+    for bit equal across the four runs, dist_pagerank within rtol 1e-4 /
+    atol 1e-4 / V of the float64 host and summing to 1 within 1e-5 (a
+    planted route swap refused by that check), each run
+    launching expand_segments, gather_payloads and segment_reduce once a
+    superstep (gather_payloads once more where SSSP moves its weights)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as tdist
+    cs = _chip_smoke()
+    csr, g = cs.weighted_graph(12, "cuda")
+    try:
+        by_path, steps, _, _, _ = cs.parallel_main_path(csr, g, "rmat12")
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    assert len(by_path) == 12
+    assert all(steps[p] == by_path[p]["segment_reduce"] > 0 for p in steps)
