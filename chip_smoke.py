@@ -452,6 +452,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import subprocess
 import time
 
@@ -629,6 +630,19 @@ def spray_gate(min_edges: int):
         yield
     finally:
         SA._MIN_EDGES = saved
+
+
+def device_row(e) -> bool:
+    """Whether a ``key_averages()`` row is work on the card: not the step
+    span (ProfilerStep*, which carries its window's device time) nor a
+    span of the program (``runtime.span``: torch.profiler lists a user
+    annotation on the device's timeline too, over the kernels inside it;
+    its name is dotted words, a kernel's its signature)."""
+    from torch.autograd import DeviceType
+    return bool(e.device_type == DeviceType.CUDA and e.self_device_time_total
+                and not e.key.startswith("ProfilerStep")
+                and not getattr(e, "is_user_annotation", False)
+                and not re.fullmatch(r"[a-z_]+(\.[a-z_]+)+", e.key))
 
 
 def check(cond: bool, what: str) -> None:
@@ -1330,7 +1344,6 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
     busy share as a lower bound. Returns {kernel name: (total ms,
     launches)}; empty when the profiler saw no device time."""
     from essentials_tpu_torch import kernels as K
-    from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile as torch_profile,
                                 schedule)
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -1347,12 +1360,8 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
         packs = second_passes() - packs
-    # the step span (ProfilerStep*) carries the device time of its whole
-    # window; it is not a kernel
     rows = {e.key: (e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total
-            and not e.key.startswith("ProfilerStep")}
+            for e in prof.key_averages() if device_row(e)}
     busy = sum(ms for ms, _ in rows.values())
     seen = launches_seen(rows)
     if expect is not None:
@@ -1395,7 +1404,6 @@ def device_ms(fn, reps: int = 20) -> tuple:
     ms per call}); (None, {}) where the profiler saw no device time. A
     window that came back empty, or that lost activities (a count that is
     not a whole number of calls), is retaken."""
-    from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile as torch_profile,
                                 schedule)
     for _ in range(3):
@@ -1408,10 +1416,7 @@ def device_ms(fn, reps: int = 20) -> tuple:
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total
-                  and not e.key.startswith("ProfilerStep")]
+        events = [e for e in prof.key_averages() if device_row(e)]
         if events and all(e.count % reps == 0 for e in events):
             rows = {e.key: e.self_device_time_total / 1e3 / reps
                     for e in events}
@@ -2969,7 +2974,6 @@ def kernels_seen(fn, calls: int = PROFILED_CALLS) -> dict | None:
     after a warm-up step, or (where that window lost activities: a count
     that is not a whole number of calls) in a profiler of its own after a
     warm-up call; three tries each. None where every window lost some."""
-    from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile as torch_profile,
                                 schedule)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2986,10 +2990,8 @@ def kernels_seen(fn, calls: int = PROFILED_CALLS) -> dict | None:
                 if scheduled:
                     prof.step()
         rows = {e.key: e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total
-                and not e.key.startswith(("ProfilerStep", "Memset",
-                                          "Memcpy"))}
+                if device_row(e)
+                and not e.key.startswith(("Memset", "Memcpy"))}
         if rows and all(n % calls == 0 for n in rows.values()):
             return {k: n // calls for k, n in rows.items()}
     return None

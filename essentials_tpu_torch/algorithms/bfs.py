@@ -43,6 +43,7 @@ from essentials_tpu_torch.ops import fused_bfs as FB
 from essentials_tpu_torch.ops import sparse_advance as SA
 from essentials_tpu_torch.ops.advance import advance_count
 from essentials_tpu_torch.ops.segment import expand_vertex_to_edges
+from essentials_tpu_torch.runtime import span, spanned
 from essentials_tpu_torch.utils.timer import Timer
 
 UNREACHED = np.iinfo(np.int32).max
@@ -101,6 +102,7 @@ def init(g: Graph, source: int) -> BfsState:
                     hi - lo, 1, (0, 0, 0))
 
 
+@spanned("bfs.level")
 def step(g: Graph, state: BfsState, it: int) -> BfsState:
     """One level. Work-adaptive three-way choice on the frontier's total
     out-degree, as the JAX package's ``bfs.step``:
@@ -131,7 +133,8 @@ def step(g: Graph, state: BfsState, it: int) -> BfsState:
         newly, nidx, fc = SA.spray_reach(g, fidx[:k], offs, deg, unvisited,
                                          budget, k)
         nidx = SA.pad_index_list(g, nidx, k_all)
-    live, degsum, fcount = SA.read_control(g, newly, fc)
+    with span("bfs.level.read"):
+        live, degsum, fcount = SA.read_control(g, newly, fc)
     tiers = tuple(n + (i == branch) for i, n in enumerate(state.tiers))
     return BfsState(torch.where(newly, it + 1, dist), newly, nidx, fcount,
                     spray and fcount <= k_all, degsum, live, tiers)
@@ -141,6 +144,15 @@ def fused_supported(g: Graph) -> bool:
     """The edge-axis fused superstep needs the symmetric layout, so that the
     vertex<->edge moves cancel across levels."""
     return bool(g.symmetric_layout)
+
+
+def read_level(cnt: torch.Tensor) -> int:
+    """The vertices a dense level reached, from its ``bfs_level`` count
+    ``cnt``: the level's one host read (the span ``bfs.level.read``), which
+    counts its form. The caller holds ``cnt``, and with it the level's
+    scratch, until the next level's launch has taken its own."""
+    with span("bfs.level.read"):
+        return kernels.bfs_level_count(cnt)
 
 
 def run_fused_levels(g: Graph, source: int, max_it: int, *,
@@ -156,9 +168,11 @@ def run_fused_levels(g: Graph, source: int, max_it: int, *,
     lev = FB.init_lev_exp(g, source, unreached)
     it = 0
     while it < max_it:
-        _, cnt = FB.fused_superstep(g, lev, it, unreached=unreached)
+        with span("bfs.level"):
+            _, cnt = FB.fused_superstep(g, lev, it, unreached=unreached)
+            reached = read_level(cnt)
         it += 1
-        if cnt.item() == 0:
+        if reached == 0:
             break
     return lev, it, unreached
 
@@ -230,32 +244,36 @@ def run_hybrid_levels(g: Graph, source: int, max_it: int,
     mode = _SPRAY if use_spray and hi - lo <= HYBRID_BUDGET else _DENSE
     fresh, it, counts = True, 0, dict.fromkeys(LevelCounts._fields, 0)
     while mode != _DONE and it < max_it:
-        if mode == _SPRAY:
-            dist, fidx, nc, offs, deg = _spray_level(g, dist, fidx, offs, deg,
-                                                     it)
-            touch_up(g, lev_buf, fidx, offs, it + 1)
-            nc, nds = torch.stack([nc.long(),
-                                   deg.sum(dtype=torch.int64)]).tolist()
-            mode = (_DONE if nc == 0 else
-                    _SPRAY if nds <= HYBRID_BUDGET else _DENSE)
-            fresh = True
-            counts["spray"] += 1
-        else:
-            _, cnt = FB.fused_superstep(g, lev, it, unreached=unreached)
-            cnt = int(cnt)
-            counts["dense"] += 1
-            if use_spray and 0 < cnt <= HYBRID_K:
-                dist = FB.collapse_lev_exp(g, lev, source, unreached)
-                fidx = SA.compact_frontier(dist == it + 1, HYBRID_K, pad)
-                offs, deg = SA.frontier_out_degree(g, fidx)
-                nds = int(deg.sum(dtype=torch.int64))
-                mode = _SPRAY if nds <= HYBRID_BUDGET else _DENSE
+        with span("bfs.level"):
+            if mode == _SPRAY:
+                dist, fidx, nc, offs, deg = _spray_level(g, dist, fidx, offs,
+                                                         deg, it)
+                touch_up(g, lev_buf, fidx, offs, it + 1)
+                with span("bfs.level.read"):
+                    nc, nds = torch.stack([nc.long(),
+                                           deg.sum(dtype=torch.int64)]
+                                          ).tolist()
+                mode = (_DONE if nc == 0 else
+                        _SPRAY if nds <= HYBRID_BUDGET else _DENSE)
                 fresh = True
-                counts["collapses"] += 1
-                counts["compactions"] += 1
+                counts["spray"] += 1
             else:
-                mode = _DONE if cnt == 0 else _DENSE
-                fresh = False
+                _, cnt = FB.fused_superstep(g, lev, it, unreached=unreached)
+                reached = read_level(cnt)
+                counts["dense"] += 1
+                if use_spray and 0 < reached <= HYBRID_K:
+                    dist = FB.collapse_lev_exp(g, lev, source, unreached)
+                    fidx = SA.compact_frontier(dist == it + 1, HYBRID_K, pad)
+                    offs, deg = SA.frontier_out_degree(g, fidx)
+                    with span("bfs.level.read"):
+                        nds = int(deg.sum(dtype=torch.int64))
+                    mode = _SPRAY if nds <= HYBRID_BUDGET else _DENSE
+                    fresh = True
+                    counts["collapses"] += 1
+                    counts["compactions"] += 1
+                else:
+                    mode = _DONE if reached == 0 else _DENSE
+                    fresh = False
         it += 1
     if not fresh:
         # the last level ran dense without handing over: merge the edge
@@ -295,10 +313,13 @@ def run_phased_levels(g: Graph, source: int, max_it: int,
         while go == 1 and it < max_it:
             if nds > HYBRID_BUDGET:
                 return dist, fidx, 2, it
-            dist, fidx, nc, offs, deg = _spray_level(g, dist, fidx, offs, deg,
-                                                     it)
-            nc, nds = torch.stack([nc.long(),
-                                   deg.sum(dtype=torch.int64)]).tolist()
+            with span("bfs.level"):
+                dist, fidx, nc, offs, deg = _spray_level(g, dist, fidx, offs,
+                                                         deg, it)
+                with span("bfs.level.read"):
+                    nc, nds = torch.stack([nc.long(),
+                                           deg.sum(dtype=torch.int64)]
+                                          ).tolist()
             go = 0 if nc == 0 else 1
             it += 1
             counts["spray"] += 1
@@ -307,9 +328,11 @@ def run_phased_levels(g: Graph, source: int, max_it: int,
     def dense_loop(lev, it, go, tail_exit):
         """go: 1 run, 0 done, 2 the tail handed to the spray."""
         while go == 1 and it < max_it:
-            _, cnt = FB.fused_superstep(g, lev, it, unreached=unreached)
-            cnt = int(cnt)
-            go = 0 if cnt == 0 else 2 if tail_exit and cnt <= tail_cnt else 1
+            with span("bfs.level"):
+                _, cnt = FB.fused_superstep(g, lev, it, unreached=unreached)
+                reached = read_level(cnt)
+            go = (0 if reached == 0 else
+                  2 if tail_exit and reached <= tail_cnt else 1)
             it += 1
             counts["dense"] += 1
         return go, it
@@ -414,6 +437,7 @@ def _auto_variant(g: Graph, source: int, max_it: int) -> tuple:
     return _auto_cache[key], probe
 
 
+@spanned("bfs.run")
 def run(g: Graph, source: int, *, max_iterations: int | None = None,
         compute_predecessors: bool = True, warmup: bool = True,
         variant: str = "auto") -> BfsResult:
@@ -425,7 +449,12 @@ def run(g: Graph, source: int, *, max_iterations: int | None = None,
     or 'auto' (the timed probe of ``_auto_variant`` on a graph with a
     symmetric layout, 'adaptive' elsewhere). ``elapsed_ms`` covers the
     levels (and, for the edge-axis variants, the collapse to distances), on
-    the device's clock (CUDA events) or the host's (CPU)."""
+    the device's clock (CUDA events) or the host's (CPU).
+
+    Under a torch.profiler the call is the span ``bfs.run``, each level a
+    ``bfs.level`` holding its kernels' ``kernel.*`` spans and its host read
+    ``bfs.level.read`` (``runtime.span``); ``kernels.counters`` counts
+    each ``bfs_level``'s form on the card."""
     throw_if(not 0 <= source < g.n_vertices,
              f"source {source} out of range [0, {g.n_vertices})")
     max_it = max_iterations if max_iterations is not None else g.n_vertices + 1

@@ -32,6 +32,7 @@ from essentials_tpu_torch.ops import sparse_advance as SA
 from essentials_tpu_torch.ops import windowed_sssp as WS
 from essentials_tpu_torch.ops.configs import Combine
 from essentials_tpu_torch.ops.segment import combine_by_offsets, gather
+from essentials_tpu_torch.runtime import span, spanned
 from essentials_tpu_torch.utils.timer import Timer
 
 # the sweep engines; 'adaptive' runs on the enactor
@@ -93,6 +94,7 @@ def dense_relax(g: Graph, dist: torch.Tensor, frontier: torch.Tensor):
     return cand, cand_pred
 
 
+@spanned("sssp.sweep")
 def step(g: Graph, state: SsspState, it: int) -> SsspState:
     """One relaxation round, work-adaptive as ``bfs.step``: small frontiers
     relax exactly their out-edges through the budgeted spray, large ones run
@@ -118,7 +120,10 @@ def step(g: Graph, state: SsspState, it: int) -> SsspState:
         if spray:
             fc = new_frontier.sum(dtype=torch.int32)
             nidx = SA.compact_if_fits(g, new_frontier, fc)
-    live, degsum, fcount = SA.read_control(g, new_frontier, fc)
+    with span("sssp.sweep.read"):
+        live, degsum, fcount = SA.read_control(g, new_frontier, fc)
+    kernels.counters["sssp.swept"] += state.live
+    kernels.counters["sssp.improved"] += live
     tiers = tuple(n + (i == branch) for i, n in enumerate(state.tiers))
     return SsspState(torch.where(improved, cand, dist),
                      torch.where(improved, cand_pred, pred), new_frontier,
@@ -147,6 +152,7 @@ def predecessors_from_distances(g: Graph, dist: torch.Tensor) -> torch.Tensor:
                                      FS.csc_weights(g), g.n_edges)
 
 
+@spanned("sssp.run")
 def run(g: Graph, source: int, *, max_iterations: int | None = None,
         warmup: bool = True, variant: str = "auto") -> SsspResult:
     """SSSP from ``source`` on ``g``'s device.
@@ -159,7 +165,12 @@ def run(g: Graph, source: int, *, max_iterations: int | None = None,
     The JAX package's 'auto' is 'fused', or 'adaptive' where that does not
     run. ``elapsed_ms`` covers the sweeps and the collapse to distances
     (not the derived predecessors), or the adaptive rounds, on the device's
-    clock (CUDA events) or the host's (CPU)."""
+    clock (CUDA events) or the host's (CPU).
+
+    Under a torch.profiler the call is the span ``sssp.run``, each sweep or
+    round an ``sssp.sweep`` holding its kernels' ``kernel.*`` spans and its
+    host read ``sssp.sweep.read`` (``runtime.span``); ``kernels.counters``
+    counts the vertices each sweep relaxed and improved."""
     if variant == "auto":
         variant = ("windowed" if windowed_supported(g) else
                    "fused" if fused_supported(g) else "adaptive")

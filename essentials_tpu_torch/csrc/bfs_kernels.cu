@@ -102,8 +102,8 @@ constexpr int kPushBlocksPerSm = 4;
 
 constexpr int kLevelScalars = 8;            // the scratch's first words
 
-// scalars: {vertices reached, ranges listed, m_f, m_u, n_f, 0, 0, 0}; rule:
-// {form, alpha, beta, vp}
+// scalars: {vertices reached, ranges listed, m_f, m_u, n_f, the form taken
+// (kFormPush or kFormPull), 0, 0}; rule: {form, alpha, beta, vp}
 struct LevelRule {
   int form;
   int alpha;
@@ -164,12 +164,17 @@ bfs_level_kernel(const T* __restrict__ lev, const int* __restrict__ off,
 }
 
 // A thread per 32-bit word of the frontier's bitmap, each set bit's row in
-// turn; the warp lists its lanes' rows together.
+// turn; the warp lists its lanes' rows together. The first thread writes
+// the form the level takes, the first launch to read the pass's whole sums.
 __global__ void __launch_bounds__(kBlock)
 bfs_level_list_kernel(const int* __restrict__ off, int words, LevelRule rule,
                       const unsigned* __restrict__ fbits, int* scalars,
                       int4* __restrict__ ranges) {
-  if (level_pulls(rule, scalars)) return;
+  const bool pulls = level_pulls(rule, scalars);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    scalars[5] = pulls ? kFormPull : kFormPush;
+  }
+  if (pulls) return;
   const int w = blockIdx.x * kBlock + threadIdx.x;
   unsigned bits = w < words ? fbits[w] : 0u;
   while (__any_sync(kFullMask, bits != 0)) {
@@ -707,6 +712,18 @@ int etpu_bfs_level_i8(void* lev, const void* off, const void* csc_src,
 
 // The scalar words at the head of bfs_level's scratch (the count first).
 int etpu_bfs_level_scalars() { return kLevelScalars; }
+
+// Copies the first n of those words (the count, the ranges listed, m_f,
+// m_u, n_f, the form taken) to the host array `dst` once the work before on
+// `stream` has written them: a level's one read.
+int etpu_read_level_scalars(int* dst, const void* scratch, int n,
+                            void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemcpyAsync(dst, scratch, n * sizeof(int),
+                                    cudaMemcpyDeviceToHost, s);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  return static_cast<int>(err);
+}
 
 int etpu_collapse_levels_i32(const void* lev, const void* off, int vp,
                              int source, int unreached, void* dist,

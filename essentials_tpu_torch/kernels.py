@@ -93,7 +93,10 @@ a CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 and anything the kernel does not take raises. There is no fallback from the
 kernel to the plain version. ``launches`` counts each kernel's launches,
 keyed by kernel (and, for the BFS kernels, element type); the plain versions
-count nothing.
+count nothing. ``counters`` holds the program's other counts (the form of
+each ``bfs_level`` on the card and its slots, the SSSP sweeps' work).
+Under a torch.profiler each wrapper call is the span ``kernel.<name>``
+(``runtime.span``).
 """
 
 from __future__ import annotations
@@ -109,6 +112,7 @@ from pathlib import Path
 import torch
 
 from essentials_tpu_torch.errors import EssentialsError, throw_if
+from essentials_tpu_torch.runtime import spanned
 
 INT32_MAX = 2**31 - 1
 INF_BITS = 0x7F800000          # float32 +inf as int32 bits: the min identity
@@ -194,13 +198,29 @@ pass_launches = {"gather_payloads_pack": 0, "sssp_sweep_push": 0,
                  "bfs_predecessors_ranges": 0,
                  "sssp_predecessors_ranges": 0}
 
+# the program's counts beside the launches, by name: the form each
+# bfs_level took on the card and the slots that form may read (counted by
+# ``bfs_level_count`` from the form the card wrote), and the vertices the
+# SSSP sweeps relaxed and the ones they improved
+counters = dict.fromkeys(("bfs_level.push", "bfs_level.pull",
+                          "bfs_level.push_slots", "bfs_level.pull_slots",
+                          "sssp.swept", "sssp.improved"), 0)
+
 _lib = None
 
 
 def reset_launches() -> None:
-    for counts in (launches, pass_launches):
+    """Zero ``launches``, ``pass_launches`` and ``counters``."""
+    for counts in (launches, pass_launches, counters):
         for k in counts:
             counts[k] = 0
+
+
+def _spanned(fn):
+    """``fn``, a wrapper counted in ``launches``, inside the span
+    ``kernel.<its name>`` (``runtime.span``): its checks, its allocations
+    and its launch, or its plain version."""
+    return spanned("kernel." + fn.__name__)(fn)
 
 
 # ---------------------------------------------------------------- build --
@@ -268,6 +288,7 @@ def _library():
             "etpu_bfs_level_i32": (p, p, p, p, i, i, i, i, i, i, i, p, p),
             "etpu_bfs_level_i8": (p, p, p, p, i, i, i, i, i, i, i, p, p),
             "etpu_bfs_level_scalars": (),
+            "etpu_read_level_scalars": (p, p, i, p),
             "etpu_collapse_levels_i32": (p, p, i, i, i, p, p),
             "etpu_collapse_levels_i8": (p, p, i, i, i, p, p),
             "etpu_bfs_predecessors": (p, p, p, i, i, i, p, p, p),
@@ -446,12 +467,50 @@ def bfs_level_pulls(m_f: int, m_u: int, n_f: int, vp: int) -> bool:
     return m_f * BFS_PULL_ALPHA > m_u and n_f * BFS_PULL_BETA >= vp
 
 
+_level_host = None
+
+
+def _level_words() -> tuple:
+    """The pinned host words that ``bfs_level_count`` reads into, made at
+    its first call on the card, and their ctypes view; one read at a
+    time."""
+    global _level_host
+    if _level_host is None:
+        host = torch.empty(6, dtype=torch.int32, pin_memory=True)
+        _level_host = host, (ctypes.c_int * 6).from_address(host.data_ptr())
+    return _level_host
+
+
+def bfs_level_count(cnt: torch.Tensor) -> int:
+    """The vertices a ``bfs_level`` call reached, read to the host from its
+    count ``cnt``: the level's one wait on the device. On the kernel's
+    route one copy into pinned memory (a C call: ``.item()``'s transfer
+    without its dispatch) brings the words that follow the count in the
+    call's scratch (0-5: the count, the ranges listed, m_f, m_u, n_f, the
+    form the card took, 1 push or 2 pull as in BFS_FORMS), and ``counters``
+    takes that form: ``bfs_level.push`` with m_f in ``.push_slots``, or
+    ``bfs_level.pull`` with m_u in ``.pull_slots``. The plain version's
+    count is read alone."""
+    if not _route("bfs_level", cnt):
+        return int(cnt.item())
+    host, words = _level_words()
+    _launch("etpu_read_level_scalars", cnt.device, host.data_ptr(),
+            cnt.data_ptr(), 6)
+    reached, _, m_f, m_u, _, form = words
+    pulls = BFS_FORMS[form] == "pull"
+    tag = "bfs_level.pull" if pulls else "bfs_level.push"
+    counters[tag] += 1
+    counters[tag + "_slots"] += m_u if pulls else m_f
+    return reached
+
+
 def bitmap_words(vp: int) -> int:
     """32-bit words of a packed [vp] bitmap in whole 16-byte words (the
     frontiers of ``advance_count`` and ``bfs_level``)."""
     return 4 * -(-vp // 128)
 
 
+@_spanned
 def bfs_level(lev: torch.Tensor, offsets: torch.Tensor,
               csc_src: torch.Tensor, col: torch.Tensor, it: int,
               unreached: int,
@@ -523,6 +582,7 @@ def collapse_levels_plain(lev, offsets, source: int, unreached: int):
     return dist
 
 
+@_spanned
 def collapse_levels(lev: torch.Tensor, offsets: torch.Tensor, source: int,
                     unreached: int) -> torch.Tensor:
     """Edge-axis levels -> [Vp] int32 distances: the level at each non-empty
@@ -562,6 +622,7 @@ def bfs_predecessors_plain(dist, offsets, csc_src, n_edges: int):
     return torch.where(valid, best, -1).int()
 
 
+@_spanned
 def bfs_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
                      csc_src: torch.Tensor, n_edges: int) -> torch.Tensor:
     """[Vp] int32: the smallest-id in-neighbour one level up over the real
@@ -711,6 +772,7 @@ def spmv_rows_plain(off, col, w, x):
                            "sum").view(torch.float32)
 
 
+@_spanned
 def spmv_rows(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
               x: torch.Tensor) -> torch.Tensor:
     """y = A x on the CSR rows in one launch, balanced by rows and edges
@@ -759,6 +821,7 @@ def spmv_slabs_plain(off, col, w, flags, x, message: str, reduce: str):
                            off.numel() - 1, SLAB_ITEMS, SLAB_EDGES, reduce)
 
 
+@_spanned
 def spmv_slabs(off: torch.Tensor, col: torch.Tensor, w: torch.Tensor | None,
                flags: torch.Tensor, x: torch.Tensor, message: str,
                reduce: str) -> torch.Tensor:
@@ -848,6 +911,7 @@ def sssp_sweep_plain(dist_in, dist_out, offsets, col, w):
     return (nonempty & (s < dv)).sum(dtype=torch.int32).reshape(1)
 
 
+@_spanned
 def sssp_sweep(dist_in: torch.Tensor, dist_out: torch.Tensor,
                offsets: torch.Tensor, col: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
@@ -912,6 +976,7 @@ def sssp_predecessors_plain(dist, offsets, csc_src, w, n_edges: int):
     return torch.where(valid, best, -1).int()
 
 
+@_spanned
 def sssp_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
                       csc_src: torch.Tensor, w: torch.Tensor,
                       n_edges: int) -> torch.Tensor:
@@ -962,6 +1027,7 @@ def kcore_sweep_plain(deg_in, core_in, deg_out, core_out, offsets, csc_src,
     return torch.stack([peeled.sum(dtype=torch.int32), alive.int()])
 
 
+@_spanned
 def kcore_sweep(deg_in: torch.Tensor, core_in: torch.Tensor,
                 deg_out: torch.Tensor, core_out: torch.Tensor,
                 offsets: torch.Tensor, csc_src: torch.Tensor,
@@ -1028,6 +1094,7 @@ def collapse_starts_plain(exp, offsets, empty: int, source: int = -1):
     return out
 
 
+@_spanned
 def collapse_starts(exp: torch.Tensor, offsets: torch.Tensor, empty: int,
                     source: int = -1) -> torch.Tensor:
     """Edge-axis state -> [Vp] int32: the value at each non-empty segment's
@@ -1057,6 +1124,7 @@ def expand_segments_plain(vals, offsets, n: int):
     return vals[_segment_ids(offsets, n)]
 
 
+@_spanned
 def expand_segments(vals: torch.Tensor, offsets: torch.Tensor,
                     n: int) -> torch.Tensor:
     """Per-vertex values -> [n] int32 on the edge axis: every position of
@@ -1148,6 +1216,7 @@ def scan_scratch_words(n: int) -> int:
     return g + -(-g // SCAN_GROUP) + 1
 
 
+@_spanned
 def scan(x: torch.Tensor, flags: torch.Tensor | None = None,
          op: str = "add") -> torch.Tensor:
     """Inclusive scan of a 1-D int32 (add wraps around) or float32 tensor
@@ -1196,6 +1265,7 @@ def gather_payloads_plain(idx, *payloads):
     return tuple(p[i] for p in payloads)
 
 
+@_spanned
 def gather_payloads(idx: torch.Tensor, *payloads: torch.Tensor) -> tuple:
     """out_k[p] = payloads[k][idx[p]] for 1-4 payloads of 32-bit elements
     (int32 or float32, moved as bits), through one [n] int32 index array
@@ -1276,6 +1346,7 @@ def segment_reduce_plain(vals, offsets, op: str):
     return out.scatter_reduce_(0, seg, v, "amin" if op == "min" else "amax")
 
 
+@_spanned
 def segment_reduce(vals: torch.Tensor, offsets: torch.Tensor,
                    op: str) -> torch.Tensor:
     """Per-segment ``op`` (sum, min, max, or, and) of ``vals`` ([n] int32,
@@ -1346,6 +1417,7 @@ def minmax_tiles(s: int, n: int) -> int:
     return -(-(s + n) // MINMAX_TILE)
 
 
+@_spanned
 def segment_minmax(payloads, active: torch.Tensor,
                    offsets: torch.Tensor) -> tuple:
     """Per segment s of the sorted [S+1] int32 ``offsets`` (within [0, n])
@@ -1435,6 +1507,7 @@ def advance_count_tier(vp: int, device, max_shared_bytes: int | None = None
     return "shared" if advance_count_bitmap_bytes(vp) <= cap else "global"
 
 
+@_spanned
 def advance_count(frontier: torch.Tensor, offsets: torch.Tensor,
                   csc_src: torch.Tensor,
                   max_shared_bytes: int | None = None) -> torch.Tensor:
@@ -1525,6 +1598,7 @@ def segment_broadcast_total_plain(S, start_flags):
     return S[_segment_ends(start_flags, S.numel())]
 
 
+@_spanned
 def segment_broadcast_total(S: torch.Tensor,
                             start_flags: torch.Tensor) -> torch.Tensor:
     """[n] of S's dtype: every position takes S at its segment's END (the
@@ -1548,6 +1622,7 @@ def suffix_fill_update_plain(S, start_flags, lev, it: int):
             newly.any().int().reshape(1))
 
 
+@_spanned
 def suffix_fill_update(S: torch.Tensor, start_flags: torch.Tensor,
                        lev: torch.Tensor, it: int) -> tuple:
     """The segment-end fill of the int32 ``S``, then a BFS level update:
@@ -1579,6 +1654,7 @@ def fused_route_or_plain(lev, edge_ids, start_flags, it: int):
     return (last_hit >= last_start).int()
 
 
+@_spanned
 def fused_route_or(lev: torch.Tensor, edge_ids: torch.Tensor,
                    start_flags: torch.Tensor, it: int) -> torch.Tensor:
     """[n] int32: y[q] = (lev[edge_ids[q]] == it), routed through the
@@ -1632,6 +1708,7 @@ def bitmap_intersect_counts_plain(eu, ev, bitmap, witness: bool = True):
     return cnt, wit
 
 
+@_spanned
 def bitmap_intersect_counts(eu: torch.Tensor, ev: torch.Tensor,
                             bitmap: torch.Tensor,
                             witness: bool = True) -> tuple:

@@ -20,6 +20,7 @@ import torch
 from essentials_tpu_torch import kernels
 from essentials_tpu_torch.graph.graph import Graph
 from essentials_tpu_torch.ops.fused_spmv import edge_weights
+from essentials_tpu_torch.runtime import span
 
 INF_BITS = kernels.INF_BITS       # float32 +inf as int32 bits
 
@@ -69,6 +70,18 @@ def collapse_dist_exp(g: Graph, dist_exp: torch.Tensor,
                                    source).view(torch.float32)
 
 
+def read_sweep(g: Graph, cnt: torch.Tensor) -> int:
+    """A full sweep's improvement count ``cnt`` read to the host (the span
+    ``sssp.sweep.read``: the sweep's one wait on the device), and counted
+    in ``kernels.counters`` with the sweep's V relaxed vertices
+    (``sssp.improved``, ``sssp.swept``)."""
+    with span("sssp.sweep.read"):
+        improved = int(cnt.item())
+    kernels.counters["sssp.swept"] += g.n_vertices
+    kernels.counters["sssp.improved"] += improved
+    return improved
+
+
 def run_fused_sssp(g: Graph, source: int, max_it: int) -> tuple:
     """Whole SSSP as Bellman-Ford sweeps on the edge axis, on the host's
     loop: one ``sssp_sweep`` per sweep and one ``.item()`` to read its
@@ -78,9 +91,11 @@ def run_fused_sssp(g: Graph, source: int, max_it: int) -> tuple:
     spare = init_spare(g)
     it = 0
     while it < max_it:
-        cnt = fused_sssp_superstep(g, dist, spare)
-        dist, spare = spare, dist
+        with span("sssp.sweep"):
+            cnt = fused_sssp_superstep(g, dist, spare)
+            dist, spare = spare, dist
+            improved = read_sweep(g, cnt)
         it += 1
-        if cnt.item() == 0:
+        if improved == 0:
             break
     return collapse_dist_exp(g, dist, source), it

@@ -18,7 +18,9 @@ from __future__ import annotations
 import torch
 
 from essentials_tpu_torch.graph.graph import Graph
+from essentials_tpu_torch.ops.fused_sssp import read_sweep
 from essentials_tpu_torch.ops.windowed_spmv import INF_BITS, windowed_pipeline
+from essentials_tpu_torch.runtime import span
 
 
 def sweep(g: Graph, dist: torch.Tensor) -> tuple:
@@ -39,8 +41,10 @@ def run_windowed_sssp(g: Graph, source: int, max_it: int) -> tuple:
     dist[source] = 0
     it = 0
     while it < max_it:
-        dist, cnt = sweep(g, dist)
+        with span("sssp.sweep"):
+            dist, cnt = sweep(g, dist)
+            improved = read_sweep(g, cnt)
         it += 1
-        if cnt.item() == 0:
+        if improved == 0:
             break
     return dist.view(torch.float32), it

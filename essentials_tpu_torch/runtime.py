@@ -8,11 +8,14 @@ which no API reports, comes from a table of data-sheet rates by card name.
 Nothing in the package picks CUDA by itself: callers name the device, and
 ``require_cuda`` is how a caller that needs the card refuses to go on
 without one. ``start_trace`` / ``stop_trace`` / ``trace`` record a
-``torch.profiler`` trace (the JAX package's XLA profiler traces).
+``torch.profiler`` trace (the JAX package's XLA profiler traces), and
+``span`` names a stretch of the program's host work in it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -71,6 +74,30 @@ def backend(device: str | torch.device | None = None) -> str:
 # NVBench/CUPTI counters of benchmarks/sssp_bench.cu:60-66).
 
 _active = None          # (profiler, log_dir) between start_trace and stop_trace
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that names the host work inside it ``name`` in the
+    trace of whatever torch.profiler is recording (``trace``, a
+    benchmark's window, a user's own): a ``record_function``, kept by the
+    profiler with the kernels, on their clock, and nested in the spans
+    open around it on the thread. Where no profiler records it is one
+    shared null context, and costs the check of the profiler's flag."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """A decorator: each call of the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def start_trace(log_dir: str) -> None:
