@@ -170,7 +170,7 @@ raises and exits non-zero:
    (index_select at the non-empty starts, the gather alone;
    torch.repeat_interleave); both predecessor
    kernels at gen:rmat20x16 from its highest-degree vertex; sssp.run
-   (auto), its windowed search alone, and bfs.run fused with and without
+   (auto), its fused search alone, and bfs.run fused with and without
    predecessors, wall and device per search from the 8 sources, at
    weighted rmat18 and gen:rmat20x16;
    torch.profiler's device-busy share over each of the three paths (after
@@ -6011,8 +6011,8 @@ def group_sssp(run: Run) -> None:
         searches = {
             "sssp auto, with predecessors": lambda s, g_x=g_x: sssp.run(
                 g_x, s, warmup=False),
-            "sssp windowed search alone (auto's)":
-                lambda s, g_x=g_x, m=max_it: sssp.VARIANTS["windowed"](
+            "sssp fused search alone (auto's)":
+                lambda s, g_x=g_x, m=max_it: sssp.VARIANTS["fused"](
                     g_x, s, m),
             "bfs fused, with predecessors": lambda s, g_x=g_x: bfs.run(
                 g_x, s, variant="fused", warmup=False),

@@ -157,23 +157,25 @@ def run(g: Graph, source: int, *, max_iterations: int | None = None,
         warmup: bool = True, variant: str = "auto") -> SsspResult:
     """SSSP from ``source`` on ``g``'s device.
 
-    variant: 'fused', 'windowed', 'adaptive', or 'auto', which is
-    'windowed' where ``windowed_supported`` holds, 'fused' on other graphs
-    with a symmetric layout and 'adaptive' elsewhere: 'fused' and
-    'windowed' give the same bits and sweeps, and windowed sweeps took a
-    third of the fused sweeps' time on the H100 at RMAT scale 20 (PERF.md).
-    The JAX package's 'auto' is 'fused', or 'adaptive' where that does not
-    run. ``elapsed_ms`` covers the sweeps and the collapse to distances
+    variant: 'fused', 'windowed', 'adaptive', or 'auto', which is 'fused'
+    where ``fused_supported`` holds (a symmetric layout) and 'adaptive'
+    elsewhere, as the JAX package's 'auto'. 'fused' and 'windowed' give the
+    same bits and sweeps, but a fused sweep reads only the rows of the
+    vertices whose distance changed in the sweep before, where a windowed
+    sweep reads every edge: on the H100 a fused sweep took 0.56 of a
+    windowed one at RMAT scale 20 and under half of one on the Kronecker
+    and uniform graphs of scale 24 (PERF.md).
+    ``elapsed_ms`` covers the sweeps and the collapse to distances
     (not the derived predecessors), or the adaptive rounds, on the device's
     clock (CUDA events) or the host's (CPU).
 
     Under a torch.profiler the call is the span ``sssp.run``, each sweep or
     round an ``sssp.sweep`` holding its kernels' ``kernel.*`` spans and its
     host read ``sssp.sweep.read`` (``runtime.span``); ``kernels.counters``
-    counts the vertices each sweep relaxed and improved."""
+    counts the vertices each sweep relaxed and improved and, for 'fused'
+    and 'windowed', the CSR slots each sweep read."""
     if variant == "auto":
-        variant = ("windowed" if windowed_supported(g) else
-                   "fused" if fused_supported(g) else "adaptive")
+        variant = "fused" if fused_supported(g) else "adaptive"
     throw_if(variant not in (*VARIANTS, "adaptive"),
              f"unknown sssp variant {variant!r}")
     throw_if(variant != "adaptive" and not fused_supported(g),

@@ -71,23 +71,28 @@ using etpu::WarpRanges;
 // the non-empty starts. Three launches:
 // * sssp_sweep_kernel, one thread per vertex v, reads both starts, writes
 //   d_t into dist_out where they differ and lists v's CSR row with d_t[v]
-//   there; it copies d_t[v] into two [Vp] arrays, best and cur (+inf at an
-//   empty segment);
+//   there; it copies d_t[v] into two [Vp] arrays, best and cur (+inf at
+//   an empty segment);
 // * sssp_sweep_push_kernel takes each listed slot q of a row u: v = col[q],
 //   c = bits(__fadd_rn(d_t[u], w[q])) (nvcc does not contract __fadd_rn,
 //   so the bits equal the plain version's and the JAX package's; +inf + w
 //   stays +inf), and atomicMin(&best[v], c) where c is below what an L2
 //   read of best[v] shows. v is counted by the one atomic whose returned
-//   old value is still cur[v] and above c: the first that lowers it;
+//   old value is still cur[v] and above c: the first that lowers it. Each
+//   warp also counts the slots of the ranges it takes and adds them once
+//   at its end (counted in the dense pass instead, an atomic on one word
+//   from each of its Vp / 32 warps, they cost 8-14% more device time a
+//   sweep at 2^24 vertices on an H100);
 // * sssp_sweep_update_kernel, one thread per vertex, writes best[v] into
 //   v's start where it is below cur[v].
 // The CSR row is u's out-edges, directed or not; on a symmetric layout v's
 // row starts where its segment does, so off[v] is v's start. The min is
 // exact in any order, so the bits repeat.
 //
-// scratch: {improved, ranges listed, 0, 0}, best [vp4], cur [vp4], then the
-// ranges (vp4 = vp rounded up to 4, so the ranges are 16-byte aligned); the
-// entry point sets the first two to 0.
+// scratch: {improved, ranges listed, slots listed, 0}, best [vp4], cur
+// [vp4], then the ranges (vp4 = vp rounded up to 4, so the ranges are
+// 16-byte aligned); the entry point sets the first three to 0. The slots
+// listed are the CSR slots the push read (at most Ep, so an int).
 //
 // What bounds it: the dense passes read the offsets and, at each non-empty
 // start, one 32-byte sector of each buffer, and stream the [Vp] arrays; the
@@ -128,8 +133,10 @@ sssp_sweep_push_kernel(const int* __restrict__ cur, int* best,
   const int listed = scalars[1];            // written by the dense pass
   const long long step = 32LL * gridDim.x * kWarpsPerBlock;
   int improved = 0;
+  int slots = 0;                            // the same on every lane
   for (long long r0 = 32 * global_warp(); r0 < listed; r0 += step) {
     const WarpRanges wr(ranges, r0, listed);
+    slots += wr.total;
     for (int t0 = 0; t0 < wr.total; t0 += 32 * kPushItems) {
       int q[kPushItems];
       float du[kPushItems];
@@ -167,6 +174,7 @@ sssp_sweep_push_kernel(const int* __restrict__ cur, int* best,
   }
   improved = __reduce_add_sync(kFullMask, improved);
   if (lane == 0 && improved > 0) atomicAdd(&scalars[0], improved);
+  if (lane == 0 && slots > 0) atomicAdd(&scalars[2], slots);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -514,15 +522,15 @@ extern "C" {
 
 // `scratch` (16-byte aligned) holds 4 + 2 * vp4 int32 and then room for
 // vp + ceil(ep / etpu_push_split()) int4, vp4 = vp rounded up to 4 (see
-// sssp_sweep_kernel); its first two words are set to 0 here and then hold
-// {improved, ranges listed}. Three launches: the dense pass, the push over
-// the ranges it lists, the update of the starts.
+// sssp_sweep_kernel); its first three words are set to 0 here and then
+// hold {improved, ranges listed, slots listed}. Three launches: the dense
+// pass, the push over the ranges it lists, the update of the starts.
 int etpu_sssp_sweep(const void* dist_in, void* dist_out, const void* off,
                     const void* col, const void* w, int vp, void* scratch,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* scalars = static_cast<int*>(scratch);
-  cudaError_t err = cudaMemsetAsync(scalars, 0, 2 * sizeof(int), s);
+  cudaError_t err = cudaMemsetAsync(scalars, 0, 3 * sizeof(int), s);
   if (err != cudaSuccess || vp <= 0) return static_cast<int>(err);
   int sms = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return static_cast<int>(err);

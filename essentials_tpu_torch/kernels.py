@@ -200,11 +200,13 @@ pass_launches = {"gather_payloads_pack": 0, "sssp_sweep_push": 0,
 
 # the program's counts beside the launches, by name: the form each
 # bfs_level took on the card and the slots that form may read (counted by
-# ``bfs_level_count`` from the form the card wrote), and the vertices the
-# SSSP sweeps relaxed and the ones they improved
+# ``bfs_level_count`` from the form the card wrote), the vertices the
+# SSSP sweeps relaxed and the ones they improved, and the CSR slots the
+# sweeps read (``sssp_sweep_count``)
 counters = dict.fromkeys(("bfs_level.push", "bfs_level.pull",
                           "bfs_level.push_slots", "bfs_level.pull_slots",
-                          "sssp.swept", "sssp.improved"), 0)
+                          "sssp.swept", "sssp.improved", "sssp.push_slots"),
+                         0)
 
 _lib = None
 
@@ -471,9 +473,9 @@ _level_host = None
 
 
 def _level_words() -> tuple:
-    """The pinned host words that ``bfs_level_count`` reads into, made at
-    its first call on the card, and their ctypes view; one read at a
-    time."""
+    """The pinned host words that ``bfs_level_count`` and
+    ``sssp_sweep_count`` read into, made at the first such call on the
+    card, and their ctypes view; one read at a time."""
     global _level_host
     if _level_host is None:
         host = torch.empty(6, dtype=torch.int32, pin_memory=True)
@@ -899,7 +901,8 @@ def _start_values(state, offsets, empty: int):
 
 def sssp_sweep_plain(dist_in, dist_out, offsets, col, w):
     """Plain version of ``sssp_sweep`` (same contract, same writes): the
-    messages of the changed vertices' rows, min-reduced per column."""
+    messages of the changed vertices' rows, min-reduced per column. The
+    count is the first of the kernel's scalar words, which follow it."""
     nonempty, starts, dv = _start_values(dist_in, offsets, INF_BITS)
     changed = nonempty & (dv != _start_values(dist_out, offsets,
                                               INF_BITS)[2])
@@ -908,7 +911,13 @@ def sssp_sweep_plain(dist_in, dist_out, offsets, col, w):
     s = torch.full_like(dv, INF_BITS).scatter_reduce_(
         0, col.long(), torch.where(changed[row], msg, INF_BITS), "amin")
     dist_out[starts[nonempty]] = torch.minimum(s, dv)[nonempty]
-    return (nonempty & (s < dv)).sum(dtype=torch.int32).reshape(1)
+    lengths = torch.where(changed, offsets[1:] - offsets[:-1], 0)
+    words = torch.stack((
+        (nonempty & (s < dv)).sum(dtype=torch.int32),
+        ((lengths + PUSH_SPLIT - 1) // PUSH_SPLIT).sum(dtype=torch.int32),
+        lengths.sum(dtype=torch.int32),
+        torch.zeros((), dtype=torch.int32, device=dv.device)))
+    return words[:1]
 
 
 @_spanned
@@ -928,7 +937,9 @@ def sssp_sweep(dist_in: torch.Tensor, dist_out: torch.Tensor,
     int32 and float32) are the CSR columns and weights. That is the full
     sweep's result (an unchanged u's messages were folded in sweep t). No
     other position is read or written. Returns the number of vertices
-    whose distance fell, int32 [1], on the state's device.
+    whose distance fell, int32 [1], on the state's device, followed in
+    memory by the ranges listed and the CSR slots the push read
+    (``sssp_sweep_count``).
 
     The kernel is three device launches: the dense pass, counted in
     ``launches``, then the push from the changed rows into a [Vp] copy of
@@ -948,8 +959,9 @@ def sssp_sweep(dist_in: torch.Tensor, dist_out: torch.Tensor,
            col=col, w=w)
     vp = offsets.numel() - 1
     vp4 = -(-vp // 4) * 4
-    # the scalars (improved, ranges listed, 2 unused), two [Vp] copies of
-    # the distances, then room for every listed range (int4)
+    # the scalars (improved, ranges listed, slots listed, 1 unused), two
+    # [Vp] copies of the distances, then room for every listed range
+    # (int4)
     buf = torch.empty(4 + 2 * vp4 + 4 * push_ranges(vp, ep),
                       dtype=torch.int32, device=dev)
     _launch("etpu_sssp_sweep", dev, dist_in.data_ptr(), dist_out.data_ptr(),
@@ -959,6 +971,22 @@ def sssp_sweep(dist_in: torch.Tensor, dist_out: torch.Tensor,
     pass_launches["sssp_sweep_push"] += 1
     pass_launches["sssp_sweep_update"] += 1
     return buf[:1]
+
+
+def sssp_sweep_count(cnt: torch.Tensor) -> tuple:
+    """(The vertices an ``sssp_sweep`` call improved, the CSR slots its
+    push read: the changed vertices' row lengths), read to the host from
+    its count ``cnt`` and the words that follow it: the sweep's one wait
+    on the device. On the kernel's route one copy into pinned memory (a C
+    call, as ``bfs_level_count``'s) brings the scratch's first three words
+    (the count, the ranges listed, the slots listed)."""
+    if not _route("sssp_sweep", cnt):
+        improved, _, slots = cnt.as_strided((3,), (1,)).tolist()
+        return improved, slots
+    host, words = _level_words()
+    _launch("etpu_read_level_scalars", cnt.device, host.data_ptr(),
+            cnt.data_ptr(), 3)
+    return words[0], words[2]
 
 
 # ---------------------------------------------------- sssp_predecessors --

@@ -70,23 +70,30 @@ def collapse_dist_exp(g: Graph, dist_exp: torch.Tensor,
                                    source).view(torch.float32)
 
 
-def read_sweep(g: Graph, cnt: torch.Tensor) -> int:
-    """A full sweep's improvement count ``cnt`` read to the host (the span
-    ``sssp.sweep.read``: the sweep's one wait on the device), and counted
-    in ``kernels.counters`` with the sweep's V relaxed vertices
-    (``sssp.improved``, ``sssp.swept``)."""
-    with span("sssp.sweep.read"):
-        improved = int(cnt.item())
+def count_sweep(g: Graph, improved: int, slots: int) -> int:
+    """A full sweep counted in ``kernels.counters``: its V relaxed vertices
+    (``sssp.swept``), the ``improved`` ones (``sssp.improved``) and the
+    CSR ``slots`` it read (``sssp.push_slots``). Returns ``improved``."""
     kernels.counters["sssp.swept"] += g.n_vertices
     kernels.counters["sssp.improved"] += improved
+    kernels.counters["sssp.push_slots"] += slots
     return improved
+
+
+def read_sweep(g: Graph, cnt: torch.Tensor) -> int:
+    """An ``sssp_sweep``'s improvement count ``cnt`` and the slots its push
+    read, in one read to the host (the span ``sssp.sweep.read``: the
+    sweep's one wait on the device), counted by ``count_sweep``."""
+    with span("sssp.sweep.read"):
+        improved, slots = kernels.sssp_sweep_count(cnt)
+    return count_sweep(g, improved, slots)
 
 
 def run_fused_sssp(g: Graph, source: int, max_it: int) -> tuple:
     """Whole SSSP as Bellman-Ford sweeps on the edge axis, on the host's
-    loop: one ``sssp_sweep`` per sweep and one ``.item()`` to read its
-    count; stops after the first sweep that improves nothing or after
-    ``max_it`` sweeps. Returns (dist float32 [Vp], sweeps)."""
+    loop: one ``sssp_sweep`` per sweep and one read of its count; stops
+    after the first sweep that improves nothing or after ``max_it``
+    sweeps. Returns (dist float32 [Vp], sweeps)."""
     dist = init_dist_exp(g, source)
     spare = init_spare(g)
     it = 0

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from essentials_tpu_torch.graph.graph import Graph
-from essentials_tpu_torch.ops.fused_sssp import read_sweep
+from essentials_tpu_torch.ops.fused_sssp import count_sweep
 from essentials_tpu_torch.ops.windowed_spmv import INF_BITS, windowed_pipeline
 from essentials_tpu_torch.runtime import span
 
@@ -34,8 +34,10 @@ def sweep(g: Graph, dist: torch.Tensor) -> tuple:
 
 def run_windowed_sssp(g: Graph, source: int, max_it: int) -> tuple:
     """Whole SSSP as vertex-axis Bellman-Ford sweeps on the host's loop,
-    one ``.item()`` per sweep; stops after the first sweep that improves
-    nothing or after ``max_it``. Returns (dist float32 [Vp], sweeps)."""
+    one ``.item()`` per sweep (``sssp.sweep.read``); stops after the first
+    sweep that improves nothing or after ``max_it``. Each sweep reads every
+    edge slot, so it counts ``g.n_edges`` in ``sssp.push_slots``. Returns
+    (dist float32 [Vp], sweeps)."""
     dist = torch.full((g.n_vertices_padded,), INF_BITS, dtype=torch.int32,
                       device=g.device)
     dist[source] = 0
@@ -43,7 +45,9 @@ def run_windowed_sssp(g: Graph, source: int, max_it: int) -> tuple:
     while it < max_it:
         with span("sssp.sweep"):
             dist, cnt = sweep(g, dist)
-            improved = read_sweep(g, cnt)
+            with span("sssp.sweep.read"):
+                improved = int(cnt.item())
+            count_sweep(g, improved, g.n_edges)
         it += 1
         if improved == 0:
             break

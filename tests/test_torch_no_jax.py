@@ -10,7 +10,8 @@ run where importing jax fails, and, on a CUDA card, its kernels agree with their
 plain versions (the BFS, SSSP, k-core, operator, segment min/max, fill,
 route and bitmap kernels exactly, k-core also on a graph with a hub,
 multi-edges and self-loops, SSSP and k-core also on a degree-balanced
-directed graph, the expansion and the collapse of segment starts also on
+directed graph, the SSSP sweep's counts (improved, slots pushed) against
+the plain route's, the expansion and the collapse of segment starts also on
 chip_smoke's stress cases (a hub of 3.5 tiles, empty runs across tile
 edges, n = 0), the bitmap kernel also on unsorted pairs with a hub u,
 segment min/max on chip_smoke's stress case, advance_count in both its
@@ -530,6 +531,51 @@ def _sweeps_on_the_card(csr, g):
         deg, core = outs[:2]
         k = FK.next_level(k, int(s[1]))
     return source
+
+
+@pytest.mark.cuda
+def test_sweep_counts_match_plain_route_on_the_card():
+    """Every sweep of one fused search from the highest-degree vertex, on
+    rmat12 and on a degree-balanced directed graph with a hub: the
+    kernel's improved count and the CSR slots its push read
+    (``sssp_sweep_count``) equal the plain route's, run on the CPU from
+    the same state; a fused sssp.run counts their sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.algorithms import sssp
+    from essentials_tpu_torch.formats import Coo, Csr
+    from essentials_tpu_torch.graph import build_graph
+    from essentials_tpu_torch.io import generate
+    from essentials_tpu_torch.ops import fused_sssp as FS
+    from essentials_tpu_torch.ops.fused_spmv import edge_weights
+
+    n, src, dst, w = _chip_smoke().balanced_coo(n=20_000)
+    cases = [(Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=True)),
+              False), (Csr.from_coo(Coo(n, n, src, dst, w)), True)]
+    for csr, directed in cases:
+        g = build_graph(csr, directed=directed, weighted=True, device="cuda")
+        adj = (g.row_offsets, g.col_indices, edge_weights(g))
+        adj_h = tuple(t.cpu() for t in adj)
+        source = int(np.argmax(np.diff(csr.row_offsets)))
+        d, prev = FS.init_dist_exp(g, source), FS.init_spare(g)
+        improved = slots = sweeps = 0
+        while True:
+            d_k, d_p = prev.clone(), prev.cpu()
+            got = kernels.sssp_sweep_count(kernels.sssp_sweep(d, d_k, *adj))
+            want = kernels.sssp_sweep_count(kernels.sssp_sweep(
+                d.cpu(), d_p, *adj_h))
+            assert got == want and torch.equal(d_k.cpu(), d_p), sweeps
+            improved, slots = improved + got[0], slots + got[1]
+            d, prev, sweeps = d_k, d, sweeps + 1
+            if got[0] == 0:
+                break
+        assert sweeps > 2 and 0 < slots < sweeps * g.n_edges
+        kernels.reset_launches()
+        r = sssp.run(g, source, variant="fused", warmup=False)
+        assert r.iterations == sweeps
+        assert kernels.counters["sssp.push_slots"] == slots
+        assert kernels.counters["sssp.improved"] == improved
 
 
 @pytest.mark.cuda

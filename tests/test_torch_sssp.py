@@ -201,14 +201,73 @@ def test_degree_balanced_directed_run_matches_jax_fused(graphs, name,
         np.testing.assert_allclose(d[reach], ref[reach], rtol=RTOL, atol=0)
 
 
-def test_auto_picks_windowed_where_supported(graphs, monkeypatch):
+def test_auto_picks_fused_where_supported(graphs, monkeypatch):
     calls = []
     for v, search in tsssp.VARIANTS.items():
         monkeypatch.setitem(tsssp.VARIANTS, v, lambda *a, v=v, f=search: (
             calls.append(v), f(*a))[1])
     tsssp.run(graphs["grid16"][2], 0, warmup=False)
     tsssp.run(directed_cycle()[1], 0, warmup=False)
-    assert calls == ["windowed", "fused"]
+    assert calls == ["fused", "fused"]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_auto_fused_and_windowed_agree(graphs, name):
+    """auto, fused and windowed: the same distance bits, predecessors and
+    sweeps from every source."""
+    g = graphs[name][2]
+    for source in SOURCES[name]:
+        auto, *others = (tsssp.run(g, source, variant=v, warmup=False)
+                         for v in ("auto", "fused", "windowed"))
+        for r in others:
+            assert np.array_equal(bits(r.distances), bits(auto.distances))
+            assert torch.equal(r.predecessors, auto.predecessors), source
+            assert r.iterations == auto.iterations, source
+
+
+def changed_row_slots(g, source: int) -> tuple:
+    """(Sweeps, the sum over sweeps of the CSR row lengths of the vertices
+    whose distance changed in the sweep before), from float32 Jacobi
+    Bellman-Ford sweeps in numpy over the graph's CSR arrays."""
+    v = g.n_vertices
+    off = g.row_offsets.numpy()[:v + 1]
+    lengths = np.diff(off)
+    rows = np.repeat(np.arange(v), lengths)
+    col = g.col_indices.numpy()[:off[-1]]
+    w = edge_weights(g).numpy()[:off[-1]]
+    prev = np.full(v, np.inf, np.float32)
+    d = prev.copy()
+    d[source] = 0
+    sweeps, slots = 0, 0
+    while True:
+        slots += int(lengths[d != prev].sum())
+        new = d.copy()
+        np.minimum.at(new, col, d[rows] + w)
+        prev, d, sweeps = d, new, sweeps + 1
+        if np.array_equal(prev, d):
+            return sweeps, slots
+
+
+@pytest.mark.parametrize("name", ["grid16", "rmat10"])
+def test_fused_counts_the_changed_rows_slots(graphs, name):
+    """sssp.push_slots over a fused search (the plain route) is the sum
+    over its sweeps of the changed vertices' row lengths."""
+    g = graphs[name][2]
+    for source in SOURCES[name]:
+        kernels.reset_launches()
+        r = tsssp.run(g, source, variant="fused", warmup=False)
+        sweeps, slots = changed_row_slots(g, source)
+        assert r.iterations == sweeps > 2, source
+        assert kernels.counters["sssp.push_slots"] == slots, source
+        assert 0 < slots < sweeps * g.n_edges, source
+
+
+def test_windowed_counts_every_slot_each_sweep(graphs):
+    g = graphs["rmat10"][2]
+    kernels.reset_launches()
+    r = tsssp.run(g, 0, variant="windowed", warmup=False)
+    assert r.iterations > 2
+    assert kernels.counters["sssp.push_slots"] == r.iterations * g.n_edges
 
 
 @pytest.mark.parametrize("name", NAMES)
