@@ -32,6 +32,7 @@ from essentials_tpu_torch.graph.graph import Graph
 from essentials_tpu_torch.ops import fused_kcore as FK
 from essentials_tpu_torch.ops import sparse_advance as SA
 from essentials_tpu_torch.ops.advance import advance_count
+from essentials_tpu_torch.runtime import span, spanned
 from essentials_tpu_torch.utils.timer import Timer
 
 VARIANTS = ("fused", "adaptive")
@@ -50,8 +51,8 @@ class KcoreResult(NamedTuple):
 class KcoreState(NamedTuple):
     """The adaptive peeling state. fidx is the candidate list of the next
     wave, a superset of its peel set when ``fvalid`` (a device bool, read
-    with the wave's other host values). live, tiers and compactions are
-    host values."""
+    with the wave's other host values). live, tiers, compactions and
+    peel_k are host values."""
     core: torch.Tensor      # int32[Vp] assigned core numbers
     degrees: torch.Tensor   # int32[Vp] remaining degree
     alive: torch.Tensor     # bool[Vp]
@@ -61,6 +62,7 @@ class KcoreState(NamedTuple):
     live: int               # alive vertices after the wave
     tiers: tuple            # waves run per branch (TIERS)
     compactions: int        # spray waves that compacted the peel set
+    peel_k: int = 0         # the level of the last wave that peeled
 
 
 def init(g: Graph) -> KcoreState:
@@ -125,12 +127,16 @@ def _spray_wave(g: Graph, state: KcoreState, peel: torch.Tensor,
     return deg, SA.pad_index_list(g, nidx, SA.SPRAY_K), ncnt <= kk
 
 
+@spanned("kcore.wave")
 def step(g: Graph, state: KcoreState, it: int,
          spray_override: bool | None = None) -> KcoreState:
     """One peeling wave (JAX ``kcore.step`` at its default toggles)."""
     k = state.k
     peel = state.alive & (state.degrees < k)
-    cnt, sumdeg, pad_ok, min_deg, n_alive, fvalid = read_wave(g, state, peel)
+    with span("kcore.wave.read"):
+        cnt, sumdeg, pad_ok, min_deg, n_alive, fvalid = read_wave(g, state,
+                                                                  peel)
+    FK.count_wave(cnt, cnt > 0 and k != state.peel_k)
     use_spray = (SA.spray_enabled(g) if spray_override is None
                  else spray_override)
     branch = branch_of(cnt, sumdeg, pad_ok, fvalid, use_spray)
@@ -151,7 +157,7 @@ def step(g: Graph, state: KcoreState, it: int,
         k = max(k + 1, min_deg + 1)       # nothing peels: jump k
     tiers = tuple(n + (i == branch) for i, n in enumerate(state.tiers))
     return KcoreState(core, deg, alive, k, fidx, fv, n_alive - cnt, tiers,
-                      compactions)
+                      compactions, state.k if cnt else state.peel_k)
 
 
 def converged(g: Graph, state: KcoreState, it: int) -> bool:
@@ -167,6 +173,7 @@ def fused_supported(g: Graph) -> bool:
     return bool(g.symmetric_layout)
 
 
+@spanned("kcore.run")
 def run(g: Graph, *, max_iterations: int | None = None, warmup: bool = True,
         variant: str = "auto", spray_override: bool | None = None
         ) -> KcoreResult:
@@ -176,7 +183,14 @@ def run(g: Graph, *, max_iterations: int | None = None, warmup: bool = True,
     ``spray_override`` forces the adaptive waves' spray branches on or off
     whatever the graph's size. ``elapsed_ms`` covers the waves (and, for
     'fused', the collapse), on the device's clock (CUDA events) or the
-    host's (CPU)."""
+    host's (CPU).
+
+    Under a torch.profiler the call is the span ``kcore.run``, each wave a
+    ``kcore.wave`` (``adaptive``'s decorated ``step``) holding its
+    kernels' ``kernel.*`` spans and its host read ``kcore.wave.read``
+    (``runtime.span``); ``kernels.counters`` counts the waves
+    (``kcore.waves``), the vertices they peeled (``kcore.peeled``) and the
+    levels k peeled at (``kcore.levels``), by ``fused_kcore.count_wave``."""
     if variant == "auto":
         variant = "fused" if fused_supported(g) else "adaptive"
     throw_if(variant not in VARIANTS, f"unknown kcore variant {variant!r}")

@@ -94,7 +94,8 @@ and anything the kernel does not take raises. There is no fallback from the
 kernel to the plain version. ``launches`` counts each kernel's launches,
 keyed by kernel (and, for the BFS kernels, element type); the plain versions
 count nothing. ``counters`` holds the program's other counts (the form of
-each ``bfs_level`` on the card and its slots, the SSSP sweeps' work).
+each ``bfs_level`` on the card and its slots, the SSSP sweeps' work, the
+k-core waves, their peeled vertices and their levels).
 Under a torch.profiler each wrapper call is the span ``kernel.<name>``
 (``runtime.span``).
 """
@@ -201,11 +202,13 @@ pass_launches = {"gather_payloads_pack": 0, "sssp_sweep_push": 0,
 # the program's counts beside the launches, by name: the form each
 # bfs_level took on the card and the slots that form may read (counted by
 # ``bfs_level_count`` from the form the card wrote), the vertices the
-# SSSP sweeps relaxed and the ones they improved, and the CSR slots the
-# sweeps read (``sssp_sweep_count``)
+# SSSP sweeps relaxed and the ones they improved, the CSR slots the
+# sweeps read (``sssp_sweep_count``), and the k-core waves, the vertices
+# they peeled and the levels k they peeled at (``fused_kcore.count_wave``)
 counters = dict.fromkeys(("bfs_level.push", "bfs_level.pull",
                           "bfs_level.push_slots", "bfs_level.pull_slots",
-                          "sssp.swept", "sssp.improved", "sssp.push_slots"),
+                          "sssp.swept", "sssp.improved", "sssp.push_slots",
+                          "kcore.waves", "kcore.peeled", "kcore.levels"),
                          0)
 
 _lib = None

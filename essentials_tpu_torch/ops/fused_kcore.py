@@ -12,7 +12,9 @@ neighbour peeled earlier in the same wave must still count as peeled.
 
 The k schedule is the JAX package's: k0 = smallest start degree + 1, and
 after each wave k stays while some survivor's degree is below it, else
-jumps to that degree + 1; the loop ends when nothing survives.
+jumps to that degree + 1; the loop ends when nothing survives. So every
+wave peels, and a level k takes one wave and one more for each cascade,
+its survivors' degrees fallen below k by the wave before's peel.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from essentials_tpu_torch import kernels
 from essentials_tpu_torch.graph.graph import Graph
+from essentials_tpu_torch.runtime import span
 
 IMAX = kernels.INT32_MAX
 
@@ -66,21 +69,45 @@ def next_level(k: int, min_alive: int) -> int:
     return IMAX if min_alive == IMAX else min_alive + 1
 
 
+def peel_wave(g: Graph, deg_in: torch.Tensor, core_in: torch.Tensor,
+              k: int, deg_out: torch.Tensor, core_out: torch.Tensor) -> list:
+    """One wave (``fused_kcore_sweep``) and its one host read, the span
+    ``kcore.wave.read``: [peeled count, smallest surviving degree]. The
+    scalars are a view of the wave's scratch, which goes with them."""
+    scalars = fused_kcore_sweep(g, deg_in, core_in, k, deg_out, core_out)
+    with span("kcore.wave.read"):
+        return scalars.tolist()
+
+
+def count_wave(peeled: int, new_level: bool) -> None:
+    """A wave counted in ``kernels.counters``: one wave (``kcore.waves``),
+    the vertices it peeled (``kcore.peeled``) and, where it is the first
+    wave to peel at its k, one level (``kcore.levels``)."""
+    kernels.counters["kcore.waves"] += 1
+    kernels.counters["kcore.peeled"] += peeled
+    kernels.counters["kcore.levels"] += new_level
+
+
 def run_fused_kcore(g: Graph, max_it: int) -> tuple:
     """Whole k-core decomposition on the edge axis, on the host's loop: one
     ``expand_segments`` for the initial degrees, then one ``kcore_sweep``
-    per wave and one ``.tolist()`` to read its two scalars. Returns (core
-    int32 [Vp], sweeps)."""
+    per wave and one ``.tolist()`` to read its two scalars (``peel_wave``,
+    in the span ``kcore.wave``; each wave counted by ``count_wave``).
+    Returns (core int32 [Vp], sweeps)."""
     deg = init_deg_exp(g)
     core = torch.zeros_like(deg)
     spare_deg, spare_core = deg.clone(), core.clone()
     k = first_level(g)
-    it = 0
+    it, peel_k = 0, None
     while it < max_it and k < IMAX:
-        _, min_alive = fused_kcore_sweep(g, deg, core, k, spare_deg,
-                                         spare_core).tolist()
-        deg, spare_deg = spare_deg, deg
-        core, spare_core = spare_core, core
+        with span("kcore.wave"):
+            peeled, min_alive = peel_wave(g, deg, core, k, spare_deg,
+                                          spare_core)
+            deg, spare_deg = spare_deg, deg
+            core, spare_core = spare_core, core
+            count_wave(peeled, peeled > 0 and k != peel_k)
+        if peeled:
+            peel_k = k
         k = next_level(k, min_alive)
         it += 1
     return collapse_core_exp(g, core), it

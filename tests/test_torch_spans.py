@@ -121,15 +121,19 @@ def test_spans_nest_by_level(algo, variant, spray, graphs, tmp_path,
                                           ("hits", "generic")])
 def test_other_enactor_loops_emit_no_level_span(algo, variant, graphs,
                                                 tmp_path):
-    """The shared enactor names no step: only BFS's and SSSP's steps are
-    spans, so another algorithm on it leaves only its wrappers' spans."""
+    """The shared enactor names no step: BFS's, SSSP's and k-core's steps
+    are spans of their own, so another algorithm on it leaves only its
+    wrappers' spans, and k-core only those and its own."""
     import importlib
     mod = importlib.import_module(f"essentials_tpu_torch.algorithms.{algo}")
     with runtime.trace(str(tmp_path)) as t:
         r = mod.run(graphs["bfs"], variant=variant, warmup=False)
     assert r.iterations > 0
     names = {s[0] for s in _spans(t.path)}
-    assert all(n.startswith("kernel.") for n in names), names
+    own = ({"kcore.run", "kcore.wave", "kcore.wave.read"} if algo == "kcore"
+           else set())
+    assert own <= names
+    assert all(n.startswith("kernel.") or n in own for n in names), names
 
 
 @pytest.mark.parametrize("variant", ["windowed", "fused", "adaptive"])
