@@ -32,10 +32,12 @@ gen:rmat20x16, under the first round's mask (every real edge active) and
 the uncolored mask after one round, beside two torch.segment_reduce calls
 (max, min) on float32 copies of the masked payloads.
 
-kcore: ``kcore_sweep`` per wave over one k-core run at gen:rmat20x16: the
-mean wall time of a wave's call (CUDA events around each call) and the
-device time of the run's kcore_sweep kernels over its waves
-(torch.profiler).
+kcore: one fused k-core run at gen:rmat20x16, the parent's loop (its
+``kcore_sweep`` a wave, ping-pong state buffers) against this tree's
+(``run_fused_kcore``: ``kcore_level_wave`` and ``kcore_cascade_wave``):
+wall time a run (CUDA events) and device time a run (torch.profiler), and
+both over the run's waves; this tree's device time also by kernel: the
+level passes a level, the cascade's mark a cascade, the push a wave.
 
 sssp: ``sssp_sweep`` over the sweeps of one fused search from the
 highest-degree vertex at gen:rmat20x16, each call from its state (its
@@ -148,7 +150,8 @@ import chip_smoke as CS
 KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
            "scan", "segment_broadcast_total", "suffix_fill_update",
            "fused_route_or",
-           "segment_minmax", "kcore_sweep", "sssp_sweep",
+           "segment_minmax", "kcore_level_wave", "kcore_cascade_wave",
+           "sssp_sweep",
            "bitmap_intersect_counts", "segment_reduce", "bfs_level",
            "bfs_predecessors", "sssp_predecessors", "expand_segments",
            "collapse_starts", "collapse_levels")
@@ -195,14 +198,6 @@ def load_parent(root: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     build(mod, f"parent from {root}")
-    if "col" not in inspect.signature(mod.kcore_sweep).parameters:
-        # the parent's push walks csc_src, equal to col on the undirected
-        # graphs timed here; this tree's callers pass both
-        old = mod.kcore_sweep
-
-        def kcore_sweep(di, ci, do, co, off, csc_src, col, k):
-            return old(di, ci, do, co, off, csc_src, k)
-        mod.kcore_sweep = kcore_sweep
     if "col" not in inspect.signature(mod.bfs_level).parameters:
         # the parent's level pulls over csc_src alone
         old_level = mod.bfs_level
@@ -217,10 +212,11 @@ def load_parent(root: Path):
 @contextlib.contextmanager
 def bound_to(mod):
     """The package's wrappers of KERNELS taken from ``mod`` while the block
-    runs; chip_smoke and the algorithms call them through the module."""
+    runs, those that ``mod`` has; chip_smoke and the algorithms call them
+    through the module."""
     from essentials_tpu_torch import kernels as K
-    saved = {k: getattr(K, k) for k in KERNELS}
-    for k in KERNELS:
+    saved = {k: getattr(K, k) for k in KERNELS if hasattr(mod, k)}
+    for k in saved:
         setattr(K, k, getattr(mod, k))
     try:
         yield
@@ -514,53 +510,82 @@ def minmax_shapes(card: str, run, K0, out: dict) -> None:
                   "two torch.segment_reduce", CS.SPMV_REPS), out)
 
 
-def kcore_wave_ms(g) -> dict:
-    """kcore_sweep over one k-core run: the mean wall time of a wave's call
-    (CUDA events around each call), and the device time of the run's
-    kcore_sweep kernels (torch.profiler) over its waves."""
+def parent_kcore_run(K0, g, max_it: int) -> tuple:
+    """The parent's fused k-core loop on K0's kernels: one ``kcore_sweep``
+    a wave from one pair of [Ep] state buffers into the other, its two
+    scalars read each wave and the k schedule on the host. Returns (core
+    numbers [Vp], waves)."""
     from essentials_tpu_torch.ops import fused_kcore as FK
-    from torch.autograd import DeviceType
+    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
     deg = FK.init_deg_exp(g)
     core = torch.zeros_like(deg)
-    spare = [deg.clone(), core.clone()]
-    k, walls = FK.first_level(g), []
-    while k < FK.IMAX:
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        s = FK.fused_kcore_sweep(g, deg, core, k, *spare)
-        e1.record()
-        min_alive = int(s[1])
-        walls.append(e0.elapsed_time(e1))
-        deg, core, spare = spare[0], spare[1], [deg, core]
-        k = FK.next_level(k, min_alive)
-    rows = CS.device_ms(lambda: FK.run_fused_kcore(g, 4 * g.n_vertices + 8),
-                        1)[1]
-    dev = sum(ms for name, ms in rows.items() if "kcore_sweep" in name)
-    return {"wall per wave": float(np.mean(walls)),
-            "device per wave": dev / len(walls) if rows else None,
-            "waves": len(walls)}
+    spare = (deg.clone(), core.clone())
+    start = torch.where(g.vertex_mask() & (g.out_degrees() > 0),
+                        g.out_degrees(), FK.IMAX)
+    k, it = min(int(start.min()) + 1, FK.IMAX), 0
+    while it < max_it and k < FK.IMAX:
+        least = K0.kcore_sweep(deg, core, *spare, *adj, k).tolist()[1]
+        (deg, core), spare = spare, (deg, core)
+        if least >= k:
+            k = FK.IMAX if least == FK.IMAX else least + 1
+        it += 1
+    return K0.collapse_starts(core, g.row_offsets, 0), it
+
+
+def kcore_run_ms(run) -> dict:
+    """One k-core run (``run()`` -> (core numbers, waves)): its wall time
+    on CUDA events and its device time from torch.profiler, a run and
+    over its waves."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    waves = run()[1]
+    e1.record()
+    e1.synchronize()
+    wall = e0.elapsed_time(e1)
+    dev = CS.device_ms(run, 1)[0]
+    return {"wall per run": wall, "device per run": dev,
+            "wall per wave": wall / waves,
+            "device per wave": None if dev is None else dev / waves}
 
 
 def kcore_shapes(card: str, run, K0, out: dict) -> None:
+    """One fused k-core run at gen:rmat20x16, the parent's loop and this
+    tree's in turns, after their core numbers agree; then this tree's
+    device time by kernel."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_kcore as FK
     g = run.weighted_graph(CS.MAIN_SCALE)[1]
-    deg = FK.init_deg_exp(g)
-    core = torch.zeros_like(deg)
-    k = FK.first_level(g)
-    outs = [t.clone() for t in (deg, core, deg, core)]
-    args = (deg, core, outs[0], outs[1], g.row_offsets, g.csc_src_indices,
-            g.col_indices, k)
-    a = K0.kcore_sweep(*args)
-    b = K.kcore_sweep(deg, core, outs[2], outs[3], *args[4:])
-    CS.check(torch.equal(a, b) and torch.equal(outs[0], outs[2])
-             and torch.equal(outs[1], outs[3]),
-             "kcore_sweep's first wave: parent and this tree disagree")
-    turns(card, f"kcore_sweep per wave, one k-core run at "
-                f"gen:rmat{CS.MAIN_SCALE}x16",
-          {"parent": lambda: on(K0, lambda: kcore_wave_ms(g)),
-           "this": lambda: kcore_wave_ms(g)}, out)
+    max_it = 4 * g.n_vertices + 8
+    a, waves_a = parent_kcore_run(K0, g, max_it)
+    K.reset_launches()
+    b, waves_b = FK.run_fused_kcore(g, max_it)
+    levels = K.counters["kcore.levels"]
+    CS.check(torch.equal(a, b) and waves_a == waves_b,
+             f"k-core: the parent ({waves_a} waves) and this tree "
+             f"({waves_b}) disagree")
+    turns(card, f"kcore fused, one run at gen:rmat{CS.MAIN_SCALE}x16 "
+                f"({waves_b} waves, {levels} levels)",
+          {"parent": lambda: kcore_run_ms(
+              lambda: parent_kcore_run(K0, g, max_it)),
+           "this": lambda: kcore_run_ms(
+              lambda: FK.run_fused_kcore(g, max_it))}, out, 2)
+    rows = CS.device_ms(lambda: FK.run_fused_kcore(g, max_it), 1)[1]
+
+    def total(*names):
+        return sum(ms for key, ms in rows.items()
+                   if any(n in key for n in names))
+    cascades = waves_b - levels
+    split = {"level passes a level": total("kcore_level_wave_kernel",
+                                           "kcore_level_peel_kernel")
+             / levels,
+             "cascade mark a cascade": total("kcore_cascade_wave_kernel")
+             / max(cascades, 1),
+             "push a wave": total("kcore_wave_push_kernel") / waves_b}
+    print(f"ab [{card}]: kcore fused gen:rmat{CS.MAIN_SCALE}x16, this "
+          f"tree's device time: " + "; ".join(
+              f"{k} {v:.4f} ms" for k, v in split.items()))
+    out["kcore this tree's device split"] = split
 
 
 def sssp_shapes(card: str, run, K0, out: dict) -> None:
@@ -862,15 +887,26 @@ def end_to_end(card: str, run, K0, out: dict) -> None:
                         "parent": lambda m=searches: on(K0, m),
                         "this": searches}, out, E2E_ROUNDS)
     g_m = run.weighted_graph(CS.MAIN_SCALE)[1]
-    for name, fn in (
-            ("color jp", lambda: color.run(g_m, variant="jp", warmup=False)),
-            ("kcore", lambda: kcore.run(g_m, warmup=False))):
-        def per_run(fn=fn) -> dict:
-            return {"ms per run": fn().elapsed_ms,
-                    "device ms of a run": CS.device_ms(fn, 1)[0]}
-        turns(card, f"{name} gen:rmat{CS.MAIN_SCALE}x16",
-              {"parent": lambda m=per_run: on(K0, m), "this": per_run}, out,
-              E2E_ROUNDS)
+    def per_run(fn) -> dict:
+        return {"ms per run": fn().elapsed_ms,
+                "device ms of a run": CS.device_ms(fn, 1)[0]}
+
+    def jp() -> dict:
+        return per_run(lambda: color.run(g_m, variant="jp", warmup=False))
+    turns(card, f"color jp gen:rmat{CS.MAIN_SCALE}x16",
+          {"parent": lambda: on(K0, jp), "this": jp}, out, E2E_ROUNDS)
+    # the parent's k-core runs its own loop (parent_kcore_run); this tree's
+    # is kcore.run's
+    max_it = 4 * g_m.n_vertices + 8
+
+    def kcore_parent() -> dict:
+        return kcore_run_ms(lambda: parent_kcore_run(K0, g_m, max_it))
+
+    def kcore_this() -> dict:
+        return kcore_run_ms(lambda: (None, kcore.run(
+            g_m, warmup=False).iterations))
+    turns(card, f"kcore gen:rmat{CS.MAIN_SCALE}x16",
+          {"parent": kcore_parent, "this": kcore_this}, out, E2E_ROUNDS)
     csr_m = run.tc_graph(CS.MAIN_SCALE)
 
     def shift() -> dict:

@@ -114,7 +114,8 @@ raises and exits non-zero:
    sweep's output buffer holding the sweep before's distances, as in a
    search), the collapse (collapse_starts), the predecessors
    (sssp_predecessors) and one k-core run (expand_segments for the initial
-   degrees, every wave's kcore_sweep, then collapse_starts), each kernel
+   degrees, every wave's kcore_level_wave or kcore_cascade_wave with its
+   scalars and candidate set, then collapse_starts), each kernel
    against its plain version from the same input, exactly, and against a
    second launch, bitwise; all of it also on a graph with a hub,
    multi-edges and self-loops (kcore_stress_coo) and on a degree-balanced
@@ -140,10 +141,11 @@ raises and exits non-zero:
    dense pass, the push and the update) on a search's first and heaviest
    sweep, as torch.profiler sees them. Then sssp.run(variant=
    "fused") and sssp.run(variant="windowed") from the 8 highest-degree
-   sources and one kcore.run (kcore_sweep two device kernels a call, the
-   dense pass and the push, as torch.profiler sees them on the first and
-   the last wave: a form with no whole profiler window is not measured,
-   none measured fails), each run with the launch counters set to 0
+   sources and one kcore.run (a level wave three device kernels a call,
+   the minimum, the peel and the push, a cascade two, the mark and the
+   push, as torch.profiler sees them on the first and the last wave of
+   each kind: a wave with no whole profiler window is not measured, a
+   kind measured on none fails), each run with the launch counters set to 0
    just before it and read just after, which must show exactly the
    launches it makes; fused and windowed bitwise equal with equal sweep
    counts; 2 sources against a float64 host Dijkstra (rtol 1e-5, the reach
@@ -153,11 +155,11 @@ raises and exits non-zero:
    the TPU history (TPU_HISTORY), which is not a gate;
 11. SSSP and k-core times on CUDA events: ms per search and relaxations
    per second per variant, k-core ms and waves at scale 20, and each
-   wave's kcore_sweep time beside the vertices alive before it, their edges
-   and their largest degree, the vertices it peels and their edges; over
-   the run's waves the median and spread of kcore_sweep's wall time, its
-   plain version's, its device time per wave (torch.profiler, the two
-   kernels of each wave), the per-wave and per-run bounds; sssp_sweep sweep
+   wave's time (kcore_level_wave or kcore_cascade_wave) beside the
+   vertices alive before it, the vertices it peels and their edges; over
+   the run's waves of each kind the median and spread of the wall time,
+   the plain version's, the device time per wave (torch.profiler, each
+   wave's kernels), the per-wave and per-run bounds; sssp_sweep sweep
    by sweep over one fused search from the highest-degree vertex at scale
    20 (each call from its saved state): wall, device (its three kernels)
    and plain time, the slots it pushes and its bound (sssp_sweep_bytes),
@@ -545,7 +547,8 @@ SPMV_REPLACES = {
 SSSP_REPLACES = {
     "sssp_sweep": "essentials_tpu/ops/fused_sssp.py:132",
     "sssp_predecessors": "essentials_tpu/ops/cube_router.py:586",
-    "kcore_sweep": "essentials_tpu/ops/fused_kcore.py:144",
+    "kcore_level_wave": "essentials_tpu/ops/fused_kcore.py:144",
+    "kcore_cascade_wave": "essentials_tpu/ops/fused_kcore.py:144",
     "collapse_starts": "essentials_tpu/ops/cube_router.py:385",
     "expand_segments": "essentials_tpu/ops/scan_kernels.py:274",
 }
@@ -1338,8 +1341,8 @@ def profile(label: str, fn, expect: int | None = None) -> dict:
     running when the recorded call begins, and once recorded. ``expect``
     is the number of our kernels' launches the recorded call makes
     (K.launches' counts); the second kernels that the call makes (the
-    pack passes of gather_payloads, the pushes of kcore_sweep and the
-    splits of segment_minmax: K.pass_launches) are added to it, since each
+    pack passes of gather_payloads, the k-core waves' peels and pushes
+    and the splits of segment_minmax: K.pass_launches) are added to it, since each
     is a device kernel of its own. A trace that saw fewer is reported, its
     busy share as a lower bound. Returns {kernel name: (total ms,
     launches)}; empty when the profiler saw no device time."""
@@ -2009,6 +2012,61 @@ def sssp_sweep_states(g, source: int) -> list:
         d, prev = out, d
 
 
+def kcore_wave(g, state, k: int, n_in: int, cand_in, cand_out, scratch,
+               plain: bool = False):
+    """One k-core wave in place on ``state`` (deg, core): a cascade at k
+    from the ``n_in`` vertices of ``cand_in`` where n_in > 0, else a level
+    wave; the kernel, or its plain version. Returns its scalars tensor
+    (peeled, candidates listed, ranges listed, k)."""
+    from essentials_tpu_torch import kernels as K
+    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
+    if n_in:
+        fn = K.kcore_cascade_wave_plain if plain else K.kcore_cascade_wave
+        return fn(*state, *adj, k, cand_in, n_in, cand_out, scratch)
+    fn = K.kcore_level_wave_plain if plain else K.kcore_level_wave
+    return fn(*state, *adj, cand_out, scratch)
+
+
+def kcore_run_waves(g):
+    """Every wave of one fused k-core run on the kernels, yielded before it
+    runs as (wrapper name, (deg, core), k, n_in, cand_in), all copies the
+    caller may keep or run on; the run then goes on from the kernels'
+    outputs (kcore_wave)."""
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    deg = FK.init_deg_exp(g)
+    core = torch.zeros_like(deg)
+    cand_in, cand_out, scratch = FK.wave_buffers(g)
+    n_in, k, alive = 0, 0, FK.alive_vertices(g)
+    while alive:
+        name = "kcore_cascade_wave" if n_in else "kcore_level_wave"
+        yield name, (deg.clone(), core.clone()), k, n_in, cand_in.clone()
+        peeled, n_out, _, k = kcore_wave(g, (deg, core), k, n_in, cand_in,
+                                         cand_out, scratch).tolist()
+        cand_in, cand_out, n_in = cand_out, cand_in, n_out
+        alive -= peeled
+
+
+def hold_kcore_waves(g, errs: dict, where: str) -> tuple:
+    """Every wave of one fused k-core run (kcore_run_waves): the kernel
+    twice and its plain version once, each from the wave's state; the
+    state, the scalars and the candidate set (sorted: the card lists in
+    any order) bitwise. Returns (waves, levels, the core numbers on the
+    edge axis after the last wave)."""
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    waves = levels = 0
+    core = None
+    for name, state, k, n_in, cand in kcore_run_waves(g):
+        got = []
+        for plain in (False, False, True):
+            st = tuple(t.clone() for t in state)
+            out, _, scratch = FK.wave_buffers(g)
+            s = kcore_wave(g, st, k, n_in, cand, out, scratch, plain)
+            got.append((*st, s, out[:int(s[1])].sort().values))
+        hold_exact(name, *got, errs, f"{where} wave {waves}, k {k}")
+        waves, levels, core = waves + 1, levels + (not n_in), got[0][1]
+    return waves, levels, core
+
+
 def check_sssp_kcore_kernels(csr, g, where: str, errs: dict) -> None:
     """Every sweep of one SSSP search from the highest-degree vertex and
     every wave of one k-core run (its initial expansion included), each
@@ -2046,18 +2104,7 @@ def check_sssp_kcore_kernels(csr, g, where: str, errs: dict) -> None:
     deg = FK.init_deg_exp(g)
     hold_exact("expand_segments", (deg,), (K.expand_segments(*args),),
                (K.expand_segments_plain(*args),), errs, f"{where} kcore")
-    core = torch.zeros_like(deg)
-    k, waves = FK.first_level(g), 0
-    while k < FK.IMAX:
-        outs = [t.clone() for _ in range(3) for t in (deg, core)]
-        s = [K.kcore_sweep(deg, core, outs[i], outs[i + 1], off, src, col,
-                           k) for i in (0, 2)]
-        s_p = K.kcore_sweep_plain(deg, core, outs[4], outs[5], off, src, col,
-                                  k)
-        hold_exact("kcore_sweep", (*outs[:2], s[0]), (*outs[2:4], s[1]),
-                   (*outs[4:], s_p), errs, f"{where} wave {waves}, k {k}")
-        deg, core, waves = outs[0], outs[1], waves + 1
-        k = FK.next_level(k, int(s[0][1]))
+    waves, _, core = hold_kcore_waves(g, errs, where)
     args = (core, off, 0)
     hold_exact("collapse_starts", (K.collapse_starts(*args),),
                (K.collapse_starts(*args),), (K.collapse_starts_plain(*args),),
@@ -2183,32 +2230,35 @@ def check_starts_shapes(errs: dict) -> None:
               f"sources {sources}): exact against plain and repeatable")
 
 
+KCORE_WAVE_KERNELS = {
+    "kcore_level_wave": ("kcore_level_wave_kernel", "kcore_level_peel_kernel",
+                         "kcore_wave_push_kernel"),
+    "kcore_cascade_wave": ("kcore_cascade_wave_kernel",
+                           "kcore_wave_push_kernel")}
+
+
 def check_kcore_launches(g, where: str) -> None:
-    """One kcore_sweep call is two device kernels, its dense pass and its
-    push, on the first wave and on the last, as torch.profiler sees them;
-    fails where neither form was measured."""
-    from essentials_tpu_torch import kernels as K
+    """A level wave is three device kernels (the minimum, the peel and the
+    push) and a cascade two (the mark and the push), on the run's first
+    and last wave of each kind, each call from a copy of the wave's state,
+    as torch.profiler sees them; fails where a kind was measured on no
+    wave."""
     from essentials_tpu_torch.ops import fused_kcore as FK
-    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
-    deg = FK.init_deg_exp(g)
-    core = torch.zeros_like(deg)
-    k, waves = FK.first_level(g), 0
-    first = last = (deg, core, k)
-    while k < FK.IMAX:
-        last = (deg, core, k)
-        deg, core = torch.empty_like(deg), torch.empty_like(core)
-        s = K.kcore_sweep(*last[:2], deg, core, *adj, k)
-        k, waves = FK.next_level(k, int(s[1])), waves + 1
-    outs = (torch.empty_like(deg), torch.empty_like(core))
-    measured = sum(check_one_launch(
-        "kcore_sweep", lambda d=d, c=c, k=k: K.kcore_sweep(
-            d, c, *outs, *adj, k), f"{where} wave {i}",
-        ("kcore_sweep_kernel", "kcore_sweep_push_kernel"))
-        for i, (d, c, k) in ((0, first), (waves - 1, last)))
-    check(measured > 0, f"kcore_sweep {where}: launches per call measured "
-                        f"on no wave")
-    print(f"kernels: kcore_sweep {where}: two device kernels a call (dense "
-          f"pass and push) on {measured} of 2 waves measured")
+    first, last = {}, {}
+    for i, wave in enumerate(kcore_run_waves(g)):
+        first.setdefault(wave[0], (i, *wave[1:]))
+        last[wave[0]] = (i, *wave[1:])
+    out, _, scratch = FK.wave_buffers(g)
+    for name, want in KCORE_WAVE_KERNELS.items():
+        waves = {w[0]: w for w in (first[name], last[name])}
+        measured = sum(check_one_launch(
+            name, lambda w=w: kcore_wave(
+                g, tuple(t.clone() for t in w[1]), *w[2:], out, scratch),
+            f"{where} wave {i}", want) for i, w in waves.items())
+        check(measured > 0, f"{name} {where}: launches per call measured "
+                            f"on no wave")
+        print(f"kernels: {name} {where}: {len(want)} device kernels a call "
+              f"on {measured} of {len(waves)} waves measured")
 
 
 SSSP_SWEEP_KERNELS = ("sssp_sweep_kernel", "sssp_sweep_push_kernel",
@@ -2406,8 +2456,16 @@ def sssp_kcore_main_path(csr, g) -> tuple:
 
     rk = run_counted("kcore", lambda: kcore.run(g, warmup=False),
                      lambda r: {"expand_segments": 1,
-                                "kcore_sweep": r.iterations,
+                                "kcore_level_wave": K.counters[
+                                    "kcore.levels"],
+                                "kcore_cascade_wave": K.counters[
+                                    "kcore.waves"] - K.counters[
+                                    "kcore.levels"],
                                 "collapse_starts": 1})
+    check(K.counters["kcore.waves"] == rk.iterations
+          > K.counters["kcore.levels"] > 0,
+          f"kcore: {rk.iterations} waves, {K.counters['kcore.waves']} "
+          f"counted, {K.counters['kcore.levels']} levels")
     core = rk.core.cpu().numpy()
     check(np.array_equal(core, kcore.cpu_reference(csr)),
           "kcore core numbers differ from the host peeling")
@@ -2455,23 +2513,6 @@ def time_sssp_kcore(g, sources, runs, card: str) -> None:
           f"{ms / waves:.4f} ms per wave")
 
 
-def kcore_wave_bytes(g, deg, k: int) -> tuple:
-    """(the dense pass's bytes, the push's bytes) of a wave at level k from
-    state ``deg``: the offsets read, and the 32-byte sectors holding the
-    non-empty starts in each of deg_in, core_in, deg_out and core_out; then
-    per slot of each peeled segment its col word and two scattered
-    32-byte sectors (off[u], and the degree at u's start that the atomic
-    takes one from)."""
-    off = g.row_offsets
-    nonempty = off[1:] > off[:-1]
-    starts = off[:-1][nonempty].long()
-    sectors = int(torch.unique(starts // 8).numel())
-    d = deg[starts]
-    lens = (off[1:] - off[:-1])[nonempty].long()
-    peeled = int(lens[(d >= 0) & (d < k)].sum())
-    return 4 * (g.n_vertices_padded + 1) + 4 * 32 * sectors, 68 * peeled
-
-
 def per_call_device_ms(fn, names: tuple, calls: int) -> list | None:
     """Each call's device time over fn() (``calls`` calls of a wrapper
     that launches one of each device kernel ``names``) from torch.profiler's
@@ -2500,94 +2541,148 @@ def per_call_device_ms(fn, names: tuple, calls: int) -> list | None:
     return None
 
 
-def kcore_wave_device_ms(g) -> list | None:
-    """Each wave's device time over one k-core run (FK.run_fused_kcore):
-    its dense pass and its push, summed (per_call_device_ms)."""
+def kcore_peel_set(g, state, n_in: int, cand) -> torch.Tensor:
+    """[Vp] bool: the vertices a wave from ``state`` (deg, core) peels: the
+    ``n_in`` listed in ``cand`` for a cascade, else the alive vertices of
+    the smallest alive degree (k = it + 1)."""
+    off = g.row_offsets
+    peel = torch.zeros(off.numel() - 1, dtype=torch.bool, device=off.device)
+    if n_in:
+        peel[cand[:n_in].long()] = True
+        return peel
+    nonempty = off[1:] > off[:-1]
+    d = torch.where(nonempty, state[0][torch.where(nonempty, off[:-1], 0)
+                                       .long()], -1)
+    alive = d >= 0
+    if bool(alive.any()):
+        peel = alive & (d == d[alive].min())
+    return peel
+
+
+def kcore_wave_bytes(g, peel, level: bool) -> tuple:
+    """(the pass's bytes, the push's bytes) of a wave that peels ``peel``:
+    a level wave's minimum reads the offsets and each non-empty start's
+    32-byte sector, and its peel writes a sector of the degrees and of the
+    core numbers at each peeled start; a cascade reads each listed word
+    and the sector of its offsets and writes the same two sectors; then
+    per slot of each peeled segment its col word and two scattered
+    32-byte sectors (off[v], and the degree at v's start that the atomic
+    takes one from)."""
+    off = g.row_offsets
+    lens = (off[1:] - off[:-1]).long()
+    n = int(peel.sum())
+    if level:
+        starts = off[:-1][lens > 0].long()
+        sectors = int(torch.unique(starts // 8).numel())
+        dense = 4 * (g.n_vertices_padded + 1) + 32 * sectors + 64 * n
+    else:
+        dense = 100 * n
+    return dense, 68 * int(lens[peel].sum())
+
+
+def kcore_wave_device_ms(g) -> dict | None:
+    """Each wave's device time over one k-core run (FK.run_fused_kcore),
+    by kind: {wrapper name: [ms a wave]}, a level wave's minimum, peel and
+    push summed, a cascade's mark and push, from torch.profiler's events
+    in order; the run runs twice, the first time in a warm-up step. None
+    where the profiler lost device activities in three windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile as torch_profile,
+                                schedule)
     from essentials_tpu_torch.ops import fused_kcore as FK
     max_it = 4 * g.n_vertices + 8
     waves = FK.run_fused_kcore(g, max_it)[1]
-    return per_call_device_ms(lambda: FK.run_fused_kcore(g, max_it),
-                              ("kcore_sweep_kernel",
-                               "kcore_sweep_push_kernel"), waves)
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as prof:
+            for _ in range(2):
+                FK.run_fused_kcore(g, max_it)
+                torch.cuda.synchronize()
+                prof.step()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        out = {"kcore_level_wave": [], "kcore_cascade_wave": []}
+        cur, pushes = None, 0
+        for e in ev:
+            ms = e.time_range.elapsed_us() / 1e3
+            first = [n for n in out if n + "_kernel" in e.name]
+            if first:
+                cur = out[first[0]]
+                cur.append(ms)
+            elif cur is not None and ("kcore_level_peel_kernel" in e.name
+                                      or "kcore_wave_push_kernel" in e.name):
+                cur[-1] += ms
+                pushes += "kcore_wave_push_kernel" in e.name
+        if sum(map(len, out.values())) == waves == pushes:
+            return out
+    return None
 
 
 def time_kcore_waves(g, card: str) -> dict:
-    """kcore_sweep wave by wave over one k-core run: each wave's wall time
-    on CUDA events and its plain version's on the same state (into spare
-    buffers), beside the vertices alive before it, their edges and their
-    largest degree, and the vertices it peels and their edges; each wave's
-    device time (kcore_wave_device_ms); the bounds per wave and per run
-    (kcore_wave_bytes). Returns chip_smoke's keys for kcore_sweep: the
-    times and bound per wave averaged over the run's waves, and the run's
-    totals."""
-    from essentials_tpu_torch import kernels as K
+    """The k-core waves wave by wave over one fused run
+    (kcore_run_waves): each wave's wall time on CUDA events and its plain
+    version's, each from a copy of its state, beside the vertices alive
+    before it and the vertices and edges it peels; each wave's device time
+    (kcore_wave_device_ms); the bounds per wave and per run
+    (kcore_wave_bytes), all by kind. Returns chip_smoke's keys for
+    kcore_level_wave and kcore_cascade_wave: the times and bound per wave
+    averaged over the run's waves of that kind, and the run's totals."""
     from essentials_tpu_torch.ops import fused_kcore as FK
-    off, src = g.row_offsets, g.csc_src_indices
-    nonempty = off[1:] > off[:-1]
-    starts = off[:-1][nonempty].long()
-    deg0 = g.out_degrees()[nonempty].long()
-    deg = FK.init_deg_exp(g)
-    core = torch.zeros_like(deg)
-    spare = [deg.clone(), core.clone()]
-    plain_out = [deg.clone(), core.clone()]
-    k, rows, nbytes = FK.first_level(g), [], []
-    while k < FK.IMAX:
-        d = deg[starts]
-        alive = d >= 0
-        peel = alive & (d < k)
-        nbytes.append(kcore_wave_bytes(g, deg, k))
-        plain = median_ms(lambda _: K.kcore_sweep_plain(
-            deg, core, *plain_out, off, src, g.col_indices, k), 1)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        s = FK.fused_kcore_sweep(g, deg, core, k, *spare)
-        e1.record()
-        min_alive = int(s[1])
-        rows.append((e0.elapsed_time(e1), plain, int(alive.sum()),
-                     int(deg0[alive].sum()), int(deg0[alive].max()),
-                     int(peel.sum()), int(deg0[peel].sum())))
-        deg, core, spare = spare[0], spare[1], [deg, core]
-        k = FK.next_level(k, min_alive)
-    ms = np.array([r[0] for r in rows])
-    for i in sorted({0, 1, 2, len(rows) // 10, len(rows) // 2,
-                     9 * len(rows) // 10, len(rows) - 1}):
-        t, tp, n, e, hub, npeel, epeel = rows[i]
-        print(f"time [{card}]: kcore_sweep rmat{MAIN_SCALE} wave {i}: "
-              f"{t:.4f} ms (plain {tp:.4f}); {n} vertices alive, {e} "
-              f"edges, largest degree {hub}; peels {npeel} vertices, "
-              f"{epeel} edges")
+    off = g.row_offsets
+    lens = (off[1:] - off[:-1]).long()
+    starts = torch.where(lens > 0, off[:-1], 0).long()
+    out, _, scratch = FK.wave_buffers(g)
+    rows = {"kcore_level_wave": [], "kcore_cascade_wave": []}
+    for i, (name, state, k, n_in, cand) in enumerate(kcore_run_waves(g)):
+        peel = kcore_peel_set(g, state, n_in, cand)
+        alive = int(((lens > 0) & (state[0][starts] >= 0)).sum())
+
+        def copy(state=state):
+            return tuple(t.clone() for t in state)
+        wall = median_ms(lambda st: kcore_wave(
+            g, st, k, n_in, cand, out, scratch), 1, copy)
+        plain = median_ms(lambda st: kcore_wave(
+            g, st, k, n_in, cand, out, scratch, plain=True), 1, copy)
+        rows[name].append((i, wall, plain, alive, int(peel.sum()),
+                           int(lens[peel].sum()),
+                           kcore_wave_bytes(g, peel, not n_in)))
     dev = kcore_wave_device_ms(g)
-    waves = len(rows)
-    dense, push = (sum(b[i] for b in nbytes) for i in (0, 1))
-    # each launch at the rate of where its own bytes fit
-    per = [(bound(a), bound(b)) for a, b in nbytes]
-    mems = "/".join(sorted({x[2] for pair in per for x in pair}))
-    run_bound = (sum(a[0] + b[0] for a, b in per), "bytes", mems)
-    print(f"time [{card}]: kcore_sweep rmat{MAIN_SCALE}: {waves} waves; "
-          f"wall {ms.sum():.3f} ms in all, median {np.median(ms):.4f} ms, "
-          f"min {ms.min():.4f}, max {ms.max():.4f} per wave; plain "
-          f"{sum(r[1] for r in rows):.1f} ms in all; device "
-          + ("not measured" if dev is None else
-             f"{sum(dev):.3f} ms in all, median {np.median(dev):.4f}, min "
-             f"{min(dev):.4f}, max {max(dev):.4f} per wave")
-          + f"; bound {run_bound[0]:.4f} ms a run ({run_bound[1]} at "
-          f"{run_bound[2]} rate: {dense / 1e9:.3f} GB of dense passes, "
-          f"{push / 1e9:.3f} GB of pushes over {push // 68} peeled slots), "
-          f"{run_bound[0] / waves:.4f} ms a wave on average")
-    return {"kcore_sweep": ms.mean(),
-            "kcore_sweep/plain": float(np.mean([r[1] for r in rows])),
-            "kcore_sweep/device": None if dev is None else float(np.mean(dev)),
-            "kcore_sweep/bound": (run_bound[0] / waves, *run_bound[1:]),
-            "kcore_sweep/run": {
-                "waves": waves, "ms": float(ms.sum()),
-                "device_ms": None if dev is None else float(sum(dev)),
-                "bound_ms": run_bound[0], "bound_memory": run_bound[2],
-                "wave_ms_median": float(np.median(ms)),
-                "wave_ms_min": float(ms.min()),
-                "wave_ms_max": float(ms.max()),
-                "wave_device_ms_median":
-                    None if dev is None else float(np.median(dev))}}
+    t = {}
+    for name, r in rows.items():
+        ms = np.array([x[1] for x in r])
+        for j in sorted({0, len(r) // 2, len(r) - 1}):
+            i, w, p, alive, npeel, epeel, _ = r[j]
+            print(f"time [{card}]: {name} rmat{MAIN_SCALE} wave {i}: {w:.4f} "
+                  f"ms (plain {p:.4f}); {alive} vertices alive; peels "
+                  f"{npeel} vertices, {epeel} edges")
+        d = None if dev is None else dev[name]
+        per = [(bound(a), bound(b)) for a, b in (x[6] for x in r)]
+        mems = "/".join(sorted({x[2] for pair in per for x in pair}))
+        run_bound = (sum(a[0] + b[0] for a, b in per), "bytes", mems)
+        print(f"time [{card}]: {name} rmat{MAIN_SCALE}: {len(r)} waves; wall "
+              f"{ms.sum():.3f} ms in all, median {np.median(ms):.4f}, min "
+              f"{ms.min():.4f}, max {ms.max():.4f} a wave; plain "
+              f"{sum(x[2] for x in r):.1f} ms in all; device "
+              + ("not measured" if d is None else
+                 f"{sum(d):.3f} ms in all, median {np.median(d):.4f}, min "
+                 f"{min(d):.4f}, max {max(d):.4f} a wave")
+              + f"; bound {run_bound[0]:.4f} ms ({mems}), "
+              f"{run_bound[0] / len(r):.4f} a wave")
+        t.update({name: ms.mean(),
+                  name + "/plain": float(np.mean([x[2] for x in r])),
+                  name + "/device": None if d is None else float(np.mean(d)),
+                  name + "/bound": (run_bound[0] / len(r), *run_bound[1:]),
+                  name + "/run": {
+                      "waves": len(r), "ms": float(ms.sum()),
+                      "device_ms": None if d is None else float(sum(d)),
+                      "bound_ms": run_bound[0], "bound_memory": mems,
+                      "wave_ms_median": float(np.median(ms)),
+                      "wave_device_ms_median":
+                          None if d is None else float(np.median(d))}})
+    return t
 
 
 def sssp_sweep_bytes(g, d, prev, out) -> tuple:
@@ -2709,7 +2804,7 @@ def time_sssp_kcore_kernels(csr, g, card: str) -> dict:
     restored outside the timed region), with its bound summed the same way
     (sssp_sweep_bound); collapse_starts once per search; sssp_predecessors
     once per search (time_predecessors); expand_segments once per k-core
-    run (kcore_sweep is timed wave by wave at gen:rmat20x16:
+    run (the k-core waves are timed wave by wave at gen:rmat20x16:
     time_kcore_waves, and sssp_sweep sweep by sweep: time_sssp_sweeps).
     sssp_sweep's keys here are per search."""
     from essentials_tpu_torch import kernels as K
@@ -5994,7 +6089,8 @@ def group_sssp(run: Run) -> None:
           + f", plain {t['sssp_sweep@search/plain']:.4f} ms, bound "
           f"{t['sssp_sweep@search/bound'][0]:.4f} ms")
     for name in SSSP_REPLACES:
-        if name not in ("kcore_sweep", "sssp_sweep"):
+        if name not in ("kcore_level_wave", "kcore_cascade_wave",
+                        "sssp_sweep"):
             print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
                   f"{t[name + '/plain']:.4f} ms (weighted rmat{SCALE})")
     top = [int(sssp_sources[0])]
@@ -6416,7 +6512,8 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
                 "library_device_ms": t[k + "/library_device"]}
     if name in ("spmv_rows", "spmv_slabs", "gather_payloads",
                 "advance_count", "scan", "segment_broadcast_total",
-                "suffix_fill_update", "segment_minmax", "kcore_sweep",
+                "suffix_fill_update", "segment_minmax", "kcore_level_wave",
+                "kcore_cascade_wave",
                 "segment_reduce", "fused_route_or"):
         # device times per call (torch.profiler) beside the wall times
         out["device_ms"] = t.get(key + "/device")
@@ -6545,8 +6642,9 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
             if k + "/bound_sectors" in t:
                 out["rmat20x16"]["bound_sectors_ms"] = \
                     t[k + "/bound_sectors"][0]
-    if name == "kcore_sweep":
-        out["per_wave"] = "mean over the waves of one run at gen:rmat20x16"
+    if name in ("kcore_level_wave", "kcore_cascade_wave"):
+        out["per_wave"] = "mean over the waves of this kind of one run at " \
+                          "gen:rmat20x16"
         out["per_run"] = t[key + "/run"]
     if name == "sssp_sweep":
         out["device_ms"] = t.get(key + "/device")

@@ -16,13 +16,14 @@
 // predecessors. Edge-axis state arrays are [Ep] int32 of which only the
 // positions off[v] (segment starts) are read or written.
 //
-// The sweeps read one buffer and write another (ping-pong). A min or a peel
-// updated in place would let a vertex see a neighbour's state of the same
-// sweep: SSSP would converge in other sweeps than the JAX package's Jacobi
-// sweeps, and k-core would miss a neighbour peeled earlier in the sweep.
-// k-core writes every non-empty start of the output in each wave; SSSP
-// reads the output buffer's old distances (the sweep before the input's)
-// and writes only the starts that differ, so the buffers never need a copy.
+// The SSSP sweep reads one buffer and writes another (ping-pong). A min
+// updated in place would let a vertex see a neighbour's distance of the
+// same sweep, and SSSP would converge in other sweeps than the JAX
+// package's Jacobi sweeps. It reads the output buffer's old distances (the
+// sweep before the input's) and writes only the starts that differ, so the
+// buffers never need a copy. The k-core waves update one degree and one
+// core buffer in place: a wave marks its whole peel set in one launch
+// before the push that reads it.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -238,8 +239,9 @@ sssp_predecessors_ranges_kernel(SsspHit hit, const int* __restrict__ csc_src,
   etpu::range_walk(hit, csc_src, pred, listed, ranges);
 }
 
-// One k-core peel wave on the edge axis: a dense pass over the vertices,
-// then a push from the vertices it peels.
+// One k-core peel wave on the edge axis, its state updated in place: a pass
+// that marks the wave's peel set and lists their CSR rows, then a push from
+// those rows that lists the next wave's peel set.
 //
 // Replaces the JAX package's three Pallas kernels of one wave
 // (essentials_tpu/ops/fused_kcore.py: _k1_fill_peel_kernel :78, the router
@@ -248,91 +250,139 @@ sssp_predecessors_ranges_kernel(SsspHit hit, const int* __restrict__ csc_src,
 // every survivor counts its peeled in-neighbours, so every wave reads every
 // survivor's in-edges. Here only the peeled vertices' edges are read, in the
 // wave that peels them: about E edges over a whole run, not a rescan per
-// wave.
+// wave; and only the first wave of a level k reads every vertex.
 //
-// deg holds the remaining degree at each start, -1 once peeled. For v with a
-// non-empty segment and d = deg_in[off[v]]:
-//   0 <= d < k (peeled):  deg_out = -1, core_out = k - 1, counted;
-//   d >= k (survivor):    deg_out = d - #{in-edges u -> v : 0 <= deg_in[off[
-//                         u]] < k}, core_out = core_in, and the new degree
-//                         enters the minimum;
-//   d < 0 (peeled before): both copied.
+// deg holds the remaining degree at each non-empty start, -1 once peeled;
+// core the core number there. The k schedule is the JAX package's: a wave
+// at k peels every alive vertex of degree below k (core k - 1) and takes
+// one from each survivor's degree per peeled in-neighbour; the next wave
+// stays at k while a survivor's degree is below it, else k jumps to the
+// smallest alive degree + 1. Two kinds of wave give that schedule:
+// * a level wave, the first at a new k: kcore_level_wave_kernel, one thread
+//   per vertex, folds the alive starts' degrees into the smallest (a block
+//   minimum into its slot of block_min, and atomicMin into scalars[4];
+//   block_min is the wave's cand_out, which the push alone writes after);
+//   kcore_level_peel_kernel, over the same blocks, sets k = that + 1 (IMAX
+//   when nothing is alive; block 0 writes it to scalars[3]) and, in the
+//   blocks whose own minimum is the smallest (no other block holds a
+//   vertex below k), marks each alive start with d < k peeled (deg -1,
+//   core k - 1), counts it and lists its CSR row (list_row);
+// * a cascade wave, while the wave before listed candidates:
+//   kcore_cascade_wave_kernel, one thread per listed vertex, marks it
+//   peeled at the k the host passes and lists its row. The list holds
+//   exactly the alive vertices of degree below k, so nothing else is read.
+// Then kcore_wave_push_kernel loads v = col[q] for each listed slot q of a
+// peeled u and, where v is alive (deg[off[v]] >= 0: the pass launch marked
+// this wave's peel set before the push started, and a survivor's degree
+// stays >= k - 1 >= 0 through it), takes one from deg[off[v]] with
+// atomicSub. The one subtraction that returns exactly k takes v below k:
+// v joins the next wave's candidate list (a warp-aggregated append), once.
+// After the push the list holds every alive vertex of degree below k, the
+// next wave's peel set, and is empty exactly when the JAX schedule jumps
+// to the next level. On a symmetric layout u's row sits at the positions
+// of its segment and v's start is off[v], and the out-edges u -> v are
+// exactly the in-edges that v's pull counts, on a directed graph as on an
+// undirected one. Integer atomics are exact in any order: the degrees and
+// core numbers repeat bit for bit; only the list's order varies.
 //
-// kcore_sweep_kernel, one thread per vertex, writes every start as if
-// nothing fell (a survivor's deg_out = d), counts the peeled (block count,
-// one atomicAdd per block), folds the survivors' d into the minimum (block
-// min, one atomicMin per block), and lists each peeled vertex's CSR row
-// (list_row). kcore_sweep_push_kernel loads v = col[q] for each listed slot
-// q of a peeled u and, where v survives on deg_in, takes one from
-// deg_out[off[v]] with atomicSub. On a symmetric layout u's row sits at the
-// positions of its segment and v's start is off[v], and the out-edges u ->
-// v are exactly the in-edges that v's pull counts, on a directed graph as
-// on an undirected one. Each subtraction's result enters the minimum: a
-// survivor's last one gives its new degree, the others more, and a survivor
-// with none keeps its d, so min(survivors' d, every result) is the smallest
-// new degree. Integer atomics are exact in any order: the results repeat
-// bit for bit. The push follows the dense pass on the stream, so it sees
-// every start written.
+// scalars: {peeled, candidates listed, ranges listed, k, smallest alive
+// degree, unused x 3}; the entry points copy kcore_wave_start into them on
+// the stream before each wave.
 //
-// scalars: {peeled, smallest surviving degree (INT_MAX when none survives),
-// ranges listed, unused}; the entry point copies {0, INT_MAX, 0, 0} into
-// them on the stream before the wave.
-//
-// What bounds it: a [Vp] pass (offsets, and the start's degree and core read
-// and written at each vertex: one 32-byte sector each where segments are
-// long), then per peeled slot its col word and two scattered sectors,
-// off[v] and deg_in / deg_out at v's start.
+// What bounds it: a level wave's two passes read the offsets and one
+// 32-byte sector at each non-empty start, the second only in the blocks
+// that peel; a cascade reads two offsets and writes two sectors per listed
+// vertex; the push reads per peeled slot its col word and two scattered
+// sectors, off[v] and v's start.
 __global__ void __launch_bounds__(kBlock)
-kcore_sweep_kernel(const int* __restrict__ deg_in,
-                   const int* __restrict__ core_in, int* __restrict__ deg_out,
-                   int* __restrict__ core_out, const int* __restrict__ off,
-                   int vp, int k, int* __restrict__ scalars,
-                   int4* __restrict__ ranges) {
+kcore_level_wave_kernel(const int* __restrict__ deg,
+                        const int* __restrict__ off, int vp,
+                        int* __restrict__ scalars,
+                        int* __restrict__ block_min) {
   __shared__ int warp_min[kWarpsPerBlock];
-  const int lane = threadIdx.x & 31;
+  const int v = blockIdx.x * kBlock + threadIdx.x;
+  int alive = INT_MAX;
+  if (v < vp) {
+    const int b = off[v];
+    if (b < off[v + 1]) {
+      const int d = deg[b];
+      if (d >= 0) alive = d;
+    }
+  }
+  alive = __reduce_min_sync(kFullMask, alive);
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = alive;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int m = warp_min[0];
+    for (int i = 1; i < kWarpsPerBlock; ++i) m = min(m, warp_min[i]);
+    block_min[blockIdx.x] = m;
+    if (m < INT_MAX) atomicMin(&scalars[4], m);
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+kcore_level_peel_kernel(int* __restrict__ deg, int* __restrict__ core,
+                        const int* __restrict__ off, int vp,
+                        int* __restrict__ scalars,
+                        const int* __restrict__ block_min,
+                        int4* __restrict__ ranges) {
+  const int m = scalars[4];                 // written by the pass before
+  const int k = m == INT_MAX ? INT_MAX : m + 1;
+  if (blockIdx.x == 0 && threadIdx.x == 0) scalars[3] = k;
+  if (block_min[blockIdx.x] != m) return;   // block-uniform: none below k
   const int v = blockIdx.x * kBlock + threadIdx.x;
   bool peeled = false;
-  int alive = INT_MAX;
   int b = 0;
   int e = 0;
   if (v < vp) {
     b = off[v];
     e = off[v + 1];
     if (b < e) {
-      const int d = deg_in[b];
+      const int d = deg[b];
       if (d >= 0 && d < k) {
         peeled = true;
-        deg_out[b] = -1;
-        core_out[b] = k - 1;
-      } else {
-        deg_out[b] = d;
-        core_out[b] = core_in[b];
-        if (d >= 0) alive = d;
+        deg[b] = -1;
+        core[b] = k - 1;
       }
     }
   }
   list_row(peeled, b, e, 0, &scalars[2], ranges);
-  alive = __reduce_min_sync(kFullMask, alive);
-  if (lane == 0) warp_min[threadIdx.x >> 5] = alive;
-  // the count is also the barrier that publishes warp_min
   const int n = __syncthreads_count(peeled);
-  if (threadIdx.x == 0) {
-    if (n > 0) atomicAdd(&scalars[0], n);
-    int m = warp_min[0];
-    for (int i = 1; i < kWarpsPerBlock; ++i) m = min(m, warp_min[i]);
-    if (m < INT_MAX) atomicMin(&scalars[1], m);
+  if (threadIdx.x == 0 && n > 0) atomicAdd(&scalars[0], n);
+}
+
+__global__ void __launch_bounds__(kBlock)
+kcore_cascade_wave_kernel(int* __restrict__ deg, int* __restrict__ core,
+                          const int* __restrict__ off, int k,
+                          const int* __restrict__ cand, int n,
+                          int* __restrict__ scalars,
+                          int4* __restrict__ ranges) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  int b = 0;
+  int e = 0;
+  if (i < n) {
+    const int v = cand[i];
+    b = off[v];
+    e = off[v + 1];
+    deg[b] = -1;                            // listed: alive, below k
+    core[b] = k - 1;
+  }
+  list_row(i < n, b, e, 0, &scalars[2], ranges);
+  if (i == 0) {
+    scalars[0] = n;
+    scalars[3] = k;
   }
 }
 
 __global__ void __launch_bounds__(kBlock)
-kcore_sweep_push_kernel(const int* __restrict__ deg_in, int* deg_out,
-                        const int* __restrict__ off,
-                        const int* __restrict__ col, int k,
-                        int* scalars, const int4* __restrict__ ranges) {
+kcore_wave_push_kernel(int* deg, const int* __restrict__ off,
+                       const int* __restrict__ col, int* scalars,
+                       const int4* __restrict__ ranges,
+                       int* __restrict__ cand) {
   const int lane = threadIdx.x & 31;
-  const int listed = scalars[2];            // written by the dense pass
+  const int listed = scalars[2];            // written by the pass launch
+  const int k = scalars[3];
   const long long step = 32LL * gridDim.x * kWarpsPerBlock;
-  int least = INT_MAX;
   for (long long r0 = 32 * global_warp(); r0 < listed; r0 += step) {
     const WarpRanges wr(ranges, r0, listed);
     for (int t0 = 0; t0 < wr.total; t0 += 32 * kPushItems) {
@@ -353,21 +403,32 @@ kcore_sweep_push_kernel(const int* __restrict__ deg_in, int* deg_out,
       for (int i = 0; i < kPushItems; ++i) {
         at[i] = dst[i] >= 0 ? off[dst[i]] : -1;
       }
+      // a survivor's sign holds through the push, so an L2 read that
+      // misses other warps' subtractions still tells alive from peeled
+      int alive[kPushItems];
 #pragma unroll
       for (int i = 0; i < kPushItems; ++i) {
-        if (at[i] >= 0 && deg_in[at[i]] >= k) {   // v survives this wave
-          least = min(least, atomicSub(&deg_out[at[i]], 1) - 1);
+        alive[i] = at[i] >= 0 ? __ldcg(&deg[at[i]]) : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < kPushItems; ++i) {
+        const bool crossed =
+            alive[i] >= 0 && atomicSub(&deg[at[i]], 1) == k;
+        const unsigned hit = __ballot_sync(kFullMask, crossed);
+        if (hit) {                          // warp-uniform
+          int base = 0;
+          if (lane == 0) base = atomicAdd(&scalars[1], __popc(hit));
+          base = __shfl_sync(kFullMask, base, 0);
+          if (crossed) cand[base + __popc(hit & ((1u << lane) - 1))] = dst[i];
         }
       }
     }
   }
-  least = __reduce_min_sync(kFullMask, least);
-  if (lane == 0 && least < INT_MAX) atomicMin(&scalars[1], least);
 }
 
-// kcore_sweep's scalars before a wave: {peeled, smallest surviving degree,
-// ranges listed, unused}.
-__device__ int kcore_scalars_start[4] = {0, INT_MAX, 0, 0};
+// A wave's scalars before it: {peeled, candidates listed, ranges listed, k,
+// smallest alive degree, unused x 3}.
+__device__ int kcore_wave_start[8] = {0, 0, 0, 0, INT_MAX, 0, 0, 0};
 
 // Per-vertex values -> the edge axis, in tiles balanced by slots.
 //
@@ -516,6 +577,23 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
+cudaError_t kcore_wave_push(int* deg, const int* off, const int* col,
+                            int* scalars, const int4* ranges, int* cand,
+                            cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  // a persistent grid: how many ranges the pass lists is known only on
+  // the device
+  kcore_wave_push_kernel<<<kPushBlocksPerSm * sms, kBlock, 0, s>>>(
+      deg, off, col, scalars, ranges, cand);
+  return cudaGetLastError();
+}
+
+int4* kcore_wave_ranges(void* scratch) {
+  return reinterpret_cast<int4*>(static_cast<int*>(scratch) + 8);
+}
+
 }  // namespace
 
 extern "C" {
@@ -570,35 +648,62 @@ int etpu_sssp_predecessors(const void* dist, const void* off,
       static_cast<cudaStream_t>(stream)));
 }
 
-// `scalars` ([4] int32, 16-byte aligned) is set to {0, INT_MAX, 0, 0} here
-// by a device-to-device copy (no kernel launch), then filled; `ranges` holds
-// room for vp + ceil(ep / etpu_push_split()) int4 (16-byte aligned).
-// Two launches: the dense pass, then the push over the ranges it lists.
-int etpu_kcore_sweep(const void* deg_in, const void* core_in, void* deg_out,
-                     void* core_out, const void* off, const void* col,
-                     int vp, int k, void* scalars, void* ranges,
-                     void* stream) {
+// The k-core waves' scratch (16-byte aligned): kcore_wave_start's 8 words,
+// then room for vp + ceil(ep / etpu_push_split()) int4 ranges. Its first 8
+// words are set here by a device-to-device copy (no kernel launch) before
+// each wave and then hold {peeled, candidates listed, ranges listed, k,
+// smallest alive degree}. `cand_out` ([vp] int32) receives the candidates;
+// a level wave keeps its block minima there (ceil(vp / kBlock) <= vp
+// words) until the push.
+
+// A level wave in place: three launches, the minimum, the peel, the push.
+int etpu_kcore_level_wave(void* deg, void* core, const void* off,
+                          const void* col, int vp, void* cand_out,
+                          void* scratch, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* scalars = static_cast<int*>(scratch);
   cudaError_t err = cudaMemcpyFromSymbolAsync(
-      scalars, kcore_scalars_start, sizeof(kcore_scalars_start), 0,
+      scalars, kcore_wave_start, sizeof(kcore_wave_start), 0,
       cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess || vp <= 0) return static_cast<int>(err);
-  int sms = 0;
-  if ((err = sm_count(&sms)) != cudaSuccess) return static_cast<int>(err);
-  kcore_sweep_kernel<<<thread_blocks(vp), kBlock, 0, s>>>(
-      static_cast<const int*>(deg_in), static_cast<const int*>(core_in),
-      static_cast<int*>(deg_out), static_cast<int*>(core_out),
-      static_cast<const int*>(off), vp, k, static_cast<int*>(scalars),
-      static_cast<int4*>(ranges));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // a persistent grid: how many ranges the pass lists is known only on
-  // the device
-  kcore_sweep_push_kernel<<<kPushBlocksPerSm * sms, kBlock, 0, s>>>(
-      static_cast<const int*>(deg_in), static_cast<int*>(deg_out),
-      static_cast<const int*>(off), static_cast<const int*>(col), k,
-      static_cast<int*>(scalars), static_cast<const int4*>(ranges));
-  return static_cast<int>(cudaGetLastError());
+  int* block_min = static_cast<int*>(cand_out);
+  int4* ranges = kcore_wave_ranges(scratch);
+  kcore_level_wave_kernel<<<thread_blocks(vp), kBlock, 0, s>>>(
+      static_cast<const int*>(deg), static_cast<const int*>(off), vp,
+      scalars, block_min);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  kcore_level_peel_kernel<<<thread_blocks(vp), kBlock, 0, s>>>(
+      static_cast<int*>(deg), static_cast<int*>(core),
+      static_cast<const int*>(off), vp, scalars, block_min, ranges);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(kcore_wave_push(
+      static_cast<int*>(deg), static_cast<const int*>(off),
+      static_cast<const int*>(col), scalars, ranges,
+      static_cast<int*>(cand_out), s));
+}
+
+// A cascade wave in place at level k from the n (>= 1) vertices of
+// `cand_in`: two launches, the mark, the push.
+int etpu_kcore_cascade_wave(void* deg, void* core, const void* off,
+                            const void* col, int vp, int k,
+                            const void* cand_in, int n, void* cand_out,
+                            void* scratch, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* scalars = static_cast<int*>(scratch);
+  cudaError_t err = cudaMemcpyFromSymbolAsync(
+      scalars, kcore_wave_start, sizeof(kcore_wave_start), 0,
+      cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
+  int4* ranges = kcore_wave_ranges(scratch);
+  kcore_cascade_wave_kernel<<<thread_blocks(n), kBlock, 0, s>>>(
+      static_cast<int*>(deg), static_cast<int*>(core),
+      static_cast<const int*>(off), k, static_cast<const int*>(cand_in), n,
+      scalars, ranges);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(kcore_wave_push(
+      static_cast<int*>(deg), static_cast<const int*>(off),
+      static_cast<const int*>(col), scalars, ranges,
+      static_cast<int*>(cand_out), s));
 }
 
 // Slots per range of the sweeps' push lists; the Python wrapper sizes the

@@ -40,18 +40,21 @@ The kernels and the TPU kernels they replace (``essentials_tpu/ops/``):
   sweep before (only they can lower a distance) into a [Vp] copy of the
   distances, then an update of the starts; ``sssp_predecessors`` for
   the MIN advance of ``sssp.predecessors_from_distances`` (the two walks
-  of ``bfs_predecessors``); ``kcore_sweep``
-  for ``fused_kcore.fused_kcore_sweep`` :144, a dense pass over the
-  vertices and a push along the rows of the ones it peels (each edge read
-  in the wave that peels its vertex, not in every wave); both pushes walk
-  ranges of ``PUSH_SPLIT`` slots; ``collapse_starts`` for the routed
+  of ``bfs_predecessors``); ``kcore_level_wave`` and
+  ``kcore_cascade_wave`` for ``fused_kcore.fused_kcore_sweep`` :144, the
+  state updated in place: the first wave of a level finds k on the card
+  and marks its peel set in passes over the vertices, a cascade marks the
+  candidate list the wave before gave, and both push along the rows of the
+  vertices they peel (each edge read in the wave that peels its vertex),
+  listing the survivors that fall below k as the next wave's peel set; the
+  pushes walk ranges of ``PUSH_SPLIT`` slots; ``collapse_starts`` for the routed
   collapses ``collapse_dist_exp`` and ``collapse_core_exp``, several
   segment starts a thread, their gathers in flight together
   (``csrc/segment_starts.cuh``); ``expand_segments`` for the expansion of
   k-core's ``init_deg_exp`` (``segment.expand_vertex_to_edges``, whose
   cumsum is ``scan_kernels.scan_1d`` :274), one launch over tiles of
   ``EXPAND_TILE`` places of the merged segment ends and slots, each tile
-  finding its own split. The sweeps read one state buffer and write
+  finding its own split. The SSSP sweep reads one state buffer and writes
   another.
 * ``csrc/bfs_kernels.cu`` also holds the segment fills of ``fused_bfs.py``:
   ``segment_broadcast_total`` for ``fused_bfs.segment_broadcast_total``
@@ -177,7 +180,8 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
             "collapse_levels<int32>": 0, "collapse_levels<int8>": 0,
             "bfs_predecessors": 0,
             "spmv_rows": 0, "spmv_slabs": 0,
-            "sssp_sweep": 0, "sssp_predecessors": 0, "kcore_sweep": 0,
+            "sssp_sweep": 0, "sssp_predecessors": 0,
+            "kcore_level_wave": 0, "kcore_cascade_wave": 0,
             "collapse_starts": 0, "expand_segments": 0,
             "scan": 0, "gather_payloads": 0, "segment_reduce": 0,
             "segment_minmax": 0, "advance_count": 0,
@@ -187,13 +191,14 @@ launches = {"bfs_level<int32>": 0, "bfs_level<int8>": 0,
 
 # launches of a wrapper's other device kernels, beside its count in
 # ``launches``, by each kernel's name without "_kernel": gather_payloads'
-# pack pass (where it packs), the sweeps' pushes, sssp_sweep's update,
-# bfs_level's list, push and pull (in every call, the list and the push or
+# pack pass (where it packs), sssp_sweep's push and update, the k-core
+# level wave's peel and both waves' push, bfs_level's list, push and pull (in every call, the list and the push or
 # the pull returning at once), the split of segment_reduce and
 # segment_minmax (in every call) and the predecessors' range walks (in
 # every call, returning at once where nothing was listed)
 pass_launches = {"gather_payloads_pack": 0, "sssp_sweep_push": 0,
-                 "sssp_sweep_update": 0, "kcore_sweep_push": 0,
+                 "sssp_sweep_update": 0, "kcore_level_peel": 0,
+                 "kcore_wave_push": 0,
                  "bfs_level_list": 0, "bfs_level_push": 0,
                  "bfs_level_pull": 0, "segment_split": 0,
                  "bfs_predecessors_ranges": 0,
@@ -204,12 +209,12 @@ pass_launches = {"gather_payloads_pack": 0, "sssp_sweep_push": 0,
 # ``bfs_level_count`` from the form the card wrote), the vertices the
 # SSSP sweeps relaxed and the ones they improved, the CSR slots the
 # sweeps read (``sssp_sweep_count``), and the k-core waves, the vertices
-# they peeled and the levels k they peeled at (``fused_kcore.count_wave``)
+# they peeled and the levels k they peeled at
+# (``fused_kcore.count_wave``)
 counters = dict.fromkeys(("bfs_level.push", "bfs_level.pull",
                           "bfs_level.push_slots", "bfs_level.pull_slots",
                           "sssp.swept", "sssp.improved", "sssp.push_slots",
-                          "kcore.waves", "kcore.peeled", "kcore.levels"),
-                         0)
+                          "kcore.waves", "kcore.peeled", "kcore.levels"), 0)
 
 _lib = None
 
@@ -303,7 +308,8 @@ def _library():
             "etpu_spmv_slab_edges": (),
             "etpu_sssp_sweep": (p, p, p, p, p, i, p, p),
             "etpu_sssp_predecessors": (p, p, p, p, i, i, i, p, p, p),
-            "etpu_kcore_sweep": (p, p, p, p, p, p, i, i, p, p, p),
+            "etpu_kcore_level_wave": (p, p, p, p, i, p, p, p),
+            "etpu_kcore_cascade_wave": (p, p, p, p, i, i, p, i, p, p, p),
             "etpu_push_split": (),
             "etpu_collapse_starts": (p, p, i, i, i, p, p),
             "etpu_expand_segments": (p, p, i, i, p, p),
@@ -476,8 +482,8 @@ _level_host = None
 
 
 def _level_words() -> tuple:
-    """The pinned host words that ``bfs_level_count`` and
-    ``sssp_sweep_count`` read into, made at the first such call on the
+    """The pinned host words that ``bfs_level_count``,
+    ``sssp_sweep_count`` and ``kcore_wave_read`` read into, made at the first such call on the
     card, and their ctypes view; one read at a time."""
     global _level_host
     if _level_host is None:
@@ -1038,75 +1044,181 @@ def sssp_predecessors(dist: torch.Tensor, offsets: torch.Tensor,
     return pred
 
 
-# ---------------------------------------------------------- kcore_sweep --
+# ----------------------------------------------------------- kcore waves --
 
-def kcore_sweep_plain(deg_in, core_in, deg_out, core_out, offsets, csc_src,
-                      col, k: int):
-    """Plain version of ``kcore_sweep`` (same contract, same writes): the
-    pull over ``csc_src``; ``col`` is only the kernel's."""
-    nonempty, starts, d = _start_values(deg_in, offsets, -1)
-    hit = ((d >= 0) & (d < k)).int()
+def kcore_wave_words(vp: int, ep: int) -> int:
+    """The int32 words of the k-core waves' scratch: 8 scalar words
+    (peeled, candidates listed, ranges listed, k, then the card's own) and
+    room for every listed range (int4)."""
+    return 8 + 4 * push_ranges(vp, ep)
+
+
+def kcore_wave_scratch(vp: int, ep: int, device) -> torch.Tensor:
+    """The k-core waves' scratch (``kcore_wave_words``), kept across the
+    waves of a run."""
+    return torch.empty(kcore_wave_words(vp, ep), dtype=torch.int32,
+                       device=device)
+
+
+def _kcore_peel_plain(deg, core, offsets, csc_src, peel, k: int, cand_out,
+                      scratch):
+    """The plain waves' common part: the vertices of ``peel`` ([Vp] bool)
+    marked peeled at k, every survivor's degree lowered by its peeled
+    in-neighbours (the pull over ``csc_src``), the alive vertices left
+    below k written to ``cand_out`` in vertex order, and the kernel's four
+    scalar words written to ``scratch``."""
+    nonempty, starts, d = _start_values(deg, offsets, -1)
+    survivor = nonempty & (d >= 0) & ~peel
     cnt = torch.zeros_like(d).index_add_(
-        0, _segment_ids(offsets, csc_src.numel()), hit[csc_src.long()])
-    peeled = nonempty & (d >= 0) & (d < k)
-    survivor = nonempty & (d >= 0) & ~peeled
-    d2 = torch.where(peeled, -1, torch.where(survivor, d - cnt, d))
-    c2 = torch.where(peeled, k - 1, core_in[starts])
-    deg_out[starts[nonempty]] = d2[nonempty]
-    core_out[starts[nonempty]] = c2[nonempty]
-    alive = torch.where(survivor, d2, INT32_MAX).min()
-    return torch.stack([peeled.sum(dtype=torch.int32), alive.int()])
+        0, _segment_ids(offsets, csc_src.numel()),
+        peel.int()[csc_src.long()])
+    d2 = d - cnt
+    deg[starts[peel]] = -1
+    core[starts[peel]] = k - 1
+    deg[starts[survivor]] = d2[survivor]
+    cand = torch.nonzero(survivor & (d2 < k)).flatten().int()
+    cand_out[:cand.numel()] = cand
+    lengths = torch.where(peel, offsets[1:] - offsets[:-1], 0)
+    ranges = int(((lengths + PUSH_SPLIT - 1) // PUSH_SPLIT).sum())
+    scratch[:4] = torch.tensor([int(peel.sum()), cand.numel(), ranges, k],
+                               dtype=torch.int32, device=scratch.device)
+    return scratch[:4]
+
+
+def kcore_level_wave_plain(deg, core, offsets, csc_src, col, cand_out,
+                           scratch):
+    """Plain version of ``kcore_level_wave`` (same contract, same writes;
+    the candidates in vertex order): the pull over ``csc_src``; ``col`` is
+    only the kernel's."""
+    nonempty, _, d = _start_values(deg, offsets, -1)
+    alive = nonempty & (d >= 0)
+    least = int(torch.where(alive, d, INT32_MAX).min()) if d.numel() \
+        else INT32_MAX
+    k = INT32_MAX if least == INT32_MAX else least + 1
+    return _kcore_peel_plain(deg, core, offsets, csc_src, alive & (d < k), k,
+                             cand_out, scratch)
+
+
+def kcore_cascade_wave_plain(deg, core, offsets, csc_src, col, k: int,
+                             cand_in, n_in: int, cand_out, scratch):
+    """Plain version of ``kcore_cascade_wave`` (same contract, same
+    writes; the candidates in vertex order)."""
+    peel = torch.zeros(offsets.numel() - 1, dtype=torch.bool,
+                       device=deg.device)
+    peel[cand_in[:n_in].long()] = True
+    return _kcore_peel_plain(deg, core, offsets, csc_src, peel, k, cand_out,
+                             scratch)
+
+
+def _check_kcore_wave(name: str, deg, core, offsets, csc_src, col,
+                      scratch, **lists) -> bool:
+    """The waves' checks; True for the kernel, False for the plain
+    version."""
+    ep, vp = csc_src.numel(), offsets.numel() - 1
+    _check_state(name, ep, deg=deg, core=core)
+    _check_graph(name, ep, offsets, csc_src)
+    _check_graph(name, ep, offsets, col, "col")
+    for arg, t in lists.items():
+        throw_if(t.dtype != torch.int32 or t.shape != (vp,),
+                 f"{name}: {arg} must be [Vp] = [{vp}] int32")
+    need = kcore_wave_words(vp, ep)
+    throw_if(scratch.dtype != torch.int32 or scratch.dim() != 1
+             or scratch.numel() < need,
+             f"{name}: scratch must be int32 of at least {need} words "
+             f"(kcore_wave_words)")
+    kernel = _route(name, deg)
+    _check_disjoint(name, deg=deg, core=core, scratch=scratch, **lists)
+    if kernel:
+        _check(name, deg.device, deg=deg, core=core, offsets=offsets,
+               col=col, scratch=scratch, **lists)
+    return kernel
 
 
 @_spanned
-def kcore_sweep(deg_in: torch.Tensor, core_in: torch.Tensor,
-                deg_out: torch.Tensor, core_out: torch.Tensor,
-                offsets: torch.Tensor, csc_src: torch.Tensor,
-                col: torch.Tensor, k: int) -> torch.Tensor:
-    """One k-core peel wave on the edge axis of a symmetric-layout graph.
+def kcore_level_wave(deg: torch.Tensor, core: torch.Tensor,
+                     offsets: torch.Tensor, csc_src: torch.Tensor,
+                     col: torch.Tensor, cand_out: torch.Tensor,
+                     scratch: torch.Tensor) -> torch.Tensor:
+    """The first k-core peel wave at a new level, in place, on the edge
+    axis of a symmetric-layout graph.
 
-    ``deg_*`` and ``core_*`` ([Ep] int32, four distinct buffers) hold each
-    segment's remaining degree (-1 once peeled) and core number at its
-    start. For each vertex v with a non-empty segment and degree d: when
-    0 <= d < k it is peeled (deg_out -1, core_out k - 1); when d >= k its
-    degree falls by its in-neighbours u with 0 <= deg_in(u) < k; otherwise
-    both are copied. No other position is read or written. Returns int32
-    [2] on the state's device: (vertices peeled, smallest surviving new
-    degree or INT32_MAX when none survives).
+    ``deg`` and ``core`` ([Ep] int32, distinct buffers) hold each segment's
+    remaining degree (-1 once peeled) and core number at its start. The
+    wave finds k = the smallest alive degree + 1 (INT32_MAX when nothing
+    is alive); each vertex v with a non-empty segment and 0 <= deg < k is
+    peeled (deg -1, core k - 1), and each alive survivor's degree falls by
+    its in-neighbours peeled. No other position of the state is written.
+    ``cand_out`` ([Vp] int32) receives the survivors whose degree fell
+    below k, each once, in any order: the next wave's peel set (the kernel
+    leaves its block minima in the words after them). Returns the
+    first four words of ``scratch`` (``kcore_wave_scratch``), int32 on the
+    state's device: (vertices peeled, candidates listed, ranges listed, k);
+    ``kcore_wave_read`` reads them.
 
     The plain version pulls over ``csc_src`` ([Ep] int32, the source of
     each CSC slot). The kernel pushes: each peeled vertex u takes one from
-    the degree of every surviving out-neighbour, ``col`` ([Ep] int32, the
-    CSR column indices) over u's row. On a symmetric layout u's row sits
-    at the positions of its segment, and the vertices it reaches are those
-    whose pull counts it, directed or not. Two device launches: the dense
-    pass, counted in ``launches``, and the push, in ``pass_launches``."""
-    name = "kcore_sweep"
-    ep = csc_src.numel()
-    _check_state(name, ep, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
-                 core_out=core_out)
-    _check_graph(name, ep, offsets, csc_src)
-    _check_graph(name, ep, offsets, col, "col")
-    throw_if(not -INT32_MAX <= k <= INT32_MAX, f"{name}: k out of range")
-    kernel = _route(name, deg_in)
-    _check_disjoint(name, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
-                    core_out=core_out)
-    if not kernel:
-        return kcore_sweep_plain(deg_in, core_in, deg_out, core_out, offsets,
-                                 csc_src, col, k)
-    dev = deg_in.device
-    _check(name, dev, deg_in=deg_in, core_in=core_in, deg_out=deg_out,
-           core_out=core_out, offsets=offsets, col=col)
-    vp = offsets.numel() - 1
-    # the four scalars, then room for every listed range (int4)
-    buf = torch.empty(4 + 4 * push_ranges(vp, ep), dtype=torch.int32,
-                      device=dev)
-    _launch("etpu_kcore_sweep", dev, deg_in.data_ptr(), core_in.data_ptr(),
-            deg_out.data_ptr(), core_out.data_ptr(), offsets.data_ptr(),
-            col.data_ptr(), vp, k, buf.data_ptr(), buf[4:].data_ptr())
+    the degree of every alive out-neighbour, ``col`` ([Ep] int32, the CSR
+    column indices) over u's row. On a symmetric layout u's row sits at
+    the positions of its segment, and the vertices it reaches are those
+    whose pull counts it, directed or not. Three device launches: the
+    minimum, counted in ``launches``, then the peel and the push, in
+    ``pass_launches``."""
+    name = "kcore_level_wave"
+    if not _check_kcore_wave(name, deg, core, offsets, csc_src, col, scratch,
+                             cand_out=cand_out):
+        return kcore_level_wave_plain(deg, core, offsets, csc_src, col,
+                                      cand_out, scratch)
+    _launch("etpu_kcore_level_wave", deg.device, deg.data_ptr(),
+            core.data_ptr(), offsets.data_ptr(), col.data_ptr(),
+            offsets.numel() - 1, cand_out.data_ptr(), scratch.data_ptr())
     launches[name] += 1
-    pass_launches["kcore_sweep_push"] += 1
-    return buf[:2]
+    pass_launches["kcore_level_peel"] += 1
+    pass_launches["kcore_wave_push"] += 1
+    return scratch[:4]
+
+
+@_spanned
+def kcore_cascade_wave(deg: torch.Tensor, core: torch.Tensor,
+                       offsets: torch.Tensor, csc_src: torch.Tensor,
+                       col: torch.Tensor, k: int, cand_in: torch.Tensor,
+                       n_in: int, cand_out: torch.Tensor,
+                       scratch: torch.Tensor) -> torch.Tensor:
+    """A k-core peel wave at level ``k`` from a candidate list, in place:
+    the ``n_in`` (>= 1) vertices of ``cand_in`` ([Vp] int32), which the
+    caller holds to be alive with degree below k (the list the wave before
+    gave), are peeled (deg -1, core k - 1), and the rest is
+    ``kcore_level_wave``'s: the survivors' degrees fall, ``cand_out`` lists
+    those that fell below k, and the first four words of ``scratch`` are
+    returned (peeled, candidates listed, ranges listed, k). Two device
+    launches: the mark, counted in ``launches``, and the push, in
+    ``pass_launches``."""
+    name = "kcore_cascade_wave"
+    throw_if(not 1 <= k <= INT32_MAX, f"{name}: k out of range")
+    throw_if(not 1 <= n_in <= offsets.numel() - 1,
+             f"{name}: n_in out of range")
+    if not _check_kcore_wave(name, deg, core, offsets, csc_src, col, scratch,
+                             cand_in=cand_in, cand_out=cand_out):
+        return kcore_cascade_wave_plain(deg, core, offsets, csc_src, col, k,
+                                        cand_in, n_in, cand_out, scratch)
+    _launch("etpu_kcore_cascade_wave", deg.device, deg.data_ptr(),
+            core.data_ptr(), offsets.data_ptr(), col.data_ptr(),
+            offsets.numel() - 1, k, cand_in.data_ptr(), n_in,
+            cand_out.data_ptr(), scratch.data_ptr())
+    launches[name] += 1
+    pass_launches["kcore_wave_push"] += 1
+    return scratch[:4]
+
+
+def kcore_wave_read(scalars: torch.Tensor) -> list:
+    """A wave's four scalars (peeled, candidates listed, ranges listed, k)
+    read to the host: the wave's one wait on the device. On the kernel's
+    route one copy into pinned memory (a C call, as ``bfs_level_count``'s)."""
+    if not _route("kcore_level_wave", scalars):
+        return scalars.tolist()
+    host, words = _level_words()
+    _launch("etpu_read_level_scalars", scalars.device, host.data_ptr(),
+            scalars.data_ptr(), 4)
+    return words[:4]
 
 
 def push_ranges(vp: int, ep: int) -> int:

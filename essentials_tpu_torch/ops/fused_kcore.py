@@ -3,18 +3,22 @@
 Counterpart of ``essentials_tpu/ops/fused_kcore.py`` (``init_deg_exp``,
 ``fused_kcore_sweep``, ``collapse_core_exp``, ``run_fused_kcore``). The
 remaining degree (-1 once peeled) and the core number live on the edge
-axis, start-authoritative. One wave is one ``kcore_sweep`` call, which
-peels every alive vertex of degree below k, subtracts each survivor's
-peeled in-neighbours and returns (peeled count, smallest surviving degree);
-on the card it pushes from the peeled vertices, so a run reads each edge
-about once. It reads one pair of state buffers and writes the other: a
-neighbour peeled earlier in the same wave must still count as peeled.
+axis, start-authoritative, in one buffer each, updated in place. A wave
+peels every alive vertex of degree below k and subtracts each survivor's
+peeled in-neighbours; on the card it pushes from the peeled vertices, so a
+run reads each edge about once.
 
 The k schedule is the JAX package's: k0 = smallest start degree + 1, and
 after each wave k stays while some survivor's degree is below it, else
-jumps to that degree + 1; the loop ends when nothing survives. So every
-wave peels, and a level k takes one wave and one more for each cascade,
-its survivors' degrees fallen below k by the wave before's peel.
+jumps to the smallest alive degree + 1; the loop ends when nothing
+survives. So every wave peels, and a level k takes one wave and one more
+for each cascade, its survivors' degrees fallen below k by the wave
+before's peel. The two kinds of wave are two kernels: the first wave at a
+level (``kcore_level_wave``) finds k on the card from the alive degrees and
+reads every vertex; each cascade (``kcore_cascade_wave``) reads only the
+candidate list that the wave before wrote, which holds exactly the
+survivors that fell below k. A wave that lists no candidate ends its
+level.
 """
 
 from __future__ import annotations
@@ -35,15 +39,37 @@ def init_deg_exp(g: Graph) -> torch.Tensor:
     return kernels.expand_segments(deg, g.row_offsets, g.n_edges_padded)
 
 
-def fused_kcore_sweep(g: Graph, deg_in: torch.Tensor, core_in: torch.Tensor,
-                      k: int, deg_out: torch.Tensor,
-                      core_out: torch.Tensor) -> torch.Tensor:
-    """One peel wave (the ``kcore_sweep`` kernel) from (deg_in, core_in)
-    into (deg_out, core_out) at segment starts. Returns int32 [2]: (peeled
-    count, smallest surviving degree or IMAX)."""
-    return kernels.kcore_sweep(deg_in, core_in, deg_out, core_out,
-                               g.row_offsets, g.csc_src_indices,
-                               g.col_indices, k)
+def alive_vertices(g: Graph) -> int:
+    """The real vertices with edges, the ones the waves peel, read to the
+    host."""
+    return int((g.vertex_mask() & (g.out_degrees() > 0)).sum())
+
+
+def wave_buffers(g: Graph) -> tuple:
+    """A run's two [Vp] int32 candidate lists, which the waves take in
+    turns as input and output, and the waves' scratch
+    (``kernels.kcore_wave_scratch``)."""
+    vp = g.n_vertices_padded
+    cand = torch.empty(2, vp, dtype=torch.int32, device=g.device)
+    return (cand[0], cand[1],
+            kernels.kcore_wave_scratch(vp, g.n_edges_padded, g.device))
+
+
+def fused_kcore_sweep(g: Graph, deg: torch.Tensor, core: torch.Tensor,
+                      k: int, n_in: int, cand_in: torch.Tensor,
+                      cand_out: torch.Tensor,
+                      scratch: torch.Tensor) -> torch.Tensor:
+    """One peel wave in place: the first of a level where ``n_in`` is 0
+    (``kcore_level_wave``: k found on the card, ``k`` unused), else a
+    cascade at ``k`` from the ``n_in`` vertices of ``cand_in``
+    (``kcore_cascade_wave``). ``cand_out`` receives the next wave's peel
+    set. Returns int32 [4]: (peeled, candidates listed, ranges listed,
+    k)."""
+    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
+    if n_in:
+        return kernels.kcore_cascade_wave(deg, core, *adj, k, cand_in, n_in,
+                                          cand_out, scratch)
+    return kernels.kcore_level_wave(deg, core, *adj, cand_out, scratch)
 
 
 def collapse_core_exp(g: Graph, core_exp: torch.Tensor) -> torch.Tensor:
@@ -52,37 +78,21 @@ def collapse_core_exp(g: Graph, core_exp: torch.Tensor) -> torch.Tensor:
     return kernels.collapse_starts(core_exp, g.row_offsets, 0)
 
 
-def first_level(g: Graph) -> int:
-    """k0: the smallest degree of a real vertex with edges, + 1 (IMAX when
-    there is none), so that the first wave peels."""
-    deg = g.out_degrees()
-    start_deg = torch.where(g.vertex_mask() & (deg > 0), deg, IMAX)
-    return min(int(start_deg.min().item()) + 1, IMAX)
-
-
-def next_level(k: int, min_alive: int) -> int:
-    """The level after a wave at ``k`` whose smallest surviving degree is
-    ``min_alive``: k again while a survivor can still peel at it, else that
-    degree + 1 (IMAX when nothing survives)."""
-    if min_alive < k:
-        return k
-    return IMAX if min_alive == IMAX else min_alive + 1
-
-
-def peel_wave(g: Graph, deg_in: torch.Tensor, core_in: torch.Tensor,
-              k: int, deg_out: torch.Tensor, core_out: torch.Tensor) -> list:
+def peel_wave(g: Graph, deg: torch.Tensor, core: torch.Tensor, k: int,
+              n_in: int, cand_in: torch.Tensor, cand_out: torch.Tensor,
+              scratch: torch.Tensor) -> list:
     """One wave (``fused_kcore_sweep``) and its one host read, the span
-    ``kcore.wave.read``: [peeled count, smallest surviving degree]. The
-    scalars are a view of the wave's scratch, which goes with them."""
-    scalars = fused_kcore_sweep(g, deg_in, core_in, k, deg_out, core_out)
+    ``kcore.wave.read``: [peeled, candidates listed, ranges listed, k]."""
+    scalars = fused_kcore_sweep(g, deg, core, k, n_in, cand_in, cand_out,
+                                scratch)
     with span("kcore.wave.read"):
-        return scalars.tolist()
+        return kernels.kcore_wave_read(scalars)
 
 
 def count_wave(peeled: int, new_level: bool) -> None:
     """A wave counted in ``kernels.counters``: one wave (``kcore.waves``),
-    the vertices it peeled (``kcore.peeled``) and, where it is the first
-    wave to peel at its k, one level (``kcore.levels``)."""
+    the vertices it peeled (``kcore.peeled``), and one level
+    (``kcore.levels``) where it is the first wave to peel at its k."""
     kernels.counters["kcore.waves"] += 1
     kernels.counters["kcore.peeled"] += peeled
     kernels.counters["kcore.levels"] += new_level
@@ -90,24 +100,23 @@ def count_wave(peeled: int, new_level: bool) -> None:
 
 def run_fused_kcore(g: Graph, max_it: int) -> tuple:
     """Whole k-core decomposition on the edge axis, on the host's loop: one
-    ``expand_segments`` for the initial degrees, then one ``kcore_sweep``
-    per wave and one ``.tolist()`` to read its two scalars (``peel_wave``,
-    in the span ``kcore.wave``; each wave counted by ``count_wave``).
-    Returns (core int32 [Vp], sweeps)."""
+    ``expand_segments`` for the initial degrees, then per wave one
+    ``fused_kcore_sweep`` and one read of its scalars (``peel_wave``, in
+    the span ``kcore.wave``; each wave counted by ``count_wave``): a level
+    wave where the wave before listed no candidate, else a cascade from its
+    list. The loop ends when every vertex with edges is peeled.
+    Returns (core int32 [Vp], waves)."""
     deg = init_deg_exp(g)
     core = torch.zeros_like(deg)
-    spare_deg, spare_core = deg.clone(), core.clone()
-    k = first_level(g)
-    it, peel_k = 0, None
-    while it < max_it and k < IMAX:
+    cand_in, cand_out, scratch = wave_buffers(g)
+    alive = alive_vertices(g)
+    it, k, listed = 0, IMAX, 0
+    while it < max_it and alive:
         with span("kcore.wave"):
-            peeled, min_alive = peel_wave(g, deg, core, k, spare_deg,
-                                          spare_core)
-            deg, spare_deg = spare_deg, deg
-            core, spare_core = spare_core, core
-            count_wave(peeled, peeled > 0 and k != peel_k)
-        if peeled:
-            peel_k = k
-        k = next_level(k, min_alive)
+            peeled, n_out, _, k = peel_wave(g, deg, core, k, listed, cand_in,
+                                            cand_out, scratch)
+            count_wave(peeled, not listed)
+        cand_in, cand_out, listed = cand_out, cand_in, n_out
+        alive -= peeled
         it += 1
     return collapse_core_exp(g, core), it

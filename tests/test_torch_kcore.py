@@ -4,14 +4,17 @@ essentials_tpu's, on the CPU.
 
 Every value is an integer, so the tolerance is exact equality: degrees and
 core numbers at segment starts after each wave (the port writes only
-starts, the JAX CPU fallback whole segments), both scalars of each wave,
-the core numbers and the wave count of a whole run, and the host
-references. The JAX graphs are built with router plans and carried into
+starts, the JAX CPU fallback whole segments), each wave's k and peeled
+count against JAX's, its candidate list against the survivors left below
+k (the next wave's peel set, each listed once), the core numbers and the
+wave count of a whole run, and the host references. The JAX graphs are built with router plans and carried into
 the port with graph_from_arrays, so both packages compute on the same
 arrays. "stress" is chip_smoke's graph with a hub, multi-edges and
 self-loops; "chord_cycle" and "cycles300" are directed graphs whose every
 in-degree equals its out-degree (a symmetric layout without a symmetric
-adjacency). On these the card's push wave is also modelled here.
+adjacency). On these, on Kronecker graphs of the benchmark's generator and
+on a directed graph with a hub, the card's waves are also modelled here in
+their order of work.
 
 The adaptive variant is held against the JAX package's run(variant=
 "adaptive") on graphs built without router plans (its CPU path): core
@@ -43,6 +46,7 @@ from essentials_tpu_torch.graph import graph_from_arrays
 from essentials_tpu_torch.graph.graph import ARRAY_FIELDS, META_FIELDS
 from essentials_tpu_torch.ops import fused_kcore as tfk
 from essentials_tpu_torch.ops import sparse_advance as tsa
+from graphbench import graphs as bgraphs
 
 IMAX = np.iinfo(np.int32).max
 _jax_sweep = jax.jit(jfk.fused_kcore_sweep_ref)
@@ -139,8 +143,36 @@ def starts_of(g):
     return off[:-1][off[1:] > off[:-1]]
 
 
+def jax_first_level(deg, starts) -> int:
+    """The JAX package's k0 (run_fused_kcore): the smallest alive start
+    degree + 1, IMAX when none."""
+    d = deg[starts]
+    return min(int(d[d >= 0].min()) + 1, IMAX) if (d >= 0).any() else IMAX
+
+
+def jax_next_level(k: int, min_alive: int) -> int:
+    """The JAX package's k after a wave at k whose smallest surviving
+    degree is ``min_alive`` (run_fused_kcore's body)."""
+    if min_alive < k:
+        return k
+    return IMAX if min_alive == IMAX else min_alive + 1
+
+
+def alive_below(g, deg, k: int) -> set:
+    """The vertices alive at their start with degree below k: the next
+    wave's peel set."""
+    off = g.row_offsets.numpy()
+    v = np.nonzero(off[1:] > off[:-1])[0]
+    d = np.asarray(deg)[off[v]]
+    return set(v[(d >= 0) & (d < k)].tolist())
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_sweeps_match_jax_fallback(graphs, name):
+    """Every wave of a run against the JAX fallback's wave at the same k:
+    the k (JAX's schedule), the peeled count, every start's degree and
+    core bits, and the candidate list: the survivors below k, listed
+    where and only where JAX's smallest survivor is below k."""
     _, gj, g = graphs[name]
     starts = starts_of(g)
     dj = jfk.init_deg_exp(gj)
@@ -148,75 +180,150 @@ def test_sweeps_match_jax_fallback(graphs, name):
     d = tfk.init_deg_exp(g)
     assert np.array_equal(d.numpy(), np.asarray(dj))
     c = torch.zeros_like(d)
-    d2, c2 = d.clone(), c.clone()
-    k = tfk.first_level(g)
-    sweeps = 0
+    cand_in, cand_out, scratch = tfk.wave_buffers(g)
+    k, n_in, sweeps = jax_first_level(d.numpy(), starts), 0, 0
     while k < IMAX:
         dj, cj, cnt_j, ma_j = _jax_sweep(gj, dj, cj, k)
-        scalars = tfk.fused_kcore_sweep(g, d, c, k, d2, c2)
-        d, d2, c, c2 = d2, d, c2, c
-        assert scalars.dtype == torch.int32 and scalars.shape == (2,)
-        peeled, min_alive = scalars.tolist()
-        assert (peeled, min_alive) == (int(cnt_j[0, 0]), int(ma_j[0, 0]))
-        assert peeled > 0, sweeps                # every wave peels
+        scalars = tfk.fused_kcore_sweep(g, d, c, k, n_in, cand_in, cand_out,
+                                        scratch)
+        assert scalars.dtype == torch.int32 and scalars.shape == (4,)
+        peeled, n_out, _, k_wave = scalars.tolist()
+        assert k_wave == k, sweeps               # JAX's k schedule
+        assert peeled == int(cnt_j[0, 0]) > 0, sweeps
         assert np.array_equal(d.numpy()[starts], np.asarray(dj)[starts])
         assert np.array_equal(c.numpy()[starts], np.asarray(cj)[starts])
-        k = tfk.next_level(k, min_alive)
+        min_alive = int(ma_j[0, 0])
+        assert (n_out > 0) == (min_alive < k)
+        got = cand_out[:n_out].tolist()
+        assert len(set(got)) == n_out and set(got) == alive_below(g, d, k)
+        cand_in, cand_out, n_in = cand_out, cand_in, n_out
+        k = jax_next_level(k, min_alive)
         sweeps += 1
-    assert sweeps >= 2
+    assert sweeps >= 2 and n_in == 0
 
 
-def push_wave(off, col, deg, core, k):
-    """The card's kcore_sweep in NumPy, in its order of work: the dense
-    pass writes every start as if nothing fell and lists the peeled
-    vertices' CSR rows; the push takes one from each surviving
-    out-neighbour's start, in a shuffled order, folding each result into
-    the minimum. Returns (deg_out, core_out, peeled, smallest surviving
-    degree)."""
-    deg_out, core_out = deg.copy(), core.copy()
-    starts = off[:-1][off[1:] > off[:-1]]
-    d = deg[starts]
-    peel = (d >= 0) & (d < k)
-    deg_out[starts[peel]] = -1
-    core_out[starts[peel]] = k - 1
-    least = int(d[(d >= 0) & ~peel].min()) if ((d >= 0) & ~peel).any() \
-        else IMAX
-    v = np.nonzero(off[1:] > off[:-1])[0][peel]
-    slots = np.concatenate([np.arange(off[x], off[x + 1]) for x in v]) \
-        if v.size else np.zeros(0, np.int64)
-    for q in np.random.default_rng(k).permutation(slots):
+def push_wave(off, col, deg, core, k, cand, seed):
+    """The card's wave in NumPy, in its order of work. The pass: a level
+    wave (``cand`` None) takes k = the smallest alive start degree + 1 and
+    marks the alive starts below it; a cascade marks the listed vertices.
+    The push then takes each marked vertex's CSR slots in a shuffled order:
+    an alive target (start >= 0) loses one, and the subtraction that
+    returns exactly k appends it to the next list. Returns (deg, core,
+    peeled, ranges listed, next list, k)."""
+    deg, core = deg.copy(), core.copy()
+    v = np.nonzero(off[1:] > off[:-1])[0]
+    if cand is None:
+        d = deg[off[v]]
+        alive = d >= 0
+        k = int(d[alive].min()) + 1 if alive.any() else IMAX
+        cand = v[alive & (d < k)]
+    deg[off[cand]] = -1
+    core[off[cand]] = k - 1
+    lens = off[cand + 1] - off[cand]
+    slots = np.concatenate([np.arange(off[x], off[x + 1]) for x in cand]) \
+        if cand.size else np.zeros(0, np.int64)
+    out = []
+    for q in np.random.default_rng(seed).permutation(slots):
         at = off[col[q]]
-        if deg[at] >= k:
-            deg_out[at] -= 1
-            least = min(least, int(deg_out[at]))
-    return deg_out, core_out, int(peel.sum()), least
+        if deg[at] >= 0:
+            deg[at] -= 1
+            if deg[at] == k - 1:
+                out.append(int(col[q]))
+    ranges = int(((lens + kernels.PUSH_SPLIT - 1) // kernels.PUSH_SPLIT).sum())
+    return deg, core, int(cand.size), ranges, out, k
 
 
 @pytest.mark.parametrize("name", ["chord_cycle", "clique_tail", "cycles300",
                                   "isolated", "stress"])
 def test_push_wave_model_matches_plain_version(graphs, name):
-    """On a symmetric layout the push (each peeled vertex takes one from
-    its surviving out-neighbours along its CSR row, the minimum folded from
-    the subtractions' results) gives the pull's bits at every wave of a
-    run, on undirected and on degree-balanced directed graphs."""
+    """On a symmetric layout the card's order of work (the pass marks the
+    peel set, each peeled vertex takes one from its alive out-neighbours
+    along its CSR row, and the subtraction that takes a degree from k to
+    k - 1 lists its vertex) gives the pull's bits, scalars and candidate
+    set at every wave of a run, each vertex listed once, on undirected and
+    on degree-balanced directed graphs."""
     _, _, g = graphs[name]
     off, col = g.row_offsets.numpy(), g.col_indices.numpy()
     assert g.symmetric_layout
+    starts = starts_of(g)
     d, c = tfk.init_deg_exp(g), torch.zeros_like(tfk.init_deg_exp(g))
-    k, waves = tfk.first_level(g), 0
-    while k < IMAX:
-        d2, c2 = torch.empty_like(d), torch.empty_like(c)
-        peeled, least = kernels.kcore_sweep_plain(
-            d, c, d2, c2, g.row_offsets, g.csc_src_indices, g.col_indices,
-            k).tolist()
-        md, mc, mp, ml = push_wave(off, col, d.numpy(), c.numpy(), k)
-        starts = starts_of(g)
-        assert (mp, ml) == (peeled, least)
-        assert np.array_equal(md[starts], d2.numpy()[starts])
-        assert np.array_equal(mc[starts], c2.numpy()[starts])
-        d, c, waves = d2, c2, waves + 1
-        k = tfk.next_level(k, least)
+    cand_in, cand_out, scratch = tfk.wave_buffers(g)
+    n_in, k, waves, alive = 0, IMAX, 0, tfk.alive_vertices(g)
+    while alive:
+        model = push_wave(off, col, d.numpy(), c.numpy(), k,
+                          cand_in[:n_in].numpy().astype(np.int64)
+                          if n_in else None, waves)
+        peeled, n_out, ranges, k = tfk.fused_kcore_sweep(
+            g, d, c, k, n_in, cand_in, cand_out, scratch).tolist()
+        md, mc, mp, mr, mlist, mk = model
+        assert (mp, mr, len(mlist), mk) == (peeled, ranges, n_out, k)
+        assert len(set(mlist)) == len(mlist)
+        assert set(mlist) == set(cand_out[:n_out].tolist())
+        assert np.array_equal(md[starts], d.numpy()[starts])
+        assert np.array_equal(mc[starts], c.numpy()[starts])
+        cand_in, cand_out, n_in = cand_out, cand_in, n_out
+        alive, waves = alive - peeled, waves + 1
     assert waves >= 2
+
+
+CASCADES = ["chord_cycle", "clique_tail", "cycles300", "stress", "kron10",
+            "kron12", "hub"]
+
+
+@pytest.fixture(scope="module")
+def cascade_graphs(graphs):
+    """Graphs with long cascades: four of ``graphs``, benchmark Kronecker
+    graphs at scales 10 and 12, and a degree-balanced directed graph with a
+    hub on 300 triangles."""
+    out = {name: graphs[name][2] for name in CASCADES[:4]}
+    for scale in (10, 12):
+        cfg = {"generator": "kronecker", "edge_factor": 16, "a": 0.57,
+               "b": 0.19, "c": 0.19, "scale": scale}
+        out[f"kron{scale}"] = bgraphs.program_graph(*bgraphs.make(cfg, 3,
+                                                                  "cpu"))
+    n, src, dst, w = chip_smoke().cycles_coo(2000, (2000,) * 3, 5, 300)
+    out["hub"] = carried(JCsr.from_coo(JCoo(n, n, src, dst, w)),
+                         directed=True)[2]
+    return out
+
+
+@pytest.mark.parametrize("name", CASCADES)
+def test_candidate_list_is_the_next_peel_set(cascade_graphs, name):
+    """After every wave of a run, on the plain route and in the card's
+    order of work (``push_wave``, from its own state and lists), the
+    candidate list holds each alive vertex of degree below k once and
+    nothing else; a run counts its waves, and as levels the waves that
+    ran from no list."""
+    g = cascade_graphs[name]
+    assert g.symmetric_layout
+    off, col = g.row_offsets.numpy(), g.col_indices.numpy()
+    starts = starts_of(g)
+    d = tfk.init_deg_exp(g)
+    c = torch.zeros_like(d)
+    cand_in, cand_out, scratch = tfk.wave_buffers(g)
+    md, mc, mlist = d.numpy().copy(), c.numpy().copy(), []
+    n_in, k, waves, cascades = 0, IMAX, 0, 0
+    alive = tfk.alive_vertices(g)
+    while alive:
+        peeled, n_out, _, k = tfk.fused_kcore_sweep(
+            g, d, c, k, n_in, cand_in, cand_out, scratch).tolist()
+        md, mc, _, _, mlist, _ = push_wave(
+            off, col, md, mc, k, np.array(mlist, np.int64) if n_in else None,
+            waves)
+        assert np.array_equal(md[starts], d.numpy()[starts])
+        want = alive_below(g, d, k)
+        got = cand_out[:n_out].tolist()
+        assert len(got) == len(set(got)) == n_out and set(got) == want
+        assert len(mlist) == len(set(mlist)) and set(mlist) == want
+        cascades += n_in > 0
+        cand_in, cand_out, n_in = cand_out, cand_in, n_out
+        alive, waves = alive - peeled, waves + 1
+    assert n_in == 0 and cascades > 0
+    kernels.reset_launches()
+    r = tkcore.run(g, variant="fused", warmup=False)
+    counted = kernels.counters
+    assert r.iterations == waves == counted["kcore.waves"]
+    assert counted["kcore.waves"] - counted["kcore.levels"] == cascades
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -238,24 +345,32 @@ def test_expand_segments_matches_jax_expand(graphs, name):
 @pytest.mark.parametrize("k_step", [0, 1])
 def test_sweep_matches_pallas_pipeline(graphs, k_step):
     """One wave against the three Pallas kernels, run in interpret mode off
-    the TPU: the first wave, and one from a state two fallback waves in."""
+    the TPU: the first wave (a level wave), and a cascade from a state two
+    fallback waves in, whose candidate list is the survivors below k."""
     _, gj, g = graphs["rmat10"]
     assert isinstance(gj.route_fwd, cube_router.CubePlan)
+    starts = starts_of(g)
     dj = jfk.init_deg_exp(gj)
     cj = jax.numpy.zeros_like(dj)
-    k = tfk.first_level(g)
+    k = jax_first_level(np.asarray(dj), starts)
+    cascade = False
     for _ in range(2 * k_step):
         dj, cj, _, ma = _jax_sweep(gj, dj, cj, k)
-        k = tfk.next_level(k, int(ma[0, 0]))
+        cascade = int(ma[0, 0]) < k
+        k = jax_next_level(k, int(ma[0, 0]))
+    assert cascade == bool(k_step)
     od, oc, cnt_j, ma_j = jfk.fused_kcore_sweep(gj, dj, cj, k)
     d, c = torch.from_numpy(np.array(dj)), torch.from_numpy(np.array(cj))
-    d2, c2 = d.clone(), c.clone()
-    peeled, min_alive = tfk.fused_kcore_sweep(g, d, c, k, d2, c2).tolist()
-    starts = starts_of(g)
+    cand_in, cand_out, scratch = tfk.wave_buffers(g)
+    below = sorted(alive_below(g, d, k)) if cascade else []
+    cand_in[:len(below)] = torch.tensor(below, dtype=torch.int32)
+    peeled, n_out, _, k_wave = tfk.fused_kcore_sweep(
+        g, d, c, k, len(below), cand_in, cand_out, scratch).tolist()
+    assert k_wave == k
     assert peeled == int(cnt_j[0, 0]) > 0
-    assert min_alive == int(ma_j[0, 0])
-    assert np.array_equal(d2.numpy()[starts], np.asarray(od)[starts])
-    assert np.array_equal(c2.numpy()[starts], np.asarray(oc)[starts])
+    assert (n_out > 0) == (int(ma_j[0, 0]) < k)
+    assert np.array_equal(d.numpy()[starts], np.asarray(od)[starts])
+    assert np.array_equal(c.numpy()[starts], np.asarray(oc)[starts])
 
 
 @pytest.mark.parametrize("variant", ["fused", "auto"])
@@ -435,29 +550,60 @@ def test_adaptive_wave_choice():
 
 # -------------------------------------------------------------- wrappers --
 
-def test_wrappers_take_plain_version_on_cpu(graphs):
-    _, _, g = graphs["rmat10"]
-    kernels.reset_launches()
+def wave_args(g):
+    """A run's level waves on the plain route up to the first that lists
+    candidates, leaving a state and a list from which a cascade runs:
+    (deg, core, k, n_in, cand_in)."""
     d = tfk.init_deg_exp(g)
     c = torch.zeros_like(d)
-    k = tfk.first_level(g)
-    outs = [t.clone() for t in (d, c, d, c)]
-    adj = (g.row_offsets, g.csc_src_indices, g.col_indices, k)
-    s = kernels.kcore_sweep(d, c, outs[0], outs[1], *adj)
-    s_p = kernels.kcore_sweep_plain(d, c, outs[2], outs[3], *adj)
-    assert torch.equal(s, s_p) and torch.equal(outs[0], outs[2])
-    assert torch.equal(outs[1], outs[3])
-    tfk.collapse_core_exp(g, outs[1])
+    cand_in, cand_out, scratch = tfk.wave_buffers(g)
+    n = 0
+    while not n:
+        _, n, _, k = tfk.fused_kcore_sweep(g, d, c, 0, 0, cand_out, cand_in,
+                                           scratch).tolist()
+    return d, c, k, n, cand_in
+
+
+def test_wrappers_take_plain_version_on_cpu(graphs):
+    """Both waves' wrappers on CPU tensors are their plain versions: the
+    same scalars, state and candidates, and no launch counted."""
+    _, _, g = graphs["rmat10"]
+    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
+    d, c, k, n, cand = wave_args(g)
+    kernels.reset_launches()
+    pairs = ((kernels.kcore_level_wave, kernels.kcore_level_wave_plain, ()),
+             (kernels.kcore_cascade_wave, kernels.kcore_cascade_wave_plain,
+              (k, cand, n)))
+    for wrapper, plain, extra in pairs:
+        runs = []
+        for wave in (wrapper, plain):
+            state = [d.clone(), c.clone()]
+            out = torch.empty_like(cand)
+            scratch = kernels.kcore_wave_scratch(g.n_vertices_padded,
+                                                 g.n_edges_padded, "cpu")
+            s = wave(*state, *adj, *extra, out, scratch).clone()
+            runs.append((s, state, out[:int(s[1])]))
+        (s, state, out), (s_p, state_p, out_p) = runs
+        assert torch.equal(s, s_p) and torch.equal(out, out_p)
+        assert all(torch.equal(a, b) for a, b in zip(state, state_p))
+    tfk.collapse_core_exp(g, d)
     assert all(n == 0 for n in kernels.launches.values())
+    assert all(n == 0 for n in kernels.pass_launches.values())
 
 
 def test_wrapper_raises_on_other_devices(graphs):
     g = graphs["clique_tail"][2].to("meta")
-    d = torch.empty(g.n_edges_padded, dtype=torch.int32, device="meta")
+    vp, ep = g.n_vertices_padded, g.n_edges_padded
+    d = torch.empty(ep, dtype=torch.int32, device="meta")
+    lists = [torch.empty(vp, dtype=torch.int32, device="meta")
+             for _ in range(2)]
+    scratch = kernels.kcore_wave_scratch(vp, ep, "meta")
+    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
     with pytest.raises(EssentialsError):
-        kernels.kcore_sweep(d, d.clone(), d.clone(), d.clone(),
-                            g.row_offsets, g.csc_src_indices, g.col_indices,
-                            1)
+        kernels.kcore_level_wave(d, d.clone(), *adj, lists[0], scratch)
+    with pytest.raises(EssentialsError):
+        kernels.kcore_cascade_wave(d, d.clone(), *adj, 2, lists[0], 1,
+                                   lists[1], scratch)
     vals = torch.empty(g.n_vertices_padded, dtype=torch.int32, device="meta")
     with pytest.raises(EssentialsError):
         kernels.expand_segments(vals, g.row_offsets, g.n_edges_padded)
@@ -466,28 +612,47 @@ def test_wrapper_raises_on_other_devices(graphs):
 def test_wrapper_rejects_bad_arguments(graphs):
     _, _, g = graphs["clique_tail"]
     off, src, col = g.row_offsets, g.csc_src_indices, g.col_indices
-    d = tfk.init_deg_exp(g)
-    c = torch.zeros_like(d)
+    d, c, k, n, cand = wave_args(g)
+    out = torch.empty_like(cand)
+    s = kernels.kcore_wave_scratch(g.n_vertices_padded, g.n_edges_padded,
+                                   "cpu")
     vals = g.out_degrees().int()
     ep = g.n_edges_padded
+
+    def level(**kw):
+        args = dict(deg=d, core=c, offsets=off, csc_src=src, col=col,
+                    cand_out=out, scratch=s)
+        args.update(kw)
+        return lambda: kernels.kcore_level_wave(**args)
+
+    def cascade(**kw):
+        args = dict(deg=d, core=c, offsets=off, csc_src=src, col=col, k=k,
+                    cand_in=cand, n_in=n, cand_out=out, scratch=s)
+        args.update(kw)
+        return lambda: kernels.kcore_cascade_wave(**args)
+
     bad = [
         lambda: kernels.expand_segments(vals.long(), off, ep),
         lambda: kernels.expand_segments(vals[1:], off, ep),
         lambda: kernels.expand_segments(vals, off.long(), ep),
         lambda: kernels.expand_segments(vals, off, ep + 1),   # not covered
         lambda: kernels.expand_segments(vals, off, -1),
-        lambda: kernels.kcore_sweep(d, c, d, c.clone(), off, src, col, 2),
-        lambda: kernels.kcore_sweep(d, c, c.clone(), c, off, src, col, 2),
-        lambda: kernels.kcore_sweep(d, c, d.clone()[1:], c.clone(), off,
-                                    src, col, 2),
-        lambda: kernels.kcore_sweep(d.long(), c, d.clone(), c.clone(), off,
-                                    src, col, 2),
-        lambda: kernels.kcore_sweep(d, c, d.clone(), c.clone(), off,
-                                    src[:-1], col, 2),
-        lambda: kernels.kcore_sweep(d, c, d.clone(), c.clone(), off, src,
-                                    col[:-1], 2),
-        lambda: kernels.kcore_sweep(d, c, d.clone(), c.clone(), off, src,
-                                    col, 2**31),
+        level(core=d),                                 # shares the degrees
+        level(cand_out=s[:out.numel()]),               # inside the scratch
+        level(deg=d.clone()[1:]),
+        level(deg=d.long()),
+        level(csc_src=src[:-1]),
+        level(col=col[:-1]),
+        level(cand_out=out[1:]),
+        level(scratch=s[:-1]),                         # too short
+        level(scratch=s.long()),
+        cascade(k=0),
+        cascade(k=2**31),
+        cascade(n_in=0),
+        cascade(n_in=out.numel() + 1),
+        cascade(cand_in=out),                          # the output list
+        cascade(cand_in=cand.long()),
+        cascade(deg=d.clone(), core=c[:-1]),
     ]
     for i, call in enumerate(bad):
         with pytest.raises(EssentialsError):

@@ -486,6 +486,47 @@ def test_spmv_kernels_match_plain_versions_on_the_card():
     assert kernels.launches["spmv_rows"] == 4
 
 
+def _kcore_waves_on_the_card(g) -> int:
+    """Every wave of one k-core run on the card, launched twice, each
+    launch from its own copy of the wave's state, and also run by the
+    plain route from that state: the scalars (peeled, candidates listed,
+    ranges listed, k), the candidate set (the plain route lists it in
+    vertex order) and every start's degree and core bits, wave by wave,
+    the run going on from the first launch's outputs. Returns the waves."""
+    from essentials_tpu_torch import kernels
+    from essentials_tpu_torch.ops import fused_kcore as FK
+    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
+    deg = FK.init_deg_exp(g)
+    core = torch.zeros_like(deg)
+    cand_in, cand_out, scratch = FK.wave_buffers(g)
+    _, cand_r, scratch_r = FK.wave_buffers(g)
+    _, cand_p, scratch_p = FK.wave_buffers(g)
+    n_in, k, waves, alive = 0, 0, 0, FK.alive_vertices(g)
+    while alive:
+        if n_in:
+            fn, fn_p = (kernels.kcore_cascade_wave,
+                        kernels.kcore_cascade_wave_plain)
+            args = (*adj, k, cand_in, n_in)
+        else:
+            fn, fn_p = kernels.kcore_level_wave, kernels.kcore_level_wave_plain
+            args = adj
+        deg_r, core_r = deg.clone(), core.clone()
+        deg_p, core_p = deg.clone(), core.clone()
+        s = fn(deg, core, *args, cand_out, scratch)
+        s_r = fn(deg_r, core_r, *args, cand_r, scratch_r)
+        s_p = fn_p(deg_p, core_p, *args, cand_p, scratch_p)
+        peeled, n_out, _, k = s_p.tolist()
+        for got in ((s, deg, core, cand_out), (s_r, deg_r, core_r, cand_r)):
+            assert torch.equal(got[0], s_p), waves
+            assert torch.equal(got[1], deg_p), waves
+            assert torch.equal(got[2], core_p), waves
+            assert torch.equal(got[3][:n_out].sort().values,
+                               cand_p[:n_out]), waves
+        cand_in, cand_out, n_in = cand_out, cand_in, n_out
+        alive, waves = alive - peeled, waves + 1
+    return waves
+
+
 def _sweeps_on_the_card(csr, g):
     """Every sweep of one SSSP search from the highest-degree vertex (each
     output buffer holding the sweep before's distances) and every wave of
@@ -515,21 +556,11 @@ def _sweeps_on_the_card(csr, g):
             g.n_edges)
     assert torch.equal(kernels.sssp_predecessors(*args),
                        kernels.sssp_predecessors_plain(*args))
-    deg, core = FK.init_deg_exp(g), torch.zeros_like(d)
+    deg = FK.init_deg_exp(g)
     vals = torch.where(g.vertex_mask(), g.out_degrees(), -1).int()
     assert torch.equal(deg, kernels.expand_segments_plain(
         vals, off, g.n_edges_padded))
-    k = FK.first_level(g)
-    while k < FK.IMAX:
-        outs = [t.clone() for t in (deg, core, deg, core)]
-        s = kernels.kcore_sweep(deg, core, outs[0], outs[1], off, src, col,
-                                k)
-        s_p = kernels.kcore_sweep_plain(deg, core, outs[2], outs[3], off,
-                                        src, col, k)
-        assert torch.equal(s, s_p)
-        assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
-        deg, core = outs[:2]
-        k = FK.next_level(k, int(s[1]))
+    assert _kcore_waves_on_the_card(g) > 1
     return source
 
 
@@ -587,15 +618,14 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card(monkeypatch):
     from essentials_tpu_torch.formats import Coo, Csr
     from essentials_tpu_torch.graph import build_graph
     from essentials_tpu_torch.io import generate
-    from essentials_tpu_torch.ops import fused_kcore as FK
 
     csr = Csr.from_coo(generate.rmat(12, 16, seed=1, weighted=True))
     g = build_graph(csr, directed=False, weighted=True, device="cuda")
     kernels.reset_launches()
     source = _sweeps_on_the_card(csr, g)
     assert all(kernels.launches[n] > 0 for n in (
-        "sssp_sweep", "sssp_predecessors", "kcore_sweep", "collapse_starts",
-        "expand_segments"))
+        "sssp_sweep", "sssp_predecessors", "kcore_level_wave",
+        "kcore_cascade_wave", "collapse_starts", "expand_segments"))
     assert kernels.pass_launches["sssp_sweep_push"] == \
         kernels.launches["sssp_sweep"]
     # a degree-balanced directed graph (a symmetric layout, an asymmetric
@@ -618,23 +648,13 @@ def test_sssp_kcore_kernels_match_plain_versions_on_the_card(monkeypatch):
     # its whole run against the host peeling
     csr_s, g_s = _chip_smoke().kcore_stress_graph("cuda")
     assert csr_s.degrees().max() > 1000 and kcore.fused_supported(g_s)
-    deg, core = FK.init_deg_exp(g_s), torch.zeros_like(FK.init_deg_exp(g_s))
-    k, waves = FK.first_level(g_s), 0
-    adj = (g_s.row_offsets, g_s.csc_src_indices, g_s.col_indices)
-    while k < FK.IMAX:
-        outs = [t.clone() for t in (deg, core, deg, core, deg, core)]
-        s = [kernels.kcore_sweep(deg, core, outs[i], outs[i + 1], *adj, k)
-             for i in (0, 2)]
-        s_p = kernels.kcore_sweep_plain(deg, core, outs[4], outs[5], *adj, k)
-        assert torch.equal(s[0], s_p) and torch.equal(s[1], s_p)
-        for i in (0, 1):
-            assert torch.equal(outs[i], outs[i + 2])
-            assert torch.equal(outs[i], outs[i + 4])
-        deg, core, waves = outs[0], outs[1], waves + 1
-        k = FK.next_level(k, int(s_p[1]))
-    assert waves > 3
-    assert kernels.pass_launches["kcore_sweep_push"] == \
-        kernels.launches["kcore_sweep"]
+    assert _kcore_waves_on_the_card(g_s) > 3
+    assert kernels.pass_launches["kcore_level_peel"] == \
+        kernels.launches["kcore_level_wave"] > 0
+    assert kernels.pass_launches["kcore_wave_push"] == \
+        kernels.launches["kcore_level_wave"] + \
+        kernels.launches["kcore_cascade_wave"]
+    assert kernels.launches["kcore_cascade_wave"] > 0
     assert np.array_equal(kcore.run(g_s).core.cpu().numpy(),
                           kcore.cpu_reference(csr_s))
     # the expansion and the collapse on chip_smoke's stress cases (a hub of
