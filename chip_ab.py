@@ -2,12 +2,12 @@
 """Time a parent checkout's kernels against this tree's on one CUDA card.
 
 The parent's library is built from its own csrc/ and loaded beside this
-tree's. For each measurement the package's wrappers of KERNELS are taken
-from one side, then the other, in turns (parent, this tree, this tree,
-parent), and chip_smoke's own timings run through them, on the same inputs;
-both sides' results must agree first. Where one PyTorch call computes the
-same function it takes its turn as a third side. The groups (--only; all
-by default) and their shapes, those of the port's main paths:
+tree's. For each measurement the package's wrappers (``wrappers``) are
+taken from one side, then the other, in turns (parent, this tree, this
+tree, parent), and chip_smoke's own timings run through them, on the
+same inputs; both sides' results must agree first. Where one PyTorch call
+computes the same function it takes its turn as a third side. The groups
+(--only; all by default) and their shapes, those of the port's main paths:
 
 scan: ``scan`` (wall and device time per call, beside the PyTorch call):
 * int32 add without flags at n = Vp of directed rmat20 seed 3 (the
@@ -32,12 +32,12 @@ gen:rmat20x16, under the first round's mask (every real edge active) and
 the uncolored mask after one round, beside two torch.segment_reduce calls
 (max, min) on float32 copies of the masked payloads.
 
-kcore: one fused k-core run at gen:rmat20x16, the parent's loop (its
-``kcore_sweep`` a wave, ping-pong state buffers) against this tree's
-(``run_fused_kcore``: ``kcore_level_wave`` and ``kcore_cascade_wave``):
-wall time a run (CUDA events) and device time a run (torch.profiler), and
-both over the run's waves; this tree's device time also by kernel: the
-level passes a level, the cascade's mark a cascade, the push a wave.
+kcore: one fused k-core run at gen:rmat20x16 (``run_fused_kcore``:
+``kcore_level_wave`` and ``kcore_cascade_wave``) on the parent's wrappers
+against this tree's: wall time a run (CUDA events) and device time a run
+(torch.profiler), and both over the run's waves; this tree's device time
+also by kernel: the level passes a level, the cascade's mark a cascade,
+the push a wave.
 
 sssp: ``sssp_sweep`` over the sweeps of one fused search from the
 highest-degree vertex at gen:rmat20x16, each call from its state (its
@@ -58,9 +58,9 @@ call, beside torch.segment_reduce.
 bfs: ``bfs_level`` level by level over one search from the highest-degree
 vertex, each call from its saved state, int32 and int8, at undirected
 rmat18 and gen:rmat20x16: wall per level (median of CYCLES), device per
-level and per search (torch.profiler over a whole search; the parent's
-device kernel is bfs_level_kernel alone, this tree's the pass, the list,
-the push and the pull); this tree under the card's choice of form.
+level and per search (torch.profiler over a whole search: the pass, the
+list, the push and the pull, on both sides); both under the card's
+choice of form.
 
 starts: ``expand_segments`` at init_deg_exp's input (k-core's initial
 degrees) and ``collapse_starts`` at the final state of a fused SSSP
@@ -117,9 +117,10 @@ spmv, gather, neighbours, pack (the measurements of the previous slice):
 
 Then gather_payloads packed against unpacked over n slots of random indices
 into payloads of L words (this tree only, each path forced by
-chip_smoke.gather_path): the evidence for kernels.PACK_MIN_SLOTS and the
-rule n >= L. Wall: ms per call, SPMV_REPS calls back to back on CUDA events,
-median of CYCLES; device: torch.profiler's device time per call.
+chip_smoke.gather_path): the evidence for
+kernels.operators.PACK_MIN_SLOTS and the rule n >= L. Wall: ms per call,
+SPMV_REPS calls back to back on CUDA events, median of CYCLES; device:
+torch.profiler's device time per call.
 
     mkdir -p build/parent
     git archive HEAD essentials_tpu_torch chip_smoke.py | tar -x -C build/parent
@@ -138,7 +139,9 @@ import contextlib
 import importlib.util
 import inspect
 import json
+import re
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -147,16 +150,8 @@ import torch
 
 import chip_smoke as CS
 
-KERNELS = ("spmv_rows", "gather_payloads", "spmv_slabs", "advance_count",
-           "scan", "segment_broadcast_total", "suffix_fill_update",
-           "fused_route_or",
-           "segment_minmax", "kcore_level_wave", "kcore_cascade_wave",
-           "sssp_sweep",
-           "bitmap_intersect_counts", "segment_reduce", "bfs_level",
-           "bfs_predecessors", "sssp_predecessors", "expand_segments",
-           "collapse_starts", "collapse_levels")
 PR_HITS_ROUNDS = 4             # rounds of turns: 8 runs on each side
-PRED_SPLITS = (512, 1024)      # kernels.PRED_SPLIT's other values timed
+PRED_SPLITS = (512, 1024)      # kernels.bfs.PRED_SPLIT's other values timed
 SIDES = {}                     # --side: name -> kernels module
 E2E_ROUNDS = 4                 # rounds of turns: 8 runs on each side
 PACK_PAYLOADS = (2, 4)
@@ -190,13 +185,27 @@ def build(mod, name: str) -> None:
                     print(f"    {nxt.strip()}")
 
 
-def load_parent(root: Path):
-    """The kernels module of the checkout at ``root``, built from that
-    checkout's csrc/."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_kernels", root / "essentials_tpu_torch" / "kernels.py")
+def load_kernels(root: Path):
+    """The kernels of the checkout at ``root``: its kernels/ package, or its
+    single kernels.py where it has no package, imported under a name of its
+    own, so that the package's relative imports stay in that checkout."""
+    path = root / "essentials_tpu_torch" / "kernels"
+    name = "kernels_of_" + re.sub(r"\W", "_", str(root))
+    if path.is_dir():
+        spec = importlib.util.spec_from_file_location(
+            name, path / "__init__.py", submodule_search_locations=[str(path)])
+    else:
+        spec = importlib.util.spec_from_file_location(name, f"{path}.py")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_parent(root: Path):
+    """The kernels of the checkout at ``root`` (``load_kernels``), built
+    from that checkout's csrc/."""
+    mod = load_kernels(root)
     build(mod, f"parent from {root}")
     if "col" not in inspect.signature(mod.bfs_level).parameters:
         # the parent's level pulls over csc_src alone
@@ -209,13 +218,20 @@ def load_parent(root: Path):
     return mod
 
 
+def wrappers() -> list:
+    """The names of this tree's wrappers: its keys of kernels.launches
+    without their element types."""
+    from essentials_tpu_torch import kernels as K
+    return list(dict.fromkeys(k.split("<")[0] for k in K.launches))
+
+
 @contextlib.contextmanager
 def bound_to(mod):
-    """The package's wrappers of KERNELS taken from ``mod`` while the block
-    runs, those that ``mod`` has; chip_smoke and the algorithms call them
-    through the module."""
+    """The package's wrappers taken from ``mod`` while the block runs,
+    those that ``mod`` has; chip_smoke and the algorithms call them through
+    the package."""
     from essentials_tpu_torch import kernels as K
-    saved = {k: getattr(K, k) for k in KERNELS if hasattr(mod, k)}
+    saved = {k: getattr(K, k) for k in wrappers() if hasattr(mod, k)}
     for k in saved:
         setattr(K, k, getattr(mod, k))
     try:
@@ -425,7 +441,8 @@ def fill_shapes(card: str, run, K0, out: dict) -> None:
     m = torch.rand(gu.n_edges_padded, generator=torch.Generator(
         device="cuda").manual_seed(CS.SEED), device="cuda")
     S = K.scan(m, fl, "add")
-    errs = dict.fromkeys((*CS.FILL_REPLACES, *CS.ROUTE_REPLACES), 0)
+    errs = dict.fromkeys(("segment_broadcast_total", "suffix_fill_update",
+                          "fused_route_or"), 0)
     top = int(np.argmax(np.diff(csr_u.row_offsets)))
     level = CS.check_fill_kernels(gu, top, f"rmat{CS.SCALE}", errs)
     csr_m, g_m = run.weighted_graph(CS.MAIN_SCALE)
@@ -510,28 +527,6 @@ def minmax_shapes(card: str, run, K0, out: dict) -> None:
                   "two torch.segment_reduce", CS.SPMV_REPS), out)
 
 
-def parent_kcore_run(K0, g, max_it: int) -> tuple:
-    """The parent's fused k-core loop on K0's kernels: one ``kcore_sweep``
-    a wave from one pair of [Ep] state buffers into the other, its two
-    scalars read each wave and the k schedule on the host. Returns (core
-    numbers [Vp], waves)."""
-    from essentials_tpu_torch.ops import fused_kcore as FK
-    adj = (g.row_offsets, g.csc_src_indices, g.col_indices)
-    deg = FK.init_deg_exp(g)
-    core = torch.zeros_like(deg)
-    spare = (deg.clone(), core.clone())
-    start = torch.where(g.vertex_mask() & (g.out_degrees() > 0),
-                        g.out_degrees(), FK.IMAX)
-    k, it = min(int(start.min()) + 1, FK.IMAX), 0
-    while it < max_it and k < FK.IMAX:
-        least = K0.kcore_sweep(deg, core, *spare, *adj, k).tolist()[1]
-        (deg, core), spare = spare, (deg, core)
-        if least >= k:
-            k = FK.IMAX if least == FK.IMAX else least + 1
-        it += 1
-    return K0.collapse_starts(core, g.row_offsets, 0), it
-
-
 def kcore_run_ms(run) -> dict:
     """One k-core run (``run()`` -> (core numbers, waves)): its wall time
     on CUDA events and its device time from torch.profiler, a run and
@@ -550,14 +545,17 @@ def kcore_run_ms(run) -> dict:
 
 
 def kcore_shapes(card: str, run, K0, out: dict) -> None:
-    """One fused k-core run at gen:rmat20x16, the parent's loop and this
-    tree's in turns, after their core numbers agree; then this tree's
-    device time by kernel."""
+    """One fused k-core run at gen:rmat20x16, on the parent's wave wrappers
+    and on this tree's in turns, after their core numbers agree; then this
+    tree's device time by kernel."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_kcore as FK
     g = run.weighted_graph(CS.MAIN_SCALE)[1]
     max_it = 4 * g.n_vertices + 8
-    a, waves_a = parent_kcore_run(K0, g, max_it)
+
+    def parent_run():
+        return on(K0, lambda: FK.run_fused_kcore(g, max_it))
+    a, waves_a = parent_run()
     K.reset_launches()
     b, waves_b = FK.run_fused_kcore(g, max_it)
     levels = K.counters["kcore.levels"]
@@ -566,8 +564,7 @@ def kcore_shapes(card: str, run, K0, out: dict) -> None:
              f"({waves_b}) disagree")
     turns(card, f"kcore fused, one run at gen:rmat{CS.MAIN_SCALE}x16 "
                 f"({waves_b} waves, {levels} levels)",
-          {"parent": lambda: kcore_run_ms(
-              lambda: parent_kcore_run(K0, g, max_it)),
+          {"parent": lambda: kcore_run_ms(parent_run),
            "this": lambda: kcore_run_ms(
               lambda: FK.run_fused_kcore(g, max_it))}, out, 2)
     rows = CS.device_ms(lambda: FK.run_fused_kcore(g, max_it), 1)[1]
@@ -589,10 +586,8 @@ def kcore_shapes(card: str, run, K0, out: dict) -> None:
 
 
 def sssp_shapes(card: str, run, K0, out: dict) -> None:
-    """sssp_sweep over one fused search at gen:rmat20x16. The parent's
-    sweep takes csc_src and the CSC weights, equal to the CSR columns and
-    weights on this undirected graph, and writes every start whatever its
-    output held."""
+    """sssp_sweep over one fused search at gen:rmat20x16, the parent's and
+    this tree's, after their outputs agree."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops.fused_spmv import edge_weights
     g = run.weighted_graph(CS.MAIN_SCALE)[1]
@@ -606,18 +601,13 @@ def sssp_shapes(card: str, run, K0, out: dict) -> None:
                  and torch.equal(a, b),
                  "sssp_sweep: parent and this tree disagree")
 
-    def measure(kernels=CS.SSSP_SWEEP_KERNELS) -> dict:
-        t = CS.sssp_sweep_ms(g, states, 3, kernels)
+    def measure() -> dict:
+        t = CS.sssp_sweep_ms(g, states, K.device_kernels("sssp_sweep"), 3)
         return {k: t[k] for k in ("wall per sweep", "device per sweep",
                                   "wall per search", "device per search")}
-    # the device kernels of the parent's sweep: one a call in a tree
-    # whose sweep has no update pass
-    parent = CS.SSSP_SWEEP_KERNELS[:1 + 2 * ("sssp_sweep_update"
-                                             in K0.pass_launches)]
     turns(card, f"sssp_sweep over the {len(states)} sweeps of one fused "
                 f"search from {source}, gen:rmat{CS.MAIN_SCALE}x16",
-          {"parent": lambda: on(K0, lambda: measure(parent)),
-           "this": measure}, out)
+          {"parent": lambda: on(K0, measure), "this": measure}, out)
 
 
 def bitmap_shapes(card: str, run, K0, out: dict) -> None:
@@ -697,10 +687,10 @@ def bfs_shapes(card: str, run, K0, out: dict) -> None:
                          f"bfs_level {where} level {i}: parent and this tree "
                          f"disagree")
 
-            def measure(kernels=CS.BFS_LEVEL_KERNELS, states=states,
-                        unreached=unreached) -> dict:
-                t = CS.bfs_level_ms(g, states, unreached, ("device",),
-                                    kernels=kernels)
+            def measure(states=states, unreached=unreached) -> dict:
+                t = CS.bfs_level_ms(g, states, unreached,
+                                    K.device_kernels("bfs_level<int32>"),
+                                    ("device",))
                 dev = t["devices"]["device"]
                 r = {f"wall level {i}": w for i, w in enumerate(t["walls"])}
                 r.update({f"device level {i}": None if dev is None else d
@@ -711,21 +701,20 @@ def bfs_shapes(card: str, run, K0, out: dict) -> None:
             form = "int8" if unreached == FB.UNREACHED_E else "int32"
             turns(card, f"bfs_level<{form}> over the {len(states)} levels of "
                         f"one search from {source}, {where}",
-                  {"parent": lambda m=measure: on(
-                      K0, lambda: m(CS.BFS_LEVEL_KERNELS[:1])),
-                   "this": measure}, out)
+                  {"parent": lambda m=measure: on(K0, m), "this": measure},
+                  out)
 
 
 @contextlib.contextmanager
 def pred_split(split: int):
     """This tree's predecessor kernels at another PRED_SPLIT while the
     block runs."""
-    from essentials_tpu_torch import kernels as K
-    saved, K.PRED_SPLIT = K.PRED_SPLIT, split
+    from essentials_tpu_torch.kernels import bfs as KB
+    saved, KB.PRED_SPLIT = KB.PRED_SPLIT, split
     try:
         yield
     finally:
-        K.PRED_SPLIT = saved
+        KB.PRED_SPLIT = saved
 
 
 def pred_shapes(card: str, run, K0, out: dict) -> None:
@@ -895,18 +884,13 @@ def end_to_end(card: str, run, K0, out: dict) -> None:
         return per_run(lambda: color.run(g_m, variant="jp", warmup=False))
     turns(card, f"color jp gen:rmat{CS.MAIN_SCALE}x16",
           {"parent": lambda: on(K0, jp), "this": jp}, out, E2E_ROUNDS)
-    # the parent's k-core runs its own loop (parent_kcore_run); this tree's
-    # is kcore.run's
-    max_it = 4 * g_m.n_vertices + 8
 
-    def kcore_parent() -> dict:
-        return kcore_run_ms(lambda: parent_kcore_run(K0, g_m, max_it))
-
-    def kcore_this() -> dict:
+    def kcore_run() -> dict:
         return kcore_run_ms(lambda: (None, kcore.run(
             g_m, warmup=False).iterations))
     turns(card, f"kcore gen:rmat{CS.MAIN_SCALE}x16",
-          {"parent": kcore_parent, "this": kcore_this}, out, E2E_ROUNDS)
+          {"parent": lambda: on(K0, kcore_run), "this": kcore_run}, out,
+          E2E_ROUNDS)
     csr_m = run.tc_graph(CS.MAIN_SCALE)
 
     def shift() -> dict:
@@ -968,7 +952,8 @@ def pack_sweep(card: str, out: dict) -> None:
             rows.append({"L": length, "n": n, "payloads": m,
                          "unpacked_device_ms": ms[False],
                          "packed_device_ms": ms[True],
-                         "rule_packs": K.gather_packs(n, [length] * m)})
+                         "rule_packs": K.operators.gather_packs(
+                             n, [length] * m)})
             print(f"ab [{card}]: gather_payloads {m} payloads, L={length}, "
                   f"n={n} (n/L {n / length:g}): unpacked "
                   f"{CS.fmt_ms(ms[False])} ms, packed {CS.fmt_ms(ms[True])} "

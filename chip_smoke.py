@@ -521,48 +521,7 @@ L2_COPIES = 50
 # choice per level, push and pull forced, and the pull's global tier
 BFS_CHECKS = (("device", None), ("push", None), ("pull", None),
               ("device", COUNT_GLOBAL_CAP))
-# bfs_level's device kernels: the pass, the list, the push, the pull
-BFS_LEVEL_KERNELS = ("bfs_level_kernel", "bfs_level_list_kernel",
-                     "bfs_level_push_kernel", "bfs_level_pull_kernel")
 BFS_FORMS_TIMED = ("device", "push", "pull")   # kernels.BFS_FORMS
-# each predecessor wrapper's device kernels: the first walk, the range walk
-PRED_KERNELS = {algo: (f"{algo}_predecessors_kernel",
-                       f"{algo}_predecessors_ranges_kernel")
-                for algo in ("bfs", "sssp")}
-
-SOURCE = "essentials_tpu_torch/csrc/bfs_kernels.cu"
-SPMV_SOURCE = "essentials_tpu_torch/csrc/spmv_kernels.cu"
-SSSP_SOURCE = "essentials_tpu_torch/csrc/sssp_kcore_kernels.cu"
-REPLACES = {
-    "bfs_level<int32>": "essentials_tpu/ops/fused_bfs.py:327",
-    "bfs_level<int8>": "essentials_tpu/ops/fused_bfs.py:425",
-    "collapse_levels<int32>": "essentials_tpu/ops/cube_router.py:305",
-    "collapse_levels<int8>": "essentials_tpu/ops/cube_router.py:305",
-    "bfs_predecessors": "essentials_tpu/ops/cube_router.py:586",
-}
-SPMV_REPLACES = {
-    "spmv_rows": "essentials_tpu/ops/fused_spmv.py:179",
-    "spmv_slabs": "essentials_tpu/ops/windowed_spmv.py:454",
-}
-SSSP_REPLACES = {
-    "sssp_sweep": "essentials_tpu/ops/fused_sssp.py:132",
-    "sssp_predecessors": "essentials_tpu/ops/cube_router.py:586",
-    "kcore_level_wave": "essentials_tpu/ops/fused_kcore.py:144",
-    "kcore_cascade_wave": "essentials_tpu/ops/fused_kcore.py:144",
-    "collapse_starts": "essentials_tpu/ops/cube_router.py:385",
-    "expand_segments": "essentials_tpu/ops/scan_kernels.py:274",
-}
-TC_SOURCE = "essentials_tpu_torch/csrc/tc_kernels.cu"
-TC_REPLACES = {
-    "bitmap_intersect_counts": "essentials_tpu/ops/bitmap_intersect.py:118",
-}
-FILL_REPLACES = {            # in SOURCE, beside the BFS kernels
-    "segment_broadcast_total": "essentials_tpu/ops/fused_bfs.py:262",
-    "suffix_fill_update": "essentials_tpu/ops/fused_bfs.py:137",
-}
-ROUTE_REPLACES = {           # in OP_SOURCE, a form of scan's tiles
-    "fused_route_or": "essentials_tpu/ops/fused_bfs.py:603",
-}
 TC_SCALE = 17          # gen:rmat17x16: the bitmap path's graph
 TC_DENSE_SCALE = 13    # V = 8192, the dense path's largest
 TC_RMAT20_TOTAL = 424_267_437   # benchmarks/PARITY.md:58, scipy masked A^2
@@ -570,16 +529,6 @@ TC_RMAT17_TOTAL = 36_033_712    # gen:rmat17x16, tc.cpu_reference_total
 PAIRS = 4096           # intersection queries per graph
 PAIR_SEED = 5
 TC_CYCLES = 3          # timed runs of the larger TC paths; median reported
-OP_SOURCE = "essentials_tpu_torch/csrc/operator_kernels.cu"
-OP_REPLACES = {
-    "scan": "essentials_tpu/ops/scan_kernels.py:274",
-    "gather_payloads": "essentials_tpu/ops/cube_router.py:385",
-    "segment_reduce": "essentials_tpu/ops/segment.py:97",
-    "advance_count": "essentials_tpu/ops/cube_router.py:754",
-}
-COLOR_REPLACES = {   # in OP_SOURCE, beside segment_reduce
-    "segment_minmax": "essentials_tpu/ops/scan_kernels.py:224",
-}
 COLOR_SEED = 6         # the seeded active mask and the wide bitmap
 COLOR_PAYLOADS = (1, 3, 8)   # segment_minmax payload counts checked
 # segment_minmax's stress case (minmax_stress_inputs)
@@ -727,14 +676,14 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def bfs_form(form: str):
     """bfs_level made to take one form while the block runs ("device", the
     card's choice per level, or "push" or "pull" throughout):
-    kernels.bfs_level_form bound to a constant."""
-    from essentials_tpu_torch import kernels as K
-    saved = K.bfs_level_form
-    K.bfs_level_form = lambda: form
+    kernels.bfs.bfs_level_form bound to a constant."""
+    from essentials_tpu_torch.kernels import bfs as KB
+    saved = KB.bfs_level_form
+    KB.bfs_level_form = lambda: form
     try:
         yield
     finally:
-        K.bfs_level_form = saved
+        KB.bfs_level_form = saved
 
 
 def level_args(g) -> tuple:
@@ -745,7 +694,7 @@ def level_args(g) -> tuple:
 def check_kernels(g, source: int, errs: dict) -> bool:
     """Every level of one BFS in both forms, kernel against plain, under
     each of BFS_CHECKS; then the collapse and the predecessors; then one
-    of each of BFS_LEVEL_KERNELS per bfs_level call, as torch.profiler sees
+    of each of bfs_level's device kernels per call, as torch.profiler sees
     it (False where every profiler window lost device activities)."""
     from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_bfs as FB
@@ -798,7 +747,7 @@ def check_kernels(g, source: int, errs: dict) -> bool:
     return check_one_launch(
         "bfs_level", lambda: K.bfs_level(buf.copy_(state), *args, 0,
                                          FB.UNREACHED),
-        f"V={g.n_vertices} level 0", BFS_LEVEL_KERNELS)
+        f"V={g.n_vertices} level 0", K.device_kernels("bfs_level<int32>"))
 
 
 # ------------------------------------------------------------- phase 4 --
@@ -908,7 +857,7 @@ def pred_work(dist, offsets, csc_src, n_edges: int, w=None,
     float32 SSSP distances with ``w``, the CSC weights), on its device:
     each reached vertex's walk to its first qualifying slot (its whole
     segment below n_edges where none qualifies), and what the first walk
-    lists at ``split`` (kernels.PRED_SPLIT by default). Keys: reached,
+    lists at ``split`` (kernels.bfs.PRED_SPLIT by default). Keys: reached,
     hits, slots (csc_src slots up to each first hit), sectors (distinct
     32-byte sectors of dist under those slots' sources), listed (vertices),
     ranges, listed_slots, bytes (the first-hit bound's: the offsets, dist
@@ -916,7 +865,7 @@ def pred_work(dist, offsets, csc_src, n_edges: int, w=None,
     dist is read, by its own vertex at least) and dense_bytes (the dense
     model's: every real csc_src slot, and w)."""
     from essentials_tpu_torch import kernels as K
-    split = K.PRED_SPLIT if split is None else split
+    split = K.bfs.PRED_SPLIT if split is None else split
     vp = offsets.numel() - 1
     seg = K._segment_ids(offsets, csc_src.numel())[:n_edges]
     src = csc_src[:n_edges].long()
@@ -1057,9 +1006,8 @@ def bfs_level_work(g, lev, it: int, unreached: int) -> dict:
             "dense_bytes": 2 * elt * vp + 4 * (vp + 1) + 4 * ep + 4}
 
 
-def bfs_level_ms(g, states, unreached: int, forms=BFS_FORMS_TIMED,
-                 reps: int = CYCLES, kernels: tuple = BFS_LEVEL_KERNELS
-                 ) -> dict:
+def bfs_level_ms(g, states, unreached: int, kernels: tuple,
+                 forms=BFS_FORMS_TIMED, reps: int = CYCLES) -> dict:
     """bfs_level over the levels of ``states`` (bfs_level_states), each call
     from its saved state (restored outside the timed region): each level's
     wall time (median of ``reps`` on CUDA events) and, under each of
@@ -1111,7 +1059,8 @@ def time_bfs_levels(g, source: int, card: str, where: str) -> dict:
         states = bfs_level_states(g, source, unreached)[0]
         work = [bfs_level_work(g, s, i, unreached)
                 for i, s in enumerate(states)]
-        t = bfs_level_ms(g, states, unreached)
+        t = bfs_level_ms(g, states, unreached,
+                         K.device_kernels("bfs_level<int32>"))
         buf = torch.empty_like(states[0])
         plain = [median_ms(lambda x, i=i: K.bfs_level_plain(
             x, *args, i, unreached), setup=lambda s=s: buf.copy_(s))
@@ -1211,7 +1160,7 @@ def time_predecessors(name: str, cases: list, card: str, where: str,
           f"{d[0]:.4f} ms ({d[2]}); per search {wk['reached']:.0f} reached, "
           f"{wk['slots']:.0f} slots to the first hits, {wk['listed']:.1f} "
           f"vertices listed in {wk['ranges']:.1f} ranges of PRED_SPLIT "
-          f"{K.PRED_SPLIT} ({wk['listed_slots']:.0f} slots)")
+          f"{K.bfs.PRED_SPLIT} ({wk['listed_slots']:.0f} slots)")
     return out
 
 
@@ -1240,12 +1189,12 @@ def sssp_pred_cases(g, sources) -> list:
 
 
 def pred_stress_inputs(run) -> list:
-    """[(where, graph, source)]: pred_stress_graph at kernels.PRED_SPLIT
+    """[(where, graph, source)]: pred_stress_graph at kernels.bfs.PRED_SPLIT
     (its hub's only hit in its last range), kcore_stress_graph (a hub,
     multi-edges and self-loops) from its highest-degree vertex and the
     degree-balanced directed graph from its hub."""
     from essentials_tpu_torch import kernels as K
-    _, g_h, s_h = pred_stress_graph("cuda", K.PRED_SPLIT)
+    _, g_h, s_h = pred_stress_graph("cuda", K.bfs.PRED_SPLIT)
     csr_k, g_k = kcore_stress_graph("cuda")
     csr_b, g_b = run.balanced_graph()
     return [(f"the last-range hub graph (V={g_h.n_vertices}, hub of "
@@ -1291,7 +1240,7 @@ def check_pred_sources(name: str, cases: list, where: str,
           f"{name}: {launched} range walks over {2 * len(cases)} calls")
     listed = [w["listed"] for w in works]
     print(f"kernels: {name} {where} from {len(cases)} sources: PRED_SPLIT "
-          f"{K.PRED_SPLIT}; vertices listed per "
+          f"{K.bfs.PRED_SPLIT}; vertices listed per "
           f"search {listed}, ranges "
           f"{[w['ranges'] for w in works]}; the range walk launched "
           f"{launched} times in {2 * len(cases)} calls; exact against plain "
@@ -2230,26 +2179,21 @@ def check_starts_shapes(errs: dict) -> None:
               f"sources {sources}): exact against plain and repeatable")
 
 
-KCORE_WAVE_KERNELS = {
-    "kcore_level_wave": ("kcore_level_wave_kernel", "kcore_level_peel_kernel",
-                         "kcore_wave_push_kernel"),
-    "kcore_cascade_wave": ("kcore_cascade_wave_kernel",
-                           "kcore_wave_push_kernel")}
-
-
 def check_kcore_launches(g, where: str) -> None:
     """A level wave is three device kernels (the minimum, the peel and the
     push) and a cascade two (the mark and the push), on the run's first
     and last wave of each kind, each call from a copy of the wave's state,
     as torch.profiler sees them; fails where a kind was measured on no
     wave."""
+    from essentials_tpu_torch import kernels as K
     from essentials_tpu_torch.ops import fused_kcore as FK
     first, last = {}, {}
     for i, wave in enumerate(kcore_run_waves(g)):
         first.setdefault(wave[0], (i, *wave[1:]))
         last[wave[0]] = (i, *wave[1:])
     out, _, scratch = FK.wave_buffers(g)
-    for name, want in KCORE_WAVE_KERNELS.items():
+    for name in ("kcore_level_wave", "kcore_cascade_wave"):
+        want = K.device_kernels(name)
         waves = {w[0]: w for w in (first[name], last[name])}
         measured = sum(check_one_launch(
             name, lambda w=w: kcore_wave(
@@ -2259,10 +2203,6 @@ def check_kcore_launches(g, where: str) -> None:
                             f"on no wave")
         print(f"kernels: {name} {where}: {len(want)} device kernels a call "
               f"on {measured} of {len(waves)} waves measured")
-
-
-SSSP_SWEEP_KERNELS = ("sssp_sweep_kernel", "sssp_sweep_push_kernel",
-                      "sssp_sweep_update_kernel")
 
 
 def check_sssp_launches(g, source: int, where: str) -> None:
@@ -2285,7 +2225,7 @@ def check_sssp_launches(g, source: int, where: str) -> None:
         K.sssp_sweep(d, out, *args)
     measured = sum(check_one_launch(
         "sssp_sweep", lambda st=states[i]: sweep(*st), f"{where} sweep {i}",
-        SSSP_SWEEP_KERNELS) for i in sorted({0, heavy}))
+        K.device_kernels("sssp_sweep")) for i in sorted({0, heavy}))
     check(measured > 0, f"sssp_sweep {where}: launches per call measured "
                         f"on no sweep")
     print(f"kernels: sssp_sweep {where}: three device kernels a call (dense "
@@ -2720,8 +2660,7 @@ def sssp_sweep_bound(g, states) -> tuple:
     return per, "/".join(sorted(mems)), slots
 
 
-def sssp_sweep_ms(g, states, reps: int = CYCLES,
-                  kernels: tuple = SSSP_SWEEP_KERNELS) -> dict:
+def sssp_sweep_ms(g, states, kernels: tuple, reps: int = CYCLES) -> dict:
     """sssp_sweep over the sweeps of ``states``, each call from its state
     (its output buffer restored outside the timed region): the wall time of
     each (median of ``reps`` on CUDA events) and the device time of each
@@ -2764,7 +2703,7 @@ def time_sssp_sweeps(g, card: str) -> dict:
     args = (g.row_offsets, g.col_indices, edge_weights(g))
     source = int(torch.argmax(g.out_degrees()[:g.n_vertices]))
     states = sssp_sweep_states(g, source)
-    t = sssp_sweep_ms(g, states)
+    t = sssp_sweep_ms(g, states, K.device_kernels("sssp_sweep"))
     per, mems, slots = sssp_sweep_bound(g, states)
     out = torch.empty_like(states[0][0])
     plain = [median_ms(lambda o, d=d: K.sssp_sweep_plain(d, o, *args), 1,
@@ -2815,7 +2754,7 @@ def time_sssp_kcore_kernels(csr, g, card: str) -> dict:
     source = int(np.argmax(np.diff(csr.row_offsets)))
     states = sssp_sweep_states(g, source)
     out = torch.empty_like(states[0][0])
-    ts = sssp_sweep_ms(g, states)
+    ts = sssp_sweep_ms(g, states, K.device_kernels("sssp_sweep"))
     t = {"sssp_sweep@search": ts["wall per search"],
          "sssp_sweep@search/device": ts["device per search"]}
     t["sssp_sweep@search/plain"] = sum(
@@ -3444,15 +3383,15 @@ def time_operator_kernels(g, source: int) -> dict:
 @contextlib.contextmanager
 def gather_path(packed: bool):
     """gather_payloads made to take one path, packed (2-4 payloads) or
-    unpacked, whatever its rule (kernels.gather_packs) would choose at the
-    shape, while the block runs."""
-    from essentials_tpu_torch import kernels as K
-    rule = K.gather_packs
-    K.gather_packs = lambda n, lengths: packed and len(lengths) > 1
+    unpacked, whatever its rule (kernels.operators.gather_packs) would
+    choose at the shape, while the block runs."""
+    from essentials_tpu_torch.kernels import operators as KO
+    rule = KO.gather_packs
+    KO.gather_packs = lambda n, lengths: packed and len(lengths) > 1
     try:
         yield
     finally:
-        K.gather_packs = rule
+        KO.gather_packs = rule
 
 
 def gather_against_index_select(idx, pays, stacked, auto: str) -> dict:
@@ -3462,7 +3401,8 @@ def gather_against_index_select(idx, pays, stacked, auto: str) -> dict:
     row per index, built outside the timed call). Keys under
     gather_payloads: /device, /device_rows, /library_device, /packs."""
     from essentials_tpu_torch import kernels as K
-    packs = K.gather_packs(idx.numel(), [p.numel() for p in pays])
+    packs = K.operators.gather_packs(idx.numel(),
+                                     [p.numel() for p in pays])
     check(packs == (auto == "packed"), f"gather_payloads at n = "
                                        f"{idx.numel()} packs: {packs}")
     t = {"gather_payloads/packs": packs}
@@ -5746,9 +5686,9 @@ class Run:
     def __init__(self, card: str):
         self.card = card
         self.phases = Phases()
-        self.errs = {k: 0 for _, _, r in KERNEL_TABLE for k in r}
-        self.errs.update({k: 0.0 for k in SPMV_REPLACES})
-        self.errs.update({k + "/rel": 0.0 for k in SPMV_REPLACES})
+        self.errs = {k: 0 for ks in KERNEL_TABLE.values() for k in ks}
+        self.errs.update({k: 0.0 for k in KERNEL_TABLE["spmv"]})
+        self.errs.update({k + "/rel": 0.0 for k in KERNEL_TABLE["spmv"]})
         self.t = {}
         self.by_path = {}
         self._graphs = {}
@@ -5848,7 +5788,8 @@ def group_bfs(run: Run) -> None:
               f"{PRED_CUT}")
     check(any(check_one_launch("bfs_predecessors",
                                lambda a=a: K.bfs_predecessors(*a),
-                               f"rmat{SCALE}", PRED_KERNELS["bfs"])
+                               f"rmat{SCALE}",
+                               K.device_kernels("bfs_predecessors"))
               for a in cases[:2]),
           "bfs_predecessors: launches per call measured nowhere")
     run.phases.done("3 bfs kernels")
@@ -5919,7 +5860,7 @@ def group_bfs(run: Run) -> None:
               f"{RUNS} sources), {g.n_edges / 1e3 / ms:.2f} MTEPS")
     t = time_kernels(g, sources, card)
     run.t.update(t)
-    for name in REPLACES:
+    for name in KERNEL_TABLE["bfs"]:
         print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
               f"{t[name + '/plain']:.4f} ms (rmat{SCALE}, "
               + (f"mean of {RUNS} sources)" if name == "bfs_predecessors"
@@ -6047,7 +5988,8 @@ def group_sssp(run: Run) -> None:
                        errs)
     check(any(check_one_launch("sssp_predecessors",
                                lambda a=a: K.sssp_predecessors(*a),
-                               f"weighted rmat{SCALE}", PRED_KERNELS["sssp"])
+                               f"weighted rmat{SCALE}",
+                               K.device_kernels("sssp_predecessors"))
               for a in cases[:2]),
           "sssp_predecessors: launches per call measured nowhere")
     run.phases.done("9 sssp/kcore kernels")
@@ -6088,7 +6030,7 @@ def group_sssp(run: Run) -> None:
           + ("not measured" if dev is None else f"{dev:.4f} ms device")
           + f", plain {t['sssp_sweep@search/plain']:.4f} ms, bound "
           f"{t['sssp_sweep@search/bound'][0]:.4f} ms")
-    for name in SSSP_REPLACES:
+    for name in KERNEL_TABLE["sssp"]:
         if name not in ("kcore_level_wave", "kcore_cascade_wave",
                         "sssp_sweep"):
             print(f"time [{card}]: {name} {t[name]:.4f} ms, plain "
@@ -6156,7 +6098,7 @@ def group_operators(run: Run) -> None:
     time_adaptive(g20, op_sources, op_runs, card)
     t = time_operator_kernels(g20, int(op_sources[0]))
     run.t.update(t)
-    for name in OP_REPLACES:
+    for name in KERNEL_TABLE["operators"]:
         per_search = {p: c[name] / ADAPTIVE_RUNS for p, c in
                       op_launches.items() if c[name] and "adaptive" in p}
         lib = t.get(name + "/library")
@@ -6241,7 +6183,7 @@ def group_tc(run: Run) -> None:
     run.t.update(time_pr_broadcast(g_u, card,
                                    pr_counts["segment_broadcast_total"]))
     run.t.update(time_pr_gather(g_u, card, pr_counts["gather_payloads"]))
-    for name in (*TC_REPLACES, *FILL_REPLACES, *ROUTE_REPLACES):
+    for name in KERNEL_TABLE["tc"]:
         lib = t[name + "/library"]
         lib_dev = t.get(name + "/library_device")
         dev = t.get(name + "/device")
@@ -6419,22 +6361,32 @@ GROUPS = {"bfs": group_bfs, "spmv": group_spmv, "sssp": group_sssp,
           "bcppr": group_bcppr, "mst": group_mst, "geo": group_geo,
           "spgemm": group_spgemm, "harness": group_harness,
           "parallel": group_parallel}
-# each group's kernels, in the order of the JSON line
-KERNEL_TABLE = (("bfs", SOURCE, REPLACES),
-                ("spmv", SPMV_SOURCE, SPMV_REPLACES),
-                ("sssp", SSSP_SOURCE, SSSP_REPLACES),
-                ("operators", OP_SOURCE, OP_REPLACES),
-                ("tc", TC_SOURCE, TC_REPLACES), ("tc", SOURCE, FILL_REPLACES),
-                ("tc", OP_SOURCE, ROUTE_REPLACES),
-                ("color", OP_SOURCE, COLOR_REPLACES))
+# the kernels each group checks (keys of kernels.launches), in the order of
+# the JSON line; each one's source and the JAX function it replaces are its
+# declaration's (kernels.declared)
+KERNEL_TABLE = {"bfs": ("bfs_level<int32>", "bfs_level<int8>",
+                        "collapse_levels<int32>", "collapse_levels<int8>",
+                        "bfs_predecessors"),
+                "spmv": ("spmv_rows", "spmv_slabs"),
+                "sssp": ("sssp_sweep", "sssp_predecessors",
+                         "kcore_level_wave", "kcore_cascade_wave",
+                         "collapse_starts", "expand_segments"),
+                "operators": ("scan", "gather_payloads", "segment_reduce",
+                              "advance_count"),
+                "tc": ("bitmap_intersect_counts", "segment_broadcast_total",
+                       "suffix_fill_update", "fused_route_or"),
+                "color": ("segment_minmax",)}
 
 
-def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
+def kernel_entry(run: Run, name: str) -> dict:
+    from essentials_tpu_torch import kernels as K
     timed = {"spmv_rows": "spmv_rows<mul>",
              "spmv_slabs": "spmv_slabs<mul,sum>"}
     t, key = run.t, timed.get(name, name)
-    out = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces,
+    source, row = K.declared(name)
+    out = {"name": name, "route": "cuda",
+           "source": f"essentials_tpu_torch/csrc/{source}",
+           "replaces": f"essentials_tpu/ops/{row.launches[name]}",
            "launches": sum(c[name] for c in run.by_path.values()),
            "launches_by_path": {p: c[name] for p, c in run.by_path.items()
                                 if c[name]},
@@ -6444,7 +6396,7 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
            "bound_by": t[key + "/bound"][1],
            "bound_memory": t[key + "/bound"][2],
            "library_ms": t.get(key + "/library")}
-    if name in SPMV_REPLACES:
+    if name in KERNEL_TABLE["spmv"]:
         out.update(max_rel_err=run.errs[name + "/rel"], timed=key)
     if name == "bitmap_intersect_counts":
         out["bound_counts"] = "each distinct u row once, each 32-byte " \
@@ -6473,7 +6425,6 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
         out["forced"] = t[key + "/forced"]
         out["levels"] = t[key + "/levels"]
     if name in ("bfs_predecessors", "sssp_predecessors"):
-        from essentials_tpu_torch import kernels as K
         out["per"] = ("search: the mean over the 16 highest-degree sources "
                       "of rmat18" if name == "bfs_predecessors" else
                       "search from the highest-degree vertex of weighted "
@@ -6489,7 +6440,7 @@ def kernel_entry(run: Run, name: str, source: str, replaces: str) -> dict:
         out["bound_dense_counts"] = "the offsets, dist and pred once each, " \
             "every real csc_src slot (and w)"
         out["work"] = t[key + "/work"]
-        out["pred_split"] = K.PRED_SPLIT
+        out["pred_split"] = K.bfs.PRED_SPLIT
         out["range_walk_launches"] = out["launches"]
         k = key + "@rmat20"
         if k in t:
@@ -6717,8 +6668,9 @@ def main(argv=None) -> None:
             group(run)
 
     print(json.dumps({"kernels": [
-        kernel_entry(run, n, src, r[n])
-        for group, src, r in KERNEL_TABLE if group in chosen for n in r]}))
+        kernel_entry(run, n)
+        for group, ks in KERNEL_TABLE.items() if group in chosen
+        for n in ks]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

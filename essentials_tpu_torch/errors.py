@@ -3,7 +3,7 @@
 Counterpart of ``essentials_tpu/errors.py`` (reference parity: gunrock's
 ``error.hxx`` error_t / exception_t / throw_if_exception). Errors are host-side
 Python exceptions; a CUDA kernel's launch status is turned into one by the
-wrapper that launched it (``essentials_tpu_torch/kernels.py``).
+wrapper that launched it (``essentials_tpu_torch/kernels/``).
 """
 
 from __future__ import annotations

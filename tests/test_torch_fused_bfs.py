@@ -10,7 +10,7 @@ is held against the int32 JAX fallback. The segment fills and the route OR
 are held against the JAX package's Pallas kernels in interpret mode, and the
 5-pass level they make against ``bfs_level``. ``bfs_level`` takes the CSR
 columns (``col``) for the card's push; on the CPU it runs its plain pull
-whatever form ``kernels.bfs_level_form`` names, and a NumPy model of the
+whatever form ``kernels.bfs.bfs_level_form`` names, and a NumPy model of the
 push along ``col`` is held against it, also on degree-balanced directed
 graphs (a symmetric layout without a symmetric adjacency), where ``bfs.run``
 is held against ``cpu_reference`` and JAX's fused BFS. Every value is an
@@ -128,7 +128,7 @@ def test_bfs_level_with_col_matches_jax_at_starts(graphs, name, source,
     """kernels.bfs_level with ``col`` (its plain version on the CPU) under
     each form the card can take, against JAX's fused_superstep at segment
     starts, level by level, with equal counts."""
-    monkeypatch.setattr(kernels, "bfs_level_form", lambda: form)
+    monkeypatch.setattr(kernels.bfs, "bfs_level_form", lambda: form)
     gj, g = graphs[name]
     unreached = FORMS[dtype]
     starts = starts_of(g)
@@ -360,7 +360,7 @@ def test_bfs_level_rejects_bad_arguments(monkeypatch):
         kernels.bfs_level(lev8, off, src, col[:-1], 0, tfb.UNREACHED_E)
     with pytest.raises(EssentialsError):      # col of the wrong type
         kernels.bfs_level(lev8, off, src, col.long(), 0, tfb.UNREACHED_E)
-    monkeypatch.setattr(kernels, "bfs_level_form", lambda: "sideways")
+    monkeypatch.setattr(kernels.bfs, "bfs_level_form", lambda: "sideways")
     with pytest.raises(EssentialsError):      # no such form
         kernels.bfs_level(lev8, off, src, col, 0, tfb.UNREACHED_E)
 

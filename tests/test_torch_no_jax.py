@@ -71,7 +71,7 @@ OPERATOR_LAYER = ("frontier/__init__.py", "frontier/boolmap.py",
 TC_AND_FILLS = ("algorithms/tc.py", "algorithms/pr.py", "ops/intersect.py",
                 "ops/bitmap_intersect.py", "ops/fused_bfs.py",
                 "csrc/tc_kernels.cu")
-COLOR = ("algorithms/color.py", "algorithms/hits.py", "kernels.py")
+COLOR = ("algorithms/color.py", "algorithms/hits.py", "kernels/operators.py")
 BC_PPR = ("algorithms/bc.py", "algorithms/ppr.py", "ops/batch.py")
 MST_GEO_SPGEMM = ("algorithms/mst.py", "algorithms/geo.py",
                   "algorithms/spgemm.py", "algorithms/helpers.py")
@@ -308,7 +308,7 @@ def test_kernels_match_plain_versions_on_the_card(monkeypatch):
         source = int(np.argmax(np.diff(c.row_offsets)))
         args = (g.row_offsets, g.csc_src_indices, g.col_indices)
         for form in kernels.BFS_FORMS:
-            monkeypatch.setattr(kernels, "bfs_level_form",
+            monkeypatch.setattr(kernels.bfs, "bfs_level_form",
                                 lambda form=form: form)
             for cap in (None, 0):           # the shared and the global tier
                 for unreached in (FB.UNREACHED, FB.UNREACHED_E):
@@ -383,12 +383,15 @@ def _predecessor_walks_on_the_card(algo: str, monkeypatch) -> None:
     assert not torch.equal(others[1][0].csc_offsets,
                            others[1][0].row_offsets)
     listed = 0
-    for split in (1, 32, 100, kernels.PRED_SPLIT):
+    for split in (1, 32, 100, kernels.bfs.PRED_SPLIT):
         _, g_h, s_h = cs.pred_stress_graph("cuda", split)
         cases = [a for g, s in ((g_h, s_h), *others)
                  for a in cs.pred_cases(g, s)[algo]]
         listed += cs.pred_work(*cs.pred_work_args(cases[0]), split)["ranges"]
-        monkeypatch.setattr(kernels, "PRED_SPLIT", split)
+        monkeypatch.setattr(kernels.bfs, "PRED_SPLIT", split)
+        ep = cases[0][2].numel()
+        assert kernels.pred_scratch(ep, "cuda").numel() == \
+            4 + 4 * (ep // split + 1)
         calls = kernels.launches[name]
         ranges = kernels.pass_launches[name + "_ranges"]
         for args in cases:
@@ -785,7 +788,7 @@ def test_operator_kernels_match_plain_versions_on_the_card(monkeypatch):
         for m in range(1, 5):
             for pack in (False, True) if m > 1 else (False,):
                 # each path whatever the rule would choose at this shape
-                monkeypatch.setattr(kernels, "gather_packs",
+                monkeypatch.setattr(kernels.operators, "gather_packs",
                                     lambda n, lengths, pack=pack: pack)
                 k = kernels.gather_payloads(idx, *pays[:m])
                 p = kernels.gather_payloads_plain(idx, *pays[:m])

@@ -516,15 +516,16 @@ def test_gather_packs_where_records_pay(monkeypatch):
     slot per record of the shortest payload, never for one; on the CPU a
     shape the rule packs still takes the plain version, with no pack pass
     counted."""
-    n = kernels.PACK_MIN_SLOTS
-    assert kernels.gather_packs(n, [n, n + 7])
-    assert kernels.gather_packs(n, [n + 9, n, 3 * n, 5])
-    assert not kernels.gather_packs(n, [n])
-    assert not kernels.gather_packs(n - 1, [8, 8])
-    assert not kernels.gather_packs(n, [n + 1, n + 2])
-    monkeypatch.setattr(kernels, "PACK_MIN_SLOTS", 0)
+    n = kernels.operators.PACK_MIN_SLOTS
+    assert kernels.operators.gather_packs(n, [n, n + 7])
+    assert kernels.operators.gather_packs(n, [n + 9, n, 3 * n, 5])
+    assert not kernels.operators.gather_packs(n, [n])
+    assert not kernels.operators.gather_packs(n - 1, [8, 8])
+    assert not kernels.operators.gather_packs(n, [n + 1, n + 2])
     i32 = torch.arange(8, dtype=torch.int32)
-    assert kernels.gather_packs(i32.numel(), [8, 8])
+    assert not kernels.operators.gather_packs(i32.numel(), [8, 8])
+    monkeypatch.setattr(kernels.operators, "PACK_MIN_SLOTS", 0)
+    assert kernels.operators.gather_packs(i32.numel(), [8, 8])
     kernels.reset_launches()
     a, b = kernels.gather_payloads(i32.flip(0), i32, i32.float())
     assert a.dtype == torch.int32 and b.dtype == torch.float32

@@ -208,7 +208,7 @@ def test_level_forms_on_the_card(monkeypatch, tmp_path):
                                ("fused8", FB.UNREACHED_E)):
         work = _level_sums(g, source, unreached)
         for form in kernels.BFS_FORMS:
-            monkeypatch.setattr(kernels, "bfs_level_form",
+            monkeypatch.setattr(kernels.bfs, "bfs_level_form",
                                 lambda form=form: form)
             kernels.reset_launches()
             r = bfs.run(g, source, variant=variant, warmup=False)
